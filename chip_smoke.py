@@ -8,13 +8,20 @@ Phases:
   2. build: compile the CUDA kernels from kernels/csrc and print ptxas' lines;
   3. each kernel against its plain PyTorch version, on the card, at the
      slice's shapes (tolerances stated in ``check_close``);
-  4. the slice through the public entry points: mxv_masked / vxm_masked /
-     vxm_masked_dense on the bench.py graph (n = 2^21, 16 entries a row),
-     bfs / sssp / pr on the bench_suite.py graph (n = 2^20, degree 16),
-     against scipy's oracles and the plain path, in every traversal mode;
-  5. the launch counts of phase 4, each of which must be above 0;
+  4. the slices through the public entry points, each with the launch
+     counts set to 0 just before it and read just after:
+     * SpMV: mxv_masked / vxm_masked / vxm_masked_dense on the bench.py
+       graph (n = 2^21, 16 entries a row), bfs / sssp / pr on the
+       bench_suite.py graph (n = 2^20, degree 16), against scipy's oracles
+       and the plain path, in every traversal mode;
+     * SpGEMM-T: tc on the bench_suite.py SpGEMM graph (n = 2^15, degree
+       24) against scipy and on the traversal graph against the plain path;
+       mxmT_masked at n = 2^20 against the plain path;
+  5. the launch counts of phase 4: each slice's kernels must be above 0;
   6. times on the card: each kernel against its plain version (CUDA events),
-     SpMV in GB/s of the bench.py byte model, BFS / SSSP / PR wall time.
+     SpMV in GB/s of the bench.py byte model, the masked SpGEMM-T in
+     products/s (bench_suite.py masked_spgemm_mprod_s), BFS / SSSP / PR /
+     TC wall time.
 
 The line before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
@@ -35,15 +42,19 @@ import torch
 
 from spla_tpu_torch import Descriptor, DenseVec, algorithms as alg, formats as F, kernels, op
 from spla_tpu_torch.interop import csr_from_numpy
-from spla_tpu_torch.kernels import level_update as K3, spmv as K1, traversal as K2
+from spla_tpu_torch.kernels import level_update as K3, mxmt as K45, spmv as K1, traversal as K2
 from spla_tpu_torch.kernels.build import build_log, load_library
-from spla_tpu_torch.ops import (DISPATCH_STATS, masked_spmv, mxv_masked, vxm_masked,
-                                vxm_masked_dense)
+from spla_tpu_torch.ops import (DISPATCH_STATS, count_mxmT_products, m_reduce, masked_spmv,
+                                mxmT_masked, mxv_masked, vxm_masked, vxm_masked_dense)
+from spla_tpu_torch.ops.spgemm import mxmT_masked_plain
 
 N_SPMV, DEG_SPMV = 1 << 21, 16      # bench.py:37 build_graph
 N_GRAPH, DEG_GRAPH = 1 << 20, 16    # bench_suite.py:24 random_graph, bench_suite.py:122
+N_TC, DEG_TC, SEED_TC = 1 << 15, 24, 3  # bench_suite.py:513-514
 HUB_ROWS, HUB_LEN = 3, 1 << 17
+N_HUB_TC, HUB_LEN_TC = 1 << 17, 1 << 16
 TIMED_RUNS = 20
+PLAIN_RUNS_BIG = 3  # the plain SpGEMM-T at n = 2^20 expands 285M products per call
 DEVICE = "cuda"
 
 MULS = ("PLUS", "MULT", "FIRST", "SECOND", "MIN", "MAX")
@@ -53,7 +64,11 @@ KERNELS = {
     "spmv_push": ("cuda", "spla_tpu_torch/kernels/csrc/spmv_push.cu", "spla_tpu/pallas/spmv.py:2346"),
     "level_update": ("triton", "spla_tpu_torch/kernels/level_update_triton.py",
                      "spla_tpu/pallas/spmv.py:2789"),
+    "mxmt_reduce": ("cuda", "spla_tpu_torch/kernels/csrc/mxmt.cu", "spla_tpu/pallas/mxmt.py:335"),
+    "mxmt_masked": ("cuda", "spla_tpu_torch/kernels/csrc/mxmt.cu", "spla_tpu/pallas/mxmt.py:362"),
 }
+# the kernels each slice of phase 4 must launch
+PATHS = {"spmv": ("spmv_pull", "spmv_push", "level_update"), "spgemm": ("mxmt_reduce", "mxmt_masked")}
 
 
 def phase(title):
@@ -106,6 +121,43 @@ def hub_graph(n, seed=3):
     indptr = np.zeros(n + 1, np.int64)
     np.cumsum(np.bincount(rows, minlength=n), out=indptr[1:])
     return indptr.astype(np.int32), rows, cols, vals
+
+
+def signed_mask(a, dtype, seed):
+    """a's pattern with values drawn from {-1, 1, 2}: GTZERO deselects a third."""
+    m = a.copy()
+    m.data = np.random.default_rng(seed).choice([-1, 1, 2], a.nnz).astype(dtype)
+    return F.csr_from_scipy(m, device=DEVICE)
+
+
+def valued(a, seed, lo, hi):
+    """(f32, i32) CSR of a's pattern with values uniform in [lo, hi) and
+    integers in [-1000, 1000)."""
+    rng = np.random.default_rng(seed)
+    f, i = a.copy().astype(np.float32), a.copy().astype(np.int32)
+    f.data = rng.uniform(lo, hi, a.nnz).astype(np.float32)
+    i.data = rng.integers(-1000, 1000, a.nnz, dtype=np.int32)
+    return F.csr_from_scipy(f, device=DEVICE), F.csr_from_scipy(i, device=DEVICE)
+
+
+def hub_spgemm(n, seed=4):
+    """Rows of 8 random columns plus HUB_ROWS rows of HUB_LEN_TC, sorted by
+    column (the SpGEMM-T kernels need sorted rows); the mask holds random
+    entries and entries in the hubs' rows and columns."""
+    rng = np.random.default_rng(seed)
+    hubs = np.linspace(0, n - 1, HUB_ROWS).astype(np.int64)
+    rows = np.concatenate([rng.integers(0, n, 8 * n), np.repeat(hubs, HUB_LEN_TC)])
+    cols = rng.integers(0, n, rows.size)
+    a = sp.coo_matrix((np.ones(rows.size, np.float32), (rows, cols)), shape=(n, n)).tocsr()
+    a.sum_duplicates()
+    k = 1 << 16
+    mr = np.concatenate([rng.integers(0, n, k), np.repeat(hubs, 200), rng.integers(0, n, 600),
+                         np.repeat(hubs, HUB_ROWS)])
+    mc = np.concatenate([rng.integers(0, n, k), rng.integers(0, n, 600), np.repeat(hubs, 200),
+                         np.tile(hubs, HUB_ROWS)])
+    mask = sp.coo_matrix((np.ones(mr.size, np.float32), (mr, mc)), shape=(n, n)).tocsr()
+    mask.sum_duplicates()
+    return a, mask
 
 
 # ---------------------------------------------------------------- checks
@@ -236,6 +288,58 @@ def check_kernels(G):
     return errs
 
 
+def check_masked(label, mask, A, om, oa, sel, struct_only=False):
+    got, has = K45.mxmt_masked(mask, A, A, om, oa, oa.identity, sel, struct_only)
+    ref, ref_has = K45.mxmt_masked_plain(mask, A, A, om, oa, oa.identity, sel, struct_only)
+    if not torch.equal(has, ref_has):
+        raise AssertionError(f"{label}: has differs")
+    exact = struct_only or A.values.dtype != torch.float32 or oa.name != "PLUS"
+    ref64 = None
+    if not exact:
+        ref64, _ = K45.mxmt_masked_plain(mask, as64(A), as64(A), om, oa, 0.0, sel)
+    return check_close(label, got, ref, exact, ref64)
+
+
+def check_reduce(label, mask, A, om, sel, struct_only=False):
+    """Kernel 4 against its plain version: int64 totals bitwise, float64
+    totals (of the same f32 products, added in another order) within
+    check_close's tolerance."""
+    got = K45.mxmt_reduce(mask, A, A, om, sel, struct_only).reshape(1)
+    ref = K45.mxmt_reduce_plain(mask, A, A, om, sel, struct_only).reshape(1)
+    exact = ref.dtype == torch.int64
+    return check_close(label, got, ref, exact, None if exact else ref)
+
+
+def check_mxmt(G):
+    """Kernels 5 and 4, every instance, on the SpGEMM graph (n = 2^15) with a
+    mask that GTZERO partly deselects, and on the hub graph."""
+    errs = {"mxmt_reduce": 0.0, "mxmt_masked": 0.0}
+    for graph in ("T", "HT"):
+        for dtype in ("f32", "i32"):
+            T = op.FLOAT if dtype == "f32" else op.INT
+            A, mask = G[f"{graph}w_{dtype}"], G[f"{graph}m_{dtype}"]
+            sel = T.GTZERO(mask.values) & mask.valid_mask()
+            valid = mask.valid_mask()
+            for add in ADDS:
+                oa = getattr(T, add)
+                for mul in MULS:
+                    e = check_masked(f"mxmt_masked {graph} {mul}/{add} {dtype}", mask, A,
+                                     getattr(T, mul), oa, sel)
+                    errs["mxmt_masked"] = max(errs["mxmt_masked"], e)
+                check_masked(f"mxmt_masked {graph} structural/{add} {dtype}", mask, A, None, oa,
+                             valid, struct_only=True)
+            for mul in MULS:
+                e = check_reduce(f"mxmt_reduce {graph} {mul} {dtype}", mask, A, getattr(T, mul), sel)
+                errs["mxmt_reduce"] = max(errs["mxmt_reduce"], e)
+        check_reduce(f"mxmt_reduce {graph} structural", G[f"{graph}m_i32"], G[f"{graph}w_i32"],
+                     None, G[f"{graph}m_i32"].valid_mask(), struct_only=True)
+        what = (f"n={N_TC} degree {DEG_TC}" if graph == "T"
+                else f"hub graph n={N_HUB_TC}, {HUB_ROWS} rows of {HUB_LEN_TC} drawn columns")
+        print(f"kernels 4 and 5 on the {what}: 36 + 6 structural instances of kernel 5 and "
+              f"12 + 1 of kernel 4 match the plain versions", flush=True)
+    return errs
+
+
 # ---------------------------------------------------------------- the slice
 
 
@@ -336,11 +440,47 @@ def pr_plain(A, alpha, eps):
     return p
 
 
+def run_spgemm(G):
+    """Phase 4's SpGEMM-T calls; returns their results."""
+    R = {"tc small": alg.tc(G["T"]), "tc big": alg.tc(G["Aint"])}
+    A, W = G["Aint"], G["Aw"]
+    R["mxmT"] = mxmT_masked(A, A, A, op.MULT_INT, op.PLUS_INT, op.GTZERO_INT, 0)
+    R["mxmT minplus"] = mxmT_masked(W, W, W, op.PLUS_FLOAT, op.MIN_FLOAT, op.GTZERO_FLOAT,
+                                    float("inf"))
+    torch.cuda.synchronize()
+    return R
+
+
+def same_csr(label, got, ref):
+    for f in ("indptr", "cols", "row_ids", "values", "nnz"):
+        check_close(f"{label} {f}", getattr(got, f), getattr(ref, f), True)
+
+
+def check_spgemm(G, R):
+    t = G["T_sp"]
+    want = int(t.multiply(t @ t).sum())
+    if R["tc small"] != want:
+        raise AssertionError(f"tc n={N_TC}: {R['tc small']}, scipy's A .* (A @ A) sums to {want}")
+    A, W = G["Aint"], G["Aw"]
+    ref = mxmT_masked_plain(A, A, A, op.MULT_INT, op.PLUS_INT, op.GTZERO_INT, 0, struct_only=True)
+    plain_tc = int(m_reduce(0, ref, op.PLUS_INT).value)
+    if R["tc big"] != plain_tc:
+        raise AssertionError(f"tc n={N_GRAPH}: {R['tc big']}, the plain path {plain_tc}")
+    print(f"tc: {R['tc small']} at n={N_TC} (scipy {want}), {R['tc big']} at n={N_GRAPH} "
+          f"(plain path {plain_tc}); triangles x6", flush=True)
+    same_csr("mxmT_masked MULT/PLUS i32", R["mxmT"],
+             mxmT_masked_plain(A, A, A, op.MULT_INT, op.PLUS_INT, op.GTZERO_INT, 0))
+    same_csr("mxmT_masked PLUS/MIN f32", R["mxmT minplus"],
+             mxmT_masked_plain(W, W, W, op.PLUS_FLOAT, op.MIN_FLOAT, op.GTZERO_FLOAT, float("inf")))
+    print(f"mxmT_masked at n={N_GRAPH}: MULT/PLUS i32 (nnz {int(R['mxmT'].nnz)}) and PLUS/MIN f32 "
+          f"(nnz {int(R['mxmT minplus'].nnz)}) equal the plain path bitwise", flush=True)
+
+
 # ---------------------------------------------------------------- timing
 
 
-def cuda_ms(fn, reps=TIMED_RUNS):
-    for _ in range(3):
+def cuda_ms(fn, reps=TIMED_RUNS, warmup=3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -352,10 +492,51 @@ def cuda_ms(fn, reps=TIMED_RUNS):
     return start.elapsed_time(end) / reps
 
 
-def paired_ms(kernel_fn, plain_fn):
+def paired_ms(kernel_fn, plain_fn, plain_reps=TIMED_RUNS):
     """plain, kernel, kernel, plain; mean of each side."""
-    p1, k1, k2, p2 = cuda_ms(plain_fn), cuda_ms(kernel_fn), cuda_ms(kernel_fn), cuda_ms(plain_fn)
+    warm = min(plain_reps, 3)
+    p1 = cuda_ms(plain_fn, plain_reps, warm)
+    k1, k2 = cuda_ms(kernel_fn), cuda_ms(kernel_fn)
+    p2 = cuda_ms(plain_fn, plain_reps, warm)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def time_spgemm(G, card):
+    """Kernels 4 and 5 against their plain versions, masked_spgemm_mprod_s
+    (bench_suite.py:559: mask products over time) and tc wall time, at the
+    bench_suite size (n = 2^15) and on the traversal graph (n = 2^20)."""
+    times = {}
+    for size, A, reps in (("small", G["T"], TIMED_RUNS), ("big", G["Aint"], PLAIN_RUNS_BIG)):
+        n, nnz = A.shape[0], int(A.nnz)
+        prods = count_mxmT_products(A, A)
+        valid = A.valid_mask()
+        k, p = paired_ms(lambda: K45.mxmt_reduce(A, A, A, None, valid, True),
+                         lambda: K45.mxmt_reduce_plain(A, A, A, None, valid, True), reps)
+        times["mxmt_reduce"] = (k, p)
+        print(f"time mxmt_reduce structural (tc) n={n} nnz={nnz} products={prods}: kernel {k:.4f} ms "
+              f"({prods / k / 1e3:.1f} masked_spgemm_mprod_s), plain {p:.4f} ms "
+              f"({prods / p / 1e3:.1f} Mproducts/s) [{card}]", flush=True)
+        k, p = paired_ms(lambda: K45.mxmt_reduce(A, A, A, op.MULT_INT, valid),
+                         lambda: K45.mxmt_reduce_plain(A, A, A, op.MULT_INT, valid), reps)
+        print(f"time mxmt_reduce MULT i32 n={n}: kernel {k:.4f} ms ({prods / k / 1e3:.1f} "
+              f"Mproducts/s), plain {p:.4f} ms [{card}]", flush=True)
+        k, p = paired_ms(lambda: K45.mxmt_masked(A, A, A, op.MULT_INT, op.PLUS_INT, 0, valid),
+                         lambda: K45.mxmt_masked_plain(A, A, A, op.MULT_INT, op.PLUS_INT, 0, valid),
+                         reps)
+        times["mxmt_masked"] = (k, p)
+        print(f"time mxmt_masked MULT/PLUS i32 n={n}: kernel {k:.4f} ms ({prods / k / 1e3:.1f} "
+              f"Mproducts/s), plain {p:.4f} ms [{card}]", flush=True)
+        alg.tc(A)
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            alg.tc(A)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        print(f"time tc n={n} nnz={nnz}: wall {sorted(walls)[1]:.3f} ms (median of 3; runs "
+              f"{', '.join(f'{w:.3f}' for w in walls)}), {prods / sorted(walls)[1] / 1e3:.1f} "
+              f"masked_spgemm_mprod_s end to end [{card}]", flush=True)
+    return times
 
 
 def time_kernels(G, card):
@@ -454,6 +635,63 @@ def main():
             print(line.strip())
 
     t0 = time.perf_counter()
+    G = build_graphs()
+    print(f"graphs made in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    phase("3 kernels against their plain versions")
+    errs = check_kernels(G)
+    errs.update(check_mxmt(G))
+    torch.cuda.synchronize()
+
+    phase("4 the slices through the public entry points")
+    launches, stats, astats = {}, {}, {}
+    for slice_name, run, check in (("spmv", run_slice, check_slice),
+                                   ("spgemm", run_spgemm, check_spgemm)):
+        kernels.reset_launches()
+        for k in DISPATCH_STATS:
+            DISPATCH_STATS[k] = 0
+        for k in alg.STATS:
+            alg.STATS[k] = 0
+        t0 = time.perf_counter()
+        R = run(G)
+        launches[slice_name], stats[slice_name] = dict(kernels.LAUNCHES), dict(DISPATCH_STATS)
+        astats[slice_name] = dict(alg.STATS)
+        print(f"{slice_name} main path ran in {time.perf_counter() - t0:.3f} s", flush=True)
+        check(G, R)
+
+    phase("5 launch counts of phase 4")
+    for slice_name, kernel_names in PATHS.items():
+        print(f"{slice_name}: DISPATCH_STATS {json.dumps(stats[slice_name])}")
+        print(f"{slice_name}: kernels.LAUNCHES {json.dumps(launches[slice_name])}", flush=True)
+        for k in kernel_names:
+            if launches[slice_name][k] <= 0:
+                raise AssertionError(f"kernel {k} was not launched on the {slice_name} main path")
+    print(f"spmv: algorithms.STATS {json.dumps(astats['spmv'])}", flush=True)
+    if stats["spmv"]["mxv_torch"] or stats["spmv"]["vxm_torch"] or stats["spgemm"]["mxmT_torch"]:
+        raise AssertionError("a covered semiring took the torch path")
+    if astats["spmv"]["push"] == 0 or astats["spmv"]["pull"] == 0:
+        raise AssertionError("the traversals did not run both directions")
+
+    phase("6 times on the card")
+    times = time_kernels(G, card)
+    time_algorithms(G, card)
+    times.update(time_spgemm(G, card))
+
+    rows_out = []
+    for slice_name, kernel_names in PATHS.items():
+        for k in kernel_names:
+            route, source, replaces = KERNELS[k]
+            ms, plain_ms = times[k]
+            rows_out.append({"name": k, "route": route, "source": source, "replaces": replaces,
+                             "launches": launches[slice_name][k], "max_abs_err": errs[k], "ms": ms,
+                             "plain_ms": plain_ms})
+    print(json.dumps({"kernels": rows_out}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}))
+
+
+def build_graphs():
+    """Every graph of phases 3-6, on DEVICE."""
     indptr, rows, cols, vals = build_graph(N_SPMV, DEG_SPMV)
     G = {"M": csr(indptr, rows, cols, vals, N_SPMV),
          "Minf": csr(indptr, rows, cols, vals, N_SPMV, fill=np.float32(np.inf)),
@@ -471,51 +709,18 @@ def main():
     outdeg = np.asarray(a.sum(axis=0)).ravel()
     outdeg[outdeg == 0] = 1
     G["Ap"] = F.csr_from_scipy(a.multiply(0.85 / outdeg).tocsr().astype(np.float32), device=DEVICE)
+    t = random_graph(N_TC, DEG_TC, seed=SEED_TC)
+    G["T_sp"] = t
+    G["T"] = F.csr_from_scipy(t.astype(np.int32), device=DEVICE)
+    G["Tw_f32"], G["Tw_i32"] = valued(t, 5, -2.0, 2.0)
+    G["Tm_f32"], G["Tm_i32"] = signed_mask(t, np.float32, 6), signed_mask(t, np.int32, 6)
+    ah, mh = hub_spgemm(N_HUB_TC)
+    G["HTw_f32"], G["HTw_i32"] = valued(ah, 7, 0.5, 1.5)
+    G["HTm_f32"], G["HTm_i32"] = signed_mask(mh, np.float32, 8), signed_mask(mh, np.int32, 8)
     print(f"graphs: spmv n={N_SPMV} nnz={rows.size}; hub n={N_GRAPH} nnz={hr.size}; "
-          f"traversal n={N_GRAPH} nnz={a.nnz} (made in {time.perf_counter() - t0:.1f} s)", flush=True)
-
-    phase("3 kernels against their plain versions")
-    errs = check_kernels(G)
-    torch.cuda.synchronize()
-
-    phase("4 the slice through the public entry points")
-    kernels.reset_launches()
-    for k in DISPATCH_STATS:
-        DISPATCH_STATS[k] = 0
-    for k in alg.STATS:
-        alg.STATS[k] = 0
-    t0 = time.perf_counter()
-    R = run_slice(G)
-    launches = dict(kernels.LAUNCHES)
-    stats, astats = dict(DISPATCH_STATS), dict(alg.STATS)
-    print(f"main path ran in {time.perf_counter() - t0:.1f} s", flush=True)
-    check_slice(G, R)
-
-    phase("5 launch counts of phase 4")
-    print(f"DISPATCH_STATS {json.dumps(stats)}")
-    print(f"kernels.LAUNCHES {json.dumps(launches)}")
-    print(f"algorithms.STATS {json.dumps(astats)}", flush=True)
-    for k, c in launches.items():
-        if c <= 0:
-            raise AssertionError(f"kernel {k} was not launched on the main path")
-    if stats["mxv_torch"] or stats["vxm_torch"]:
-        raise AssertionError("a covered semiring took the torch path")
-    if astats["push"] == 0 or astats["pull"] == 0:
-        raise AssertionError("the traversals did not run both directions")
-
-    phase("6 times on the card")
-    times = time_kernels(G, card)
-    time_algorithms(G, card)
-
-    rows_out = []
-    for k, (route, source, replaces) in KERNELS.items():
-        ms, plain_ms = times[k]
-        rows_out.append({"name": k, "route": route, "source": source, "replaces": replaces,
-                         "launches": launches[k], "max_abs_err": errs[k], "ms": ms,
-                         "plain_ms": plain_ms})
-    print(json.dumps({"kernels": rows_out}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
-                                             "count": torch.cuda.device_count()}}))
+          f"traversal n={N_GRAPH} nnz={a.nnz}; spgemm n={N_TC} nnz={t.nnz}; spgemm hub "
+          f"n={N_HUB_TC} nnz={ah.nnz} with a mask of {mh.nnz}", flush=True)
+    return G
 
 
 if __name__ == "__main__":

@@ -1,10 +1,13 @@
-"""spla_tpu_torch — the masked semiring SpMV slice of spla_tpu on PyTorch and CUDA.
+"""spla_tpu_torch — spla_tpu's masked SpMV and masked SpGEMM-T slices on PyTorch and CUDA.
 
 A port of ``spla_tpu`` (JAX/XLA/Pallas, kept beside it as the reference)
-to PyTorch, with hand-written Hopper kernels for the slice's hot path:
-the masked semiring SpMV (``ops.mxv_masked``, ``ops.vxm_masked``,
-``ops.vxm_masked_dense``) and the BFS / SSSP / PageRank loops over it
-(``algorithms``).
+to PyTorch, with hand-written Hopper kernels for each slice's hot path:
+
+* the masked semiring SpMV (``ops.mxv_masked``, ``ops.vxm_masked``,
+  ``ops.vxm_masked_dense``) and the BFS / SSSP / PageRank loops over it
+  (``algorithms.bfs``, ``sssp``, ``pr``);
+* the masked SpGEMM-T (``ops.mxmT_masked``), with ``ops.m_reduce``, and
+  triangle counting over it (``algorithms.tc``).
 
 The device is explicit: containers are built with ``device=`` and ops run
 where their tensors live; nothing picks ``cuda`` on its own.  CPU tensors
@@ -13,8 +16,10 @@ or raise.  This package imports neither jax nor spla_tpu.
 """
 
 from . import algorithms, formats, interop, kernels, op, ops
+from .algorithms import tc
 from .containers import CooMatrix, CsrMatrix, DenseVec, Scalar, SparseVec
 from .descriptor import Descriptor
+from .ops import count_mxm_products, count_mxmT_products, m_reduce, mxmT_masked
 from .types import BOOL, FLOAT, INT, UINT, Type, type_from_dtype
 
 __version__ = "0.1.0"
@@ -26,6 +31,11 @@ __all__ = [
     "kernels",
     "op",
     "ops",
+    "mxmT_masked",
+    "m_reduce",
+    "count_mxm_products",
+    "count_mxmT_products",
+    "tc",
     "Scalar",
     "DenseVec",
     "SparseVec",

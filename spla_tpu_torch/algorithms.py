@@ -1,5 +1,6 @@
-"""BFS, SSSP and PageRank over the port's kernels (counterpart of
-``spla_tpu/algorithms.py``), with the naive sequential oracles.
+"""BFS, SSSP, PageRank and triangle counting over the port's kernels
+(counterpart of ``spla_tpu/algorithms.py``), with the naive sequential
+oracles.
 
 Each BFS/SSSP level runs kernel 1 (pull over ``At``, the unvisited mask
 fused) or kernel 2 (push of the frontier list over CSR(A)), then kernel 3
@@ -13,7 +14,7 @@ the host once per level, as the C++ reference does
 (``src/algorithm.cpp:112``).  The JAX version has no such sync: each loop
 is one ``lax.while_loop`` whose convergence scalar stays on the device
 (``spla_tpu/algorithms.py:8-12``).  CUDA graphs or a persistent kernel
-would remove it.
+would remove it.  ``tc`` reads its one result.
 """
 
 from __future__ import annotations
@@ -31,14 +32,17 @@ from .formats import WeakIdCache, csr_transpose_host, transpose_of
 from .kernels.level_update import bfs_level_update, sssp_level_update
 from .kernels.spmv import spmv_pull, spmv_pull_structural
 from .kernels.traversal import spmv_push, spmv_push_structural
+from .ops.matrix import m_reduce
+from .ops.spgemm import mxmT_masked, mxmT_masked_reduce
 
-__all__ = ["STATS", "bfs", "sssp", "pr", "bfs_naive", "sssp_naive", "pr_naive"]
+__all__ = ["STATS", "bfs", "sssp", "pr", "tc", "bfs_naive", "sssp_naive", "pr_naive", "tc_naive"]
 
 # levels (PageRank: iterations), push and pull levels, and host syncs of
 # the runs since the last reset; the loops read nothing else on the host
 STATS = {"levels": 0, "push": 0, "pull": 0, "host_syncs": 0}
 
 _AT_CACHE = WeakIdCache()  # default Aᵀ per matrix; True = A is symmetric
+_TC_PATTERN_CACHE = WeakIdCache()  # is-0/1-pattern verdicts, keyed on values
 
 
 def _default_At(A: CsrMatrix) -> CsrMatrix:
@@ -180,6 +184,36 @@ def pr(A: CsrMatrix, alpha: float = 0.85, eps: float = 1e-6,
     return DenseVec(p, torch.zeros((), dtype=torch.float32, device=device))
 
 
+def _is_pattern(A: CsrMatrix) -> bool:
+    """Every stored value is 1 (one host read per matrix, cached)."""
+    hit = _TC_PATTERN_CACHE.get(A.values)
+    if hit is None:
+        hit = bool(torch.all(torch.where(A.valid_mask(), A.values, 1) == 1))
+        _TC_PATTERN_CACHE.put(A.values, hit)
+    return hit
+
+
+def tc(A: CsrMatrix, products_cap: int | None = None) -> int:
+    """Triangle count: the sum of ``(A x Aᵀ) masked by A`` under (MULT,
+    PLUS) with the GTZERO select (reference ``src/algorithm.cpp:380-414``).
+    For a symmetric adjacency each triangle counts 6 times, as in the
+    reference.  A verified 0/1 pattern runs structurally (values read as 1,
+    the select skipped).
+
+    On CUDA tensors the products are summed by kernel 4 in one pass, in
+    int64 (float64 for float values; rounded to the nearest int); on CPU
+    tensors through ``mxmT_masked`` and ``m_reduce(PLUS_INT)``, which sums in
+    the value dtype: for int32 it wraps past 2^31 where kernel 4 does not.
+    Reads one scalar on the host."""
+    is_pattern = _is_pattern(A)
+    if A.values.device.type == "cuda":
+        total = mxmT_masked_reduce(A, A, A, OP.MULT_INT, OP.GTZERO_INT, struct_only=is_pattern)
+        return int(round(float(total))) if total.is_floating_point() else int(total)
+    B = mxmT_masked(A, A, A, OP.MULT_INT, OP.PLUS_INT, OP.GTZERO_INT, 0,
+                    products_cap=products_cap, struct_only=is_pattern)
+    return int(m_reduce(0, B, OP.PLUS_INT).value)
+
+
 def bfs_naive(adj: list, source: int) -> np.ndarray:
     """Sequential queue BFS oracle (reference ``src/algorithm.cpp:122-152``)."""
     n = len(adj)
@@ -232,3 +266,22 @@ def pr_naive(adj_in: list, w_in: list, alpha: float, eps: float) -> np.ndarray:
         err = float(np.sqrt(((p - p_prev) ** 2).sum()))
         p, p_prev = p_prev, p
     return p_prev
+
+
+def tc_naive(adj: list) -> int:
+    """Sorted-intersection oracle (reference ``src/algorithm.cpp:416-448``)."""
+    count = 0
+    for row in adj:
+        for nb in row:
+            a, b = row, adj[nb]
+            i = j = 0
+            while i < len(a) and j < len(b):
+                if a[i] == b[j]:
+                    count += 1
+                    i += 1
+                    j += 1
+                elif a[i] < b[j]:
+                    i += 1
+                else:
+                    j += 1
+    return count

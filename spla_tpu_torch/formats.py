@@ -11,7 +11,7 @@ import weakref
 import numpy as np
 import torch
 
-from .containers import CsrMatrix, DenseVec, SparseVec
+from .containers import CooMatrix, CsrMatrix, DenseVec, SparseVec
 
 __all__ = [
     "WeakIdCache",
@@ -22,6 +22,9 @@ __all__ = [
     "transpose_of",
     "sparse_to_dense_vec",
     "dense_to_sparse_vec",
+    "csr_to_coo",
+    "coo_to_csr",
+    "csr_to_dense",
 ]
 
 
@@ -196,3 +199,28 @@ def dense_to_sparse_vec(dv: DenseVec, capacity: int | None = None) -> SparseVec:
     """DenseVec -> SparseVec of the entries != fill (capacity defaults to n)."""
     cap = capacity if capacity is not None else dv.n
     return compact(dv.values, dv.stored_mask(), cap, dv.fill)
+
+
+def csr_to_coo(a: CsrMatrix) -> CooMatrix:
+    return CooMatrix(shape=a.shape, rows=a.row_ids, cols=a.cols, values=a.values, nnz=a.nnz,
+                     fill=a.fill)
+
+
+def coo_to_csr(a: CooMatrix) -> CsrMatrix:
+    """COO (entries sorted row-major, pads last with row m) -> CSR: indptr by
+    searchsorted of the rows, clamped to nnz, on the device."""
+    m, _ = a.shape
+    bounds = torch.arange(m + 1, dtype=a.rows.dtype, device=a.rows.device)
+    indptr = torch.minimum(torch.searchsorted(a.rows, bounds, side="left"), a.nnz.long())
+    return CsrMatrix(shape=a.shape, indptr=indptr.to(torch.int32), cols=a.cols, values=a.values,
+                     row_ids=a.rows, nnz=a.nnz, fill=a.fill)
+
+
+def csr_to_dense(a: CsrMatrix) -> torch.Tensor:
+    """Dense [m, n] tensor of A; unstored slots hold the fill."""
+    m, n = a.shape
+    valid = a.valid_mask()
+    vals = torch.where(valid, a.values, a.fill)
+    flat = a.row_ids.long() * (n + 1) + torch.where(valid, a.cols.long(), n)
+    dense = index_set(a.fill.expand((m + 1) * (n + 1)).clone(), flat, vals)
+    return dense.reshape(m + 1, n + 1)[:m, :n]

@@ -1,9 +1,12 @@
-"""Hand-written Hopper kernels of the masked semiring SpMV path.
+"""Hand-written Hopper kernels of the masked SpMV and masked SpGEMM-T paths.
 
 * ``spmv`` — kernel 1, the CSR pull SpMV (CUDA, ``csrc/spmv_pull.cu``);
 * ``traversal`` — kernel 2, the frontier push SpMV (CUDA, ``csrc/spmv_push.cu``);
 * ``level_update`` — kernel 3, the BFS/SSSP level update with frontier
-  compaction (Triton).
+  compaction (Triton);
+* ``mxmt`` — kernels 4 and 5, the masked SpGEMM-T intersections: the
+  summed products (triangle counting) and one folded value per mask
+  entry (CUDA, ``csrc/mxmt.cu``).
 
 Each wrapper runs its plain PyTorch version for CPU tensors, and launches
 its kernel or raises for CUDA tensors.  ``LAUNCHES`` counts the kernel
@@ -11,7 +14,7 @@ launches of each wrapper, and nothing else.  Importing these modules
 imports neither ``triton`` nor the compiled library.
 """
 
-LAUNCHES = {"spmv_pull": 0, "spmv_push": 0, "level_update": 0}
+LAUNCHES = {"spmv_pull": 0, "spmv_push": 0, "level_update": 0, "mxmt_reduce": 0, "mxmt_masked": 0}
 
 
 def reset_launches() -> None:

@@ -1,7 +1,8 @@
 """Build the CUDA kernels with nvcc at first use and bind them with ctypes.
 
-The sources in ``csrc/`` have a plain C interface (no PyTorch headers),
-so one nvcc call builds them in seconds.  The library goes to
+The sources in ``csrc/`` have a plain C interface (no PyTorch headers).
+One nvcc per source compiles them all at once, in parallel, and one more
+links the objects into a shared library.  It goes to
 ``build/spla_tpu_torch/<hash of sources and flags>/`` at the repository
 root and is reused while the sources are unchanged.  A failed build raises.
 """
@@ -21,7 +22,7 @@ __all__ = ["BuildError", "load_library", "build_log", "check"]
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "spla_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+              "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -35,6 +36,12 @@ SIGNATURES = {
     "spla_spmv_push": (_INT, _INT, _INT, _I64, _P, _P, _P, _P, _P, _P, _P),
     # k, front, indptr, cols, hits, stream
     "spla_spmv_push_structural": (_I64, _P, _P, _P, _P, _P),
+    # mul, add, dtype, structural, cap, mrow, mcol, sel, A indptr/cols/values,
+    # B indptr/cols/values, init, out, has, stream
+    "spla_mxmt_masked": (_INT, _INT, _INT, _INT, _I64, *(_P,) * 9, _P, _P, _P, _P),
+    # mul, dtype, structural, cap, mrow, mcol, sel, A indptr/cols/values,
+    # B indptr/cols/values, total, stream
+    "spla_mxmt_reduce": (_INT, _INT, _INT, _I64, *(_P,) * 9, _P, _P),
 }
 
 
@@ -66,22 +73,47 @@ def _build_dir() -> Path:
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
+def _run_all(cmds, log):
+    """Run the commands side by side and log each one's output.  Returns the
+    first failure's message, or None."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    failed = None
+    for cmd, proc in zip(cmds, procs):
+        out, _ = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0 and failed is None:
+            failed = f"nvcc failed ({proc.returncode}):\n{out[-4000:]}"
+    return failed
+
+
+def _build(out_dir: Path, lib_path: Path) -> None:
+    nvcc = _nvcc()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cus, _ = _sources()
+    tag = os.getpid()
+    objs = [out_dir / f"{cu.stem}.{tag}.o" for cu in cus]
+    log = []
+    failed = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(cu)]
+                       for cu, o in zip(cus, objs)], log)
+    tmp = out_dir / f"libspla_kernels.{tag}.so"
+    if failed is None:
+        failed = _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]], log)
+    (out_dir / "build.log").write_text("".join(log))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed is not None:
+        raise BuildError(failed)
+    os.replace(tmp, lib_path)
+
+
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernels' shared library."""
     out_dir = _build_dir()
     lib_path = out_dir / "libspla_kernels.so"
     if not lib_path.exists():
-        nvcc = _nvcc()
-        out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"libspla_kernels.{os.getpid()}.so"
-        cus, _ = _sources()
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, cus)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        (out_dir / "build.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise BuildError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-        os.replace(tmp, lib_path)
+        _build(out_dir, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)

@@ -32,7 +32,9 @@ __all__ = [
     "best_spmv_fn",
 ]
 
-DISPATCH_STATS = {"mxv_kernel": 0, "mxv_torch": 0, "vxm_kernel": 0, "vxm_torch": 0}
+# the op layer's dispatch counts; ops.spgemm counts mxmT_masked here too
+DISPATCH_STATS = {"mxv_kernel": 0, "mxv_torch": 0, "vxm_kernel": 0, "vxm_torch": 0,
+                  "mxmT_kernel": 0, "mxmT_torch": 0}
 
 
 def _scalar(x, like: torch.Tensor) -> torch.Tensor:

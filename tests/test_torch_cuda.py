@@ -14,7 +14,8 @@ import scipy.sparse as sp
 import torch
 
 from spla_tpu_torch import Descriptor, algorithms as alg, formats as F, kernels, op
-from spla_tpu_torch.kernels import level_update as K3, spmv as K1, traversal as K2
+from spla_tpu_torch.kernels import level_update as K3, mxmt as K45, spmv as K1, traversal as K2
+from spla_tpu_torch.ops import spgemm as TG
 
 pytestmark = pytest.mark.cuda
 
@@ -140,4 +141,116 @@ def test_algorithms_match_cpu(dev):
     got = alg.pr(F.csr_from_scipy(ap, device=dev)).values
     ref = alg.pr(F.csr_from_scipy(ap, device="cpu")).values
     torch.testing.assert_close(got.cpu(), ref, rtol=1e-5, atol=1e-6)
-    assert all(c > 0 for c in kernels.LAUNCHES.values())
+    assert all(kernels.LAUNCHES[k] > 0 for k in ("spmv_pull", "spmv_push", "level_update"))
+
+
+def _spgemm_operands(dev, dtype, nan=False):
+    """A (= B) with a hub row 17 of ~2600 distinct columns, and a mask of
+    random entries plus entries in the hub's row and column, valued in
+    {-1, 1, 2} so that GTZERO deselects some; capacities above nnz."""
+    a = _graph(n=3000, seed=7, hub=5000)
+    n = a.shape[0]
+    rng = np.random.default_rng(8)
+    if dtype == "f32":
+        if nan:
+            a.data[[3, a.indptr[17] + 5]] = np.nan
+        A = F.csr_from_scipy(a, capacity=a.nnz + 11, device=dev)
+    else:
+        A = F.csr_from_scipy((a * 1000).astype(np.int32), capacity=a.nnz + 11, device=dev)
+    k = 4000
+    rows = np.concatenate([rng.integers(0, n, k), np.full(200, 17), rng.integers(0, n, 200), [17]])
+    cols = np.concatenate([rng.integers(0, n, k), rng.integers(0, n, 200), np.full(200, 17), [17]])
+    vals = rng.choice([-1, 1, 2], rows.size)
+    mask = F.csr_from_entries((n, n), rows, cols, vals,
+                              dtype=np.float32 if dtype == "f32" else np.int32,
+                              capacity=rows.size + 7, device=dev)
+    return mask, A
+
+
+def _sel(mask, T):
+    return T.GTZERO(mask.values) & mask.valid_mask()
+
+
+@pytest.mark.parametrize("dtype", ["f32", "i32"])
+@pytest.mark.parametrize("add", ["PLUS", "MIN", "MAX"])
+def test_mxmt_masked_matches_plain(dev, dtype, add):
+    mask, A = _spgemm_operands(dev, dtype, nan=True)
+    T = op.FLOAT if dtype == "f32" else op.INT
+    oa = getattr(T, add)
+    sel = _sel(mask, T)
+    for mul in MULS:
+        om = getattr(T, mul)
+        got, has = K45.mxmt_masked(mask, A, A, om, oa, oa.identity, sel)
+        ref, ref_has = K45.mxmt_masked_plain(mask, A, A, om, oa, oa.identity, sel)
+        assert torch.equal(has, ref_has) and bool(has.any()) and not bool(has.all())
+        if dtype == "f32" and add == "PLUS":
+            # summation order differs: f32 tolerance
+            torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5, equal_nan=True)
+        else:
+            _assert_same(got, ref)
+    valid = mask.valid_mask()
+    got = K45.mxmt_masked(mask, A, A, None, oa, oa.identity, valid, struct_only=True)
+    ref = K45.mxmt_masked_plain(mask, A, A, None, oa, oa.identity, valid, struct_only=True)
+    for g, r in zip(got, ref):
+        _assert_same(g, r)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "i32"])
+def test_mxmt_reduce_matches_plain(dev, dtype):
+    mask, A = _spgemm_operands(dev, dtype)
+    T = op.FLOAT if dtype == "f32" else op.INT
+    sel = _sel(mask, T)
+    for mul in MULS:
+        om = getattr(T, mul)
+        got = K45.mxmt_reduce(mask, A, A, om, sel)
+        ref = K45.mxmt_reduce_plain(mask, A, A, om, sel)
+        assert got.dtype == ref.dtype
+        if dtype == "f32":
+            # float64 sums of the same f32 products, in another order
+            torch.testing.assert_close(got, ref, rtol=1e-9, atol=0)
+        else:
+            _assert_same(got, ref)
+    valid = mask.valid_mask()
+    _assert_same(K45.mxmt_reduce(mask, A, A, None, valid, struct_only=True),
+                 K45.mxmt_reduce_plain(mask, A, A, None, valid, struct_only=True))
+
+
+def test_mxmt_empty_mask(dev):
+    _, A = _spgemm_operands(dev, "i32")
+    n = A.shape[0]
+    empty = F.csr_from_entries((n, n), [], [], [], dtype="int32", capacity=5, device=dev)
+    out, has = K45.mxmt_masked(empty, A, A, op.MULT_INT, op.PLUS_INT, 0, empty.valid_mask())
+    _assert_same(out, torch.zeros(5, dtype=torch.int32))
+    assert not bool(has.any())
+    assert int(K45.mxmt_reduce(empty, A, A, op.MULT_INT, empty.valid_mask())) == 0
+    r = TG.mxmT_masked(empty, A, A, op.MULT_INT, op.PLUS_INT, op.GTZERO_INT, 0)
+    assert int(r.nnz) == 0 and int(r.indptr[-1]) == 0
+
+
+def test_tc_and_mxmT_masked_match_cpu(dev):
+    rng = np.random.default_rng(9)
+    n = 1500
+    r, c = rng.integers(0, n, 6000), rng.integers(0, n, 6000)
+    keep = r != c
+    a = sp.coo_matrix((np.ones(2 * int(keep.sum()), np.int32),
+                       (np.concatenate([r[keep], c[keep]]), np.concatenate([c[keep], r[keep]]))),
+                      shape=(n, n)).tocsr()
+    a.sum_duplicates()
+    a.data[:] = 1
+    adj = [list(a.indices[a.indptr[i]:a.indptr[i + 1]]) for i in range(n)]
+    kernels.reset_launches()
+    before = dict(TG.DISPATCH_STATS)
+    got = alg.tc(F.csr_from_scipy(a, device=dev))
+    assert got == alg.tc_naive(adj) == alg.tc(F.csr_from_scipy(a, device="cpu")) > 0
+    signed = a.copy()
+    signed.data = rng.choice([-1, 1, 2], a.nnz).astype(np.int32)
+    for m in (signed, signed.astype(np.float32)):
+        assert alg.tc(F.csr_from_scipy(m, device=dev)) == alg.tc(F.csr_from_scipy(m, device="cpu"))
+        Ad, Ac = F.csr_from_scipy(m, device=dev), F.csr_from_scipy(m, device="cpu")
+        T = op.FLOAT if m.dtype == np.float32 else op.INT
+        got = TG.mxmT_masked(Ad, Ad, Ad, T.MULT, T.PLUS, T.GTZERO, 0)
+        ref = TG.mxmT_masked(Ac, Ac, Ac, T.MULT, T.PLUS, T.GTZERO, 0)
+        for f in ("indptr", "cols", "values", "row_ids", "nnz"):
+            _assert_same(getattr(got, f), getattr(ref, f))
+    assert kernels.LAUNCHES["mxmt_reduce"] == 3 and kernels.LAUNCHES["mxmt_masked"] == 2
+    assert TG.DISPATCH_STATS["mxmT_torch"] == before["mxmT_torch"] + 5  # the CPU runs
