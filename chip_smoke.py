@@ -7,7 +7,9 @@ Phases:
   1. device: the card's name and power limit (no CUDA device: exit non-zero);
   2. build: compile the CUDA kernels from kernels/csrc and print ptxas' lines;
   3. each kernel against its plain PyTorch version, on the card, at the
-     slice's shapes (tolerances stated in ``check_close``);
+     slice's shapes (tolerances stated in ``check_close``); kernel 6 (the
+     whole BFS / SSSP in one cooperative launch) bitwise on the road grids
+     of bench_suite.py, from vertex 0 and from the far corner;
   4. the slices through the public entry points, each with the launch
      counts set to 0 just before it and read just after:
      * SpMV: mxv_masked / vxm_masked / vxm_masked_dense on the bench.py
@@ -17,11 +19,18 @@ Phases:
      * SpGEMM-T: tc on the bench_suite.py SpGEMM graph (n = 2^15, degree
        24) against scipy and on the traversal graph against the plain path;
        mxmT_masked at n = 2^20 against the plain path;
+     * road: bfs on the side-1024 Morton grid and sssp on the side-512 one
+       (bench_suite.py:226-253,323-334), which take the resident route,
+       against scipy and bitwise against the level loop; then the bfs and
+       sssp example CLIs on the side-512 grid, and the pr and tc ones on a
+       small random graph, each checked by its naive oracle;
   5. the launch counts of phase 4: each slice's kernels must be above 0;
+     the road slice reads the host once per run;
   6. times on the card: each kernel against its plain version (CUDA events),
      SpMV in GB/s of the bench.py byte model, the masked SpGEMM-T in
      products/s (bench_suite.py masked_spgemm_mprod_s), BFS / SSSP / PR /
-     TC wall time.
+     TC wall time; road BFS / SSSP walls on the resident route and on the
+     level loop, with road_bfs_gteps and road_sssp_ms (bench_suite.py:265,346).
 
 The line before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
@@ -30,10 +39,14 @@ Imports neither jax nor spla_tpu.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
+import sys
+import tempfile
 import time
 from dataclasses import replace
+from pathlib import Path
 
 import numpy as np
 import scipy.sparse as sp
@@ -42,7 +55,9 @@ import torch
 
 from spla_tpu_torch import Descriptor, DenseVec, algorithms as alg, formats as F, kernels, op
 from spla_tpu_torch.interop import csr_from_numpy
-from spla_tpu_torch.kernels import level_update as K3, mxmt as K45, spmv as K1, traversal as K2
+from spla_tpu_torch.io import MtxLoader
+from spla_tpu_torch.kernels import level_update as K3, mxmt as K45, resident as K6, spmv as K1
+from spla_tpu_torch.kernels import traversal as K2
 from spla_tpu_torch.kernels.build import build_log, load_library
 from spla_tpu_torch.ops import (DISPATCH_STATS, count_mxmT_products, m_reduce, masked_spmv,
                                 mxmT_masked, mxv_masked, vxm_masked, vxm_masked_dense)
@@ -53,8 +68,12 @@ N_GRAPH, DEG_GRAPH = 1 << 20, 16    # bench_suite.py:24 random_graph, bench_suit
 N_TC, DEG_TC, SEED_TC = 1 << 15, 24, 3  # bench_suite.py:513-514
 HUB_ROWS, HUB_LEN = 3, 1 << 17
 N_HUB_TC, HUB_LEN_TC = 1 << 17, 1 << 16
+SIDE_BFS, SIDE_SSSP, SEED_ROAD = 1024, 512, 9  # bench_suite.py:226,323,326
+N_CLI_SMALL = 2000  # the pr and tc CLIs' graph: their naive oracles are Python loops
 TIMED_RUNS = 20
 PLAIN_RUNS_BIG = 3  # the plain SpGEMM-T at n = 2^20 expands 285M products per call
+PLAIN_RUNS_ROAD = 2  # kernel 6's plain versions read the host once per level
+ROOT = Path(__file__).resolve().parent
 DEVICE = "cuda"
 
 MULS = ("PLUS", "MULT", "FIRST", "SECOND", "MIN", "MAX")
@@ -66,9 +85,13 @@ KERNELS = {
                      "spla_tpu/pallas/spmv.py:2789"),
     "mxmt_reduce": ("cuda", "spla_tpu_torch/kernels/csrc/mxmt.cu", "spla_tpu/pallas/mxmt.py:335"),
     "mxmt_masked": ("cuda", "spla_tpu_torch/kernels/csrc/mxmt.cu", "spla_tpu/pallas/mxmt.py:362"),
+    "bfs_resident": ("cuda", "spla_tpu_torch/kernels/csrc/resident.cu", "spla_tpu/pallas/spmv.py:2709"),
+    "sssp_resident": ("cuda", "spla_tpu_torch/kernels/csrc/resident.cu",
+                      "spla_tpu/pallas/spmv.py:2716"),
 }
 # the kernels each slice of phase 4 must launch
-PATHS = {"spmv": ("spmv_pull", "spmv_push", "level_update"), "spgemm": ("mxmt_reduce", "mxmt_masked")}
+PATHS = {"spmv": ("spmv_pull", "spmv_push", "level_update"), "spgemm": ("mxmt_reduce", "mxmt_masked"),
+         "road": ("bfs_resident", "sssp_resident")}
 
 
 def phase(title):
@@ -158,6 +181,42 @@ def hub_spgemm(n, seed=4):
     mask = sp.coo_matrix((np.ones(mr.size, np.float32), (mr, mc)), shape=(n, n)).tocsr()
     mask.sum_duplicates()
     return a, mask
+
+
+def morton(x, y):
+    """bench_suite.py:229: interleave the bits of x and y (< 2^16)."""
+    def spread(v):
+        v = (v | (v << 8)) & 0x00FF00FF
+        v = (v | (v << 4)) & 0x0F0F0F0F
+        v = (v | (v << 2)) & 0x33333333
+        v = (v | (v << 1)) & 0x55555555
+        return v
+    return (spread(x) | (spread(y) << 1)).astype(np.int64)
+
+
+def road_graphs():
+    """bench_suite.py:226-253 and 323-334: the Morton-ordered side-1024 grid
+    (data 1) for BFS, and its side-512 corner with weights uniform(0.1, 1.0)
+    from seed 9, symmetrized by maximum, for SSSP."""
+    side = SIDE_BFS
+    xs, ys = np.meshgrid(np.arange(side, dtype=np.int64), np.arange(side, dtype=np.int64),
+                         indexing="ij")
+    rows_l, cols_l = [], []
+    for dx, dy in ((1, 0), (0, 1)):
+        xs2, ys2 = xs[: side - dx, : side - dy], ys[: side - dx, : side - dy]
+        a = morton(xs2.ravel(), ys2.ravel())
+        b = morton((xs2 + dx).ravel(), (ys2 + dy).ravel())
+        rows_l += [a, b]
+        cols_l += [b, a]
+    rr = np.concatenate(rows_l).astype(np.int32)
+    cc = np.concatenate(cols_l).astype(np.int32)
+    n = side * side
+    road = sp.csr_matrix((np.ones(rr.size, np.float32), (rr, cc)), shape=(n, n))
+    nrs = SIDE_SSSP * SIDE_SSSP
+    sel = (rr < nrs) & (cc < nrs)
+    w = sp.csr_matrix((np.random.default_rng(SEED_ROAD).uniform(0.1, 1.0, int(sel.sum())).astype(
+        np.float32), (rr[sel], cc[sel])), shape=(nrs, nrs))
+    return road, w.maximum(w.T).tocsr()
 
 
 # ---------------------------------------------------------------- checks
@@ -285,6 +344,29 @@ def check_kernels(G):
     for a, b, name in zip(outs[0], outs[1], ("v", "changed", "count", "list")):
         check_close(f"sssp_level_update {name}", torch.as_tensor(a), torch.as_tensor(b), True)
     print(f"kernel 3: BFS and SSSP updates match (count {outs[0][2]})", flush=True)
+    return errs
+
+
+def check_resident(G):
+    """Kernel 6 against its plain versions on the road grids at full size,
+    from vertex 0 and from the far corner: results bitwise, BFS rounds and
+    the cap flags equal (SSSP's rounds may differ: the kernel's rounds see
+    decreases made earlier in the same round)."""
+    errs = {}
+    for kind, M, fn, plain in (("bfs", G["Road"], K6.bfs_resident, K6.bfs_resident_plain),
+                               ("sssp", G["RoadW"], K6.sssp_resident, K6.sssp_resident_plain)):
+        n = M.shape[0]
+        for src in (0, n - 1):
+            got, stats = fn(M, src)
+            ref, ref_stats = plain(M, src)
+            errs[f"{kind}_resident"] = check_close(f"{kind}_resident from {src}", got, ref, True)
+            k_rounds, k_capped = stats.tolist()
+            p_rounds, p_capped = ref_stats.tolist()
+            if k_capped or p_capped or (kind == "bfs" and k_rounds != p_rounds):
+                raise AssertionError(f"{kind}_resident from {src}: stats {stats.tolist()}, "
+                                     f"plain {ref_stats.tolist()}")
+            print(f"kernel 6 ({kind}) n={n} from {src}: equal to the plain version bitwise; "
+                  f"{k_rounds} rounds (plain {p_rounds})", flush=True)
     return errs
 
 
@@ -476,6 +558,84 @@ def check_spgemm(G, R):
           f"(nnz {int(R['mxmT minplus'].nnz)}) equal the plain path bitwise", flush=True)
 
 
+def run_road(G):
+    """Phase 4's road-slice calls: the public bfs and sssp on the road grids,
+    which take the resident route."""
+    R = {"bfs": alg.bfs(G["Road"], 0, At=G["Road"]), "sssp": alg.sssp(G["RoadW"], 0, At=G["RoadW"])}
+    torch.cuda.synchronize()
+    return R
+
+
+@contextlib.contextmanager
+def resident_budget(nbytes):
+    """``algorithms.RESIDENT_BYTES`` set to ``nbytes`` inside the block (0:
+    the level loop)."""
+    saved = alg.RESIDENT_BYTES
+    alg.RESIDENT_BYTES = nbytes
+    try:
+        yield
+    finally:
+        alg.RESIDENT_BYTES = saved
+
+
+def check_road(G, R):
+    lev = cg.shortest_path(G["Road_sp"], method="D", unweighted=True, indices=0)
+    lev_ref = torch.from_numpy(np.where(np.isfinite(lev), lev + 1, 0).astype(np.int32)).to(DEVICE)
+    check_close("road bfs", R["bfs"].values, lev_ref, True)
+    levels = int(lev_ref.max())
+    if levels != 2 * SIDE_BFS - 1:
+        raise AssertionError(f"road bfs: {levels} levels, want {2 * SIDE_BFS - 1}")
+    d = R["sssp"].values
+    dist_ref = torch.from_numpy(cg.dijkstra(G["RoadW_sp"], indices=0)).to(DEVICE)
+    if not bool(torch.isfinite(dist_ref).all()) or not bool(torch.isfinite(d).all()):
+        raise AssertionError("road sssp: the grid is connected, every distance must be finite")
+    torch.testing.assert_close(d.double(), dist_ref, rtol=1e-5, atol=0, msg="road sssp vs dijkstra")
+    with resident_budget(0):
+        check_close("road bfs = level loop", R["bfs"].values,
+                    alg.bfs(G["Road"], 0, At=G["Road"]).values, True)
+        check_close("road sssp = level loop", d, alg.sssp(G["RoadW"], 0, At=G["RoadW"]).values, True)
+    print(f"road bfs n={G['Road'].shape[0]}: depths equal scipy's shortest_path + 1 ({levels} "
+          f"levels) and the level loop; road sssp n={G['RoadW'].shape[0]}: equal to dijkstra "
+          f"within rtol 1e-5 and to the level loop bitwise", flush=True)
+    run_clis(G)
+
+
+def write_mtx(path, a):
+    coo = a.tocoo()
+    MtxLoader(verbose=False, n_rows=a.shape[0], n_cols=a.shape[1], rows=coo.row, cols=coo.col,
+              vals=coo.data.astype(np.float64)).save(path)
+
+
+def run_clis(G):
+    """The four example CLIs, side by side, on the card only (--run-cpu
+    false), each checked by its naive oracle: bfs and sssp on the side-512
+    road grid, pr and tc on a small random graph."""
+    with tempfile.TemporaryDirectory() as tmp:
+        road, small = Path(tmp) / "road512.mtx", Path(tmp) / "small.mtx"
+        write_mtx(road, G["RoadW_sp"])
+        write_mtx(small, random_graph(N_CLI_SMALL, 8, seed=11))
+        runs = {name: [sys.executable, "-m", f"spla_tpu_torch.examples.{name}", "--mtxpath", str(path),
+                       "--run-cpu", "false", "--run-ref", "true", "--niters", "2", "--verbose", "false"]
+                for name, path in (("bfs", road), ("sssp", road), ("pr", small), ("tc", small))}
+        t0 = time.perf_counter()
+        procs = {name: subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True) for name, cmd in runs.items()}
+        try:
+            outs = {name: p.communicate(timeout=600)[0] for name, p in procs.items()}
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    for name, p in procs.items():
+        out = outs[name]
+        if p.returncode != 0 or "verify acc: OK" not in out:
+            raise AssertionError(f"example {name}: exit {p.returncode}\n{out[-3000:]}")
+        laps = [line for line in out.splitlines() if line.startswith("acc(ms)")]
+        print(f"example {name}: exit 0, verify acc: OK, {laps[0] if laps else ''}", flush=True)
+    print(f"the four example CLIs ran in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 # ---------------------------------------------------------------- timing
 
 
@@ -611,6 +771,44 @@ def time_algorithms(G, card):
               f"{s['host_syncs']} host syncs [{card}]", flush=True)
 
 
+def time_road(G, card):
+    """Kernel 6 against its plain versions (CUDA events), and the road
+    walls on the resident route and on the level loop (host clock around a
+    synchronized run, median of 3, with levels and host syncs)."""
+    times = {}
+    for kind, M, fn, plain in (("bfs", G["Road"], K6.bfs_resident, K6.bfs_resident_plain),
+                               ("sssp", G["RoadW"], K6.sssp_resident, K6.sssp_resident_plain)):
+        k, p = paired_ms(lambda: fn(M, 0), lambda: plain(M, 0), PLAIN_RUNS_ROAD)
+        times[f"{kind}_resident"] = (k, p)
+        print(f"time {kind}_resident n={M.shape[0]} nnz={M.cols.shape[0]}: kernel {k:.4f} ms, "
+              f"plain {p:.4f} ms [{card}]", flush=True)
+    walls = {}
+    for name, algo, M in (("bfs", alg.bfs, G["Road"]), ("sssp", alg.sssp, G["RoadW"])):
+        for route, budget in (("resident", alg.RESIDENT_BYTES), ("level loop", 0)):
+            with resident_budget(budget):
+                algo(M, 0, At=M)
+                runs = []
+                for _ in range(3):
+                    for key in alg.STATS:
+                        alg.STATS[key] = 0
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    algo(M, 0, At=M)
+                    torch.cuda.synchronize()
+                    runs.append((time.perf_counter() - t0) * 1e3)
+            wall = sorted(runs)[1]
+            walls[name, route] = wall
+            s = alg.STATS
+            print(f"time road {name} {route} n={M.shape[0]} nnz={M.cols.shape[0]}: wall {wall:.3f} ms "
+                  f"(median of 3; runs {', '.join(f'{w:.3f}' for w in runs)}), {s['levels']} levels, "
+                  f"{s['host_syncs']} host syncs [{card}]", flush=True)
+    nnz = G["Road"].cols.shape[0]
+    print(f"road_bfs_gteps {nnz / walls['bfs', 'resident'] / 1e6:.4f} (level loop "
+          f"{nnz / walls['bfs', 'level loop'] / 1e6:.4f}); road_sssp_ms {walls['sssp', 'resident']:.3f} "
+          f"(level loop {walls['sssp', 'level loop']:.3f}) [{card}]", flush=True)
+    return times
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -630,6 +828,8 @@ def main():
     t0 = time.perf_counter()
     load_library()
     print(f"built and loaded the CUDA kernels in {time.perf_counter() - t0:.1f} s")
+    print(f"kernel 6: cooperative grids of {K6.resident_blocks('bfs')} (BFS) and "
+          f"{K6.resident_blocks('sssp')} (SSSP) CTAs of 256 threads")
     for line in build_log().splitlines():
         if any(k in line for k in ("registers", "Compiling entry", "spill", "smem")):
             print(line.strip())
@@ -641,12 +841,14 @@ def main():
     phase("3 kernels against their plain versions")
     errs = check_kernels(G)
     errs.update(check_mxmt(G))
+    errs.update(check_resident(G))
     torch.cuda.synchronize()
 
     phase("4 the slices through the public entry points")
     launches, stats, astats = {}, {}, {}
     for slice_name, run, check in (("spmv", run_slice, check_slice),
-                                   ("spgemm", run_spgemm, check_spgemm)):
+                                   ("spgemm", run_spgemm, check_spgemm),
+                                   ("road", run_road, check_road)):
         kernels.reset_launches()
         for k in DISPATCH_STATS:
             DISPATCH_STATS[k] = 0
@@ -671,11 +873,18 @@ def main():
         raise AssertionError("a covered semiring took the torch path")
     if astats["spmv"]["push"] == 0 or astats["spmv"]["pull"] == 0:
         raise AssertionError("the traversals did not run both directions")
+    road = astats["road"]
+    print(f"road: algorithms.STATS {json.dumps(road)}", flush=True)
+    if not road["resident"] == road["host_syncs"] == 2 or road["level_loop"] or road["capped"]:
+        raise AssertionError("the road slice must run twice on the resident route, one host sync each")
+    if astats["spmv"]["resident"]:
+        raise AssertionError("the n = 2^20 traversals must keep the level loop")
 
     phase("6 times on the card")
     times = time_kernels(G, card)
     time_algorithms(G, card)
     times.update(time_spgemm(G, card))
+    times.update(time_road(G, card))
 
     rows_out = []
     for slice_name, kernel_names in PATHS.items():
@@ -717,9 +926,13 @@ def build_graphs():
     ah, mh = hub_spgemm(N_HUB_TC)
     G["HTw_f32"], G["HTw_i32"] = valued(ah, 7, 0.5, 1.5)
     G["HTm_f32"], G["HTm_i32"] = signed_mask(mh, np.float32, 8), signed_mask(mh, np.int32, 8)
+    road, road_w = road_graphs()
+    G["Road_sp"], G["Road"] = road, F.csr_from_scipy(road, device=DEVICE)
+    G["RoadW_sp"], G["RoadW"] = road_w, F.csr_from_scipy(road_w, fill=np.float32(np.inf), device=DEVICE)
     print(f"graphs: spmv n={N_SPMV} nnz={rows.size}; hub n={N_GRAPH} nnz={hr.size}; "
           f"traversal n={N_GRAPH} nnz={a.nnz}; spgemm n={N_TC} nnz={t.nnz}; spgemm hub "
-          f"n={N_HUB_TC} nnz={ah.nnz} with a mask of {mh.nnz}", flush=True)
+          f"n={N_HUB_TC} nnz={ah.nnz} with a mask of {mh.nnz}; road bfs n={road.shape[0]} "
+          f"nnz={road.nnz}; road sssp n={road_w.shape[0]} nnz={road_w.nnz}", flush=True)
     return G
 
 

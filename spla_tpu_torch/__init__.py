@@ -1,13 +1,17 @@
-"""spla_tpu_torch — spla_tpu's masked SpMV and masked SpGEMM-T slices on PyTorch and CUDA.
+"""spla_tpu_torch — spla_tpu's SpMV, traversal and SpGEMM-T slices on PyTorch and CUDA.
 
 A port of ``spla_tpu`` (JAX/XLA/Pallas, kept beside it as the reference)
 to PyTorch, with hand-written Hopper kernels for each slice's hot path:
 
 * the masked semiring SpMV (``ops.mxv_masked``, ``ops.vxm_masked``,
   ``ops.vxm_masked_dense``) and the BFS / SSSP / PageRank loops over it
-  (``algorithms.bfs``, ``sssp``, ``pr``);
+  (``algorithms.bfs``, ``sssp``, ``pr``); BFS and SSSP on graphs whose CSR
+  and state fit the L2 run whole in one persistent kernel instead;
 * the masked SpGEMM-T (``ops.mxmT_masked``), with ``ops.m_reduce``, and
-  triangle counting over it (``algorithms.tc``).
+  triangle counting over it (``algorithms.tc``);
+* MatrixMarket IO (``io``), a timer (``timer``), the library settings
+  (``library``) and the ``bfs``, ``sssp``, ``pr`` and ``tc`` example CLIs
+  (``python -m spla_tpu_torch.examples.bfs ...``).
 
 The device is explicit: containers are built with ``device=`` and ops run
 where their tensors live; nothing picks ``cuda`` on its own.  CPU tensors

@@ -2,19 +2,27 @@
 (counterpart of ``spla_tpu/algorithms.py``), with the naive sequential
 oracles.
 
-Each BFS/SSSP level runs kernel 1 (pull over ``At``, the unvisited mask
-fused) or kernel 2 (push of the frontier list over CSR(A)), then kernel 3
-(the level update, which also writes the next frontier list).  A level
-pushes when its frontier holds at most ``front_factor * n`` vertices
-(``Descriptor.push_only``: always; ``pull_only``: never); every mode gives
-identical depths and distances.
+BFS and SSSP take one of two routes, as the JAX package does
+(``spla_tpu/algorithms.py:237-241,457-461``):
 
-Host sync: these loops read the frontier count (PageRank: the error) on
+* the resident route: kernel 6 runs the whole traversal in one
+  cooperative launch.  It is taken when Aᵀ is square and not skewed
+  (``formats.is_skewed``), SSSP's weights are finite f32, and CSR(A) plus
+  the traversal state fit ``RESIDENT_BYTES``.  It ignores the Descriptor's
+  push/pull modes, as the JAX resident route does;
+* otherwise the level loop: each level runs kernel 1 (pull over ``At``,
+  the unvisited mask fused) or kernel 2 (push of the frontier list over
+  CSR(A)), then kernel 3 (the level update, which also writes the next
+  frontier list).  A level pushes when its frontier holds at most
+  ``front_factor * n`` vertices (``Descriptor.push_only``: always;
+  ``pull_only``: never); every mode gives identical depths and distances.
+
+Host sync: the level loop reads the frontier count (PageRank: the error) on
 the host once per level, as the C++ reference does
-(``src/algorithm.cpp:112``).  The JAX version has no such sync: each loop
-is one ``lax.while_loop`` whose convergence scalar stays on the device
-(``spla_tpu/algorithms.py:8-12``).  CUDA graphs or a persistent kernel
-would remove it.  ``tc`` reads its one result.
+(``src/algorithm.cpp:112``); the resident route reads its round count once
+per run.  The JAX version has no such sync: each loop is one
+``lax.while_loop`` whose convergence scalar stays on the device
+(``spla_tpu/algorithms.py:8-12``).  ``tc`` reads its one result.
 """
 
 from __future__ import annotations
@@ -28,21 +36,31 @@ import torch
 from . import op as OP
 from .containers import CsrMatrix, DenseVec
 from .descriptor import Descriptor
-from .formats import WeakIdCache, csr_transpose_host, transpose_of
+from .formats import WeakIdCache, csr_transpose_host, is_skewed, transpose_of
 from .kernels.level_update import bfs_level_update, sssp_level_update
+from .kernels.resident import bfs_resident, sssp_resident
 from .kernels.spmv import spmv_pull, spmv_pull_structural
 from .kernels.traversal import spmv_push, spmv_push_structural
 from .ops.matrix import m_reduce
 from .ops.spgemm import mxmT_masked, mxmT_masked_reduce
 
-__all__ = ["STATS", "bfs", "sssp", "pr", "tc", "bfs_naive", "sssp_naive", "pr_naive", "tc_naive"]
+__all__ = ["STATS", "RESIDENT_BYTES", "resident_bytes", "bfs", "sssp", "pr", "tc", "bfs_naive",
+           "sssp_naive", "pr_naive", "tc_naive"]
 
-# levels (PageRank: iterations), push and pull levels, and host syncs of
-# the runs since the last reset; the loops read nothing else on the host
-STATS = {"levels": 0, "push": 0, "pull": 0, "host_syncs": 0}
+# Of the runs since the last reset: levels (PageRank: iterations; the
+# resident route: its rounds), push and pull levels, host syncs, BFS/SSSP
+# runs on each route, and resident runs stopped by the n + 2 round cap.
+# The loops read nothing else on the host.
+STATS = {"levels": 0, "push": 0, "pull": 0, "host_syncs": 0, "resident": 0, "level_loop": 0,
+         "capped": 0}
+
+# What the resident route may hold: the H100's 50 MB L2, the counterpart of
+# RESIDENT_VMEM (spla_tpu/pallas/spmv.py:2456) on the TPU.
+RESIDENT_BYTES = 50 * 1024 * 1024
 
 _AT_CACHE = WeakIdCache()  # default Aᵀ per matrix; True = A is symmetric
 _TC_PATTERN_CACHE = WeakIdCache()  # is-0/1-pattern verdicts, keyed on values
+_FINITE_CACHE = WeakIdCache()  # all-stored-values-finite verdicts, keyed on values
 
 
 def _default_At(A: CsrMatrix) -> CsrMatrix:
@@ -99,6 +117,48 @@ def _pushes(count: int, n: int, front_factor: float) -> bool:
     return push
 
 
+def resident_bytes(n: int, capacity: int, sssp: bool) -> int:
+    """Bytes kernel 6 works on for n vertices and ``capacity`` stored
+    entries: indptr, cols, the result and the two queues; SSSP adds the
+    values and the per-vertex round stamps."""
+    words = (n + 1) + capacity + n + 2 * n
+    if sssp:
+        words += capacity + n
+    return 4 * words
+
+
+def _finite(A: CsrMatrix) -> bool:
+    """Every stored value is finite (one host read per matrix, cached)."""
+    hit = _FINITE_CACHE.get(A.values)
+    if hit is None:
+        hit = bool(torch.all(torch.where(A.valid_mask(), torch.isfinite(A.values), True)))
+        _FINITE_CACHE.put(A.values, hit)
+    return hit
+
+
+def _takes_resident(At: CsrMatrix, Apush: CsrMatrix, sssp: bool) -> bool:
+    """The JAX package's resident gate (``spla_tpu/algorithms.py:341-351,
+    534-544``, ``spla_tpu/pallas/spmv.py:2660-2669``) with the L2 budget.
+    Non-finite SSSP weights keep the level loop: a NaN, or -inf meeting
+    +inf, makes a NaN distance whose value would depend on the order of
+    the kernel's relaxations.  The checks that read nothing on the host
+    come first."""
+    n, m = At.shape
+    if n != m or (sssp and At.values.dtype != torch.float32):
+        return False
+    if resident_bytes(n, Apush.capacity, sssp) > RESIDENT_BYTES:
+        return False
+    return not is_skewed(At) and not (sssp and not _finite(Apush))
+
+
+def _read_resident(stats) -> None:
+    rounds, capped = stats.tolist()  # the run's one host read
+    STATS["host_syncs"] += 1
+    STATS["levels"] += rounds
+    STATS["capped"] += capped
+    STATS["resident"] += 1
+
+
 def bfs(A: CsrMatrix, source: int, descriptor: Descriptor | None = None,
         At: CsrMatrix | None = None) -> DenseVec:
     """Depth of every vertex from ``source`` (1-based; 0 = unreachable).
@@ -106,10 +166,15 @@ def bfs(A: CsrMatrix, source: int, descriptor: Descriptor | None = None,
     Structure-only traversal: values are ignored.  ``At`` is the CSR of
     Aᵀ, which pull walks; it defaults to a cached transpose of A (A itself
     when A is symmetric).  ``At=A`` declares A symmetric and skips that
-    check: push then walks A's rows."""
+    check: push, and the resident route, then walk A's rows."""
     if At is None:
         At = _default_At(A)
     Apush = _push_matrix(A, At)
+    if _takes_resident(At, Apush, sssp=False):
+        v, stats = bfs_resident(Apush, int(source))
+        _read_resident(stats)
+        return DenseVec(v, torch.zeros((), dtype=torch.int32, device=v.device))
+    STATS["level_loop"] += 1
     ff = _front_factor_of(descriptor)
     n = At.shape[0]
     device = At.values.device
@@ -135,10 +200,17 @@ def sssp(A: CsrMatrix, source: int, descriptor: Descriptor | None = None,
          At: CsrMatrix | None = None) -> DenseVec:
     """Single-source shortest paths by Bellman-Ford with the reference's
     feedback semantics (only entries that changed relax again); unreachable
-    = +inf.  ``At`` as in :func:`bfs`."""
+    = +inf.  ``At`` as in :func:`bfs`.  The resident route stops after
+    n + 2 rounds (``STATS["capped"]`` counts such runs), which ends a
+    negative cycle; the level loop has no cap."""
     if At is None:
         At = _default_At(A)
     Apush = _push_matrix(A, At)
+    if _takes_resident(At, Apush, sssp=True):
+        d, stats = sssp_resident(Apush, int(source))
+        _read_resident(stats)
+        return DenseVec(d, torch.tensor(float("inf"), dtype=torch.float32, device=d.device))
+    STATS["level_loop"] += 1
     if At.values.dtype != torch.float32:
         At = replace(At, values=At.values.float(), fill=At.fill.float())
         Apush = replace(Apush, values=Apush.values.float(), fill=Apush.fill.float())

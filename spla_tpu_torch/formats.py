@@ -16,6 +16,8 @@ from .containers import CooMatrix, CsrMatrix, DenseVec, SparseVec
 __all__ = [
     "WeakIdCache",
     "host_coo",
+    "skew_stats",
+    "is_skewed",
     "csr_from_entries",
     "csr_from_scipy",
     "csr_transpose_host",
@@ -160,6 +162,32 @@ def transpose_of(a: CsrMatrix) -> CsrMatrix:
         t = csr_transpose_host(a)
         _TRANSPOSES.put(a.values, t)
     return t
+
+
+_SKEW = WeakIdCache()
+
+
+def skew_stats(a: CsrMatrix):
+    """``(max row degree, max column degree, mean row degree)`` of ``a``'s
+    stored entries (``spla_tpu/pallas/spmv.py`` ``_skew_stats`` :3088);
+    one host read per matrix, cached weakly on ``a.values``."""
+    got = _SKEW.get(a.values)
+    if got is None:
+        rows, cols, _ = host_coo(a)
+        m, n = a.shape
+        got = (int(np.bincount(rows, minlength=m).max(initial=0)),
+               int(np.bincount(cols, minlength=n).max(initial=0)),
+               rows.shape[0] / max(m, 1))
+        _SKEW.put(a.values, got)
+    return got
+
+
+def is_skewed(a: CsrMatrix) -> bool:
+    """The JAX package's hub-graph rule (``spla_tpu/pallas/spmv.py:3102``):
+    the heaviest row or column is far above the mean.  Uniform graphs stay
+    well under it; BFS and SSSP keep their level loop on graphs above it."""
+    rmax, cmax, avg = skew_stats(a)
+    return max(rmax, cmax) > 4 * avg + 128
 
 
 def index_set(base, idx, vals):

@@ -1,4 +1,4 @@
-"""Hand-written Hopper kernels of the masked SpMV and masked SpGEMM-T paths.
+"""Hand-written Hopper kernels of the masked SpMV, traversal and masked SpGEMM-T paths.
 
 * ``spmv`` — kernel 1, the CSR pull SpMV (CUDA, ``csrc/spmv_pull.cu``);
 * ``traversal`` — kernel 2, the frontier push SpMV (CUDA, ``csrc/spmv_push.cu``);
@@ -6,7 +6,10 @@
   compaction (Triton);
 * ``mxmt`` — kernels 4 and 5, the masked SpGEMM-T intersections: the
   summed products (triangle counting) and one folded value per mask
-  entry (CUDA, ``csrc/mxmt.cu``).
+  entry (CUDA, ``csrc/mxmt.cu``);
+* ``resident`` — kernel 6, a whole BFS or SSSP in one persistent
+  cooperative launch with a grid-wide barrier between levels (CUDA,
+  ``csrc/resident.cu``).
 
 Each wrapper runs its plain PyTorch version for CPU tensors, and launches
 its kernel or raises for CUDA tensors.  ``LAUNCHES`` counts the kernel
@@ -14,7 +17,8 @@ launches of each wrapper, and nothing else.  Importing these modules
 imports neither ``triton`` nor the compiled library.
 """
 
-LAUNCHES = {"spmv_pull": 0, "spmv_push": 0, "level_update": 0, "mxmt_reduce": 0, "mxmt_masked": 0}
+LAUNCHES = {"spmv_pull": 0, "spmv_push": 0, "level_update": 0, "mxmt_reduce": 0, "mxmt_masked": 0,
+            "bfs_resident": 0, "sssp_resident": 0}
 
 
 def reset_launches() -> None:

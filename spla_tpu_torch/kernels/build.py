@@ -42,6 +42,12 @@ SIGNATURES = {
     # mul, dtype, structural, cap, mrow, mcol, sel, A indptr/cols/values,
     # B indptr/cols/values, total, stream
     "spla_mxmt_reduce": (_INT, _INT, _INT, _I64, *(_P,) * 9, _P, _P),
+    # n, source, indptr, cols, v, queues, counters, stats, stream
+    "spla_bfs_resident": (_I64, _INT, *(_P,) * 7),
+    # n, source, indptr, cols, values, d, stamps, queues, counters, stats, stream
+    "spla_sssp_resident": (_I64, _INT, *(_P,) * 9),
+    # sssp, &blocks
+    "spla_resident_blocks": (_INT, _P),
 }
 
 

@@ -1,7 +1,10 @@
 """spla_tpu_torch's BFS / SSSP / PageRank against spla_tpu on the same graphs.
 
 BFS depths and SSSP distances must match bitwise in every traversal mode;
-PageRank within rtol=1e-5, atol=1e-5 (f32 sums in another order).
+PageRank within rtol=1e-5, atol=1e-5 (f32 sums in another order).  The
+tests of the traversal modes gate the resident route off
+(``RESIDENT_BYTES = 0``), as spla_tpu's tests gate ``RESIDENT_VMEM``;
+tests/test_torch_resident.py covers that route.
 """
 
 import numpy as np
@@ -40,7 +43,8 @@ def _graph(seed, symmetric, n=N, deg=3):
 
 @pytest.mark.parametrize("symmetric", [True, False])
 @pytest.mark.parametrize("mode", list(MODES))
-def test_bfs_matches_spla_tpu(symmetric, mode):
+def test_bfs_matches_spla_tpu(symmetric, mode, monkeypatch):
+    monkeypatch.setattr(alg, "RESIDENT_BYTES", 0)
     a = _graph(1, symmetric)
     JA = JF.csr_from_scipy(a.astype(np.int32))
     want = np.asarray(JALG.bfs(JA, 3).values)
@@ -50,7 +54,8 @@ def test_bfs_matches_spla_tpu(symmetric, mode):
 
 @pytest.mark.parametrize("symmetric", [True, False])
 @pytest.mark.parametrize("mode", list(MODES))
-def test_sssp_matches_spla_tpu(symmetric, mode):
+def test_sssp_matches_spla_tpu(symmetric, mode, monkeypatch):
+    monkeypatch.setattr(alg, "RESIDENT_BYTES", 0)
     a = _graph(2, symmetric)
     JA = JF.csr_from_scipy(a, fill=np.float32(np.inf))
     want = np.asarray(JALG.sssp(JA, 3).values)
@@ -78,6 +83,7 @@ def test_sssp_matches_the_pallas_level_loop(monkeypatch):
     if _native_lib() is None:
         pytest.skip("no native toolchain for spla_tpu's packer")
     monkeypatch.setattr(SP, "RESIDENT_VMEM", 0)
+    monkeypatch.setattr(alg, "RESIDENT_BYTES", 0)
     a = _graph(4, True, n=300)
     coo = a.tocoo()
     fmt = SP.build_fused_cell_spmv_arrays(300, 300, coo.row.astype(np.int32),
@@ -99,11 +105,12 @@ def test_pin_unreached_sssp_is_inf():
     np.testing.assert_allclose(d[np.isfinite(ref)], ref[np.isfinite(ref)], rtol=1e-5)
 
 
-def test_pin_directed_pull_uses_the_transpose():
+def test_pin_directed_pull_uses_the_transpose(monkeypatch):
     """Deliberate difference from the C++ spla: pull over a directed graph
     walks Aᵀ, so the default traversal follows A's edges (0 -> 1 -> 2) in
     every mode.  ``At=A`` declares the graph undirected; on a directed one,
     pull then walks the edges backwards, as in spla_tpu."""
+    monkeypatch.setattr(alg, "RESIDENT_BYTES", 0)
     a = sp.csr_matrix((np.ones(2, np.float32), ([0, 1], [1, 2])), shape=(3, 3))
     A = from_spla_tpu(JF.csr_from_scipy(a.astype(np.int32)), "cpu")
     for d in MODES.values():
@@ -138,7 +145,8 @@ def test_front_factor_of_descriptor():
     assert alg._front_factor_of(Descriptor(front_factor=0.25)) == 0.25
 
 
-def test_stats_count_levels_and_host_syncs():
+def test_stats_count_levels_and_host_syncs(monkeypatch):
+    monkeypatch.setattr(alg, "RESIDENT_BYTES", 0)
     a = _graph(7, True)
     A = from_spla_tpu(JF.csr_from_scipy(a.astype(np.int32)), "cpu")
     for k in alg.STATS:
@@ -146,4 +154,5 @@ def test_stats_count_levels_and_host_syncs():
     v = to_numpy(alg.bfs(A, 0, At=A).values)
     assert alg.STATS["levels"] == alg.STATS["host_syncs"] == v.max()
     assert alg.STATS["push"] + alg.STATS["pull"] == alg.STATS["levels"]
+    assert alg.STATS["level_loop"] == 1 and alg.STATS["resident"] == 0
     assert torch.is_tensor(alg.bfs(A, 0, At=A).values)

@@ -14,7 +14,8 @@ import scipy.sparse as sp
 import torch
 
 from spla_tpu_torch import Descriptor, algorithms as alg, formats as F, kernels, op
-from spla_tpu_torch.kernels import level_update as K3, mxmt as K45, spmv as K1, traversal as K2
+from spla_tpu_torch.kernels import level_update as K3, mxmt as K45, resident as K6, spmv as K1
+from spla_tpu_torch.kernels import traversal as K2
 from spla_tpu_torch.ops import spgemm as TG
 
 pytestmark = pytest.mark.cuda
@@ -126,7 +127,10 @@ def test_level_updates_match_plain(dev):
         _assert_same(a, b)
 
 
-def test_algorithms_match_cpu(dev):
+def test_algorithms_match_cpu(dev, monkeypatch):
+    """The level loop (the resident route gated off) on the card against the
+    CPU, in every mode."""
+    monkeypatch.setattr(alg, "RESIDENT_BYTES", 0)
     a = _graph(n=2000, seed=5, hub=300)
     a = (a + a.T).tocsr()
     a.data = np.random.default_rng(6).uniform(0.1, 2.0, a.nnz).astype(np.float32)
@@ -254,3 +258,71 @@ def test_tc_and_mxmT_masked_match_cpu(dev):
             _assert_same(getattr(got, f), getattr(ref, f))
     assert kernels.LAUNCHES["mxmt_reduce"] == 3 and kernels.LAUNCHES["mxmt_masked"] == 2
     assert TG.DISPATCH_STATS["mxmT_torch"] == before["mxmT_torch"] + 5  # the CPU runs
+
+
+def _road(side, seed=9):
+    """A side x side grid in row-major order, weights uniform(0.1, 1.0),
+    symmetric."""
+    idx = np.arange(side * side).reshape(side, side)
+    r = np.concatenate([idx[:, :-1].ravel(), idx[:-1, :].ravel()])
+    c = np.concatenate([idx[:, 1:].ravel(), idx[1:, :].ravel()])
+    w = np.random.default_rng(seed).uniform(0.1, 1.0, r.size).astype(np.float32)
+    n = side * side
+    return sp.coo_matrix((np.concatenate([w, w]), (np.concatenate([r, c]), np.concatenate([c, r]))),
+                         shape=(n, n)).tocsr()
+
+
+def _random(n=3000, seed=1):
+    rng = np.random.default_rng(seed)
+    r, c = rng.integers(0, n, 4 * n), rng.integers(0, n, 4 * n)
+    a = sp.coo_matrix((rng.uniform(0.1, 2.0, r.size).astype(np.float32), (r, c)), shape=(n, n)).tocsr()
+    a.sum_duplicates()
+    return a  # directed, some vertices unreachable
+
+
+@pytest.mark.parametrize("graph", ["road", "random"])
+def test_resident_matches_plain(dev, graph):
+    """Kernel 6 against its plain versions: depths and distances bitwise, BFS
+    rounds equal, the cap flag clear."""
+    a = _road(48) if graph == "road" else _random()
+    A = F.csr_from_scipy(a, fill=np.float32(np.inf), device=dev)
+    for src in (0, a.shape[0] - 1):
+        v, stats = K6.bfs_resident(A, src)
+        ref, ref_stats = K6.bfs_resident_plain(A, src)
+        _assert_same(v, ref)
+        assert stats.tolist() == ref_stats.tolist()
+        d, stats = K6.sssp_resident(A, src)
+        ref, ref_stats = K6.sssp_resident_plain(A, src)
+        _assert_same(d, ref)
+        assert stats.tolist()[1] == ref_stats.tolist()[1] == 0
+        assert 0 < stats.tolist()[0] <= ref_stats.tolist()[0]
+
+
+def test_resident_stops_a_negative_cycle(dev):
+    """0 -> 1 -> 2 -> 0 weighs -1: kernel 6 stops after n + 2 rounds and
+    flags it."""
+    a = sp.csr_matrix((np.array([1.0, 1.0, -3.0, 1.0], np.float32), ([0, 1, 2, 2], [1, 2, 0, 3])),
+                      shape=(5, 5))
+    A = F.csr_from_scipy(a, fill=np.float32(np.inf), device=dev)
+    d, stats = K6.sssp_resident(A, 0)
+    assert stats.tolist() == [7, 1]
+    assert bool(torch.isinf(d[4])) and bool((d[:4] < 3).all())
+
+
+def test_road_route_launches_kernel6(dev, monkeypatch):
+    """The public bfs / sssp take the resident route on a road grid: one
+    launch and one host read per run, results equal to the level loop's."""
+    a = _road(40)
+    A = F.csr_from_scipy(a, fill=np.float32(np.inf), device=dev)
+    kernels.reset_launches()
+    for k in alg.STATS:
+        alg.STATS[k] = 0
+    v = alg.bfs(A, 0, At=A).values
+    d = alg.sssp(A, 0, At=A).values
+    assert kernels.LAUNCHES["bfs_resident"] == kernels.LAUNCHES["sssp_resident"] == 1
+    assert alg.STATS["resident"] == alg.STATS["host_syncs"] == 2
+    assert int(v.max()) == 79
+    monkeypatch.setattr(alg, "RESIDENT_BYTES", 0)
+    _assert_same(v, alg.bfs(A, 0, At=A).values)
+    _assert_same(d, alg.sssp(A, 0, At=A).values)
+    assert alg.STATS["level_loop"] == 2

@@ -3,6 +3,8 @@ against spla_tpu on the same numpy inputs.
 
 Tolerances: f32 PLUS results within rtol=1e-5, atol=1e-5 (the summation
 order differs); int, bool, MIN and MAX results bitwise (NaN equal to NaN).
+Kernel 1's plain version is also held against each TPU SpMV kernel whose
+semantics it covers, in Pallas interpret mode.
 """
 
 import numpy as np
@@ -167,3 +169,49 @@ def test_forced_pallas_dispatch_matches(monkeypatch):
     got = TS.mxv_masked(from_spla_tpu(jmask, "cpu"), from_spla_tpu(JA, "cpu"),
                         from_spla_tpu(jv, "cpu"), OP.MULT_FLOAT, OP.PLUS_FLOAT, OP.NQZERO_FLOAT, 0.0)
     _close(got.values, want.values, True)
+
+
+# The older-layout TPU SpMV kernels (spla_tpu/pallas/spmv.py): the MXU
+# one-hot PLUS kernel, the monoid sweep and the S-table scatter.  Kernel 1
+# computes their semantics; (format constructor, apply, extra kwargs, mul, add, init).
+OLDER_KERNELS = {
+    "cell_spmv_apply-MULT/PLUS": ("build_cell_spmv", "cell_spmv_apply", {"scatter_mode": "f32"},
+                                  "MULT", "PLUS", 0.0),
+    "monoid_cell_spmv_apply-PLUS/MIN": ("build_monoid_cell_spmv_arrays", "monoid_cell_spmv_apply", {},
+                                        "PLUS", "MIN", np.inf),
+    "monoid_cell_spmv_apply-MULT/MAX": ("build_monoid_cell_spmv_arrays", "monoid_cell_spmv_apply", {},
+                                        "MULT", "MAX", -np.inf),
+    "s_cell_spmv_apply-PLUS/MIN": ("build_s_cell_spmv_arrays", "s_cell_spmv_apply", {},
+                                   "PLUS", "MIN", np.inf),
+}
+_JAX_OPS = {"MULT": lambda av, xv: av * xv, "PLUS": lambda av, xv: av + xv,
+            "MIN": jnp.minimum, "MAX": jnp.maximum}
+
+
+@pytest.mark.parametrize("case", list(OLDER_KERNELS))
+def test_kernel1_plain_matches_the_older_tpu_kernels(case):
+    """Kernel 1's plain version against cell_spmv_apply (PLUS, f32 scatter:
+    within rtol=1e-5, atol=1e-5), monoid_cell_spmv_apply and
+    s_cell_spmv_apply (MIN and MAX: bitwise), run in interpret mode on
+    formats packed as tests/test_pallas.py packs them; row 7 is empty and
+    gets the identity."""
+    import spla_tpu.pallas.spmv as SP
+    from spla_tpu.pallas.cellpack_native import _native_lib
+
+    make, apply, kwargs, mul, add, init = OLDER_KERNELS[case]
+    a, JA = _matrix("FLOAT", init, seed=10)
+    x = np.random.default_rng(11).random(N, dtype=np.float32) * 3
+    if make == "build_cell_spmv":
+        want = SP.cell_spmv_apply(SP.build_cell_spmv(JA, cw=1024), jnp.asarray(x), **kwargs)
+    else:
+        if _native_lib() is None:
+            pytest.skip("no native toolchain for spla_tpu's packer")
+        coo = a.tocoo()
+        fmt = getattr(SP, make)(N, N, coo.row.astype(np.int32), coo.col.astype(np.int32), coo.data,
+                                 cw=1024)
+        want = getattr(SP, apply)(fmt, jnp.asarray(x), op_mul=_JAX_OPS[mul], op_add=_JAX_OPS[add],
+                                  identity=init)
+    got, has = K1.spmv_pull(from_spla_tpu(JA, "cpu"), torch.from_numpy(x), OP.lookup(mul, OP.FLOAT),
+                            OP.lookup(add, OP.FLOAT), init, want_has=True)
+    _close(got, want, add == "PLUS")
+    assert not bool(has[7]) and float(got[7]) == init

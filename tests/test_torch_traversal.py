@@ -116,11 +116,13 @@ def test_sssp_level_update_matches_pallas():
 
 def test_bfs_matches_the_pallas_level_loop(monkeypatch):
     """The whole TPU BFS loop (fused_spmv2d_adaptive + bfs_level_update_auto,
-    the resident kernel gated off) against the port's BFS in every mode."""
+    the resident kernel gated off) against the port's BFS level loop in
+    every mode."""
     import spla_tpu.pallas.spmv as SP
     from spla_tpu.algorithms import _bfs_kernel_pallas
 
     monkeypatch.setattr(SP, "RESIDENT_VMEM", 0)
+    monkeypatch.setattr(alg, "RESIDENT_BYTES", 0)
     a = _directed(seed=7)
     a = ((a + a.T) > 0).astype(np.float32).tocsr()
     fmt = _fused_pattern_format(a)
