@@ -9,7 +9,11 @@ Phases:
   3. each kernel against its plain PyTorch version, on the card, at the
      slice's shapes (tolerances stated in ``check_close``); kernel 6 (the
      whole BFS / SSSP in one cooperative launch) bitwise on the road grids
-     of bench_suite.py, from vertex 0 and from the far corner;
+     of bench_suite.py, from vertex 0 and from the far corner; kernel 7 (the
+     staged-stream SpMV) against its plain version and kernel 1, every f32
+     instance at 2, 3 and 4 slots, on the n = 2^21 graph, a hub graph and a
+     graph of one stage; each of kernel 8's phase probes against its plain
+     version;
   4. the slices through the public entry points, each with the launch
      counts set to 0 just before it and read just after:
      * SpMV: mxv_masked / vxm_masked / vxm_masked_dense on the bench.py
@@ -24,13 +28,29 @@ Phases:
        against scipy and bitwise against the level loop; then the bfs and
        sssp example CLIs on the side-512 grid, and the pr and tc ones on a
        small random graph, each checked by its naive oracle;
+     * staged: with ``kernels.staged.MANUAL_DMA`` set, mxv_masked at
+       n = 2^21 and bfs / sssp / pr on the n = 2^20 graph's level loop,
+       against the plain path, scipy and the unstaged runs; then
+       ``tools/ab_spmv.py --manual 3 --check`` under SPLA_MANUAL_DMA=1
+       SPLA_MANUAL_SLOTS=3 in a subprocess;
+     * probes: ``tools/probe_spmv.py``'s run at n = 2^21, degree 16;
   5. the launch counts of phase 4: each slice's kernels must be above 0;
-     the road slice reads the host once per run;
+     the road slice reads the host once per run; the staged slice launches
+     no kernel 1;
   6. times on the card: each kernel against its plain version (CUDA events),
      SpMV in GB/s of the bench.py byte model, the masked SpGEMM-T in
      products/s (bench_suite.py masked_spgemm_mprod_s), BFS / SSSP / PR /
      TC wall time; road BFS / SSSP walls on the resident route and on the
-     level loop, with road_bfs_gteps and road_sssp_ms (bench_suite.py:265,346).
+     level loop, with road_bfs_gteps and road_sssp_ms (bench_suite.py:265,346);
+     kernel 7 at 2, 3 and 4 slots beside kernel 1 and cuSPARSE (one
+     ``torch.sparse_csr_tensor @ x`` call, the library's time); the probe
+     table in ns per entry; ab_spmv's chained kernel 1, split2, split4 and
+     kernel 7 steps.
+
+Each kernel's row in the JSON line carries ``bound_ms``: the larger of its
+bytes (each input read once, each output written once, at this run's
+shapes and data) over 3.35 TB/s and its f32 operations over 67 TFLOP/s
+(``bound``).
 
 The line before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
@@ -41,6 +61,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -56,23 +77,29 @@ import torch
 from spla_tpu_torch import Descriptor, DenseVec, algorithms as alg, formats as F, kernels, op
 from spla_tpu_torch.interop import csr_from_numpy
 from spla_tpu_torch.io import MtxLoader
-from spla_tpu_torch.kernels import level_update as K3, mxmt as K45, resident as K6, spmv as K1
-from spla_tpu_torch.kernels import traversal as K2
+from spla_tpu_torch.kernels import PROBE_PHASES, level_update as K3, mxmt as K45, probe as K8
+from spla_tpu_torch.kernels import resident as K6, spmv as K1, staged as K7, traversal as K2
 from spla_tpu_torch.kernels.build import build_log, load_library
 from spla_tpu_torch.ops import (DISPATCH_STATS, count_mxmT_products, m_reduce, masked_spmv,
                                 mxmT_masked, mxv_masked, vxm_masked, vxm_masked_dense)
 from spla_tpu_torch.ops.spgemm import mxmT_masked_plain
+from spla_tpu_torch.tools import ab_spmv as AB, probe_spmv as PROBE
+from spla_tpu_torch.tools.graphs import HUB_LEN, HUB_ROWS, build_graph, hub_graph, random_graph
 
 N_SPMV, DEG_SPMV = 1 << 21, 16      # bench.py:37 build_graph
 N_GRAPH, DEG_GRAPH = 1 << 20, 16    # bench_suite.py:24 random_graph, bench_suite.py:122
 N_TC, DEG_TC, SEED_TC = 1 << 15, 24, 3  # bench_suite.py:513-514
-HUB_ROWS, HUB_LEN = 3, 1 << 17
+N_FEW = 400  # kernel 7's fewer-stages-than-slots graph: 400 entries, one row block
 N_HUB_TC, HUB_LEN_TC = 1 << 17, 1 << 16
 SIDE_BFS, SIDE_SSSP, SEED_ROAD = 1024, 512, 9  # bench_suite.py:226,323,326
 N_CLI_SMALL = 2000  # the pr and tc CLIs' graph: their naive oracles are Python loops
 TIMED_RUNS = 20
 PLAIN_RUNS_BIG = 3  # the plain SpGEMM-T at n = 2^20 expands 285M products per call
 PLAIN_RUNS_ROAD = 2  # kernel 6's plain versions read the host once per level
+PROBE_ITERS = 20
+AB_ITERS = 50
+HBM_BYTES_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+F32_FLOPS_S = 67e12  # H100 SXM f32 outside the tensor cores (NVIDIA data sheet)
 ROOT = Path(__file__).resolve().parent
 DEVICE = "cuda"
 
@@ -88,10 +115,17 @@ KERNELS = {
     "bfs_resident": ("cuda", "spla_tpu_torch/kernels/csrc/resident.cu", "spla_tpu/pallas/spmv.py:2709"),
     "sssp_resident": ("cuda", "spla_tpu_torch/kernels/csrc/resident.cu",
                       "spla_tpu/pallas/spmv.py:2716"),
+    "spmv_pull_staged": ("cuda", "spla_tpu_torch/kernels/csrc/spmv_staged.cu",
+                         "spla_tpu/pallas/spmv.py:2140"),
+    # kernel 8's phases, each against the TPU probe it answers for
+    **{f"spmv_probe_{phase}": ("cuda", "spla_tpu_torch/kernels/csrc/spmv_probe.cu", f"tools/probe_spmv.py:{line}")
+       for phase, line in (("stream", 121), ("gather", 146), ("fullfix", 109), ("alu", 176), ("xgather", 190),
+                           ("ring_copy", 248), ("ring_alu", 248), ("ring_copy_alu", 248))},
 }
 # the kernels each slice of phase 4 must launch
 PATHS = {"spmv": ("spmv_pull", "spmv_push", "level_update"), "spgemm": ("mxmt_reduce", "mxmt_masked"),
-         "road": ("bfs_resident", "sssp_resident")}
+         "road": ("bfs_resident", "sssp_resident"), "staged": ("spmv_pull_staged",),
+         "probes": tuple(f"spmv_probe_{phase}" for phase in PROBE_PHASES)}
 
 
 def phase(title):
@@ -101,49 +135,8 @@ def phase(title):
 # ---------------------------------------------------------------- graphs
 
 
-def build_graph(n, deg, seed=0):
-    """bench.py:37: uniform random rows and columns, rows sorted; duplicate
-    (row, col) pairs stay separate products."""
-    rng = np.random.default_rng(seed)
-    nnz = n * deg
-    rows = np.sort(rng.integers(0, n, nnz, dtype=np.int32))
-    cols = rng.integers(0, n, nnz, dtype=np.int32)
-    vals = rng.random(nnz, dtype=np.float32)
-    indptr = np.zeros(n + 1, np.int64)
-    np.cumsum(np.bincount(rows, minlength=n), out=indptr[1:])
-    return indptr.astype(np.int32), rows, cols, vals
-
-
-def random_graph(n, deg, seed=0):
-    """bench_suite.py:24: symmetric, no self loops, duplicates summed, data 1."""
-    rng = np.random.default_rng(seed)
-    m = n * deg // 2
-    r = rng.integers(0, n, m)
-    c = rng.integers(0, n, m)
-    keep = r != c
-    r, c = r[keep], c[keep]
-    a = sp.coo_matrix((np.ones(2 * r.size, np.float32),
-                       (np.concatenate([r, c]), np.concatenate([c, r]))), shape=(n, n)).tocsr()
-    a.sum_duplicates()
-    a.data[:] = 1.0
-    return a
-
-
 def csr(indptr, rows, cols, vals, n, fill=0):
     return csr_from_numpy((n, n), indptr, cols, vals, rows, rows.size, fill, DEVICE)
-
-
-def hub_graph(n, seed=3):
-    """Uniform rows of 4 entries plus HUB_ROWS rows of HUB_LEN entries."""
-    rng = np.random.default_rng(seed)
-    rows = np.concatenate([rng.integers(0, n, 4 * n),
-                           np.repeat(np.linspace(0, n - 1, HUB_ROWS).astype(np.int64), HUB_LEN)])
-    rows = np.sort(rows).astype(np.int32)
-    cols = rng.integers(0, n, rows.size, dtype=np.int32)
-    vals = rng.random(rows.size, dtype=np.float32)
-    indptr = np.zeros(n + 1, np.int64)
-    np.cumsum(np.bincount(rows, minlength=n), out=indptr[1:])
-    return indptr.astype(np.int32), rows, cols, vals
 
 
 def signed_mask(a, dtype, seed):
@@ -422,6 +415,74 @@ def check_mxmt(G):
     return errs
 
 
+def check_staged(G):
+    """Kernel 7 against its plain version and kernel 1: all 18 f32 (mul,
+    add) instances, both operand orders, with and without masks, and the
+    structural variant, at 2, 3 and 4 slots, on the n = 2^21 graph, the hub
+    graph (rows of 2^17 entries, 128 stages each) and a graph of one stage
+    (fewer stages than slots).  Then each kernel-8 phase against its plain
+    version on the n = 2^21 graph (f32 sums within rtol 1e-5, XOR
+    checksums bitwise)."""
+    errs = {"spmv_pull_staged": 0.0}
+    rng = np.random.default_rng(10)
+    if K7.staged_plan(G["Few"])[1] != 1:
+        raise AssertionError("the fewer-stages graph must be one row block")
+    for gname in ("M", "H", "Few"):
+        M = G[gname]
+        n = M.shape[0]
+        x = torch.from_numpy(rng.random(n, dtype=np.float32)).to(DEVICE)
+        x[7], x[11], x[13] = float("nan"), float("inf"), float("-inf")
+        x_valid = torch.from_numpy(rng.random(n) < 0.9).to(DEVICE)
+        row_sel = torch.from_numpy(rng.random(n) < 0.7).to(DEVICE)
+        for mul in MULS:
+            for add in ADDS:
+                om, oa = getattr(op.FLOAT, mul), getattr(op.FLOAT, add)
+                exact = add != "PLUS"
+                for xv, rs, swap in ((None, None, False), (x_valid, row_sel, True)):
+                    label = f"spmv_pull_staged {gname} {mul}/{add} masks={xv is not None}"
+                    ref, ref_has = K7.spmv_pull_staged_plain(M, x, om, oa, oa.identity, xv, rs, swap)
+                    k1, k1_has = K1.spmv_pull(M, x, om, oa, oa.identity, xv, rs, want_has=True, swap=swap)
+                    ref64 = None if exact else K7.spmv_pull_staged_plain(
+                        as64(M), x.double(), om, oa, float(oa.identity), xv, rs, swap)[0]
+                    for slots in K7.SLOT_COUNTS:
+                        got, has = K7.spmv_pull_staged(M, x, om, oa, oa.identity, xv, rs, want_has=True,
+                                                       swap=swap, slots=slots)
+                        if not (torch.equal(has, ref_has) and torch.equal(has, k1_has)):
+                            raise AssertionError(f"{label} slots={slots}: has differs")
+                        e = check_close(f"{label} slots={slots}", got, ref, exact, ref64)
+                        check_close(f"{label} slots={slots} vs kernel 1", got, k1, exact, ref64)
+                        errs["spmv_pull_staged"] = max(errs["spmv_pull_staged"], e)
+        for slots in K7.SLOT_COUNTS:
+            for xv, rs in ((x_valid, None), (x_valid, row_sel)):
+                hits = K7.spmv_pull_staged_structural(M, xv, rs, slots=slots)
+                check_close(f"spmv_pull_staged {gname} structural slots={slots}", hits,
+                            K7.spmv_pull_staged_structural_plain(M, xv, rs), True)
+                check_close(f"spmv_pull_staged {gname} structural slots={slots} vs kernel 1", hits,
+                            K1.spmv_pull_structural(M, xv, rs), True)
+        print(f"kernel 7 on {gname} (n={n}, {K7.staged_plan(M)[1]} row blocks): 18 (mul, add) "
+              f"instances x 2 mask settings and the structural variant at {K7.SLOT_COUNTS} slots "
+              f"match the plain version and kernel 1", flush=True)
+    M = G["M"]
+    x = torch.from_numpy(rng.random(M.shape[1], dtype=np.float32)).to(DEVICE)
+    for phase in PROBE_PHASES:
+        got, ref = K8.spmv_probe(phase, M, x), K8.spmv_probe_plain(phase, M, x)
+        err = 0.0
+        for g, r in zip(got, ref):
+            if (g is None) != (r is None):
+                raise AssertionError(f"spmv_probe {phase}: outputs differ in kind")
+            if g is None:
+                continue
+            if g.dtype == torch.int32:
+                check_close(f"spmv_probe {phase} checksum", g, r, True)
+            else:
+                torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-5, msg=f"spmv_probe {phase}")
+                err = max(err, float((g - r).abs().max()))
+        errs[f"spmv_probe_{phase}"] = err
+    print(f"kernel 8: the {len(PROBE_PHASES)} phases match their plain versions at n={M.shape[0]}",
+          flush=True)
+    return errs
+
+
 # ---------------------------------------------------------------- the slice
 
 
@@ -487,6 +548,7 @@ def check_slice(G, R):
     lev = cg.shortest_path(G["A_sp"], method="D", unweighted=True, indices=src)
     lev_ref = torch.from_numpy(np.where(np.isfinite(lev), lev + 1, 0).astype(np.int32)).to(DEVICE)
     dist_ref = torch.from_numpy(cg.dijkstra(G["Aw_sp"], indices=src)).to(DEVICE)
+    G["bfs_ref"], G["sssp_ref"] = lev_ref, dist_ref  # the staged path's oracles
     p_ref = pr_plain(G["Ap"], 0.85, 1e-6)
     for name in ("default", "push_only", "pull_only"):
         check_close(f"bfs {name}", R[f"bfs {name}"].values, lev_ref, True)
@@ -636,6 +698,93 @@ def run_clis(G):
     print(f"the four example CLIs ran in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+@contextlib.contextmanager
+def manual_dma(on=True):
+    """``kernels.staged.MANUAL_DMA`` (what SPLA_MANUAL_DMA=1 sets) inside the block."""
+    saved = K7.MANUAL_DMA
+    K7.MANUAL_DMA = on
+    try:
+        yield
+    finally:
+        K7.MANUAL_DMA = saved
+
+
+def run_staged(G):
+    """Phase 4's staged path: under MANUAL_DMA, mxv_masked at n = 2^21 and
+    pr / sssp / bfs on the n = 2^20 graph (the level loop), then ab_spmv
+    under SPLA_MANUAL_DMA=1 SPLA_MANUAL_SLOTS=3 in a subprocess."""
+    rng = np.random.default_rng(12)
+    n = N_SPMV
+    x = DenseVec(torch.from_numpy(rng.random(n, dtype=np.float32)).to(DEVICE),
+                 torch.tensor(0.0, device=DEVICE))
+    mask = DenseVec(torch.from_numpy((rng.random(n) < 0.7).astype(np.float32)).to(DEVICE),
+                    torch.tensor(0.0, device=DEVICE))
+    R = {"x": x, "mask": mask}
+    with manual_dma(), resident_budget(0):
+        R["mxv"] = mxv_masked(mask, G["M"], x, op.MULT_FLOAT, op.PLUS_FLOAT, op.NQZERO_FLOAT, 0.0)
+        R["mxv_minplus"] = mxv_masked(mask, G["Minf"], x, op.PLUS_FLOAT, op.MIN_FLOAT,
+                                      op.NQZERO_FLOAT, float("inf"))
+        R["bfs"] = alg.bfs(G["Aint"], 0, At=G["Aint"])
+        R["sssp"] = alg.sssp(G["Aw"], 0)
+        R["pr"] = alg.pr(G["Ap"], 0.85, 1e-6)
+    torch.cuda.synchronize()
+    env = dict(os.environ, SPLA_MANUAL_DMA="1", SPLA_MANUAL_SLOTS="3")
+    R["ab"] = subprocess.run([sys.executable, "-m", "spla_tpu_torch.tools.ab_spmv", "--manual", "3",
+                              "--check", "--iters", str(AB_ITERS)], cwd=ROOT, env=env,
+                             capture_output=True, text=True, timeout=600)
+    return R
+
+
+def check_staged_path(G, R):
+    x, mask, sel = R["x"], R["mask"], op.NQZERO_FLOAT
+    ref, _ = masked_spmv(G["M"], x.values, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0, mask_vals=mask.values,
+                         op_select=sel)
+    ref64, _ = masked_spmv(as64(G["M"]), x.values.double(), op.MULT_FLOAT, op.PLUS_FLOAT, 0.0,
+                           mask_vals=mask.values, op_select=sel)
+    check_close("staged mxv_masked MULT/PLUS", R["mxv"].values, ref, False, ref64)
+    ref, _ = masked_spmv(G["Minf"], x.values, op.PLUS_FLOAT, op.MIN_FLOAT, float("inf"),
+                         mask_vals=mask.values, op_select=sel)
+    check_close("staged mxv_masked PLUS/MIN", R["mxv_minplus"].values, ref, True)
+    check_close("staged bfs vs scipy", R["bfs"].values, G["bfs_ref"], True)
+    if not torch.equal(torch.isinf(R["sssp"].values), torch.isinf(G["sssp_ref"])):
+        raise AssertionError("staged sssp: unreachable set differs from dijkstra")
+    fin = torch.isfinite(G["sssp_ref"])
+    torch.testing.assert_close(R["sssp"].values[fin].double(), G["sssp_ref"][fin], rtol=1e-5, atol=0,
+                               msg="staged sssp vs dijkstra")
+    with resident_budget(0):
+        check_close("staged bfs = unstaged", R["bfs"].values, alg.bfs(G["Aint"], 0, At=G["Aint"]).values,
+                    True)
+        check_close("staged sssp = unstaged", R["sssp"].values, alg.sssp(G["Aw"], 0).values, True)
+        err = float((R["pr"].values - alg.pr(G["Ap"], 0.85, 1e-6).values).abs().max())
+    if err > 1e-5:
+        raise AssertionError(f"staged pr: max abs diff {err} against the unstaged run")
+    print(f"staged path: mxv_masked (MULT/PLUS, PLUS/MIN) match the plain path; bfs equals scipy "
+          f"and the unstaged run, sssp dijkstra (rtol 1e-5) and the unstaged run bitwise; pr within "
+          f"{err:.3g} of the unstaged run", flush=True)
+    proc = R["ab"]
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"ab_spmv --manual 3: exit {proc.returncode}\n{proc.stdout[-2000:]}"
+                             f"{proc.stderr[-3000:]}")
+    ab = json.loads(lines[-1])
+    if not (ab["manual_dma"] and ab["manual_slots"] == 3 and ab["launches"]["spmv_pull_staged"] > 0
+            and ab["launches"]["spmv_pull"] == 0 and set(ab["checked"]) == {"variant", "op_layer"}):
+        raise AssertionError(f"ab_spmv under SPLA_MANUAL_DMA=1: {lines[-1]}")
+    print(f"ab_spmv under SPLA_MANUAL_DMA=1 SPLA_MANUAL_SLOTS=3: {lines[-1]}", flush=True)
+
+
+def run_probes(G):
+    """Phase 4's probes path: the probe_spmv tool at n = 2^21, degree 16."""
+    return {"probe": PROBE.run(N_SPMV, DEG_SPMV, PROBE_ITERS, device=DEVICE)}
+
+
+def check_probes(G, R):
+    ns = R["probe"]["ns_per_entry"]
+    if set(ns) != set(PROBE.PROBES) or not all(np.isfinite(v) and v > 0 for v in ns.values()):
+        raise AssertionError(f"probe_spmv: {ns}")
+    print(f"probe_spmv: {len(ns)} probes timed", flush=True)
+
+
 # ---------------------------------------------------------------- timing
 
 
@@ -672,7 +821,8 @@ def time_spgemm(G, card):
         valid = A.valid_mask()
         k, p = paired_ms(lambda: K45.mxmt_reduce(A, A, A, None, valid, True),
                          lambda: K45.mxmt_reduce_plain(A, A, A, None, valid, True), reps)
-        times["mxmt_reduce"] = (k, p)
+        # mask, A and B are one matrix: its indptr and cols once, the selection, the total
+        times["mxmt_reduce"] = (k, p, *bound(4 * (n + 1) + 5 * nnz + 8))
         print(f"time mxmt_reduce structural (tc) n={n} nnz={nnz} products={prods}: kernel {k:.4f} ms "
               f"({prods / k / 1e3:.1f} masked_spgemm_mprod_s), plain {p:.4f} ms "
               f"({prods / p / 1e3:.1f} Mproducts/s) [{card}]", flush=True)
@@ -683,7 +833,8 @@ def time_spgemm(G, card):
         k, p = paired_ms(lambda: K45.mxmt_masked(A, A, A, op.MULT_INT, op.PLUS_INT, 0, valid),
                          lambda: K45.mxmt_masked_plain(A, A, A, op.MULT_INT, op.PLUS_INT, 0, valid),
                          reps)
-        times["mxmt_masked"] = (k, p)
+        # indptr, cols and values once, the selection; values and has written
+        times["mxmt_masked"] = (k, p, *bound(4 * (n + 1) + 14 * nnz))
         print(f"time mxmt_masked MULT/PLUS i32 n={n}: kernel {k:.4f} ms ({prods / k / 1e3:.1f} "
               f"Mproducts/s), plain {p:.4f} ms [{card}]", flush=True)
         alg.tc(A)
@@ -709,7 +860,7 @@ def time_kernels(G, card):
                                 ("PLUS/MIN", op.PLUS_FLOAT, op.MIN_FLOAT, float("inf"))):
         k, p = paired_ms(lambda: K1.spmv_pull(M, x, om, oa, init),
                          lambda: K1.spmv_pull_plain(M, x, om, oa, init))
-        times.setdefault("spmv_pull", (k, p))
+        times.setdefault("spmv_pull", (k, p, *spmv_bound(M)))
         print(f"time spmv_pull {label} f32 n={n} nnz={nnz}: kernel {k:.4f} ms "
               f"({gb_model / k * 1e3:.1f} GB/s-model), plain {p:.4f} ms "
               f"({gb_model / p * 1e3:.1f} GB/s-model) [{card}]", flush=True)
@@ -724,7 +875,10 @@ def time_kernels(G, card):
     d = torch.from_numpy(rng.uniform(0, 10, n).astype(np.float32)).to(DEVICE)
     k, p = paired_ms(lambda: K2.spmv_push(A, front, d, op.PLUS_FLOAT, op.MIN_FLOAT, float("inf")),
                      lambda: K2.spmv_push_plain(A, front, d, op.PLUS_FLOAT, op.MIN_FLOAT, float("inf")))
-    times["spmv_push"] = (k, p)
+    ip = A.indptr.long()
+    edges = int((ip[front.long() + 1] - ip[front.long()]).sum())
+    # the frontier, its indptr pairs and x values, its rows' cols and values; the hits written
+    times["spmv_push"] = (k, p, *bound(16 * front.numel() + 8 * edges + 4 * n, 2 * edges))
     print(f"time spmv_push MIN-plus f32 n={n} frontier={n // 20}: kernel {k:.4f} ms, plain {p:.4f} ms "
           f"[{card}]", flush=True)
     k, p = paired_ms(lambda: K2.spmv_push_structural(A, front),
@@ -739,7 +893,8 @@ def time_kernels(G, card):
     cnt = torch.zeros(1, dtype=torch.int32, device=DEVICE)
     k, p = paired_ms(lambda: K3.bfs_level_update(hits, v.zero_(), f, 3, lst, cnt),
                      lambda: K3.bfs_level_update_plain(hits, v.zero_(), f, 3, lst, cnt))
-    times["level_update"] = (k, p)
+    # hits, v and the frontier read; v and the frontier written, and the new frontier's list
+    times["level_update"] = (k, p, *bound(11 * n + 4 * int(hits.sum())))
     print(f"time level_update BFS n={n}: kernel {k:.4f} ms, plain {p:.4f} ms [{card}]", flush=True)
     hv = torch.from_numpy(rng.uniform(0, 10, n).astype(np.float32)).to(DEVICE)
     sv = torch.full((n,), float("inf"), device=DEVICE)
@@ -779,7 +934,10 @@ def time_road(G, card):
     for kind, M, fn, plain in (("bfs", G["Road"], K6.bfs_resident, K6.bfs_resident_plain),
                                ("sssp", G["RoadW"], K6.sssp_resident, K6.sssp_resident_plain)):
         k, p = paired_ms(lambda: fn(M, 0), lambda: plain(M, 0), PLAIN_RUNS_ROAD)
-        times[f"{kind}_resident"] = (k, p)
+        n, nnz = M.shape[0], int(M.nnz)
+        # indptr, cols (and the weights) once; the depths or distances written
+        times[f"{kind}_resident"] = (k, p, *bound(4 * (n + 1) + (8 if kind == "sssp" else 4) * nnz
+                                                   + 4 * n))
         print(f"time {kind}_resident n={M.shape[0]} nnz={M.cols.shape[0]}: kernel {k:.4f} ms, "
               f"plain {p:.4f} ms [{card}]", flush=True)
     walls = {}
@@ -807,6 +965,109 @@ def time_road(G, card):
           f"{nnz / walls['bfs', 'level loop'] / 1e6:.4f}); road_sssp_ms {walls['sssp', 'resident']:.3f} "
           f"(level loop {walls['sssp', 'level loop']:.3f}) [{card}]", flush=True)
     return times
+
+
+def bound(nbytes, flops=0):
+    """``(bound_ms, bound_by)``: the larger of the bytes over the HBM rate
+    and the f32 operations over the f32 rate."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_S * 1e3, flops / F32_FLOPS_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def spmv_bound(M, extra=0):
+    """A MULT/PLUS pull SpMV: indptr, cols, values and x read once, out written once."""
+    m, n = M.shape
+    nnz = int(M.nnz)
+    return bound(4 * (m + 1) + 8 * nnz + 4 * n + 4 * m + extra, 2 * nnz)
+
+
+def probe_bound(phase, M, nblocks):
+    m, n = M.shape
+    nnz = int(M.nnz)
+    ip, chain = 4 * (m + 1), 2 * K8.CHAIN * nnz
+    ctas = -(-m // K8.ROWS_PER_CTA)
+    ring = 4 * (nblocks + 1) + 4 * nblocks  # block_rows and one output a block
+    return {"stream": bound(ip + 8 * nnz + 8 * m, nnz),
+            "gather": bound(ip + 8 * nnz + 4 * n + 4 * ctas, 2 * nnz),
+            "fullfix": bound(ip + 8 * nnz + 4 * n + 4 * ctas, 2 * nnz),
+            "alu": bound(ip + 4 * m, chain),
+            "xgather": bound(ip + 4 * n + 4 * m, nnz),
+            "ring_copy": bound(ip + 8 * nnz + ring),
+            "ring_alu": bound(ip + ring, chain),
+            "ring_copy_alu": bound(ip + 8 * nnz + ring + 4 * nblocks, chain)}[phase]
+
+
+def time_staged(G, card):
+    """Kernel 7 at 2, 3 and 4 slots beside kernel 1 and cuSPARSE (one
+    ``torch.sparse_csr_tensor @ x`` call: the library's time, not a port),
+    in turns (forward, then backward), and its plain version; MULT/PLUS f32
+    at n = 2^21.  Returns the times and the library time."""
+    M = G["M"]
+    n, nnz = M.shape[0], int(M.nnz)
+    gb_model = (nnz * 12 + n * 4 + (n + 1) * 4) / 1e9  # bench.py:207
+    x = torch.from_numpy(np.random.default_rng(1).random(n, dtype=np.float32)).to(DEVICE)
+    lib = torch.sparse_csr_tensor(M.indptr, M.cols, M.values, size=(n, n), check_invariants=False)
+    torch.testing.assert_close(lib @ x, K1.spmv_pull(M, x, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)[0],
+                               rtol=1e-5, atol=1e-5, msg="cuSPARSE against kernel 1")
+    fns = {"kernel 1": lambda: K1.spmv_pull(M, x, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0),
+           **{f"kernel 7 slots={s}": (lambda s=s: K7.spmv_pull_staged(M, x, op.MULT_FLOAT, op.PLUS_FLOAT,
+                                                                      0.0, slots=s))
+              for s in K7.SLOT_COUNTS},
+           "cuSPARSE": lambda: lib @ x}
+    ms = {name: 0.0 for name in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for name in order:
+            ms[name] += cuda_ms(fns[name]) / 2
+    plain = cuda_ms(lambda: K7.spmv_pull_staged_plain(M, x, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0),
+                    PLAIN_RUNS_BIG, 1)
+    for name, t in ms.items():
+        print(f"time {name} MULT/PLUS f32 n={n} nnz={nnz}: {t:.4f} ms ({gb_model / t * 1e3:.1f} "
+              f"GB/s-model) [{card}]", flush=True)
+    print(f"time kernel 7 plain version: {plain:.4f} ms [{card}]", flush=True)
+    nblocks = K7.staged_plan(M)[1]
+    default = f"kernel 7 slots={K7.resolve_slots(None)}"
+    return {"spmv_pull_staged": (ms[default], plain, *spmv_bound(M, 4 * (nblocks + 1)))}, ms["cuSPARSE"]
+
+
+def time_probes(G, R, card):
+    """The probe table of phase 4's probe_spmv run, then each kernel-8 phase
+    against its plain version (CUDA events) on the same graph."""
+    probe = R["probe"]
+    print(f"probe_spmv n={probe['n']} nnz={probe['nnz']} ({probe['iters']} launches each; "
+          f"torch_sum is a library reference, not a port) [{card}]:")
+    for name, ns in probe["ns_per_entry"].items():
+        print(f"  {name:14s} {ns:8.4f} ns/entry  {probe['ms'][name]:.4f} ms", flush=True)
+    M = G["M"]
+    x = torch.from_numpy(np.random.default_rng(1).random(M.shape[1], dtype=np.float32)).to(DEVICE)
+    nblocks = K7.staged_plan(M)[1]
+    times = {}
+    for phase in PROBE_PHASES:
+        k, p = paired_ms(lambda: K8.spmv_probe(phase, M, x), lambda: K8.spmv_probe_plain(phase, M, x),
+                         PLAIN_RUNS_BIG)
+        times[f"spmv_probe_{phase}"] = (k, p, *probe_bound(phase, M, nblocks))
+        print(f"time spmv_probe {phase}: kernel {k:.4f} ms, plain {p:.4f} ms [{card}]", flush=True)
+    return times
+
+
+def time_variants(G, card):
+    """ab_spmv's chained steps on the n = 2^21 graph: kernel 1, kernel 1 over
+    2 and 4 row-split parts on their own streams, kernel 7 at 2-4 slots;
+    forward, then backward, averaged."""
+    M = G["M"]
+    n, nnz = M.shape[0], int(M.nnz)
+    x = torch.from_numpy(np.random.default_rng(1).random(n, dtype=np.float32)).to(DEVICE)
+    runs = {name: AB.chained(AB.variant_spmv(M, manual, variant, torch.device(DEVICE))[0])
+            for name, manual, variant in (("warp", 0, "warp"), ("split2", 0, "split2"),
+                                          ("split4", 0, "split4"), ("manual 2", 2, "warp"),
+                                          ("manual 3", 3, "warp"), ("manual 4", 4, "warp"))}
+    ms = {name: 0.0 for name in runs}
+    for order in (list(runs), list(runs)[::-1]):
+        for name in order:
+            ms[name] += AB.timed_ms(runs[name], x, AB_ITERS, torch.device(DEVICE)) / 2
+    bytes_model = nnz * 12 + n * 8 + 4  # tools/ab_spmv.py:201
+    for name, t in ms.items():
+        print(f"time ab_spmv {name}: {t:.4f} ms a chained step ({bytes_model / t / 1e6:.1f} "
+              f"GB/s-model) [{card}]", flush=True)
 
 
 # ---------------------------------------------------------------- main
@@ -842,13 +1103,16 @@ def main():
     errs = check_kernels(G)
     errs.update(check_mxmt(G))
     errs.update(check_resident(G))
+    errs.update(check_staged(G))
     torch.cuda.synchronize()
 
     phase("4 the slices through the public entry points")
-    launches, stats, astats = {}, {}, {}
+    launches, stats, astats, results = {}, {}, {}, {}
     for slice_name, run, check in (("spmv", run_slice, check_slice),
                                    ("spgemm", run_spgemm, check_spgemm),
-                                   ("road", run_road, check_road)):
+                                   ("road", run_road, check_road),
+                                   ("staged", run_staged, check_staged_path),
+                                   ("probes", run_probes, check_probes)):
         kernels.reset_launches()
         for k in DISPATCH_STATS:
             DISPATCH_STATS[k] = 0
@@ -860,6 +1124,7 @@ def main():
         astats[slice_name] = dict(alg.STATS)
         print(f"{slice_name} main path ran in {time.perf_counter() - t0:.3f} s", flush=True)
         check(G, R)
+        results[slice_name] = R
 
     phase("5 launch counts of phase 4")
     for slice_name, kernel_names in PATHS.items():
@@ -879,21 +1144,32 @@ def main():
         raise AssertionError("the road slice must run twice on the resident route, one host sync each")
     if astats["spmv"]["resident"]:
         raise AssertionError("the n = 2^20 traversals must keep the level loop")
+    staged = astats["staged"]
+    print(f"staged: algorithms.STATS {json.dumps(staged)}", flush=True)
+    if launches["staged"]["spmv_pull"] or staged["pull"] == 0 or staged["resident"]:
+        raise AssertionError("under MANUAL_DMA every f32 and structural pull level must run kernel 7")
 
     phase("6 times on the card")
     times = time_kernels(G, card)
     time_algorithms(G, card)
     times.update(time_spgemm(G, card))
     times.update(time_road(G, card))
+    staged_times, cusparse_ms = time_staged(G, card)
+    times.update(staged_times)
+    times.update(time_probes(G, results["probes"], card))
+    time_variants(G, card)
 
+    # one PyTorch call computes the same function only for the pull SpMVs
+    library = {"spmv_pull": cusparse_ms, "spmv_pull_staged": cusparse_ms}
     rows_out = []
     for slice_name, kernel_names in PATHS.items():
         for k in kernel_names:
             route, source, replaces = KERNELS[k]
-            ms, plain_ms = times[k]
+            ms, plain_ms, bound_ms, bound_by = times[k]
             rows_out.append({"name": k, "route": route, "source": source, "replaces": replaces,
                              "launches": launches[slice_name][k], "max_abs_err": errs[k], "ms": ms,
-                             "plain_ms": plain_ms})
+                             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                             "library_ms": library.get(k)})
     print(json.dumps({"kernels": rows_out}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
@@ -907,6 +1183,8 @@ def build_graphs():
          "Mi": csr(indptr, rows, cols, (vals * 2000 - 1000).astype(np.int32), N_SPMV)}
     hp, hr, hc, hv = hub_graph(N_GRAPH)
     G["H"] = csr(hp, hr, hc, hv, N_GRAPH)
+    fp, fr, fc, fv = build_graph(N_FEW, 1, seed=4)
+    G["Few"] = csr(fp, fr, fc, fv, N_FEW)
     G["Hi"] = csr(hp, hr, hc, (hv * 2000 - 1000).astype(np.int32), N_GRAPH)
     a = random_graph(N_GRAPH, DEG_GRAPH)
     G["A_sp"] = a

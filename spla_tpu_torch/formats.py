@@ -27,6 +27,7 @@ __all__ = [
     "csr_to_coo",
     "coo_to_csr",
     "csr_to_dense",
+    "split_rows",
 ]
 
 
@@ -227,6 +228,34 @@ def dense_to_sparse_vec(dv: DenseVec, capacity: int | None = None) -> SparseVec:
     """DenseVec -> SparseVec of the entries != fill (capacity defaults to n)."""
     cap = capacity if capacity is not None else dv.n
     return compact(dv.values, dv.stored_mask(), cap, dv.fill)
+
+
+def split_rows(a: CsrMatrix, parts: int) -> list:
+    """Cut ``a`` at row boundaries into at most ``parts`` row ranges of about
+    equal stored-entry counts (``spla_tpu/pallas/spmv.py``
+    ``split_fused_format`` :3032 cuts tile batches instead).  Part ``p``
+    covers the rows after those of parts ``0..p-1``: its output is that
+    slice of the whole SpMV's output.  ``cols`` and ``values`` are views
+    of ``a``'s; ``indptr`` and ``row_ids`` are rebased copies.  Ranges of
+    no rows are dropped."""
+    m, n = a.shape
+    if parts < 1:
+        raise ValueError(f"split_rows: parts must be >= 1, got {parts}")
+    ip = a.indptr.long()
+    targets = torch.div(ip[m] * torch.arange(1, parts, device=ip.device), parts,
+                        rounding_mode="floor")
+    cuts = [0, *torch.searchsorted(ip, targets).clamp(max=m).tolist(), m]
+    out = []
+    for r0, r1 in zip(cuts[:-1], cuts[1:]):
+        if r1 <= r0:
+            continue
+        e0, e1 = int(ip[r0]), int(ip[r1])
+        out.append(CsrMatrix(shape=(r1 - r0, n), indptr=(a.indptr[r0:r1 + 1] - e0).contiguous(),
+                             cols=a.cols[e0:e1], values=a.values[e0:e1],
+                             row_ids=a.row_ids[e0:e1] - r0,
+                             nnz=torch.tensor(e1 - e0, dtype=torch.int32, device=a.cols.device),
+                             fill=a.fill))
+    return out
 
 
 def csr_to_coo(a: CsrMatrix) -> CooMatrix:

@@ -9,7 +9,12 @@
   entry (CUDA, ``csrc/mxmt.cu``);
 * ``resident`` — kernel 6, a whole BFS or SSSP in one persistent
   cooperative launch with a grid-wide barrier between levels (CUDA,
-  ``csrc/resident.cu``).
+  ``csrc/resident.cu``);
+* ``staged`` — kernel 7, the pull SpMV with its column and value streams
+  staged through a ring of shared-memory slots by asynchronous copies
+  (CUDA, ``csrc/spmv_staged.cu``), taken under ``staged.MANUAL_DMA``;
+* ``probe`` — kernel 8, the phase probes of kernels 1 and 7 (CUDA,
+  ``csrc/spmv_probe.cu``), run by ``tools/probe_spmv.py``.
 
 Each wrapper runs its plain PyTorch version for CPU tensors, and launches
 its kernel or raises for CUDA tensors.  ``LAUNCHES`` counts the kernel
@@ -17,8 +22,12 @@ launches of each wrapper, and nothing else.  Importing these modules
 imports neither ``triton`` nor the compiled library.
 """
 
+PROBE_PHASES = ("stream", "gather", "fullfix", "alu", "xgather", "ring_copy", "ring_alu",
+                "ring_copy_alu")  # kernel 8's phases, in the order of enum ProbePhase
+
 LAUNCHES = {"spmv_pull": 0, "spmv_push": 0, "level_update": 0, "mxmt_reduce": 0, "mxmt_masked": 0,
-            "bfs_resident": 0, "sssp_resident": 0}
+            "bfs_resident": 0, "sssp_resident": 0, "spmv_pull_staged": 0,
+            **{f"spmv_probe_{phase}": 0 for phase in PROBE_PHASES}}
 
 
 def reset_launches() -> None:

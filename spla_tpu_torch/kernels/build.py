@@ -48,6 +48,15 @@ SIGNATURES = {
     "spla_sssp_resident": (_I64, _INT, *(_P,) * 9),
     # sssp, &blocks
     "spla_resident_blocks": (_INT, _P),
+    # mul, add, slots, stage, nblocks, block_rows, indptr, cols, values, x, x_valid, row_sel,
+    # init, out, has, stream
+    "spla_spmv_staged": (_INT, _INT, _INT, _INT, _I64, *(_P,) * 11),
+    # slots, stage, nblocks, block_rows, indptr, cols, x_valid, row_sel, hits, stream
+    "spla_spmv_staged_structural": (_INT, _INT, _I64, *(_P,) * 7),
+    # phase, m, n, indptr, cols, values, x, out_f, out_i, stream
+    "spla_spmv_probe": (_INT, _I64, _I64, *(_P,) * 7),
+    # phase, slots, stage, nblocks, block_rows, indptr, cols, values, out_f, out_i, stream
+    "spla_spmv_probe_ring": (_INT, _INT, _INT, _I64, *(_P,) * 7),
 }
 
 

@@ -1,0 +1,272 @@
+// Kernel 8: phase probes of the pull SpMV (kernel 1 and kernel 7's ring).
+//
+// Replaces tools/probe_spmv.py's Pallas probes of the fused TPU kernel
+// (pallas_call :307, :385, :458, :527, :680, :738), which removed phases
+// from the real kernel so that subtracting probe times attributes its cost.
+// Here the probes take kernel 1's grid and stream (a warp per row, 8 rows a
+// CTA, lanes striding the row) or kernel 7's ring, and drop phases:
+//
+//   stream        indptr, cols and values read as kernel 1 reads them; per
+//                 row the value sum and the XOR of the columns
+//   gather        + x[cols] and the products; each thread's sum goes to
+//                 shared memory and one warp folds the CTA's 256 sums, no
+//                 per-row fold or store
+//   fullfix       + kernel 1's warp fold of each row; the 8 row sums go to
+//                 shared memory and one thread adds them, no per-row store
+//   alu           a dependent mul-add chain per entry slot, no loads but
+//                 indptr; per row the lanes' chains summed
+//   xgather       x gathered at indices derived from the entry position, no
+//                 cols/values stream; per row the sum
+//   ring_copy     kernel 7's ring copying cols and values; per row block the
+//                 XOR of both streams' words (checksum only)
+//   ring_alu      kernel 7's ring loop with no copies and the mul-add chain
+//                 per entry slot; per block the threads' chains summed
+//   ring_copy_alu ring_copy's copies and ring_alu's chains; per block the
+//                 chains' sum and the XOR of the columns
+//
+// Every phase writes an output its plain version (kernels/probe.py)
+// reproduces, so no load can be dropped by the compiler: f32 sums within a
+// tolerance, XOR checksums bitwise.  Bound: bytes for the streaming phases,
+// f32 operations for the chains.
+
+#include "staged.cuh"
+
+// kept equal to spla_tpu_torch.kernels.probe.PHASES
+enum ProbePhase : int {
+  PH_STREAM = 0, PH_GATHER = 1, PH_FULLFIX = 2, PH_ALU = 3, PH_XGATHER = 4,
+  PH_RING_COPY = 5, PH_RING_ALU = 6, PH_RING_COPY_ALU = 7
+};
+constexpr int kChain = 8;  // mul-add pairs per entry slot; kept equal to probe.CHAIN
+
+// Rounded mul then rounded add, never contracted to an FMA, so the plain
+// version reproduces each chain bitwise.
+__device__ __forceinline__ float chain(float s) {
+#pragma unroll
+  for (int i = 0; i < kChain; ++i) s = __fadd_rn(__fmul_rn(s, 1.0001f), 2.0f);
+  return s;
+}
+
+// xgather's index of entry position k: a multiplicative hash, mod n.
+__device__ __forceinline__ long long spread_index(long long k, long long n) {
+  const uint32_t h = static_cast<uint32_t>(k) * 2654435761u;
+  return static_cast<long long>(h % static_cast<unsigned long long>(n));
+}
+
+template <int PHASE>
+__global__ void __launch_bounds__(kThreads)
+spmv_probe_kernel(long long m, long long n, const int32_t* __restrict__ indptr,
+                  const int32_t* __restrict__ cols, const float* __restrict__ values,
+                  const float* __restrict__ x, float* __restrict__ out_f, int32_t* __restrict__ out_i) {
+  constexpr bool kCta = PHASE == PH_GATHER || PHASE == PH_FULLFIX;
+  __shared__ float part[kThreads];  // gather: a sum a thread; fullfix: a sum a warp
+  const long long row = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  float acc = PHASE == PH_ALU ? static_cast<float>(lane) : 0.f;
+  uint32_t chk = 0;
+  if (row < m) {  // uniform across the warp
+    const int32_t end = indptr[row + 1];
+    for (int32_t k = indptr[row] + lane; k < end; k += 32) {
+      if constexpr (PHASE == PH_STREAM) {
+        acc += values[k];
+        chk ^= static_cast<uint32_t>(cols[k]);
+      } else if constexpr (kCta) {
+        acc += values[k] * x[cols[k]];
+      } else if constexpr (PHASE == PH_ALU) {
+        acc = chain(acc);
+      } else {
+        acc += x[spread_index(k, n)];
+      }
+    }
+  }
+  if constexpr (PHASE == PH_GATHER) {
+    part[threadIdx.x] = acc;  // 0 past the last row
+  } else {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      acc += __shfl_xor_sync(kFullMask, acc, off);
+      chk ^= __shfl_xor_sync(kFullMask, chk, off);
+    }
+    if (lane == 0) {
+      if constexpr (PHASE == PH_FULLFIX) {
+        part[threadIdx.x >> 5] = acc;  // 0 past the last row
+      } else if (row < m) {
+        out_f[row] = acc;
+        if constexpr (PHASE == PH_STREAM) out_i[row] = static_cast<int32_t>(chk);
+      }
+    }
+  }
+  if constexpr (PHASE == PH_GATHER) {
+    __syncthreads();
+    if (threadIdx.x < 32) {
+      float v = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) v += part[lane + 32 * w];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFullMask, v, off);
+      if (lane == 0) out_f[blockIdx.x] = v;
+    }
+  } else if constexpr (PHASE == PH_FULLFIX) {
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float v = part[0];
+      for (int w = 1; w < kWarps; ++w) v += part[w];
+      out_f[blockIdx.x] = v;
+    }
+  }
+}
+
+template <int PHASE>
+struct RingProbeStage {
+  static constexpr bool kCopy = PHASE != PH_RING_ALU;
+  static constexpr bool kAlu = PHASE != PH_RING_COPY;
+  RowBlocks p;
+  uint32_t* ring_cols;
+  uint32_t* ring_vals;
+  int slot_w;
+  const int32_t* cols;
+  const float* values;
+  float* out_f;
+  int32_t* out_i;
+  float* red_f;
+  uint32_t* red_i;
+  float acc;  // carried across a block's stages
+  uint32_t chk;
+
+  __device__ void copy(int slot, const Cursor& c) {
+    if (!kCopy) return;
+    const long long e0 = c.e0(p), e1 = c.e1(p);
+    copy_words(ring_cols + slot * slot_w, cols, e0, e1);
+    copy_words(ring_vals + slot * slot_w, values, e0, e1);
+  }
+
+  __device__ void consume(int slot, const Cursor& c) {
+    const long long e0 = c.e0(p);
+    const int len = static_cast<int>(c.e1(p) - e0);
+    if (c.part == 0) {
+      acc = static_cast<float>(threadIdx.x);
+      chk = 0;
+    }
+    if (kCopy) {
+      const uint32_t* sc = ring_cols + slot * slot_w + line_offset(cols, e0);
+      const uint32_t* sv = ring_vals + slot * slot_w + line_offset(values, e0);
+      for (int k = threadIdx.x; k < len; k += kThreads) {
+        chk ^= sc[k];
+        if (kAlu) acc = chain(acc);
+        else chk ^= sv[k];
+      }
+    } else {
+      for (int k = threadIdx.x; k < len; k += kThreads) acc = chain(acc);
+    }
+    if (!c.last()) return;
+    float v = acc;
+    uint32_t h = chk;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      v += __shfl_xor_sync(kFullMask, v, off);
+      h ^= __shfl_xor_sync(kFullMask, h, off);
+    }
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    if (lane == 0) {
+      red_f[warp] = v;
+      red_i[warp] = h;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float total = red_f[0];
+      uint32_t sum = red_i[0];
+      for (int w = 1; w < kWarps; ++w) {
+        total += red_f[w];
+        sum ^= red_i[w];
+      }
+      if (kAlu) out_f[c.blk] = total;
+      if (kCopy) out_i[c.blk] = static_cast<int32_t>(sum);
+    }
+  }
+};
+
+template <int SLOTS, int PHASE>
+__global__ void __launch_bounds__(kThreads)
+spmv_ring_probe_kernel(RowBlocks p, const int32_t* __restrict__ cols, const float* __restrict__ values,
+                       float* __restrict__ out_f, int32_t* __restrict__ out_i) {
+  extern __shared__ __align__(16) uint32_t ring[];
+  __shared__ float red_f[kWarps];
+  __shared__ uint32_t red_i[kWarps];
+  const int slot_w = slot_words(p.stage);
+  RingProbeStage<PHASE> body{p, ring, ring + SLOTS * slot_w, slot_w, cols, values, out_f, out_i,
+                             red_f, red_i, 0.f, 0u};
+  ring_loop<SLOTS>(p, body);
+}
+
+namespace {
+
+template <int PHASE>
+int launch_probe(long long m, long long n, const void* indptr, const void* cols, const void* values,
+                 const void* x, void* out_f, void* out_i, cudaStream_t stream) {
+  spmv_probe_kernel<PHASE><<<blocks_for_warps(m), kThreads, 0, stream>>>(
+      m, n, static_cast<const int32_t*>(indptr), static_cast<const int32_t*>(cols),
+      static_cast<const float*>(values), static_cast<const float*>(x), static_cast<float*>(out_f),
+      static_cast<int32_t*>(out_i));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int SLOTS, int PHASE>
+int launch_ring(const RowBlocks& p, const void* cols, const void* values, void* out_f, void* out_i,
+                cudaStream_t stream) {
+  const auto kernel = spmv_ring_probe_kernel<SLOTS, PHASE>;
+  const size_t smem = sizeof(uint32_t) * SLOTS * slot_words(p.stage) * (PHASE == PH_RING_ALU ? 0 : 2);
+  unsigned grid = 0;
+  const cudaError_t err = ring_grid(kernel, smem, p.nblocks, &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, kThreads, smem, stream>>>(p, static_cast<const int32_t*>(cols),
+                                           static_cast<const float*>(values), static_cast<float*>(out_f),
+                                           static_cast<int32_t*>(out_i));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int PHASE>
+int ring_by_slots(int slots, const RowBlocks& p, const void* cols, const void* values, void* out_f,
+                  void* out_i, cudaStream_t stream) {
+  switch (slots) {
+    case 2: return launch_ring<2, PHASE>(p, cols, values, out_f, out_i, stream);
+    case 3: return launch_ring<3, PHASE>(p, cols, values, out_f, out_i, stream);
+    case 4: return launch_ring<4, PHASE>(p, cols, values, out_f, out_i, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+// The kernel-1-grid phases.  out_f: f32 [m] (stream, alu, xgather) or
+// [ceil(m / 8)] (gather, fullfix, one a CTA); out_i: int32 [m] (stream) or null.
+extern "C" int spla_spmv_probe(int phase, long long m, long long n, const void* indptr,
+                               const void* cols, const void* values, const void* x, void* out_f,
+                               void* out_i, void* stream) {
+  if (m == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (phase) {
+    case PH_STREAM: return launch_probe<PH_STREAM>(m, n, indptr, cols, values, x, out_f, out_i, s);
+    case PH_GATHER: return launch_probe<PH_GATHER>(m, n, indptr, cols, values, x, out_f, out_i, s);
+    case PH_FULLFIX: return launch_probe<PH_FULLFIX>(m, n, indptr, cols, values, x, out_f, out_i, s);
+    case PH_ALU: return launch_probe<PH_ALU>(m, n, indptr, cols, values, x, out_f, out_i, s);
+    case PH_XGATHER: return launch_probe<PH_XGATHER>(m, n, indptr, cols, values, x, out_f, out_i, s);
+    default: return -1;
+  }
+}
+
+// The ring phases, per row block.  out_f: f32 [nblocks] (ring_alu,
+// ring_copy_alu) or null; out_i: int32 [nblocks] (ring_copy, ring_copy_alu) or null.
+extern "C" int spla_spmv_probe_ring(int phase, int slots, int stage, long long nblocks,
+                                    const void* block_rows, const void* indptr, const void* cols,
+                                    const void* values, void* out_f, void* out_i, void* stream) {
+  if (nblocks == 0) return 0;
+  if (stage < 2 || stage > kMaxStage) return static_cast<int>(cudaErrorInvalidValue);
+  const RowBlocks p{static_cast<const int32_t*>(block_rows), static_cast<const int32_t*>(indptr), nblocks,
+                    stage};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (phase) {
+    case PH_RING_COPY: return ring_by_slots<PH_RING_COPY>(slots, p, cols, values, out_f, out_i, s);
+    case PH_RING_ALU: return ring_by_slots<PH_RING_ALU>(slots, p, cols, values, out_f, out_i, s);
+    case PH_RING_COPY_ALU: return ring_by_slots<PH_RING_COPY_ALU>(slots, p, cols, values, out_f, out_i, s);
+    default: return -1;
+  }
+}

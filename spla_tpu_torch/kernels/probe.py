@@ -1,0 +1,176 @@
+"""Kernel 8: the phase probes of the pull SpMV (``csrc/spmv_probe.cu``) and their plain versions.
+
+Replaces the Pallas probes of ``tools/probe_spmv.py`` ``main`` (pallas_call
+:307, :385, :458, :527, :680, :738).  Each phase runs a part of kernel 1
+(on kernel 1's grid and stream) or of kernel 7's ring, and writes an output
+that its plain version reproduces; the CUDA source's header lists the
+phases.  ``spmv_probe(phase, A, x)`` returns ``(out_f, out_i)``, either None
+where the phase writes no such output:
+
+=============  ========================================  ========================
+phase          out_f (f32)                               out_i (int32)
+=============  ========================================  ========================
+stream         per row: sum of values                    per row: XOR of cols
+gather         per 8 rows (a CTA): sum of values * x     —
+fullfix        per 8 rows: the same sum                  —
+alu            per row: sum over lanes of the chain      —
+xgather        per row: sum of x[h(k)]                   —
+ring_copy      —                                         per block: XOR of cols
+                                                         and value bits
+ring_alu       per block: sum over threads of the chain  —
+ring_copy_alu  per block: as ring_alu                    per block: XOR of cols
+=============  ========================================  ========================
+
+The chain is ``CHAIN`` pairs of a rounded ``s * 1.0001`` and a rounded
+``+ 2``, applied once per entry slot a lane (or a ring thread) visits,
+starting from the lane (thread) index; ``h(k)`` is ``(k * 2654435761 mod
+2^32) mod n``.  Blocks are kernel 7's row blocks (``staged.staged_plan``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..containers import CsrMatrix
+from . import LAUNCHES, PROBE_PHASES
+from .build import check, load_library
+from .spmv import _on_cpu, _require_cuda
+from .staged import MAX_STAGE, _check_stage, resolve_slots, staged_plan
+
+__all__ = ["PROBE_PHASES", "RING_PHASES", "CHAIN", "spmv_probe", "spmv_probe_plain"]
+
+RING_PHASES = ("ring_copy", "ring_alu", "ring_copy_alu")
+CHAIN = 8  # kept equal to kChain in csrc/spmv_probe.cu
+ROWS_PER_CTA = 8  # kernel 1's CTA: 256 threads, a warp per row
+RING_THREADS = 256
+_MUL = 1.0001
+_HASH = 2654435761
+
+
+def _outputs(phase):
+    """(writes out_f, writes out_i)."""
+    return phase not in ("ring_copy",), phase in ("stream", "ring_copy", "ring_copy_alu")
+
+
+def _chain_table(max_count: int, seeds: torch.Tensor) -> torch.Tensor:
+    """T[c, j] = the chain applied c times from ``seeds[j]``, in f32 with a
+    rounding after each mul and each add, as the kernel's ``chain``."""
+    mul = torch.tensor(_MUL, dtype=torch.float32, device=seeds.device)
+    two = torch.tensor(2.0, dtype=torch.float32, device=seeds.device)
+    rows = [seeds]
+    s = seeds
+    for _ in range(max_count):
+        for _ in range(CHAIN):
+            s = s * mul
+            s = s + two
+        rows.append(s)
+    return torch.stack(rows)
+
+
+def _xor_fold(words, seg, nseg):
+    """Per segment, the XOR of the int32 ``words`` whose ``seg`` is below
+    ``nseg`` (others are dropped), from per-bit parities."""
+    w = words.long() & 0xFFFFFFFF
+    out = torch.zeros(nseg + 1, dtype=torch.long, device=words.device)
+    for b in range(32):
+        cnt = torch.zeros(nseg + 1, dtype=torch.long, device=words.device)
+        cnt.index_add_(0, seg, (w >> b) & 1)
+        out |= (cnt & 1) << b
+    out = out[:nseg]
+    return torch.where(out >= 2**31, out - 2**32, out).to(torch.int32)
+
+
+def _counts(lens, width):
+    """Entry slots each of ``width`` strided workers visits in ranges of
+    ``lens`` entries: [len(lens), width]."""
+    j = torch.arange(width, device=lens.device)
+    return torch.div(lens[:, None] - j + (width - 1), width, rounding_mode="floor").clamp(min=0)
+
+
+def _chains(counts, seeds):
+    table = _chain_table(int(counts.max()) if counts.numel() else 0, seeds)
+    return table[counts, torch.arange(seeds.numel(), device=seeds.device)].sum(1)
+
+
+def spmv_probe_plain(phase: str, A: CsrMatrix, x, stage: int = MAX_STAGE):
+    """Plain PyTorch version of a phase: ``(out_f, out_i)``."""
+    if phase not in PROBE_PHASES:
+        raise ValueError(f"unknown probe phase {phase!r}; phases: {PROBE_PHASES}")
+    m, n = A.shape
+    device = A.cols.device
+    valid = A.valid_mask()
+    rows = A.row_ids.long()
+    k = torch.arange(A.capacity, device=device)
+    ip = A.indptr.long()
+    lens = ip[1:] - ip[:-1]
+    if phase in RING_PHASES:
+        block_rows, nblocks = staged_plan(A, stage)
+        br = block_rows.long()
+        seg = torch.where(valid, torch.searchsorted(br, rows, right=True) - 1, nblocks)
+        out_f = out_i = None
+        if phase != "ring_copy":
+            blen = ip[br[1:]] - ip[br[:-1]]
+            parts = torch.div(blen + stage - 1, stage, rounding_mode="floor").clamp(min=1)
+            last = blen - (parts - 1) * stage
+            full = _counts(torch.full_like(blen, stage), RING_THREADS) * (parts - 1)[:, None]
+            counts = full + _counts(last, RING_THREADS)
+            out_f = _chains(counts, torch.arange(RING_THREADS, device=device, dtype=torch.float32))
+        if phase != "ring_alu":
+            words = A.cols if phase == "ring_copy_alu" else A.cols ^ A.values.view(torch.int32)
+            out_i = _xor_fold(words, seg, nblocks)
+        return out_f, out_i
+    seg = torch.where(valid, rows, m)
+    if phase == "stream":
+        out_f = torch.zeros(m + 1, dtype=torch.float32, device=device).index_add_(0, seg, A.values)
+        return out_f[:m], _xor_fold(A.cols, seg, m)
+    if phase in ("gather", "fullfix"):
+        ctas = (m + ROWS_PER_CTA - 1) // ROWS_PER_CTA
+        cseg = torch.where(valid, torch.div(rows, ROWS_PER_CTA, rounding_mode="floor"), ctas)
+        prod = A.values * x[A.cols.long().clamp(0, max(n - 1, 0))]
+        out = torch.zeros(ctas + 1, dtype=torch.float32, device=device).index_add_(0, cseg, prod)
+        return out[:ctas], None
+    if phase == "alu":
+        return _chains(_counts(lens, 32), torch.arange(32, device=device, dtype=torch.float32)), None
+    idx = ((k * _HASH) & 0xFFFFFFFF) % max(n, 1)
+    out = torch.zeros(m + 1, dtype=torch.float32, device=device).index_add_(0, seg, x[idx])
+    return out[:m], None
+
+
+def spmv_probe(phase: str, A: CsrMatrix, x, slots: int = 2, stage: int = MAX_STAGE):
+    """Kernel 8's ``phase`` (``slots`` and ``stage`` are the ring phases'):
+    ``(out_f, out_i)``.  CPU tensors take the plain version; CUDA tensors
+    launch the kernel or raise.  A probe of f32 ``A`` and ``x``."""
+    if phase not in PROBE_PHASES:
+        raise ValueError(f"unknown probe phase {phase!r}; phases: {PROBE_PHASES}")
+    slots = resolve_slots(slots)
+    if _on_cpu(A.values, x):
+        return spmv_probe_plain(phase, A, x, stage)
+    what = f"spmv_probe {phase}"
+    m, n = A.shape
+    _require_cuda(what, A, {"x": x}, {"x": n})
+    if A.values.dtype != torch.float32 or x.dtype != torch.float32:
+        raise TypeError(f"{what}: needs f32 values and x")
+    device = x.device
+    lib = load_library()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    writes_f, writes_i = _outputs(phase)
+    if phase in RING_PHASES:
+        block_rows, nblocks = staged_plan(A, stage)
+        out_f = torch.empty(nblocks, dtype=torch.float32, device=device) if writes_f else None
+        out_i = torch.empty(nblocks, dtype=torch.int32, device=device) if writes_i else None
+        rc = lib.spla_spmv_probe_ring(
+            PROBE_PHASES.index(phase), slots, _check_stage(stage), nblocks, block_rows.data_ptr(),
+            A.indptr.data_ptr(), A.cols.data_ptr(), A.values.data_ptr(),
+            None if out_f is None else out_f.data_ptr(), None if out_i is None else out_i.data_ptr(),
+            stream)
+    else:
+        size = (m + ROWS_PER_CTA - 1) // ROWS_PER_CTA if phase in ("gather", "fullfix") else m
+        out_f = torch.empty(size, dtype=torch.float32, device=device)
+        out_i = torch.empty(m, dtype=torch.int32, device=device) if writes_i else None
+        rc = lib.spla_spmv_probe(
+            PROBE_PHASES.index(phase), m, n, A.indptr.data_ptr(), A.cols.data_ptr(),
+            A.values.data_ptr(), x.data_ptr(), out_f.data_ptr(),
+            None if out_i is None else out_i.data_ptr(), stream)
+    check(rc, what)
+    LAUNCHES[f"spmv_probe_{phase}"] += 1
+    return out_f, out_i

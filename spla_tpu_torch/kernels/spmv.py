@@ -105,13 +105,24 @@ def spmv_pull_plain(A: CsrMatrix, x, op_mul, op_add, init, x_valid=None, row_sel
 
 
 def spmv_pull(A: CsrMatrix, x, op_mul, op_add, init, x_valid=None, row_sel=None,
-              want_has=False, swap=False):
+              want_has=False, swap=False, out=None):
     """Kernel 1.  Returns ``(out, has)``; ``has`` is None unless ``want_has``.
     CPU tensors take the plain version; CUDA tensors launch the kernel, and
-    a request the kernel does not cover raises."""
+    a request the kernel does not cover raises.  ``out``, if given, is the
+    contiguous tensor the result is written to.
+
+    Under ``staged.MANUAL_DMA`` an f32 request that the kernels cover goes
+    to kernel 7 (``staged.spmv_pull_staged``, its plain version on CPU
+    tensors) with the default slot count; other requests stay here."""
+    from . import staged  # imported here: staged imports this module
+
+    if staged.staged_codes(op_mul, op_add, A.values.dtype, swap) is not None:
+        res, has = staged.spmv_pull_staged(A, x, op_mul, op_add, init, x_valid, row_sel, want_has,
+                                           swap)
+        return _into(out, res), has
     if _on_cpu(A.values, x, x_valid, row_sel):
-        out, has = spmv_pull_plain(A, x, op_mul, op_add, init, x_valid, row_sel, swap)
-        return out, (has if want_has else None)
+        res, has = spmv_pull_plain(A, x, op_mul, op_add, init, x_valid, row_sel, swap)
+        return _into(out, res), (has if want_has else None)
     what = "spmv_pull"
     codes = pull_codes(op_mul, op_add, A.values.dtype, swap)
     if codes is None:
@@ -125,7 +136,10 @@ def spmv_pull(A: CsrMatrix, x, op_mul, op_add, init, x_valid=None, row_sel=None,
     if x.dtype != A.values.dtype:
         raise TypeError(f"{what}: x is {x.dtype}, the matrix {A.values.dtype}")
     init_t = torch.as_tensor(init, dtype=x.dtype, device=x.device).reshape(1)
-    out = torch.empty(m, dtype=x.dtype, device=x.device)
+    if out is None:
+        out = torch.empty(m, dtype=x.dtype, device=x.device)
+    elif out.shape != (m,) or out.dtype != x.dtype or out.device != x.device or not out.is_contiguous():
+        raise ValueError(f"{what}: out must be a contiguous {x.dtype} [{m}] tensor on {x.device}")
     has = torch.empty(m, dtype=torch.bool, device=x.device) if want_has else None
     lib = load_library()
     rc = lib.spla_spmv_pull(*codes, m, A.indptr.data_ptr(), A.cols.data_ptr(),
@@ -135,6 +149,13 @@ def spmv_pull(A: CsrMatrix, x, op_mul, op_add, init, x_valid=None, row_sel=None,
     check(rc, what)
     LAUNCHES["spmv_pull"] += 1
     return out, has
+
+
+def _into(out, res):
+    if out is None:
+        return res
+    out.copy_(res)
+    return out
 
 
 def spmv_pull_structural_plain(A: CsrMatrix, x_valid, row_sel=None):
@@ -150,7 +171,12 @@ def spmv_pull_structural_plain(A: CsrMatrix, x_valid, row_sel=None):
 
 
 def spmv_pull_structural(A: CsrMatrix, x_valid, row_sel=None):
-    """Structural kernel 1 (reads no values); bool ``hits`` of length m."""
+    """Structural kernel 1 (reads no values); bool ``hits`` of length m.
+    Under ``staged.MANUAL_DMA`` it is kernel 7's structural variant."""
+    from . import staged
+
+    if staged.MANUAL_DMA:
+        return staged.spmv_pull_staged_structural(A, x_valid, row_sel)
     if _on_cpu(A.cols, x_valid, row_sel):
         return spmv_pull_structural_plain(A, x_valid, row_sel)
     what = "spmv_pull_structural"

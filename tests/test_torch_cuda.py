@@ -13,10 +13,10 @@ import pytest
 import scipy.sparse as sp
 import torch
 
-from spla_tpu_torch import Descriptor, algorithms as alg, formats as F, kernels, op
+from spla_tpu_torch import DenseVec, Descriptor, algorithms as alg, formats as F, kernels, op
 from spla_tpu_torch.kernels import level_update as K3, mxmt as K45, resident as K6, spmv as K1
-from spla_tpu_torch.kernels import traversal as K2
-from spla_tpu_torch.ops import spgemm as TG
+from spla_tpu_torch.kernels import probe as K8, staged as K7, traversal as K2
+from spla_tpu_torch.ops import spgemm as TG, spmv as TS
 
 pytestmark = pytest.mark.cuda
 
@@ -326,3 +326,118 @@ def test_road_route_launches_kernel6(dev, monkeypatch):
     _assert_same(v, alg.bfs(A, 0, At=A).values)
     _assert_same(d, alg.sssp(A, 0, At=A).values)
     assert alg.STATS["level_loop"] == 2
+
+
+@pytest.fixture
+def manual_dma(monkeypatch):
+    """kernels.staged.MANUAL_DMA on, as SPLA_MANUAL_DMA=1 sets it."""
+    monkeypatch.setattr(K7, "MANUAL_DMA", True)
+
+
+def _check_pull(got, ref, exact):
+    if exact:
+        _assert_same(got, ref)
+    else:
+        # summation order differs: f32 tolerance
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5, equal_nan=True)
+
+
+@pytest.mark.parametrize("add", ["PLUS", "MIN", "MAX"])
+@pytest.mark.parametrize("stage", [16, 1024])
+def test_spmv_pull_staged_matches_plain_and_kernel1(dev, add, stage):
+    """Kernel 7 at 2, 3 and 4 slots against its plain version and kernel 1,
+    every mul, both operand orders, with and without masks; row 17 (5000
+    entries) is longer than either stage."""
+    a = _graph()
+    n = a.shape[0]
+    rng = np.random.default_rng(11)
+    A = F.csr_from_scipy(a, device=dev)
+    x = torch.from_numpy(rng.random(n, dtype=np.float32)).to(dev)
+    x[3], x[5] = float("nan"), float("inf")
+    x_valid = torch.from_numpy(rng.random(n) < 0.8).to(dev)
+    row_sel = torch.from_numpy(rng.random(n) < 0.6).to(dev)
+    oa = getattr(op.FLOAT, add)
+    for mul in MULS:
+        om = getattr(op.FLOAT, mul)
+        for xv, rs, swap in ((None, None, False), (x_valid, row_sel, True)):
+            ref, ref_has = K7.spmv_pull_staged_plain(A, x, om, oa, oa.identity, xv, rs, swap, stage=stage)
+            k1, k1_has = K1.spmv_pull(A, x, om, oa, oa.identity, xv, rs, want_has=True, swap=swap)
+            for slots in (2, 3, 4):
+                got, has = K7.spmv_pull_staged(A, x, om, oa, oa.identity, xv, rs, want_has=True,
+                                               swap=swap, slots=slots, stage=stage)
+                assert torch.equal(has, ref_has) and torch.equal(has, k1_has)
+                _check_pull(got, ref, add != "PLUS")
+                _check_pull(got, k1, add != "PLUS")
+    for slots in (2, 3, 4):
+        _assert_same(K7.spmv_pull_staged_structural(A, x_valid, row_sel, slots=slots, stage=stage),
+                     K1.spmv_pull_structural(A, x_valid, row_sel))
+
+
+def test_spmv_pull_staged_fewer_stages_than_slots(dev):
+    """One stage in all (the reference's manual kernel fails on one batch):
+    every slot count gives kernel 1's result."""
+    rng = np.random.default_rng(12)
+    n = 300
+    a = sp.random(n, n, density=0.002, random_state=12, format="csr", dtype=np.float32)
+    A = F.csr_from_scipy(a, device=dev)
+    assert K7.staged_plan(A)[1] == 1
+    x = torch.from_numpy(rng.random(n, dtype=np.float32)).to(dev)
+    ref, _ = K1.spmv_pull(A, x, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)
+    for slots in (2, 3, 4):
+        got, _ = K7.spmv_pull_staged(A, x, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0, slots=slots)
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+        got, _ = K7.spmv_pull_staged(A, x, op.PLUS_FLOAT, op.MIN_FLOAT, float("inf"), slots=slots)
+        _assert_same(got, K1.spmv_pull(A, x, op.PLUS_FLOAT, op.MIN_FLOAT, float("inf"))[0])
+    with pytest.raises(ValueError, match=r"\(2, 3, 4\)"):
+        K7.spmv_pull_staged(A, x, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0, slots=5)
+
+
+@pytest.mark.parametrize("phase", kernels.PROBE_PHASES)
+def test_spmv_probe_matches_plain(dev, phase):
+    """Each kernel-8 phase against its plain version: f32 sums within rtol
+    1e-5 (summation order), XOR checksums bitwise."""
+    a = _graph(seed=13)
+    n = a.shape[0]
+    A = F.csr_from_scipy(a, device=dev)
+    x = torch.from_numpy(np.random.default_rng(14).random(n, dtype=np.float32)).to(dev)
+    for stage, slots in ((1024, 2), (16, 3), (64, 4)):
+        got = K8.spmv_probe(phase, A, x, slots=slots, stage=stage)
+        ref = K8.spmv_probe_plain(phase, A, x, stage=stage)
+        for g, r in zip(got, ref):
+            assert (g is None) == (r is None)
+            if g is None:
+                continue
+            if g.dtype == torch.int32:
+                _assert_same(g, r)
+            else:
+                torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-5)
+
+
+def test_manual_dma_routes_f32_to_kernel7(dev, manual_dma, monkeypatch):
+    """Under MANUAL_DMA, mxv_masked and the pull levels of bfs / sssp / pr
+    launch kernel 7 (i32 stays on kernel 1), with the unstaged results."""
+    monkeypatch.setattr(alg, "RESIDENT_BYTES", 0)
+    a = _graph(n=2000, seed=15, hub=300)
+    a = (a + a.T).tocsr()
+    a.data = np.random.default_rng(16).uniform(0.1, 2.0, a.nnz).astype(np.float32)
+    A = F.csr_from_scipy(a, device=dev)
+    n = a.shape[0]
+    x = DenseVec(torch.from_numpy(np.random.default_rng(17).random(n, dtype=np.float32)).to(dev),
+                 torch.tensor(0.0, device=dev))
+    kernels.reset_launches()
+    staged = {"mxv": TS.mxv_masked(x, A, x, op.MULT_FLOAT, op.PLUS_FLOAT, op.NQZERO_FLOAT, 0.0).values,
+              "mxv i32": TS.mxv_masked(x, F.csr_from_scipy((a * 100).astype(np.int32), device=dev),
+                                       DenseVec(x.values.int(), torch.tensor(0, device=dev)),
+                                       op.MULT_INT, op.PLUS_INT, op.NQZERO_FLOAT, 0).values}
+    for name, fn in (("bfs", alg.bfs), ("sssp", alg.sssp)):
+        staged[name] = fn(A, 0, Descriptor(pull_only=True)).values
+    staged["pr"] = alg.pr(A, 0.85, 1e-6).values
+    assert kernels.LAUNCHES["spmv_pull_staged"] > 0
+    assert kernels.LAUNCHES["spmv_pull"] == 1  # the i32 mxv
+    monkeypatch.setattr(K7, "MANUAL_DMA", False)
+    torch.testing.assert_close(
+        staged["mxv"], TS.mxv_masked(x, A, x, op.MULT_FLOAT, op.PLUS_FLOAT, op.NQZERO_FLOAT, 0.0).values,
+        rtol=1e-5, atol=1e-5)
+    for name, fn in (("bfs", alg.bfs), ("sssp", alg.sssp)):
+        _assert_same(staged[name], fn(A, 0, Descriptor(pull_only=True)).values)
+    torch.testing.assert_close(staged["pr"], alg.pr(A, 0.85, 1e-6).values, rtol=1e-5, atol=1e-6)

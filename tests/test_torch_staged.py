@@ -1,0 +1,348 @@
+"""Kernel 7's plain version (the staged-stream pull SpMV), ``formats.split_rows``,
+the ``MANUAL_DMA`` dispatch, kernel 8's plain versions and the two tools, on
+the CPU, against spla_tpu's manual-DMA kernel (Pallas interpret mode), its
+pipelined kernel, numpy definitions and kernel 1's plain version.
+
+Tolerances: f32 PLUS within rtol=1e-5, atol=1e-5 (the summation order
+differs); MIN, MAX, structural results and XOR checksums bitwise.
+"""
+
+import json
+from dataclasses import replace
+
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import torch
+
+import jax.numpy as jnp
+
+import spla_tpu.formats as JF
+
+from spla_tpu_torch import formats as F, op as OP
+from spla_tpu_torch.interop import csr_from_numpy, from_spla_tpu, to_numpy
+from spla_tpu_torch.kernels import PROBE_PHASES, probe as K8, spmv as K1, staged as K7
+from spla_tpu_torch.tools import ab_spmv, probe_spmv
+from spla_tpu_torch.tools.graphs import build_graph
+
+SEMIRINGS = [("MULT", "PLUS", 0.0), ("PLUS", "MIN", np.inf), ("MIN", "MAX", -np.inf)]
+
+
+def _close(got, want, float_plus):
+    got, want = to_numpy(got), np.asarray(want)
+    assert got.shape == want.shape
+    if float_plus:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5, equal_nan=True)
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+def _mult(u, v):
+    return u * v
+
+
+def _plus(u, v):
+    return u + v
+
+
+_JAX_MUL = {"MULT": _mult, "PLUS": _plus}
+_JAX_ADD = {"PLUS": jnp.add, "MIN": jnp.minimum}
+
+
+def _coo(m, n, nnz, seed, hub_rows=0):
+    """The JAX manual-DMA test's inputs (tests/test_pallas.py:1028-1036):
+    uniform rows and columns, values in [0.5, 1.5), plus ``hub_rows``
+    entries in row 5; duplicates kept as separate entries."""
+    rng = np.random.default_rng(seed)
+    rows = np.concatenate([rng.integers(0, m, nnz - hub_rows), np.full(hub_rows, 5)]).astype(np.int32)
+    cols = rng.integers(0, n, nnz).astype(np.int32)
+    vals = rng.random(nnz, dtype=np.float32) + 0.5
+    return rows, cols, vals, rng
+
+
+def _both(m, n, rows, cols, vals):
+    """The same matrix as spla_tpu's fused format (cw 16384) and as the
+    port's CSR, carried over from spla_tpu's CsrMatrix by ``interop``."""
+    from spla_tpu.pallas.cellpack_native import _native_lib
+    from spla_tpu.pallas.spmv import build_fused_cell_spmv_arrays
+
+    if _native_lib() is None:
+        pytest.skip("no native toolchain for spla_tpu's packer")
+    fmt = build_fused_cell_spmv_arrays(m, n, rows, cols, vals, cw=16384)
+    order = np.argsort(rows, kind="stable")
+    indptr = np.zeros(m + 1, np.int64)
+    np.cumsum(np.bincount(rows, minlength=m), out=indptr[1:])
+    a = sp.csr_matrix((vals[order], cols[order], indptr), shape=(m, n))  # duplicates kept
+    return fmt, from_spla_tpu(JF.csr_from_scipy(a), "cpu")
+
+
+@pytest.mark.parametrize("mul,add,init", SEMIRINGS[:2])
+def test_staged_plain_matches_manual_dma_kernel(mul, add, init):
+    """spmv_pull_staged_plain against fused_cell_spmv_apply_manual (interpret
+    mode) at the JAX test's size: MULT/PLUS within tolerance, MIN-plus
+    bitwise; rows with no entries hold the identity in both."""
+    from spla_tpu.pallas.spmv import fused_cell_spmv_apply_manual
+
+    m, n = 16384, 40000
+    rows, cols, vals, rng = _coo(m, n, 60000, 23)
+    x = rng.random(n, dtype=np.float32)
+    fmt, A = _both(m, n, rows, cols, vals)
+    want = fused_cell_spmv_apply_manual(fmt, jnp.asarray(x), _JAX_MUL[mul], _JAX_ADD[add], init)
+    got, _ = K7.spmv_pull_staged_plain(A, torch.from_numpy(x), OP.lookup(mul, OP.FLOAT),
+                                       OP.lookup(add, OP.FLOAT), init)
+    _close(got, want, add == "PLUS")
+
+
+def test_pin_manual_dma_fewer_batches_than_slots(monkeypatch):
+    """A format of one tile batch (32 tiles at FUSED_K = 32): the reference's
+    manual kernel primes two slots and raises; the port returns
+    fused_cell_spmv_apply's result, through kernel 7's wrapper and through
+    kernel 1's under MANUAL_DMA."""
+    from spla_tpu.pallas.spmv import FUSED_K, fused_cell_spmv_apply, fused_cell_spmv_apply_manual
+
+    m, n = 2048, 4096
+    rows, cols, vals, rng = _coo(m, n, 8000, 23)
+    x = rng.random(n, dtype=np.float32)
+    fmt, A = _both(m, n, rows, cols, vals)
+    assert fmt.n_tiles == FUSED_K == 32
+    with pytest.raises(ValueError, match="Out of bound"):
+        fused_cell_spmv_apply_manual(fmt, jnp.asarray(x), _mult, jnp.add, 0.0)
+    # without ow_of_batch, which only the resident kernels read (spmv.py:1242-1244),
+    # the format has the jit signature of the split test's parts: one interpret compile
+    want = fused_cell_spmv_apply(replace(fmt, ow_of_batch=None), jnp.asarray(x), op_mul=_mult,
+                                 op_add=jnp.add, identity=0.0)
+    xt = torch.from_numpy(x)
+    for slots in K7.SLOT_COUNTS:
+        got, _ = K7.spmv_pull_staged(A, xt, OP.MULT_FLOAT, OP.PLUS_FLOAT, 0.0, slots=slots)
+        _close(got, want, True)
+    monkeypatch.setattr(K7, "MANUAL_DMA", True)
+    _close(K1.spmv_pull(A, xt, OP.MULT_FLOAT, OP.PLUS_FLOAT, 0.0)[0], want, True)
+
+
+def _hub_matrix(seed=3):
+    """n = 600: rows of 0-40 entries, row 17 of 300 and row 400 of 90."""
+    rng = np.random.default_rng(seed)
+    n = 600
+    rows = np.concatenate([rng.integers(0, n, 6000), np.full(300, 17), np.full(90, 400)])
+    cols = rng.integers(0, n, rows.size)
+    vals = rng.uniform(-2, 2, rows.size).astype(np.float32)
+    rows = rows.astype(np.int32)
+    order = np.argsort(rows, kind="stable")
+    indptr = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(rows, minlength=n), out=indptr[1:])
+    return csr_from_numpy((n, n), indptr, cols[order], vals[order], rows[order], rows.size,
+                          np.float32(0), "cpu")
+
+
+@pytest.mark.parametrize("slots", [2, 3, 4])
+@pytest.mark.parametrize("stage", [8, 32, 1024])
+def test_staged_plain_at_small_stages(slots, stage):
+    """The plain version with stages of 8 and 32 entries (rows straddle
+    stage buckets; rows 17 and 400 span many stages) and of 1024, every
+    covered semiring with masks and swapped operands, against kernel 1's
+    plain version; the structural variant too."""
+    A = _hub_matrix()
+    n = A.shape[0]
+    block_rows, nblocks = K7.staged_plan(A, stage)
+    sizes = torch.diff(A.indptr.long()[block_rows.long()])
+    one_row = torch.diff(block_rows.long()) == 1
+    assert bool((sizes[~one_row] < stage).all())  # a block of several rows is one stage
+    if stage < 1024:
+        assert bool((sizes[one_row] > stage).any())  # rows spanning several stages
+    if stage == 32:
+        assert bool((~one_row).any())
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.uniform(-3, 3, n).astype(np.float32))
+    x[2], x[9] = float("nan"), float("inf")
+    x_valid = torch.from_numpy(rng.random(n) < 0.8)
+    row_sel = torch.from_numpy(rng.random(n) < 0.7)
+    for mul in ("PLUS", "MULT", "FIRST", "SECOND", "MIN", "MAX"):
+        for add in ("PLUS", "MIN", "MAX"):
+            om, oa = OP.lookup(mul, OP.FLOAT), OP.lookup(add, OP.FLOAT)
+            for xv, rs, swap in ((None, None, False), (x_valid, row_sel, True)):
+                got, has = K7.spmv_pull_staged_plain(A, x, om, oa, oa.identity, xv, rs, swap,
+                                                     slots, stage)
+                want, want_has = K1.spmv_pull_plain(A, x, om, oa, oa.identity, xv, rs, swap)
+                assert torch.equal(has, want_has)
+                _close(got, want, add == "PLUS")
+    got = K7.spmv_pull_staged_structural_plain(A, x_valid, row_sel, slots, stage)
+    assert torch.equal(got, K1.spmv_pull_structural_plain(A, x_valid, row_sel))
+
+
+def test_slots_resolve_as_the_reference_and_raise_outside_the_instances():
+    assert K7.resolve_slots(0) == K7.resolve_slots(1) == 2  # max(slots, 2), spmv.py:2154
+    assert K7.resolve_slots(None) == max(K7.MANUAL_DMA_SLOTS, 2)
+    A = _hub_matrix()
+    x = torch.ones(A.shape[0])
+    with pytest.raises(ValueError, match=r"\(2, 3, 4\)"):
+        K7.spmv_pull_staged(A, x, OP.MULT_FLOAT, OP.PLUS_FLOAT, 0.0, slots=5)
+    with pytest.raises(ValueError, match="stage"):
+        K7.staged_plan(A, 4096)
+
+
+def test_split_rows_parts_equal_the_whole_and_split_fused_format():
+    """split_rows parts, each into its slice of one output, equal the whole
+    SpMV, and split_fused_format's two tile ranges summed (interpret mode)."""
+    from spla_tpu.pallas.spmv import fused_cell_spmv_apply, split_fused_format
+
+    m, n = 2048, 4096
+    rows, cols, vals, rng = _coo(m, n, 8000, 31, hub_rows=20)
+    x = rng.random(n, dtype=np.float32)
+    fmt, A = _both(m, n, rows, cols, vals)
+    fparts = split_fused_format(fmt, 2)
+    assert len(fparts) == 2
+    want = sum(np.asarray(fused_cell_spmv_apply(f, jnp.asarray(x), op_mul=_mult, op_add=jnp.add,
+                                                identity=0.0)) for f in fparts)
+    xt = torch.from_numpy(x)
+    whole, _ = K1.spmv_pull_plain(A, xt, OP.MULT_FLOAT, OP.PLUS_FLOAT, 0.0)
+    for parts in (1, 2, 3, 4):
+        pieces = F.split_rows(A, parts)
+        assert len(pieces) == parts and sum(p.shape[0] for p in pieces) == m
+        assert all(p.cols.data_ptr() == A.cols[int(A.indptr[r])].data_ptr() for p, r in
+                   zip(pieces, np.cumsum([0] + [p.shape[0] for p in pieces])[:-1]))
+        out = torch.empty(m)
+        r0 = 0
+        for p in pieces:
+            K1.spmv_pull(p, xt, OP.MULT_FLOAT, OP.PLUS_FLOAT, 0.0, out=out[r0:r0 + p.shape[0]])
+            r0 += p.shape[0]
+        torch.testing.assert_close(out, whole, rtol=0, atol=0)
+        _close(out, want, True)
+
+
+def test_manual_dma_dispatch_on_cpu_takes_the_staged_plain_path(monkeypatch):
+    """Under MANUAL_DMA, kernel 1's wrappers send f32 requests (and the
+    structural variant) to kernel 7's plain version on CPU tensors, and
+    keep i32 requests; pr and sssp reach it through their pull levels."""
+    from spla_tpu_torch import algorithms as alg
+    from spla_tpu_torch.descriptor import Descriptor
+
+    calls = []
+    plain, structural = K7.spmv_pull_staged_plain, K7.spmv_pull_staged_structural_plain
+    monkeypatch.setattr(K7, "spmv_pull_staged_plain", lambda *a, **k: calls.append("f32") or plain(*a, **k))
+    monkeypatch.setattr(K7, "spmv_pull_staged_structural_plain",
+                        lambda *a, **k: calls.append("structural") or structural(*a, **k))
+    A = _hub_matrix()
+    n = A.shape[0]
+    x = torch.rand(n, generator=torch.Generator().manual_seed(5))
+    want = K1.spmv_pull(A, x, OP.MULT_FLOAT, OP.PLUS_FLOAT, 0.0)[0]
+    assert calls == []
+    monkeypatch.setattr(K7, "MANUAL_DMA", True)
+    _close(K1.spmv_pull(A, x, OP.MULT_FLOAT, OP.PLUS_FLOAT, 0.0)[0], want, True)
+    assert calls == ["f32"]
+    Ai = F.csr_from_scipy(sp.csr_matrix((np.ones(10, np.int32), (np.arange(10), np.arange(10)))),
+                          device="cpu")
+    K1.spmv_pull(Ai, torch.ones(10, dtype=torch.int32), OP.MULT_INT, OP.PLUS_INT, 0)
+    K1.spmv_pull_structural(A, x > 0.5)
+    assert calls == ["f32", "structural"]
+    a = sp.random(300, 300, density=0.03, random_state=6, format="csr", dtype=np.float32)
+    a = (a + a.T).tocsr()
+    outdeg = np.maximum(np.asarray(a.sum(axis=0)).ravel(), 1e-3)
+    G = F.csr_from_scipy(a, device="cpu")
+    P = F.csr_from_scipy(a.multiply(0.85 / outdeg).tocsr().astype(np.float32), device="cpu")
+    monkeypatch.setattr(alg, "RESIDENT_BYTES", 0)
+    del calls[:]
+    staged = alg.sssp(G, 0, Descriptor(pull_only=True)).values, alg.pr(P).values
+    assert set(calls) == {"f32"} and len(calls) > 2
+    monkeypatch.setattr(K7, "MANUAL_DMA", False)
+    _close(staged[0], alg.sssp(G, 0, Descriptor(pull_only=True)).values, False)
+    _close(staged[1], alg.pr(P).values, True)
+
+
+def _numpy_probe(phase, indptr, cols, vals, x, stage):
+    """Kernel 8's outputs, defined with numpy loops."""
+    m, n = indptr.size - 1, x.size
+    mul, two = np.float32(1.0001), np.float32(2.0)
+
+    def chain(s, count):
+        for _ in range(count * K8.CHAIN):
+            s = np.float32(np.float32(s * mul) + two)
+        return s
+
+    def xor(words):
+        out = 0
+        for w in words:
+            out ^= int(w) & 0xFFFFFFFF
+        return np.int32(out - (1 << 32) if out >= 1 << 31 else out)
+
+    rowsum = np.array([vals[indptr[r]:indptr[r + 1]].astype(np.float64).sum() for r in range(m)])
+    if phase == "stream":
+        return rowsum, np.array([xor(cols[indptr[r]:indptr[r + 1]]) for r in range(m)], np.int32)
+    if phase in ("gather", "fullfix"):
+        prod = np.array([(vals[indptr[r]:indptr[r + 1]].astype(np.float64)
+                          * x[cols[indptr[r]:indptr[r + 1]]]).sum() for r in range(m)])
+        return np.array([prod[r:r + 8].sum() for r in range(0, m, 8)]), None
+    if phase == "alu":
+        return np.array([sum(float(chain(np.float32(lane), len(range(lane, indptr[r + 1] - indptr[r], 32))))
+                             for lane in range(32)) for r in range(m)]), None
+    if phase == "xgather":
+        return np.array([sum(float(x[(k * 2654435761 % 2**32) % n]) for k in range(indptr[r], indptr[r + 1]))
+                         for r in range(m)]), None
+    # the ring phases, per row block: a block of several rows holds fewer
+    # than `stage` entries; a block of one row is cut into stages
+    half, starts = stage // 2, [0]
+    for r in range(1, m):
+        long_row = indptr[r + 1] - indptr[r] > half or indptr[r] - indptr[r - 1] > half
+        if indptr[r] // half != indptr[r - 1] // half or long_row or r % stage == 0:
+            starts.append(r)
+    starts.append(m)
+    out_f, out_i = [], []
+    for b0, b1 in zip(starts[:-1], starts[1:]):
+        e0, e1 = indptr[b0], indptr[b1]
+        stages = [(s, min(s + stage, e1)) for s in range(e0, e1, stage)] or [(e0, e0)]
+        counts = [sum(len(range(t, s1 - s0, 256)) for s0, s1 in stages) for t in range(256)]
+        out_f.append(sum(float(chain(np.float32(t), counts[t])) for t in range(256)))
+        words = cols[e0:e1] if phase != "ring_copy" else np.concatenate([cols[e0:e1], vals[e0:e1].view(np.int32)])
+        out_i.append(xor(words))
+    return (None if phase == "ring_copy" else np.array(out_f),
+            None if phase == "ring_alu" else np.array(out_i, np.int32))
+
+
+@pytest.mark.parametrize("phase", PROBE_PHASES)
+def test_probe_plain_matches_numpy_definition(phase):
+    _, rows, cols, vals = build_graph(240, 6, seed=7)
+    extra = np.random.default_rng(8)
+    # one row far longer than a stage of 32
+    rows = np.concatenate([rows, np.full(150, 17, np.int32)])
+    order = np.argsort(rows, kind="stable")
+    rows = rows[order]
+    cols = np.concatenate([cols, extra.integers(0, 240, 150, dtype=np.int32)])[order]
+    vals = np.concatenate([vals, extra.random(150, dtype=np.float32)])[order]
+    indptr = np.zeros(241, np.int64)
+    np.cumsum(np.bincount(rows, minlength=240), out=indptr[1:])
+    A = csr_from_numpy((240, 240), indptr, cols, vals, rows, rows.size, np.float32(0), "cpu")
+    x = extra.random(240, dtype=np.float32)
+    stage = 32
+    got = K8.spmv_probe(phase, A, torch.from_numpy(x), slots=3, stage=stage)
+    want = _numpy_probe(phase, indptr, cols, vals, x, stage)
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if g is None:
+            continue
+        if g.dtype == torch.int32:
+            np.testing.assert_array_equal(g.numpy(), w)
+        else:
+            np.testing.assert_allclose(g.numpy(), w, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("argv", [["--manual", "3"], ["--variant", "split2"], ["--graph", "powerlaw"]])
+def test_ab_spmv_runs_on_the_cpu(argv, capsys):
+    ab_spmv.main(["--device", "cpu", "--n", "4096", "--iters", "3", "--check", *argv])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["device"] == "cpu" and line["ms"] > 0 and set(line["checked"]) == {"variant", "op_layer"}
+    assert line["manual"] == (3 if "--manual" in argv else 0)
+
+
+def test_probe_spmv_runs_on_the_cpu(capsys):
+    probe_spmv.main(["--device", "cpu", "--n", "4096", "--iters", "2"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(line["ns_per_entry"]) == set(probe_spmv.PROBES) and line["library"] == ["torch_sum"]
+    assert all(v > 0 for v in line["ns_per_entry"].values())
+
+
+def test_tools_refuse_a_cuda_run_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ab_spmv.run(n=64, deg=2, iters=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        probe_spmv.run(n=64, deg=2, iters=1)
