@@ -7,7 +7,11 @@ Phases:
   1. device: the card's name and power limit (no CUDA device: exit non-zero);
   2. build: compile the CUDA kernels from kernels/csrc and print ptxas' lines;
   3. each kernel against its plain PyTorch version, on the card, at the
-     slice's shapes (tolerances stated in ``check_close``); kernel 6 (the
+     slice's shapes (tolerances stated in ``check_close``); kernel 1 every
+     instance, with and without masks and swapped, and its structural
+     variant on the n = 2^21 graph, the hub graph, powerlaw_graph(2^21, 16)
+     and n = 2^16 graphs whose degrees pick each team size and the hub
+     path, printing each plan; kernel 6 (the
      whole BFS / SSSP in one cooperative launch) bitwise on the road grids
      of bench_suite.py, from vertex 0 and from the far corner; kernel 7 (the
      staged-stream SpMV) against its plain version and kernel 1, every f32
@@ -42,10 +46,11 @@ Phases:
      products/s (bench_suite.py masked_spgemm_mprod_s), BFS / SSSP / PR /
      TC wall time; road BFS / SSSP walls on the resident route and on the
      level loop, with road_bfs_gteps and road_sssp_ms (bench_suite.py:265,346);
-     kernel 7 at 2, 3 and 4 slots beside kernel 1 and cuSPARSE (one
-     ``torch.sparse_csr_tensor @ x`` call, the library's time); the probe
-     table in ns per entry; ab_spmv's chained kernel 1, split2, split4 and
-     kernel 7 steps.
+     kernel 1 beside its first, warp-per-row design (kernel 8's warp_row), kernel 7 and
+     cuSPARSE (one ``torch.sparse_csr_tensor @ x`` call, the library's
+     time) on the n = 2^21, powerlaw and hub graphs, with kernel 1 at each
+     team size on the first; the probe table in ns per entry; ab_spmv's
+     chained kernel 1, split2, split4 and kernel 7 steps.
 
 Each kernel's row in the JSON line carries ``bound_ms``: the larger of its
 bytes (each input read once, each output written once, at this run's
@@ -84,12 +89,13 @@ from spla_tpu_torch.ops import (DISPATCH_STATS, count_mxmT_products, m_reduce, m
                                 mxmT_masked, mxv_masked, vxm_masked, vxm_masked_dense)
 from spla_tpu_torch.ops.spgemm import mxmT_masked_plain
 from spla_tpu_torch.tools import ab_spmv as AB, probe_spmv as PROBE
-from spla_tpu_torch.tools.graphs import HUB_LEN, HUB_ROWS, build_graph, hub_graph, random_graph
+from spla_tpu_torch.tools.graphs import HUB_ROWS, build_graph, hub_graph, powerlaw_graph, random_graph
 
 N_SPMV, DEG_SPMV = 1 << 21, 16      # bench.py:37 build_graph
 N_GRAPH, DEG_GRAPH = 1 << 20, 16    # bench_suite.py:24 random_graph, bench_suite.py:122
 N_TC, DEG_TC, SEED_TC = 1 << 15, 24, 3  # bench_suite.py:513-514
 N_FEW = 400  # kernel 7's fewer-stages-than-slots graph: 400 entries, one row block
+N_SMALL, SMALL_DEGREES = 1 << 16, (1, 6, 16, 24, 64, 300)  # kernel 1: teams of 2-32 lanes, hub rows
 N_HUB_TC, HUB_LEN_TC = 1 << 17, 1 << 16
 SIDE_BFS, SIDE_SSSP, SEED_ROAD = 1024, 512, 9  # bench_suite.py:226,323,326
 N_CLI_SMALL = 2000  # the pr and tc CLIs' graph: their naive oracles are Python loops
@@ -120,7 +126,8 @@ KERNELS = {
     # kernel 8's phases, each against the TPU probe it answers for
     **{f"spmv_probe_{phase}": ("cuda", "spla_tpu_torch/kernels/csrc/spmv_probe.cu", f"tools/probe_spmv.py:{line}")
        for phase, line in (("stream", 121), ("gather", 146), ("fullfix", 109), ("alu", 176), ("xgather", 190),
-                           ("ring_copy", 248), ("ring_alu", 248), ("ring_copy_alu", 248))},
+                           ("ring_copy", 248), ("ring_alu", 248), ("ring_copy_alu", 248), ("warp_row", 99),
+                           ("flat_stream", 498), ("flat_gather", 146))},
 }
 # the kernels each slice of phase 4 must launch
 PATHS = {"spmv": ("spmv_pull", "spmv_push", "level_update"), "spgemm": ("mxmt_reduce", "mxmt_masked"),
@@ -241,52 +248,64 @@ def as64(M):
     return replace(M, values=M.values.double(), fill=M.fill.double())
 
 
-def check_pull(label, M, x, op_mul, op_add, init, x_valid, row_sel):
-    got, has = K1.spmv_pull(M, x, op_mul, op_add, init, x_valid, row_sel, want_has=True)
-    ref, ref_has = K1.spmv_pull_plain(M, x, op_mul, op_add, init, x_valid, row_sel)
+def check_pull(label, M, x, op_mul, op_add, init, x_valid, row_sel, swap=False):
+    got, has = K1.spmv_pull(M, x, op_mul, op_add, init, x_valid, row_sel, want_has=True, swap=swap)
+    ref, ref_has = K1.spmv_pull_plain(M, x, op_mul, op_add, init, x_valid, row_sel, swap)
     if not torch.equal(has, ref_has):
         raise AssertionError(f"{label}: has differs")
     exact = M.values.dtype != torch.float32 or op_add.name != "PLUS"
     ref64 = None
     if not exact:
         ref64, _ = K1.spmv_pull_plain(as64(M), x.double(), op_mul, op_add, float(init),
-                                      x_valid, row_sel)
+                                      x_valid, row_sel, swap)
     return check_close(label, got, ref, exact, ref64)
+
+
+def plan_line(M):
+    plan = K1.pull_plan(M)
+    return (f"team of {plan.team} lanes, {plan.nhub} hub rows (> {K1.HUB_LEN} entries) in "
+            f"{plan.nchunks} chunks")
+
+
+def check_pull_graph(label, M, Mi, rng):
+    """Kernel 1 on one graph: all 36 (mul, add, dtype) instances with no
+    masks, with both masks, and with both masks and swapped operands; the
+    structural variant with and without row_sel.  Returns the max error."""
+    n = M.shape[1]
+    x = torch.from_numpy(rng.random(n, dtype=np.float32)).to(DEVICE)
+    x[7], x[11], x[13] = float("nan"), float("inf"), float("-inf")
+    xi = torch.from_numpy(rng.integers(-1000, 1000, n, dtype=np.int32)).to(DEVICE)
+    x_valid = torch.from_numpy(rng.random(n) < 0.9).to(DEVICE)
+    row_sel = torch.from_numpy(rng.random(M.shape[0]) < 0.7).to(DEVICE)
+    err = 0.0
+    for dtype, A, xx in (("f32", M, x), ("i32", Mi, xi)):
+        T = op.FLOAT if dtype == "f32" else op.INT
+        for mul in MULS:
+            for add in ADDS:
+                om, oa = getattr(T, mul), getattr(T, add)
+                for xv, rs, swap in ((None, None, False), (x_valid, row_sel, False), (x_valid, row_sel, True)):
+                    what = f"spmv_pull {label} {mul}/{add} {dtype} masks={xv is not None} swap={swap}"
+                    err = max(err, check_pull(what, A, xx, om, oa, oa.identity, xv, rs, swap))
+    sparse_valid = x > 0.999  # few hits: rows are walked to their end
+    for xv, rs in ((x_valid, None), (x_valid, row_sel), (sparse_valid, row_sel)):
+        check_close(f"spmv_pull {label} structural", K1.spmv_pull_structural(M, xv, rs),
+                    K1.spmv_pull_structural_plain(M, xv, rs), True)
+    print(f"kernel 1 on {label} (n={M.shape[0]}, nnz={int(M.nnz)}; {plan_line(M)}): 36 (mul, add, dtype) "
+          f"instances x 3 mask/order settings and the structural variant match the plain version",
+          flush=True)
+    return err
 
 
 def check_kernels(G):
     errs = {k: 0.0 for k in KERNELS}
     rng = np.random.default_rng(5)
-    n = N_SPMV
-    x = torch.from_numpy(rng.random(n, dtype=np.float32)).to(DEVICE)
-    x[7], x[11], x[13] = float("nan"), float("inf"), float("-inf")
-    xi = torch.from_numpy(rng.integers(-1000, 1000, n, dtype=np.int32)).to(DEVICE)
-    x_valid = torch.from_numpy(rng.random(n) < 0.9).to(DEVICE)
-    row_sel = torch.from_numpy(rng.random(n) < 0.7).to(DEVICE)
-    for dtype, M, xx in (("f32", G["M"], x), ("i32", G["Mi"], xi)):
-        T = op.FLOAT if dtype == "f32" else op.INT
-        for mul in MULS:
-            for add in ADDS:
-                om, oa = getattr(T, mul), getattr(T, add)
-                for xv, rs in ((None, None), (x_valid, row_sel)):
-                    label = f"spmv_pull {mul}/{add} {dtype} masks={xv is not None}"
-                    e = check_pull(label, M, xx, om, oa, oa.identity, xv, rs)
-                    errs["spmv_pull"] = max(errs["spmv_pull"], e)
-        print(f"kernel 1 ({dtype}): {len(MULS) * len(ADDS)} (mul, add) instances match the plain "
-              f"version, with and without masks", flush=True)
-    hits = K1.spmv_pull_structural(G["M"], x_valid, row_sel)
-    check_close("spmv_pull structural", hits, K1.spmv_pull_structural_plain(G["M"], x_valid, row_sel),
-                True)
-    H, Hi = G["H"], G["Hi"]
-    hx = x[: H.shape[0]]
-    for label, M, xx, om, oa in (("hub MULT/PLUS f32", H, hx, op.MULT_FLOAT, op.PLUS_FLOAT),
-                                 ("hub PLUS/MIN f32", H, hx, op.PLUS_FLOAT, op.MIN_FLOAT),
-                                 ("hub MULT/PLUS i32", Hi, xi[: H.shape[0]], op.MULT_INT, op.PLUS_INT)):
-        e = check_pull(f"spmv_pull {label}", M, xx, om, oa, oa.identity, None, None)
-        errs["spmv_pull"] = max(errs["spmv_pull"], e)
-    check_close("spmv_pull hub structural", K1.spmv_pull_structural(H, x_valid[: H.shape[0]]),
-                K1.spmv_pull_structural_plain(H, x_valid[: H.shape[0]]), True)
-    print(f"kernel 1: structural variant and {HUB_ROWS} rows of {HUB_LEN} entries match", flush=True)
+    graphs = [("n=2^21", "M", "Mi"), ("hub", "H", "Hi"), ("powerlaw", "P", "Pi"),
+              *((f"deg {d}", f"S{d}", f"S{d}i") for d in SMALL_DEGREES)]
+    for label, f32, i32 in graphs:
+        errs["spmv_pull"] = max(errs["spmv_pull"], check_pull_graph(label, G[f32], G[i32], rng))
+    teams = {K1.pull_plan(G[f"S{d}"]).team for d in SMALL_DEGREES}
+    if teams != {2, 4, 8, 16, 32} or not K1.pull_plan(G[f"S{SMALL_DEGREES[-1]}"]).nhub:
+        raise AssertionError(f"the small graphs must pick every team size and hub rows: {teams}")
 
     # kernel 2 on the traversal graph
     n = N_GRAPH
@@ -986,6 +1005,7 @@ def probe_bound(phase, M, nblocks):
     nnz = int(M.nnz)
     ip, chain = 4 * (m + 1), 2 * K8.CHAIN * nnz
     ctas = -(-m // K8.ROWS_PER_CTA)
+    tiles = -(-M.capacity // K8.FLAT_TILE)
     ring = 4 * (nblocks + 1) + 4 * nblocks  # block_rows and one output a block
     return {"stream": bound(ip + 8 * nnz + 8 * m, nnz),
             "gather": bound(ip + 8 * nnz + 4 * n + 4 * ctas, 2 * nnz),
@@ -994,39 +1014,66 @@ def probe_bound(phase, M, nblocks):
             "xgather": bound(ip + 4 * n + 4 * m, nnz),
             "ring_copy": bound(ip + 8 * nnz + ring),
             "ring_alu": bound(ip + ring, chain),
-            "ring_copy_alu": bound(ip + 8 * nnz + ring + 4 * nblocks, chain)}[phase]
+            "ring_copy_alu": bound(ip + 8 * nnz + ring + 4 * nblocks, chain),
+            "warp_row": bound(ip + 8 * nnz + 4 * n + 4 * m, 2 * nnz),
+            # indptr[m], the stream and per tile one sum (and a checksum)
+            "flat_stream": bound(4 + 8 * nnz + 8 * tiles, nnz),
+            "flat_gather": bound(4 + 8 * nnz + 4 * n + 4 * tiles, 2 * nnz)}[phase]
 
 
-def time_staged(G, card):
-    """Kernel 7 at 2, 3 and 4 slots beside kernel 1 and cuSPARSE (one
-    ``torch.sparse_csr_tensor @ x`` call: the library's time, not a port),
-    in turns (forward, then backward), and its plain version; MULT/PLUS f32
-    at n = 2^21.  Returns the times and the library time."""
+def with_team(M, g):
+    """M with an indptr of its own, whose kernel-1 plan walks rows in teams
+    of g lanes (the rest of the plan as M's): kernel 1 at another team size
+    than the one pull_plan picks, for the timings only."""
+    N = replace(M, indptr=M.indptr.clone())
+    K1._PLANS.put(N.indptr, replace(K1.pull_plan(M), team=g))
+    return N
+
+
+def time_pull(G, card):
+    """Kernel 1 beside its first, warp-per-row design (kernel 8's warp_row), kernel 7 (at 2,
+    3 and 4 slots on the n = 2^21 graph, at its default slots on the
+    others), cuSPARSE (one ``torch.sparse_csr_tensor @ x`` call: the
+    library's time, not a port) and kernel 1 at every team size, in turns
+    (forward, then backward), MULT/PLUS f32, on the n = 2^21, powerlaw and
+    hub graphs; then kernel 7's plain version.  Returns kernel 7's row and
+    the library time on the n = 2^21 graph."""
+    for label, key in (("n=2^21", "M"), ("powerlaw", "P"), ("hub", "H")):
+        M = G[key]
+        n, nnz = M.shape[0], int(M.nnz)
+        gb_model = (nnz * 12 + n * 4 + (n + 1) * 4) / 1e9  # bench.py:207
+        x = torch.from_numpy(np.random.default_rng(1).random(n, dtype=np.float32)).to(DEVICE)
+        lib = torch.sparse_csr_tensor(M.indptr, M.cols, M.values, size=(n, n), check_invariants=False)
+        torch.testing.assert_close(lib @ x, K1.spmv_pull(M, x, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)[0],
+                                   rtol=1e-5, atol=1e-5, msg="cuSPARSE against kernel 1")
+        slot_counts = K7.SLOT_COUNTS if key == "M" else (K7.resolve_slots(None),)
+        fns = {"kernel 1": lambda: K1.spmv_pull(M, x, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0),
+               "warp_row": lambda: K8.spmv_probe("warp_row", M, x),
+               **{f"kernel 7 slots={s}": (lambda s=s: K7.spmv_pull_staged(M, x, op.MULT_FLOAT, op.PLUS_FLOAT,
+                                                                          0.0, slots=s))
+                  for s in slot_counts},
+               "cuSPARSE": lambda: lib @ x}
+        for g in (2, 4, 8, 16, 32):
+            Mg = with_team(M, g)
+            fns[f"kernel 1 G={g}"] = (lambda Mg=Mg: K1.spmv_pull(Mg, x, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0))
+        ms = {name: 0.0 for name in fns}
+        for order in (list(fns), list(fns)[::-1]):
+            for name in order:
+                ms[name] += cuda_ms(fns[name]) / 2
+        print(f"kernel 1 on {label}: {plan_line(M)}", flush=True)
+        for name, t in ms.items():
+            print(f"time {name} MULT/PLUS f32 {label} n={n} nnz={nnz}: {t:.4f} ms ({gb_model / t * 1e3:.1f} "
+                  f"GB/s-model) [{card}]", flush=True)
+        if key == "M":
+            kept = ms
     M = G["M"]
-    n, nnz = M.shape[0], int(M.nnz)
-    gb_model = (nnz * 12 + n * 4 + (n + 1) * 4) / 1e9  # bench.py:207
-    x = torch.from_numpy(np.random.default_rng(1).random(n, dtype=np.float32)).to(DEVICE)
-    lib = torch.sparse_csr_tensor(M.indptr, M.cols, M.values, size=(n, n), check_invariants=False)
-    torch.testing.assert_close(lib @ x, K1.spmv_pull(M, x, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)[0],
-                               rtol=1e-5, atol=1e-5, msg="cuSPARSE against kernel 1")
-    fns = {"kernel 1": lambda: K1.spmv_pull(M, x, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0),
-           **{f"kernel 7 slots={s}": (lambda s=s: K7.spmv_pull_staged(M, x, op.MULT_FLOAT, op.PLUS_FLOAT,
-                                                                      0.0, slots=s))
-              for s in K7.SLOT_COUNTS},
-           "cuSPARSE": lambda: lib @ x}
-    ms = {name: 0.0 for name in fns}
-    for order in (list(fns), list(fns)[::-1]):
-        for name in order:
-            ms[name] += cuda_ms(fns[name]) / 2
+    x = torch.from_numpy(np.random.default_rng(1).random(M.shape[0], dtype=np.float32)).to(DEVICE)
     plain = cuda_ms(lambda: K7.spmv_pull_staged_plain(M, x, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0),
                     PLAIN_RUNS_BIG, 1)
-    for name, t in ms.items():
-        print(f"time {name} MULT/PLUS f32 n={n} nnz={nnz}: {t:.4f} ms ({gb_model / t * 1e3:.1f} "
-              f"GB/s-model) [{card}]", flush=True)
     print(f"time kernel 7 plain version: {plain:.4f} ms [{card}]", flush=True)
     nblocks = K7.staged_plan(M)[1]
     default = f"kernel 7 slots={K7.resolve_slots(None)}"
-    return {"spmv_pull_staged": (ms[default], plain, *spmv_bound(M, 4 * (nblocks + 1)))}, ms["cuSPARSE"]
+    return {"spmv_pull_staged": (kept[default], plain, *spmv_bound(M, 4 * (nblocks + 1)))}, kept["cuSPARSE"]
 
 
 def time_probes(G, R, card):
@@ -1154,7 +1201,7 @@ def main():
     time_algorithms(G, card)
     times.update(time_spgemm(G, card))
     times.update(time_road(G, card))
-    staged_times, cusparse_ms = time_staged(G, card)
+    staged_times, cusparse_ms = time_pull(G, card)
     times.update(staged_times)
     times.update(time_probes(G, results["probes"], card))
     time_variants(G, card)
@@ -1186,6 +1233,12 @@ def build_graphs():
     fp, fr, fc, fv = build_graph(N_FEW, 1, seed=4)
     G["Few"] = csr(fp, fr, fc, fv, N_FEW)
     G["Hi"] = csr(hp, hr, hc, (hv * 2000 - 1000).astype(np.int32), N_GRAPH)
+    pp, pr_, pc, pv = powerlaw_graph(N_SPMV, DEG_SPMV)
+    G["P"], G["Pi"] = csr(pp, pr_, pc, pv, N_SPMV), csr(pp, pr_, pc, (pv * 2000 - 1000).astype(np.int32), N_SPMV)
+    for d in SMALL_DEGREES:
+        sp_, sr, sc, sv = build_graph(N_SMALL, d, seed=d)
+        G[f"S{d}"] = csr(sp_, sr, sc, sv, N_SMALL)
+        G[f"S{d}i"] = csr(sp_, sr, sc, (sv * 2000 - 1000).astype(np.int32), N_SMALL)
     a = random_graph(N_GRAPH, DEG_GRAPH)
     G["A_sp"] = a
     G["Aint"] = F.csr_from_scipy(a.astype(np.int32), device=DEVICE)
@@ -1207,7 +1260,8 @@ def build_graphs():
     road, road_w = road_graphs()
     G["Road_sp"], G["Road"] = road, F.csr_from_scipy(road, device=DEVICE)
     G["RoadW_sp"], G["RoadW"] = road_w, F.csr_from_scipy(road_w, fill=np.float32(np.inf), device=DEVICE)
-    print(f"graphs: spmv n={N_SPMV} nnz={rows.size}; hub n={N_GRAPH} nnz={hr.size}; "
+    print(f"graphs: spmv n={N_SPMV} nnz={rows.size}; hub n={N_GRAPH} nnz={hr.size}; powerlaw "
+          f"n={N_SPMV} nnz={pr_.size}; n={N_SMALL} at degrees {SMALL_DEGREES}; "
           f"traversal n={N_GRAPH} nnz={a.nnz}; spgemm n={N_TC} nnz={t.nnz}; spgemm hub "
           f"n={N_HUB_TC} nnz={ah.nnz} with a mask of {mh.nnz}; road bfs n={road.shape[0]} "
           f"nnz={road.nnz}; road sssp n={road_w.shape[0]} nnz={road_w.nnz}", flush=True)

@@ -28,10 +28,14 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _INT = ctypes.c_int
 SIGNATURES = {
-    # mul, add, dtype, m, indptr, cols, values, x, x_valid, row_sel, init, out, has, stream
-    "spla_spmv_pull": (_INT, _INT, _INT, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
-    # m, indptr, cols, x_valid, row_sel, hits, stream
-    "spla_spmv_pull_structural": (_I64, _P, _P, _P, _P, _P, _P),
+    # mul, add, dtype, m, log2 team, hub_len, nhub, nchunks, chunk_row, chunk_c0, chunk_c1,
+    # chunk_hub, chunk_first, part, part_any, done, indptr, cols, values, x, x_valid, row_sel,
+    # init (device pointer or null), init's 32 bits (when null), out, has, stream
+    "spla_spmv_pull": (_INT, _INT, _INT, _I64, _INT, _INT, _I64, _I64, *(_P,) * 15, ctypes.c_uint32,
+                       _P, _P, _P),
+    # m, log2 team, hub_len, nhub, nchunks, chunk_row, chunk_c0, chunk_c1, chunk_hub, chunk_first,
+    # indptr, cols, x_valid, row_sel, hits, stream
+    "spla_spmv_pull_structural": (_I64, _INT, _INT, _I64, _I64, *(_P,) * 11),
     # mul, add, dtype, k, front, indptr, cols, values, x, out, stream
     "spla_spmv_push": (_INT, _INT, _INT, _I64, _P, _P, _P, _P, _P, _P, _P),
     # k, front, indptr, cols, hits, stream

@@ -3,26 +3,36 @@
 // Replaces tools/probe_spmv.py's Pallas probes of the fused TPU kernel
 // (pallas_call :307, :385, :458, :527, :680, :738), which removed phases
 // from the real kernel so that subtracting probe times attributes its cost.
-// Here the probes take kernel 1's grid and stream (a warp per row, 8 rows a
-// CTA, lanes striding the row) or kernel 7's ring, and drop phases:
+// Here the probes take the grid and stream of kernel 1's first design (a
+// warp per row, 8 rows a CTA, lanes striding the row; `warp_row` is that
+// kernel whole) or kernel 7's ring, and drop phases:
 //
-//   stream        indptr, cols and values read as kernel 1 reads them; per
+//   stream        indptr, cols and values read on the warp-per-row grid; per
 //                 row the value sum and the XOR of the columns
 //   gather        + x[cols] and the products; each thread's sum goes to
 //                 shared memory and one warp folds the CTA's 256 sums, no
 //                 per-row fold or store
-//   fullfix       + kernel 1's warp fold of each row; the 8 row sums go to
-//                 shared memory and one thread adds them, no per-row store
+//   fullfix       + the warp fold of each row; the 8 row sums go to shared
+//                 memory and one thread adds them, no per-row store
 //   alu           a dependent mul-add chain per entry slot, no loads but
 //                 indptr; per row the lanes' chains summed
 //   xgather       x gathered at indices derived from the entry position, no
 //                 cols/values stream; per row the sum
-//   ring_copy     kernel 7's ring copying cols and values; per row block the
+//   ring_copy     kernel 7's ring copying cols and values; per block the
 //                 XOR of both streams' words (checksum only)
 //   ring_alu      kernel 7's ring loop with no copies and the mul-add chain
 //                 per entry slot; per block the threads' chains summed
 //   ring_copy_alu ring_copy's copies and ring_alu's chains; per block the
 //                 chains' sum and the XOR of the columns
+//   warp_row      + the per-row store: the warp-per-row MULT/PLUS f32 SpMV
+//                 of kernel 1 before its redesign (TPU probe k_full :99),
+//                 out = x-weighted row sums
+//   flat_stream   no rows: the entry stream in tiles of 4096 entries, a CTA
+//                 a tile, each thread 4 aligned 16-byte loads of cols and of
+//                 values in flight; per tile the value sum and the XOR of
+//                 the columns (the stream's floor)
+//   flat_gather   flat_stream's loads + x[cols] and the products; per tile
+//                 the sum (the floor of the stream with its x gathers)
 //
 // Every phase writes an output its plain version (kernels/probe.py)
 // reproduces, so no load can be dropped by the compiler: f32 sums within a
@@ -34,8 +44,10 @@
 // kept equal to spla_tpu_torch.kernels.probe.PHASES
 enum ProbePhase : int {
   PH_STREAM = 0, PH_GATHER = 1, PH_FULLFIX = 2, PH_ALU = 3, PH_XGATHER = 4,
-  PH_RING_COPY = 5, PH_RING_ALU = 6, PH_RING_COPY_ALU = 7
+  PH_RING_COPY = 5, PH_RING_ALU = 6, PH_RING_COPY_ALU = 7, PH_WARP_ROW = 8, PH_FLAT_STREAM = 9,
+  PH_FLAT_GATHER = 10
 };
+constexpr int kFlatTile = 4096;  // entries of a flat tile; kept equal to probe.FLAT_TILE
 constexpr int kChain = 8;  // mul-add pairs per entry slot; kept equal to probe.CHAIN
 
 // Rounded mul then rounded add, never contracted to an FMA, so the plain
@@ -112,6 +124,100 @@ spmv_probe_kernel(long long m, long long n, const int32_t* __restrict__ indptr,
       for (int w = 1; w < kWarps; ++w) v += part[w];
       out_f[blockIdx.x] = v;
     }
+  }
+}
+
+// Kernel 1's first design, for MULT/PLUS f32 with no masks and init 0: a warp per
+// row, lanes striding it, a shuffle fold, lane 0 stores.
+__global__ void __launch_bounds__(kThreads)
+spmv_probe_warp_row_kernel(long long m, const int32_t* __restrict__ indptr, const int32_t* __restrict__ cols,
+                           const float* __restrict__ values, const float* __restrict__ x,
+                           float* __restrict__ out) {
+  const long long row = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (row >= m) return;  // row is uniform across the warp
+  float acc = 0.f;
+  bool any = false;
+  const int32_t end = indptr[row + 1];
+  for (int32_t k = indptr[row] + lane; k < end; k += 32) {
+    acc += values[k] * x[cols[k]];
+    any = true;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(kFullMask, acc, off);
+  any = __any_sync(kFullMask, any);
+  if (lane == 0) out[row] = any ? 0.f + acc : 0.f;
+}
+
+// A CTA per tile of kFlatTile entries; thread t takes the 4-entry chunks t,
+// t + 256, t + 512, t + 768 of its tile, all loads issued before any use.
+// Entries at and past nnz = indptr[m] are skipped; a chunk that reaches
+// them is read entry by entry.  cols and values are 16-byte aligned.
+template <bool GATHER>
+__global__ void __launch_bounds__(kThreads)
+spmv_probe_flat_kernel(long long m, const int32_t* __restrict__ indptr, const int32_t* __restrict__ cols,
+                       const float* __restrict__ values, const float* __restrict__ x,
+                       float* __restrict__ out_f, int32_t* __restrict__ out_i) {
+  constexpr int kChunks = kFlatTile / 4 / kThreads;
+  __shared__ float red_f[kWarps];
+  __shared__ uint32_t red_i[kWarps];
+  const long long nnz = indptr[m];
+  const long long tile0 = static_cast<long long>(blockIdx.x) * kFlatTile;
+  int4 c[kChunks];
+  float4 v[kChunks];
+#pragma unroll
+  for (int u = 0; u < kChunks; ++u) {
+    const long long e = tile0 + 4LL * (threadIdx.x + u * kThreads);
+    if (e + 4 <= nnz) {
+      c[u] = __ldcs(reinterpret_cast<const int4*>(cols + e));
+      v[u] = __ldcs(reinterpret_cast<const float4*>(values + e));
+    } else {  // the tail: entry by entry, -1 past nnz
+      c[u] = make_int4(e < nnz ? cols[e] : -1, e + 1 < nnz ? cols[e + 1] : -1, e + 2 < nnz ? cols[e + 2] : -1,
+                       -1);
+      v[u] = make_float4(e < nnz ? values[e] : 0.f, e + 1 < nnz ? values[e + 1] : 0.f,
+                         e + 2 < nnz ? values[e + 2] : 0.f, 0.f);
+    }
+  }
+  float acc = 0.f;
+  uint32_t chk = 0;
+#pragma unroll
+  for (int u = 0; u < kChunks; ++u) {
+    const int32_t cc[4] = {c[u].x, c[u].y, c[u].z, c[u].w};
+    const float vv[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
+    if constexpr (GATHER) {
+      float xv[4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t) xv[t] = cc[t] >= 0 ? __ldg(x + cc[t]) : 0.f;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) acc += vv[t] * xv[t];
+    } else {
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        acc += vv[t];
+        if (cc[t] >= 0) chk ^= static_cast<uint32_t>(cc[t]);
+      }
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    acc += __shfl_xor_sync(kFullMask, acc, off);
+    chk ^= __shfl_xor_sync(kFullMask, chk, off);
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) {
+    red_f[warp] = acc;
+    red_i[warp] = chk;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float total = red_f[0];
+    uint32_t sum = red_i[0];
+    for (int w = 1; w < kWarps; ++w) {
+      total += red_f[w];
+      sum ^= red_i[w];
+    }
+    out_f[blockIdx.x] = total;
+    if (!GATHER) out_i[blockIdx.x] = static_cast<int32_t>(sum);
   }
 }
 
@@ -236,8 +342,10 @@ int ring_by_slots(int slots, const RowBlocks& p, const void* cols, const void* v
 
 }  // namespace
 
-// The kernel-1-grid phases.  out_f: f32 [m] (stream, alu, xgather) or
-// [ceil(m / 8)] (gather, fullfix, one a CTA); out_i: int32 [m] (stream) or null.
+// The warp-per-row and flat phases.  out_f: f32 [m] (stream, alu, xgather,
+// warp_row), [ceil(m / 8)] (gather, fullfix, one a CTA) or [ceil(capacity /
+// 4096)] (flat_*, n is then the capacity); out_i: int32 [m] (stream),
+// [tiles] (flat_stream) or null.
 extern "C" int spla_spmv_probe(int phase, long long m, long long n, const void* indptr,
                                const void* cols, const void* values, const void* x, void* out_f,
                                void* out_i, void* stream) {
@@ -249,6 +357,22 @@ extern "C" int spla_spmv_probe(int phase, long long m, long long n, const void* 
     case PH_FULLFIX: return launch_probe<PH_FULLFIX>(m, n, indptr, cols, values, x, out_f, out_i, s);
     case PH_ALU: return launch_probe<PH_ALU>(m, n, indptr, cols, values, x, out_f, out_i, s);
     case PH_XGATHER: return launch_probe<PH_XGATHER>(m, n, indptr, cols, values, x, out_f, out_i, s);
+    case PH_FLAT_STREAM:
+    case PH_FLAT_GATHER: {
+      const auto kernel = phase == PH_FLAT_GATHER ? spmv_probe_flat_kernel<true> : spmv_probe_flat_kernel<false>;
+      const long long tiles = (n + kFlatTile - 1) / kFlatTile;
+      if (tiles == 0) return 0;
+      kernel<<<static_cast<unsigned>(tiles), kThreads, 0, s>>>(
+          m, static_cast<const int32_t*>(indptr), static_cast<const int32_t*>(cols),
+          static_cast<const float*>(values), static_cast<const float*>(x), static_cast<float*>(out_f),
+          static_cast<int32_t*>(out_i));
+      return static_cast<int>(cudaGetLastError());
+    }
+    case PH_WARP_ROW:
+      spmv_probe_warp_row_kernel<<<blocks_for_warps(m), kThreads, 0, s>>>(
+          m, static_cast<const int32_t*>(indptr), static_cast<const int32_t*>(cols),
+          static_cast<const float*>(values), static_cast<const float*>(x), static_cast<float*>(out_f));
+      return static_cast<int>(cudaGetLastError());
     default: return -1;
   }
 }

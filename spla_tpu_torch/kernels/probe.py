@@ -1,8 +1,10 @@
 """Kernel 8: the phase probes of the pull SpMV (``csrc/spmv_probe.cu``) and their plain versions.
 
 Replaces the Pallas probes of ``tools/probe_spmv.py`` ``main`` (pallas_call
-:307, :385, :458, :527, :680, :738).  Each phase runs a part of kernel 1
-(on kernel 1's grid and stream) or of kernel 7's ring, and writes an output
+:307, :385, :458, :527, :680, :738).  Each phase runs a part of kernel 1 as
+first built (a warp per row; ``warp_row`` is that kernel whole, for
+MULT/PLUS f32), a part of kernel 7's ring, or the entry stream with no rows
+(``flat_*``: 16-byte loads, tiles of ``FLAT_TILE`` entries), and writes an output
 that its plain version reproduces; the CUDA source's header lists the
 phases.  ``spmv_probe(phase, A, x)`` returns ``(out_f, out_i)``, either None
 where the phase writes no such output:
@@ -19,12 +21,17 @@ ring_copy      —                                         per block: XOR of col
                                                          and value bits
 ring_alu       per block: sum over threads of the chain  —
 ring_copy_alu  per block: as ring_alu                    per block: XOR of cols
+warp_row       per row: sum of values * x                —
+flat_stream    per tile: sum of values                   per tile: XOR of cols
+flat_gather    per tile: sum of values * x               —
 =============  ========================================  ========================
 
 The chain is ``CHAIN`` pairs of a rounded ``s * 1.0001`` and a rounded
 ``+ 2``, applied once per entry slot a lane (or a ring thread) visits,
 starting from the lane (thread) index; ``h(k)`` is ``(k * 2654435761 mod
 2^32) mod n``.  Blocks are kernel 7's row blocks (``staged.staged_plan``).
+Tile t holds entries ``[FLAT_TILE * t, FLAT_TILE * (t + 1))`` below nnz; the
+flat phases need 16-byte aligned ``cols`` and ``values``.
 """
 
 from __future__ import annotations
@@ -37,11 +44,14 @@ from .build import check, load_library
 from .spmv import _on_cpu, _require_cuda
 from .staged import MAX_STAGE, _check_stage, resolve_slots, staged_plan
 
-__all__ = ["PROBE_PHASES", "RING_PHASES", "CHAIN", "spmv_probe", "spmv_probe_plain"]
+__all__ = ["PROBE_PHASES", "RING_PHASES", "FLAT_PHASES", "CHAIN", "FLAT_TILE", "spmv_probe",
+           "spmv_probe_plain"]
 
 RING_PHASES = ("ring_copy", "ring_alu", "ring_copy_alu")
+FLAT_PHASES = ("flat_stream", "flat_gather")
 CHAIN = 8  # kept equal to kChain in csrc/spmv_probe.cu
-ROWS_PER_CTA = 8  # kernel 1's CTA: 256 threads, a warp per row
+FLAT_TILE = 4096  # kept equal to kFlatTile in csrc/spmv_probe.cu
+ROWS_PER_CTA = 8  # the warp-per-row CTA: 256 threads, a warp per row
 RING_THREADS = 256
 _MUL = 1.0001
 _HASH = 2654435761
@@ -49,7 +59,7 @@ _HASH = 2654435761
 
 def _outputs(phase):
     """(writes out_f, writes out_i)."""
-    return phase not in ("ring_copy",), phase in ("stream", "ring_copy", "ring_copy_alu")
+    return phase not in ("ring_copy",), phase in ("stream", "ring_copy", "ring_copy_alu", "flat_stream")
 
 
 def _chain_table(max_count: int, seeds: torch.Tensor) -> torch.Tensor:
@@ -119,10 +129,21 @@ def spmv_probe_plain(phase: str, A: CsrMatrix, x, stage: int = MAX_STAGE):
             words = A.cols if phase == "ring_copy_alu" else A.cols ^ A.values.view(torch.int32)
             out_i = _xor_fold(words, seg, nblocks)
         return out_f, out_i
+    if phase in FLAT_PHASES:
+        tiles = -(-A.capacity // FLAT_TILE)
+        tseg = torch.where(valid, torch.div(k, FLAT_TILE, rounding_mode="floor"), tiles)
+        if phase == "flat_stream":
+            out = torch.zeros(tiles + 1, dtype=torch.float32, device=device).index_add_(0, tseg, A.values)
+            return out[:tiles], _xor_fold(A.cols, tseg, tiles)
+        prod = A.values * x[A.cols.long().clamp(0, max(n - 1, 0))]
+        return torch.zeros(tiles + 1, dtype=torch.float32, device=device).index_add_(0, tseg, prod)[:tiles], None
     seg = torch.where(valid, rows, m)
     if phase == "stream":
         out_f = torch.zeros(m + 1, dtype=torch.float32, device=device).index_add_(0, seg, A.values)
         return out_f[:m], _xor_fold(A.cols, seg, m)
+    if phase == "warp_row":
+        prod = A.values * x[A.cols.long().clamp(0, max(n - 1, 0))]
+        return torch.zeros(m + 1, dtype=torch.float32, device=device).index_add_(0, seg, prod)[:m], None
     if phase in ("gather", "fullfix"):
         ctas = (m + ROWS_PER_CTA - 1) // ROWS_PER_CTA
         cseg = torch.where(valid, torch.div(rows, ROWS_PER_CTA, rounding_mode="floor"), ctas)
@@ -164,9 +185,17 @@ def spmv_probe(phase: str, A: CsrMatrix, x, slots: int = 2, stage: int = MAX_STA
             None if out_f is None else out_f.data_ptr(), None if out_i is None else out_i.data_ptr(),
             stream)
     else:
-        size = (m + ROWS_PER_CTA - 1) // ROWS_PER_CTA if phase in ("gather", "fullfix") else m
+        if phase in FLAT_PHASES:
+            if A.cols.data_ptr() % 16 or A.values.data_ptr() % 16:
+                raise ValueError(f"{what}: needs 16-byte aligned cols and values")
+            size = -(-A.capacity // FLAT_TILE)
+            n = A.capacity  # the C entry point's n is the capacity for these phases
+        elif phase in ("gather", "fullfix"):
+            size = (m + ROWS_PER_CTA - 1) // ROWS_PER_CTA
+        else:
+            size = m
         out_f = torch.empty(size, dtype=torch.float32, device=device)
-        out_i = torch.empty(m, dtype=torch.int32, device=device) if writes_i else None
+        out_i = torch.empty(size, dtype=torch.int32, device=device) if writes_i else None
         rc = lib.spla_spmv_probe(
             PROBE_PHASES.index(phase), m, n, A.indptr.data_ptr(), A.cols.data_ptr(),
             A.values.data_ptr(), x.data_ptr(), out_f.data_ptr(),

@@ -13,13 +13,25 @@ source's header says what bounds the kernel and how it is laid out.
 ``swap=True`` computes ``mul(x[j], A[i,j])`` instead (vxm's product order,
 ``spla_tpu/ops/spmv.py:575``); the kernel then runs FIRST as SECOND and
 SECOND as FIRST.
+
+The kernel's launch is shaped by ``pull_plan``, built on the device from
+``indptr`` at a matrix's first CUDA call and cached per indptr tensor (a
+``formats.split_rows`` part has its own): the rows longer than ``HUB_LEN``
+entries, cut into chunks of ``HUB_CHUNK`` entries walked by a CTA each,
+and the team size G of the other rows, the power of two from 2 to 32
+nearest above their mean length over ``ENTRIES_PER_LANE``.  Building it
+reads the host once.  No argument or setting chooses any of it.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
+import numpy as np
 import torch
 
 from ..containers import CsrMatrix
+from ..formats import WeakIdCache
 from ..op import KernelCode
 from ..utils.segments import segment_fold
 from . import LAUNCHES
@@ -27,6 +39,11 @@ from .build import check, load_library
 
 __all__ = [
     "DTYPE_CODES",
+    "HUB_LEN",
+    "HUB_CHUNK",
+    "PullPlan",
+    "pull_plan",
+    "team_size",
     "pull_codes",
     "spmv_pull",
     "spmv_pull_plain",
@@ -38,6 +55,94 @@ __all__ = [
 DTYPE_CODES = {torch.float32: 0, torch.int32: 1}
 PULL_ADDS = frozenset({KernelCode.PLUS, KernelCode.MIN, KernelCode.MAX})
 _SWAPPED = {KernelCode.FIRST: KernelCode.SECOND, KernelCode.SECOND: KernelCode.FIRST}
+
+HUB_LEN = 256  # a row of more entries is a hub row, walked by CTAs
+HUB_CHUNK = 4096  # entries of a hub row a CTA walks
+ENTRIES_PER_LANE = 2  # a lane's share of a row of the mean length
+MAX_TEAM = 32  # a warp
+
+_PLANS = WeakIdCache()  # PullPlan per indptr tensor
+
+
+@dataclass(frozen=True)
+class PullPlan:
+    """Kernel 1's launch shape for one ``indptr``, on its device: the hub
+    rows (longer than ``HUB_LEN``) in order; their ``HUB_CHUNK``-entry
+    chunks (a CTA each), chunk b walking entries ``[chunk_c0[b],
+    chunk_c1[b])`` of row ``chunk_row[b]``, hub ``chunk_hub[b]``;
+    ``chunk_first`` each hub's first chunk; and ``team`` the lanes G of a
+    team walking each other row.  Where a hub has several chunks,
+    ``part``/``part_any`` hold the chunks' folds during a launch and
+    ``done`` counts each hub's finished chunks; the kernel leaves it zero,
+    so launches on one matrix follow one another on a stream."""
+
+    hub_rows: torch.Tensor  # int32 [nhub]
+    chunk_row: torch.Tensor  # int32 [nchunks]
+    chunk_c0: torch.Tensor  # int32 [nchunks]
+    chunk_c1: torch.Tensor  # int32 [nchunks]
+    chunk_hub: torch.Tensor  # int32 [nchunks]
+    chunk_first: torch.Tensor  # int32 [nhub + 1]
+    nhub: int
+    nchunks: int
+    team: int
+    part: torch.Tensor | None = None  # 32-bit words [nchunks]: a chunk's fold, f32 or i32
+    part_any: torch.Tensor | None = None  # uint8 [nchunks]
+    done: torch.Tensor | None = None  # int32 [nhub]
+
+
+def team_size(walked: int, rows: int) -> int:
+    """G for ``rows`` rows holding ``walked`` entries: the least power of two
+    from 2 to ``MAX_TEAM`` at or above their mean length over
+    ``ENTRIES_PER_LANE``."""
+    want = walked / max(rows, 1) / ENTRIES_PER_LANE
+    g = 2
+    while g < MAX_TEAM and g < want:
+        g *= 2
+    return g
+
+
+def pull_plan(A: CsrMatrix) -> PullPlan:
+    """The plan of A's ``indptr``, built on its device and cached per indptr
+    tensor; the hub and chunk counts and the other rows' entry count are
+    read on the host once, at the first build."""
+    hit = _PLANS.get(A.indptr)
+    if hit is not None:
+        return hit
+    m = A.shape[0]
+    ip = A.indptr.long()
+    lens = ip[1:] - ip[:-1]
+    hub = lens > HUB_LEN
+    chunks = torch.where(hub, torch.div(lens + HUB_CHUNK - 1, HUB_CHUNK, rounding_mode="floor"), 0)
+    nhub, nchunks, walked = (int(v) for v in torch.stack(
+        [hub.sum(), chunks.sum(), torch.where(hub, 0, lens).sum()]).tolist())
+    # each hub row's rank among the hub rows; the other rows go to slot nhub, dropped
+    slot = torch.where(hub, torch.cumsum(hub, 0) - 1, nhub)
+    rows = torch.empty(nhub + 1, dtype=torch.long, device=ip.device)
+    rows.scatter_(0, slot, torch.arange(m, device=ip.device))
+    per_hub = chunks[rows[:nhub]]
+    chunk_first = torch.zeros(nhub + 1, dtype=torch.long, device=ip.device)
+    torch.cumsum(per_hub, 0, out=chunk_first[1:])
+    chunk_hub = torch.repeat_interleave(torch.arange(nhub, device=ip.device), per_hub, output_size=nchunks)
+    chunk_row = rows[chunk_hub]
+    chunk_c0 = ip[chunk_row] + (torch.arange(nchunks, device=ip.device) - chunk_first[chunk_hub]) * HUB_CHUNK
+    chunk_c1 = torch.minimum(chunk_c0 + HUB_CHUNK, ip[chunk_row + 1])
+    scratch = {}
+    if nchunks > nhub:
+        scratch = {"part": torch.empty(nchunks, dtype=torch.int32, device=ip.device),
+                   "part_any": torch.empty(nchunks, dtype=torch.uint8, device=ip.device),
+                   "done": torch.zeros(nhub, dtype=torch.int32, device=ip.device)}
+    i32 = [t.to(torch.int32) for t in (rows[:nhub], chunk_row, chunk_c0, chunk_c1, chunk_hub, chunk_first)]
+    plan = PullPlan(*i32, nhub, nchunks, team_size(walked, m - nhub), **scratch)
+    _PLANS.put(A.indptr, plan)
+    return plan
+
+
+def _plan_args(plan: PullPlan):
+    """The plan's leading C arguments: log2 G, HUB_LEN, the counts and the
+    chunk arrays (the value kernel's scratch follows)."""
+    return (plan.team.bit_length() - 1, HUB_LEN, plan.nhub, plan.nchunks,
+            *(t.data_ptr() for t in (plan.chunk_row, plan.chunk_c0, plan.chunk_c1, plan.chunk_hub,
+                                     plan.chunk_first)))
 
 
 def pull_codes(op_mul, op_add, dtype, swap=False):
@@ -135,20 +240,34 @@ def spmv_pull(A: CsrMatrix, x, op_mul, op_add, init, x_valid=None, row_sel=None,
                   {"x": n, "x_valid": n, "row_sel": m})
     if x.dtype != A.values.dtype:
         raise TypeError(f"{what}: x is {x.dtype}, the matrix {A.values.dtype}")
-    init_t = torch.as_tensor(init, dtype=x.dtype, device=x.device).reshape(1)
+    init_t, init_bits = _init_arg(init, x)
     if out is None:
         out = torch.empty(m, dtype=x.dtype, device=x.device)
     elif out.shape != (m,) or out.dtype != x.dtype or out.device != x.device or not out.is_contiguous():
         raise ValueError(f"{what}: out must be a contiguous {x.dtype} [{m}] tensor on {x.device}")
     has = torch.empty(m, dtype=torch.bool, device=x.device) if want_has else None
-    lib = load_library()
-    rc = lib.spla_spmv_pull(*codes, m, A.indptr.data_ptr(), A.cols.data_ptr(),
-                            A.values.data_ptr(), x.data_ptr(), _ptr(x_valid), _ptr(row_sel),
-                            init_t.data_ptr(), out.data_ptr(), _ptr(has),
-                            torch.cuda.current_stream(x.device).cuda_stream)
+    plan = pull_plan(A)
+    rc = load_library().spla_spmv_pull(
+        *codes, m, *_plan_args(plan), _ptr(plan.part), _ptr(plan.part_any), _ptr(plan.done),
+        A.indptr.data_ptr(), A.cols.data_ptr(), A.values.data_ptr(), x.data_ptr(), _ptr(x_valid),
+        _ptr(row_sel), _ptr(init_t), init_bits, out.data_ptr(), _ptr(has),
+        torch.cuda.current_stream(x.device).cuda_stream)
     check(rc, what)
     LAUNCHES["spmv_pull"] += 1
     return out, has
+
+
+def _init_arg(init, x):
+    """Kernel 1's init as ``(tensor, bits)``: a CUDA tensor goes by pointer
+    (converted to x's dtype on the device), anything else by the 32 bits of
+    its value in x's dtype.  Either way no call copies from the host, which
+    would wait for the stream."""
+    if isinstance(init, torch.Tensor) and init.device.type == "cuda":
+        return init.to(device=x.device, dtype=x.dtype).reshape(1), 0
+    value = init.item() if isinstance(init, torch.Tensor) else init
+    if x.dtype == torch.float32:
+        return None, int(np.float32(value).view(np.uint32))
+    return None, int(value) & 0xFFFFFFFF
 
 
 def _into(out, res):
@@ -184,11 +303,12 @@ def spmv_pull_structural(A: CsrMatrix, x_valid, row_sel=None):
     _require_cuda(what, A, {"x_valid": _mask(x_valid, what, "x_valid"),
                             "row_sel": _mask(row_sel, what, "row_sel")},
                   {"x_valid": n, "row_sel": m})
-    hits = torch.empty(m, dtype=torch.bool, device=x_valid.device)
-    lib = load_library()
-    rc = lib.spla_spmv_pull_structural(m, A.indptr.data_ptr(), A.cols.data_ptr(),
-                                       x_valid.data_ptr(), _ptr(row_sel), hits.data_ptr(),
-                                       torch.cuda.current_stream(x_valid.device).cuda_stream)
+    plan = pull_plan(A)
+    # a hub row's chunks only ever write True: its False comes from the zeros
+    hits = (torch.zeros if plan.nhub else torch.empty)(m, dtype=torch.bool, device=x_valid.device)
+    rc = load_library().spla_spmv_pull_structural(
+        m, *_plan_args(plan), A.indptr.data_ptr(), A.cols.data_ptr(), x_valid.data_ptr(), _ptr(row_sel),
+        hits.data_ptr(), torch.cuda.current_stream(x_valid.device).cuda_stream)
     check(rc, what)
     LAUNCHES["spmv_pull"] += 1
     return hits

@@ -8,9 +8,14 @@ their times attribute kernel 1's time to its phases:
 * ``stream`` — the bytes alone (TPU ``k_stream``, ``k_stream2``,
   ``streamnp``, ``ep_stream``); ``gather`` — + x and the products
   (``k_gather``); ``fullfix`` — + the per-row fold (``k_fullfix``);
-  ``full`` — kernel 1 itself (``k_full`` and its layouts);
+  ``warp_row`` — + the per-row stores: kernel 1 as first built, a warp
+  per row, on whose grid the phases above run (``k_full``); ``full`` —
+  kernel 1 itself (``k_full`` and its layouts);
 * ``alu`` — the compute chain with no stream (``k_dummy_alu``,
   ``compnp``); ``xgather`` — x gathers with no stream (``k_dummy_vmem``);
+* ``flat_stream``, ``flat_gather`` — the column and value streams with no
+  rows, in 16-byte loads, without and with their x gathers: the floors of
+  the stream and of the gathers (``streamnp``, ``k_gather``);
 * ``ring_copy``, ``ring_alu``, ``ring_copy_alu`` — kernel 7's ring copying
   only, computing only, and both (``manual_dma_alu``, ``manual_alu``);
   ``staged2``/``3``/``4`` — kernel 7 at 2, 3, 4 slots (``manual_dma_real``);

@@ -16,7 +16,9 @@ import torch
 from spla_tpu_torch import DenseVec, Descriptor, algorithms as alg, formats as F, kernels, op
 from spla_tpu_torch.kernels import level_update as K3, mxmt as K45, resident as K6, spmv as K1
 from spla_tpu_torch.kernels import probe as K8, staged as K7, traversal as K2
+from spla_tpu_torch.interop import csr_from_numpy
 from spla_tpu_torch.ops import spgemm as TG, spmv as TS
+from spla_tpu_torch.tools.graphs import indptr_of
 
 pytestmark = pytest.mark.cuda
 
@@ -44,38 +46,103 @@ def _assert_same(got, ref):
     torch.testing.assert_close(got.cpu(), ref.cpu(), rtol=0, atol=0, equal_nan=True)
 
 
+def _pull_graph(name, n=3001):
+    """Kernel 1's test graphs as numpy CSR ``(indptr, rows, cols, vals)``,
+    rows sorted, duplicate (row, col) pairs kept.  ``deg<d>``: uniform rows
+    of mean ``d``, one graph per team size (n = 3001 is no multiple of the
+    rows a warp walks, and mean 1 leaves a third of the rows empty);
+    ``rounds``: mean 3 with row 17 of 200 entries, walked by its team of 2
+    in 25 rounds; ``hub``: row 17 of 5000 entries (two chunks) and row 900
+    of 300 (one); ``hub_ends``: rows 0 and n - 1 of 9000 entries (three
+    chunks each)."""
+    rng = np.random.default_rng(21)
+    if name.startswith("deg"):
+        rows = rng.integers(0, n, int(name[3:]) * n)
+    else:
+        hubs = {"rounds": {17: 200}, "hub": {17: 5000, 900: 300}, "hub_ends": {0: 9000, n - 1: 9000}}[name]
+        rows = np.concatenate([rng.integers(0, n, 3 * n), *(np.full(k, r) for r, k in hubs.items())])
+    rows = np.sort(rows).astype(np.int32)
+    cols = rng.integers(0, n, rows.size, dtype=np.int32)
+    vals = rng.random(rows.size, dtype=np.float32)
+    return indptr_of(rows, n), rows, cols, vals
+
+
+# graph: (G, hub rows, hub chunks)
+PULL_GRAPHS = {"deg1": (2, 0, 0), "deg6": (4, 0, 0), "deg16": (8, 0, 0), "deg24": (16, 0, 0),
+               "deg64": (32, 0, 0), "rounds": (2, 0, 0), "hub": (2, 2, 3), "hub_ends": (2, 2, 6)}
+
+
+def _pull_matrix(graph, dtype, dev, extra=0):
+    """The graph as an f32 or i32 CsrMatrix with ``extra`` capacity beyond nnz."""
+    indptr, rows, cols, vals = _pull_graph(graph)
+    n, nnz = indptr.size - 1, rows.size
+    if dtype == "i32":
+        vals = (vals * 1000).astype(np.int32)
+    pad = np.zeros(extra, np.int32)
+    return csr_from_numpy((n, n), indptr, np.concatenate([cols, pad]),
+                          np.concatenate([vals, pad.astype(vals.dtype)]),
+                          np.concatenate([rows, pad + n]), nnz, vals.dtype.type(0), dev)
+
+
+@pytest.mark.parametrize("graph", list(PULL_GRAPHS))
 @pytest.mark.parametrize("dtype", ["f32", "i32"])
 @pytest.mark.parametrize("add", ["PLUS", "MIN", "MAX"])
-def test_spmv_pull_matches_plain(dev, dtype, add):
-    a = _graph()
-    n = a.shape[0]
+def test_spmv_pull_matches_plain(dev, graph, dtype, add):
+    """Every mul with this add, both operand orders, with and without masks,
+    and the structural variant, against the plain version; the plan picks
+    the graph's team size, hub rows and chunks; two graphs have capacity
+    beyond nnz."""
+    A = _pull_matrix(graph, dtype, dev, extra=11 if graph in ("hub", "deg6") else 0)
+    n = A.shape[0]
     rng = np.random.default_rng(1)
     T = op.FLOAT if dtype == "f32" else op.INT
     if dtype == "f32":
-        A = F.csr_from_scipy(a, device=dev)
         x = torch.from_numpy(rng.random(n, dtype=np.float32)).to(dev)
         x[3] = float("nan")
         x[5] = float("inf")
     else:
-        A = F.csr_from_scipy((a * 1000).astype(np.int32), device=dev)
         x = torch.from_numpy(rng.integers(-100, 100, n, dtype=np.int32)).to(dev)
+    plan = K1.pull_plan(A)
+    assert (plan.team, plan.nhub, plan.nchunks) == PULL_GRAPHS[graph]
     x_valid = torch.from_numpy(rng.random(n) < 0.8).to(dev)
     row_sel = torch.from_numpy(rng.random(n) < 0.6).to(dev)
     oa = getattr(T, add)
     for mul in MULS:
         om = getattr(T, mul)
-        for swap in (False, True):
-            got, has = K1.spmv_pull(A, x, om, oa, oa.identity, x_valid, row_sel, want_has=True,
-                                    swap=swap)
-            ref, ref_has = K1.spmv_pull_plain(A, x, om, oa, oa.identity, x_valid, row_sel, swap=swap)
+        for xv, rs, swap in ((None, None, False), (x_valid, row_sel, False), (x_valid, row_sel, True)):
+            got, has = K1.spmv_pull(A, x, om, oa, oa.identity, xv, rs, want_has=True, swap=swap)
+            ref, ref_has = K1.spmv_pull_plain(A, x, om, oa, oa.identity, xv, rs, swap=swap)
             assert torch.equal(has, ref_has)
             if dtype == "f32" and add == "PLUS":
                 # summation order differs: f32 tolerance
                 torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5, equal_nan=True)
             else:
                 _assert_same(got, ref)
-    _assert_same(K1.spmv_pull_structural(A, x_valid, row_sel),
-                 K1.spmv_pull_structural_plain(A, x_valid, row_sel))
+    for xv, rs in ((x_valid, None), (x_valid, row_sel), (x > 0.99 if dtype == "f32" else x > 97, row_sel)):
+        _assert_same(K1.spmv_pull_structural(A, xv, rs), K1.spmv_pull_structural_plain(A, xv, rs))
+
+
+def test_spmv_pull_split_parts_have_their_own_plans(dev):
+    """formats.split_rows parts share cols but not indptr: each part's plan
+    lists its own hub rows (rebased), and the parts' outputs, written into
+    slices of one tensor, give the whole SpMV."""
+    A = _pull_matrix("hub_ends", "f32", dev)
+    n = A.shape[0]
+    x = torch.from_numpy(np.random.default_rng(2).random(n, dtype=np.float32)).to(dev)
+    whole, _ = K1.spmv_pull(A, x, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)
+    parts = F.split_rows(A, 4)
+    assert [part.shape[0] for part in parts] == [1, 1513, 1487]  # hub row 0 alone, then a part of none
+    out = torch.empty(n, dtype=torch.float32, device=dev)
+    r0, hubs = 0, []
+    for part in parts:
+        plan = K1.pull_plan(part)
+        assert plan is not K1.pull_plan(A) and plan is K1.pull_plan(part)
+        hubs += (plan.hub_rows.long() + r0).tolist()
+        r1 = r0 + part.shape[0]
+        K1.spmv_pull(part, x, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0, out=out[r0:r1])
+        r0 = r1
+    assert hubs == [0, n - 1] == K1.pull_plan(A).hub_rows.tolist()
+    torch.testing.assert_close(out, whole, rtol=1e-5, atol=1e-5)
 
 
 def test_spmv_push_matches_plain(dev):

@@ -265,11 +265,20 @@ def _numpy_probe(phase, indptr, cols, vals, x, stage):
         return np.int32(out - (1 << 32) if out >= 1 << 31 else out)
 
     rowsum = np.array([vals[indptr[r]:indptr[r + 1]].astype(np.float64).sum() for r in range(m)])
+    if phase in ("flat_stream", "flat_gather"):
+        nnz, tile = indptr[m], K8.FLAT_TILE
+        tiles = [slice(t, min(t + tile, nnz)) for t in range(0, cols.size, tile)]
+        if phase == "flat_stream":
+            return (np.array([vals[s].astype(np.float64).sum() for s in tiles]),
+                    np.array([xor(cols[s]) for s in tiles], np.int32))
+        return np.array([(vals[s].astype(np.float64) * x[cols[s]]).sum() for s in tiles]), None
     if phase == "stream":
         return rowsum, np.array([xor(cols[indptr[r]:indptr[r + 1]]) for r in range(m)], np.int32)
-    if phase in ("gather", "fullfix"):
+    if phase in ("gather", "fullfix", "warp_row"):
         prod = np.array([(vals[indptr[r]:indptr[r + 1]].astype(np.float64)
                           * x[cols[indptr[r]:indptr[r + 1]]]).sum() for r in range(m)])
+        if phase == "warp_row":
+            return prod, None
         return np.array([prod[r:r + 8].sum() for r in range(0, m, 8)]), None
     if phase == "alu":
         return np.array([sum(float(chain(np.float32(lane), len(range(lane, indptr[r + 1] - indptr[r], 32))))
