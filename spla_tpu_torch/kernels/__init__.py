@@ -15,8 +15,8 @@
   (CUDA, ``csrc/spmv_staged.cu``), taken under ``staged.MANUAL_DMA``;
 * ``probe`` — kernel 8, the phase probes of kernels 1 and 7 (CUDA,
   ``csrc/spmv_probe.cu``): kernel 1's warp-per-row design before its
-  redesign (phase ``warp_row``) and its parts, kernel 7's ring, and the
-  row-free floors of the stream and of its x gathers; run by
+  redesign (phase ``warp_row``) and its parts, kernel 7's ring and its
+  fold, and the row-free floors of the stream and of its x gathers; run by
   ``tools/probe_spmv.py``.
 
 Each wrapper runs its plain PyTorch version for CPU tensors, and launches
@@ -26,8 +26,8 @@ imports neither ``triton`` nor the compiled library.
 """
 
 PROBE_PHASES = ("stream", "gather", "fullfix", "alu", "xgather", "ring_copy", "ring_alu",
-                "ring_copy_alu", "warp_row", "flat_stream",
-                "flat_gather")  # kernel 8's phases, in the order of enum ProbePhase
+                "ring_copy_alu", "warp_row", "flat_stream", "flat_gather",
+                "ring_fold")  # kernel 8's phases, in the order of enum ProbePhase
 
 LAUNCHES = {"spmv_pull": 0, "spmv_push": 0, "level_update": 0, "mxmt_reduce": 0, "mxmt_masked": 0,
             "bfs_resident": 0, "sssp_resident": 0, "spmv_pull_staged": 0,

@@ -1,11 +1,11 @@
-// Kernel 8: phase probes of the pull SpMV (kernel 1 and kernel 7's ring).
+// Kernel 8: phase probes of the pull SpMV (kernel 1, and kernel 7's ring and fold).
 //
 // Replaces tools/probe_spmv.py's Pallas probes of the fused TPU kernel
 // (pallas_call :307, :385, :458, :527, :680, :738), which removed phases
 // from the real kernel so that subtracting probe times attributes its cost.
 // Here the probes take the grid and stream of kernel 1's first design (a
 // warp per row, 8 rows a CTA, lanes striding the row; `warp_row` is that
-// kernel whole) or kernel 7's ring, and drop phases:
+// kernel whole) or kernel 7's ring and fold, and drop phases:
 //
 //   stream        indptr, cols and values read on the warp-per-row grid; per
 //                 row the value sum and the XOR of the columns
@@ -18,12 +18,19 @@
 //                 indptr; per row the lanes' chains summed
 //   xgather       x gathered at indices derived from the entry position, no
 //                 cols/values stream; per row the sum
-//   ring_copy     kernel 7's ring copying cols and values; per block the
+//   ring_copy     kernel 7's ring copying cols and values; per unit the
 //                 XOR of both streams' words (checksum only)
 //   ring_alu      kernel 7's ring loop with no copies and the mul-add chain
-//                 per entry slot; per block the threads' chains summed
-//   ring_copy_alu ring_copy's copies and ring_alu's chains; per block the
+//                 per entry slot; per unit the threads' chains summed
+//   ring_copy_alu ring_copy's copies and ring_alu's chains; per unit the
 //                 chains' sum and the XOR of the columns
+//   ring_fold     kernel 7's fold (MULT/PLUS f32, staged_fold.cuh) on column
+//                 and value slots that stay resident: each CTA copies the
+//                 first words of cols and values into its slot once, and
+//                 every stage folds those words in place of its own (only
+//                 the units' row pointers go through the ring); per row the
+//                 sum, as kernel 7 writes it (the fold's own time; TPU probe
+//                 make_manual(real=True), manual_real)
 //   warp_row      + the per-row store: the warp-per-row MULT/PLUS f32 SpMV
 //                 of kernel 1 before its redesign (TPU probe k_full :99),
 //                 out = x-weighted row sums
@@ -39,13 +46,13 @@
 // tolerance, XOR checksums bitwise.  Bound: bytes for the streaming phases,
 // f32 operations for the chains.
 
-#include "staged.cuh"
+#include "staged_fold.cuh"
 
 // kept equal to spla_tpu_torch.kernels.probe.PHASES
 enum ProbePhase : int {
   PH_STREAM = 0, PH_GATHER = 1, PH_FULLFIX = 2, PH_ALU = 3, PH_XGATHER = 4,
   PH_RING_COPY = 5, PH_RING_ALU = 6, PH_RING_COPY_ALU = 7, PH_WARP_ROW = 8, PH_FLAT_STREAM = 9,
-  PH_FLAT_GATHER = 10
+  PH_FLAT_GATHER = 10, PH_RING_FOLD = 11
 };
 constexpr int kFlatTile = 4096;  // entries of a flat tile; kept equal to probe.FLAT_TILE
 constexpr int kChain = 8;  // mul-add pairs per entry slot; kept equal to probe.CHAIN
@@ -225,7 +232,7 @@ template <int PHASE>
 struct RingProbeStage {
   static constexpr bool kCopy = PHASE != PH_RING_ALU;
   static constexpr bool kAlu = PHASE != PH_RING_COPY;
-  RowBlocks p;
+  Plan p;
   uint32_t* ring_cols;
   uint32_t* ring_vals;
   int slot_w;
@@ -235,26 +242,24 @@ struct RingProbeStage {
   int32_t* out_i;
   float* red_f;
   uint32_t* red_i;
-  float acc;  // carried across a block's stages
+  float acc;  // carried across a unit's stages
   uint32_t chk;
 
-  __device__ void copy(int slot, const Cursor& c) {
+  __device__ void copy(int slot, const Stage& s) {
     if (!kCopy) return;
-    const long long e0 = c.e0(p), e1 = c.e1(p);
-    copy_words(ring_cols + slot * slot_w, cols, e0, e1);
-    copy_words(ring_vals + slot * slot_w, values, e0, e1);
+    copy_words(ring_cols + slot * slot_w, cols, s.e0, s.e1);
+    copy_words(ring_vals + slot * slot_w, values, s.e0, s.e1);
   }
 
-  __device__ void consume(int slot, const Cursor& c) {
-    const long long e0 = c.e0(p);
-    const int len = static_cast<int>(c.e1(p) - e0);
-    if (c.part == 0) {
+  __device__ void consume(int slot, const Stage& s) {
+    const int len = s.e1 - s.e0;
+    if (s.first()) {
       acc = static_cast<float>(threadIdx.x);
       chk = 0;
     }
     if (kCopy) {
-      const uint32_t* sc = ring_cols + slot * slot_w + line_offset(cols, e0);
-      const uint32_t* sv = ring_vals + slot * slot_w + line_offset(values, e0);
+      const uint32_t* sc = ring_cols + slot * slot_w + line_offset(cols, s.e0);
+      const uint32_t* sv = ring_vals + slot * slot_w + line_offset(values, s.e0);
       for (int k = threadIdx.x; k < len; k += kThreads) {
         chk ^= sc[k];
         if (kAlu) acc = chain(acc);
@@ -263,7 +268,7 @@ struct RingProbeStage {
     } else {
       for (int k = threadIdx.x; k < len; k += kThreads) acc = chain(acc);
     }
-    if (!c.last()) return;
+    if (!s.last()) return;
     float v = acc;
     uint32_t h = chk;
 #pragma unroll
@@ -284,15 +289,15 @@ struct RingProbeStage {
         total += red_f[w];
         sum ^= red_i[w];
       }
-      if (kAlu) out_f[c.blk] = total;
-      if (kCopy) out_i[c.blk] = static_cast<int32_t>(sum);
+      if (kAlu) out_f[s.unit] = total;
+      if (kCopy) out_i[s.unit] = static_cast<int32_t>(sum);
     }
   }
 };
 
 template <int SLOTS, int PHASE>
 __global__ void __launch_bounds__(kThreads)
-spmv_ring_probe_kernel(RowBlocks p, const int32_t* __restrict__ cols, const float* __restrict__ values,
+spmv_ring_probe_kernel(Plan p, const int32_t* __restrict__ cols, const float* __restrict__ values,
                        float* __restrict__ out_f, int32_t* __restrict__ out_i) {
   extern __shared__ __align__(16) uint32_t ring[];
   __shared__ float red_f[kWarps];
@@ -315,27 +320,45 @@ int launch_probe(long long m, long long n, const void* indptr, const void* cols,
   return static_cast<int>(cudaGetLastError());
 }
 
+struct RingArgs {
+  Plan p;
+  const void *cols, *values, *x;
+  int resident;
+  void *out_f, *out_i;
+  cudaStream_t stream;
+};
+
 template <int SLOTS, int PHASE>
-int launch_ring(const RowBlocks& p, const void* cols, const void* values, void* out_f, void* out_i,
-                cudaStream_t stream) {
-  const auto kernel = spmv_ring_probe_kernel<SLOTS, PHASE>;
-  const size_t smem = sizeof(uint32_t) * SLOTS * slot_words(p.stage) * (PHASE == PH_RING_ALU ? 0 : 2);
+int launch_ring(const RingArgs& r) {
+  static thread_local GridCache cache;
   unsigned grid = 0;
-  const cudaError_t err = ring_grid(kernel, smem, p.nblocks, &grid);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, kThreads, smem, stream>>>(p, static_cast<const int32_t*>(cols),
-                                           static_cast<const float*>(values), static_cast<float*>(out_f),
-                                           static_cast<int32_t*>(out_i));
+  if constexpr (PHASE == PH_RING_FOLD) {
+    const auto kernel = spmv_staged_kernel<SLOTS, KC_MULT, KC_PLUS, false, true>;
+    const size_t smem = ring_bytes<false>(SLOTS, r.p.stage);
+    const cudaError_t err = ring_grid(kernel, smem, r.p.nunits, cache, &grid);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const StagedArgs a{static_cast<const int32_t*>(r.cols), static_cast<const float*>(r.values),
+                       static_cast<const float*>(r.x), nullptr, nullptr, nullptr, 0.f,
+                       static_cast<float*>(r.out_f), nullptr, r.resident, 0};
+    kernel<<<grid, kThreads, smem, r.stream>>>(r.p, a);
+  } else {
+    const auto kernel = spmv_ring_probe_kernel<SLOTS, PHASE>;
+    const size_t smem = sizeof(uint32_t) * SLOTS * slot_words(r.p.stage) * (PHASE == PH_RING_ALU ? 0 : 2);
+    const cudaError_t err = ring_grid(kernel, smem, r.p.nunits, cache, &grid);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, kThreads, smem, r.stream>>>(r.p, static_cast<const int32_t*>(r.cols),
+                                               static_cast<const float*>(r.values),
+                                               static_cast<float*>(r.out_f), static_cast<int32_t*>(r.out_i));
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int PHASE>
-int ring_by_slots(int slots, const RowBlocks& p, const void* cols, const void* values, void* out_f,
-                  void* out_i, cudaStream_t stream) {
+int ring_by_slots(int slots, const RingArgs& r) {
   switch (slots) {
-    case 2: return launch_ring<2, PHASE>(p, cols, values, out_f, out_i, stream);
-    case 3: return launch_ring<3, PHASE>(p, cols, values, out_f, out_i, stream);
-    case 4: return launch_ring<4, PHASE>(p, cols, values, out_f, out_i, stream);
+    case 2: return launch_ring<2, PHASE>(r);
+    case 3: return launch_ring<3, PHASE>(r);
+    case 4: return launch_ring<4, PHASE>(r);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -377,20 +400,27 @@ extern "C" int spla_spmv_probe(int phase, long long m, long long n, const void* 
   }
 }
 
-// The ring phases, per row block.  out_f: f32 [nblocks] (ring_alu,
-// ring_copy_alu) or null; out_i: int32 [nblocks] (ring_copy, ring_copy_alu) or null.
-extern "C" int spla_spmv_probe_ring(int phase, int slots, int stage, long long nblocks,
-                                    const void* block_rows, const void* indptr, const void* cols,
-                                    const void* values, void* out_f, void* out_i, void* stream) {
-  if (nblocks == 0) return 0;
+// The ring phases, on kernel 7's plan (units, unit_hub, hub_units; part,
+// part_any and done as kernel 7's, for ring_fold).  out_f: f32 [nunits]
+// (ring_alu, ring_copy_alu), f32 [m] (ring_fold) or null; out_i: int32
+// [nunits] (ring_copy, ring_copy_alu) or null; x: f32 [n] (ring_fold);
+// resident: the words of cols and values ring_fold keeps in its slot (both
+// 16-byte aligned).
+extern "C" int spla_spmv_probe_ring(int phase, int slots, int stage, long long nunits, const void* units,
+                                    const void* unit_hub, const void* hub_units, void* part, void* part_any,
+                                    void* done, const void* indptr, const void* cols, const void* values,
+                                    const void* x, int resident, void* out_f, void* out_i, void* stream) {
+  if (nunits == 0) return 0;
   if (stage < 2 || stage > kMaxStage) return static_cast<int>(cudaErrorInvalidValue);
-  const RowBlocks p{static_cast<const int32_t*>(block_rows), static_cast<const int32_t*>(indptr), nblocks,
-                    stage};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const RingArgs r{{static_cast<const int4*>(units), static_cast<const int32_t*>(unit_hub),
+                    static_cast<const int32_t*>(hub_units), static_cast<const int32_t*>(indptr), part,
+                    static_cast<uint8_t*>(part_any), static_cast<int32_t*>(done), nunits, stage},
+                   cols, values, x, resident, out_f, out_i, static_cast<cudaStream_t>(stream)};
   switch (phase) {
-    case PH_RING_COPY: return ring_by_slots<PH_RING_COPY>(slots, p, cols, values, out_f, out_i, s);
-    case PH_RING_ALU: return ring_by_slots<PH_RING_ALU>(slots, p, cols, values, out_f, out_i, s);
-    case PH_RING_COPY_ALU: return ring_by_slots<PH_RING_COPY_ALU>(slots, p, cols, values, out_f, out_i, s);
+    case PH_RING_COPY: return ring_by_slots<PH_RING_COPY>(slots, r);
+    case PH_RING_ALU: return ring_by_slots<PH_RING_ALU>(slots, r);
+    case PH_RING_COPY_ALU: return ring_by_slots<PH_RING_COPY_ALU>(slots, r);
+    case PH_RING_FOLD: return ring_by_slots<PH_RING_FOLD>(slots, r);
     default: return -1;
   }
 }

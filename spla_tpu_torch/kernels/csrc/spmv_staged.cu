@@ -7,178 +7,53 @@
 // Replaces spla_tpu/pallas/spmv.py fused_cell_spmv_apply_manual (:2140), the
 // TPU SpMV whose fused stream stays in HBM while `slots` VMEM buffers are
 // filled by make_async_copy one batch ahead of the compute.  Here the column
-// and value streams of plain CSR go through a ring of `slots` shared-memory
-// stages (staged.cuh): cp.async keeps slots - 1 stages in flight while the CTA
-// folds the current one.  x is gathered from global memory (L2), as in
-// kernel 1; the TPU kernel keeps x whole in VMEM.
+// and value streams of plain CSR, and each unit's row pointers, go through a
+// ring of `slots` shared-memory stages (staged.cuh): cp.async keeps
+// slots - 1 stages in flight while the CTA folds the current one.  x is
+// gathered from global memory (L2), as in kernel 1; the TPU kernel keeps x
+// whole in VMEM.
 //
 // Bound: bytes, as kernel 1 (4-byte column + 4-byte value + a gathered x
-// element per entry; indptr and the output per row).  What the ring changes
-// is only when the stream's bytes are asked for: a stage's lines are all in
-// flight at once, ahead of the dependent x gathers, instead of one warp's
-// 128 bytes per load as each row's loop reaches them.
-//
-// Folding a stage: a block of several rows (fewer than `stage` entries) is
-// folded a warp per row, lanes striding the row as kernel 1 does, so these
-// rows fold in kernel 1's order.  A block of one row is folded by the whole
-// CTA; each thread carries its partial across the row's stages in registers
-// and the CTA folds the partials after the last stage.
+// element per entry; indptr and the output per row).  On random columns the
+// x gathers set the floor (kernel 8's flat_gather), so the design keeps as
+// many of them in flight as kernel 1 does:
+//   * staged_plan packs rows into stages of close to `stage` entries (a
+//     unit of several rows), and cuts rows longer than stage / 8 into
+//     chunks of up to four stages, each chunk a unit of CTA work;
+//   * a stage of several rows is folded by teams of G lanes a row, G picked
+//     per stage from its mean row length so that a lane takes about four
+//     entries; a long row's stage by the whole CTA, four entries a thread;
+//     either way every lane issues its four x gathers before it folds any
+//     (staged_fold.cuh);
+//   * the producer reads each unit's descriptor once, ahead of its copies,
+//     and the fold finds it beside its slot.
 //
 // Coverage (compile time): mul in {PLUS, MULT, FIRST, SECOND, MIN, MAX}, add
 // in {PLUS, MIN, MAX}, f32, and the structural variant, each at 2, 3 and 4
 // slots.
 
-#include "staged.cuh"
+#include <cstring>
 
-template <int MUL, int ADD, bool STRUCT>
-struct SpmvStage {
-  RowBlocks p;
-  uint32_t* ring_cols;
-  uint32_t* ring_vals;
-  int slot_w;
-  const int32_t* cols;
-  const float* values;
-  const float* x;
-  const uint8_t* x_valid;
-  const uint8_t* row_sel;
-  float init_v;
-  float* out;
-  uint8_t* has;  // the structural variant's hits
-  float* red;
-  uint8_t* red_any;
-  float acc;  // a one-row block's partial, carried across its stages
-  bool any;
-
-  __device__ void copy(int slot, const Cursor& c) {
-    const long long e0 = c.e0(p), e1 = c.e1(p);
-    copy_words(ring_cols + slot * slot_w, cols, e0, e1);
-    if (!STRUCT) copy_words(ring_vals + slot * slot_w, values, e0, e1);
-  }
-
-  __device__ void consume(int slot, const Cursor& c) {
-    const long long e0 = c.e0(p);
-    const int len = static_cast<int>(c.e1(p) - e0);
-    // sc[k - e0] = cols[k], sv[k - e0] = values[k]
-    const int32_t* sc = reinterpret_cast<const int32_t*>(ring_cols + slot * slot_w) + line_offset(cols, e0);
-    const float* sv =
-        STRUCT ? nullptr : reinterpret_cast<const float*>(ring_vals + slot * slot_w) + line_offset(values, e0);
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    if (c.r1 - c.r0 == 1) {
-      const int32_t row = c.r0;
-      const bool sel = row_sel == nullptr || row_sel[row];
-      if (c.part == 0) {
-        acc = monoid_identity<ADD, float>();
-        any = false;
-      }
-      if (sel) {
-        for (int k = threadIdx.x; k < len; k += kThreads) {
-          const int32_t col = sc[k];
-          if (x_valid != nullptr && !x_valid[col]) continue;
-          if (!STRUCT) acc = apply_op<ADD>(acc, apply_op<MUL>(sv[k], x[col]));
-          any = true;
-        }
-      }
-      if (!c.last()) return;
-      if (STRUCT) {
-        const int hit = __syncthreads_or(any);
-        if (threadIdx.x == 0) has[row] = sel && hit;
-        return;
-      }
-      float v = acc;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) v = apply_op<ADD>(v, __shfl_xor_sync(kFullMask, v, off));
-      const bool a = __any_sync(kFullMask, any);
-      if (lane == 0) {
-        red[warp] = v;
-        red_any[warp] = a;
-      }
-      __syncthreads();
-      if (threadIdx.x == 0) {
-        float total = red[0];
-        bool hit = red_any[0];
-        for (int w = 1; w < kWarps; ++w) {
-          total = apply_op<ADD>(total, red[w]);
-          hit = hit || red_any[w];
-        }
-        out[row] = hit ? apply_op<ADD>(init_v, total) : init_v;
-        if (has != nullptr) has[row] = hit;
-      }
-      return;
-    }
-    for (int32_t row = c.r0 + warp; row < c.r1; row += kWarps) {
-      if (row_sel != nullptr && !row_sel[row]) {
-        if (lane == 0) {
-          if (STRUCT) {
-            has[row] = 0;
-          } else {
-            out[row] = init_v;
-            if (has != nullptr) has[row] = 0;
-          }
-        }
-        continue;
-      }
-      const int end = static_cast<int>(p.indptr[row + 1] - e0);
-      float v = monoid_identity<ADD, float>();
-      bool a = false;
-      for (int k = static_cast<int>(p.indptr[row] - e0) + lane; k < end; k += 32) {
-        const int32_t col = sc[k];
-        if (x_valid != nullptr && !x_valid[col]) continue;
-        if (!STRUCT) v = apply_op<ADD>(v, apply_op<MUL>(sv[k], x[col]));
-        a = true;
-      }
-      a = __any_sync(kFullMask, a);
-      if constexpr (STRUCT) {
-        if (lane == 0) has[row] = a;
-      } else {
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) v = apply_op<ADD>(v, __shfl_xor_sync(kFullMask, v, off));
-        if (lane == 0) {
-          out[row] = a ? apply_op<ADD>(init_v, v) : init_v;
-          if (has != nullptr) has[row] = a;
-        }
-      }
-    }
-  }
-};
-
-template <int SLOTS, int MUL, int ADD, bool STRUCT>
-__global__ void __launch_bounds__(kThreads)
-spmv_staged_kernel(RowBlocks p, const int32_t* __restrict__ cols, const float* __restrict__ values,
-                   const float* __restrict__ x, const uint8_t* __restrict__ x_valid,
-                   const uint8_t* __restrict__ row_sel, const float* __restrict__ init,
-                   float* __restrict__ out, uint8_t* __restrict__ has) {
-  extern __shared__ __align__(16) uint32_t ring[];
-  __shared__ float red[kWarps];
-  __shared__ uint8_t red_any[kWarps];
-  const int slot_w = slot_words(p.stage);
-  SpmvStage<MUL, ADD, STRUCT> body{p, ring, ring + SLOTS * slot_w, slot_w, cols, values, x, x_valid,
-                                   row_sel, STRUCT ? 0.f : *init, out, has, red, red_any,
-                                   monoid_identity<ADD, float>(), false};
-  ring_loop<SLOTS>(p, body);
-}
+#include "staged_fold.cuh"
 
 namespace {
 
 struct StagedLaunch {
   int slots;
-  RowBlocks p;
-  const void *cols, *values, *x, *x_valid, *row_sel, *init;
-  void *out, *has;
+  Plan p;
+  StagedArgs a;
   cudaStream_t stream;
   cudaError_t err;
 
   template <int SLOTS, int MUL, int ADD, bool STRUCT>
   void launch() {
-    const auto kernel = spmv_staged_kernel<SLOTS, MUL, ADD, STRUCT>;
-    const size_t smem = sizeof(uint32_t) * SLOTS * slot_words(p.stage) * (STRUCT ? 1 : 2);
+    const auto kernel = spmv_staged_kernel<SLOTS, MUL, ADD, STRUCT, false>;
+    static thread_local GridCache cache;
+    const size_t smem = ring_bytes<STRUCT>(SLOTS, p.stage);
     unsigned grid = 0;
-    err = ring_grid(kernel, smem, p.nblocks, &grid);
+    err = ring_grid(kernel, smem, p.nunits, cache, &grid);
     if (err != cudaSuccess) return;
-    kernel<<<grid, kThreads, smem, stream>>>(
-        p, static_cast<const int32_t*>(cols), static_cast<const float*>(values),
-        static_cast<const float*>(x), static_cast<const uint8_t*>(x_valid),
-        static_cast<const uint8_t*>(row_sel), static_cast<const float*>(init),
-        static_cast<float*>(out), static_cast<uint8_t*>(has));
+    kernel<<<grid, kThreads, smem, stream>>>(p, a);
     err = cudaGetLastError();
   }
 
@@ -201,37 +76,53 @@ struct StagedLaunch {
 
 bool valid_plan(int stage) { return stage >= 2 && stage <= kMaxStage; }
 
+Plan plan_of(int stage, long long nunits, const void* units, const void* unit_hub, const void* hub_units,
+             void* part, void* part_any, void* done, const void* indptr) {
+  return {static_cast<const int4*>(units), static_cast<const int32_t*>(unit_hub),
+          static_cast<const int32_t*>(hub_units), static_cast<const int32_t*>(indptr), part,
+          static_cast<uint8_t*>(part_any), static_cast<int32_t*>(done), nunits, stage};
+}
+
 }  // namespace
 
-// block_rows: int32 [nblocks + 1]; x: f32 [n]; x_valid, row_sel: bool or null;
-// init: f32 [1]; out: f32 [m]; has: bool [m] or null.
-extern "C" int spla_spmv_staged(int mul, int add, int slots, int stage, long long nblocks,
-                                const void* block_rows, const void* indptr, const void* cols,
-                                const void* values, const void* x, const void* x_valid,
-                                const void* row_sel, const void* init, void* out, void* has,
-                                void* stream) {
-  if (nblocks == 0) return 0;
+// units: int4 [nunits]; unit_hub: int32 [nunits]; hub_units: int32 [nhub, 2];
+// part: f32 [nunits], part_any: uint8 [nunits], done: int32 [nhub] (zero), or
+// null without hubs; x: f32 [n]; x_valid, row_sel: bool or null; init: f32
+// on the device, or null and its bits in init_bits; out: f32 [m]; has: bool
+// [m] or null; entry_fold: 1 for the other row fold (entries over threads).
+extern "C" int spla_spmv_staged(int mul, int add, int slots, int stage, long long nunits, const void* units,
+                                const void* unit_hub, const void* hub_units, void* part, void* part_any,
+                                void* done, const void* indptr, const void* cols, const void* values,
+                                const void* x, const void* x_valid, const void* row_sel, const void* init,
+                                unsigned init_bits, void* out, void* has, int entry_fold, void* stream) {
+  if (nunits == 0) return 0;
   if (!valid_plan(stage)) return static_cast<int>(cudaErrorInvalidValue);
+  float init_value;
+  memcpy(&init_value, &init_bits, sizeof(float));
   StagedLaunch launch{slots,
-                      {static_cast<const int32_t*>(block_rows), static_cast<const int32_t*>(indptr),
-                       nblocks, stage},
-                      cols, values, x, x_valid, row_sel, init, out, has,
+                      plan_of(stage, nunits, units, unit_hub, hub_units, part, part_any, done, indptr),
+                      {static_cast<const int32_t*>(cols), static_cast<const float*>(values),
+                       static_cast<const float*>(x), static_cast<const uint8_t*>(x_valid),
+                       static_cast<const uint8_t*>(row_sel), static_cast<const float*>(init), init_value,
+                       static_cast<float*>(out), static_cast<uint8_t*>(has), 0, entry_fold},
                       static_cast<cudaStream_t>(stream), cudaSuccess};
   if (!dispatch_mul<true, float>(mul, add, launch)) return -1;
   return static_cast<int>(launch.err);
 }
 
-// x_valid: bool [n]; row_sel: bool [m] or null; hits: bool [m].
-extern "C" int spla_spmv_staged_structural(int slots, int stage, long long nblocks,
-                                           const void* block_rows, const void* indptr,
-                                           const void* cols, const void* x_valid,
-                                           const void* row_sel, void* hits, void* stream) {
-  if (nblocks == 0) return 0;
+// x_valid: bool [n]; row_sel: bool [m] or null; hits: bool [m], zero at
+// launch where the plan has hubs.
+extern "C" int spla_spmv_staged_structural(int slots, int stage, long long nunits, const void* units,
+                                           const void* unit_hub, const void* indptr, const void* cols,
+                                           const void* x_valid, const void* row_sel, void* hits,
+                                           void* stream) {
+  if (nunits == 0) return 0;
   if (!valid_plan(stage)) return static_cast<int>(cudaErrorInvalidValue);
   StagedLaunch launch{slots,
-                      {static_cast<const int32_t*>(block_rows), static_cast<const int32_t*>(indptr),
-                       nblocks, stage},
-                      cols, nullptr, nullptr, x_valid, row_sel, nullptr, nullptr, hits,
+                      plan_of(stage, nunits, units, unit_hub, nullptr, nullptr, nullptr, nullptr, indptr),
+                      {static_cast<const int32_t*>(cols), nullptr, nullptr,
+                       static_cast<const uint8_t*>(x_valid), static_cast<const uint8_t*>(row_sel), nullptr,
+                       0.f, nullptr, static_cast<uint8_t*>(hits), 0, 0},
                       static_cast<cudaStream_t>(stream), cudaSuccess};
   launch.by_slots<KC_PLUS, KC_MAX, true>();
   return static_cast<int>(launch.err);

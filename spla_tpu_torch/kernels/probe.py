@@ -3,7 +3,7 @@
 Replaces the Pallas probes of ``tools/probe_spmv.py`` ``main`` (pallas_call
 :307, :385, :458, :527, :680, :738).  Each phase runs a part of kernel 1 as
 first built (a warp per row; ``warp_row`` is that kernel whole, for
-MULT/PLUS f32), a part of kernel 7's ring, or the entry stream with no rows
+MULT/PLUS f32), a part of kernel 7's ring or its fold, or the entry stream with no rows
 (``flat_*``: 16-byte loads, tiles of ``FLAT_TILE`` entries), and writes an output
 that its plain version reproduces; the CUDA source's header lists the
 phases.  ``spmv_probe(phase, A, x)`` returns ``(out_f, out_i)``, either None
@@ -17,21 +17,26 @@ gather         per 8 rows (a CTA): sum of values * x     —
 fullfix        per 8 rows: the same sum                  —
 alu            per row: sum over lanes of the chain      —
 xgather        per row: sum of x[h(k)]                   —
-ring_copy      —                                         per block: XOR of cols
+ring_copy      —                                         per unit: XOR of cols
                                                          and value bits
-ring_alu       per block: sum over threads of the chain  —
-ring_copy_alu  per block: as ring_alu                    per block: XOR of cols
+ring_alu       per unit: sum over threads of the chain   —
+ring_copy_alu  per unit: as ring_alu                     per unit: XOR of cols
 warp_row       per row: sum of values * x                —
 flat_stream    per tile: sum of values                   per tile: XOR of cols
 flat_gather    per tile: sum of values * x               —
+ring_fold      per row: sum of values[k'] * x[cols[k']]  —
 =============  ========================================  ========================
 
 The chain is ``CHAIN`` pairs of a rounded ``s * 1.0001`` and a rounded
 ``+ 2``, applied once per entry slot a lane (or a ring thread) visits,
 starting from the lane (thread) index; ``h(k)`` is ``(k * 2654435761 mod
-2^32) mod n``.  Blocks are kernel 7's row blocks (``staged.staged_plan``).
-Tile t holds entries ``[FLAT_TILE * t, FLAT_TILE * (t + 1))`` below nnz; the
-flat phases need 16-byte aligned ``cols`` and ``values``.
+2^32) mod n``.  Units are kernel 7's (``staged.staged_plan``).  Tile t
+holds entries ``[FLAT_TILE * t, FLAT_TILE * (t + 1))`` below nnz.
+``ring_fold`` is kernel 7's MULT/PLUS fold with the column and value words
+of each stage taken from a slot that holds the matrix's first words: entry
+k of a stage starting at entry s folds ``k' = s mod 4 + k - s`` in its
+place.  The flat phases and ``ring_fold`` need 16-byte aligned ``cols`` and
+``values``.
 """
 
 from __future__ import annotations
@@ -41,13 +46,13 @@ import torch
 from ..containers import CsrMatrix
 from . import LAUNCHES, PROBE_PHASES
 from .build import check, load_library
-from .spmv import _on_cpu, _require_cuda
-from .staged import MAX_STAGE, _check_stage, resolve_slots, staged_plan
+from .spmv import _on_cpu, _ptr, _require_cuda
+from .staged import MAX_STAGE, _check_stage, _plan_args, resolve_slots, staged_plan
 
 __all__ = ["PROBE_PHASES", "RING_PHASES", "FLAT_PHASES", "CHAIN", "FLAT_TILE", "spmv_probe",
            "spmv_probe_plain"]
 
-RING_PHASES = ("ring_copy", "ring_alu", "ring_copy_alu")
+RING_PHASES = ("ring_copy", "ring_alu", "ring_copy_alu", "ring_fold")
 FLAT_PHASES = ("flat_stream", "flat_gather")
 CHAIN = 8  # kept equal to kChain in csrc/spmv_probe.cu
 FLAT_TILE = 4096  # kept equal to kFlatTile in csrc/spmv_probe.cu
@@ -55,6 +60,15 @@ ROWS_PER_CTA = 8  # the warp-per-row CTA: 256 threads, a warp per row
 RING_THREADS = 256
 _MUL = 1.0001
 _HASH = 2654435761
+
+
+def _slot_words(stage):
+    """Words of a ring slot; kept equal to slot_words in csrc/staged.cuh."""
+    return (stage + 11) & ~3
+
+
+def _aligned(A):
+    return A.cols.data_ptr() % 16 == 0 and A.values.data_ptr() % 16 == 0
 
 
 def _outputs(phase):
@@ -114,20 +128,31 @@ def spmv_probe_plain(phase: str, A: CsrMatrix, x, stage: int = MAX_STAGE):
     ip = A.indptr.long()
     lens = ip[1:] - ip[:-1]
     if phase in RING_PHASES:
-        block_rows, nblocks = staged_plan(A, stage)
-        br = block_rows.long()
-        seg = torch.where(valid, torch.searchsorted(br, rows, right=True) - 1, nblocks)
+        plan = staged_plan(A, stage)
+        if not plan.nunits:
+            out = torch.zeros(0, device=device)
+            return (torch.zeros(m, device=device), None) if phase == "ring_fold" else \
+                (None if phase == "ring_copy" else out, None if phase == "ring_alu" else out.int())
+        e0, e1 = plan.units[:, 2].long(), plan.units[:, 3].long()
+        unit = (torch.searchsorted(e0, k, right=True) - 1).clamp(min=0)
+        if phase == "ring_fold":
+            start = e0[unit] + torch.div(k - e0[unit], stage, rounding_mode="floor") * stage
+            src = (start % 4 + k - start).clamp(max=max(A.capacity - 1, 0))
+            prod = A.values[src] * x[A.cols[src].long().clamp(0, max(n - 1, 0))]
+            seg = torch.where(valid, rows, m)
+            return torch.zeros(m + 1, dtype=torch.float32, device=device).index_add_(0, seg, prod)[:m], None
+        seg = torch.where(valid, unit, plan.nunits)
         out_f = out_i = None
         if phase != "ring_copy":
-            blen = ip[br[1:]] - ip[br[:-1]]
-            parts = torch.div(blen + stage - 1, stage, rounding_mode="floor").clamp(min=1)
-            last = blen - (parts - 1) * stage
-            full = _counts(torch.full_like(blen, stage), RING_THREADS) * (parts - 1)[:, None]
+            ulen = e1 - e0
+            parts = torch.div(ulen + stage - 1, stage, rounding_mode="floor").clamp(min=1)
+            last = ulen - (parts - 1) * stage
+            full = _counts(torch.full_like(ulen, stage), RING_THREADS) * (parts - 1)[:, None]
             counts = full + _counts(last, RING_THREADS)
             out_f = _chains(counts, torch.arange(RING_THREADS, device=device, dtype=torch.float32))
         if phase != "ring_alu":
             words = A.cols if phase == "ring_copy_alu" else A.cols ^ A.values.view(torch.int32)
-            out_i = _xor_fold(words, seg, nblocks)
+            out_i = _xor_fold(words, seg, plan.nunits)
         return out_f, out_i
     if phase in FLAT_PHASES:
         tiles = -(-A.capacity // FLAT_TILE)
@@ -176,17 +201,22 @@ def spmv_probe(phase: str, A: CsrMatrix, x, slots: int = 2, stage: int = MAX_STA
     stream = torch.cuda.current_stream(device).cuda_stream
     writes_f, writes_i = _outputs(phase)
     if phase in RING_PHASES:
-        block_rows, nblocks = staged_plan(A, stage)
-        out_f = torch.empty(nblocks, dtype=torch.float32, device=device) if writes_f else None
-        out_i = torch.empty(nblocks, dtype=torch.int32, device=device) if writes_i else None
+        plan = staged_plan(A, stage)
+        resident = 0
+        if phase == "ring_fold":
+            if not _aligned(A):
+                raise ValueError(f"{what}: needs 16-byte aligned cols and values")
+            resident = min(_slot_words(stage), A.capacity)
+        size = m if phase == "ring_fold" else plan.nunits
+        out_f = torch.empty(size, dtype=torch.float32, device=device) if writes_f else None
+        out_i = torch.empty(size, dtype=torch.int32, device=device) if writes_i else None
         rc = lib.spla_spmv_probe_ring(
-            PROBE_PHASES.index(phase), slots, _check_stage(stage), nblocks, block_rows.data_ptr(),
-            A.indptr.data_ptr(), A.cols.data_ptr(), A.values.data_ptr(),
-            None if out_f is None else out_f.data_ptr(), None if out_i is None else out_i.data_ptr(),
-            stream)
+            PROBE_PHASES.index(phase), slots, _check_stage(stage), *_plan_args(plan), _ptr(plan.part),
+            _ptr(plan.part_any), _ptr(plan.done), A.indptr.data_ptr(), A.cols.data_ptr(),
+            A.values.data_ptr(), x.data_ptr(), resident, _ptr(out_f), _ptr(out_i), stream)
     else:
         if phase in FLAT_PHASES:
-            if A.cols.data_ptr() % 16 or A.values.data_ptr() % 16:
+            if not _aligned(A):
                 raise ValueError(f"{what}: needs 16-byte aligned cols and values")
             size = -(-A.capacity // FLAT_TILE)
             n = A.capacity  # the C entry point's n is the capacity for these phases
@@ -198,8 +228,7 @@ def spmv_probe(phase: str, A: CsrMatrix, x, slots: int = 2, stage: int = MAX_STA
         out_i = torch.empty(size, dtype=torch.int32, device=device) if writes_i else None
         rc = lib.spla_spmv_probe(
             PROBE_PHASES.index(phase), m, n, A.indptr.data_ptr(), A.cols.data_ptr(),
-            A.values.data_ptr(), x.data_ptr(), out_f.data_ptr(),
-            None if out_i is None else out_i.data_ptr(), stream)
+            A.values.data_ptr(), x.data_ptr(), out_f.data_ptr(), _ptr(out_i), stream)
     check(rc, what)
     LAUNCHES[f"spmv_probe_{phase}"] += 1
     return out_f, out_i

@@ -222,9 +222,8 @@ def spmv_pull(A: CsrMatrix, x, op_mul, op_add, init, x_valid=None, row_sel=None,
     from . import staged  # imported here: staged imports this module
 
     if staged.staged_codes(op_mul, op_add, A.values.dtype, swap) is not None:
-        res, has = staged.spmv_pull_staged(A, x, op_mul, op_add, init, x_valid, row_sel, want_has,
-                                           swap)
-        return _into(out, res), has
+        return staged.spmv_pull_staged(A, x, op_mul, op_add, init, x_valid, row_sel, want_has, swap,
+                                       out=out)
     if _on_cpu(A.values, x, x_valid, row_sel):
         res, has = spmv_pull_plain(A, x, op_mul, op_add, init, x_valid, row_sel, swap)
         return _into(out, res), (has if want_has else None)
@@ -261,7 +260,7 @@ def _init_arg(init, x):
     """Kernel 1's init as ``(tensor, bits)``: a CUDA tensor goes by pointer
     (converted to x's dtype on the device), anything else by the 32 bits of
     its value in x's dtype.  Either way no call copies from the host, which
-    would wait for the stream."""
+    would wait for the stream.  Kernel 7's wrapper passes its init so too."""
     if isinstance(init, torch.Tensor) and init.device.type == "cuda":
         return init.to(device=x.device, dtype=x.dtype).reshape(1), 0
     value = init.item() if isinstance(init, torch.Tensor) else init

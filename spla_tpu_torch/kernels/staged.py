@@ -15,19 +15,24 @@ default slot count, raised to at least 2 as at :2154.  Both are read from
 the environment when this module is imported; ``MANUAL_DMA`` is read again
 at every call, so code may set it.
 
-Rows are grouped into row blocks by ``staged_plan``, which the kernel and
-the plain version share.  With ``half = stage // 2``, a row starts a new
-block when its first entry lies in another ``half``-entry bucket than the
-previous row's, when it or the previous row holds more than ``half``
-entries, or every ``stage`` rows.  A block of several rows therefore holds
-fewer than ``stage`` entries and is one stage; a block of one row is cut
-into stages of ``stage`` entries.  The plain version folds each (row,
-stage) piece of the entry stream, then each row's pieces in stage order.
+Work is cut into units by ``staged_plan``, which the kernel and the plain
+version share.  With ``long = max(stage // 8, 1)``, a row of more than
+``long`` entries is a long row; the other rows are packed into units of
+several rows: a row starts a new unit when its first entry lies in another
+bucket of ``stage - long`` entries than the previous row's, when it or the
+previous row is long, or every ``BLOCK_ROWS`` rows, so a unit of several rows
+holds fewer than ``stage`` entries (about ``stage - long`` on average) and
+is one stage.  A long row is cut into chunks of ``CHUNK_STAGES`` stages,
+each chunk a unit; a row of several chunks is a hub, whose chunks' folds
+the last of them to finish folds in chunk order.  The plain version folds
+each (row, stage) piece of the entry stream, then each row's pieces in
+stage order.
 """
 
 from __future__ import annotations
 
 import os
+from dataclasses import dataclass
 
 import torch
 
@@ -36,13 +41,17 @@ from ..formats import WeakIdCache
 from ..utils.segments import segment_fold
 from . import LAUNCHES
 from .build import check, load_library
-from .spmv import _mask, _on_cpu, _ptr, _require_cuda, pull_codes
+from .spmv import _init_arg, _mask, _on_cpu, _ptr, _require_cuda, pull_codes
 
 __all__ = [
     "MANUAL_DMA",
     "MANUAL_DMA_SLOTS",
     "SLOT_COUNTS",
     "MAX_STAGE",
+    "BLOCK_ROWS",
+    "CHUNK_STAGES",
+    "StagedPlan",
+    "long_row_len",
     "staged_plan",
     "staged_codes",
     "spmv_pull_staged",
@@ -57,8 +66,34 @@ MANUAL_DMA_SLOTS = int(os.environ.get("SPLA_MANUAL_SLOTS", "2"))
 SLOT_COUNTS = (2, 3, 4)  # the instances csrc/spmv_staged.cu compiles
 # entries a stage holds, at most and by default; kept equal to kMaxStage in csrc/staged.cuh
 MAX_STAGE = 1024
+BLOCK_ROWS = 256  # rows of a unit of several rows, at most; kept equal to kBlockRows in csrc/staged.cuh
+CHUNK_STAGES = 4  # stages of a long row's chunk, at most
 
-_PLANS = WeakIdCache()  # row blocks per indptr tensor and stage
+_PLANS = WeakIdCache()  # StagedPlan per indptr tensor and stage
+# the other row fold (entries over threads, a segmented scan), for comparing the two
+_ENTRY_FOLD = False
+
+
+@dataclass(frozen=True)
+class StagedPlan:
+    """Kernel 7's units for one ``indptr`` and stage, on its device: unit u
+    holds rows ``[units[u, 0], units[u, 1])`` and entries ``[units[u, 2],
+    units[u, 3])``, in stream order.  ``unit_hub[u]`` is the rank of u's row
+    among the hubs (long rows of several chunks), else -1; ``hub_units[h]``
+    is hub h's first unit and chunk count.  Where there are hubs,
+    ``part``/``part_any`` hold the chunks' folds during a launch and
+    ``done`` counts each hub's finished chunks; the kernel leaves it zero,
+    so launches on one matrix follow one another on a stream."""
+
+    units: torch.Tensor  # int32 [nunits, 4]
+    unit_hub: torch.Tensor  # int32 [nunits]
+    hub_units: torch.Tensor  # int32 [nhub, 2]
+    nunits: int
+    nhub: int
+    stage: int
+    part: torch.Tensor | None = None  # f32 [nunits]
+    part_any: torch.Tensor | None = None  # uint8 [nunits]
+    done: torch.Tensor | None = None  # int32 [nhub]
 
 
 def resolve_slots(slots) -> int:
@@ -84,26 +119,54 @@ def staged_codes(op_mul, op_add, dtype, swap=False):
     return pull_codes(op_mul, op_add, dtype, swap)
 
 
-def staged_plan(A: CsrMatrix, stage: int = MAX_STAGE):
-    """``(block_rows, nblocks)``: int32 ``block_rows`` [nblocks + 1] on A's
-    device, block b holding rows ``[block_rows[b], block_rows[b + 1])``.
-    Built on the device from ``indptr`` and cached per indptr tensor; the
-    block count is read on the host once."""
+def long_row_len(stage: int) -> int:
+    """A row of more entries than this is a long row: its own units."""
+    return max(stage // 8, 1)
+
+
+def staged_plan(A: CsrMatrix, stage: int = MAX_STAGE) -> StagedPlan:
+    """A's units at ``stage`` entries a stage (the module's docstring says
+    how they are cut).  Built on the device from ``indptr`` and cached per
+    indptr tensor and stage; the counts are read on the host once."""
     _check_stage(stage)
     hit = _PLANS.get(A.indptr, (stage,))
     if hit is not None:
         return hit
     m = A.shape[0]
     ip = A.indptr.long()
+    dev = ip.device
     starts, lens = ip[:-1], ip[1:] - ip[:-1]
-    half = stage // 2
-    bucket = torch.div(starts, half, rounding_mode="floor")
-    heavy = lens > half
-    flag = heavy | (torch.arange(m, device=ip.device) % stage == 0)
-    flag[1:] |= (bucket[1:] != bucket[:-1]) | heavy[:-1]
-    rows = torch.nonzero(flag).flatten()
-    block_rows = torch.cat([rows, torch.tensor([m], device=ip.device)]).to(torch.int32)
-    plan = (block_rows, int(rows.numel()))
+    long = lens > long_row_len(stage)
+    bucket = torch.div(starts, stage - long_row_len(stage), rounding_mode="floor")
+    r = torch.arange(m, device=dev)
+    flag = long | (r == 0)
+    flag[1:] |= (bucket[1:] != bucket[:-1]) | long[:-1]
+    # and every BLOCK_ROWS rows from such a start
+    flag |= (r - torch.cummax(torch.where(flag, r, 0), 0).values) % BLOCK_ROWS == 0
+    chunk = CHUNK_STAGES * stage
+    # units of the block each flagged row starts: a long row's chunks, else one
+    per_row = torch.where(flag, torch.where(long, torch.div(lens + chunk - 1, chunk, rounding_mode="floor"), 1), 0)
+    nblocks, nunits, nhub = (int(v) for v in torch.stack(
+        [flag.sum(), per_row.sum(), (per_row > 1).sum()]).tolist())
+    first = torch.empty(nblocks + 1, dtype=torch.long, device=dev)
+    first.scatter_(0, torch.where(flag, torch.cumsum(flag, 0) - 1, nblocks), torch.arange(m, device=dev))
+    first[nblocks] = m
+    count = per_row[first[:nblocks]]
+    blk = torch.repeat_interleave(torch.arange(nblocks, device=dev), count, output_size=nunits)
+    unit0 = torch.cumsum(count, 0) - count  # each block's first unit
+    b0 = ip[first[blk]]
+    e0 = b0 + (torch.arange(nunits, device=dev) - unit0[blk]) * chunk
+    e1 = torch.minimum(e0 + chunk, ip[first[blk + 1]])
+    units = torch.stack([first[blk], first[blk + 1], e0, e1], 1).to(torch.int32)
+    hub = count > 1
+    unit_hub = torch.where(hub, torch.cumsum(hub, 0) - 1, -1)[blk].to(torch.int32)
+    hub_units = torch.stack([unit0[hub], count[hub]], 1).to(torch.int32).reshape(nhub, 2)
+    scratch = {}
+    if nhub:
+        scratch = {"part": torch.empty(nunits, dtype=torch.float32, device=dev),
+                   "part_any": torch.empty(nunits, dtype=torch.uint8, device=dev),
+                   "done": torch.zeros(nhub, dtype=torch.int32, device=dev)}
+    plan = StagedPlan(units, unit_hub, hub_units, nunits, nhub, stage, **scratch)
     _PLANS.put(A.indptr, plan, (stage,))
     return plan
 
@@ -113,16 +176,16 @@ def _pieces(A: CsrMatrix, stage: int):
     (pieces numbered in stream order), each piece's row (``m`` for pieces
     of padding), and the piece count bound (the capacity)."""
     m = A.shape[0]
-    block_rows, nblocks = staged_plan(A, stage)
+    plan = staged_plan(A, stage)
     device = A.cols.device
     k = torch.arange(A.capacity, device=device)
     rows = A.row_ids.long()
-    br = block_rows.long()
-    blk = (torch.searchsorted(br, rows, right=True) - 1).clamp(0, max(nblocks - 1, 0))
-    first = A.indptr.long()[br[:-1]] if nblocks else torch.zeros(1, dtype=torch.long, device=device)
-    part = torch.div(k - first[blk], stage, rounding_mode="floor")
+    e0 = plan.units[:, 2].long()
+    unit = (torch.searchsorted(e0, k, right=True) - 1).clamp(0, max(plan.nunits - 1, 0))
+    first = e0[unit] if plan.nunits else torch.zeros_like(k)
+    part = torch.div(k - first, stage, rounding_mode="floor")
     heads = torch.ones(A.capacity, dtype=torch.bool, device=device)
-    heads[1:] = (rows[1:] != rows[:-1]) | (part[1:] != part[:-1])
+    heads[1:] = (rows[1:] != rows[:-1]) | (unit[1:] != unit[:-1]) | (part[1:] != part[:-1])
     piece = torch.cumsum(heads, 0) - 1
     piece_row = torch.full((A.capacity + 1,), m, dtype=torch.long, device=device)
     piece_row[piece] = rows
@@ -155,15 +218,21 @@ def spmv_pull_staged_plain(A: CsrMatrix, x, op_mul, op_add, init, x_valid=None, 
 
 
 def spmv_pull_staged(A: CsrMatrix, x, op_mul, op_add, init, x_valid=None, row_sel=None,
-                     want_has=False, swap=False, slots=None, stage=MAX_STAGE):
+                     want_has=False, swap=False, slots=None, stage=MAX_STAGE, out=None):
     """Kernel 7.  Returns ``(out, has)``; ``has`` is None unless ``want_has``.
     CPU tensors take the plain version; CUDA tensors launch the kernel, and
-    a request it does not cover (not f32, or an uncovered semiring) raises."""
+    a request it does not cover (not f32, or an uncovered semiring) raises.
+    ``out``, if given, is the contiguous tensor the result is written to
+    (kernel 1's ``out``, which ``spmv_pull`` passes on under ``MANUAL_DMA``).
+    ``init`` reaches the kernel as kernel 1's does, by value or by device
+    pointer, so a call does not wait for the stream."""
     slots = resolve_slots(slots)
     if _on_cpu(A.values, x, x_valid, row_sel):
-        out, has = spmv_pull_staged_plain(A, x, op_mul, op_add, init, x_valid, row_sel, swap,
+        res, has = spmv_pull_staged_plain(A, x, op_mul, op_add, init, x_valid, row_sel, swap,
                                           slots, stage)
-        return out, (has if want_has else None)
+        if out is not None:
+            res = out.copy_(res)
+        return res, (has if want_has else None)
     what = "spmv_pull_staged"
     codes = pull_codes(op_mul, op_add, A.values.dtype, swap)
     if codes is None or A.values.dtype != torch.float32:
@@ -176,18 +245,27 @@ def spmv_pull_staged(A: CsrMatrix, x, op_mul, op_add, init, x_valid=None, row_se
                   {"x": n, "x_valid": n, "row_sel": m})
     if x.dtype != torch.float32:
         raise TypeError(f"{what}: x is {x.dtype}, the matrix float32")
-    block_rows, nblocks = staged_plan(A, stage)
-    init_t = torch.as_tensor(init, dtype=x.dtype, device=x.device).reshape(1)
-    out = torch.empty(m, dtype=x.dtype, device=x.device)
+    if out is None:
+        out = torch.empty(m, dtype=x.dtype, device=x.device)
+    elif out.shape != (m,) or out.dtype != x.dtype or out.device != x.device or not out.is_contiguous():
+        raise ValueError(f"{what}: out must be a contiguous {x.dtype} [{m}] tensor on {x.device}")
+    plan = staged_plan(A, stage)
+    init_t, init_bits = _init_arg(init, x)
     has = torch.empty(m, dtype=torch.bool, device=x.device) if want_has else None
     rc = load_library().spla_spmv_staged(
-        codes[0], codes[1], slots, _check_stage(stage), nblocks, block_rows.data_ptr(),
-        A.indptr.data_ptr(), A.cols.data_ptr(), A.values.data_ptr(), x.data_ptr(), _ptr(x_valid),
-        _ptr(row_sel), init_t.data_ptr(), out.data_ptr(), _ptr(has),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        codes[0], codes[1], slots, _check_stage(stage), *_plan_args(plan), _ptr(plan.part),
+        _ptr(plan.part_any), _ptr(plan.done), A.indptr.data_ptr(), A.cols.data_ptr(), A.values.data_ptr(),
+        x.data_ptr(), _ptr(x_valid), _ptr(row_sel), _ptr(init_t), init_bits, out.data_ptr(), _ptr(has),
+        int(_ENTRY_FOLD), torch.cuda.current_stream(x.device).cuda_stream)
     check(rc, what)
     LAUNCHES["spmv_pull_staged"] += 1
     return out, has
+
+
+def _plan_args(plan: StagedPlan):
+    """The plan's leading C arguments: the unit count, units, unit_hub and
+    hub_units."""
+    return plan.nunits, plan.units.data_ptr(), plan.unit_hub.data_ptr(), plan.hub_units.data_ptr()
 
 
 def spmv_pull_staged_structural_plain(A: CsrMatrix, x_valid, row_sel=None, slots=None, stage=MAX_STAGE):
@@ -216,11 +294,12 @@ def spmv_pull_staged_structural(A: CsrMatrix, x_valid, row_sel=None, slots=None,
     _require_cuda(what, A, {"x_valid": _mask(x_valid, what, "x_valid"),
                             "row_sel": _mask(row_sel, what, "row_sel")},
                   {"x_valid": n, "row_sel": m})
-    block_rows, nblocks = staged_plan(A, stage)
-    hits = torch.empty(m, dtype=torch.bool, device=x_valid.device)
+    plan = staged_plan(A, stage)
+    # a hub's chunks only ever write True: its False comes from the zeros
+    hits = (torch.zeros if plan.nhub else torch.empty)(m, dtype=torch.bool, device=x_valid.device)
     rc = load_library().spla_spmv_staged_structural(
-        slots, _check_stage(stage), nblocks, block_rows.data_ptr(), A.indptr.data_ptr(),
-        A.cols.data_ptr(), x_valid.data_ptr(), _ptr(row_sel), hits.data_ptr(),
+        slots, _check_stage(stage), *_plan_args(plan)[:3], A.indptr.data_ptr(), A.cols.data_ptr(),
+        x_valid.data_ptr(), _ptr(row_sel), hits.data_ptr(),
         torch.cuda.current_stream(x_valid.device).cuda_stream)
     check(rc, what)
     LAUNCHES["spmv_pull_staged"] += 1

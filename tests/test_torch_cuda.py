@@ -409,16 +409,19 @@ def _check_pull(got, ref, exact):
         torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5, equal_nan=True)
 
 
+@pytest.mark.parametrize("graph", list(PULL_GRAPHS))
 @pytest.mark.parametrize("add", ["PLUS", "MIN", "MAX"])
 @pytest.mark.parametrize("stage", [16, 1024])
-def test_spmv_pull_staged_matches_plain_and_kernel1(dev, add, stage):
+def test_spmv_pull_staged_matches_plain_and_kernel1(dev, graph, add, stage):
     """Kernel 7 at 2, 3 and 4 slots against its plain version and kernel 1,
-    every mul, both operand orders, with and without masks; row 17 (5000
-    entries) is longer than either stage."""
-    a = _graph()
-    n = a.shape[0]
+    every mul, both operand orders, with and without masks, on kernel 1's
+    test graphs (at stage 1024 the hub graphs' rows of 5000 and 9000
+    entries are rows of two and three chunks; at 16 every row of more than
+    two entries is a long row); the structural variant; a repeated call
+    gives the same bits."""
+    A = _pull_matrix(graph, "f32", dev, extra=11 if graph in ("hub", "deg6") else 0)
+    n = A.shape[0]
     rng = np.random.default_rng(11)
-    A = F.csr_from_scipy(a, device=dev)
     x = torch.from_numpy(rng.random(n, dtype=np.float32)).to(dev)
     x[3], x[5] = float("nan"), float("inf")
     x_valid = torch.from_numpy(rng.random(n) < 0.8).to(dev)
@@ -435,19 +438,23 @@ def test_spmv_pull_staged_matches_plain_and_kernel1(dev, add, stage):
                 assert torch.equal(has, ref_has) and torch.equal(has, k1_has)
                 _check_pull(got, ref, add != "PLUS")
                 _check_pull(got, k1, add != "PLUS")
+                again, _ = K7.spmv_pull_staged(A, x, om, oa, oa.identity, xv, rs, swap=swap, slots=slots,
+                                               stage=stage)
+                _assert_same(again, got)
     for slots in (2, 3, 4):
-        _assert_same(K7.spmv_pull_staged_structural(A, x_valid, row_sel, slots=slots, stage=stage),
-                     K1.spmv_pull_structural(A, x_valid, row_sel))
+        for xv in (x_valid, x > 0.99):
+            _assert_same(K7.spmv_pull_staged_structural(A, xv, row_sel, slots=slots, stage=stage),
+                         K1.spmv_pull_structural(A, xv, row_sel))
 
 
 def test_spmv_pull_staged_fewer_stages_than_slots(dev):
     """One stage in all (the reference's manual kernel fails on one batch):
     every slot count gives kernel 1's result."""
     rng = np.random.default_rng(12)
-    n = 300
+    n = 200
     a = sp.random(n, n, density=0.002, random_state=12, format="csr", dtype=np.float32)
     A = F.csr_from_scipy(a, device=dev)
-    assert K7.staged_plan(A)[1] == 1
+    assert K7.staged_plan(A).nunits == 1
     x = torch.from_numpy(rng.random(n, dtype=np.float32)).to(dev)
     ref, _ = K1.spmv_pull(A, x, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)
     for slots in (2, 3, 4):
@@ -457,6 +464,35 @@ def test_spmv_pull_staged_fewer_stages_than_slots(dev):
         _assert_same(got, K1.spmv_pull(A, x, op.PLUS_FLOAT, op.MIN_FLOAT, float("inf"))[0])
     with pytest.raises(ValueError, match=r"\(2, 3, 4\)"):
         K7.spmv_pull_staged(A, x, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0, slots=5)
+
+
+def test_pull_kernels_do_not_synchronize(dev, monkeypatch):
+    """Once a matrix's plans are built, no call of kernel 1 or kernel 7 (value
+    and structural, init a Python number or a CUDA tensor, kernel 7 through
+    spmv_pull's out under MANUAL_DMA) waits for the stream."""
+    A = _pull_matrix("hub_ends", "f32", dev)
+    n = A.shape[0]
+    x = torch.from_numpy(np.random.default_rng(18).random(n, dtype=np.float32)).to(dev)
+    x_valid, row_sel = x > 0.2, x < 0.7
+    init_t = torch.zeros((), device=dev)
+    out = torch.empty(n, device=dev)
+    K1.pull_plan(A), K7.staged_plan(A)
+    assert K1.pull_plan(A).nhub == K7.staged_plan(A).nhub == 2
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for init in (0.0, init_t):
+            K1.spmv_pull(A, x, op.MULT_FLOAT, op.PLUS_FLOAT, init, x_valid, row_sel, want_has=True)
+            K7.spmv_pull_staged(A, x, op.MULT_FLOAT, op.PLUS_FLOAT, init, x_valid, row_sel, want_has=True)
+        K1.spmv_pull_structural(A, x_valid, row_sel)
+        K7.spmv_pull_staged_structural(A, x_valid, row_sel)
+        monkeypatch.setattr(K7, "MANUAL_DMA", True)
+        got, _ = K1.spmv_pull(A, x, op.MULT_FLOAT, op.PLUS_FLOAT, init_t, out=out)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert got.data_ptr() == out.data_ptr()
+    torch.testing.assert_close(out, K1.spmv_pull_plain(A, x, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)[0],
+                               rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("phase", kernels.PROBE_PHASES)

@@ -137,19 +137,19 @@ def _hub_matrix(seed=3):
 @pytest.mark.parametrize("slots", [2, 3, 4])
 @pytest.mark.parametrize("stage", [8, 32, 1024])
 def test_staged_plain_at_small_stages(slots, stage):
-    """The plain version with stages of 8 and 32 entries (rows straddle
-    stage buckets; rows 17 and 400 span many stages) and of 1024, every
+    """The plain version with stages of 8 and 32 entries (rows 17 and 400
+    span many stages and chunks) and of 1024, every
     covered semiring with masks and swapped operands, against kernel 1's
     plain version; the structural variant too."""
     A = _hub_matrix()
     n = A.shape[0]
-    block_rows, nblocks = K7.staged_plan(A, stage)
-    sizes = torch.diff(A.indptr.long()[block_rows.long()])
-    one_row = torch.diff(block_rows.long()) == 1
-    assert bool((sizes[~one_row] < stage).all())  # a block of several rows is one stage
+    units = K7.staged_plan(A, stage).units.long()
+    sizes = units[:, 3] - units[:, 2]
+    one_row = units[:, 1] - units[:, 0] == 1
+    assert bool((sizes[~one_row] < stage).all())  # a unit of several rows is one stage
     if stage < 1024:
         assert bool((sizes[one_row] > stage).any())  # rows spanning several stages
-    if stage == 32:
+    if stage == 1024:
         assert bool((~one_row).any())
     rng = np.random.default_rng(4)
     x = torch.from_numpy(rng.uniform(-3, 3, n).astype(np.float32))
@@ -248,6 +248,144 @@ def test_manual_dma_dispatch_on_cpu_takes_the_staged_plain_path(monkeypatch):
     _close(staged[1], alg.pr(P).values, True)
 
 
+def _numpy_units(lens, stage):
+    """Kernel 7's units by definition, row by row: a row of more than
+    stage // 8 entries is long and a unit of its own, cut into chunks of
+    CHUNK_STAGES stages; another row joins the previous row's unit unless
+    either is long, its first entry lies in another bucket of stage -
+    stage // 8 entries, or the unit already holds BLOCK_ROWS rows since the
+    last such start.  Returns (units (r0, r1, e0, e1), unit_hub, hub_units)."""
+    lens = np.asarray(lens, np.int64)
+    longest = max(stage // 8, 1)
+    starts = np.concatenate([[0], np.cumsum(lens)])
+    blocks, base = [], 0
+    for r in range(lens.size):
+        cut = (r == 0 or lens[r] > longest or lens[r - 1] > longest
+               or starts[r] // (stage - longest) != starts[r - 1] // (stage - longest))
+        if cut:
+            base = r
+        if cut or (r - base) % K7.BLOCK_ROWS == 0:
+            blocks.append([r, r + 1])
+        else:
+            blocks[-1][1] = r + 1
+    units, unit_hub, hub_units = [], [], []
+    chunk = K7.CHUNK_STAGES * stage
+    for r0, r1 in blocks:
+        e0, e1 = int(starts[r0]), int(starts[r1])
+        count = -(-(e1 - e0) // chunk) if lens[r0] > longest else 1
+        hub = -1
+        if count > 1:
+            hub = len(hub_units)
+            hub_units.append((len(units), count))
+        for c in range(count):
+            units.append((r0, r1, e0 + c * chunk, min(e0 + (c + 1) * chunk, e1) if count > 1 else e1))
+            unit_hub.append(hub)
+    return units, unit_hub, hub_units
+
+
+def _lens_csr(lens, extra_capacity=0, seed=0):
+    """A CPU CsrMatrix with the given row lengths and random columns."""
+    lens = np.asarray(lens, np.int64)
+    m = lens.size
+    n = max(m, 1)
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(m, dtype=np.int32), lens)
+    indptr = np.zeros(m + 1, np.int64)
+    np.cumsum(lens, out=indptr[1:])
+    pad = extra_capacity
+    return csr_from_numpy((m, n), indptr,
+                          np.concatenate([rng.integers(0, n, rows.size, dtype=np.int32), np.zeros(pad, np.int32)]),
+                          np.concatenate([rng.random(rows.size, dtype=np.float32), np.zeros(pad, np.float32)]),
+                          np.concatenate([rows, np.full(pad, m, np.int32)]), rows.size, np.float32(0), "cpu")
+
+
+PLAN_LENGTHS = {
+    "empty matrix": [],
+    "all rows empty": [0] * 600,
+    "long rows at both ends": [5000] + [16] * 300 + [3000],
+    "chunk edges": [2 * 4096, 4, 2 * 4096 + 1, 4096, 129, 128],
+    "bucket edges": [7] * 128 + [8] * 112 + [1] * 7 + [0] * 300 + [2] * 200,
+    "uniform deg 16": [16] * 700,
+}
+
+
+@pytest.mark.parametrize("stage", [32, 1024])
+@pytest.mark.parametrize("extra_capacity", [0, 13])
+@pytest.mark.parametrize("name", list(PLAN_LENGTHS))
+def test_staged_plan_matches_numpy(name, extra_capacity, stage):
+    """staged_plan's units, hubs and chunk edges (capacity beyond nnz or
+    not) against the definition; units of several rows are one stage of at
+    most BLOCK_ROWS rows; the plan is cached per indptr tensor and stage."""
+    lens = PLAN_LENGTHS[name]
+    A = _lens_csr(lens, extra_capacity)
+    plan = K7.staged_plan(A, stage)
+    units, unit_hub, hub_units = _numpy_units(lens, stage)
+    assert plan.units.dtype == plan.unit_hub.dtype == plan.hub_units.dtype == torch.int32
+    assert [tuple(u) for u in plan.units.tolist()] == units
+    assert plan.unit_hub.tolist() == unit_hub
+    assert [tuple(h) for h in plan.hub_units.tolist()] == hub_units
+    assert (plan.nunits, plan.nhub, plan.stage) == (len(units), len(hub_units), stage)
+    assert (plan.done is None) == (not hub_units)
+    several = [(r0, r1, e0, e1) for r0, r1, e0, e1 in units if r1 - r0 > 1]
+    assert all(e1 - e0 < stage and r1 - r0 <= K7.BLOCK_ROWS for r0, r1, e0, e1 in several)
+    assert K7.staged_plan(A, stage) is plan and K7.staged_plan(A, 2 * stage if stage < 1024 else 16) is not plan
+
+
+def test_staged_plan_of_a_row_split_part():
+    """A split_rows part has its own indptr and so its own plan: its long
+    rows are the whole matrix's in its range, rebased, and the parts'
+    plain results give the whole."""
+    lens = [16] * 40 + [6000] + [16] * 40 + [900, 2]
+    A = _lens_csr(lens)
+    parts = F.split_rows(A, 2)
+    got, r0 = [], 0
+    x = torch.from_numpy(np.random.default_rng(3).random(A.shape[1], dtype=np.float32))
+    out = torch.empty(A.shape[0])
+    for part in parts:
+        plan = K7.staged_plan(part)
+        assert plan is not K7.staged_plan(A)
+        u = plan.units
+        long = u[(u[:, 1] - u[:, 0] == 1) & (u[:, 3] - u[:, 2] > K7.long_row_len(K7.MAX_STAGE))]
+        got += sorted({int(r) + r0 for r in long[:, 0].tolist()})
+        K7.spmv_pull_staged(part, x, OP.MULT_FLOAT, OP.PLUS_FLOAT, 0.0, out=out[r0:r0 + part.shape[0]])
+        r0 += part.shape[0]
+    assert got == [40, 81]
+    assert K7.staged_plan(A).nhub == 1
+    _close(out, K1.spmv_pull_plain(A, x, OP.MULT_FLOAT, OP.PLUS_FLOAT, 0.0)[0], True)
+
+
+@pytest.mark.parametrize("mul,add,fill", [("PLUS", "MIN", np.inf), ("MULT", "PLUS", 0.0)])
+def test_staged_on_long_rows_matches_spla_tpu(mul, add, fill):
+    """Kernel 7's CPU path (its plain version), with mxv_masked's fused row
+    mask and init, on a graph with long rows of one and of several chunks
+    (at each end and inside) and empty rows, against spla_tpu's XLA
+    mxv_masked."""
+    import spla_tpu.op as JOP
+    import spla_tpu.ops.spmv as JS
+    from spla_tpu.containers import DenseVec as JDenseVec
+
+    n = 9000
+    rng = np.random.default_rng(4)
+    long_rows = {0: 4096 + 300, 4000: 600, n - 1: 2 * 4096 + 5}
+    rows = np.concatenate([rng.integers(0, n, 3 * n), *(np.full(k, r) for r, k in long_rows.items())])
+    # distinct columns in the long rows, so that no duplicate folds them shorter
+    cols = np.concatenate([rng.integers(0, n, 3 * n), *(rng.permutation(n)[:k] for k in long_rows.values())])
+    vals = rng.uniform(0.1, 2.0, rows.size).astype(np.float32)
+    JA = JF.csr_from_entries((n, n), rows, cols, vals, fill=fill, dtype=np.float32, capacity=rows.size + 9)
+    A = from_spla_tpu(JA, "cpu")
+    plan = K7.staged_plan(A)
+    assert plan.nhub == 2 and sorted(set(plan.units[plan.unit_hub >= 0, 0].tolist())) == [0, n - 1]
+    x = rng.uniform(-2, 2, n).astype(np.float32)
+    x[rng.random(n) < 0.3] = fill
+    mvals = (rng.random(n) < 0.7).astype(np.float32)
+    jv, jmask = JDenseVec(jnp.asarray(x), jnp.float32(fill)), JDenseVec(jnp.asarray(mvals), jnp.float32(0))
+    want = JS.mxv_masked(jmask, JA, jv, JOP.lookup(mul, JOP.FLOAT), JOP.lookup(add, JOP.FLOAT),
+                         JOP.NQZERO_FLOAT, fill)
+    got, _ = K7.spmv_pull_staged(A, torch.from_numpy(x), OP.lookup(mul, OP.FLOAT), OP.lookup(add, OP.FLOAT),
+                                 fill, row_sel=torch.from_numpy(mvals != 0))
+    _close(got, np.asarray(want.values), add == "PLUS")
+
+
 def _numpy_probe(phase, indptr, cols, vals, x, stage):
     """Kernel 8's outputs, defined with numpy loops."""
     m, n = indptr.size - 1, x.size
@@ -286,17 +424,19 @@ def _numpy_probe(phase, indptr, cols, vals, x, stage):
     if phase == "xgather":
         return np.array([sum(float(x[(k * 2654435761 % 2**32) % n]) for k in range(indptr[r], indptr[r + 1]))
                          for r in range(m)]), None
-    # the ring phases, per row block: a block of several rows holds fewer
-    # than `stage` entries; a block of one row is cut into stages
-    half, starts = stage // 2, [0]
-    for r in range(1, m):
-        long_row = indptr[r + 1] - indptr[r] > half or indptr[r] - indptr[r - 1] > half
-        if indptr[r] // half != indptr[r - 1] // half or long_row or r % stage == 0:
-            starts.append(r)
-    starts.append(m)
+    units, _, _ = _numpy_units(np.diff(indptr), stage)
+    if phase == "ring_fold":
+        out = np.zeros(m)
+        row_of = np.repeat(np.arange(m), np.diff(indptr))
+        for _, _, e0, e1 in units:
+            for s0 in range(e0, e1, stage):
+                for k in range(s0, min(s0 + stage, e1)):
+                    src = s0 % 4 + k - s0
+                    out[row_of[k]] += float(vals[src]) * float(x[cols[src]])
+        return out, None
+    # the ring phases, per unit: its stages of `stage` entries
     out_f, out_i = [], []
-    for b0, b1 in zip(starts[:-1], starts[1:]):
-        e0, e1 = indptr[b0], indptr[b1]
+    for _, _, e0, e1 in units:
         stages = [(s, min(s + stage, e1)) for s in range(e0, e1, stage)] or [(e0, e0)]
         counts = [sum(len(range(t, s1 - s0, 256)) for s0, s1 in stages) for t in range(256)]
         out_f.append(sum(float(chain(np.float32(t), counts[t])) for t in range(256)))
