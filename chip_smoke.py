@@ -15,9 +15,10 @@ Phases:
      whole BFS / SSSP in one cooperative launch) bitwise on the road grids
      of bench_suite.py, from vertex 0 and from the far corner; kernel 7 (the
      staged-stream SpMV) against its plain version and kernel 1, every f32
-     instance at 2, 3 and 4 slots, on the n = 2^21 graph, a hub graph and a
-     graph of one stage; each of kernel 8's phase probes against its plain
-     version;
+     instance, on kernel 1's graphs: at 2, 3 and 4 slots on the n = 2^21
+     graph, the hub graph, a graph of one stage and the n = 2^16 graphs, at
+     its default slots on the powerlaw graph, and a repeated call bitwise;
+     each of kernel 8's phase probes against its plain version;
   4. the slices through the public entry points, each with the launch
      counts set to 0 just before it and read just after:
      * SpMV: mxv_masked / vxm_masked / vxm_masked_dense on the bench.py
@@ -46,11 +47,12 @@ Phases:
      products/s (bench_suite.py masked_spgemm_mprod_s), BFS / SSSP / PR /
      TC wall time; road BFS / SSSP walls on the resident route and on the
      level loop, with road_bfs_gteps and road_sssp_ms (bench_suite.py:265,346);
-     kernel 1 beside its first, warp-per-row design (kernel 8's warp_row), kernel 7 and
-     cuSPARSE (one ``torch.sparse_csr_tensor @ x`` call, the library's
-     time) on the n = 2^21, powerlaw and hub graphs, with kernel 1 at each
-     team size on the first; the probe table in ns per entry; ab_spmv's
-     chained kernel 1, split2, split4 and kernel 7 steps.
+     kernel 1 beside its first, warp-per-row design (kernel 8's warp_row),
+     kernel 7 at 2, 3 and 4 slots, kernel 8's ring_copy, ring_fold and
+     flat_gather, and cuSPARSE (one ``torch.sparse_csr_tensor @ x`` call,
+     the library's time) on the n = 2^21, powerlaw and hub graphs, with
+     kernel 1 at each team size; the probe table in ns per entry;
+     ab_spmv's chained kernel 1, split2, split4 and kernel 7 steps.
 
 Each kernel's row in the JSON line carries ``bound_ms``: the larger of its
 bytes (each input read once, each output written once, at this run's
@@ -94,7 +96,7 @@ from spla_tpu_torch.tools.graphs import HUB_ROWS, build_graph, hub_graph, powerl
 N_SPMV, DEG_SPMV = 1 << 21, 16      # bench.py:37 build_graph
 N_GRAPH, DEG_GRAPH = 1 << 20, 16    # bench_suite.py:24 random_graph, bench_suite.py:122
 N_TC, DEG_TC, SEED_TC = 1 << 15, 24, 3  # bench_suite.py:513-514
-N_FEW = 400  # kernel 7's fewer-stages-than-slots graph: 400 entries, one row block
+N_FEW = 256  # kernel 7's fewer-stages-than-slots graph: 256 entries, one unit
 N_SMALL, SMALL_DEGREES = 1 << 16, (1, 6, 16, 24, 64, 300)  # kernel 1: teams of 2-32 lanes, hub rows
 N_HUB_TC, HUB_LEN_TC = 1 << 17, 1 << 16
 SIDE_BFS, SIDE_SSSP, SEED_ROAD = 1024, 512, 9  # bench_suite.py:226,323,326
@@ -127,7 +129,7 @@ KERNELS = {
     **{f"spmv_probe_{phase}": ("cuda", "spla_tpu_torch/kernels/csrc/spmv_probe.cu", f"tools/probe_spmv.py:{line}")
        for phase, line in (("stream", 121), ("gather", 146), ("fullfix", 109), ("alu", 176), ("xgather", 190),
                            ("ring_copy", 248), ("ring_alu", 248), ("ring_copy_alu", 248), ("warp_row", 99),
-                           ("flat_stream", 498), ("flat_gather", 146))},
+                           ("flat_stream", 498), ("flat_gather", 146), ("ring_fold", 248))},
 }
 # the kernels each slice of phase 4 must launch
 PATHS = {"spmv": ("spmv_pull", "spmv_push", "level_update"), "spgemm": ("mxmt_reduce", "mxmt_masked"),
@@ -437,16 +439,21 @@ def check_mxmt(G):
 def check_staged(G):
     """Kernel 7 against its plain version and kernel 1: all 18 f32 (mul,
     add) instances, both operand orders, with and without masks, and the
-    structural variant, at 2, 3 and 4 slots, on the n = 2^21 graph, the hub
-    graph (rows of 2^17 entries, 128 stages each) and a graph of one stage
-    (fewer stages than slots).  Then each kernel-8 phase against its plain
-    version on the n = 2^21 graph (f32 sums within rtol 1e-5, XOR
+    structural variant, on kernel 1's graphs: at 2, 3 and 4 slots on the
+    n = 2^21 graph, the hub graph (rows of 2^17 entries, 32 chunks each), a
+    graph of one stage (fewer stages than slots) and the n = 2^16 graphs of
+    degrees 1 to 300, at the default slots on the powerlaw graph; a
+    repeated call gives the same bits.  Then each kernel-8 phase against
+    its plain version on the n = 2^21 graph (f32 sums within rtol 1e-5, XOR
     checksums bitwise)."""
     errs = {"spmv_pull_staged": 0.0}
     rng = np.random.default_rng(10)
-    if K7.staged_plan(G["Few"])[1] != 1:
-        raise AssertionError("the fewer-stages graph must be one row block")
-    for gname in ("M", "H", "Few"):
+    if K7.staged_plan(G["Few"]).nunits != 1:
+        raise AssertionError("the fewer-stages graph must be one unit")
+    default = (K7.resolve_slots(None),)
+    graphs = [("M", K7.SLOT_COUNTS), ("H", K7.SLOT_COUNTS), ("Few", K7.SLOT_COUNTS), ("P", default),
+              *((f"S{d}", K7.SLOT_COUNTS) for d in SMALL_DEGREES)]
+    for gname, slot_counts in graphs:
         M = G[gname]
         n = M.shape[0]
         x = torch.from_numpy(rng.random(n, dtype=np.float32)).to(DEVICE)
@@ -463,7 +470,7 @@ def check_staged(G):
                     k1, k1_has = K1.spmv_pull(M, x, om, oa, oa.identity, xv, rs, want_has=True, swap=swap)
                     ref64 = None if exact else K7.spmv_pull_staged_plain(
                         as64(M), x.double(), om, oa, float(oa.identity), xv, rs, swap)[0]
-                    for slots in K7.SLOT_COUNTS:
+                    for slots in slot_counts:
                         got, has = K7.spmv_pull_staged(M, x, om, oa, oa.identity, xv, rs, want_has=True,
                                                        swap=swap, slots=slots)
                         if not (torch.equal(has, ref_has) and torch.equal(has, k1_has)):
@@ -471,16 +478,20 @@ def check_staged(G):
                         e = check_close(f"{label} slots={slots}", got, ref, exact, ref64)
                         check_close(f"{label} slots={slots} vs kernel 1", got, k1, exact, ref64)
                         errs["spmv_pull_staged"] = max(errs["spmv_pull_staged"], e)
-        for slots in K7.SLOT_COUNTS:
-            for xv, rs in ((x_valid, None), (x_valid, row_sel)):
+        first = K7.spmv_pull_staged(M, x, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)[0]
+        check_close(f"spmv_pull_staged {gname} repeated",
+                    K7.spmv_pull_staged(M, x, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)[0], first, True)
+        for slots in slot_counts:
+            for xv, rs in ((x_valid, None), (x_valid, row_sel), (x > 0.999, row_sel)):
                 hits = K7.spmv_pull_staged_structural(M, xv, rs, slots=slots)
                 check_close(f"spmv_pull_staged {gname} structural slots={slots}", hits,
                             K7.spmv_pull_staged_structural_plain(M, xv, rs), True)
                 check_close(f"spmv_pull_staged {gname} structural slots={slots} vs kernel 1", hits,
                             K1.spmv_pull_structural(M, xv, rs), True)
-        print(f"kernel 7 on {gname} (n={n}, {K7.staged_plan(M)[1]} row blocks): 18 (mul, add) "
-              f"instances x 2 mask settings and the structural variant at {K7.SLOT_COUNTS} slots "
-              f"match the plain version and kernel 1", flush=True)
+        plan = K7.staged_plan(M)
+        print(f"kernel 7 on {gname} (n={n}, {plan.nunits} units, {plan.nhub} rows of several chunks): 18 "
+              f"(mul, add) instances x 2 mask settings and the structural variant at {slot_counts} slots "
+              f"match the plain version and kernel 1; a repeated call gives the same bits", flush=True)
     M = G["M"]
     x = torch.from_numpy(rng.random(M.shape[1], dtype=np.float32)).to(DEVICE)
     for phase in PROBE_PHASES:
@@ -993,20 +1004,21 @@ def bound(nbytes, flops=0):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def spmv_bound(M, extra=0):
+def spmv_bound(M):
     """A MULT/PLUS pull SpMV: indptr, cols, values and x read once, out written once."""
     m, n = M.shape
     nnz = int(M.nnz)
-    return bound(4 * (m + 1) + 8 * nnz + 4 * n + 4 * m + extra, 2 * nnz)
+    return bound(4 * (m + 1) + 8 * nnz + 4 * n + 4 * m, 2 * nnz)
 
 
-def probe_bound(phase, M, nblocks):
+def probe_bound(phase, M, nunits):
     m, n = M.shape
     nnz = int(M.nnz)
     ip, chain = 4 * (m + 1), 2 * K8.CHAIN * nnz
     ctas = -(-m // K8.ROWS_PER_CTA)
     tiles = -(-M.capacity // K8.FLAT_TILE)
-    ring = 4 * (nblocks + 1) + 4 * nblocks  # block_rows and one output a block
+    ring = 16 * nunits + 4 * nunits  # the unit descriptors and one output a unit
+    resident = 8 * min((K7.MAX_STAGE + 11) & ~3, M.capacity)  # ring_fold's words of cols and values
     return {"stream": bound(ip + 8 * nnz + 8 * m, nnz),
             "gather": bound(ip + 8 * nnz + 4 * n + 4 * ctas, 2 * nnz),
             "fullfix": bound(ip + 8 * nnz + 4 * n + 4 * ctas, 2 * nnz),
@@ -1014,11 +1026,13 @@ def probe_bound(phase, M, nblocks):
             "xgather": bound(ip + 4 * n + 4 * m, nnz),
             "ring_copy": bound(ip + 8 * nnz + ring),
             "ring_alu": bound(ip + ring, chain),
-            "ring_copy_alu": bound(ip + 8 * nnz + ring + 4 * nblocks, chain),
+            "ring_copy_alu": bound(ip + 8 * nnz + ring + 4 * nunits, chain),
             "warp_row": bound(ip + 8 * nnz + 4 * n + 4 * m, 2 * nnz),
             # indptr[m], the stream and per tile one sum (and a checksum)
             "flat_stream": bound(4 + 8 * nnz + 8 * tiles, nnz),
-            "flat_gather": bound(4 + 8 * nnz + 4 * n + 4 * tiles, 2 * nnz)}[phase]
+            "flat_gather": bound(4 + 8 * nnz + 4 * n + 4 * tiles, 2 * nnz),
+            # indptr, the resident words, x and the output; no stream
+            "ring_fold": bound(ip + resident + 4 * n + 4 * m, 2 * nnz)}[phase]
 
 
 def with_team(M, g):
@@ -1031,13 +1045,14 @@ def with_team(M, g):
 
 
 def time_pull(G, card):
-    """Kernel 1 beside its first, warp-per-row design (kernel 8's warp_row), kernel 7 (at 2,
-    3 and 4 slots on the n = 2^21 graph, at its default slots on the
-    others), cuSPARSE (one ``torch.sparse_csr_tensor @ x`` call: the
-    library's time, not a port) and kernel 1 at every team size, in turns
-    (forward, then backward), MULT/PLUS f32, on the n = 2^21, powerlaw and
-    hub graphs; then kernel 7's plain version.  Returns kernel 7's row and
-    the library time on the n = 2^21 graph."""
+    """Kernel 1 beside its first, warp-per-row design (kernel 8's warp_row),
+    kernel 7 at 2, 3 and 4 slots, kernel 8's ring_copy, ring_fold and
+    flat_gather (the phases that bound kernel 7), cuSPARSE (one
+    ``torch.sparse_csr_tensor @ x`` call: the library's time, not a port)
+    and kernel 1 at every team size, in turns (forward, then backward),
+    MULT/PLUS f32, on the n = 2^21, powerlaw and hub graphs; then kernel 7's
+    plain version.  Returns kernel 7's row and the library time on the
+    n = 2^21 graph."""
     for label, key in (("n=2^21", "M"), ("powerlaw", "P"), ("hub", "H")):
         M = G[key]
         n, nnz = M.shape[0], int(M.nnz)
@@ -1046,12 +1061,13 @@ def time_pull(G, card):
         lib = torch.sparse_csr_tensor(M.indptr, M.cols, M.values, size=(n, n), check_invariants=False)
         torch.testing.assert_close(lib @ x, K1.spmv_pull(M, x, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)[0],
                                    rtol=1e-5, atol=1e-5, msg="cuSPARSE against kernel 1")
-        slot_counts = K7.SLOT_COUNTS if key == "M" else (K7.resolve_slots(None),)
         fns = {"kernel 1": lambda: K1.spmv_pull(M, x, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0),
                "warp_row": lambda: K8.spmv_probe("warp_row", M, x),
                **{f"kernel 7 slots={s}": (lambda s=s: K7.spmv_pull_staged(M, x, op.MULT_FLOAT, op.PLUS_FLOAT,
                                                                           0.0, slots=s))
-                  for s in slot_counts},
+                  for s in K7.SLOT_COUNTS},
+               **{phase: (lambda phase=phase: K8.spmv_probe(phase, M, x))
+                  for phase in ("ring_copy", "ring_fold", "flat_gather")},
                "cuSPARSE": lambda: lib @ x}
         for g in (2, 4, 8, 16, 32):
             Mg = with_team(M, g)
@@ -1060,7 +1076,9 @@ def time_pull(G, card):
         for order in (list(fns), list(fns)[::-1]):
             for name in order:
                 ms[name] += cuda_ms(fns[name]) / 2
-        print(f"kernel 1 on {label}: {plan_line(M)}", flush=True)
+        plan = K7.staged_plan(M)
+        print(f"kernel 1 on {label}: {plan_line(M)}; kernel 7: {plan.nunits} units, {plan.nhub} rows of "
+              f"several chunks", flush=True)
         for name, t in ms.items():
             print(f"time {name} MULT/PLUS f32 {label} n={n} nnz={nnz}: {t:.4f} ms ({gb_model / t * 1e3:.1f} "
                   f"GB/s-model) [{card}]", flush=True)
@@ -1071,9 +1089,9 @@ def time_pull(G, card):
     plain = cuda_ms(lambda: K7.spmv_pull_staged_plain(M, x, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0),
                     PLAIN_RUNS_BIG, 1)
     print(f"time kernel 7 plain version: {plain:.4f} ms [{card}]", flush=True)
-    nblocks = K7.staged_plan(M)[1]
     default = f"kernel 7 slots={K7.resolve_slots(None)}"
-    return {"spmv_pull_staged": (kept[default], plain, *spmv_bound(M, 4 * (nblocks + 1)))}, kept["cuSPARSE"]
+    # kernel 1's function, so kernel 1's bound: the plan's unit descriptors are this design's bytes
+    return {"spmv_pull_staged": (kept[default], plain, *spmv_bound(M))}, kept["cuSPARSE"]
 
 
 def time_probes(G, R, card):
@@ -1086,12 +1104,12 @@ def time_probes(G, R, card):
         print(f"  {name:14s} {ns:8.4f} ns/entry  {probe['ms'][name]:.4f} ms", flush=True)
     M = G["M"]
     x = torch.from_numpy(np.random.default_rng(1).random(M.shape[1], dtype=np.float32)).to(DEVICE)
-    nblocks = K7.staged_plan(M)[1]
+    nunits = K7.staged_plan(M).nunits
     times = {}
     for phase in PROBE_PHASES:
         k, p = paired_ms(lambda: K8.spmv_probe(phase, M, x), lambda: K8.spmv_probe_plain(phase, M, x),
                          PLAIN_RUNS_BIG)
-        times[f"spmv_probe_{phase}"] = (k, p, *probe_bound(phase, M, nblocks))
+        times[f"spmv_probe_{phase}"] = (k, p, *probe_bound(phase, M, nunits))
         print(f"time spmv_probe {phase}: kernel {k:.4f} ms, plain {p:.4f} ms [{card}]", flush=True)
     return times
 

@@ -54,8 +54,8 @@ SIGNATURES = {
     "spla_resident_blocks": (_INT, _P),
     # mul, add, slots, stage, nunits, units, unit_hub, hub_units, part, part_any, done, indptr,
     # cols, values, x, x_valid, row_sel, init (device pointer or null), init's 32 bits (when
-    # null), out, has, entry_fold, stream
-    "spla_spmv_staged": (_INT, _INT, _INT, _INT, _I64, *(_P,) * 13, ctypes.c_uint32, _P, _P, _INT, _P),
+    # null), out, has, stream
+    "spla_spmv_staged": (_INT, _INT, _INT, _INT, _I64, *(_P,) * 13, ctypes.c_uint32, _P, _P, _P),
     # slots, stage, nunits, units, unit_hub, indptr, cols, x_valid, row_sel, hits, stream
     "spla_spmv_staged_structural": (_INT, _INT, _I64, *(_P,) * 8),
     # phase, m, n, indptr, cols, values, x, out_f, out_i, stream

@@ -1,4 +1,5 @@
-// Semiring operators shared by the SpMV kernels (spmv_pull.cu, spmv_push.cu).
+// Semiring operators shared by the SpMV kernels (spmv_pull.cu, spmv_push.cu,
+// spmv_staged.cu), and the fold of a row's chunks that kernels 1 and 7 share.
 #pragma once
 
 #include <cstdint>
@@ -58,6 +59,33 @@ __device__ __forceinline__ T monoid_identity() {
   if constexpr (ADD == KC_PLUS) return T(0);
   else if constexpr (ADD == KC_MIN) return Limits<T>::highest();
   else return Limits<T>::lowest();
+}
+
+// A row cut into `count` chunks from chunk `first`, a CTA each (kernel 1's
+// hub chunks, kernel 7's hub units).  Thread 0 of chunk `chunk` publishes
+// its fold (v, hit) into part/part_any and counts itself on done[hub] after
+// a fence; the last chunk to count folds every chunk's partial in chunk
+// order into (v, hit), zeroes the counter for the next launch on the
+// stream, and returns true.  The others return false.  No atomic folds a
+// value, so the result is deterministic.
+template <int ADD, typename T>
+__device__ bool fold_chunks(T* part, uint8_t* part_any, int32_t* done, int32_t hub, int32_t chunk,
+                            int32_t first, int32_t count, T& v, bool& hit) {
+  part[chunk] = v;
+  part_any[chunk] = hit;
+  __threadfence();
+  if (atomicAdd(done + hub, 1) != count - 1) return false;
+  done[hub] = 0;  // every chunk has counted: ready for the next launch
+  __threadfence();
+  v = monoid_identity<ADD, T>();
+  hit = false;
+  for (int32_t c = first; c < first + count; ++c) {
+    if (__ldcg(part_any + c)) {
+      v = apply_op<ADD>(v, __ldcg(part + c));
+      hit = true;
+    }
+  }
+  return true;
 }
 
 // Host-side dispatch from runtime codes to template instances.  `Launch`

@@ -308,6 +308,31 @@ spmv_ring_probe_kernel(Plan p, const int32_t* __restrict__ cols, const float* __
   ring_loop<SLOTS>(p, body);
 }
 
+// ring_fold's stage body: kernel 7's MULT/PLUS f32 fold on the words kept
+// in slot 0 in place of each stage's own; only the units' row pointers go
+// through the ring.
+struct ResidentFold {
+  StagedFold<KC_MULT, KC_PLUS, false> f;
+
+  __device__ void copy(int slot, const Stage& s) { f.copy_rows(slot, s); }
+  __device__ void consume(int slot, const Stage& s) { f.fold(slot, s, f.ring_cols, f.ring_vals); }
+};
+
+// ring_fold: the first `resident` words of cols and values are copied into
+// slot 0 once, as the oldest commit group, so they have landed before the
+// first stage is folded.  The same shared memory and launch bounds as
+// kernel 7.
+template <int SLOTS>
+__global__ void __launch_bounds__(kThreads, 6)
+spmv_ring_fold_kernel(Plan p, StagedArgs a, int resident) {
+  extern __shared__ __align__(16) uint32_t ring[];
+  ResidentFold body{staged_fold<SLOTS, KC_MULT, KC_PLUS, false>(p, a, ring)};
+  copy_words(body.f.ring_cols, a.cols, 0, resident);
+  copy_words(body.f.ring_vals, a.values, 0, resident);
+  cp_async_commit();
+  ring_loop<SLOTS>(p, body);
+}
+
 namespace {
 
 template <int PHASE>
@@ -333,14 +358,14 @@ int launch_ring(const RingArgs& r) {
   static thread_local GridCache cache;
   unsigned grid = 0;
   if constexpr (PHASE == PH_RING_FOLD) {
-    const auto kernel = spmv_staged_kernel<SLOTS, KC_MULT, KC_PLUS, false, true>;
+    const auto kernel = spmv_ring_fold_kernel<SLOTS>;
     const size_t smem = ring_bytes<false>(SLOTS, r.p.stage);
     const cudaError_t err = ring_grid(kernel, smem, r.p.nunits, cache, &grid);
     if (err != cudaSuccess) return static_cast<int>(err);
     const StagedArgs a{static_cast<const int32_t*>(r.cols), static_cast<const float*>(r.values),
                        static_cast<const float*>(r.x), nullptr, nullptr, nullptr, 0.f,
-                       static_cast<float*>(r.out_f), nullptr, r.resident, 0};
-    kernel<<<grid, kThreads, smem, r.stream>>>(r.p, a);
+                       static_cast<float*>(r.out_f), nullptr};
+    kernel<<<grid, kThreads, smem, r.stream>>>(r.p, a, r.resident);
   } else {
     const auto kernel = spmv_ring_probe_kernel<SLOTS, PHASE>;
     const size_t smem = sizeof(uint32_t) * SLOTS * slot_words(r.p.stage) * (PHASE == PH_RING_ALU ? 0 : 2);

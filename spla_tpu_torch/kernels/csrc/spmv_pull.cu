@@ -188,23 +188,9 @@ __device__ void pull_chunk(const PullArgs<T>& a, const PullPlan& p) {
     v = apply_op<ADD>(v, red[w]);
     hit = hit || red_any[w];
   }
-  if (ch.count > 1) {
-    // publish this chunk's fold; the row's last chunk to finish folds them all in order
-    T* part = static_cast<T*>(p.part);
-    part[blockIdx.x] = v;
-    p.part_any[blockIdx.x] = hit;
-    __threadfence();
-    if (atomicAdd(p.done + ch.hub, 1) != ch.count - 1) return;
-    p.done[ch.hub] = 0;  // every chunk has counted: ready for the next launch
-    __threadfence();
-    v = monoid_identity<ADD, T>();
-    hit = false;
-    for (int32_t c = ch.first; c < ch.first + ch.count; ++c) {
-      if (__ldcg(p.part_any + c)) {
-        v = apply_op<ADD>(v, __ldcg(part + c));
-        hit = true;
-      }
-    }
+  if (ch.count > 1 && !fold_chunks<ADD>(static_cast<T*>(p.part), p.part_any, p.done, ch.hub,
+                                         static_cast<int32_t>(blockIdx.x), ch.first, ch.count, v, hit)) {
+    return;  // another chunk of the row folds them all
   }
   const T init_v = a.init_of();
   a.out[ch.row] = hit ? apply_op<ADD>(init_v, v) : init_v;

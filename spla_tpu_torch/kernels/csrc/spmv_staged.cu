@@ -18,7 +18,7 @@
 // x gathers set the floor (kernel 8's flat_gather), so the design keeps as
 // many of them in flight as kernel 1 does:
 //   * staged_plan packs rows into stages of close to `stage` entries (a
-//     unit of several rows), and cuts rows longer than stage / 8 into
+//     unit of several rows), and cuts rows longer than stage / 4 into
 //     chunks of up to four stages, each chunk a unit of CTA work;
 //   * a stage of several rows is folded by teams of G lanes a row, G picked
 //     per stage from its mean row length so that a lane takes about four
@@ -36,6 +36,17 @@
 
 #include "staged_fold.cuh"
 
+// At least 6 CTAs an SM, so at most 40 registers a thread: enough to hold a
+// lane's four gathers in flight (at 32 the compiler gives up some of them),
+// and no more, which would cost CTAs.
+template <int SLOTS, int MUL, int ADD, bool STRUCT>
+__global__ void __launch_bounds__(kThreads, 6)
+spmv_staged_kernel(Plan p, StagedArgs a) {
+  extern __shared__ __align__(16) uint32_t ring[];
+  auto body = staged_fold<SLOTS, MUL, ADD, STRUCT>(p, a, ring);
+  ring_loop<SLOTS>(p, body);
+}
+
 namespace {
 
 struct StagedLaunch {
@@ -47,7 +58,7 @@ struct StagedLaunch {
 
   template <int SLOTS, int MUL, int ADD, bool STRUCT>
   void launch() {
-    const auto kernel = spmv_staged_kernel<SLOTS, MUL, ADD, STRUCT, false>;
+    const auto kernel = spmv_staged_kernel<SLOTS, MUL, ADD, STRUCT>;
     static thread_local GridCache cache;
     const size_t smem = ring_bytes<STRUCT>(SLOTS, p.stage);
     unsigned grid = 0;
@@ -86,15 +97,15 @@ Plan plan_of(int stage, long long nunits, const void* units, const void* unit_hu
 }  // namespace
 
 // units: int4 [nunits]; unit_hub: int32 [nunits]; hub_units: int32 [nhub, 2];
-// part: f32 [nunits], part_any: uint8 [nunits], done: int32 [nhub] (zero), or
+// part: 32-bit words [nunits], part_any: uint8 [nunits], done: int32 [nhub] (zero), or
 // null without hubs; x: f32 [n]; x_valid, row_sel: bool or null; init: f32
 // on the device, or null and its bits in init_bits; out: f32 [m]; has: bool
-// [m] or null; entry_fold: 1 for the other row fold (entries over threads).
+// [m] or null.
 extern "C" int spla_spmv_staged(int mul, int add, int slots, int stage, long long nunits, const void* units,
                                 const void* unit_hub, const void* hub_units, void* part, void* part_any,
                                 void* done, const void* indptr, const void* cols, const void* values,
                                 const void* x, const void* x_valid, const void* row_sel, const void* init,
-                                unsigned init_bits, void* out, void* has, int entry_fold, void* stream) {
+                                unsigned init_bits, void* out, void* has, void* stream) {
   if (nunits == 0) return 0;
   if (!valid_plan(stage)) return static_cast<int>(cudaErrorInvalidValue);
   float init_value;
@@ -104,7 +115,7 @@ extern "C" int spla_spmv_staged(int mul, int add, int slots, int stage, long lon
                       {static_cast<const int32_t*>(cols), static_cast<const float*>(values),
                        static_cast<const float*>(x), static_cast<const uint8_t*>(x_valid),
                        static_cast<const uint8_t*>(row_sel), static_cast<const float*>(init), init_value,
-                       static_cast<float*>(out), static_cast<uint8_t*>(has), 0, entry_fold},
+                       static_cast<float*>(out), static_cast<uint8_t*>(has)},
                       static_cast<cudaStream_t>(stream), cudaSuccess};
   if (!dispatch_mul<true, float>(mul, add, launch)) return -1;
   return static_cast<int>(launch.err);
@@ -122,7 +133,7 @@ extern "C" int spla_spmv_staged_structural(int slots, int stage, long long nunit
                       plan_of(stage, nunits, units, unit_hub, nullptr, nullptr, nullptr, nullptr, indptr),
                       {static_cast<const int32_t*>(cols), nullptr, nullptr,
                        static_cast<const uint8_t*>(x_valid), static_cast<const uint8_t*>(row_sel), nullptr,
-                       0.f, nullptr, static_cast<uint8_t*>(hits), 0, 0},
+                       0.f, nullptr, static_cast<uint8_t*>(hits)},
                       static_cast<cudaStream_t>(stream), cudaSuccess};
   launch.by_slots<KC_PLUS, KC_MAX, true>();
   return static_cast<int>(launch.err);

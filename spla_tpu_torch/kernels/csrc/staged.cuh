@@ -5,7 +5,7 @@
 // unit u holds rows [r0, r1) and entries [e0, e1) (units[u] = {r0, r1, e0,
 // e1}).  A unit of several rows (at most kBlockRows) holds fewer than
 // `stage` entries and is one stage.  A unit of one row is a chunk of at most
-// kChunkStages stages of that row, cut into stages of `stage` entries; a
+// staged.CHUNK_STAGES stages of that row, cut into stages of `stage` entries; a
 // row of several chunks is a "hub" (unit_hub[u] = its rank among them,
 // else -1), whose chunks are consecutive units, hub_units[hub] = {first
 // unit, chunk count}.
@@ -40,19 +40,10 @@ __host__ __device__ constexpr int slot_words(int stage) { return (stage + 11) & 
 // Words of a slot's indptr slice: the kBlockRows + 1 row pointers of a unit of several rows.
 constexpr int kRowWords = slot_words(kBlockRows + 1);
 
-// An L2 policy that evicts the stream's lines first, so that they do not
-// push x (gathered from L2) out of the cache: kernel 1's __ldcs, for cp.async.
-__device__ __forceinline__ uint64_t evict_first_policy() {
-  uint64_t policy;
-  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
-  return policy;
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t* smem, uintptr_t gmem, int bytes, uint64_t policy) {
+__device__ __forceinline__ void cp_async16(uint32_t* smem, uintptr_t gmem, int bytes) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   // bytes < 16 zero-fills the rest of the line and reads nothing past `bytes`
-  asm volatile("cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2, %3;\n" ::"r"(dst), "l"(gmem),
-               "r"(bytes), "l"(policy)
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem), "r"(bytes)
                : "memory");
 }
 
@@ -77,11 +68,10 @@ __device__ __forceinline__ void copy_words(uint32_t* slot, const void* base, lon
   const uintptr_t line0 = reinterpret_cast<uintptr_t>(words + e0) & ~static_cast<uintptr_t>(15);
   const uintptr_t end = reinterpret_cast<uintptr_t>(words + e1);
   const int lines = static_cast<int>((end - line0 + 15) >> 4);
-  const uint64_t policy = evict_first_policy();
   for (int i = threadIdx.x; i < lines; i += blockDim.x) {
     const uintptr_t src = line0 + 16 * static_cast<uintptr_t>(i);
     const uintptr_t left = end - src;
-    cp_async16(slot + 4 * i, src, left < 16 ? static_cast<int>(left) : 16, policy);
+    cp_async16(slot + 4 * i, src, left < 16 ? static_cast<int>(left) : 16);
   }
 }
 

@@ -1,24 +1,23 @@
 // Kernel 7's fold of a stage (spmv_staged.cu), shared with kernel 8's
-// ring_fold probe (spmv_probe.cu), which runs it on slots that stay resident.
+// ring_fold probe (spmv_probe.cu), which folds column and value words that
+// stay resident in place of each stage's own.
 //
-// A unit of several rows is one stage of at most kMaxStage entries: thread t
-// takes its entries 4t .. 4t + 3, reads their columns and values from the
-// slot and issues all four x gathers (and x_valid reads) before it folds any.
-// It folds them into runs of one row, then the CTA joins the runs a row
-// spans with a segmented scan keyed by row: shuffles within each warp, then
-// the warps' tails through shared memory in warp order.  The thread holding
-// a row's last entry writes it.  Every thread has the same work whatever
-// the rows' lengths; no atomics, so results are deterministic.
+// A unit of several rows is one stage, folded by teams of G lanes a row
+// (kernel 1's mapping), G picked per stage from its mean row length so that
+// a lane takes about four entries of its row: each lane reads its columns
+// and values from the slot and issues all its x gathers (and x_valid reads)
+// before it folds any; a team folds its lanes with shuffles.
 //
 // A unit of one row walks its stages with the thread striding the stage
 // (entries t, t + 256, t + 512, t + 768), again four gathers issued before
 // any fold, and carries its partial in registers from stage to stage.  After
 // its last stage the CTA folds the partials (shuffles, then the warps in
-// order).  A hub row's chunks publish their folds; the last chunk to count
-// itself on the hub's counter (atomicAdd after a fence) folds them in chunk
-// order and zeroes the counter for the next launch.  The structural variant
-// stops a chunk at its first stage with a hit (every chunk that hits writes
-// 1 into hits zeroed beforehand, or the row's only chunk writes its result).
+// order).  A hub row's chunks are folded in chunk order by the last of them
+// to finish, as kernel 1's are (semiring.cuh fold_chunks).  No atomics fold
+// values, so results are deterministic.  The structural variant stops a team at
+// its row's first hit and a chunk at its first stage with a hit (every chunk
+// that hits writes 1 into hits zeroed beforehand, or the row's only chunk
+// writes its result).
 #pragma once
 
 #include "staged.cuh"
@@ -33,11 +32,9 @@ struct StagedArgs {
   float init_value;
   float* out;
   uint8_t* has;       // the structural variant's hits
-  int resident;       // ring_fold: words of cols and values kept in slot 0
-  int entry_fold;     // the other row fold: entries over threads, a segmented scan
 };
 
-template <int MUL, int ADD, bool STRUCT, bool RESIDENT>
+template <int MUL, int ADD, bool STRUCT>
 struct StagedFold {
   Plan p;
   StagedArgs a;
@@ -50,30 +47,33 @@ struct StagedFold {
   float acc;
   bool any, sel, hit;
 
+  // this thread's copies of a stage: its columns and values, and a unit of
+  // several rows' row pointers
   __device__ void copy(int slot, const Stage& s) {
-    if (!RESIDENT) {
-      copy_words(ring_cols + slot * slot_w, a.cols, s.e0, s.e1);
-      if (!STRUCT) copy_words(ring_vals + slot * slot_w, a.values, s.e0, s.e1);
-    }
+    copy_words(ring_cols + slot * slot_w, a.cols, s.e0, s.e1);
+    if (!STRUCT) copy_words(ring_vals + slot * slot_w, a.values, s.e0, s.e1);
+    copy_rows(slot, s);
+  }
+
+  __device__ void copy_rows(int slot, const Stage& s) {
     if (s.several_rows()) copy_words(ring_rows + slot * kRowWords, p.indptr, s.r0, s.r1 + 1);
   }
 
   __device__ void consume(int slot, const Stage& s) {
-    const int cslot = RESIDENT ? 0 : slot;  // ring_fold folds slot 0's resident words
-    const int32_t* sc = reinterpret_cast<const int32_t*>(ring_cols + cslot * slot_w) + line_offset(a.cols, s.e0);
-    const float* sv = STRUCT ? nullptr
-                             : reinterpret_cast<const float*>(ring_vals + cslot * slot_w) + line_offset(a.values, s.e0);
+    fold(slot, s, ring_cols + slot * slot_w, ring_vals + slot * slot_w);
+  }
+
+  // Fold stage s, whose columns and values are the slot words at `cw` and
+  // `vw` and whose row pointers are in slot `slot`.
+  __device__ void fold(int slot, const Stage& s, const uint32_t* cw, const uint32_t* vw) {
+    const int32_t* sc = reinterpret_cast<const int32_t*>(cw) + line_offset(a.cols, s.e0);
+    const float* sv = STRUCT ? nullptr : reinterpret_cast<const float*>(vw) + line_offset(a.values, s.e0);
     if (!s.several_rows()) {
       fold_row(s, sc, sv);
       return;
     }
-    const int32_t* sp = reinterpret_cast<const int32_t*>(ring_rows + slot * kRowWords) + line_offset(p.indptr, s.r0);
-    if constexpr (!STRUCT && !RESIDENT) {
-      if (a.entry_fold) {
-        fold_rows_entries(s, sc, sv, sp);
-        return;
-      }
-    }
+    const int32_t* sp =
+        reinterpret_cast<const int32_t*>(ring_rows + slot * kRowWords) + line_offset(p.indptr, s.r0);
     fold_rows(s, sc, sv, sp);
   }
 
@@ -88,8 +88,9 @@ struct StagedFold {
     if (a.has != nullptr) a.has[row] = hit_row;
   }
 
-  // thread t's four entries j = 4t + u of a stage: column (-1 past len),
-  // value, gathered x and whether the product counts
+  // A lane's entries j0 + u * step (u < kPerThread) of `sc`/`sv`: column (-1
+  // at and past len), value, gathered x and whether the product counts; the
+  // slot reads first, then every gather
   __device__ __forceinline__ void gather(const int32_t* sc, const float* sv, int j0, int step, int len,
                                          int32_t (&c)[kPerThread], float (&v)[kPerThread],
                                          float (&xv)[kPerThread], bool (&ok)[kPerThread]) const {
@@ -104,136 +105,6 @@ struct StagedFold {
       ok[u] = c[u] >= 0 && (a.x_valid == nullptr || __ldg(a.x_valid + c[u]));
       if (!STRUCT) xv[u] = c[u] >= 0 ? __ldg(a.x + c[u]) : 0.f;
     }
-  }
-
-  __device__ void fold_rows_entries(const Stage& s, const int32_t* sc, const float* sv, const int32_t* sp) {
-    __shared__ int32_t tail_k[kWarps];
-    __shared__ float tail_v[kWarps];
-    __shared__ uint8_t sel_s[kBlockRows];
-    const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-    const int len = s.e1 - s.e0, nrows = s.r1 - s.r0;
-    const int j0 = t * kPerThread;
-    int32_t c[kPerThread];
-    float v[kPerThread], xv[kPerThread];
-    bool ok[kPerThread];
-    gather(sc, sv, j0, 1, len, c, v, xv, ok);
-    // the owner of row r0 + t: its selection; an empty or unselected row holds init
-    if (t < nrows) {
-      const bool row_on = a.row_sel == nullptr || a.row_sel[s.r0 + t];
-      sel_s[t] = row_on;
-      if (!row_on || sp[t] == sp[t + 1]) store(s.r0 + t, false, 0.f);
-    }
-    // runs of one row among this thread's entries: the first (which may have
-    // begun in an earlier thread), up to two in the middle, and the last
-    // (`key`, which may go on in later threads); keys are rows of the unit
-    const float id = monoid_identity<ADD, float>();
-    int32_t key = -1, first_k = -1, mid_k0 = -1, mid_k1 = -1, end = 0;
-    float run = id, first_v = id, mid_v0 = id, mid_v1 = id;
-    bool run_a = false, first_a = false, mid_a0 = false, mid_a1 = false;
-    if (j0 < len) {
-      // the last row starting at or before entry j0 (an empty row starts where the next does)
-      const int32_t at = s.e0 + j0;
-      int lo = 0, hi = nrows - 1;
-      while (lo < hi) {
-        const int mid = (lo + hi + 1) >> 1;
-        if (sp[mid] <= at) lo = mid;
-        else hi = mid - 1;
-      }
-      key = lo;
-      end = sp[key + 1] - s.e0;
-#pragma unroll
-      for (int u = 0; u < kPerThread; ++u) {
-        const int j = j0 + u;
-        if (j >= len) continue;
-        if (j >= end) {  // entry j begins a later row: close the run of `key`
-          if (first_k < 0) {
-            first_k = key, first_v = run, first_a = run_a;
-          } else if (mid_k0 < 0) {
-            mid_k0 = key, mid_v0 = run, mid_a0 = run_a;
-          } else {
-            mid_k1 = key, mid_v1 = run, mid_a1 = run_a;
-          }
-          do {
-            ++key;
-            end = sp[key + 1] - s.e0;
-          } while (j >= end);
-          run = id;
-          run_a = false;
-        }
-        if (ok[u]) {
-          if (!STRUCT) run = apply_op<ADD>(run, apply_op<MUL>(v[u], xv[u]));
-          run_a = true;
-        }
-      }
-    }
-    // inclusive segmented scan of the last runs over the warp, keyed by row:
-    // a lane's run takes the run before it where both are one row's
-    // keys and flags travel packed: key in the low bits, the flag at bit 16
-    int32_t sk = key < 0 ? -1 : key | (run_a ? 0x10000 : 0);
-    float sval = run;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int32_t k2 = __shfl_up_sync(kFullMask, sk, d);
-      float v2 = 0.f;
-      if (!STRUCT) v2 = __shfl_up_sync(kFullMask, sval, d);
-      if (lane >= d && sk >= 0 && ((k2 ^ sk) & 0xFFFF) == 0) {
-        if (!STRUCT) sval = apply_op<ADD>(v2, sval);
-        sk |= k2;
-      }
-    }
-    int32_t ek = __shfl_up_sync(kFullMask, sk, 1);
-    float ev = 0.f;
-    if (!STRUCT) ev = __shfl_up_sync(kFullMask, sval, 1);
-    if (lane == 0) ek = -1;
-    if (lane == 31) {
-      tail_k[warp] = sk;
-      tail_v[warp] = sval;
-    }
-    __syncthreads();
-    if (j0 >= len) return;
-    // what comes before entry j0 in its row: the earlier warps' tails in
-    // order, then the lanes before this one
-    int32_t ck = -1;
-    float cv = id;
-#pragma unroll
-    for (int w = 0; w < kWarps - 1; ++w) {
-      if (w < warp) {
-        const int32_t k = tail_k[w];
-        const float tv = tail_v[w];
-        if (((k ^ ck) & 0xFFFF) == 0 && ck >= 0) {
-          if (!STRUCT) cv = apply_op<ADD>(cv, tv);
-          ck |= k;
-        } else {
-          ck = k, cv = tv;
-        }
-      }
-    }
-    if (ek >= 0) {
-      if (((ek ^ ck) & 0xFFFF) == 0 && ck >= 0) {
-        if (!STRUCT) cv = apply_op<ADD>(cv, ev);
-        ck |= ek;
-      } else {
-        ck = ek, cv = ev;
-      }
-    }
-    const bool ca = ck >= 0 && (ck & 0x10000);
-    ck = ck < 0 ? -1 : ck & 0xFFFF;
-    const bool one_run = first_k < 0;
-    if (one_run) first_k = key, first_v = run, first_a = run_a;
-    if (ck == first_k) {
-      if (!STRUCT) first_v = apply_op<ADD>(cv, first_v);
-      first_a = first_a || ca;
-    }
-    const bool last_ends = end <= j0 + kPerThread;  // row `key` ends in this thread
-    if (!one_run || last_ends) emit(s, sel_s, first_k, first_a, first_v);
-    if (mid_k0 >= 0) emit(s, sel_s, mid_k0, mid_a0, mid_v0);
-    if (mid_k1 >= 0) emit(s, sel_s, mid_k1, mid_a1, mid_v1);
-    if (!one_run && last_ends) emit(s, sel_s, key, run_a, run);
-  }
-
-  __device__ __forceinline__ void emit(const Stage& s, const uint8_t* sel_s, int32_t k, bool hit_row,
-                                       float v) const {
-    if (sel_s[k]) store(s.r0 + k, hit_row, v);
   }
 
   // A unit of several rows: teams of G lanes a row (kernel 1's mapping),
@@ -287,7 +158,9 @@ struct StagedFold {
             }
           }
         }
-        for (int off = g >> 1; off > 0; off >>= 1) acc_t = apply_op<ADD>(acc_t, __shfl_xor_sync(kFullMask, acc_t, off));
+        for (int off = g >> 1; off > 0; off >>= 1) {
+          acc_t = apply_op<ADD>(acc_t, __shfl_xor_sync(kFullMask, acc_t, off));
+        }
         any_t = (__ballot_sync(kFullMask, any_t) & tmask) != 0;
       }
       if (sub == 0 && has_row) store(s.r0 + i, any_t, acc_t);
@@ -348,21 +221,9 @@ struct StagedFold {
         if (s.unit == first) store(row, false, 0.f);
         return;
       }
-      // publish this chunk's fold; the row's last chunk to finish folds them all in order
-      float* part = static_cast<float*>(p.part);
-      part[s.unit] = total;
-      p.part_any[s.unit] = found;
-      __threadfence();
-      if (atomicAdd(p.done + hub, 1) != count - 1) return;
-      p.done[hub] = 0;  // every chunk has counted: ready for the next launch
-      __threadfence();
-      total = monoid_identity<ADD, float>();
-      found = false;
-      for (int32_t u = first; u < first + count; ++u) {
-        if (__ldcg(p.part_any + u)) {
-          total = apply_op<ADD>(total, __ldcg(part + u));
-          found = true;
-        }
+      if (!fold_chunks<ADD>(static_cast<float*>(p.part), p.part_any, p.done, hub, s.unit, first, count, total,
+                            found)) {
+        return;  // another chunk of the row folds them all
       }
     }
     store(row, sel && found, total);
@@ -375,20 +236,14 @@ constexpr size_t ring_bytes(int slots, int stage) {
   return sizeof(uint32_t) * slots * (static_cast<size_t>(slot_words(stage)) * (STRUCT ? 1 : 2) + kRowWords);
 }
 
-template <int SLOTS, int MUL, int ADD, bool STRUCT, bool RESIDENT>
-__global__ void __launch_bounds__(kThreads)
-spmv_staged_kernel(Plan p, StagedArgs a) {
-  extern __shared__ __align__(16) uint32_t ring[];
+// The fold over a ring of SLOTS slots at `ring`: the column slots, then the
+// value slots (value kernels), then the row-pointer slots.
+template <int SLOTS, int MUL, int ADD, bool STRUCT>
+__device__ __forceinline__ StagedFold<MUL, ADD, STRUCT> staged_fold(const Plan& p, const StagedArgs& a,
+                                                                   uint32_t* ring) {
   const int slot_w = slot_words(p.stage);
   uint32_t* vals = ring + SLOTS * slot_w;
   uint32_t* rows = vals + (STRUCT ? 0 : SLOTS * slot_w);
   const float init_v = STRUCT ? 0.f : (a.init != nullptr ? *a.init : a.init_value);
-  StagedFold<MUL, ADD, STRUCT, RESIDENT> body{p, a, ring, vals, rows, slot_w, init_v,
-                                              monoid_identity<ADD, float>(), false, false, false};
-  if (RESIDENT) {  // the words every stage folds, copied once; the oldest commit group
-    copy_words(ring, a.cols, 0, a.resident);
-    copy_words(vals, a.values, 0, a.resident);
-    cp_async_commit();
-  }
-  ring_loop<SLOTS>(p, body);
+  return {p, a, ring, vals, rows, slot_w, init_v, monoid_identity<ADD, float>(), false, false, false};
 }

@@ -126,15 +126,21 @@ def pull_plan(A: CsrMatrix) -> PullPlan:
     chunk_row = rows[chunk_hub]
     chunk_c0 = ip[chunk_row] + (torch.arange(nchunks, device=ip.device) - chunk_first[chunk_hub]) * HUB_CHUNK
     chunk_c1 = torch.minimum(chunk_c0 + HUB_CHUNK, ip[chunk_row + 1])
-    scratch = {}
-    if nchunks > nhub:
-        scratch = {"part": torch.empty(nchunks, dtype=torch.int32, device=ip.device),
-                   "part_any": torch.empty(nchunks, dtype=torch.uint8, device=ip.device),
-                   "done": torch.zeros(nhub, dtype=torch.int32, device=ip.device)}
+    scratch = hub_scratch(nchunks, nhub, ip.device) if nchunks > nhub else {}
     i32 = [t.to(torch.int32) for t in (rows[:nhub], chunk_row, chunk_c0, chunk_c1, chunk_hub, chunk_first)]
     plan = PullPlan(*i32, nhub, nchunks, team_size(walked, m - nhub), **scratch)
     _PLANS.put(A.indptr, plan)
     return plan
+
+
+def hub_scratch(nchunks: int, nhub: int, device) -> dict:
+    """What the chunks of rows cut over several CTAs fold through (kernels
+    1 and 7, ``csrc/semiring.cuh`` ``fold_chunks``): ``part``, a 32-bit word
+    a chunk for its fold; ``part_any``, a byte a chunk for whether it folded
+    anything; ``done``, a counter a row, zero between launches."""
+    return {"part": torch.empty(nchunks, dtype=torch.int32, device=device),
+            "part_any": torch.empty(nchunks, dtype=torch.uint8, device=device),
+            "done": torch.zeros(nhub, dtype=torch.int32, device=device)}
 
 
 def _plan_args(plan: PullPlan):
@@ -240,10 +246,7 @@ def spmv_pull(A: CsrMatrix, x, op_mul, op_add, init, x_valid=None, row_sel=None,
     if x.dtype != A.values.dtype:
         raise TypeError(f"{what}: x is {x.dtype}, the matrix {A.values.dtype}")
     init_t, init_bits = _init_arg(init, x)
-    if out is None:
-        out = torch.empty(m, dtype=x.dtype, device=x.device)
-    elif out.shape != (m,) or out.dtype != x.dtype or out.device != x.device or not out.is_contiguous():
-        raise ValueError(f"{what}: out must be a contiguous {x.dtype} [{m}] tensor on {x.device}")
+    out = _out_arg(out, m, x, what)
     has = torch.empty(m, dtype=torch.bool, device=x.device) if want_has else None
     plan = pull_plan(A)
     rc = load_library().spla_spmv_pull(
@@ -267,6 +270,16 @@ def _init_arg(init, x):
     if x.dtype == torch.float32:
         return None, int(np.float32(value).view(np.uint32))
     return None, int(value) & 0xFFFFFFFF
+
+
+def _out_arg(out, m, x, what):
+    """The output of a CUDA launch: ``out`` if it is a contiguous [m] tensor
+    of x's dtype on x's device (raises otherwise), or a new one."""
+    if out is None:
+        return torch.empty(m, dtype=x.dtype, device=x.device)
+    if out.shape != (m,) or out.dtype != x.dtype or out.device != x.device or not out.is_contiguous():
+        raise ValueError(f"{what}: out must be a contiguous {x.dtype} [{m}] tensor on {x.device}")
+    return out
 
 
 def _into(out, res):

@@ -16,17 +16,17 @@ the environment when this module is imported; ``MANUAL_DMA`` is read again
 at every call, so code may set it.
 
 Work is cut into units by ``staged_plan``, which the kernel and the plain
-version share.  With ``long = max(stage // 8, 1)``, a row of more than
+version share.  With ``long = max(stage // 4, 1)``, a row of more than
 ``long`` entries is a long row; the other rows are packed into units of
 several rows: a row starts a new unit when its first entry lies in another
 bucket of ``stage - long`` entries than the previous row's, when it or the
-previous row is long, or every ``BLOCK_ROWS`` rows, so a unit of several rows
-holds fewer than ``stage`` entries (about ``stage - long`` on average) and
-is one stage.  A long row is cut into chunks of ``CHUNK_STAGES`` stages,
-each chunk a unit; a row of several chunks is a hub, whose chunks' folds
-the last of them to finish folds in chunk order.  The plain version folds
-each (row, stage) piece of the entry stream, then each row's pieces in
-stage order.
+previous row is long, or every ``BLOCK_ROWS`` rows, so a unit of several
+rows holds fewer than ``stage`` entries (about ``stage - long``, fewer where
+long rows cut it) and is one stage.  A long row is cut into chunks of
+``CHUNK_STAGES`` stages, each chunk a unit; a row of several chunks is a
+hub, whose chunks' folds the last of them to finish folds in chunk order.
+The plain version folds each (row, stage) piece of the entry stream, then
+each row's pieces in stage order.
 """
 
 from __future__ import annotations
@@ -41,7 +41,7 @@ from ..formats import WeakIdCache
 from ..utils.segments import segment_fold
 from . import LAUNCHES
 from .build import check, load_library
-from .spmv import _init_arg, _mask, _on_cpu, _ptr, _require_cuda, pull_codes
+from .spmv import _init_arg, _into, _mask, _on_cpu, _out_arg, _ptr, _require_cuda, hub_scratch, pull_codes
 
 __all__ = [
     "MANUAL_DMA",
@@ -70,8 +70,6 @@ BLOCK_ROWS = 256  # rows of a unit of several rows, at most; kept equal to kBloc
 CHUNK_STAGES = 4  # stages of a long row's chunk, at most
 
 _PLANS = WeakIdCache()  # StagedPlan per indptr tensor and stage
-# the other row fold (entries over threads, a segmented scan), for comparing the two
-_ENTRY_FOLD = False
 
 
 @dataclass(frozen=True)
@@ -91,7 +89,7 @@ class StagedPlan:
     nunits: int
     nhub: int
     stage: int
-    part: torch.Tensor | None = None  # f32 [nunits]
+    part: torch.Tensor | None = None  # 32-bit words [nunits]: a chunk's fold
     part_any: torch.Tensor | None = None  # uint8 [nunits]
     done: torch.Tensor | None = None  # int32 [nhub]
 
@@ -120,8 +118,9 @@ def staged_codes(op_mul, op_add, dtype, swap=False):
 
 
 def long_row_len(stage: int) -> int:
-    """A row of more entries than this is a long row: its own units."""
-    return max(stage // 8, 1)
+    """A row of more entries than this is a long row: its own units.  A
+    quarter of a stage: kernel 1's HUB_LEN at the default stage."""
+    return max(stage // 4, 1)
 
 
 def staged_plan(A: CsrMatrix, stage: int = MAX_STAGE) -> StagedPlan:
@@ -145,7 +144,8 @@ def staged_plan(A: CsrMatrix, stage: int = MAX_STAGE) -> StagedPlan:
     flag |= (r - torch.cummax(torch.where(flag, r, 0), 0).values) % BLOCK_ROWS == 0
     chunk = CHUNK_STAGES * stage
     # units of the block each flagged row starts: a long row's chunks, else one
-    per_row = torch.where(flag, torch.where(long, torch.div(lens + chunk - 1, chunk, rounding_mode="floor"), 1), 0)
+    chunks = torch.div(lens + chunk - 1, chunk, rounding_mode="floor")
+    per_row = torch.where(flag, torch.where(long, chunks, 1), 0)
     nblocks, nunits, nhub = (int(v) for v in torch.stack(
         [flag.sum(), per_row.sum(), (per_row > 1).sum()]).tolist())
     first = torch.empty(nblocks + 1, dtype=torch.long, device=dev)
@@ -161,11 +161,7 @@ def staged_plan(A: CsrMatrix, stage: int = MAX_STAGE) -> StagedPlan:
     hub = count > 1
     unit_hub = torch.where(hub, torch.cumsum(hub, 0) - 1, -1)[blk].to(torch.int32)
     hub_units = torch.stack([unit0[hub], count[hub]], 1).to(torch.int32).reshape(nhub, 2)
-    scratch = {}
-    if nhub:
-        scratch = {"part": torch.empty(nunits, dtype=torch.float32, device=dev),
-                   "part_any": torch.empty(nunits, dtype=torch.uint8, device=dev),
-                   "done": torch.zeros(nhub, dtype=torch.int32, device=dev)}
+    scratch = hub_scratch(nunits, nhub, dev) if nhub else {}
     plan = StagedPlan(units, unit_hub, hub_units, nunits, nhub, stage, **scratch)
     _PLANS.put(A.indptr, plan, (stage,))
     return plan
@@ -230,9 +226,7 @@ def spmv_pull_staged(A: CsrMatrix, x, op_mul, op_add, init, x_valid=None, row_se
     if _on_cpu(A.values, x, x_valid, row_sel):
         res, has = spmv_pull_staged_plain(A, x, op_mul, op_add, init, x_valid, row_sel, swap,
                                           slots, stage)
-        if out is not None:
-            res = out.copy_(res)
-        return res, (has if want_has else None)
+        return _into(out, res), (has if want_has else None)
     what = "spmv_pull_staged"
     codes = pull_codes(op_mul, op_add, A.values.dtype, swap)
     if codes is None or A.values.dtype != torch.float32:
@@ -245,10 +239,7 @@ def spmv_pull_staged(A: CsrMatrix, x, op_mul, op_add, init, x_valid=None, row_se
                   {"x": n, "x_valid": n, "row_sel": m})
     if x.dtype != torch.float32:
         raise TypeError(f"{what}: x is {x.dtype}, the matrix float32")
-    if out is None:
-        out = torch.empty(m, dtype=x.dtype, device=x.device)
-    elif out.shape != (m,) or out.dtype != x.dtype or out.device != x.device or not out.is_contiguous():
-        raise ValueError(f"{what}: out must be a contiguous {x.dtype} [{m}] tensor on {x.device}")
+    out = _out_arg(out, m, x, what)
     plan = staged_plan(A, stage)
     init_t, init_bits = _init_arg(init, x)
     has = torch.empty(m, dtype=torch.bool, device=x.device) if want_has else None
@@ -256,7 +247,7 @@ def spmv_pull_staged(A: CsrMatrix, x, op_mul, op_add, init, x_valid=None, row_se
         codes[0], codes[1], slots, _check_stage(stage), *_plan_args(plan), _ptr(plan.part),
         _ptr(plan.part_any), _ptr(plan.done), A.indptr.data_ptr(), A.cols.data_ptr(), A.values.data_ptr(),
         x.data_ptr(), _ptr(x_valid), _ptr(row_sel), _ptr(init_t), init_bits, out.data_ptr(), _ptr(has),
-        int(_ENTRY_FOLD), torch.cuda.current_stream(x.device).cuda_stream)
+        torch.cuda.current_stream(x.device).cuda_stream)
     check(rc, what)
     LAUNCHES["spmv_pull_staged"] += 1
     return out, has

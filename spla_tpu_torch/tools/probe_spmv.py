@@ -18,7 +18,9 @@ their times attribute kernel 1's time to its phases:
   the stream and of the gathers (``streamnp``, ``k_gather``);
 * ``ring_copy``, ``ring_alu``, ``ring_copy_alu`` — kernel 7's ring copying
   only, computing only, and both (``manual_dma_alu``, ``manual_alu``);
-  ``staged2``/``3``/``4`` — kernel 7 at 2, 3, 4 slots (``manual_dma_real``);
+  ``ring_fold`` — kernel 7's fold on slots that stay resident, no copies
+  (``manual_real``); ``staged2``/``3``/``4`` — kernel 7 at 2, 3, 4 slots
+  (``manual_dma_real``);
 * ``torch_sum`` — ``torch.sum`` over the values and the columns: a library
   reference for the stream's bytes (TPU ``xla_sum``), not a port.
 

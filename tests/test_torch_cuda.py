@@ -417,7 +417,7 @@ def test_spmv_pull_staged_matches_plain_and_kernel1(dev, graph, add, stage):
     every mul, both operand orders, with and without masks, on kernel 1's
     test graphs (at stage 1024 the hub graphs' rows of 5000 and 9000
     entries are rows of two and three chunks; at 16 every row of more than
-    two entries is a long row); the structural variant; a repeated call
+    four entries is a long row); the structural variant; a repeated call
     gives the same bits."""
     A = _pull_matrix(graph, "f32", dev, extra=11 if graph in ("hub", "deg6") else 0)
     n = A.shape[0]

@@ -250,13 +250,13 @@ def test_manual_dma_dispatch_on_cpu_takes_the_staged_plain_path(monkeypatch):
 
 def _numpy_units(lens, stage):
     """Kernel 7's units by definition, row by row: a row of more than
-    stage // 8 entries is long and a unit of its own, cut into chunks of
+    stage // 4 entries is long and a unit of its own, cut into chunks of
     CHUNK_STAGES stages; another row joins the previous row's unit unless
     either is long, its first entry lies in another bucket of stage -
-    stage // 8 entries, or the unit already holds BLOCK_ROWS rows since the
+    stage // 4 entries, or the unit already holds BLOCK_ROWS rows since the
     last such start.  Returns (units (r0, r1, e0, e1), unit_hub, hub_units)."""
     lens = np.asarray(lens, np.int64)
-    longest = max(stage // 8, 1)
+    longest = max(stage // 4, 1)
     starts = np.concatenate([[0], np.cumsum(lens)])
     blocks, base = [], 0
     for r in range(lens.size):
@@ -303,7 +303,7 @@ PLAN_LENGTHS = {
     "empty matrix": [],
     "all rows empty": [0] * 600,
     "long rows at both ends": [5000] + [16] * 300 + [3000],
-    "chunk edges": [2 * 4096, 4, 2 * 4096 + 1, 4096, 129, 128],
+    "chunk edges": [2 * 4096, 4, 2 * 4096 + 1, 4096, 257, 256, 9, 8],
     "bucket edges": [7] * 128 + [8] * 112 + [1] * 7 + [0] * 300 + [2] * 200,
     "uniform deg 16": [16] * 700,
 }
