@@ -90,8 +90,9 @@ from spla_tpu_torch.kernels.build import build_log, load_library
 from spla_tpu_torch.ops import (DISPATCH_STATS, count_mxmT_products, m_reduce, masked_spmv,
                                 mxmT_masked, mxv_masked, vxm_masked, vxm_masked_dense)
 from spla_tpu_torch.ops.spgemm import mxmT_masked_plain
-from spla_tpu_torch.tools import ab_spmv as AB, probe_spmv as PROBE
-from spla_tpu_torch.tools.graphs import HUB_ROWS, build_graph, hub_graph, powerlaw_graph, random_graph
+from spla_tpu_torch.tools import ab_spmv as AB, probe_spmv as PROBE, resident_levels as RL
+from spla_tpu_torch.tools.graphs import (HUB_ROWS, barbell_graph, build_graph, hub_graph, path_graph,
+                                         powerlaw_graph, random_graph, road_graphs, road_grid)
 
 N_SPMV, DEG_SPMV = 1 << 21, 16      # bench.py:37 build_graph
 N_GRAPH, DEG_GRAPH = 1 << 20, 16    # bench_suite.py:24 random_graph, bench_suite.py:122
@@ -100,6 +101,8 @@ N_FEW = 256  # kernel 7's fewer-stages-than-slots graph: 256 entries, one unit
 N_SMALL, SMALL_DEGREES = 1 << 16, (1, 6, 16, 24, 64, 300)  # kernel 1: teams of 2-32 lanes, hub rows
 N_HUB_TC, HUB_LEN_TC = 1 << 17, 1 << 16
 SIDE_BFS, SIDE_SSSP, SEED_ROAD = 1024, 512, 9  # bench_suite.py:226,323,326
+SIDE_BIG = 3072  # bench_suite.py:269-319 road_big_bfs_gteps
+ROAD_BIG_PR3_MS = 30.73  # kernel 6 on the side-3072 grid, PR 3's design (PERF.md section 5)
 N_CLI_SMALL = 2000  # the pr and tc CLIs' graph: their naive oracles are Python loops
 TIMED_RUNS = 20
 PLAIN_RUNS_BIG = 3  # the plain SpGEMM-T at n = 2^20 expands 285M products per call
@@ -183,42 +186,6 @@ def hub_spgemm(n, seed=4):
     mask = sp.coo_matrix((np.ones(mr.size, np.float32), (mr, mc)), shape=(n, n)).tocsr()
     mask.sum_duplicates()
     return a, mask
-
-
-def morton(x, y):
-    """bench_suite.py:229: interleave the bits of x and y (< 2^16)."""
-    def spread(v):
-        v = (v | (v << 8)) & 0x00FF00FF
-        v = (v | (v << 4)) & 0x0F0F0F0F
-        v = (v | (v << 2)) & 0x33333333
-        v = (v | (v << 1)) & 0x55555555
-        return v
-    return (spread(x) | (spread(y) << 1)).astype(np.int64)
-
-
-def road_graphs():
-    """bench_suite.py:226-253 and 323-334: the Morton-ordered side-1024 grid
-    (data 1) for BFS, and its side-512 corner with weights uniform(0.1, 1.0)
-    from seed 9, symmetrized by maximum, for SSSP."""
-    side = SIDE_BFS
-    xs, ys = np.meshgrid(np.arange(side, dtype=np.int64), np.arange(side, dtype=np.int64),
-                         indexing="ij")
-    rows_l, cols_l = [], []
-    for dx, dy in ((1, 0), (0, 1)):
-        xs2, ys2 = xs[: side - dx, : side - dy], ys[: side - dx, : side - dy]
-        a = morton(xs2.ravel(), ys2.ravel())
-        b = morton((xs2 + dx).ravel(), (ys2 + dy).ravel())
-        rows_l += [a, b]
-        cols_l += [b, a]
-    rr = np.concatenate(rows_l).astype(np.int32)
-    cc = np.concatenate(cols_l).astype(np.int32)
-    n = side * side
-    road = sp.csr_matrix((np.ones(rr.size, np.float32), (rr, cc)), shape=(n, n))
-    nrs = SIDE_SSSP * SIDE_SSSP
-    sel = (rr < nrs) & (cc < nrs)
-    w = sp.csr_matrix((np.random.default_rng(SEED_ROAD).uniform(0.1, 1.0, int(sel.sum())).astype(
-        np.float32), (rr[sel], cc[sel])), shape=(nrs, nrs))
-    return road, w.maximum(w.T).tocsr()
 
 
 # ---------------------------------------------------------------- checks
@@ -362,25 +329,51 @@ def check_kernels(G):
 
 
 def check_resident(G):
-    """Kernel 6 against its plain versions on the road grids at full size,
-    from vertex 0 and from the far corner: results bitwise, BFS rounds and
-    the cap flags equal (SSSP's rounds may differ: the kernel's rounds see
-    decreases made earlier in the same round)."""
-    errs = {}
-    for kind, M, fn, plain in (("bfs", G["Road"], K6.bfs_resident, K6.bfs_resident_plain),
-                               ("sssp", G["RoadW"], K6.sssp_resident, K6.sssp_resident_plain)):
-        n = M.shape[0]
-        for src in (0, n - 1):
-            got, stats = fn(M, src)
-            ref, ref_stats = plain(M, src)
-            errs[f"{kind}_resident"] = check_close(f"{kind}_resident from {src}", got, ref, True)
-            k_rounds, k_capped = stats.tolist()
-            p_rounds, p_capped = ref_stats.tolist()
-            if k_capped or p_capped or (kind == "bfs" and k_rounds != p_rounds):
-                raise AssertionError(f"{kind}_resident from {src}: stats {stats.tolist()}, "
-                                     f"plain {ref_stats.tolist()}")
-            print(f"kernel 6 ({kind}) n={n} from {src}: equal to the plain version bitwise; "
-                  f"{k_rounds} rounds (plain {p_rounds})", flush=True)
+    """Kernel 6 against its plain versions at full size: on the road grids
+    from vertex 0 and from the far corner, on the barbell graph (rounds on
+    the lead cluster and on the whole grid, in turn) and on
+    random_graph(2^18, 16) from vertex 0 (most rounds wide): results
+    bitwise, BFS stats (rounds, capped, wide rounds) equal, SSSP's cap
+    flags clear and its rounds at most the plain version's (its rounds see
+    decreases made earlier in the same round).  On the path graph (4,096
+    rounds of one vertex, which the plain versions read one by one on the
+    host) against its closed form: depths arange + 1, distances the f32
+    running sums of its weights, no wide round."""
+    errs = {"bfs_resident": 0.0, "sssp_resident": 0.0}
+    runs = [("road", "Road", "RoadW", (0, -1)), ("barbell", "Barbell", "Barbell", (0,)),
+            ("random 2^18", "Rand18", "Rand18", (0,))]
+    for label, bfs_key, sssp_key, sources in runs:
+        for kind, M, fn, plain in (("bfs", G[bfs_key], K6.bfs_resident, K6.bfs_resident_plain),
+                                   ("sssp", G[sssp_key], K6.sssp_resident, K6.sssp_resident_plain)):
+            n = M.shape[0]
+            for src in (i % n for i in sources):
+                got, stats = fn(M, src)
+                ref, ref_stats = plain(M, src)
+                check_close(f"{kind}_resident {label} from {src}", got, ref, True)
+                k_rounds, k_capped, k_wide = stats.tolist()
+                p_rounds, p_capped, p_wide = ref_stats.tolist()
+                bad = k_capped or p_capped or k_rounds > p_rounds or k_wide > k_rounds
+                if kind == "bfs" and stats.tolist() != ref_stats.tolist():
+                    bad = True
+                if bad:
+                    raise AssertionError(f"{kind}_resident {label} from {src}: stats {stats.tolist()}, "
+                                         f"plain {ref_stats.tolist()}")
+                if label == "barbell" and not 0 < k_wide < k_rounds:
+                    raise AssertionError(f"{kind}_resident barbell: {k_wide} wide rounds of {k_rounds}")
+                print(f"kernel 6 ({kind}) {label} n={n} from {src} ({K6.resident_plan(M)}): equal to the "
+                      f"plain version bitwise; {k_rounds} rounds, {k_wide} wide (plain {p_rounds}, "
+                      f"{p_wide})", flush=True)
+    P, w = G["Path"], G["PathW"]
+    n = P.shape[0]
+    v, v_stats = K6.bfs_resident(P, 0)
+    d, d_stats = K6.sssp_resident(P, 0)
+    check_close("bfs_resident path", v, torch.arange(1, n + 1, dtype=torch.int32, device=DEVICE), True)
+    want = torch.from_numpy(np.concatenate([[0], np.cumsum(w)]).astype(np.float32)).to(DEVICE)
+    check_close("sssp_resident path", d, want, True)
+    if v_stats.tolist() != [n, 0, 0] or d_stats.tolist() != [n, 0, 0]:
+        raise AssertionError(f"kernel 6 on the path: stats {v_stats.tolist()}, {d_stats.tolist()}")
+    print(f"kernel 6 path n={n}: depths arange + 1 and distances the f32 running sums, {n} rounds, "
+          f"none wide", flush=True)
     return errs
 
 
@@ -957,9 +950,13 @@ def time_algorithms(G, card):
 
 
 def time_road(G, card):
-    """Kernel 6 against its plain versions (CUDA events), and the road
-    walls on the resident route and on the level loop (host clock around a
-    synchronized run, median of 3, with levels and host syncs)."""
+    """Kernel 6 against its plain versions on the road grids (CUDA events);
+    kernel 6 alone on the path, barbell and random 2^18 graphs, with rounds,
+    wide rounds and us a round (the plain version beside it on the random
+    graph, where it takes seconds); BFS on the side-3072 grid with the
+    budget lifted, against scipy; and the road walls on the resident route
+    and on the level loop (host clock around a synchronized run, median of
+    3, with levels and host syncs)."""
     times = {}
     for kind, M, fn, plain in (("bfs", G["Road"], K6.bfs_resident, K6.bfs_resident_plain),
                                ("sssp", G["RoadW"], K6.sssp_resident, K6.sssp_resident_plain)):
@@ -968,8 +965,24 @@ def time_road(G, card):
         # indptr, cols (and the weights) once; the depths or distances written
         times[f"{kind}_resident"] = (k, p, *bound(4 * (n + 1) + (8 if kind == "sssp" else 4) * nnz
                                                    + 4 * n))
-        print(f"time {kind}_resident n={M.shape[0]} nnz={M.cols.shape[0]}: kernel {k:.4f} ms, "
-              f"plain {p:.4f} ms [{card}]", flush=True)
+        rounds, _, wide = fn(M, 0)[1].tolist()
+        print(f"time {kind}_resident n={M.shape[0]} nnz={M.cols.shape[0]}: kernel {k:.4f} ms ({rounds} "
+              f"rounds, {wide} wide, {k * 1e3 / rounds:.4f} us a round), plain {p:.4f} ms [{card}]",
+              flush=True)
+    for label, key, plain_too in (("path", "Path", False), ("barbell", "Barbell", False),
+                                  ("random 2^18", "Rand18", True)):
+        M = G[key]
+        for kind, fn, plain in (("bfs", K6.bfs_resident, K6.bfs_resident_plain),
+                                ("sssp", K6.sssp_resident, K6.sssp_resident_plain)):
+            row = RL.time_run(kind, M, 0, TIMED_RUNS)
+            extra = ""
+            if plain_too:
+                k, p = paired_ms(lambda: fn(M, 0), lambda: plain(M, 0), PLAIN_RUNS_ROAD)
+                extra = f"; paired with the plain version: kernel {k:.4f} ms, plain {p:.4f} ms"
+            print(f"time {kind}_resident {label} n={row['n']} nnz={row['nnz']} "
+                  f"({K6.resident_plan(M)}): {row['ms']:.4f} ms, {row['rounds']} rounds, {row['wide']} "
+                  f"wide, {row['us_per_round']:.4f} us a round{extra} [{card}]", flush=True)
+    time_road_big(card)
     walls = {}
     for name, algo, M in (("bfs", alg.bfs, G["Road"]), ("sssp", alg.sssp, G["RoadW"])):
         for route, budget in (("resident", alg.RESIDENT_BYTES), ("level loop", 0)):
@@ -995,6 +1008,29 @@ def time_road(G, card):
           f"{nnz / walls['bfs', 'level loop'] / 1e6:.4f}); road_sssp_ms {walls['sssp', 'resident']:.3f} "
           f"(level loop {walls['sssp', 'level loop']:.3f}) [{card}]", flush=True)
     return times
+
+
+def time_road_big(card):
+    """road_big_bfs_gteps's graph (the side-3072 grid, six times the byte
+    budget): the public bfs with the budget lifted takes kernel 6 and
+    equals scipy's depths; kernel 6's time beside PR 3's design's."""
+    a = road_grid(SIDE_BIG)
+    M = F.csr_from_scipy(a, device=DEVICE)
+    with resident_budget(1 << 40):
+        for key in alg.STATS:
+            alg.STATS[key] = 0
+        v = alg.bfs(M, 0, At=M).values
+        if alg.STATS["resident"] != 1:
+            raise AssertionError("side-3072 bfs with the budget lifted must take the resident route")
+    lev = cg.shortest_path(a, method="D", unweighted=True, indices=0)
+    check_close("road bfs side 3072", v, torch.from_numpy((lev + 1).astype(np.int32)).to(DEVICE), True)
+    row = RL.time_run("bfs", M, 0, 5)
+    if row["rounds"] != 2 * SIDE_BIG - 1:
+        raise AssertionError(f"side-3072 bfs: {row['rounds']} rounds, want {2 * SIDE_BIG - 1}")
+    print(f"time bfs_resident side {SIDE_BIG} (budget lifted) n={row['n']} nnz={row['nnz']}: "
+          f"{row['ms']:.4f} ms, {row['rounds']} rounds, {row['wide']} wide, {row['us_per_round']:.4f} us a "
+          f"round (PR 3's design: {ROAD_BIG_PR3_MS} ms); equal to scipy; road_big_bfs_gteps "
+          f"{row['nnz'] / row['ms'] / 1e6:.4f} on the kernel's time [{card}]", flush=True)
 
 
 def bound(nbytes, flops=0):
@@ -1154,8 +1190,11 @@ def main():
     t0 = time.perf_counter()
     load_library()
     print(f"built and loaded the CUDA kernels in {time.perf_counter() - t0:.1f} s")
-    print(f"kernel 6: cooperative grids of {K6.resident_blocks('bfs')} (BFS) and "
-          f"{K6.resident_blocks('sssp')} (SSSP) CTAs of 256 threads")
+    for kind in ("bfs", "sssp"):
+        for team in (2, 4, 8, 16, 32):
+            ctas, cluster, regs = K6.resident_grid(kind, team)
+            print(f"kernel 6 ({kind}, teams of {team}): a cooperative grid of {ctas} CTAs of "
+                  f"{K6.CTA_THREADS} threads in clusters of {cluster}, {regs} registers a thread")
     for line in build_log().splitlines():
         if any(k in line for k in ("registers", "Compiling entry", "spill", "smem")):
             print(line.strip())
@@ -1275,14 +1314,20 @@ def build_graphs():
     ah, mh = hub_spgemm(N_HUB_TC)
     G["HTw_f32"], G["HTw_i32"] = valued(ah, 7, 0.5, 1.5)
     G["HTm_f32"], G["HTm_i32"] = signed_mask(mh, np.float32, 8), signed_mask(mh, np.int32, 8)
-    road, road_w = road_graphs()
+    road, road_w = road_graphs(SIDE_BFS, SIDE_SSSP, SEED_ROAD)
     G["Road_sp"], G["Road"] = road, F.csr_from_scipy(road, device=DEVICE)
     G["RoadW_sp"], G["RoadW"] = road_w, F.csr_from_scipy(road_w, fill=np.float32(np.inf), device=DEVICE)
+    path = path_graph(RL.PATH_N)
+    G["Path"], G["PathW"] = F.csr_from_scipy(path, fill=np.float32(np.inf), device=DEVICE), path.diagonal(1)
+    G["Barbell"] = F.csr_from_scipy(barbell_graph(*RL.BARBELL), fill=np.float32(np.inf), device=DEVICE)
+    G["Rand18"] = F.csr_from_scipy(RL.weighted_random(), fill=np.float32(np.inf), device=DEVICE)
     print(f"graphs: spmv n={N_SPMV} nnz={rows.size}; hub n={N_GRAPH} nnz={hr.size}; powerlaw "
           f"n={N_SPMV} nnz={pr_.size}; n={N_SMALL} at degrees {SMALL_DEGREES}; "
           f"traversal n={N_GRAPH} nnz={a.nnz}; spgemm n={N_TC} nnz={t.nnz}; spgemm hub "
           f"n={N_HUB_TC} nnz={ah.nnz} with a mask of {mh.nnz}; road bfs n={road.shape[0]} "
-          f"nnz={road.nnz}; road sssp n={road_w.shape[0]} nnz={road_w.nnz}", flush=True)
+          f"nnz={road.nnz}; road sssp n={road_w.shape[0]} nnz={road_w.nnz}; kernel 6's path n={RL.PATH_N}, "
+          f"barbell n={G['Barbell'].shape[0]} nnz={int(G['Barbell'].nnz)} and random n={RL.RANDOM_N} "
+          f"nnz={int(G['Rand18'].nnz)}", flush=True)
     return G
 
 

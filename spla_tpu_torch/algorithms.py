@@ -49,10 +49,11 @@ __all__ = ["STATS", "RESIDENT_BYTES", "resident_bytes", "bfs", "sssp", "pr", "tc
 
 # Of the runs since the last reset: levels (PageRank: iterations; the
 # resident route: its rounds), push and pull levels, host syncs, BFS/SSSP
-# runs on each route, and resident runs stopped by the n + 2 round cap.
-# The loops read nothing else on the host.
+# runs on each route, resident runs stopped by the n + 2 round cap, and the
+# resident rounds that ran on kernel 6's whole grid.  The loops read
+# nothing else on the host.
 STATS = {"levels": 0, "push": 0, "pull": 0, "host_syncs": 0, "resident": 0, "level_loop": 0,
-         "capped": 0}
+         "capped": 0, "wide_rounds": 0}
 
 # What the resident route may hold: the H100's 50 MB L2, the counterpart of
 # RESIDENT_VMEM (spla_tpu/pallas/spmv.py:2456) on the TPU.
@@ -152,10 +153,11 @@ def _takes_resident(At: CsrMatrix, Apush: CsrMatrix, sssp: bool) -> bool:
 
 
 def _read_resident(stats) -> None:
-    rounds, capped = stats.tolist()  # the run's one host read
+    rounds, capped, wide = stats.tolist()  # the run's one host read
     STATS["host_syncs"] += 1
     STATS["levels"] += rounds
     STATS["capped"] += capped
+    STATS["wide_rounds"] += wide
     STATS["resident"] += 1
 
 

@@ -46,12 +46,13 @@ SIGNATURES = {
     # mul, dtype, structural, cap, mrow, mcol, sel, A indptr/cols/values,
     # B indptr/cols/values, total, stream
     "spla_mxmt_reduce": (_INT, _INT, _INT, _I64, *(_P,) * 9, _P, _P),
-    # n, source, indptr, cols, v, queues, counters, stats, stream
-    "spla_bfs_resident": (_I64, _INT, *(_P,) * 7),
-    # n, source, indptr, cols, values, d, stamps, queues, counters, stats, stream
-    "spla_sssp_resident": (_I64, _INT, *(_P,) * 9),
-    # sssp, &blocks
-    "spla_resident_blocks": (_INT, _P),
+    # n, source, log2 team, wide_above, indptr, cols, v, queues, counters, stats, stream
+    "spla_bfs_resident": (_I64, _INT, _INT, _I64, *(_P,) * 7),
+    # n, source, log2 team, wide_above, indptr, cols, values, d, stamps, queues, counters,
+    # stats, stream
+    "spla_sssp_resident": (_I64, _INT, _INT, _I64, *(_P,) * 9),
+    # sssp, log2 team, &ctas, &cluster, &registers
+    "spla_resident_grid": (_INT, _INT, _P, _P, _P),
     # mul, add, slots, stage, nunits, units, unit_hub, hub_units, part, part_any, done, indptr,
     # cols, values, x, x_valid, row_sel, init (device pointer or null), init's 32 bits (when
     # null), out, has, stream

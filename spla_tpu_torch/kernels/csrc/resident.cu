@@ -11,20 +11,10 @@
 // is plain CSR(A), walked in the push direction, and the frontier is a
 // compacted queue.
 //
-// Bound: the grid-wide barrier that ends each level.  A road-class graph
-// has ~2 * side levels of a few hundred vertices each; its CSR and state
-// (33.5 MB for the side-1024 grid) fit the 50 MB L2, and a level moves a few
-// KB.  So the design spends one barrier a level and nothing else on the
-// host or between launches:
-//   * three tail counters rotate: in round r one is read (the size of the
-//     queue being walked), one is filled (the next queue) and one is zeroed
-//     (the queue after that), so no second barrier resets a tail.  Every
-//     thread reads the same count after the barrier, so all threads leave
-//     the loop in the same round and meet every barrier;
-//   * a warp per queued vertex, lanes striding its row; a warp-aggregated
-//     atomicAdd reserves the slots of the next queue;
-//   * BFS claims a vertex with atomicCAS(v[j], 0, depth + 1), so the depths
-//     do not depend on the order of the claims;
+// What a round computes.  Round r walks the queue of round r: for each
+// queued vertex i and each entry (i, j) of its row,
+//   * BFS claims j with atomicCAS(v[j], 0, r + 1), so the depths do not
+//     depend on the order of the claims;
 //   * SSSP lowers d[j] to d[i] + w with an integer atomic on the float bits,
 //     split by sign as kernel 2 does (exact for negatives and +-inf; the
 //     caller routes non-finite weights elsewhere, so no NaN reaches it).  A
@@ -35,18 +25,71 @@
 //     may see decreases made earlier in the same round, so the round count
 //     can be below the level loop's; the distances are the same least
 //     fixpoint of d[j] = min(d[j], d[i] + w) (IEEE addition is monotone),
-//     bit for bit.
+//     bit for bit;
+// and a claimed or lowered j is appended to the next queue.  Three tail
+// counters rotate: in round r one is read (the size of the queue being
+// walked), one is filled (the next queue) and one is zeroed (the queue
+// after that), so no second barrier resets a tail.  Both kinds stop when
+// the queue is empty or after n + 2 rounds, the counterpart of the TPU
+// kernel's max_iters, which ends a negative cycle.
+//
+// Bound.  A road-class graph has ~2 * side rounds of at most a few thousand
+// vertices of degree <= 4, and its CSR and state fit the 50 MB L2.  A round
+// then costs its chain of dependent L2 accesses (the count, the queue slot,
+// indptr, cols, the vertex word, its atomic, the tail's atomic) plus the
+// barrier that ends it; the bytes (a few KB) do not matter.  PR 3's design
+// ended every round with a barrier of the whole grid, 1,056 CTAs of 256
+// threads, and paid ~4.5 us a round whatever its work (PERF.md).  This
+// design keeps one cooperative launch and splits the rounds by width:
+//   * a team of G lanes walks each queued vertex, G the least power of two
+//     from 2 to 32 at or above half the mean out-degree (kernel 1's rule,
+//     kernels/spmv.py team_size; an instance per G): 2 on the road grids,
+//     where a warp per vertex left 28 of 32 lanes idle, 8 on degree-16
+//     graphs.  Each lane issues kEntries column loads, then their vertex
+//     words, then their atomics, before the warp appends what it claimed
+//     with one atomicAdd on the tail;
+//   * narrow rounds, whose queue holds at most T vertices, run on the lead
+//     group alone: the first thread block cluster of kLeadCtas CTAs, which
+//     ends each such round at the hardware cluster barrier.  T is the
+//     group's teams, kLeadCtas * kResidentThreads / G (kernels/resident.py
+//     resident_plan), so a narrow round is one pass of the group.  The
+//     queues and tails stay in global memory, since a wide round's CTAs
+//     outside the cluster read them;
+//   * the other CTAs wait on an epoch word in global memory, one thread a
+//     CTA, with ld.acquire.gpu and a __nanosleep back-off, so that their
+//     polling does not crowd the lead group's L2 traffic.  When a round's
+//     count exceeds T after a narrow round, the lead group's first thread
+//     publishes the round there (a fence, then st.release.gpu: the lead
+//     group's plain queue stores, ordered by the cluster barrier, are then
+//     visible to every CTA); every CTA walks the queue, and a grid barrier
+//     ends the round.  Every thread that must meet a barrier decides from
+//     the same count, so no thread misses one: after a wide round every CTA
+//     reads the next count itself and either stays on the grid, goes back
+//     to waiting (narrow), or leaves (empty, or the cap).  When the lead
+//     group leaves, it publishes "done" (INT_MAX), and the waiting CTAs
+//     leave too;
+//   * the wide path exists for graphs under the byte budget whose frontiers
+//     reach ~10^5 vertices, such as random_graph(2**18, 16), about 21 MB,
+//     which the gate sends here: one group of 8 SMs would walk such a round
+//     ~16 times slower than the grid;
+//   * fewer, larger CTAs: 1024 threads, at the occupancy limit in whole
+//     clusters (cudaOccupancyMaxActiveClusters), so a wide round's barrier
+//     counts ~8x fewer arrivals than PR 3's.  The grid is asked once per
+//     instance and device;
+//   * one thread a CTA reads each round's count and hands it on through
+//     shared memory, so a round costs the L2 one read a CTA, not one a warp.
 // Vertices, queue slots and counters that other SMs write during the launch
 // are read through L2 (__ldcg); the CSR arrays are read-only (__ldg).
-// Both kinds stop when the queue is empty or after n + 2 rounds, the
-// counterpart of the TPU kernel's max_iters, which ends a negative cycle;
 // stats[0] = the rounds run, stats[1] = 1 when the cap stopped a non-empty
-// queue.
+// queue, stats[2] = the rounds that ran on the whole grid.
 //
-// The grid is the occupancy limit times the SM count, launched with
-// cudaLaunchCooperativeKernel: a grid-wide barrier is valid only when every
-// CTA is resident, which the cooperative launch guarantees or refuses.
+// The launch is cooperative (cudaLaunchAttributeCooperative) with clusters
+// of kLeadCtas (cudaLaunchAttributeClusterDimension) through
+// cudaLaunchKernelEx: a grid barrier, and CTAs that spin on the epoch word,
+// are valid only when every CTA is resident, which the cooperative launch
+// guarantees or refuses; a refused launch raises in the wrapper.
 
+#include <climits>
 #include <cooperative_groups.h>
 
 #include "semiring.cuh"
@@ -55,16 +98,46 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-// Reserve this warp's slots in `next` for the lanes that want one.
-__device__ __forceinline__ void append(bool want, int32_t j, int32_t* next, int32_t* tail,
-                                       int lane) {
-  const unsigned m = __ballot_sync(kFullMask, want);
-  if (m == 0) return;
-  const int leader = __ffs(m) - 1;
-  int32_t base = 0;
-  if (lane == leader) base = atomicAdd(tail, __popc(m));
-  base = __shfl_sync(kFullMask, base, leader);
-  if (want) next[base + __popc(m & ((1u << lane) - 1u))] = j;
+constexpr int kResidentThreads = 1024;  // kept equal to kernels/resident.py CTA_THREADS
+constexpr int kLeadCtas = 8;            // kept equal to kernels/resident.py LEAD_CTAS
+constexpr int kWarps = kResidentThreads / 32;
+constexpr int kEntries = 4;  // entries of a row a lane issues before it uses any
+constexpr int32_t kDone = INT_MAX;  // the epoch word once the run is over
+constexpr unsigned kMaxSleepNs = 512;
+
+struct ResidentArgs {
+  int32_t n, source;
+  int32_t wide_above;  // T: a round whose queue holds more runs on the whole grid
+  const int32_t* indptr;
+  const int32_t* cols;
+  const float* values;  // SSSP only
+  void* result;         // BFS: int32 depths, zero; SSSP: f32 distances, +inf
+  int32_t* stamp;       // SSSP only: [n], zero
+  int32_t* q0;          // [n]
+  int32_t* q1;          // [n]
+  int32_t* cnt;         // [4], zero: three tails, then the epoch word
+  int32_t* stats;       // [3]
+};
+
+__device__ __forceinline__ int32_t ld_acquire(const int32_t* p) {
+  int32_t v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int32_t* p, int32_t v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// The epoch word once it reaches `at_least` (one thread of a waiting CTA).
+__device__ int32_t wait_epoch(const int32_t* epoch, int32_t at_least) {
+  unsigned ns = 32;
+  int32_t e;
+  while ((e = ld_acquire(epoch)) < at_least) {
+    __nanosleep(ns);
+    if (ns < kMaxSleepNs) ns *= 2;
+  }
+  return e;
 }
 
 // d = min(d, x) for a non-NaN x; returns the old value.
@@ -74,130 +147,286 @@ __device__ __forceinline__ float atomic_min_float(float* addr, float x) {
   return __uint_as_float(atomicMax(reinterpret_cast<unsigned*>(addr), __float_as_uint(x)));
 }
 
-template <bool SSSP>
-__global__ void __launch_bounds__(kThreads)
-resident_kernel(int n, int source, const int32_t* __restrict__ indptr,
-                const int32_t* __restrict__ cols, const float* __restrict__ values, void* result,
-                int32_t* stamp, int32_t* q0, int32_t* q1, int32_t* cnt, int32_t* stats) {
-  cg::grid_group grid = cg::this_grid();
-  const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int lane = threadIdx.x & 31;
-  const int warp = static_cast<int>(tid >> 5);
-  const int n_warps = static_cast<int>((static_cast<long long>(gridDim.x) * blockDim.x) >> 5);
-  int32_t* v = static_cast<int32_t*>(result);
-  float* d = static_cast<float*>(result);
-  if (tid == 0) {
-    if constexpr (SSSP) {
-      d[source] = 0.0f;
-      stamp[source] = 1;
-    } else {
-      v[source] = 1;
-    }
-    q0[0] = source;
-    cnt[0] = 1;
-    cnt[1] = 0;
-    cnt[2] = 0;
+// Reserve this warp's slots in `next` for the entries its lanes want, with
+// one atomicAdd, and store them.
+__device__ __forceinline__ void append(const bool (&want)[kEntries], const int32_t (&j)[kEntries],
+                                       int32_t* next, int32_t* tail, int lane) {
+  unsigned m[kEntries];
+  int total = 0;
+#pragma unroll
+  for (int u = 0; u < kEntries; ++u) {
+    m[u] = __ballot_sync(kFullMask, want[u]);
+    total += __popc(m[u]);
   }
-  grid.sync();
-
-  const int cap = n + 2;
-  int round = 1;  // the queue holds round `round`'s vertices (BFS: depth `round`)
-  int32_t count;
-  for (;;) {
-    count = __ldcg(&cnt[(round - 1) % 3]);
-    if (count == 0 || round > cap) break;
-    const int32_t* cur = (round & 1) ? q0 : q1;
-    int32_t* next = (round & 1) ? q1 : q0;
-    int32_t* tail = &cnt[round % 3];
-    if (tid == 0) cnt[(round + 1) % 3] = 0;  // read last round, filled next round
-    for (int w = warp; w < count; w += n_warps) {
-      const int32_t i = __ldcg(&cur[w]);
-      const int32_t end = __ldg(&indptr[i + 1]);
-      float di = 0.0f;
-      if constexpr (SSSP) di = __ldcg(&d[i]);
-      for (int32_t e0 = __ldg(&indptr[i]); e0 < end; e0 += 32) {
-        const int32_t e = e0 + lane;
-        bool want = false;
-        int32_t j = 0;
-        if (e < end) {
-          j = __ldg(&cols[e]);
-          if constexpr (SSSP) {
-            const float nd = di + __ldg(&values[e]);
-            if (nd < __ldcg(&d[j]) && nd < atomic_min_float(&d[j], nd))
-              want = atomicMax(&stamp[j], round + 1) < round + 1;
-          } else {
-            want = __ldcg(&v[j]) == 0 && atomicCAS(&v[j], 0, round + 1) == 0;
-          }
-        }
-        append(want, j, next, tail, lane);
-      }
-    }
-    grid.sync();
-    ++round;
-  }
-  if (tid == 0) {
-    stats[0] = round - 1;
-    stats[1] = count != 0;
+  if (total == 0) return;
+  int32_t base = 0;
+  if (lane == 0) base = atomicAdd(tail, total);
+  base = __shfl_sync(kFullMask, base, 0);
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int u = 0; u < kEntries; ++u) {
+    if (want[u]) next[base + __popc(m[u] & below)] = j[u];
+    base += __popc(m[u]);
   }
 }
 
-template <bool SSSP>
-cudaError_t grid_blocks(int* blocks) {
-  int device = 0, coop = 0, sms = 0, per_sm = 0;
+// Walk round `round`'s queue of `count` vertices with `nwarps` warps, this
+// one `warp`: 32 / G vertices a warp at a time, a team of G lanes each.
+template <bool SSSP, int G>
+__device__ __forceinline__ void walk(const ResidentArgs& a, int32_t round, int32_t count,
+                                     long long warp, long long nwarps) {
+  constexpr int kTeams = 32 / G;
+  const int lane = threadIdx.x & 31;
+  const int32_t* cur = (round & 1) ? a.q0 : a.q1;
+  int32_t* next = (round & 1) ? a.q1 : a.q0;
+  int32_t* tail = a.cnt + round % 3;
+  int32_t* v = static_cast<int32_t*>(a.result);
+  float* d = static_cast<float*>(a.result);
+  for (long long s = warp * kTeams; s < count; s += nwarps * kTeams) {
+    const long long q = s + lane / G;
+    int32_t k = 0, end = 0;
+    float di = 0.0f;
+    if (q < count) {
+      const int32_t i = __ldcg(cur + q);
+      k = __ldg(a.indptr + i) + (lane & (G - 1));
+      end = __ldg(a.indptr + i + 1);
+      if constexpr (SSSP) di = __ldcg(d + i);
+    }
+    for (; __any_sync(kFullMask, k < end); k += kEntries * G) {
+      int32_t j[kEntries];
+      float nd[kEntries];
+      bool want[kEntries];
+#pragma unroll
+      for (int u = 0; u < kEntries; ++u) {
+        const int32_t e = k + u * G;
+        want[u] = e < end;
+        j[u] = want[u] ? __ldg(a.cols + e) : 0;
+        if constexpr (SSSP) nd[u] = want[u] ? di + __ldg(a.values + e) : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < kEntries; ++u) {
+        if constexpr (SSSP) want[u] = want[u] && nd[u] < __ldcg(d + j[u]);
+        else want[u] = want[u] && __ldcg(v + j[u]) == 0;
+      }
+#pragma unroll
+      for (int u = 0; u < kEntries; ++u) {
+        if constexpr (SSSP) want[u] = want[u] && nd[u] < atomic_min_float(d + j[u], nd[u]);
+        else want[u] = want[u] && atomicCAS(v + j[u], 0, round + 1) == 0;
+      }
+      if constexpr (SSSP) {
+#pragma unroll
+        for (int u = 0; u < kEntries; ++u)
+          want[u] = want[u] && atomicMax(a.stamp + j[u], round + 1) < round + 1;
+      }
+      append(want, j, next, tail, lane);
+    }
+  }
+}
+
+template <bool SSSP, int LOG2G>
+__global__ void __launch_bounds__(kResidentThreads, 1) resident_kernel(const ResidentArgs a) {
+  constexpr int G = 1 << LOG2G;
+  __shared__ int32_t s_round, s_count;
+  const bool lead = blockIdx.x < kLeadCtas;  // the first cluster
+  const bool first = blockIdx.x == 0 && threadIdx.x == 0;
+  const int warp_in_cta = threadIdx.x >> 5;
+  // a round's consecutive warps lie on different SMs
+  const long long lead_warp = static_cast<long long>(warp_in_cta) * kLeadCtas + blockIdx.x;
+  const long long grid_warp = static_cast<long long>(warp_in_cta) * gridDim.x + blockIdx.x;
+  const long long grid_warps = static_cast<long long>(gridDim.x) * kWarps;
+  if (first) {
+    if constexpr (SSSP) {
+      static_cast<float*>(a.result)[a.source] = 0.0f;
+      a.stamp[a.source] = 1;
+    } else {
+      static_cast<int32_t*>(a.result)[a.source] = 1;
+    }
+    a.q0[0] = a.source;
+    a.cnt[0] = 1;
+  }
+  if (lead) cg::this_cluster().sync();
+
+  const int32_t cap = a.n + 2;
+  int32_t round = 1;  // the queue holds round `round`'s vertices (BFS: depth `round`)
+  int32_t count = 0, wide = 0;
+  bool on_grid = false;  // the last round ran on the whole grid
+  for (;;) {
+    if (!lead && !on_grid) {  // wait for the next wide round, or the end
+      if (threadIdx.x == 0) s_round = wait_epoch(a.cnt + 3, round);
+      __syncthreads();
+      round = s_round;
+      if (round == kDone) break;
+    }
+    if (threadIdx.x == 0) s_count = __ldcg(a.cnt + (round - 1) % 3);
+    __syncthreads();
+    count = s_count;
+    if (count == 0 || round > cap) break;
+    const bool wide_round = count > a.wide_above;
+    if (!lead && !wide_round) {
+      on_grid = false;
+      continue;
+    }
+    if (first) {
+      a.cnt[(round + 1) % 3] = 0;  // read last round, filled next round
+      if (wide_round && !on_grid) {
+        __threadfence();
+        st_release(a.cnt + 3, round);
+      }
+      wide += wide_round;
+    }
+    if (wide_round) {
+      walk<SSSP, G>(a, round, count, grid_warp, grid_warps);
+      cg::this_grid().sync();
+    } else {
+      walk<SSSP, G>(a, round, count, lead_warp, static_cast<long long>(kLeadCtas) * kWarps);
+      cg::this_cluster().sync();
+    }
+    on_grid = wide_round;
+    ++round;
+  }
+  if (first) {
+    st_release(a.cnt + 3, kDone);  // the CTAs still waiting leave
+    a.stats[0] = round - 1;
+    a.stats[1] = count != 0;
+    a.stats[2] = wide;
+  }
+}
+
+template <bool SSSP, int LOG2G>
+void* kernel_of() {
+  return reinterpret_cast<void*>(resident_kernel<SSSP, LOG2G>);
+}
+
+void* kernel_for(bool sssp, int log2g) {
+  switch (log2g) {
+    case 1: return sssp ? kernel_of<true, 1>() : kernel_of<false, 1>();
+    case 2: return sssp ? kernel_of<true, 2>() : kernel_of<false, 2>();
+    case 3: return sssp ? kernel_of<true, 3>() : kernel_of<false, 3>();
+    case 4: return sssp ? kernel_of<true, 4>() : kernel_of<false, 4>();
+    case 5: return sssp ? kernel_of<true, 5>() : kernel_of<false, 5>();
+    default: return nullptr;
+  }
+}
+
+struct LaunchShape {
+  cudaLaunchAttribute attrs[2];
+  cudaLaunchConfig_t config = {};
+
+  // cooperative: with the cluster dimension, the launch's; without, the
+  // occupancy query's
+  LaunchShape(unsigned ctas, cudaStream_t stream, bool cooperative) {
+    attrs[0].id = cudaLaunchAttributeClusterDimension;
+    attrs[0].val.clusterDim.x = kLeadCtas;
+    attrs[0].val.clusterDim.y = 1;
+    attrs[0].val.clusterDim.z = 1;
+    attrs[1].id = cudaLaunchAttributeCooperative;
+    attrs[1].val.cooperative = 1;
+    config.gridDim = dim3(ctas);
+    config.blockDim = dim3(kResidentThreads);
+    config.dynamicSmemBytes = 0;
+    config.stream = stream;
+    config.attrs = attrs;
+    config.numAttrs = cooperative ? 2 : 1;
+  }
+};
+
+// The grid of one instance on the current device: the clusters that fit at
+// once, times kLeadCtas; asked once per instance and device.
+struct ResidentGrid {
+  int device = -1;
+  int ctas = 0;
+  int regs = 0;
+};
+
+cudaError_t resident_grid(bool sssp, int log2g, ResidentGrid* out) {
+  static ResidentGrid cache[2][6];
+  void* kernel = kernel_for(sssp, log2g);
+  if (kernel == nullptr) return cudaErrorInvalidValue;
+  int device = 0;
   cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, resident_kernel<SSSP>, kThreads, 0);
   if (err != cudaSuccess) return err;
-  if (!coop) return cudaErrorNotSupported;
-  if (per_sm == 0) return cudaErrorCooperativeLaunchTooLarge;
-  *blocks = per_sm * sms;
+  ResidentGrid& g = cache[sssp][log2g];
+  if (g.device != device) {
+    int coop = 0, clusters = 0;
+    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
+    if (err != cudaSuccess) return err;
+    if (!coop) return cudaErrorNotSupported;
+    LaunchShape shape(kLeadCtas, nullptr, false);
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &shape.config);
+    if (err != cudaSuccess) return err;
+    if (clusters == 0) return cudaErrorCooperativeLaunchTooLarge;
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return err;
+    g = {device, clusters * kLeadCtas, attr.numRegs};
+  }
+  *out = g;
   return cudaSuccess;
 }
 
-template <bool SSSP>
-int launch(long long n, int source, const void* indptr, const void* cols, const void* values,
-           void* result, void* stamp, void* queues, void* counters, void* stats, void* stream) {
-  int blocks = 0;
-  cudaError_t err = grid_blocks<SSSP>(&blocks);
+int launch(bool sssp, int log2g, const ResidentArgs& args, void* stream) {
+  ResidentGrid g;
+  cudaError_t err = resident_grid(sssp, log2g, &g);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int n32 = static_cast<int>(n);
-  const int32_t* indptr_p = static_cast<const int32_t*>(indptr);
-  const int32_t* cols_p = static_cast<const int32_t*>(cols);
-  const float* values_p = static_cast<const float*>(values);
-  int32_t* stamp_p = static_cast<int32_t*>(stamp);
-  int32_t* q0 = static_cast<int32_t*>(queues);
-  int32_t* q1 = q0 + n;
-  int32_t* cnt = static_cast<int32_t*>(counters);
-  int32_t* stats_p = static_cast<int32_t*>(stats);
-  void* args[] = {&n32, &source, &indptr_p, &cols_p, &values_p, &result,
-                  &stamp_p, &q0, &q1, &cnt, &stats_p};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(resident_kernel<SSSP>),
-                                    dim3(blocks), dim3(kThreads), args, 0,
-                                    static_cast<cudaStream_t>(stream));
+  LaunchShape shape(static_cast<unsigned>(g.ctas), static_cast<cudaStream_t>(stream), true);
+  ResidentArgs a = args;
+  void* params[] = {&a};
+  err = cudaLaunchKernelExC(&shape.config, kernel_for(sssp, log2g), params);
   const cudaError_t last = cudaGetLastError();
   return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
+ResidentArgs args_of(long long n, int source, long long wide_above, const void* indptr,
+                     const void* cols, const void* values, void* result, void* stamp, void* queues,
+                     void* counters, void* stats) {
+  ResidentArgs a;
+  a.n = static_cast<int32_t>(n);
+  a.source = source;
+  a.wide_above = static_cast<int32_t>(wide_above);
+  a.indptr = static_cast<const int32_t*>(indptr);
+  a.cols = static_cast<const int32_t*>(cols);
+  a.values = static_cast<const float*>(values);
+  a.result = result;
+  a.stamp = static_cast<int32_t*>(stamp);
+  a.q0 = static_cast<int32_t*>(queues);
+  a.q1 = a.q0 + n;
+  a.cnt = static_cast<int32_t*>(counters);
+  a.stats = static_cast<int32_t*>(stats);
+  return a;
+}
+
 }  // namespace
 
-// v: int32 [n], zero; queues: int32 [2n]; counters: int32 [3]; stats: int32 [2].
-extern "C" int spla_bfs_resident(long long n, int source, const void* indptr, const void* cols,
-                                 void* v, void* queues, void* counters, void* stats,
-                                 void* stream) {
-  return launch<false>(n, source, indptr, cols, nullptr, v, nullptr, queues, counters, stats,
-                       stream);
+// v: int32 [n], zero; queues: int32 [2n]; counters: int32 [4], zero;
+// stats: int32 [3]; a team is 1 << log2g lanes (1 to 5).
+extern "C" int spla_bfs_resident(long long n, int source, int log2g, long long wide_above,
+                                 const void* indptr, const void* cols, void* v, void* queues,
+                                 void* counters, void* stats, void* stream) {
+  return launch(false, log2g,
+                args_of(n, source, wide_above, indptr, cols, nullptr, v, nullptr, queues, counters,
+                        stats),
+                stream);
 }
 
 // d: f32 [n], +inf; stamps: int32 [n], zero; the rest as for BFS.
-extern "C" int spla_sssp_resident(long long n, int source, const void* indptr, const void* cols,
-                                  const void* values, void* d, void* stamps, void* queues,
-                                  void* counters, void* stats, void* stream) {
-  return launch<true>(n, source, indptr, cols, values, d, stamps, queues, counters, stats, stream);
+extern "C" int spla_sssp_resident(long long n, int source, int log2g, long long wide_above,
+                                  const void* indptr, const void* cols, const void* values, void* d,
+                                  void* stamps, void* queues, void* counters, void* stats,
+                                  void* stream) {
+  return launch(true, log2g,
+                args_of(n, source, wide_above, indptr, cols, values, d, stamps, queues, counters,
+                        stats),
+                stream);
 }
 
-// The CTAs of one launch (occupancy limit x SMs) on the current device.
-extern "C" int spla_resident_blocks(int sssp, int* blocks) {
-  return static_cast<int>(sssp ? grid_blocks<true>(blocks) : grid_blocks<false>(blocks));
+// The CTAs of one launch of an instance on the current device, its cluster
+// size and its registers a thread.
+extern "C" int spla_resident_grid(int sssp, int log2g, int* ctas, int* cluster, int* regs) {
+  ResidentGrid g;
+  const cudaError_t err = resident_grid(sssp != 0, log2g, &g);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *ctas = g.ctas;
+  *cluster = kLeadCtas;
+  *regs = g.regs;
+  return 0;
 }

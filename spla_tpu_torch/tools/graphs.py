@@ -4,11 +4,15 @@
 * ``random_graph`` — ``bench_suite.py:24``: the symmetric traversal graph;
 * ``hub_graph`` — uniform rows plus a few rows longer than any stage of
   kernel 7 or any warp's comfortable share of kernel 1;
-* ``powerlaw_graph`` — ``tools/ab_spmv.py:65-72``: zipf(2.1) out-degrees.
+* ``powerlaw_graph`` — ``tools/ab_spmv.py:65-72``: zipf(2.1) out-degrees;
+* ``road_grid``, ``road_graphs`` — ``bench_suite.py:226-253,269-319,323-334``:
+  the Morton-ordered road grids of the road cells;
+* ``path_graph``, ``barbell_graph`` — graphs whose traversal rounds hold one
+  vertex each, or change between one vertex and most of a random block.
 
 ``build_graph``, ``hub_graph`` and ``powerlaw_graph`` return
 ``(indptr, rows, cols, vals)`` with rows sorted and duplicate (row, col)
-pairs kept as separate entries; ``random_graph`` returns a scipy CSR matrix.
+pairs kept as separate entries; the others return scipy CSR matrices.
 """
 
 from __future__ import annotations
@@ -16,7 +20,8 @@ from __future__ import annotations
 import numpy as np
 import scipy.sparse as sp
 
-__all__ = ["build_graph", "random_graph", "hub_graph", "powerlaw_graph", "indptr_of"]
+__all__ = ["build_graph", "random_graph", "hub_graph", "powerlaw_graph", "indptr_of", "morton",
+           "road_grid", "road_graphs", "path_graph", "barbell_graph"]
 
 HUB_ROWS, HUB_LEN = 3, 1 << 17
 
@@ -73,3 +78,103 @@ def powerlaw_graph(n, deg, seed=0):
     cols = rng.integers(0, n, rows.size, dtype=np.int32)
     vals = rng.random(rows.size, dtype=np.float32)
     return indptr_of(rows, n), rows, cols, vals
+
+
+def morton(x, y):
+    """bench_suite.py:229: interleave the bits of x and y (< 2^16)."""
+    def spread(v):
+        v = (v | (v << 8)) & 0x00FF00FF
+        v = (v | (v << 4)) & 0x0F0F0F0F
+        v = (v | (v << 2)) & 0x33333333
+        v = (v | (v << 1)) & 0x55555555
+        return v
+    return (spread(x) | (spread(y) << 1)).astype(np.int64)
+
+
+def _road_edges(side):
+    """Both directions of every edge of the side x side grid, Morton ids
+    (bench_suite.py:239-249), as int32 (rows, cols)."""
+    xs, ys = np.meshgrid(np.arange(side, dtype=np.int64), np.arange(side, dtype=np.int64),
+                         indexing="ij")
+    rows_l, cols_l = [], []
+    for dx, dy in ((1, 0), (0, 1)):
+        xs2, ys2 = xs[: side - dx, : side - dy], ys[: side - dx, : side - dy]
+        a = morton(xs2.ravel(), ys2.ravel())
+        b = morton((xs2 + dx).ravel(), (ys2 + dy).ravel())
+        rows_l += [a, b]
+        cols_l += [b, a]
+    return np.concatenate(rows_l).astype(np.int32), np.concatenate(cols_l).astype(np.int32)
+
+
+def road_grid(side):
+    """The Morton-ordered side x side grid, data 1 (bench_suite.py:226-253;
+    side 3072 is road_big_bfs_gteps's graph, :269-319).  A side that is not
+    a power of two leaves gaps among the Morton ids: their ranks close them
+    (bench_suite.py:306-310)."""
+    rr, cc = _road_edges(side)
+    ids = np.unique(rr)
+    rr, cc = np.searchsorted(ids, rr).astype(np.int32), np.searchsorted(ids, cc).astype(np.int32)
+    n = side * side
+    return sp.csr_matrix((np.ones(rr.size, np.float32), (rr, cc)), shape=(n, n))
+
+
+def road_graphs(side_bfs, side_sssp, seed=9):
+    """bench_suite.py:226-253 and 323-334: the side-``side_bfs`` grid for BFS,
+    and its side-``side_sssp`` corner (a power of two, so its Morton ids
+    come first) with weights uniform(0.1, 1.0) from ``seed``, symmetrized
+    by maximum, for SSSP."""
+    rr, cc = _road_edges(side_bfs)
+    n = side_bfs * side_bfs
+    road = sp.csr_matrix((np.ones(rr.size, np.float32), (rr, cc)), shape=(n, n))
+    nrs = side_sssp * side_sssp
+    sel = (rr < nrs) & (cc < nrs)
+    w = sp.csr_matrix((np.random.default_rng(seed).uniform(0.1, 1.0, int(sel.sum())).astype(
+        np.float32), (rr[sel], cc[sel])), shape=(nrs, nrs))
+    return road, w.maximum(w.T).tocsr()
+
+
+def _symmetric(u, v, n, rng):
+    """Both directions of the undirected edges (u, v), one weight
+    uniform(0.1, 1.0) an edge."""
+    w = rng.uniform(0.1, 1.0, u.size).astype(np.float32)
+    return sp.csr_matrix((np.concatenate([w, w]), (np.concatenate([u, v]), np.concatenate([v, u]))),
+                         shape=(n, n))
+
+
+def path_graph(n, seed=0):
+    """The path 0 - 1 - ... - (n - 1), both directions, weights
+    uniform(0.1, 1.0) from ``seed``: from vertex 0 every BFS level and every
+    SSSP round holds one vertex."""
+    i = np.arange(n - 1)
+    return _symmetric(i, i + 1, n, np.random.default_rng(seed))
+
+
+def barbell_graph(path_len, block_n, block_deg, blocks=2, seed=0):
+    """``blocks + 1`` paths of ``path_len`` vertices with a block between
+    each two: path, block, path, ..., path, where a block is
+    ``random_graph(block_n, block_deg)`` entered and left at its two
+    vertices of highest degree.  Both directions, weights uniform(0.1, 1.0)
+    from ``seed``.  From vertex 0 a traversal's rounds hold one vertex on
+    the first path and up to most of a block inside it, so their width
+    changes both ways ``blocks`` times."""
+    us, vs = [], []
+    start, last = 0, None  # the next free id; the vertex the next part hangs from
+    for b in range(blocks + 1):
+        p = np.arange(start, start + path_len)
+        if last is not None:
+            us.append(np.array([last]))
+            vs.append(p[:1])
+        us.append(p[:-1])
+        vs.append(p[1:])
+        last, start = p[-1], start + path_len
+        if b == blocks:
+            break
+        g = random_graph(block_n, block_deg, seed=seed + 1 + b).tocoo()
+        up = g.row < g.col
+        us.append(g.row[up] + start)
+        vs.append(g.col[up] + start)
+        order = np.argsort(np.bincount(g.row, minlength=block_n), kind="stable")
+        us.append(np.array([last]))
+        vs.append(np.array([start + order[-1]]))
+        last, start = start + order[-2], start + block_n
+    return _symmetric(np.concatenate(us), np.concatenate(vs), start, np.random.default_rng(seed))

@@ -18,7 +18,7 @@ from spla_tpu_torch.kernels import level_update as K3, mxmt as K45, resident as 
 from spla_tpu_torch.kernels import probe as K8, staged as K7, traversal as K2
 from spla_tpu_torch.interop import csr_from_numpy
 from spla_tpu_torch.ops import spgemm as TG, spmv as TS
-from spla_tpu_torch.tools.graphs import indptr_of
+from spla_tpu_torch.tools.graphs import barbell_graph, indptr_of, path_graph
 
 pytestmark = pytest.mark.cuda
 
@@ -347,13 +347,36 @@ def _random(n=3000, seed=1):
     return a  # directed, some vertices unreachable
 
 
-@pytest.mark.parametrize("graph", ["road", "random"])
+def _isolated_source():
+    """A side-48 grid and one vertex with no entries, the source: the queue
+    empties in round 1."""
+    a = _road(48)
+    n = a.shape[0] + 1
+    return sp.csr_matrix((a.data, a.indices, np.append(a.indptr, a.nnz)), shape=(n, n)), n - 1
+
+
+RESIDENT_GRAPHS = {
+    "path": lambda: (path_graph(4096), 0),
+    "barbell": lambda: (barbell_graph(300, 8192, 8), 0),
+    "road": lambda: (_road(48), 0),
+    "random": lambda: (_random(), 0),
+    "isolated": _isolated_source,
+}
+
+
+@pytest.mark.parametrize("graph", list(RESIDENT_GRAPHS))
 def test_resident_matches_plain(dev, graph):
-    """Kernel 6 against its plain versions: depths and distances bitwise, BFS
-    rounds equal, the cap flag clear."""
-    a = _road(48) if graph == "road" else _random()
+    """Kernel 6 against its plain versions, from the graph's source and
+    from vertex n - 1: depths and distances bitwise, BFS stats (rounds,
+    capped, wide rounds) equal, SSSP's cap flag clear and its rounds at
+    most the plain version's.  The path's depths are arange + 1 and its
+    distances the f32 running sums of its weights; the barbell's rounds run
+    on the lead cluster and on the whole grid, in turn."""
+    a, source = RESIDENT_GRAPHS[graph]()
+    n = a.shape[0]
     A = F.csr_from_scipy(a, fill=np.float32(np.inf), device=dev)
-    for src in (0, a.shape[0] - 1):
+    plan = K6.resident_plan(A)
+    for src in (source, n - 1):
         v, stats = K6.bfs_resident(A, src)
         ref, ref_stats = K6.bfs_resident_plain(A, src)
         _assert_same(v, ref)
@@ -363,6 +386,20 @@ def test_resident_matches_plain(dev, graph):
         _assert_same(d, ref)
         assert stats.tolist()[1] == ref_stats.tolist()[1] == 0
         assert 0 < stats.tolist()[0] <= ref_stats.tolist()[0]
+        assert stats.tolist()[2] <= stats.tolist()[0]
+    v, stats = K6.bfs_resident(A, source)
+    rounds, _, wide = stats.tolist()
+    if graph == "path":
+        np.testing.assert_array_equal(v.cpu().numpy(), np.arange(1, n + 1))
+        w = a.diagonal(1).astype(np.float32)
+        d, _ = K6.sssp_resident(A, 0)
+        np.testing.assert_array_equal(d.cpu().numpy(), np.concatenate([[0], np.cumsum(w)]).astype(np.float32))
+        assert rounds == n and wide == 0
+    if graph == "barbell":
+        assert plan.wide_above == K6.LEAD_CTAS * K6.CTA_THREADS // plan.team
+        assert 0 < wide < rounds
+    if graph == "isolated":
+        assert stats.tolist() == [1, 0, 0] and int(v.sum()) == 1
 
 
 def test_resident_stops_a_negative_cycle(dev):
@@ -372,8 +409,26 @@ def test_resident_stops_a_negative_cycle(dev):
                       shape=(5, 5))
     A = F.csr_from_scipy(a, fill=np.float32(np.inf), device=dev)
     d, stats = K6.sssp_resident(A, 0)
-    assert stats.tolist() == [7, 1]
+    assert stats.tolist()[:2] == [7, 1]
     assert bool(torch.isinf(d[4])) and bool((d[:4] < 3).all())
+
+
+def test_resident_does_not_synchronize(dev):
+    """Once a matrix's plan is built, neither kind of kernel 6 waits for the
+    stream: the caller's one read of stats is the run's only host read."""
+    a = barbell_graph(100, 4096, 8)
+    A = F.csr_from_scipy(a, fill=np.float32(np.inf), device=dev)
+    K6.resident_plan(A)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        v, v_stats = K6.bfs_resident(A, 0)
+        d, d_stats = K6.sssp_resident(A, 0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    _assert_same(v, K6.bfs_resident_plain(A, 0)[0])
+    _assert_same(d, K6.sssp_resident_plain(A, 0)[0])
+    assert v_stats.tolist()[2] > 0
 
 
 def test_road_route_launches_kernel6(dev, monkeypatch):

@@ -22,6 +22,7 @@ import spla_tpu.formats as JF
 from spla_tpu_torch import Descriptor, algorithms as alg, formats as F
 from spla_tpu_torch.interop import from_spla_tpu, to_numpy
 from spla_tpu_torch.kernels import resident as K6
+from spla_tpu_torch.tools.graphs import barbell_graph, path_graph, random_graph
 
 INF = np.float32(np.inf)
 
@@ -101,8 +102,8 @@ def test_plain_matches_the_pallas_resident_kernel(graph, kind):
     A = F.csr_from_scipy(a, fill=INF, device="cpu")
     got, stats = (K6.bfs_resident_plain if bfs else K6.sssp_resident_plain)(A, 0)
     np.testing.assert_array_equal(to_numpy(got), want)
-    rounds, capped = stats.tolist()
-    assert capped == 0 and rounds >= 1
+    rounds, capped, wide = stats.tolist()
+    assert capped == 0 and rounds >= 1 and wide == 0
     if bfs:
         assert rounds == want.max()
         assert graph != "road16" or rounds == 31
@@ -262,3 +263,96 @@ def test_gate_reads_nothing_on_the_host_beyond_the_budget(kind, monkeypatch):
     _reset_stats()
     (alg.bfs if kind == "bfs" else alg.sssp)(A, 0, At=A)
     assert alg.STATS["level_loop"] == 1 and alg.STATS["resident"] == 0
+
+
+LEVEL_GRAPHS = {"path": lambda: path_graph(300), "barbell": lambda: barbell_graph(20, 200, 6)}
+
+
+def _rounds_numpy(a, source, sssp, wide_above):
+    """(rounds, capped, wide) of the synchronous queue traversal from
+    ``source`` in numpy: a round walks the rows of its queue; the next queue
+    holds the vertices it reached first (BFS) or lowered (SSSP, from the
+    distances at the round's start); wide counts the rounds whose queue
+    held more than ``wide_above`` vertices."""
+    n = a.shape[0]
+    d = np.full(n, np.inf, np.float32)
+    d[source] = 0
+    queue = np.array([source])
+    rounds = wide = 0
+    while queue.size and rounds < n + 2:
+        rounds += 1
+        wide += queue.size > wide_above
+        sub = a[queue].tocoo()
+        if sssp:
+            hits = np.full(n, np.inf, np.float32)
+            np.minimum.at(hits, sub.col, d[queue[sub.row]] + sub.data)
+            new = np.minimum(d, hits)
+            queue, d = np.flatnonzero(new < d), new
+        else:
+            queue = np.unique(sub.col[np.isinf(d[sub.col])])
+            d[queue] = rounds
+    return rounds, int(queue.size > 0), wide
+
+
+@pytest.mark.parametrize("graph", list(LEVEL_GRAPHS))
+@pytest.mark.parametrize("kind", ["bfs", "sssp"])
+def test_plain_wide_rounds_match_numpy(graph, kind, monkeypatch):
+    """The plain versions' stats against the numpy definition, with T cut
+    (kernel 6's CTAs of 4 threads: T = 32 / G) so that the small barbell's
+    blocks make wide rounds and its paths narrow ones."""
+    monkeypatch.setattr(K6, "CTA_THREADS", 4)
+    a = LEVEL_GRAPHS[graph]()
+    A = F.csr_from_scipy(a, fill=INF, device="cpu")
+    plan = K6.resident_plan(A)
+    assert plan.wide_above == K6.LEAD_CTAS * 4 // plan.team
+    _, stats = (K6.bfs_resident_plain if kind == "bfs" else K6.sssp_resident_plain)(A, 0)
+    want = _rounds_numpy(a, 0, kind == "sssp", plan.wide_above)
+    assert tuple(stats.tolist()) == want
+    rounds, _, wide = want
+    if graph == "path":
+        assert rounds == a.shape[0] and wide == 0
+    else:
+        assert 0 < wide < rounds
+
+
+def _team_numpy(nnz, n):
+    """The least power of two from 2 to 32 at or above half the mean out-degree."""
+    for g in (2, 4, 8, 16):
+        if g >= nnz / max(n, 1) / 2:
+            return g
+    return 32
+
+
+RANDOM_DENSE = sp.random(64, 64, density=0.9, random_state=1, format="csr", dtype=np.float32)
+PLAN_GRAPHS = {"path": lambda: path_graph(50), "road16": lambda: _road(16),
+               "random300": _random_symmetric, "random_deg16": lambda: random_graph(2000, 16),
+               "dense": lambda: RANDOM_DENSE, "empty": lambda: sp.csr_matrix((10, 10), dtype=np.float32)}
+
+
+@pytest.mark.parametrize("graph", list(PLAN_GRAPHS))
+def test_resident_plan_matches_definition(graph):
+    """G from kernel 1's rule on the mean out-degree, T the lead cluster's
+    teams; cached per indptr tensor."""
+    a = PLAN_GRAPHS[graph]()
+    A = F.csr_from_scipy(a, fill=INF, device="cpu")
+    plan = K6.resident_plan(A)
+    g = _team_numpy(a.nnz, a.shape[0])
+    assert plan == K6.ResidentPlan(g, K6.LEAD_CTAS * K6.CTA_THREADS // g)
+    assert K6.resident_plan(A) is plan
+    assert {"path": 2, "road16": 2, "random_deg16": 8, "dense": 32, "empty": 2}.get(graph, g) == g
+
+
+@pytest.mark.parametrize("graph", list(LEVEL_GRAPHS))
+@pytest.mark.parametrize("kind", ["bfs", "sssp"])
+def test_plain_levels_match_spla_tpu(graph, kind):
+    """Kernel 6's plain versions on the path and barbell graphs against
+    spla_tpu's bfs / sssp on the CPU (its XLA level loop)."""
+    a = LEVEL_GRAPHS[graph]()
+    bfs = kind == "bfs"
+    JA = JF.csr_from_scipy(a.astype(np.int32)) if bfs else JF.csr_from_scipy(a, fill=INF)
+    want = np.asarray((JALG.bfs if bfs else JALG.sssp)(JA, 0, At=JA).values)
+    A = F.csr_from_scipy(a, fill=INF, device="cpu")
+    got, stats = (K6.bfs_resident_plain if bfs else K6.sssp_resident_plain)(A, 0)
+    np.testing.assert_array_equal(to_numpy(got), want)
+    if bfs:
+        assert stats.tolist()[0] == want.max()
