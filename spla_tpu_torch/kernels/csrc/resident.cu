@@ -45,9 +45,11 @@
 //     from 2 to 32 at or above half the mean out-degree (kernel 1's rule,
 //     kernels/spmv.py team_size; an instance per G): 2 on the road grids,
 //     where a warp per vertex left 28 of 32 lanes idle, 8 on degree-16
-//     graphs.  Each lane issues kEntries column loads, then their vertex
-//     words, then their atomics, before the warp appends what it claimed
-//     with one atomicAdd on the tail;
+//     graphs.  Each lane issues kEntries column loads, then their atomics,
+//     before the warp appends what it claimed with one atomicAdd on the
+//     tail.  A wide round reads the vertex words between the two, so that
+//     its ~10^6 atomics go only to vertices they may change; a narrow round
+//     skips that link of its chain;
 //   * narrow rounds, whose queue holds at most T vertices, run on the lead
 //     group alone: the first thread block cluster of kLeadCtas CTAs, which
 //     ends each such round at the hardware cluster barrier.  T is the
@@ -77,7 +79,10 @@
 //     counts ~8x fewer arrivals than PR 3's.  The grid is asked once per
 //     instance and device;
 //   * one thread a CTA reads each round's count and hands it on through
-//     shared memory, so a round costs the L2 one read a CTA, not one a warp.
+//     shared memory, so a round costs the L2 one read a CTA, not one a warp;
+//     meanwhile every lead lane loads its first queue slot, whether or not
+//     the count will reach it, which takes another link off a narrow
+//     round's chain.
 // Vertices, queue slots and counters that other SMs write during the launch
 // are read through L2 (__ldcg); the CSR arrays are read-only (__ldg).
 // stats[0] = the rounds run, stats[1] = 1 when the cap stopped a non-empty
@@ -171,10 +176,14 @@ __device__ __forceinline__ void append(const bool (&want)[kEntries], const int32
 }
 
 // Walk round `round`'s queue of `count` vertices with `nwarps` warps, this
-// one `warp`: 32 / G vertices a warp at a time, a team of G lanes each.
-template <bool SSSP, int G>
+// one `warp`: 32 / G vertices a warp at a time, a team of G lanes each.  A
+// NARROW round (the lead cluster's) takes the vertex of this lane's first
+// queue slot from `first`, loaded beside the count, and claims or lowers
+// without reading the vertex word first; a wide one reads it first, so that
+// its many atomics go only to vertices it may change.
+template <bool SSSP, int G, bool NARROW>
 __device__ __forceinline__ void walk(const ResidentArgs& a, int32_t round, int32_t count,
-                                     long long warp, long long nwarps) {
+                                     long long warp, long long nwarps, int32_t first) {
   constexpr int kTeams = 32 / G;
   const int lane = threadIdx.x & 31;
   const int32_t* cur = (round & 1) ? a.q0 : a.q1;
@@ -187,7 +196,7 @@ __device__ __forceinline__ void walk(const ResidentArgs& a, int32_t round, int32
     int32_t k = 0, end = 0;
     float di = 0.0f;
     if (q < count) {
-      const int32_t i = __ldcg(cur + q);
+      const int32_t i = NARROW && s == warp * kTeams ? first : __ldcg(cur + q);
       k = __ldg(a.indptr + i) + (lane & (G - 1));
       end = __ldg(a.indptr + i + 1);
       if constexpr (SSSP) di = __ldcg(d + i);
@@ -203,10 +212,12 @@ __device__ __forceinline__ void walk(const ResidentArgs& a, int32_t round, int32
         j[u] = want[u] ? __ldg(a.cols + e) : 0;
         if constexpr (SSSP) nd[u] = want[u] ? di + __ldg(a.values + e) : 0.0f;
       }
+      if constexpr (!NARROW) {
 #pragma unroll
-      for (int u = 0; u < kEntries; ++u) {
-        if constexpr (SSSP) want[u] = want[u] && nd[u] < __ldcg(d + j[u]);
-        else want[u] = want[u] && __ldcg(v + j[u]) == 0;
+        for (int u = 0; u < kEntries; ++u) {
+          if constexpr (SSSP) want[u] = want[u] && nd[u] < __ldcg(d + j[u]);
+          else want[u] = want[u] && __ldcg(v + j[u]) == 0;
+        }
       }
 #pragma unroll
       for (int u = 0; u < kEntries; ++u) {
@@ -226,6 +237,7 @@ __device__ __forceinline__ void walk(const ResidentArgs& a, int32_t round, int32
 template <bool SSSP, int LOG2G>
 __global__ void __launch_bounds__(kResidentThreads, 1) resident_kernel(const ResidentArgs a) {
   constexpr int G = 1 << LOG2G;
+  constexpr int kTeams = 32 / G;
   __shared__ int32_t s_round, s_count;
   const bool lead = blockIdx.x < kLeadCtas;  // the first cluster
   const bool first = blockIdx.x == 0 && threadIdx.x == 0;
@@ -257,6 +269,9 @@ __global__ void __launch_bounds__(kResidentThreads, 1) resident_kernel(const Res
       round = s_round;
       if (round == kDone) break;
     }
+    int32_t first = 0;  // the lead cluster: this lane's first queue slot, beside the count
+    const long long slot = lead_warp * kTeams + (threadIdx.x & 31) / G;
+    if (lead && slot < a.n) first = __ldcg(((round & 1) ? a.q0 : a.q1) + slot);
     if (threadIdx.x == 0) s_count = __ldcg(a.cnt + (round - 1) % 3);
     __syncthreads();
     count = s_count;
@@ -275,10 +290,11 @@ __global__ void __launch_bounds__(kResidentThreads, 1) resident_kernel(const Res
       wide += wide_round;
     }
     if (wide_round) {
-      walk<SSSP, G>(a, round, count, grid_warp, grid_warps);
+      walk<SSSP, G, false>(a, round, count, grid_warp, grid_warps, 0);
       cg::this_grid().sync();
     } else {
-      walk<SSSP, G>(a, round, count, lead_warp, static_cast<long long>(kLeadCtas) * kWarps);
+      walk<SSSP, G, true>(a, round, count, lead_warp, static_cast<long long>(kLeadCtas) * kWarps,
+                          first);
       cg::this_cluster().sync();
     }
     on_grid = wide_round;

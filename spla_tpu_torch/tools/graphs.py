@@ -21,7 +21,7 @@ import numpy as np
 import scipy.sparse as sp
 
 __all__ = ["build_graph", "random_graph", "hub_graph", "powerlaw_graph", "indptr_of", "morton",
-           "road_grid", "road_graphs", "path_graph", "barbell_graph"]
+           "road_edges", "road_grid", "road_graphs", "path_graph", "barbell_graph"]
 
 HUB_ROWS, HUB_LEN = 3, 1 << 17
 
@@ -91,7 +91,7 @@ def morton(x, y):
     return (spread(x) | (spread(y) << 1)).astype(np.int64)
 
 
-def _road_edges(side):
+def road_edges(side):
     """Both directions of every edge of the side x side grid, Morton ids
     (bench_suite.py:239-249), as int32 (rows, cols)."""
     xs, ys = np.meshgrid(np.arange(side, dtype=np.int64), np.arange(side, dtype=np.int64),
@@ -111,7 +111,7 @@ def road_grid(side):
     side 3072 is road_big_bfs_gteps's graph, :269-319).  A side that is not
     a power of two leaves gaps among the Morton ids: their ranks close them
     (bench_suite.py:306-310)."""
-    rr, cc = _road_edges(side)
+    rr, cc = road_edges(side)
     ids = np.unique(rr)
     rr, cc = np.searchsorted(ids, rr).astype(np.int32), np.searchsorted(ids, cc).astype(np.int32)
     n = side * side
@@ -123,7 +123,7 @@ def road_graphs(side_bfs, side_sssp, seed=9):
     and its side-``side_sssp`` corner (a power of two, so its Morton ids
     come first) with weights uniform(0.1, 1.0) from ``seed``, symmetrized
     by maximum, for SSSP."""
-    rr, cc = _road_edges(side_bfs)
+    rr, cc = road_edges(side_bfs)
     n = side_bfs * side_bfs
     road = sp.csr_matrix((np.ones(rr.size, np.float32), (rr, cc)), shape=(n, n))
     nrs = side_sssp * side_sssp

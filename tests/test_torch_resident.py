@@ -22,40 +22,15 @@ import spla_tpu.formats as JF
 from spla_tpu_torch import Descriptor, algorithms as alg, formats as F
 from spla_tpu_torch.interop import from_spla_tpu, to_numpy
 from spla_tpu_torch.kernels import resident as K6
-from spla_tpu_torch.tools.graphs import barbell_graph, path_graph, random_graph
+from spla_tpu_torch.tools.graphs import barbell_graph, path_graph, random_graph, road_edges
 
 INF = np.float32(np.inf)
-
-
-def _morton(x, y):
-    """bench_suite.py:229."""
-    def spread(v):
-        v = (v | (v << 8)) & 0x00FF00FF
-        v = (v | (v << 4)) & 0x0F0F0F0F
-        v = (v | (v << 2)) & 0x33333333
-        v = (v | (v << 1)) & 0x55555555
-        return v
-    return (spread(x) | (spread(y) << 1)).astype(np.int64)
-
-
-def _road_edges(side):
-    """Both directions of every grid edge, Morton ids (bench_suite.py:239-249)."""
-    xs, ys = np.meshgrid(np.arange(side, dtype=np.int64), np.arange(side, dtype=np.int64),
-                         indexing="ij")
-    rows, cols = [], []
-    for dx, dy in ((1, 0), (0, 1)):
-        xs2, ys2 = xs[: side - dx, : side - dy], ys[: side - dx, : side - dy]
-        a = _morton(xs2.ravel(), ys2.ravel())
-        b = _morton((xs2 + dx).ravel(), (ys2 + dy).ravel())
-        rows += [a, b]
-        cols += [b, a]
-    return np.concatenate(rows), np.concatenate(cols)
 
 
 def _road(side, seed=9):
     """The road class of bench_suite.py:323-333 (``side`` a power of two):
     uniform(0.1, 1.0) weights, symmetrized by maximum."""
-    r, c = _road_edges(side)
+    r, c = road_edges(side)
     n = side * side
     w = sp.csr_matrix((np.random.default_rng(seed).uniform(0.1, 1.0, r.size).astype(np.float32),
                        (r, c)), shape=(n, n))
@@ -136,7 +111,7 @@ def test_public_resident_route_matches_spla_tpu(kind, monkeypatch):
 def test_directed_resident_pushes_over_A(kind):
     """A directed grid (edges towards larger Morton ids, plus a few random
     ones): the resident route pushes over CSR(A), spla_tpu pulls over Aᵀ."""
-    r, c = _road_edges(32)
+    r, c = road_edges(32)
     keep = r < c
     rng = np.random.default_rng(3)
     n = 32 * 32
@@ -299,7 +274,8 @@ def _rounds_numpy(a, source, sssp, wide_above):
 def test_plain_wide_rounds_match_numpy(graph, kind, monkeypatch):
     """The plain versions' stats against the numpy definition, with T cut
     (kernel 6's CTAs of 4 threads: T = 32 / G) so that the small barbell's
-    blocks make wide rounds and its paths narrow ones."""
+    blocks make wide rounds and its paths narrow ones; the public route
+    sums the wide rounds into ``STATS["wide_rounds"]``."""
     monkeypatch.setattr(K6, "CTA_THREADS", 4)
     a = LEVEL_GRAPHS[graph]()
     A = F.csr_from_scipy(a, fill=INF, device="cpu")
@@ -309,6 +285,9 @@ def test_plain_wide_rounds_match_numpy(graph, kind, monkeypatch):
     want = _rounds_numpy(a, 0, kind == "sssp", plan.wide_above)
     assert tuple(stats.tolist()) == want
     rounds, _, wide = want
+    _reset_stats()
+    (alg.bfs if kind == "bfs" else alg.sssp)(A, 0, At=A)
+    assert alg.STATS["resident"] == 1 and alg.STATS["wide_rounds"] == wide
     if graph == "path":
         assert rounds == a.shape[0] and wide == 0
     else:
