@@ -5,7 +5,8 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases:
   1. device: the card's name and power limit (no CUDA device: exit non-zero);
-  2. build: compile the CUDA kernels from kernels/csrc and print ptxas' lines;
+  2. build: compile the CUDA kernels from kernels/csrc and print ptxas' lines
+     and kernel 6's grid, cluster size and registers;
   3. each kernel against its plain PyTorch version, on the card, at the
      slice's shapes (tolerances stated in ``check_close``); kernel 1 every
      instance, with and without masks and swapped, and its structural
@@ -13,7 +14,9 @@ Phases:
      and n = 2^16 graphs whose degrees pick each team size and the hub
      path, printing each plan; kernel 6 (the
      whole BFS / SSSP in one cooperative launch) bitwise on the road grids
-     of bench_suite.py, from vertex 0 and from the far corner; kernel 7 (the
+     of bench_suite.py, from vertex 0 and from the far corner, on a barbell
+     graph (narrow and wide rounds in turn), on random_graph(2^18, 16) and,
+     against its closed form, on a path of 4,096 vertices; kernel 7 (the
      staged-stream SpMV) against its plain version and kernel 1, every f32
      instance, on kernel 1's graphs: at 2, 3 and 4 slots on the n = 2^21
      graph, the hub graph, a graph of one stage and the n = 2^16 graphs, at
@@ -47,6 +50,9 @@ Phases:
      products/s (bench_suite.py masked_spgemm_mprod_s), BFS / SSSP / PR /
      TC wall time; road BFS / SSSP walls on the resident route and on the
      level loop, with road_bfs_gteps and road_sssp_ms (bench_suite.py:265,346);
+     kernel 6's rounds, wide rounds and us a round on the road, path,
+     barbell and random 2^18 graphs, and on the side-3072 grid with the
+     byte budget lifted, checked against scipy;
      kernel 1 beside its first, warp-per-row design (kernel 8's warp_row),
      kernel 7 at 2, 3 and 4 slots, kernel 8's ring_copy, ring_fold and
      flat_gather, and cuSPARSE (one ``torch.sparse_csr_tensor @ x`` call,

@@ -178,12 +178,12 @@ __device__ __forceinline__ void append(const bool (&want)[kEntries], const int32
 // Walk round `round`'s queue of `count` vertices with `nwarps` warps, this
 // one `warp`: 32 / G vertices a warp at a time, a team of G lanes each.  A
 // NARROW round (the lead cluster's) takes the vertex of this lane's first
-// queue slot from `first`, loaded beside the count, and claims or lowers
+// queue slot from `head`, loaded beside the count, and claims or lowers
 // without reading the vertex word first; a wide one reads it first, so that
 // its many atomics go only to vertices it may change.
 template <bool SSSP, int G, bool NARROW>
 __device__ __forceinline__ void walk(const ResidentArgs& a, int32_t round, int32_t count,
-                                     long long warp, long long nwarps, int32_t first) {
+                                     long long warp, long long nwarps, int32_t head) {
   constexpr int kTeams = 32 / G;
   const int lane = threadIdx.x & 31;
   const int32_t* cur = (round & 1) ? a.q0 : a.q1;
@@ -196,7 +196,7 @@ __device__ __forceinline__ void walk(const ResidentArgs& a, int32_t round, int32
     int32_t k = 0, end = 0;
     float di = 0.0f;
     if (q < count) {
-      const int32_t i = NARROW && s == warp * kTeams ? first : __ldcg(cur + q);
+      const int32_t i = NARROW && s == warp * kTeams ? head : __ldcg(cur + q);
       k = __ldg(a.indptr + i) + (lane & (G - 1));
       end = __ldg(a.indptr + i + 1);
       if constexpr (SSSP) di = __ldcg(d + i);
@@ -269,9 +269,9 @@ __global__ void __launch_bounds__(kResidentThreads, 1) resident_kernel(const Res
       round = s_round;
       if (round == kDone) break;
     }
-    int32_t first = 0;  // the lead cluster: this lane's first queue slot, beside the count
+    int32_t head = 0;  // the lead cluster: the vertex in this lane's first queue slot
     const long long slot = lead_warp * kTeams + (threadIdx.x & 31) / G;
-    if (lead && slot < a.n) first = __ldcg(((round & 1) ? a.q0 : a.q1) + slot);
+    if (lead && slot < a.n) head = __ldcg(((round & 1) ? a.q0 : a.q1) + slot);
     if (threadIdx.x == 0) s_count = __ldcg(a.cnt + (round - 1) % 3);
     __syncthreads();
     count = s_count;
@@ -294,7 +294,7 @@ __global__ void __launch_bounds__(kResidentThreads, 1) resident_kernel(const Res
       cg::this_grid().sync();
     } else {
       walk<SSSP, G, true>(a, round, count, lead_warp, static_cast<long long>(kLeadCtas) * kWarps,
-                          first);
+                          head);
       cg::this_cluster().sync();
     }
     on_grid = wide_round;

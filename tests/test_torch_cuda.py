@@ -402,6 +402,23 @@ def test_resident_matches_plain(dev, graph):
         assert stats.tolist() == [1, 0, 0] and int(v.sum()) == 1
 
 
+@pytest.mark.parametrize("graph", ["path", "barbell"])
+def test_resident_every_round_wide(dev, graph):
+    """Kernel 6 with T = 0: every round on the whole grid, the first one
+    too, and the run ends right after a wide round.  The plain versions'
+    results; BFS's rounds equal and all wide."""
+    a, source = RESIDENT_GRAPHS[graph]()
+    A = F.csr_from_scipy(a, fill=np.float32(np.inf), device=dev)
+    v, stats = K6._launch_bfs(A, source, 0)
+    ref, ref_stats = K6.bfs_resident_plain(A, source)
+    _assert_same(v, ref)
+    rounds = ref_stats.tolist()[0]
+    assert stats.tolist() == [rounds, 0, rounds]
+    d, stats = K6._launch_sssp(A, source, 0)
+    _assert_same(d, K6.sssp_resident_plain(A, source)[0])
+    assert stats.tolist()[1] == 0 and stats.tolist()[0] == stats.tolist()[2]
+
+
 def test_resident_stops_a_negative_cycle(dev):
     """0 -> 1 -> 2 -> 0 weighs -1: kernel 6 stops after n + 2 rounds and
     flags it."""
