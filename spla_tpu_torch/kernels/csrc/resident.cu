@@ -37,9 +37,9 @@
 // vertices of degree <= 4, and its CSR and state fit the 50 MB L2.  A round
 // then costs its chain of dependent L2 accesses (the count, the queue slot,
 // indptr, cols, the vertex word, its atomic, the tail's atomic) plus the
-// barrier that ends it; the bytes (a few KB) do not matter.  PR 3's design
-// ended every round with a barrier of the whole grid, 1,056 CTAs of 256
-// threads, and paid ~4.5 us a round whatever its work (PERF.md).  This
+// barrier that ends it; the bytes (a few KB) do not matter.  The first
+// design ended every round with a barrier of the whole grid, 1,056 CTAs of
+// 256 threads, and paid ~4.5 us a round whatever its work (PERF.md).  This
 // design keeps one cooperative launch and splits the rounds by width:
 //   * a team of G lanes walks each queued vertex, G the least power of two
 //     from 2 to 32 at or above half the mean out-degree (kernel 1's rule,
@@ -76,8 +76,8 @@
 //     ~16 times slower than the grid;
 //   * fewer, larger CTAs: 1024 threads, at the occupancy limit in whole
 //     clusters (cudaOccupancyMaxActiveClusters), so a wide round's barrier
-//     counts ~8x fewer arrivals than PR 3's.  The grid is asked once per
-//     instance and device;
+//     counts ~8x fewer arrivals than the first design's.  The grid is
+//     asked once per instance and device;
 //   * one thread a CTA reads each round's count and hands it on through
 //     shared memory, so a round costs the L2 one read a CTA, not one a warp;
 //     meanwhile every lead lane loads its first queue slot, whether or not
