@@ -60,16 +60,21 @@
 //   * the other CTAs wait on an epoch word in global memory, one thread a
 //     CTA, with ld.acquire.gpu and a __nanosleep back-off, so that their
 //     polling does not crowd the lead group's L2 traffic.  When a round's
-//     count exceeds T after a narrow round, the lead group's first thread
-//     publishes the round there (a fence, then st.release.gpu: the lead
-//     group's plain queue stores, ordered by the cluster barrier, are then
+//     count exceeds T, the lead group's first thread publishes the round
+//     there (a fence, then st.release.gpu: the lead group's plain queue
+//     stores, ordered by the cluster or grid barrier before it, are then
 //     visible to every CTA); every CTA walks the queue, and a grid barrier
-//     ends the round.  Every thread that must meet a barrier decides from
-//     the same count, so no thread misses one: after a wide round every CTA
-//     reads the next count itself and either stays on the grid, goes back
-//     to waiting (narrow), or leaves (empty, or the cap).  When the lead
-//     group leaves, it publishes "done" (INT_MAX), and the waiting CTAs
-//     leave too;
+//     ends the round.  Every wide round is published, and a CTA outside the
+//     lead cluster goes back to waiting after each grid barrier: it reads a
+//     count only once the epoch names that count's round.  The lead zeroes
+//     a tail in the round after the one that read it, which for a wide
+//     round comes after the grid barrier the waiting CTA must join, so the
+//     count it reads cannot be zeroed or refilled under it however late it
+//     wakes.  (Reading the next count straight after a grid barrier would
+//     race: a CTA more than one narrow round late reads a zeroed or later
+//     tail, and then leaves early or meets a grid barrier alone.)  When the
+//     lead group leaves, it publishes "done" (INT_MAX), and the waiting
+//     CTAs leave too;
 //   * the wide path exists for graphs under the byte budget whose frontiers
 //     reach ~10^5 vertices, such as random_graph(2**18, 16), about 21 MB,
 //     which the gate sends here: one group of 8 SMs would walk such a round
@@ -261,9 +266,8 @@ __global__ void __launch_bounds__(kResidentThreads, 1) resident_kernel(const Res
   const int32_t cap = a.n + 2;
   int32_t round = 1;  // the queue holds round `round`'s vertices (BFS: depth `round`)
   int32_t count = 0, wide = 0;
-  bool on_grid = false;  // the last round ran on the whole grid
   for (;;) {
-    if (!lead && !on_grid) {  // wait for the next wide round, or the end
+    if (!lead) {  // wait for the next wide round, or the end
       if (threadIdx.x == 0) s_round = wait_epoch(a.cnt + 3, round);
       __syncthreads();
       round = s_round;
@@ -275,15 +279,13 @@ __global__ void __launch_bounds__(kResidentThreads, 1) resident_kernel(const Res
     if (threadIdx.x == 0) s_count = __ldcg(a.cnt + (round - 1) % 3);
     __syncthreads();
     count = s_count;
+    // only the lead cluster leaves here: a published round is non-empty
+    // and within the cap
     if (count == 0 || round > cap) break;
     const bool wide_round = count > a.wide_above;
-    if (!lead && !wide_round) {
-      on_grid = false;
-      continue;
-    }
     if (first) {
       a.cnt[(round + 1) % 3] = 0;  // read last round, filled next round
-      if (wide_round && !on_grid) {
+      if (wide_round) {
         __threadfence();
         st_release(a.cnt + 3, round);
       }
@@ -297,7 +299,6 @@ __global__ void __launch_bounds__(kResidentThreads, 1) resident_kernel(const Res
                           head);
       cg::this_cluster().sync();
     }
-    on_grid = wide_round;
     ++round;
   }
   if (first) {

@@ -23,6 +23,10 @@ caller reads ``stats`` once per run.  The plain versions walk the same
 queue in torch, synchronously, and read its length on the host every round;
 for SSSP their round count may exceed the kernel's, whose rounds see
 decreases made earlier in the same round.
+
+``_launch_bfs`` and ``_launch_sssp`` launch the kernel with T given as an
+argument: they are the entry for the card tests and for
+``tools/resident_levels.py --every-round-wide``, which run it with T = 0.
 """
 
 from __future__ import annotations

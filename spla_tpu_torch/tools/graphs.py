@@ -119,18 +119,17 @@ def road_grid(side):
 
 
 def road_graphs(side_bfs, side_sssp, seed=9):
-    """bench_suite.py:226-253 and 323-334: the side-``side_bfs`` grid for BFS,
+    """bench_suite.py:226-253 and 323-334: ``road_grid(side_bfs)`` for BFS,
     and its side-``side_sssp`` corner (a power of two, so its Morton ids
-    come first) with weights uniform(0.1, 1.0) from ``seed``, symmetrized
-    by maximum, for SSSP."""
+    come first and keep their ranks) with weights uniform(0.1, 1.0) from
+    ``seed``, drawn in ``road_edges`` order as bench_suite draws them,
+    symmetrized by maximum, for SSSP."""
     rr, cc = road_edges(side_bfs)
-    n = side_bfs * side_bfs
-    road = sp.csr_matrix((np.ones(rr.size, np.float32), (rr, cc)), shape=(n, n))
     nrs = side_sssp * side_sssp
     sel = (rr < nrs) & (cc < nrs)
     w = sp.csr_matrix((np.random.default_rng(seed).uniform(0.1, 1.0, int(sel.sum())).astype(
         np.float32), (rr[sel], cc[sel])), shape=(nrs, nrs))
-    return road, w.maximum(w.T).tocsr()
+    return road_grid(side_bfs), w.maximum(w.T).tocsr()
 
 
 def _symmetric(u, v, n, rng):

@@ -88,7 +88,7 @@ def time_run(kind, A, source, reps, every_round_wide=False):
     fn = run_fn(kind, A, source, every_round_wide)
     for _ in range(2):
         _, stats = fn()
-    rounds, capped, *wide = stats.tolist()
+    rounds, capped, wide = stats.tolist()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -98,7 +98,7 @@ def time_run(kind, A, source, reps, every_round_wide=False):
     end.synchronize()
     ms = start.elapsed_time(end) / reps
     return {"kind": kind, "n": A.shape[0], "nnz": int(A.cols.shape[0]), "rounds": rounds,
-            "capped": capped, "wide": wide[0] if wide else None, "ms": ms,
+            "capped": capped, "wide": wide, "ms": ms,
             "us_per_round": ms * 1e3 / rounds}
 
 

@@ -22,7 +22,8 @@ import spla_tpu.formats as JF
 from spla_tpu_torch import Descriptor, algorithms as alg, formats as F
 from spla_tpu_torch.interop import from_spla_tpu, to_numpy
 from spla_tpu_torch.kernels import resident as K6
-from spla_tpu_torch.tools.graphs import barbell_graph, path_graph, random_graph, road_edges
+from spla_tpu_torch.tools.graphs import (barbell_graph, path_graph, random_graph, road_edges,
+                                         road_graphs)
 
 INF = np.float32(np.inf)
 
@@ -335,3 +336,21 @@ def test_plain_levels_match_spla_tpu(graph, kind):
     np.testing.assert_array_equal(to_numpy(got), want)
     if bfs:
         assert stats.tolist()[0] == want.max()
+
+
+@pytest.mark.parametrize("sides", [(16, 8), (32, 16)])
+def test_road_graphs_match_bench_suite(sides):
+    """``road_graphs`` builds its BFS grid with ``road_grid``; both graphs
+    equal bench_suite.py:226-253,323-334's, which keep the Morton ids as
+    vertex ids and draw the corner's weights in edge order."""
+    side, side_s = sides
+    rr, cc = road_edges(side)
+    n, nrs = side * side, side_s * side_s
+    want = sp.csr_matrix((np.ones(rr.size, np.float32), (rr, cc)), shape=(n, n))
+    sel = (rr < nrs) & (cc < nrs)
+    w = sp.csr_matrix((np.random.default_rng(9).uniform(0.1, 1.0, int(sel.sum())).astype(np.float32),
+                       (rr[sel], cc[sel])), shape=(nrs, nrs))
+    want_w = w.maximum(w.T).tocsr()
+    road, road_w = road_graphs(side, side_s)
+    for got, ref in ((road, want), (road_w, want_w)):
+        assert got.shape == ref.shape and (got != ref).nnz == 0
