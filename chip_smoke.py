@@ -75,6 +75,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -97,8 +98,8 @@ from spla_tpu_torch.ops import (DISPATCH_STATS, count_mxmT_products, m_reduce, m
                                 mxmT_masked, mxv_masked, vxm_masked, vxm_masked_dense)
 from spla_tpu_torch.ops.spgemm import mxmT_masked_plain
 from spla_tpu_torch.tools import ab_spmv as AB, probe_spmv as PROBE, resident_levels as RL
-from spla_tpu_torch.tools.graphs import (HUB_ROWS, barbell_graph, build_graph, hub_graph, path_graph,
-                                         powerlaw_graph, random_graph, road_graphs, road_grid)
+from spla_tpu_torch.tools.graphs import (HUB_ROWS, barbell_graph, build_graph, hub_graph, hub_spgemm,
+                                         path_graph, powerlaw_graph, random_graph, road_graphs, road_grid)
 
 N_SPMV, DEG_SPMV = 1 << 21, 16      # bench.py:37 build_graph
 N_GRAPH, DEG_GRAPH = 1 << 20, 16    # bench_suite.py:24 random_graph, bench_suite.py:122
@@ -128,6 +129,8 @@ KERNELS = {
                      "spla_tpu/pallas/spmv.py:2789"),
     "mxmt_reduce": ("cuda", "spla_tpu_torch/kernels/csrc/mxmt.cu", "spla_tpu/pallas/mxmt.py:335"),
     "mxmt_masked": ("cuda", "spla_tpu_torch/kernels/csrc/mxmt.cu", "spla_tpu/pallas/mxmt.py:362"),
+    # kernels 4 and 5's walk with no probe of A: the floor of their gathers (a diagnostic)
+    "mxmt_gather": ("cuda", "spla_tpu_torch/kernels/csrc/mxmt.cu", "spla_tpu/pallas/mxmt.py:309"),
     "bfs_resident": ("cuda", "spla_tpu_torch/kernels/csrc/resident.cu", "spla_tpu/pallas/spmv.py:2709"),
     "sssp_resident": ("cuda", "spla_tpu_torch/kernels/csrc/resident.cu",
                       "spla_tpu/pallas/spmv.py:2716"),
@@ -142,7 +145,7 @@ KERNELS = {
 # the kernels each slice of phase 4 must launch
 PATHS = {"spmv": ("spmv_pull", "spmv_push", "level_update"), "spgemm": ("mxmt_reduce", "mxmt_masked"),
          "road": ("bfs_resident", "sssp_resident"), "staged": ("spmv_pull_staged",),
-         "probes": tuple(f"spmv_probe_{phase}" for phase in PROBE_PHASES)}
+         "probes": (*(f"spmv_probe_{phase}" for phase in PROBE_PHASES), "mxmt_gather")}
 
 
 def phase(title):
@@ -171,26 +174,6 @@ def valued(a, seed, lo, hi):
     f.data = rng.uniform(lo, hi, a.nnz).astype(np.float32)
     i.data = rng.integers(-1000, 1000, a.nnz, dtype=np.int32)
     return F.csr_from_scipy(f, device=DEVICE), F.csr_from_scipy(i, device=DEVICE)
-
-
-def hub_spgemm(n, seed=4):
-    """Rows of 8 random columns plus HUB_ROWS rows of HUB_LEN_TC, sorted by
-    column (the SpGEMM-T kernels need sorted rows); the mask holds random
-    entries and entries in the hubs' rows and columns."""
-    rng = np.random.default_rng(seed)
-    hubs = np.linspace(0, n - 1, HUB_ROWS).astype(np.int64)
-    rows = np.concatenate([rng.integers(0, n, 8 * n), np.repeat(hubs, HUB_LEN_TC)])
-    cols = rng.integers(0, n, rows.size)
-    a = sp.coo_matrix((np.ones(rows.size, np.float32), (rows, cols)), shape=(n, n)).tocsr()
-    a.sum_duplicates()
-    k = 1 << 16
-    mr = np.concatenate([rng.integers(0, n, k), np.repeat(hubs, 200), rng.integers(0, n, 600),
-                         np.repeat(hubs, HUB_ROWS)])
-    mc = np.concatenate([rng.integers(0, n, k), rng.integers(0, n, 600), np.repeat(hubs, 200),
-                         np.tile(hubs, HUB_ROWS)])
-    mask = sp.coo_matrix((np.ones(mr.size, np.float32), (mr, mc)), shape=(n, n)).tocsr()
-    mask.sum_duplicates()
-    return a, mask
 
 
 # ---------------------------------------------------------------- checks
@@ -404,10 +387,34 @@ def check_reduce(label, mask, A, om, sel, struct_only=False):
     return check_close(label, got, ref, exact, None if exact else ref)
 
 
+def mxmt_plan_line(mask, B):
+    p = K45.mxmt_plan(mask, B)
+    return (f"G = {p.team}, {p.nunits} units of at most {K45.UNIT} entries, {p.nhub} entries whose B row "
+            f"is over {K45.HUB_LEN} in {p.nchunks} chunks of at most {K45.HUB_CHUNK}")
+
+
+def mxmt_resources(mode, dtype, mul, add, log2g):
+    """ptxas' registers and shared memory of one csrc/mxmt.cu instance
+    (mxmt_kernel<mode, dtype, mul, add, log2 G>; dtype "i" or "f"), from the
+    build log."""
+    ints = [f"Li{'n' if v < 0 else ''}{abs(v)}E" for v in (mode, mul, add, log2g)]
+    name, found = f"mxmt_kernelI{ints[0]}{dtype}{''.join(ints[1:])}E", False
+    for line in build_log().splitlines():
+        if "Compiling entry function" in line:
+            found = name in line
+        elif found and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            smem = re.search(r"(\d+) bytes smem", line)
+            return f"{regs} registers, {smem.group(1) if smem else 0} bytes of shared memory"
+    raise AssertionError(f"{name} not in the build log")
+
+
 def check_mxmt(G):
     """Kernels 5 and 4, every instance, on the SpGEMM graph (n = 2^15) with a
-    mask that GTZERO partly deselects, and on the hub graph."""
-    errs = {"mxmt_reduce": 0.0, "mxmt_masked": 0.0}
+    mask that GTZERO partly deselects, and on the hub graph; the structural
+    instances with every stored entry selected (no selection) too.  Prints
+    each plan and the registers of the instances timed in phase 6."""
+    errs = {"mxmt_reduce": 0.0, "mxmt_masked": 0.0, "mxmt_gather": 0.0}
     for graph in ("T", "HT"):
         for dtype in ("f32", "i32"):
             T = op.FLOAT if dtype == "f32" else op.INT
@@ -422,15 +429,32 @@ def check_mxmt(G):
                     errs["mxmt_masked"] = max(errs["mxmt_masked"], e)
                 check_masked(f"mxmt_masked {graph} structural/{add} {dtype}", mask, A, None, oa,
                              valid, struct_only=True)
+                got = K45.mxmt_masked(mask, A, A, None, oa, oa.identity, None, True)
+                for g, r, name in zip(got, K45.mxmt_masked(mask, A, A, None, oa, oa.identity, valid, True),
+                                      ("out", "has")):
+                    check_close(f"mxmt_masked {graph} structural/{add} {dtype} no selection {name}", g, r, True)
             for mul in MULS:
                 e = check_reduce(f"mxmt_reduce {graph} {mul} {dtype}", mask, A, getattr(T, mul), sel)
                 errs["mxmt_reduce"] = max(errs["mxmt_reduce"], e)
-        check_reduce(f"mxmt_reduce {graph} structural", G[f"{graph}m_i32"], G[f"{graph}w_i32"],
-                     None, G[f"{graph}m_i32"].valid_mask(), struct_only=True)
+        mask, A = G[f"{graph}m_i32"], G[f"{graph}w_i32"]
+        check_reduce(f"mxmt_reduce {graph} structural", mask, A, None, mask.valid_mask(), struct_only=True)
+        check_close(f"mxmt_reduce {graph} structural no selection",
+                    K45.mxmt_reduce(mask, A, A, None, struct_only=True).reshape(1),
+                    K45.mxmt_reduce_plain(mask, A, A, None, struct_only=True).reshape(1), True)
+        for values in (True, False):
+            check_close(f"mxmt_gather {graph} values={values}", K8.mxmt_gather(mask, A, values),
+                        K8.mxmt_gather_plain(mask, A, values), True)
         what = (f"n={N_TC} degree {DEG_TC}" if graph == "T"
                 else f"hub graph n={N_HUB_TC}, {HUB_ROWS} rows of {HUB_LEN_TC} drawn columns")
-        print(f"kernels 4 and 5 on the {what}: 36 + 6 structural instances of kernel 5 and "
-              f"12 + 1 of kernel 4 match the plain versions", flush=True)
+        print(f"kernels 4 and 5 on the {what} (plan: {mxmt_plan_line(mask, A)}): 36 + 6 structural "
+              f"instances of kernel 5 and 12 + 1 of kernel 4 match the plain versions, and the gather floor "
+              f"its plain version", flush=True)
+    for label, mask in (("tc n=2^15", G["T"]), ("tc n=2^20", G["Aint"])):
+        print(f"kernels 4 and 5 plan on {label}: {mxmt_plan_line(mask, mask)}", flush=True)
+    log2g = K45.mxmt_plan(G["Aint"], G["Aint"]).team.bit_length() - 1
+    for what, key in (("kernel 4 structural", (0, "i", -1, 0)), ("kernel 4 MULT i32", (0, "i", 1, 0)),
+                      ("kernel 5 MULT/PLUS i32", (1, "i", 1, 0)), ("gather, values", (2, "i", 0, 0))):
+        print(f"{what} at G = {1 << log2g} (n=2^20's): {mxmt_resources(*key, log2g)}", flush=True)
     return errs
 
 
@@ -802,8 +826,12 @@ def check_staged_path(G, R):
 
 
 def run_probes(G):
-    """Phase 4's probes path: the probe_spmv tool at n = 2^21, degree 16."""
-    return {"probe": PROBE.run(N_SPMV, DEG_SPMV, PROBE_ITERS, device=DEVICE)}
+    """Phase 4's probes path: the probe_spmv tool at n = 2^21, degree 16, and
+    the gather floor of kernels 4 and 5 on tc's n = 2^20 call, with and
+    without values."""
+    A = G["Aint"]
+    return {"probe": PROBE.run(N_SPMV, DEG_SPMV, PROBE_ITERS, device=DEVICE),
+            "gather": {v: K8.mxmt_gather(A, A, v) for v in (True, False)}}
 
 
 def check_probes(G, R):
@@ -811,6 +839,10 @@ def check_probes(G, R):
     if set(ns) != set(PROBE.PROBES) or not all(np.isfinite(v) and v > 0 for v in ns.values()):
         raise AssertionError(f"probe_spmv: {ns}")
     print(f"probe_spmv: {len(ns)} probes timed", flush=True)
+    A = G["Aint"]
+    for v, got in R["gather"].items():
+        check_close(f"mxmt_gather n=2^20 values={v}", got, K8.mxmt_gather_plain(A, A, v), True)
+    print(f"mxmt_gather at n={N_GRAPH}: equal to its plain version with and without values", flush=True)
 
 
 # ---------------------------------------------------------------- timing
@@ -838,44 +870,81 @@ def paired_ms(kernel_fn, plain_fn, plain_reps=TIMED_RUNS):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def mxmt_bound(mask, A, values, sel=False, out_bytes=0):
+    """Kernels 4 and 5 (B = A) and the gather: each distinct input read once
+    (mask indptr and cols, the selection, A's indptr, cols and, with
+    ``values``, values; the gather no A but B's, which is A), the outputs
+    written once."""
+    ins = [mask.indptr, mask.cols, A.indptr, A.cols, *((A.values,) if values else ())]
+    nbytes = sum(t.numel() * t.element_size() for t in {t.data_ptr(): t for t in ins}.values())
+    return bound(nbytes + (mask.capacity if sel else 0) + out_bytes)
+
+
 def time_spgemm(G, card):
-    """Kernels 4 and 5 against their plain versions, masked_spgemm_mprod_s
-    (bench_suite.py:559: mask products over time) and tc wall time, at the
-    bench_suite size (n = 2^15) and on the traversal graph (n = 2^20)."""
+    """Kernels 4 and 5 against their plain versions, beside their gather
+    floor (``mxmt_gather``: the same walk, B's rows with no probe of A), on
+    the SpGEMM graph (n = 2^15) and the traversal graph (n = 2^20), mask =
+    A = B as tc calls them, and on the hub graph with its own mask; every
+    stored mask entry selected.  masked_spgemm_mprod_s (bench_suite.py:559:
+    mask products over time); the walls of tc at both sizes and of
+    mxmT_masked MULT/PLUS i32 at n = 2^20.  Returns the n = 2^20 rows."""
     times = {}
-    for size, A, reps in (("small", G["T"], TIMED_RUNS), ("big", G["Aint"], PLAIN_RUNS_BIG)):
+    graphs = (("n=2^15", G["T"], G["T"], TIMED_RUNS), ("n=2^20", G["Aint"], G["Aint"], PLAIN_RUNS_BIG),
+              ("hub", G["HTm_i32"], G["HTw_i32"], PLAIN_RUNS_BIG))
+    for label, mask, A, reps in graphs:
         n, nnz = A.shape[0], int(A.nnz)
-        prods = count_mxmT_products(A, A)
-        valid = A.valid_mask()
-        k, p = paired_ms(lambda: K45.mxmt_reduce(A, A, A, None, valid, True),
-                         lambda: K45.mxmt_reduce_plain(A, A, A, None, valid, True), reps)
-        # mask, A and B are one matrix: its indptr and cols once, the selection, the total
-        times["mxmt_reduce"] = (k, p, *bound(4 * (n + 1) + 5 * nnz + 8))
-        print(f"time mxmt_reduce structural (tc) n={n} nnz={nnz} products={prods}: kernel {k:.4f} ms "
-              f"({prods / k / 1e3:.1f} masked_spgemm_mprod_s), plain {p:.4f} ms "
-              f"({prods / p / 1e3:.1f} Mproducts/s) [{card}]", flush=True)
-        k, p = paired_ms(lambda: K45.mxmt_reduce(A, A, A, op.MULT_INT, valid),
-                         lambda: K45.mxmt_reduce_plain(A, A, A, op.MULT_INT, valid), reps)
-        print(f"time mxmt_reduce MULT i32 n={n}: kernel {k:.4f} ms ({prods / k / 1e3:.1f} "
-              f"Mproducts/s), plain {p:.4f} ms [{card}]", flush=True)
-        k, p = paired_ms(lambda: K45.mxmt_masked(A, A, A, op.MULT_INT, op.PLUS_INT, 0, valid),
-                         lambda: K45.mxmt_masked_plain(A, A, A, op.MULT_INT, op.PLUS_INT, 0, valid),
-                         reps)
-        # indptr, cols and values once, the selection; values and has written
-        times["mxmt_masked"] = (k, p, *bound(4 * (n + 1) + 14 * nnz))
-        print(f"time mxmt_masked MULT/PLUS i32 n={n}: kernel {k:.4f} ms ({prods / k / 1e3:.1f} "
-              f"Mproducts/s), plain {p:.4f} ms [{card}]", flush=True)
-        alg.tc(A)
-        walls = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            alg.tc(A)
-            walls.append((time.perf_counter() - t0) * 1e3)
-        print(f"time tc n={n} nnz={nnz}: wall {sorted(walls)[1]:.3f} ms (median of 3; runs "
-              f"{', '.join(f'{w:.3f}' for w in walls)}), {prods / sorted(walls)[1] / 1e3:.1f} "
+        prods = count_mxmT_products(mask, A)
+        rows = {
+            "mxmt_reduce structural": (lambda: K45.mxmt_reduce(mask, A, A, None, struct_only=True),
+                                       lambda: K45.mxmt_reduce_plain(mask, A, A, None, struct_only=True),
+                                       mxmt_bound(mask, A, False, out_bytes=8)),
+            "mxmt_reduce MULT i32": (lambda: K45.mxmt_reduce(mask, A, A, op.MULT_INT),
+                                     lambda: K45.mxmt_reduce_plain(mask, A, A, op.MULT_INT),
+                                     mxmt_bound(mask, A, True, out_bytes=8)),
+            "mxmt_masked MULT/PLUS i32": (
+                lambda: K45.mxmt_masked(mask, A, A, op.MULT_INT, op.PLUS_INT, 0),
+                lambda: K45.mxmt_masked_plain(mask, A, A, op.MULT_INT, op.PLUS_INT, 0),
+                mxmt_bound(mask, A, True, out_bytes=5 * mask.capacity)),
+            "mxmt_gather cols": (lambda: K8.mxmt_gather(mask, A, False),
+                                 lambda: K8.mxmt_gather_plain(mask, A, False),
+                                 mxmt_bound(mask, A, False, out_bytes=4 * mask.capacity)),
+            "mxmt_gather cols+values": (lambda: K8.mxmt_gather(mask, A, True),
+                                        lambda: K8.mxmt_gather_plain(mask, A, True),
+                                        mxmt_bound(mask, A, True, out_bytes=4 * mask.capacity)),
+        }
+        print(f"kernels 4 and 5 on {label} n={n} nnz={nnz} mask nnz={int(mask.nnz)} products={prods}: "
+              f"{mxmt_plan_line(mask, A)}", flush=True)
+        for name, (kfn, pfn, (bound_ms, bound_by)) in rows.items():
+            k, p = paired_ms(kfn, pfn, reps)
+            print(f"time {name} {label}: kernel {k:.4f} ms ({prods / k / 1e3:.1f} Mproducts/s), plain "
+                  f"{p:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) [{card}]", flush=True)
+            if label == "n=2^20":
+                key = {"mxmt_reduce structural": "mxmt_reduce", "mxmt_masked MULT/PLUS i32": "mxmt_masked",
+                       "mxmt_gather cols+values": "mxmt_gather"}.get(name)
+                if key:
+                    times[key] = (k, p, bound_ms, bound_by)
+        if label == "hub":
+            continue
+        wall = wall_ms(lambda: alg.tc(A))
+        print(f"time tc {label} nnz={nnz}: wall {wall:.4f} ms (median of 3), {prods / wall / 1e3:.1f} "
               f"masked_spgemm_mprod_s end to end [{card}]", flush=True)
+    A = G["Aint"]
+    wall = wall_ms(lambda: mxmT_masked(A, A, A, op.MULT_INT, op.PLUS_INT, op.GTZERO_INT, 0))
+    print(f"time mxmT_masked MULT/PLUS i32 n=2^20: wall {wall:.4f} ms (median of 3) [{card}]", flush=True)
     return times
+
+
+def wall_ms(fn):
+    """Median of 3 host-clock walls of a synchronized call, after one."""
+    fn()
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return sorted(walls)[1]
 
 
 def time_kernels(G, card):
@@ -1317,7 +1386,7 @@ def build_graphs():
     G["T"] = F.csr_from_scipy(t.astype(np.int32), device=DEVICE)
     G["Tw_f32"], G["Tw_i32"] = valued(t, 5, -2.0, 2.0)
     G["Tm_f32"], G["Tm_i32"] = signed_mask(t, np.float32, 6), signed_mask(t, np.int32, 6)
-    ah, mh = hub_spgemm(N_HUB_TC)
+    ah, mh = hub_spgemm(N_HUB_TC, hub_len=HUB_LEN_TC)
     G["HTw_f32"], G["HTw_i32"] = valued(ah, 7, 0.5, 1.5)
     G["HTm_f32"], G["HTm_i32"] = signed_mask(mh, np.float32, 8), signed_mask(mh, np.int32, 8)
     road, road_w = road_graphs(SIDE_BFS, SIDE_SSSP, SEED_ROAD)

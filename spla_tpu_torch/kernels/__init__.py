@@ -17,7 +17,9 @@
   ``csrc/spmv_probe.cu``): kernel 1's warp-per-row design before its
   redesign (phase ``warp_row``) and its parts, kernel 7's ring and its
   fold, and the row-free floors of the stream and of its x gathers; run by
-  ``tools/probe_spmv.py``.
+  ``tools/probe_spmv.py``; and ``mxmt_gather``, kernels 4 and 5's walk of
+  the mask with no probe of A (CUDA, ``csrc/mxmt.cu``): the floor of their
+  gathers of B's rows.
 
 Each wrapper runs its plain PyTorch version for CPU tensors, and launches
 its kernel or raises for CUDA tensors.  ``LAUNCHES`` counts the kernel
@@ -30,6 +32,7 @@ PROBE_PHASES = ("stream", "gather", "fullfix", "alu", "xgather", "ring_copy", "r
                 "ring_fold")  # kernel 8's phases, in the order of enum ProbePhase
 
 LAUNCHES = {"spmv_pull": 0, "spmv_push": 0, "level_update": 0, "mxmt_reduce": 0, "mxmt_masked": 0,
+            "mxmt_gather": 0,
             "bfs_resident": 0, "sssp_resident": 0, "spmv_pull_staged": 0,
             **{f"spmv_probe_{phase}": 0 for phase in PROBE_PHASES}}
 

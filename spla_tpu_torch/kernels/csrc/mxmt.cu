@@ -2,274 +2,563 @@
 // selected mask entry e = (i, j), the products mul(A[i,k], B[j,k]) over the
 // columns k of B's row j that A's row i holds:
 //   kernel 4, mxmt_reduce:  total  = sum of every product of every entry;
-//   kernel 5, mxmt_masked:  out[e] = init (+) fold_(+) products(e), has[e].
+//   kernel 5, mxmt_masked:  out[e] = init (+) fold_(+) products(e), has[e];
+// and a diagnostic instance, mxmt_gather: the same walk with no probe of A,
+//   out[e] = XOR of B's row j (its columns, and its value bits).
 //
 // Replaces spla_tpu/pallas/mxmt.py pallas_mxmT_reduce (:335, kernel
 // _make_reduce_kernel :235) and pallas_mxmT_job_partials (:362, kernel
 // _make_partials_kernel :260) with the segment fold after it
 // (spla_tpu/ops/spgemm.py:711).  The TPU has no gather, so a host packer
 // (native/pairpack.cpp) cuts every mask entry into 8 x 8 chunk-pair jobs
-// that the TPU kernel compares all-pairs.  On Hopper a lane reads A.cols[p]
-// itself, so these kernels take the plain CSR of A and B and the mask's
-// (row, col) lists, and nothing is built on the host.
+// that the TPU kernel compares all-pairs.  On Hopper a lane reads B.cols[t]
+// itself, so these kernels take the plain CSR of the mask, A and B, and a
+// launch plan built on the device (kernels/mxmt.py mxmt_plan).
 //
-// Bound: latency of dependent loads.  Per mask entry a warp reads two indptr
-// pairs and B's row j (coalesced), then each lane bisects A's row i:
-// ~log2(deg_i) dependent probes into the same 64-128 bytes for the whole
-// warp, which L1 serves after the first.  Design against that bound:
-//   * one warp per mask entry, lanes striding B's row j; the lower-bound
-//     search makes the first of equal columns in A's row match, as
-//     spla_tpu.utils.search.rowwise_find does, and every element of B's row
-//     count, duplicates included;
-//   * the selection (op_select of the mask value, and the mask's stored
-//     range) comes in as one byte per entry: an unselected entry reads
-//     nothing else;
-//   * kernel 4 keeps a lane-local sum over a grid-stride loop of entries,
-//     folds it with shuffles and shared memory, and adds one 64-bit atomic
-//     per block.  i32 products sum in int64 (two's complement, as uint64),
-//     hits of the structural instance in int64, f32 products in f64, so the
-//     2^24 exactness gates of the TPU path (spla_tpu/algorithms.py:749-760)
-//     have no counterpart here.  The f64 atomics add in no fixed order;
-//   * kernel 5 folds each entry in the add monoid with shuffles and lane 0
-//     writes out[e] and has[e]; the op layer compacts.
-// At degree 16 half of a warp's lanes idle; sub-warp groups sized from the
-// mean degree, or a merge-path split of hub rows, are later work.  Rows of
-// 1e5 entries are correct but walked by one warp.
+// Bound: the latency of dependent loads, then the gathers of B's rows.  Per
+// mask entry a lane reads the mask column, B's two indptr words and B's row
+// j, and each element of that row bisects A's row i (~log2(deg) dependent
+// probes).  The gathers of B's rows are what no design avoids (mxmt_gather
+// measures them).  The design keeps many entries in flight and takes the
+// probes off L1/L2:
+//   * the mask is walked by rows, in units of at most kUnitEntries entries
+//     of one row (a row of more is cut into several units), a warp a unit;
+//     a lane loads one entry's selection byte, mask column and B indptr
+//     pair (the one-pass streams with the streaming hint) beside the warp's
+//     loads of A's row i, which it stages in shared memory once for every
+//     entry of the unit: a probe is a shared-memory access.  A row of A
+//     longer than kStage entries is probed in global memory instead;
+//   * teams of G lanes walk the unit's entries, 32 / G at once, G a power of
+//     two from 2 to 32 picked from the mean length of the B rows the mask
+//     reaches (kernel 1's rule; an instance per G).  A lane issues kUnroll
+//     loads of B's columns (and values) ahead, then bisects for all kUnroll
+//     at once: the bisection's trip count depends only on A's row length,
+//     so its steps interleave;
+//   * a B row longer than hub_len entries is cut into chunks of HUB_CHUNK
+//     entries, a CTA each, first in the launch; the CTA stages A's row i in
+//     the shared memory of all its warps (kChunkStage entries).  Kernel 4
+//     adds the chunks' sums into its total; kernel 5 folds an entry's
+//     chunks in chunk order (semiring.cuh fold_chunks), so MIN, MAX and
+//     integer results are bitwise those of the plain version; the gather
+//     XORs them in with atomics;
+//   * the lower-bound search makes the first of equal columns in A's row
+//     match, as spla_tpu.utils.search.rowwise_find does, and every element
+//     of B's row counts, duplicates included;
+//   * kernel 4 keeps a lane-local sum over a grid-stride loop of units,
+//     folds it with shuffles and shared memory and adds one 64-bit atomic
+//     per CTA: i32 products sum in int64 (two's complement, as uint64), hits
+//     of the structural instance in int64, f32 products in f64 (the f64
+//     atomics add in no fixed order).  Its structural instance takes no
+//     selection: every stored entry (the units end at indptr[m]).
+// PR 2's design (a warp per entry, lanes striding B's row and each
+// bisecting A's row in global memory, one entry in flight per warp) left
+// half the lanes idle at degree 16 and paid ~1.6 us of dependent loads per
+// entry; it was replaced, not kept.
 //
-// Coverage (compile time): kernel 5, mul in {PLUS, MULT, FIRST, SECOND, MIN,
-// MAX} x add in {PLUS, MIN, MAX} x {f32, i32}, and a structural instance per
-// (add, dtype) whose every hit's product is 1; kernel 4, the 6 muls x
-// {f32, i32} and a structural instance that counts hits and reads no values.
+// Coverage (compile time), each at G in {2, 4, 8, 16, 32}: kernel 5, mul in
+// {PLUS, MULT, FIRST, SECOND, MIN, MAX} x add in {PLUS, MIN, MAX} x {f32,
+// i32}, and a structural instance per (add, dtype) whose every hit's
+// product is 1; kernel 4, the 6 muls x {f32, i32} and a structural
+// instance that counts hits and reads no values; the gather with and
+// without values.
 
+#include <cstring>
 #include <type_traits>
 
 #include "semiring.cuh"
 
 namespace {
 
-constexpr int kStruct = -1;            // MUL of the structural instances
-constexpr unsigned kReduceMaxBlocks = 132 * 16;
+enum Mode : int { kReduce = 0, kMasked = 1, kGather = 2 };  // kept equal to kernels/mxmt.py MODES
 
-// First position in cols[lo, hi) whose column is not below key.
-__device__ __forceinline__ int32_t lower_bound(const int32_t* __restrict__ cols, int32_t lo,
-                                               int32_t hi, int32_t key) {
-  while (lo < hi) {
-    const int32_t mid = lo + ((hi - lo) >> 1);
-    if (cols[mid] < key) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
-}
-
-template <int MUL, typename T>
-__device__ __forceinline__ T product(const T* __restrict__ a_vals, int32_t p,
-                                     const T* __restrict__ b_vals, int32_t t) {
-  if constexpr (MUL == kStruct) {
-    return T(1);
-  } else {
-    return apply_op<MUL>(a_vals[p], b_vals[t]);
-  }
-}
-
-}  // namespace
-
-struct MxmtOperands {
-  const int32_t* mrow;
-  const int32_t* mcol;
-  const uint8_t* sel;
-  const int32_t* a_indptr;
-  const int32_t* a_cols;
-  const void* a_vals;
-  const int32_t* b_indptr;
-  const int32_t* b_cols;
-  const void* b_vals;
-};
-
-// The operands of one launch; kernels 4 and 5 take it by value.
-inline MxmtOperands mxmt_operands(const void* mrow, const void* mcol, const void* sel,
-                                  const void* a_indptr, const void* a_cols, const void* a_vals,
-                                  const void* b_indptr, const void* b_cols, const void* b_vals) {
-  return {static_cast<const int32_t*>(mrow), static_cast<const int32_t*>(mcol),
-          static_cast<const uint8_t*>(sel), static_cast<const int32_t*>(a_indptr),
-          static_cast<const int32_t*>(a_cols), a_vals, static_cast<const int32_t*>(b_indptr),
-          static_cast<const int32_t*>(b_cols), b_vals};
-}
-
-template <typename T, int MUL, int ADD>
-__global__ void __launch_bounds__(kThreads)
-mxmt_masked_kernel(long long cap, MxmtOperands o, const T* __restrict__ init, T* __restrict__ out,
-                   uint8_t* __restrict__ has) {
-  const long long e = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (e >= cap) return;  // e is uniform across the warp
-  const T init_v = *init;
-  if (!o.sel[e]) {
-    if (lane == 0) {
-      out[e] = init_v;
-      has[e] = 0;
-    }
-    return;
-  }
-  const T* __restrict__ a_vals = static_cast<const T*>(o.a_vals);
-  const T* __restrict__ b_vals = static_cast<const T*>(o.b_vals);
-  const int32_t i = o.mrow[e], j = o.mcol[e];
-  const int32_t a_lo = o.a_indptr[i], a_hi = o.a_indptr[i + 1];
-  const int32_t b_end = o.b_indptr[j + 1];
-  T acc = monoid_identity<ADD, T>();
-  bool any = false;
-  for (int32_t t = o.b_indptr[j] + lane; t < b_end; t += 32) {
-    const int32_t k = o.b_cols[t];
-    const int32_t p = lower_bound(o.a_cols, a_lo, a_hi, k);
-    if (p < a_hi && o.a_cols[p] == k) {
-      acc = apply_op<ADD>(acc, product<MUL>(a_vals, p, b_vals, t));
-      any = true;
-    }
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc = apply_op<ADD>(acc, __shfl_xor_sync(kFullMask, acc, off));
-  any = __any_sync(kFullMask, any);
-  if (lane == 0) {
-    out[e] = any ? apply_op<ADD>(init_v, acc) : init_v;
-    has[e] = any;
-  }
-}
+constexpr int kStruct = -1;          // MUL of the structural instances (and of the gather without values)
+constexpr int kWarps = kThreads / 32;
+constexpr int kUnitEntries = 32;     // entries of a unit, a lane each; kept equal to kernels/mxmt.py UNIT
+constexpr int kStage = 256;          // A-row entries a warp stages; kept equal to kernels/mxmt.py A_STAGE
+constexpr int kChunkStage = kStage * kWarps;  // A-row entries a chunk CTA stages
+constexpr int kUnroll = 4;           // B loads a lane issues before it probes
+constexpr unsigned kMaxUnitCtas = 132 * 8;
 
 // i32 products and hits sum as uint64 (two's complement int64); f32 in f64.
 template <typename T, int MUL>
 using ReduceAcc = std::conditional_t<std::is_same_v<T, float> && MUL != kStruct, double,
                                      unsigned long long>;
 
-template <typename T, int MUL>
-__global__ void __launch_bounds__(kThreads)
-mxmt_reduce_kernel(long long cap, MxmtOperands o, ReduceAcc<T, MUL>* __restrict__ total) {
-  using Acc = ReduceAcc<T, MUL>;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long long warps = static_cast<long long>(gridDim.x) * (kThreads / 32);
-  const T* __restrict__ a_vals = static_cast<const T*>(o.a_vals);
+template <int MODE, typename T, int MUL>
+using AccOf = std::conditional_t<MODE == kGather, uint32_t,
+                                 std::conditional_t<MODE == kMasked, T, ReduceAcc<T, MUL>>>;
+
+template <int MODE, int ADD, typename Acc>
+__device__ __forceinline__ Acc acc_identity() {
+  if constexpr (MODE == kMasked) return monoid_identity<ADD, Acc>();
+  else return Acc(0);
+}
+
+template <int MODE, int ADD, typename Acc>
+__device__ __forceinline__ Acc combine(Acc a, Acc b) {
+  if constexpr (MODE == kMasked) return apply_op<ADD>(a, b);
+  else if constexpr (MODE == kGather) return a ^ b;
+  else return a + b;
+}
+
+template <int MODE, int ADD, typename Acc, typename T>
+__device__ __forceinline__ void accumulate(Acc& acc, T v) {
+  if constexpr (MODE == kMasked) {
+    acc = apply_op<ADD>(acc, v);
+  } else if constexpr (std::is_same_v<Acc, double>) {
+    acc += static_cast<double>(v);
+  } else {
+    acc += static_cast<unsigned long long>(static_cast<long long>(v));
+  }
+}
+
+template <bool GLOBAL, typename T>
+__device__ __forceinline__ T load(const T* p) {
+  if constexpr (GLOBAL) return __ldg(p);
+  else return *p;
+}
+
+__device__ __forceinline__ uint32_t bits_of(float v) { return __float_as_uint(v); }
+__device__ __forceinline__ uint32_t bits_of(int32_t v) { return static_cast<uint32_t>(v); }
+
+// For each u, the first position in a[0, n) whose column is not below
+// key[u] (n if none); n >= 1.  The trip count depends only on n, so the
+// kUnroll searches advance in step and a team's lanes stay together.
+template <bool GLOBAL>
+__device__ __forceinline__ void lower_bounds(const int32_t* __restrict__ a, int32_t n,
+                                             const int32_t (&key)[kUnroll], int32_t (&pos)[kUnroll]) {
+  int32_t base[kUnroll];
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) base[u] = 0;
+  for (int32_t len = n; len > 1;) {
+    const int32_t half = len >> 1;
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) base[u] = load<GLOBAL>(a + base[u] + half) < key[u] ? base[u] + half : base[u];
+    len -= half;
+  }
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) pos[u] = base[u] + (load<GLOBAL>(a + base[u]) < key[u]);
+}
+
+template <int MUL, typename T>
+__device__ __forceinline__ T product(T a, T b) {
+  if constexpr (MUL == kStruct) return T(1);
+  else return apply_op<MUL>(a, b);
+}
+
+}  // namespace
+
+struct MxmtArgs {
+  long long m, cap;  // mask rows, mask capacity
+  const int32_t* m_indptr;
+  const int32_t* m_cols;
+  const uint8_t* sel;  // null: every stored entry
+  const int32_t *a_indptr, *a_cols;
+  const void* a_vals;
+  const int32_t *b_indptr, *b_cols;
+  const void* b_vals;
+};
+
+// The launch shape (kernels/mxmt.py mxmt_plan).  Unit u walks entries
+// [unit_e0[u], min(unit_e0[u] + kUnitEntries, m_indptr[unit_row[u] + 1]))
+// of mask row unit_row[u].  Hub h (the h-th stored entry whose B row is
+// longer than hub_len) has chunks chunk_first[h] .. chunk_first[h + 1] - 1;
+// chunk b walks entries [chunk_c0[b], chunk_c1[b]) of B for mask entry
+// chunk_entry[b] of row chunk_row[b].
+struct MxmtPlan {
+  const int32_t *unit_row, *unit_e0;  // [nunits]
+  const int32_t *chunk_entry, *chunk_row, *chunk_c0, *chunk_c1, *chunk_hub;  // [nchunks]
+  const int32_t* chunk_first;         // [nhub + 1]
+  long long nunits, nhub, nchunks;
+  int log2g, hub_len;
+  void* part;          // [nchunks] T: each chunk's fold (kernel 5, hubs of several chunks)
+  uint8_t* part_any;   // [nchunks]
+  int32_t* done;       // [nhub]: chunks of each hub finished; zero between launches
+};
+
+// What a launch writes: kernel 5 out/has (and its init), kernel 4 total,
+// the gather out (32-bit words, zero at launch where B has hub rows).
+template <typename T>
+struct Sink {
+  const T* init;  // on the device, or null: then init_value
+  T init_value;
+  void* out;
+  uint8_t* has;
+  void* total;
+
+  __device__ T init_of() const { return init != nullptr ? *init : init_value; }
+};
+
+template <typename T, bool VALUES>
+struct MxmtShared {
+  int32_t cols[kWarps * kStage];             // a warp's staged row at cols + warp * kStage
+  T vals[VALUES ? kWarps * kStage : 1];
+  int32_t lo[kWarps][kUnitEntries], hi[kWarps][kUnitEntries];  // each unit entry's B range
+};
+
+// Fold this lane's share of B's entries [t, end) (t, t + stride, ...)
+// against A's row a[0, na) (staged or in global memory; na >= 1 unless the
+// gather, which reads no A).  The one routine of all three modes.
+template <int MODE, typename T, int MUL, int ADD, bool GLOBAL>
+__device__ __forceinline__ void walk(const MxmtArgs& o, const int32_t* __restrict__ a,
+                                     const T* __restrict__ av, int32_t na, int32_t t, int32_t end,
+                                     int stride, AccOf<MODE, T, MUL>& acc, bool& any) {
+  constexpr bool kValues = MUL != kStruct;
   const T* __restrict__ b_vals = static_cast<const T*>(o.b_vals);
-  Acc acc = 0;
-  for (long long e = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5; e < cap;
-       e += warps) {
-    if (!o.sel[e]) continue;  // uniform across the warp
-    const int32_t i = o.mrow[e], j = o.mcol[e];
-    const int32_t a_lo = o.a_indptr[i], a_hi = o.a_indptr[i + 1];
-    const int32_t b_end = o.b_indptr[j + 1];
-    for (int32_t t = o.b_indptr[j] + lane; t < b_end; t += 32) {
-      const int32_t k = o.b_cols[t];
-      const int32_t p = lower_bound(o.a_cols, a_lo, a_hi, k);
-      if (p < a_hi && o.a_cols[p] == k) {
-        const T v = product<MUL>(a_vals, p, b_vals, t);
-        if constexpr (std::is_same_v<Acc, double>) {
-          acc += static_cast<double>(v);
+  for (; t < end; t += kUnroll * stride) {
+    int32_t k[kUnroll];
+    T bv[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int32_t e = t + u * stride;
+      k[u] = e < end ? __ldg(o.b_cols + e) : -1;
+      if constexpr (kValues) bv[u] = e < end ? __ldg(b_vals + e) : T(0);
+    }
+    if constexpr (MODE == kGather) {
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (k[u] >= 0) {
+          acc ^= static_cast<uint32_t>(k[u]);
+          if constexpr (kValues) acc ^= bits_of(bv[u]);
+        }
+      }
+    } else {
+      int32_t p[kUnroll];
+      lower_bounds<GLOBAL>(a, na, k, p);
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (k[u] >= 0 && p[u] < na && load<GLOBAL>(a + p[u]) == k[u]) {
+          T av_p = T(0);
+          if constexpr (kValues) av_p = load<GLOBAL>(av + p[u]);
+          accumulate<MODE, ADD>(acc, product<MUL>(av_p, bv[u]));
+          any = true;
+        }
+      }
+    }
+    if (end - t <= kUnroll * stride) break;  // no overflow of t past end
+  }
+}
+
+// One unit, walked by one warp: stage A's row, load each entry's B range,
+// then teams of G lanes fold the entries.  Kernel 4 leaves its sums in
+// lane_acc; kernels 5 and the gather write each entry.
+template <int MODE, typename T, int MUL, int ADD, int LOG2G>
+__device__ __forceinline__ void unit_walk(const MxmtArgs& o, const MxmtPlan& p, const Sink<T>& s,
+                                          MxmtShared<T, MUL != kStruct>& sh, long long u, int warp,
+                                          int lane, AccOf<MODE, T, MUL>& lane_acc) {
+  using Acc = AccOf<MODE, T, MUL>;
+  constexpr bool kValues = MUL != kStruct;
+  constexpr int g = 1 << LOG2G;
+  const T* __restrict__ a_vals = static_cast<const T*>(o.a_vals);
+  const int32_t row = p.unit_row[u], e0 = p.unit_e0[u];
+  const int32_t row_end = o.m_indptr[row + 1];
+  int32_t a_lo = 0, na = 0;  // the gather reads no A
+  if constexpr (MODE != kGather) {
+    a_lo = o.a_indptr[row];
+    na = o.a_indptr[row + 1] - a_lo;
+  }
+  const int32_t ne = min(kUnitEntries, row_end - e0);
+  // a lane an entry: its selection, column and B range, issued beside A's row
+  const int32_t e = e0 + lane;
+  int32_t lo = 0, hi = 0;
+  bool empty = false;  // selected with no product, or not selected: written here
+  if (lane < ne) {
+    const bool selected = o.sel == nullptr || __ldcs(o.sel + e);
+    const int32_t j = __ldcs(o.m_cols + e);
+    if (selected) {
+      lo = __ldg(o.b_indptr + j);
+      hi = __ldg(o.b_indptr + j + 1);
+    }
+    if (hi - lo > p.hub_len) {
+      lo = hi = 0;  // the entry's chunk CTAs write it
+    } else {
+      empty = hi == lo || (MODE != kGather && na == 0);
+    }
+  }
+  const bool staged = MODE != kGather && na <= kStage;
+  int32_t* __restrict__ s_cols = sh.cols + warp * kStage;
+  T* __restrict__ s_vals = sh.vals + (kValues ? warp * kStage : 0);
+  if (staged) {
+    for (int32_t k = lane; k < na; k += 32) {
+      s_cols[k] = __ldg(o.a_cols + a_lo + k);
+      if constexpr (kValues) s_vals[k] = __ldg(a_vals + a_lo + k);
+    }
+  }
+  if (empty) {
+    lo = hi = 0;
+    if constexpr (MODE == kMasked) {
+      static_cast<T*>(s.out)[e] = s.init_of();
+      s.has[e] = 0;
+    } else if constexpr (MODE == kGather) {
+      static_cast<uint32_t*>(s.out)[e] = 0;
+    }
+  }
+  sh.lo[warp][lane] = lo;
+  sh.hi[warp][lane] = hi;
+  __syncwarp();
+  const int team = lane >> LOG2G, sub = lane & (g - 1);
+  const unsigned tmask = g == 32 ? kFullMask : ((1u << g) - 1u) << (lane & ~(g - 1));
+  const int32_t* a = staged ? s_cols : o.a_cols + a_lo;
+  const T* av = staged ? s_vals : a_vals + a_lo;
+  for (int q = team; q < ne; q += 32 >> LOG2G) {
+    const int32_t blo = sh.lo[warp][q], bhi = sh.hi[warp][q];
+    if (blo == bhi) continue;  // uniform across the team
+    Acc acc = acc_identity<MODE, ADD, Acc>();
+    bool any = false;
+    if (staged) {
+      walk<MODE, T, MUL, ADD, false>(o, a, av, na, blo + sub, bhi, g, acc, any);
+    } else {
+      walk<MODE, T, MUL, ADD, true>(o, a, av, na, blo + sub, bhi, g, acc, any);
+    }
+    if constexpr (MODE == kReduce) {
+      lane_acc += acc;
+    } else {
+#pragma unroll
+      for (int off = g >> 1; off > 0; off >>= 1) acc = combine<MODE, ADD>(acc, __shfl_xor_sync(tmask, acc, off));
+      any = (__ballot_sync(tmask, any) & tmask) != 0;
+      if (sub == 0) {
+        if constexpr (MODE == kMasked) {
+          const T init_v = s.init_of();
+          static_cast<T*>(s.out)[e0 + q] = any ? apply_op<ADD>(init_v, acc) : init_v;
+          s.has[e0 + q] = any;
         } else {
-          acc += static_cast<unsigned long long>(static_cast<long long>(v));
+          static_cast<uint32_t*>(s.out)[e0 + q] = acc;
         }
       }
     }
   }
+  __syncwarp();  // the unit's shared rows are read before the next unit stages its own
+}
+
+// This CTA's hub chunk: a stretch of a long B row for one mask entry.
+template <int MODE, typename T, int MUL, int ADD>
+__device__ __forceinline__ void chunk_walk(const MxmtArgs& o, const MxmtPlan& p, const Sink<T>& s,
+                                           MxmtShared<T, MUL != kStruct>& sh,
+                                           AccOf<MODE, T, MUL>& lane_acc) {
+  using Acc = AccOf<MODE, T, MUL>;
+  constexpr bool kValues = MUL != kStruct;
+  __shared__ Acc red[kWarps];
+  __shared__ bool red_any[kWarps];
+  const int32_t b = static_cast<int32_t>(blockIdx.x);
+  const int32_t e = p.chunk_entry[b];
+  if (o.sel != nullptr && !o.sel[e]) return;  // uniform: the unit walk writes init
+  const int32_t row = p.chunk_row[b], c0 = p.chunk_c0[b], c1 = p.chunk_c1[b];
+  const T* __restrict__ a_vals = static_cast<const T*>(o.a_vals);
+  int32_t a_lo = 0, na = 0;
+  if constexpr (MODE != kGather) {
+    a_lo = o.a_indptr[row];
+    na = o.a_indptr[row + 1] - a_lo;
+  }
+  Acc acc = acc_identity<MODE, ADD, Acc>();
+  bool any = false;
+  const int tid = threadIdx.x;
+  if (MODE == kGather || na > 0) {
+    const bool staged = MODE != kGather && na <= kChunkStage;
+    if (staged) {
+      for (int32_t k = tid; k < na; k += kThreads) {
+        sh.cols[k] = __ldg(o.a_cols + a_lo + k);
+        if constexpr (kValues) sh.vals[k] = __ldg(a_vals + a_lo + k);
+      }
+      __syncthreads();
+      walk<MODE, T, MUL, ADD, false>(o, sh.cols, sh.vals, na, c0 + tid, c1, kThreads, acc, any);
+    } else {
+      walk<MODE, T, MUL, ADD, true>(o, o.a_cols + a_lo, a_vals + a_lo, na, c0 + tid, c1, kThreads, acc,
+                                    any);
+    }
+  }
+  if constexpr (MODE == kReduce) {
+    lane_acc += acc;
+    return;
+  } else {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(kFullMask, acc, off);
-  __shared__ Acc warp_sums[kThreads / 32];
-  if (lane == 0) warp_sums[warp] = acc;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    Acc s = 0;
+    for (int off = 16; off > 0; off >>= 1) acc = combine<MODE, ADD>(acc, __shfl_xor_sync(kFullMask, acc, off));
+    any = __any_sync(kFullMask, any);
+    const int lane = tid & 31, warp = tid >> 5;
+    if (lane == 0) {
+      red[warp] = acc;
+      red_any[warp] = any;
+    }
+    __syncthreads();
+    if (tid != 0) return;
+    Acc v = red[0];
+    bool hit = red_any[0];
+    for (int w = 1; w < kWarps; ++w) {
+      v = combine<MODE, ADD>(v, red[w]);
+      hit = hit || red_any[w];
+    }
+    if constexpr (MODE == kGather) {
+      atomicXor(static_cast<unsigned int*>(s.out) + e, v);
+    } else {
+      const int32_t hub = p.chunk_hub[b];
+      const int32_t first = p.chunk_first[hub], count = p.chunk_first[hub + 1] - first;
+      if (count > 1 && !fold_chunks<ADD>(static_cast<T*>(p.part), p.part_any, p.done, hub, b, first, count,
+                                         v, hit)) {
+        return;  // another chunk of the entry folds them all
+      }
+      const T init_v = s.init_of();
+      static_cast<T*>(s.out)[e] = hit ? apply_op<ADD>(init_v, v) : init_v;
+      s.has[e] = hit;
+    }
+  }
+}
+
+template <int MODE, typename T, int MUL, int ADD, int LOG2G>
+__global__ void __launch_bounds__(kThreads)
+mxmt_kernel(MxmtArgs o, MxmtPlan p, Sink<T> s) {
+  using Acc = AccOf<MODE, T, MUL>;
+  __shared__ MxmtShared<T, MUL != kStruct> sh;
+  Acc lane_acc = 0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (blockIdx.x < p.nchunks) {
+    chunk_walk<MODE, T, MUL, ADD>(o, p, s, sh, lane_acc);
+    if constexpr (MODE != kReduce) return;
+  } else {
+    const long long ctas = static_cast<long long>(gridDim.x) - p.nchunks;
+    const long long cta = static_cast<long long>(blockIdx.x) - p.nchunks;
+    for (long long u = cta * kWarps + warp; u < p.nunits; u += ctas * kWarps) {
+      unit_walk<MODE, T, MUL, ADD, LOG2G>(o, p, s, sh, u, warp, lane, lane_acc);
+    }
+    if constexpr (MODE == kMasked) {  // capacity padding past indptr[m]
+      const T init_v = s.init_of();
+      for (long long e = o.m_indptr[o.m] + cta * kThreads + threadIdx.x; e < o.cap; e += ctas * kThreads) {
+        static_cast<T*>(s.out)[e] = init_v;
+        s.has[e] = 0;
+      }
+    }
+  }
+  if constexpr (MODE == kReduce) {
+    __shared__ Acc warp_sums[kWarps];
 #pragma unroll
-    for (int w = 0; w < kThreads / 32; ++w) s += warp_sums[w];
-    atomicAdd(total, s);
+    for (int off = 16; off > 0; off >>= 1) lane_acc += __shfl_xor_sync(kFullMask, lane_acc, off);
+    if (lane == 0) warp_sums[warp] = lane_acc;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      Acc total = 0;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) total += warp_sums[w];
+      if (total != Acc(0)) atomicAdd(static_cast<Acc*>(s.total), total);
+    }
   }
 }
 
 namespace {
 
-struct MaskedLaunch {
-  long long cap;
-  MxmtOperands o;
+struct MxmtLaunch {
+  MxmtArgs o;
+  MxmtPlan p;
   const void* init;
-  void *out, *has;
+  uint32_t init_bits;
+  void *out, *has, *total;
   cudaStream_t stream;
 
+  template <int MODE, typename T, int MUL, int ADD, int LOG2G>
+  void launch() {
+    static_assert(sizeof(T) == sizeof(init_bits), "init travels as its 32 bits");
+    T init_value;
+    memcpy(&init_value, &init_bits, sizeof(T));
+    const Sink<T> s{static_cast<const T*>(init), init_value, out, static_cast<uint8_t*>(has), total};
+    const long long want = (p.nunits + kWarps - 1) / kWarps;
+    const unsigned unit_ctas = static_cast<unsigned>(want < 1 ? 1 : (want < kMaxUnitCtas ? want : kMaxUnitCtas));
+    mxmt_kernel<MODE, T, MUL, ADD, LOG2G><<<static_cast<unsigned>(p.nchunks) + unit_ctas, kThreads, 0, stream>>>(
+        o, p, s);
+  }
+
+  template <int MODE, typename T, int MUL, int ADD>
+  void run_mode() {
+    switch (p.log2g) {
+      case 1: launch<MODE, T, MUL, ADD, 1>(); break;
+      case 2: launch<MODE, T, MUL, ADD, 2>(); break;
+      case 3: launch<MODE, T, MUL, ADD, 3>(); break;
+      case 4: launch<MODE, T, MUL, ADD, 4>(); break;
+      default: launch<MODE, T, MUL, ADD, 5>();
+    }
+  }
+
+  // the functor semiring.cuh's dispatch calls: kernel 5's (mul, add, dtype)
   template <typename T, int MUL, int ADD>
   void run() {
-    mxmt_masked_kernel<T, MUL, ADD><<<blocks_for_warps(cap), kThreads, 0, stream>>>(
-        cap, o, static_cast<const T*>(init), static_cast<T*>(out), static_cast<uint8_t*>(has));
-  }
-};
-
-struct ReduceLaunch {
-  long long cap;
-  MxmtOperands o;
-  void* total;
-  cudaStream_t stream;
-
-  template <typename T, int MUL>
-  void run() {
-    const unsigned blocks = blocks_for_warps(cap) < kReduceMaxBlocks ? blocks_for_warps(cap)
-                                                                     : kReduceMaxBlocks;
-    mxmt_reduce_kernel<T, MUL><<<blocks, kThreads, 0, stream>>>(
-        cap, o, static_cast<ReduceAcc<T, MUL>*>(total));
+    run_mode<kMasked, T, MUL, ADD>();
   }
 };
 
 template <typename T>
-bool dispatch_reduce_mul(int mul, ReduceLaunch& launch) {
+bool dispatch_reduce_mul(int mul, MxmtLaunch& launch) {
   switch (mul) {
-    case KC_PLUS: launch.run<T, KC_PLUS>(); return true;
-    case KC_MULT: launch.run<T, KC_MULT>(); return true;
-    case KC_FIRST: launch.run<T, KC_FIRST>(); return true;
-    case KC_SECOND: launch.run<T, KC_SECOND>(); return true;
-    case KC_MIN: launch.run<T, KC_MIN>(); return true;
-    case KC_MAX: launch.run<T, KC_MAX>(); return true;
+    case KC_PLUS: launch.run_mode<kReduce, T, KC_PLUS, KC_PLUS>(); return true;
+    case KC_MULT: launch.run_mode<kReduce, T, KC_MULT, KC_PLUS>(); return true;
+    case KC_FIRST: launch.run_mode<kReduce, T, KC_FIRST, KC_PLUS>(); return true;
+    case KC_SECOND: launch.run_mode<kReduce, T, KC_SECOND, KC_PLUS>(); return true;
+    case KC_MIN: launch.run_mode<kReduce, T, KC_MIN, KC_PLUS>(); return true;
+    case KC_MAX: launch.run_mode<kReduce, T, KC_MAX, KC_PLUS>(); return true;
     default: return false;
   }
 }
 
-}  // namespace
-
-extern "C" int spla_mxmt_masked(int mul, int add, int dtype, int structural, long long cap,
-                                const void* mrow, const void* mcol, const void* sel,
-                                const void* a_indptr, const void* a_cols, const void* a_vals,
-                                const void* b_indptr, const void* b_cols, const void* b_vals,
-                                const void* init, void* out, void* has, void* stream) {
-  if (cap == 0) return 0;
-  MaskedLaunch launch{cap,
-                      mxmt_operands(mrow, mcol, sel, a_indptr, a_cols, a_vals, b_indptr, b_cols, b_vals),
-                      init, out, has, static_cast<cudaStream_t>(stream)};
-  bool ok;
-  if (!structural) {
-    ok = dispatch<true>(mul, add, dtype, launch);
-  } else if (dtype == DT_F32) {
-    ok = dispatch_add<true, float, kStruct>(add, launch);
-  } else if (dtype == DT_I32) {
-    ok = dispatch_add<true, int32_t, kStruct>(add, launch);
-  } else {
-    ok = false;
+// The structural kernel 5 instances: the functor dispatch_add calls.
+struct StructLaunch {
+  MxmtLaunch& l;
+  template <typename T, int MUL, int ADD>
+  void run() {
+    l.run_mode<kMasked, T, kStruct, ADD>();
   }
-  if (!ok) return -1;
-  return static_cast<int>(cudaGetLastError());
+};
+
+bool plan_ok(const MxmtPlan& p) {
+  return p.log2g >= 1 && p.log2g <= 5 && p.hub_len >= 0 && p.nunits >= 0 && p.nhub >= 0 &&
+         p.nchunks >= p.nhub;
 }
 
-extern "C" int spla_mxmt_reduce(int mul, int dtype, int structural, long long cap,
-                                const void* mrow, const void* mcol, const void* sel,
-                                const void* a_indptr, const void* a_cols, const void* a_vals,
-                                const void* b_indptr, const void* b_cols, const void* b_vals,
-                                void* total, void* stream) {
+}  // namespace
+
+extern "C" int spla_mxmt(int mode, int mul, int add, int dtype, int structural, long long m, long long cap,
+                         const void* m_indptr, const void* m_cols, const void* sel, const void* a_indptr,
+                         const void* a_cols, const void* a_vals, const void* b_indptr, const void* b_cols,
+                         const void* b_vals, int log2g, int hub_len, long long nunits, const void* unit_row,
+                         const void* unit_e0, long long nhub, long long nchunks, const void* chunk_entry,
+                         const void* chunk_row, const void* chunk_c0, const void* chunk_c1,
+                         const void* chunk_hub, const void* chunk_first, void* part, void* part_any, void* done,
+                         const void* init, unsigned init_bits, void* out, void* has, void* total, void* stream) {
   if (cap == 0) return 0;
-  ReduceLaunch launch{cap,
-                      mxmt_operands(mrow, mcol, sel, a_indptr, a_cols, a_vals, b_indptr, b_cols, b_vals),
-                      total, static_cast<cudaStream_t>(stream)};
-  bool ok;
-  if (structural) {
-    launch.run<int32_t, kStruct>();  // reads no values: one instance serves every dtype
-    ok = true;
-  } else if (dtype == DT_F32) {
-    ok = dispatch_reduce_mul<float>(mul, launch);
-  } else if (dtype == DT_I32) {
-    ok = dispatch_reduce_mul<int32_t>(mul, launch);
+  const MxmtArgs o{m, cap, static_cast<const int32_t*>(m_indptr), static_cast<const int32_t*>(m_cols),
+                   static_cast<const uint8_t*>(sel), static_cast<const int32_t*>(a_indptr),
+                   static_cast<const int32_t*>(a_cols), a_vals, static_cast<const int32_t*>(b_indptr),
+                   static_cast<const int32_t*>(b_cols), b_vals};
+  const MxmtPlan p{static_cast<const int32_t*>(unit_row), static_cast<const int32_t*>(unit_e0),
+                   static_cast<const int32_t*>(chunk_entry), static_cast<const int32_t*>(chunk_row),
+                   static_cast<const int32_t*>(chunk_c0), static_cast<const int32_t*>(chunk_c1),
+                   static_cast<const int32_t*>(chunk_hub), static_cast<const int32_t*>(chunk_first),
+                   nunits, nhub, nchunks, log2g, hub_len, part, static_cast<uint8_t*>(part_any),
+                   static_cast<int32_t*>(done)};
+  if (!plan_ok(p)) return static_cast<int>(cudaErrorInvalidValue);
+  MxmtLaunch launch{o, p, init, init_bits, out, has, total, static_cast<cudaStream_t>(stream)};
+  bool ok = true;
+  if (mode == kMasked) {
+    StructLaunch st{launch};
+    if (!structural) {
+      ok = dispatch<true>(mul, add, dtype, launch);
+    } else if (dtype == DT_F32) {
+      ok = dispatch_add<true, float, kStruct>(add, st);
+    } else if (dtype == DT_I32) {
+      ok = dispatch_add<true, int32_t, kStruct>(add, st);
+    } else {
+      ok = false;
+    }
+  } else if (mode == kReduce) {
+    if (structural) {
+      launch.run_mode<kReduce, int32_t, kStruct, KC_PLUS>();  // reads no values: one instance for every dtype
+    } else if (dtype == DT_F32) {
+      ok = dispatch_reduce_mul<float>(mul, launch);
+    } else if (dtype == DT_I32) {
+      ok = dispatch_reduce_mul<int32_t>(mul, launch);
+    } else {
+      ok = false;
+    }
+  } else if (mode == kGather) {
+    if (structural) {
+      launch.run_mode<kGather, int32_t, kStruct, KC_PLUS>();  // columns only
+    } else {
+      launch.run_mode<kGather, int32_t, KC_PLUS, KC_PLUS>();  // columns and the values' 32 bits
+    }
   } else {
     ok = false;
   }

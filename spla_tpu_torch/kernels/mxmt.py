@@ -2,7 +2,8 @@
 (``csrc/mxmt.cu``), each with its plain version.
 
 For mask entries e = (i, j) = ``(mask.row_ids[e], mask.cols[e])`` with
-``sel[e]`` (the caller's ``op_select(mask.values) & mask.valid_mask()``)::
+``sel[e]`` (the caller's ``op_select(mask.values) & mask.valid_mask()``;
+``sel`` None selects every stored entry)::
 
     products(e) = { mul(A[i,k], B[j,k]) : k = B.cols[t], t in row j of B,
                     k found in row i of A }
@@ -20,23 +21,44 @@ treats every hit's product as 1 and reads no values.
 
 Kernel 4 sums i32 products and hits in int64 and f32 products in float64;
 its result is a 0-d tensor of that dtype.
+
+The kernels' launch is shaped by ``mxmt_plan``, built on the device from
+the mask and B at their first CUDA call and cached per tensor: the mask's
+rows cut into units of at most ``UNIT`` entries (a warp each, which stages
+A's row in shared memory when it holds at most ``A_STAGE`` entries), the
+team size G of kernel 1's rule over the B rows the mask reaches, and the
+entries whose B row is longer than ``HUB_LEN``, cut into chunks of
+``HUB_CHUNK`` B entries, a CTA each.  Building it reads the host once.  No
+argument or setting chooses any of it.  The CUDA source's header says what
+bounds the kernels and how they are laid out.
 """
 
 from __future__ import annotations
+
+import weakref
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from ..containers import CsrMatrix
+from ..formats import WeakIdCache
 from ..utils.primitives import expand_schedule
 from ..utils.search import bisect_steps, rowwise_find
 from ..utils.segments import segment_fold
 from . import LAUNCHES
 from .build import check, load_library
-from .spmv import DTYPE_CODES, PULL_ADDS, _mask, _on_cpu, _require_cuda
+from .spmv import (DTYPE_CODES, PULL_ADDS, _init_arg, _mask, _on_cpu, _ptr, _require_cuda,
+                   hub_scratch, team_size)
 
 __all__ = [
     "PRODUCT_CHUNK",
+    "UNIT",
+    "A_STAGE",
+    "HUB_LEN",
+    "HUB_CHUNK",
+    "MxmtPlan",
+    "mxmt_plan",
     "masked_codes",
     "reduce_codes",
     "mxmt_masked",
@@ -48,6 +70,13 @@ __all__ = [
 # the plain versions expand at most this many product slots at once: the
 # mask is cut into ranges of whole entries, so no entry's fold is split
 PRODUCT_CHUNK = 1 << 26
+
+UNIT = 32  # mask entries a warp walks at once, a lane each (csrc/mxmt.cu kUnitEntries)
+A_STAGE = 256  # entries of A's row a warp stages in shared memory (kStage); longer: global memory
+HUB_LEN = 256  # a B row of more entries is walked in chunks, a CTA each
+HUB_CHUNK = 2048  # entries of a long B row a CTA walks
+
+_PLANS = WeakIdCache()  # (mask.indptr ref, B.indptr ref, MxmtPlan) per mask.cols tensor
 
 
 def masked_codes(op_mul, op_add, dtype, struct_only=False):
@@ -119,7 +148,7 @@ def _intersect(mask, A, B, sel, deg, e0, e1, cap, steps):
     return src, a_pos.long(), b_pos, slot_valid & found & sel[e0:e1][srcl]
 
 
-def mxmt_masked_plain(mask: CsrMatrix, A: CsrMatrix, B: CsrMatrix, op_mul, op_add, init, sel,
+def mxmt_masked_plain(mask: CsrMatrix, A: CsrMatrix, B: CsrMatrix, op_mul, op_add, init, sel=None,
                       struct_only=False, products_cap=None):
     """Plain PyTorch version of kernel 5 for any semiring: the expand / find /
     fold of ``spla_tpu/ops/spgemm.py`` ``_mxmT_numeric``.  Returns
@@ -127,6 +156,7 @@ def mxmt_masked_plain(mask: CsrMatrix, A: CsrMatrix, B: CsrMatrix, op_mul, op_ad
     one pass of that many slots (later slots drop, as in spla_tpu); by
     default the exact count, in ranges of at most PRODUCT_CHUNK."""
     init = torch.as_tensor(init, dtype=A.values.dtype, device=A.values.device)
+    sel = mask.valid_mask() if sel is None else sel
     deg, ranges, steps = _ranges_and_steps(mask, A, B, products_cap)
     outs, hass = [], []
     for e0, e1, cap in ranges:
@@ -145,11 +175,12 @@ def _acc_dtype(dtype, struct_only):
     return torch.float64 if dtype.is_floating_point and not struct_only else torch.int64
 
 
-def mxmt_reduce_plain(mask: CsrMatrix, A: CsrMatrix, B: CsrMatrix, op_mul, sel,
+def mxmt_reduce_plain(mask: CsrMatrix, A: CsrMatrix, B: CsrMatrix, op_mul, sel=None,
                       struct_only=False):
     """Plain version of kernel 4: the same expansion, every product summed in
     int64 (integers, and hits when ``struct_only``) or float64 (floats)."""
     acc = _acc_dtype(A.values.dtype, struct_only)
+    sel = mask.valid_mask() if sel is None else sel
     deg, ranges, steps = _ranges_and_steps(mask, A, B, None)
     total = torch.zeros((), dtype=acc, device=A.values.device)
     for e0, e1, cap in ranges:
@@ -162,6 +193,86 @@ def mxmt_reduce_plain(mask: CsrMatrix, A: CsrMatrix, B: CsrMatrix, op_mul, sel,
     return total
 
 
+# ---------------------------------------------------------------- the plan
+
+
+@dataclass(frozen=True)
+class MxmtPlan:
+    """The launch shape of kernels 4 and 5 (and of the gather) for one mask
+    and B, on their device.  Unit u walks mask entries ``[unit_e0[u],
+    min(unit_e0[u] + UNIT, indptr[unit_row[u] + 1]))`` of row
+    ``unit_row[u]``, a warp a unit; a row of more than UNIT entries has
+    several units.  The hub entries are the stored entries whose B row is
+    longer than ``HUB_LEN``, in entry order; hub h has chunks
+    ``chunk_first[h]`` .. ``chunk_first[h + 1] - 1``, chunk b walking B's
+    entries ``[chunk_c0[b], chunk_c1[b])`` for mask entry ``chunk_entry[b]``
+    of row ``chunk_row[b]``, a CTA each.  ``team`` is G, the lanes that walk
+    an entry.  Where a hub has several chunks, ``part``/``part_any``/``done``
+    are kernel 5's scratch (``spmv.hub_scratch``)."""
+
+    unit_row: torch.Tensor  # int32 [nunits]
+    unit_e0: torch.Tensor  # int32 [nunits]
+    chunk_entry: torch.Tensor  # int32 [nchunks]
+    chunk_row: torch.Tensor  # int32 [nchunks]
+    chunk_c0: torch.Tensor  # int32 [nchunks]
+    chunk_c1: torch.Tensor  # int32 [nchunks]
+    chunk_hub: torch.Tensor  # int32 [nchunks]
+    chunk_first: torch.Tensor  # int32 [nhub + 1]
+    nunits: int
+    nhub: int
+    nchunks: int
+    team: int
+    part: torch.Tensor | None = None
+    part_any: torch.Tensor | None = None
+    done: torch.Tensor | None = None
+
+
+def mxmt_plan(mask: CsrMatrix, B: CsrMatrix) -> MxmtPlan:
+    """The plan of ``mask`` against ``B``, built on their device and cached
+    per (mask.cols, mask.indptr, B.indptr) tensors; the unit, hub and chunk
+    counts and the walked B entries are read on the host once, at the first
+    build.  G is kernel 1's ``team_size`` over the B rows the stored
+    non-hub entries reach."""
+    key = (id(mask.indptr), id(B.indptr))
+    hit = _PLANS.get(mask.cols, key)
+    if hit is not None and hit[0]() is mask.indptr and hit[1]() is B.indptr:
+        return hit[2]
+    device = mask.cols.device
+    m, cap = mask.shape[0], mask.capacity
+    mip, bip = mask.indptr.long(), B.indptr.long()
+    row_units = torch.div(mip[1:] - mip[:-1] + UNIT - 1, UNIT, rounding_mode="floor")
+    e = torch.arange(cap, device=device)
+    stored = e < mip[m]
+    j = mask.cols.long().clamp(0, max(B.shape[0] - 1, 0))
+    blen = torch.where(stored, (bip[1:] - bip[:-1])[j], 0)
+    hub = blen > HUB_LEN
+    chunks = torch.where(hub, torch.div(blen + HUB_CHUNK - 1, HUB_CHUNK, rounding_mode="floor"), 0)
+    nunits, nhub, nchunks, walked, entries = (int(v) for v in torch.stack(
+        [row_units.sum(), hub.sum(), chunks.sum(), torch.where(hub, 0, blen).sum(),
+         (stored & ~hub).sum()]).tolist())
+    unit_row = torch.repeat_interleave(torch.arange(m, device=device), row_units, output_size=nunits)
+    unit_first = torch.cumsum(row_units, 0) - row_units
+    unit_e0 = mip[unit_row] + (torch.arange(nunits, device=device) - unit_first[unit_row]) * UNIT
+    # each hub entry's rank among the hub entries; the others go to slot nhub, dropped
+    slot = torch.where(hub, torch.cumsum(hub, 0) - 1, nhub)
+    ents = torch.empty(nhub + 1, dtype=torch.long, device=device)
+    ents.scatter_(0, slot, e)
+    per_hub = chunks[ents[:nhub]]
+    chunk_first = torch.zeros(nhub + 1, dtype=torch.long, device=device)
+    torch.cumsum(per_hub, 0, out=chunk_first[1:])
+    chunk_hub = torch.repeat_interleave(torch.arange(nhub, device=device), per_hub, output_size=nchunks)
+    chunk_entry = ents[chunk_hub]
+    jc = j[chunk_entry]
+    chunk_c0 = bip[jc] + (torch.arange(nchunks, device=device) - chunk_first[chunk_hub]) * HUB_CHUNK
+    chunk_c1 = torch.minimum(chunk_c0 + HUB_CHUNK, bip[jc + 1])
+    scratch = hub_scratch(nchunks, nhub, device) if nchunks > nhub else {}
+    i32 = [t.to(torch.int32) for t in (unit_row, unit_e0, chunk_entry, mask.row_ids[chunk_entry],
+                                       chunk_c0, chunk_c1, chunk_hub, chunk_first)]
+    plan = MxmtPlan(*i32, nunits, nhub, nchunks, team_size(walked, entries), **scratch)
+    _PLANS.put(mask.cols, (weakref.ref(mask.indptr), weakref.ref(B.indptr), plan), key)
+    return plan
+
+
 # ---------------------------------------------------------------- kernels
 
 
@@ -169,15 +280,16 @@ def _check_operands(what, mask, A, B, sel, values):
     """Raise unless mask, A, B and sel lie on one CUDA device with int32
     indices, contiguous, in matching shapes (and, with ``values``, one value
     dtype)."""
-    mcap = mask.capacity
-    _require_cuda(what, A, {"mask.row_ids": mask.row_ids, "mask.cols": mask.cols,
-                            "sel": _mask(sel, what, "sel")},
-                  {"mask.row_ids": mcap, "mask.cols": mcap, "sel": mcap})
+    _require_cuda(what, A, {"mask.indptr": mask.indptr, "mask.cols": mask.cols,
+                            "sel": _mask(sel, what, "sel")}, {"sel": mask.capacity})
     _require_cuda(what, B, {}, {})
     if B.values.device != A.values.device:
         raise ValueError(f"{what}: B is on {B.values.device}, A on {A.values.device}")
-    if mask.row_ids.dtype != torch.int32 or mask.cols.dtype != torch.int32:
+    if mask.indptr.dtype != torch.int32 or mask.cols.dtype != torch.int32:
         raise TypeError(f"{what}: mask indices must be int32")
+    if mask.indptr.shape != (mask.shape[0] + 1,):
+        raise ValueError(f"{what}: mask.indptr has shape {tuple(mask.indptr.shape)}, "
+                         f"want ({mask.shape[0] + 1},)")
     if mask.shape != (A.shape[0], B.shape[0]) or A.shape[1] != B.shape[1]:
         raise ValueError(f"{what}: shapes mask {mask.shape}, A {A.shape}, B {B.shape} "
                          "do not fit mask = A x B^T")
@@ -185,21 +297,32 @@ def _check_operands(what, mask, A, B, sel, values):
         raise TypeError(f"{what}: B is {B.values.dtype}, A {A.values.dtype}")
 
 
-def _operand_ptrs(mask, A, B, sel):
-    return (mask.row_ids.data_ptr(), mask.cols.data_ptr(), sel.data_ptr(),
-            A.indptr.data_ptr(), A.cols.data_ptr(), A.values.data_ptr(),
-            B.indptr.data_ptr(), B.cols.data_ptr(), B.values.data_ptr())
+def _launch(what, mode, codes, mask, A, B, sel, init=None, init_bits=0, out=None, has=None,
+            total=None):
+    """One launch of ``csrc/mxmt.cu``'s ``spla_mxmt`` (mode 0: kernel 4, 1:
+    kernel 5, 2: the gather) with ``mask``'s plan against B."""
+    mul, add, dtype, structural = codes
+    plan = mxmt_plan(mask, B)
+    rc = load_library().spla_mxmt(
+        mode, mul, add, dtype, structural, mask.shape[0], mask.capacity, mask.indptr.data_ptr(),
+        mask.cols.data_ptr(), _ptr(sel), A.indptr.data_ptr(), A.cols.data_ptr(), A.values.data_ptr(),
+        B.indptr.data_ptr(), B.cols.data_ptr(), B.values.data_ptr(), plan.team.bit_length() - 1, HUB_LEN,
+        plan.nunits, plan.unit_row.data_ptr(), plan.unit_e0.data_ptr(), plan.nhub, plan.nchunks,
+        *(t.data_ptr() for t in (plan.chunk_entry, plan.chunk_row, plan.chunk_c0, plan.chunk_c1,
+                                 plan.chunk_hub, plan.chunk_first)),
+        _ptr(plan.part), _ptr(plan.part_any), _ptr(plan.done), _ptr(init), init_bits, _ptr(out),
+        _ptr(has), _ptr(total), torch.cuda.current_stream(A.values.device).cuda_stream)
+    check(rc, what)
+    LAUNCHES[what] += 1
 
 
-def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def mxmt_masked(mask: CsrMatrix, A: CsrMatrix, B: CsrMatrix, op_mul, op_add, init, sel,
+def mxmt_masked(mask: CsrMatrix, A: CsrMatrix, B: CsrMatrix, op_mul, op_add, init, sel=None,
                 struct_only=False):
-    """Kernel 5.  Returns ``(out, has)`` of length ``mask.capacity``.  CPU
-    tensors take the plain version; CUDA tensors launch the kernel, and a
-    request it does not cover raises."""
+    """Kernel 5.  Returns ``(out, has)`` of length ``mask.capacity``; ``sel``
+    None selects every stored entry.  CPU tensors take the plain version;
+    CUDA tensors launch the kernel, and a request it does not cover raises.
+    ``init`` reaches the kernel by value (a number) or by pointer (a CUDA
+    tensor), never by a copy from the host."""
     if _on_cpu(A.values, B.values, mask.cols, sel):
         return mxmt_masked_plain(mask, A, B, op_mul, op_add, init, sel, struct_only)
     what = "mxmt_masked"
@@ -209,22 +332,18 @@ def mxmt_masked(mask: CsrMatrix, A: CsrMatrix, B: CsrMatrix, op_mul, op_add, ini
             f"{what}: no kernel instance for mul={getattr(op_mul, 'key', op_mul)}, "
             f"add={getattr(op_add, 'key', op_add)}, dtype={A.values.dtype}")
     _check_operands(what, mask, A, B, sel, values=not struct_only)
-    device = A.values.device
-    init_t = torch.as_tensor(init, dtype=A.values.dtype, device=device).reshape(1)
-    out = torch.empty(mask.capacity, dtype=A.values.dtype, device=device)
-    has = torch.empty(mask.capacity, dtype=torch.bool, device=device)
-    rc = load_library().spla_mxmt_masked(*codes, int(struct_only), mask.capacity,
-                                         *_operand_ptrs(mask, A, B, sel), init_t.data_ptr(),
-                                         out.data_ptr(), has.data_ptr(), _stream(out))
-    check(rc, what)
-    LAUNCHES["mxmt_masked"] += 1
+    init_t, init_bits = _init_arg(init, A.values)
+    out = torch.empty(mask.capacity, dtype=A.values.dtype, device=A.values.device)
+    has = torch.empty(mask.capacity, dtype=torch.bool, device=A.values.device)
+    _launch(what, 1, (*codes, int(struct_only)), mask, A, B, sel, init_t, init_bits, out, has)
     return out, has
 
 
-def mxmt_reduce(mask: CsrMatrix, A: CsrMatrix, B: CsrMatrix, op_mul, sel, struct_only=False):
+def mxmt_reduce(mask: CsrMatrix, A: CsrMatrix, B: CsrMatrix, op_mul, sel=None, struct_only=False):
     """Kernel 4: the 0-d int64 (i32, hits) or float64 (f32) sum of all
-    products.  CPU tensors take the plain version; CUDA tensors launch the
-    kernel, and a request it does not cover raises."""
+    products; ``sel`` None selects every stored entry.  CPU tensors take the
+    plain version; CUDA tensors launch the kernel, and a request it does not
+    cover raises."""
     if _on_cpu(A.values, B.values, mask.cols, sel):
         return mxmt_reduce_plain(mask, A, B, op_mul, sel, struct_only)
     what = "mxmt_reduce"
@@ -235,9 +354,6 @@ def mxmt_reduce(mask: CsrMatrix, A: CsrMatrix, B: CsrMatrix, op_mul, sel, struct
             f"dtype={A.values.dtype}")
     _check_operands(what, mask, A, B, sel, values=not struct_only)
     total = torch.zeros(1, dtype=_acc_dtype(A.values.dtype, struct_only), device=A.values.device)
-    rc = load_library().spla_mxmt_reduce(*codes, int(struct_only), mask.capacity,
-                                         *_operand_ptrs(mask, A, B, sel), total.data_ptr(),
-                                         _stream(total))
-    check(rc, what)
-    LAUNCHES["mxmt_reduce"] += 1
+    mul, dtype = codes
+    _launch(what, 0, (mul, 0, dtype, int(struct_only)), mask, A, B, sel, total=total)
     return total.reshape(())

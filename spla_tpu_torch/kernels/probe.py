@@ -37,6 +37,12 @@ of each stage taken from a slot that holds the matrix's first words: entry
 k of a stage starting at entry s folds ``k' = s mod 4 + k - s`` in its
 place.  The flat phases and ``ring_fold`` need 16-byte aligned ``cols`` and
 ``values``.
+
+Phase ``mxmt_gather`` (``mxmt_gather(mask, B)``) is the floor of kernels 4
+and 5 (``csrc/mxmt.cu``): their walk of the mask by units and teams, and
+their chunk CTAs for long B rows, with no probe of A.  For each stored mask
+entry (i, j), ``out[e]`` (int32) is the XOR of B's row j: its columns, and
+with ``values`` the 32 bits of its values; 0 past the stored entries.
 """
 
 from __future__ import annotations
@@ -46,11 +52,12 @@ import torch
 from ..containers import CsrMatrix
 from . import LAUNCHES, PROBE_PHASES
 from .build import check, load_library
+from .mxmt import _launch
 from .spmv import _on_cpu, _ptr, _require_cuda
 from .staged import MAX_STAGE, _check_stage, _plan_args, resolve_slots, staged_plan
 
 __all__ = ["PROBE_PHASES", "RING_PHASES", "FLAT_PHASES", "CHAIN", "FLAT_TILE", "spmv_probe",
-           "spmv_probe_plain"]
+           "spmv_probe_plain", "mxmt_gather", "mxmt_gather_plain"]
 
 RING_PHASES = ("ring_copy", "ring_alu", "ring_copy_alu", "ring_fold")
 FLAT_PHASES = ("flat_stream", "flat_gather")
@@ -232,3 +239,32 @@ def spmv_probe(phase: str, A: CsrMatrix, x, slots: int = 2, stage: int = MAX_STA
     check(rc, what)
     LAUNCHES[f"spmv_probe_{phase}"] += 1
     return out_f, out_i
+
+
+def mxmt_gather_plain(mask: CsrMatrix, B: CsrMatrix, values: bool = True):
+    """Plain version of ``mxmt_gather``: each B row's XOR, then one per
+    stored mask entry."""
+    mb = B.shape[0]
+    words = B.cols ^ B.values.view(torch.int32) if values else B.cols
+    row_xor = _xor_fold(words, torch.where(B.valid_mask(), B.row_ids.long(), mb), mb)
+    j = mask.cols.long().clamp(0, max(mb - 1, 0))
+    return torch.where(mask.valid_mask(), row_xor[j], 0).to(torch.int32)
+
+
+def mxmt_gather(mask: CsrMatrix, B: CsrMatrix, values: bool = True):
+    """The gather floor of kernels 4 and 5 (``mask`` against ``B``'s rows,
+    B f32 or i32): int32 ``out`` of length ``mask.capacity``.  CPU tensors
+    take the plain version; CUDA tensors launch the kernel or raise."""
+    if _on_cpu(B.values, mask.cols):
+        return mxmt_gather_plain(mask, B, values)
+    what = "mxmt_gather"
+    _require_cuda(what, B, {"mask.indptr": mask.indptr, "mask.cols": mask.cols}, {})
+    if mask.indptr.dtype != torch.int32 or mask.cols.dtype != torch.int32:
+        raise TypeError(f"{what}: mask indices must be int32")
+    if mask.indptr.shape != (mask.shape[0] + 1,) or mask.shape[1] != B.shape[0]:
+        raise ValueError(f"{what}: mask {mask.shape} does not reach the rows of B {B.shape}")
+    if B.values.element_size() != 4:
+        raise TypeError(f"{what}: B's values must be 32-bit, got {B.values.dtype}")
+    out = torch.zeros(mask.capacity, dtype=torch.int32, device=B.values.device)
+    _launch(what, 2, (0, 0, 0, int(not values)), mask, B, B, None, out=out)
+    return out

@@ -49,11 +49,11 @@ def count_mxmT_products(mask: CsrMatrix, B: CsrMatrix) -> int:
     return int(_row_degrees(B)[mask.cols[:nnz].long()].sum())
 
 
-def _selection(mask: CsrMatrix, op_select, struct_only: bool) -> torch.Tensor:
+def _selection(mask: CsrMatrix, op_select, struct_only: bool) -> torch.Tensor | None:
     """The mask entries that take part: stored ones, kept by ``op_select``
-    unless ``struct_only``."""
-    valid = mask.valid_mask()
-    return valid if struct_only else op_select(mask.values) & valid
+    unless ``struct_only`` (then None: every stored entry, which the kernels
+    read from ``mask.indptr``)."""
+    return None if struct_only else op_select(mask.values) & mask.valid_mask()
 
 
 def _to_csr(mask: CsrMatrix, out, has, init_t, out_capacity) -> CsrMatrix:

@@ -8,11 +8,15 @@
 * ``road_grid``, ``road_graphs`` — ``bench_suite.py:226-253,269-319,323-334``:
   the Morton-ordered road grids of the road cells;
 * ``path_graph``, ``barbell_graph`` — graphs whose traversal rounds hold one
-  vertex each, or change between one vertex and most of a random block.
+  vertex each, or change between one vertex and most of a random block;
+* ``hub_spgemm`` — the SpGEMM-T hub graph: short rows plus a few rows far
+  longer than a mask row or a B row that one warp walks, and a mask that
+  reaches them.
 
 ``build_graph``, ``hub_graph`` and ``powerlaw_graph`` return
 ``(indptr, rows, cols, vals)`` with rows sorted and duplicate (row, col)
-pairs kept as separate entries; the others return scipy CSR matrices.
+pairs kept as separate entries; the others return scipy CSR matrices
+(``hub_spgemm`` two).
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import numpy as np
 import scipy.sparse as sp
 
 __all__ = ["build_graph", "random_graph", "hub_graph", "powerlaw_graph", "indptr_of", "morton",
-           "road_edges", "road_grid", "road_graphs", "path_graph", "barbell_graph"]
+           "road_edges", "road_grid", "road_graphs", "path_graph", "barbell_graph", "hub_spgemm"]
 
 HUB_ROWS, HUB_LEN = 3, 1 << 17
 
@@ -177,3 +181,25 @@ def barbell_graph(path_len, block_n, block_deg, blocks=2, seed=0):
         vs.append(np.array([start + order[-1]]))
         last, start = start + order[-2], start + block_n
     return _symmetric(np.concatenate(us), np.concatenate(vs), start, np.random.default_rng(seed))
+
+
+def hub_spgemm(n, seed=4, hub_len=1 << 16):
+    """``(a, mask)``: rows of 8 random columns plus HUB_ROWS rows of
+    ``hub_len`` drawn columns (duplicates summed, data 1, rows sorted), and
+    a mask holding 2^16 random entries, 200 in each hub's row, 600 in the
+    hubs' columns and the entries between hubs."""
+    rng = np.random.default_rng(seed)
+    hubs = np.linspace(0, n - 1, HUB_ROWS).astype(np.int64)
+    rows = np.concatenate([rng.integers(0, n, 8 * n), np.repeat(hubs, hub_len)])
+    cols = rng.integers(0, n, rows.size)
+    a = sp.coo_matrix((np.ones(rows.size, np.float32), (rows, cols)), shape=(n, n)).tocsr()
+    a.sum_duplicates()
+    a.data[:] = 1
+    k = 1 << 16
+    mr = np.concatenate([rng.integers(0, n, k), np.repeat(hubs, 200), rng.integers(0, n, 600),
+                         np.repeat(hubs, HUB_ROWS)])
+    mc = np.concatenate([rng.integers(0, n, k), rng.integers(0, n, 600), np.repeat(hubs, 200),
+                         np.tile(hubs, HUB_ROWS)])
+    mask = sp.coo_matrix((np.ones(mr.size, np.float32), (mr, mc)), shape=(n, n)).tocsr()
+    mask.sum_duplicates()
+    return a, mask

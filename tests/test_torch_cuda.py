@@ -238,14 +238,51 @@ def _spgemm_operands(dev, dtype, nan=False):
     return mask, A
 
 
+def _deg_operands(dev, dtype, deg, n=2000):
+    """A (= B) of uniform rows of mean ``deg``, and a mask of 2n random
+    entries with row 5 empty, valued in {-1, 1, 2}; capacities above nnz."""
+    rng = np.random.default_rng(deg)
+    rows, cols = rng.integers(0, n, deg * n), rng.integers(0, n, deg * n)
+    a = sp.csr_matrix((rng.random(rows.size).astype(np.float32), (rows, cols)), shape=(n, n))
+    a.sum_duplicates()
+    if dtype == "i32":
+        a = (a * 1000).astype(np.int32)
+    A = F.csr_from_scipy(a, capacity=a.nnz + 11, device=dev)
+    mr, mc = rng.integers(0, n, 2 * n), rng.integers(0, n, 2 * n)
+    keep = mr != 5
+    mask = F.csr_from_entries((n, n), mr[keep], mc[keep], rng.choice([-1, 1, 2], int(keep.sum())),
+                              dtype=np.float32 if dtype == "f32" else np.int32,
+                              capacity=int(keep.sum()) + 7, device=dev)
+    return mask, A
+
+
+# graph: its G; "hub" also has hub entries of two chunks and rows of A above A_STAGE
+MXMT_GRAPHS = {"hub": 4, "deg2": 2, "deg12": 8, "deg24": 16, "deg48": 32}
+
+
+def _mxmt_operands(dev, dtype, graph, nan=False):
+    mask, A = (_spgemm_operands(dev, dtype, nan) if graph == "hub"
+               else _deg_operands(dev, dtype, int(graph[3:])))
+    plan = K45.mxmt_plan(mask, A)
+    assert plan.team == MXMT_GRAPHS[graph]
+    if graph == "hub":
+        assert plan.nchunks > plan.nhub > 0
+        assert int((A.indptr[1:] - A.indptr[:-1]).max()) > K45.A_STAGE
+    return mask, A
+
+
 def _sel(mask, T):
     return T.GTZERO(mask.values) & mask.valid_mask()
 
 
+@pytest.mark.parametrize("graph", list(MXMT_GRAPHS))
 @pytest.mark.parametrize("dtype", ["f32", "i32"])
 @pytest.mark.parametrize("add", ["PLUS", "MIN", "MAX"])
-def test_mxmt_masked_matches_plain(dev, dtype, add):
-    mask, A = _spgemm_operands(dev, dtype, nan=True)
+def test_mxmt_masked_matches_plain(dev, graph, dtype, add):
+    """Every kernel-5 instance against its plain version, on a graph of
+    each team size G and on the hub graph (chunked B rows, A rows probed
+    in global memory, NaN values)."""
+    mask, A = _mxmt_operands(dev, dtype, graph, nan=True)
     T = op.FLOAT if dtype == "f32" else op.INT
     oa = getattr(T, add)
     sel = _sel(mask, T)
@@ -260,15 +297,20 @@ def test_mxmt_masked_matches_plain(dev, dtype, add):
         else:
             _assert_same(got, ref)
     valid = mask.valid_mask()
-    got = K45.mxmt_masked(mask, A, A, None, oa, oa.identity, valid, struct_only=True)
-    ref = K45.mxmt_masked_plain(mask, A, A, None, oa, oa.identity, valid, struct_only=True)
-    for g, r in zip(got, ref):
-        _assert_same(g, r)
+    for s in (valid, None):
+        got = K45.mxmt_masked(mask, A, A, None, oa, oa.identity, s, struct_only=True)
+        ref = K45.mxmt_masked_plain(mask, A, A, None, oa, oa.identity, valid, struct_only=True)
+        for g, r in zip(got, ref):
+            _assert_same(g, r)
 
 
+@pytest.mark.parametrize("graph", list(MXMT_GRAPHS))
 @pytest.mark.parametrize("dtype", ["f32", "i32"])
-def test_mxmt_reduce_matches_plain(dev, dtype):
-    mask, A = _spgemm_operands(dev, dtype)
+def test_mxmt_reduce_matches_plain(dev, graph, dtype):
+    """Every kernel-4 instance against its plain version on the graphs of
+    test_mxmt_masked_matches_plain; the structural one with and without a
+    selection."""
+    mask, A = _mxmt_operands(dev, dtype, graph)
     T = op.FLOAT if dtype == "f32" else op.INT
     sel = _sel(mask, T)
     for mul in MULS:
@@ -282,8 +324,68 @@ def test_mxmt_reduce_matches_plain(dev, dtype):
         else:
             _assert_same(got, ref)
     valid = mask.valid_mask()
-    _assert_same(K45.mxmt_reduce(mask, A, A, None, valid, struct_only=True),
-                 K45.mxmt_reduce_plain(mask, A, A, None, valid, struct_only=True))
+    ref = K45.mxmt_reduce_plain(mask, A, A, None, valid, struct_only=True)
+    _assert_same(K45.mxmt_reduce(mask, A, A, None, valid, struct_only=True), ref)
+    _assert_same(K45.mxmt_reduce(mask, A, A, None, struct_only=True), ref)
+
+
+@pytest.mark.parametrize("graph", ["hub", "deg12"])
+def test_mxmt_gather_matches_plain(dev, graph):
+    """The gather floor of kernels 4 and 5 (kernel 8's module) against its
+    plain version, XOR checksums bitwise, with and without values."""
+    for dtype in ("f32", "i32"):
+        mask, A = _mxmt_operands(dev, dtype, graph)
+        for values in (True, False):
+            _assert_same(K8.mxmt_gather(mask, A, values), K8.mxmt_gather_plain(mask, A, values))
+
+
+def test_mxmt_kernels_do_not_synchronize(dev):
+    """Once the plan is built, no call of kernel 4 or 5 (value and
+    structural, init a Python number or a CUDA tensor, no selection for the
+    structural ones) waits for the stream."""
+    mask, A = _mxmt_operands(dev, "i32", "hub")
+    sel = _sel(mask, op.INT)
+    init_t = torch.zeros((), dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = []
+        for init in (0, init_t):
+            got.append(K45.mxmt_masked(mask, A, A, op.MULT_INT, op.PLUS_INT, init, sel))
+            got.append(K45.mxmt_masked(mask, A, A, None, op.MAX_INT, init, struct_only=True))
+        total = K45.mxmt_reduce(mask, A, A, op.MULT_INT, sel)
+        hits = K45.mxmt_reduce(mask, A, A, None, struct_only=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    ref = [K45.mxmt_masked_plain(mask, A, A, op.MULT_INT, op.PLUS_INT, 0, sel),
+           K45.mxmt_masked_plain(mask, A, A, None, op.MAX_INT, 0, struct_only=True)] * 2
+    for g, r in zip(got, ref):
+        _assert_same(g[0], r[0])
+        _assert_same(g[1], r[1])
+    _assert_same(total, K45.mxmt_reduce_plain(mask, A, A, op.MULT_INT, sel))
+    _assert_same(hits, K45.mxmt_reduce_plain(mask, A, A, None, struct_only=True))
+
+
+def test_tc_int32_sum_is_exact_on_the_card(dev):
+    """tc of int32 values whose products fit int32 but whose sum passes
+    2^31: kernel 4 sums in int64, so the card gives the exact total where
+    the CPU path wraps (test_torch_spgemm.py
+    test_pin_tc_int32_sum_wraps_on_the_cpu)."""
+    rng = np.random.default_rng(31)
+    n = 200
+    r, c = rng.integers(0, n, 600), rng.integers(0, n, 600)
+    keep = r != c
+    a = sp.coo_matrix((np.ones(2 * int(keep.sum()), np.int32),
+                       (np.concatenate([r[keep], c[keep]]), np.concatenate([c[keep], r[keep]]))),
+                      shape=(n, n)).tocsr()
+    a.sum_duplicates()
+    a.data[:] = 40_000
+    d = a.toarray().astype(np.int64)
+    exact = int(((d @ d.T) * (d > 0)).sum())
+    assert exact > 2**31
+    kernels.reset_launches()
+    assert alg.tc(F.csr_from_scipy(a, device=dev)) == exact
+    assert kernels.LAUNCHES["mxmt_reduce"] == 1
 
 
 def test_mxmt_empty_mask(dev):

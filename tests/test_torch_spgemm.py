@@ -373,3 +373,178 @@ def test_reduce_equals_the_sum_of_mxmT_masked():
     hits = TG.mxmT_masked_reduce(tm, ta, tb, OP.MULT_INT, OP.GTZERO_INT, struct_only=True)
     ones = TG.mxmT_masked(tm, ta, tb, OP.MULT_INT, OP.PLUS_INT, OP.GTZERO_INT, 0, struct_only=True)
     assert hits.dtype == torch.int64 and int(hits) == int(ones.values[: int(ones.nnz)].sum())
+
+
+# ---------------------------------------------------------------- kernels 4 and 5's plan
+
+
+def _csr_kept(n, rows, cols, vals, extra=9):
+    """n x n CSR on the CPU of the given entries, duplicates kept, rows
+    sorted by column, with ``extra`` capacity beyond nnz."""
+    order = np.lexsort((cols, rows))
+    indptr = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(rows, minlength=n), out=indptr[1:])
+    a = sp.csr_matrix((vals[order], cols[order], indptr), shape=(n, n))
+    return F.csr_from_scipy(a, capacity=a.nnz + extra, device="cpu")
+
+
+def _plan_operands(seed=61, n=300):
+    """A, B and a mask on n vertices built to reach each branch of the plan
+    and of the kernels: B's row 5 holds 2,500 entries (duplicate columns,
+    two HUB_CHUNK chunks) and row 6 holds 300 (one chunk); A's row 9 holds
+    280 distinct columns (above A_STAGE); mask row 3 is empty, row 11 holds
+    100 entries (four units), and column 5 and row 9 are reached; values
+    in {-1, 1, 2}, so GTZERO deselects some entries; capacities above nnz."""
+    rng = np.random.default_rng(seed)
+
+    def csr(rows, cols):
+        return _csr_kept(n, rows, cols, rng.choice([-1, 1, 2], rows.size).astype(np.int32))
+
+    ar = np.concatenate([rng.integers(0, n, 4 * n), np.full(280, 9)])
+    ac = np.concatenate([rng.integers(0, n, 4 * n), rng.choice(n, 280, replace=False)])
+    br = np.concatenate([rng.integers(0, n, 4 * n), np.full(2500, 5), np.full(300, 6)])
+    bc = np.concatenate([rng.integers(0, n, 4 * n), rng.integers(0, n, 2800)])
+    mr = np.concatenate([rng.integers(0, n, 3 * n), np.full(100, 11), rng.integers(0, n, 40), np.full(40, 9)])
+    mc = np.concatenate([rng.integers(0, n, 3 * n), rng.choice(n, 100, replace=False), np.full(40, 5),
+                         rng.integers(0, n, 40)])
+    keep = mr != 3
+    mask = sp.coo_matrix((np.ones(int(keep.sum())), (mr[keep], mc[keep])), shape=(n, n)).tocsr()
+    mc_ = mask.tocoo()
+    return csr(mc_.row, mc_.col), csr(ar, ac), csr(br, bc)
+
+
+def _plan_reference(mask, B):
+    """numpy: (units [(row, e0)], hub entries [(entry, row, [(c0, c1)])],
+    walked, entries) of kernels 4 and 5's plan."""
+    mip, bip = to_numpy(mask.indptr).astype(np.int64), to_numpy(B.indptr).astype(np.int64)
+    mcols = to_numpy(mask.cols)
+    units, hubs, walked, entries = [], [], 0, 0
+    for i in range(mask.shape[0]):
+        units += [(i, e0) for e0 in range(mip[i], mip[i + 1], K.UNIT)]
+        for e in range(mip[i], mip[i + 1]):
+            j = mcols[e]
+            lo, hi = bip[j], bip[j + 1]
+            if hi - lo > K.HUB_LEN:
+                hubs.append((e, i, [(c, min(c + K.HUB_CHUNK, hi)) for c in range(lo, hi, K.HUB_CHUNK)]))
+            else:
+                walked, entries = walked + hi - lo, entries + 1
+    return units, hubs, walked, entries
+
+
+def test_mxmt_plan_matches_numpy():
+    """The plan built on the CPU against a numpy reference: units of at
+    most UNIT entries over the stored entries (none for the empty row,
+    several for the long one, none past indptr[m]), the hub entries whose B
+    row (duplicates counted) exceeds HUB_LEN with their HUB_CHUNK chunks,
+    and G from the other entries' B rows; cached per tensor."""
+    mask, A, B = _plan_operands()
+    plan = K.mxmt_plan(mask, B)
+    units, hubs, walked, entries = _plan_reference(mask, B)
+    got_units = list(zip(to_numpy(plan.unit_row).tolist(), to_numpy(plan.unit_e0).tolist()))
+    assert plan.nunits == len(units) and got_units == units
+    assert 3 not in {r for r, _ in units} and sum(r == 11 for r, _ in units) == 4
+    assert all(e0 < int(mask.nnz) for _, e0 in units)
+    chunks = [(e, i, c0, c1) for e, i, cs in hubs for c0, c1 in cs]
+    got = list(zip(*(to_numpy(t).tolist() for t in (plan.chunk_entry, plan.chunk_row, plan.chunk_c0,
+                                                     plan.chunk_c1))))
+    assert (plan.nhub, plan.nchunks) == (len(hubs), len(chunks)) and got == chunks
+    assert {len(cs) for _, _, cs in hubs} == {1, 2}
+    first = np.cumsum([0] + [len(cs) for _, _, cs in hubs])
+    np.testing.assert_array_equal(to_numpy(plan.chunk_first), first)
+    np.testing.assert_array_equal(to_numpy(plan.chunk_hub), np.repeat(np.arange(len(hubs)),
+                                                                      [len(cs) for _, _, cs in hubs]))
+    from spla_tpu_torch.kernels.spmv import team_size
+
+    assert plan.team == team_size(walked, entries)
+    assert plan.part is not None and plan.done.shape == (plan.nhub,) and not bool(plan.done.any())
+    assert K.mxmt_plan(mask, B) is plan
+    assert K.mxmt_plan(mask, A) is not plan  # another B
+
+
+def test_mxmt_plan_of_an_empty_mask_and_team_sizes():
+    """A mask with no stored entry has no unit and no hub; G follows the
+    mean length of the B rows reached (2 to 32)."""
+    (_, _, _), (_, ta, tb) = _operands("INT", 17, 0)
+    empty = F.csr_from_entries((N, N), [], [], [], dtype="int32", capacity=4, device="cpu")
+    plan = K.mxmt_plan(empty, tb)
+    assert (plan.nunits, plan.nhub, plan.nchunks) == (0, 0, 0)
+    for deg, team in ((1, 2), (8, 4), (16, 8), (24, 16), (70, 32)):
+        rows = np.repeat(np.arange(40), deg)
+        b = _csr_kept(40, rows, np.arange(rows.size) % 40, np.ones(rows.size, np.int32))
+        m = F.csr_from_entries((40, 40), np.arange(40), np.arange(40), np.ones(40), dtype="int32",
+                               device="cpu")
+        assert K.mxmt_plan(m, b).team == team
+
+
+def _intersections_numpy(mask, A, B, sel):
+    """numpy per stored entry: (hits, sum of A*B products in int64) over
+    B's row j (duplicates counted), each column matched to the first of its
+    equals in A's row i."""
+    mip, aip, bip = (to_numpy(M.indptr).astype(np.int64) for M in (mask, A, B))
+    mrow, mcol = to_numpy(mask.row_ids), to_numpy(mask.cols)
+    acol, aval, bcol, bval = (to_numpy(t).astype(np.int64) for t in (A.cols, A.values, B.cols, B.values))
+    hits = np.zeros(mask.capacity, np.int64)
+    sums = np.zeros(mask.capacity, np.int64)
+    for e in range(int(mip[-1])):
+        if not sel[e]:
+            continue
+        i, j = mrow[e], mcol[e]
+        row = acol[aip[i]:aip[i + 1]]
+        for t in range(bip[j], bip[j + 1]):
+            p = np.searchsorted(row, bcol[t])
+            if p < row.size and row[p] == bcol[t]:
+                hits[e] += 1
+                sums[e] += aval[aip[i] + p] * bval[t]
+    return hits, sums
+
+
+def test_plain_versions_on_the_plan_graph():
+    """Kernels 4 and 5's plain versions on the plan's graph (long rows of A
+    and B, duplicates, an empty and a long mask row, unselected entries,
+    capacity padding) against a numpy loop; sel None selects every stored
+    entry."""
+    mask, A, B = _plan_operands()
+    sel = OP.GTZERO_INT(mask.values) & mask.valid_mask()
+    assert not bool(sel[: int(mask.nnz)].all())
+    hits, sums = _intersections_numpy(mask, A, B, to_numpy(sel))
+    out, has = K.mxmt_masked_plain(mask, A, B, OP.MULT_INT, OP.PLUS_INT, 0, sel)
+    np.testing.assert_array_equal(to_numpy(has), hits > 0)
+    np.testing.assert_array_equal(to_numpy(out), sums.astype(np.int32))
+    assert int(K.mxmt_reduce_plain(mask, A, B, OP.MULT_INT, sel)) == int(sums.sum())
+    all_hits, _ = _intersections_numpy(mask, A, B, np.ones(mask.capacity, bool))
+    assert int(K.mxmt_reduce_plain(mask, A, B, None, struct_only=True)) == int(all_hits.sum())
+    out, has = K.mxmt_masked_plain(mask, A, B, None, OP.PLUS_INT, 0, struct_only=True)
+    np.testing.assert_array_equal(to_numpy(out), all_hits.astype(np.int32))
+    assert not bool(has[int(mask.nnz):].any())
+
+
+def test_mxmt_gather_plain_matches_numpy():
+    """The gather floor's plain version: per stored mask entry the XOR of
+    B's row j (columns, and with values their 32 bits); 0 on padding."""
+    from spla_tpu_torch.kernels import probe as K8
+
+    mask, _, B = _plan_operands()
+    mip, bip = to_numpy(mask.indptr), to_numpy(B.indptr)
+    mcol, bcol = to_numpy(mask.cols), to_numpy(B.cols)
+    bval = to_numpy(B.values).view(np.int32)
+    for values in (True, False):
+        want = np.zeros(mask.capacity, np.int32)
+        for e in range(mip[-1]):
+            j = mcol[e]
+            words = bcol[bip[j]:bip[j + 1]] ^ (bval[bip[j]:bip[j + 1]] if values else 0)
+            want[e] = np.bitwise_xor.reduce(words) if words.size else 0
+        np.testing.assert_array_equal(to_numpy(K8.mxmt_gather(mask, B, values)), want)
+
+
+def test_pin_tc_int32_sum_wraps_on_the_cpu():
+    """tc of int32 values whose products fit int32 but whose sum passes
+    2^31: the CPU path (mxmT_masked + m_reduce(PLUS_INT)) wraps in int32,
+    where kernel 4 sums in int64 (test_torch_cuda.py
+    test_tc_int32_sum_is_exact_on_the_card)."""
+    a = _tc_graph(31).astype(np.int32)
+    a.data[:] = 40_000
+    d = a.toarray().astype(np.int64)
+    exact = int(((d @ d.T) * (d > 0)).sum())
+    assert exact > 2**31
+    wrapped = (exact + 2**31) % 2**32 - 2**31
+    assert alg.tc(F.csr_from_scipy(a, device="cpu")) == wrapped != exact
