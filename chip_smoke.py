@@ -21,7 +21,11 @@ Phases:
      instance, on kernel 1's graphs: at 2, 3 and 4 slots on the n = 2^21
      graph, the hub graph, a graph of one stage and the n = 2^16 graphs, at
      its default slots on the powerlaw graph, and a repeated call bitwise;
-     each of kernel 8's phase probes against its plain version;
+     each of kernel 8's phase probes against its plain version; kernels 4
+     and 5, every instance, and their gather floor (``kernels.probe.
+     mxmt_gather``) on the n = 2^15 SpGEMM graph and the hub graph, with
+     each plan (G, windows, hub chunks) and the registers of the timed
+     instances;
   4. the slices through the public entry points, each with the launch
      counts set to 0 just before it and read just after:
      * SpMV: mxv_masked / vxm_masked / vxm_masked_dense on the bench.py
@@ -41,15 +45,19 @@ Phases:
        against the plain path, scipy and the unstaged runs; then
        ``tools/ab_spmv.py --manual 3 --check`` under SPLA_MANUAL_DMA=1
        SPLA_MANUAL_SLOTS=3 in a subprocess;
-     * probes: ``tools/probe_spmv.py``'s run at n = 2^21, degree 16;
+     * probes: ``tools/probe_spmv.py``'s run at n = 2^21, degree 16, and
+       the gather floor of kernels 4 and 5 on tc's n = 2^20 call;
   5. the launch counts of phase 4: each slice's kernels must be above 0;
      the road slice reads the host once per run; the staged slice launches
      no kernel 1;
   6. times on the card: each kernel against its plain version (CUDA events),
      SpMV in GB/s of the bench.py byte model, the masked SpGEMM-T in
      products/s (bench_suite.py masked_spgemm_mprod_s), BFS / SSSP / PR /
-     TC wall time; road BFS / SSSP walls on the resident route and on the
-     level loop, with road_bfs_gteps and road_sssp_ms (bench_suite.py:265,346);
+     TC wall time; kernels 4 and 5 (structural, MULT i32, MULT/PLUS i32)
+     beside their gather floor on the n = 2^15, n = 2^20 and hub graphs,
+     and the walls of tc and mxmT_masked; road BFS / SSSP walls on the
+     resident route and on the level loop, with road_bfs_gteps and
+     road_sssp_ms (bench_suite.py:265,346);
      kernel 6's rounds, wide rounds and us a round on the road, path,
      barbell and random 2^18 graphs, and on the side-3072 grid with the
      byte budget lifted, checked against scipy;
@@ -389,8 +397,8 @@ def check_reduce(label, mask, A, om, sel, struct_only=False):
 
 def mxmt_plan_line(mask, B):
     p = K45.mxmt_plan(mask, B)
-    return (f"G = {p.team}, {p.nunits} units of at most {K45.UNIT} entries, {p.nhub} entries whose B row "
-            f"is over {K45.HUB_LEN} in {p.nchunks} chunks of at most {K45.HUB_CHUNK}")
+    return (f"G = {p.team}, {-(-p.stored // K45.WINDOW)} windows of {K45.WINDOW} stored entries, {p.nhub} "
+            f"entries whose B row is over {K45.HUB_LEN} in {p.nchunks} chunks of at most {K45.HUB_CHUNK}")
 
 
 def mxmt_resources(mode, dtype, mul, add, log2g):

@@ -15,25 +15,29 @@
 // itself, so these kernels take the plain CSR of the mask, A and B, and a
 // launch plan built on the device (kernels/mxmt.py mxmt_plan).
 //
-// Bound: the latency of dependent loads, then the gathers of B's rows.  Per
-// mask entry a lane reads the mask column, B's two indptr words and B's row
-// j, and each element of that row bisects A's row i (~log2(deg) dependent
-// probes).  The gathers of B's rows are what no design avoids (mxmt_gather
-// measures them).  The design keeps many entries in flight and takes the
-// probes off L1/L2:
-//   * the mask is walked by rows, in units of at most kUnitEntries entries
-//     of one row (a row of more is cut into several units), a warp a unit;
-//     a lane loads one entry's selection byte, mask column and B indptr
-//     pair (the one-pass streams with the streaming hint) beside the warp's
-//     loads of A's row i, which it stages in shared memory once for every
-//     entry of the unit: a probe is a shared-memory access.  A row of A
-//     longer than kStage entries is probed in global memory instead;
-//   * teams of G lanes walk the unit's entries, 32 / G at once, G a power of
-//     two from 2 to 32 picked from the mean length of the B rows the mask
-//     reaches (kernel 1's rule; an instance per G).  A lane issues kUnroll
-//     loads of B's columns (and values) ahead, then bisects for all kUnroll
-//     at once: the bisection's trip count depends only on A's row length,
-//     so its steps interleave;
+// Bound: the latency of dependent loads, and under it the gathers of B's
+// rows.  Per mask entry a lane reads the entry's row, column and selection,
+// two A and two B indptr words and B's row j, and each element of that row
+// bisects A's row i (~log2(deg) dependent probes).  The gathers of B's rows
+// (random rows of ~17 entries at n = 2^20, 67 MB of columns, beyond the 50
+// MB L2) are what no design avoids: mxmt_gather, the same walk with no
+// probe of A, measures them (PERF.md).  The design keeps entries in flight
+// and takes the probes off L1/L2:
+//   * the mask's stored entries are walked in windows of kWindow, a warp a
+//     window and a lane an entry (a long mask row spans several windows):
+//     each lane loads its entry's row id, column and selection byte (the
+//     one-pass streams, with the streaming hint), then its A row's bounds
+//     and its B range; the window's rows are consecutive, so their rows of A
+//     are one stretch of A, which the warp stages in shared memory when it
+//     holds at most kStage entries: a probe is then a shared-memory access.
+//     Otherwise the window's entries probe A in global memory;
+//   * teams of G lanes fold the window's entries, 32 / G at once, G a power
+//     of two from 2 to 16 from the mean length of the B rows the mask
+//     reaches (kernel 1's rule at 16 entries a lane; an instance per G).  A
+//     lane issues kUnroll loads of B's columns (and values) at once and
+//     bisects for all kUnroll together (the trip count depends only on A's
+//     row length, so the steps interleave), and a team issues its next
+//     entry's first batch before it folds the current entry;
 //   * a B row longer than hub_len entries is cut into chunks of HUB_CHUNK
 //     entries, a CTA each, first in the launch; the CTA stages A's row i in
 //     the shared memory of all its warps (kChunkStage entries).  Kernel 4
@@ -44,18 +48,23 @@
 //   * the lower-bound search makes the first of equal columns in A's row
 //     match, as spla_tpu.utils.search.rowwise_find does, and every element
 //     of B's row counts, duplicates included;
-//   * kernel 4 keeps a lane-local sum over a grid-stride loop of units,
+//   * kernel 4 keeps a lane-local sum over a grid-stride loop of windows,
 //     folds it with shuffles and shared memory and adds one 64-bit atomic
 //     per CTA: i32 products sum in int64 (two's complement, as uint64), hits
 //     of the structural instance in int64, f32 products in f64 (the f64
 //     atomics add in no fixed order).  Its structural instance takes no
-//     selection: every stored entry (the units end at indptr[m]).
-// PR 2's design (a warp per entry, lanes striding B's row and each
-// bisecting A's row in global memory, one entry in flight per warp) left
-// half the lanes idle at degree 16 and paid ~1.6 us of dependent loads per
-// entry; it was replaced, not kept.
+//     selection: every stored entry (the windows end at indptr[m]).
+// Tried and dropped (tools/mxmt_times.py; PERF.md has the numbers): PR 2's
+// design, a warp per entry with each lane bisecting A's row in global
+// memory (half the lanes idle at degree 16, one entry in flight a warp);
+// units of one mask row a warp (~16 entries, one more dependent load a
+// unit; kernel 5 and the gather 7-15% slower, in another call); G from 2
+// or 4 entries a lane (G = 16 or 8 at n = 2^20, up to 2.1x slower than
+// G = 2); 8 CTAs an SM by __launch_bounds__ (spills, 1.6-6x slower); no
+// streaming hint on the mask (no change); the next batch of an entry kept
+// in flight while one is folded (within 2%, 9-24 more registers).
 //
-// Coverage (compile time), each at G in {2, 4, 8, 16, 32}: kernel 5, mul in
+// Coverage (compile time), each at G in {2, 4, 8, 16}: kernel 5, mul in
 // {PLUS, MULT, FIRST, SECOND, MIN, MAX} x add in {PLUS, MIN, MAX} x {f32,
 // i32}, and a structural instance per (add, dtype) whose every hit's
 // product is 1; kernel 4, the 6 muls x {f32, i32} and a structural
@@ -73,11 +82,11 @@ enum Mode : int { kReduce = 0, kMasked = 1, kGather = 2 };  // kept equal to ker
 
 constexpr int kStruct = -1;          // MUL of the structural instances (and of the gather without values)
 constexpr int kWarps = kThreads / 32;
-constexpr int kUnitEntries = 32;     // entries of a unit, a lane each; kept equal to kernels/mxmt.py UNIT
+constexpr int kWindow = 32;         // stored entries a warp walks at once, a lane each; kernels/mxmt.py WINDOW
 constexpr int kStage = 256;          // A-row entries a warp stages; kept equal to kernels/mxmt.py A_STAGE
 constexpr int kChunkStage = kStage * kWarps;  // A-row entries a chunk CTA stages
 constexpr int kUnroll = 4;           // B loads a lane issues before it probes
-constexpr unsigned kMaxUnitCtas = 132 * 8;
+constexpr unsigned kMaxWindowCtas = 132 * 8;
 
 // i32 products and hits sum as uint64 (two's complement int64); f32 in f64.
 template <typename T, int MUL>
@@ -149,8 +158,8 @@ __device__ __forceinline__ T product(T a, T b) {
 }  // namespace
 
 struct MxmtArgs {
-  long long m, cap;  // mask rows, mask capacity
-  const int32_t* m_indptr;
+  long long cap;  // mask capacity
+  const int32_t* m_rows;  // the mask's row ids (row_ids)
   const int32_t* m_cols;
   const uint8_t* sel;  // null: every stored entry
   const int32_t *a_indptr, *a_cols;
@@ -159,17 +168,16 @@ struct MxmtArgs {
   const void* b_vals;
 };
 
-// The launch shape (kernels/mxmt.py mxmt_plan).  Unit u walks entries
-// [unit_e0[u], min(unit_e0[u] + kUnitEntries, m_indptr[unit_row[u] + 1]))
-// of mask row unit_row[u].  Hub h (the h-th stored entry whose B row is
-// longer than hub_len) has chunks chunk_first[h] .. chunk_first[h + 1] - 1;
-// chunk b walks entries [chunk_c0[b], chunk_c1[b]) of B for mask entry
-// chunk_entry[b] of row chunk_row[b].
+// The launch shape (kernels/mxmt.py mxmt_plan).  Window w holds stored
+// entries [w * kWindow, min((w + 1) * kWindow, stored)).  Hub h
+// (the h-th stored entry whose B row is longer than hub_len) has chunks
+// chunk_first[h] .. chunk_first[h + 1] - 1; chunk b walks entries
+// [chunk_c0[b], chunk_c1[b]) of B for mask entry chunk_entry[b] of row
+// chunk_row[b].
 struct MxmtPlan {
-  const int32_t *unit_row, *unit_e0;  // [nunits]
   const int32_t *chunk_entry, *chunk_row, *chunk_c0, *chunk_c1, *chunk_hub;  // [nchunks]
   const int32_t* chunk_first;         // [nhub + 1]
-  long long nunits, nhub, nchunks;
+  long long stored, nhub, nchunks;    // stored: the mask's indptr[m]
   int log2g, hub_len;
   void* part;          // [nchunks] T: each chunk's fold (kernel 5, hubs of several chunks)
   uint8_t* part_any;   // [nchunks]
@@ -191,97 +199,128 @@ struct Sink {
 
 template <typename T, bool VALUES>
 struct MxmtShared {
-  int32_t cols[kWarps * kStage];             // a warp's staged row at cols + warp * kStage
+  int32_t cols[kWarps * kStage];  // a warp's staged rows of A at cols + warp * kStage
   T vals[VALUES ? kWarps * kStage : 1];
-  int32_t lo[kWarps][kUnitEntries], hi[kWarps][kUnitEntries];  // each unit entry's B range
+  int32_t lo[kWarps][kWindow], hi[kWarps][kWindow];      // each entry's B range
+  int32_t a_off[kWarps][kWindow], a_len[kWarps][kWindow];  // and its A row
 };
 
-// Fold this lane's share of B's entries [t, end) (t, t + stride, ...)
-// against A's row a[0, na) (staged or in global memory; na >= 1 unless the
-// gather, which reads no A).  The one routine of all three modes.
-template <int MODE, typename T, int MUL, int ADD, bool GLOBAL>
-__device__ __forceinline__ void walk(const MxmtArgs& o, const int32_t* __restrict__ a,
-                                     const T* __restrict__ av, int32_t na, int32_t t, int32_t end,
-                                     int stride, AccOf<MODE, T, MUL>& acc, bool& any) {
-  constexpr bool kValues = MUL != kStruct;
-  const T* __restrict__ b_vals = static_cast<const T*>(o.b_vals);
-  for (; t < end; t += kUnroll * stride) {
-    int32_t k[kUnroll];
-    T bv[kUnroll];
+// A lane's next kUnroll entries of B, t, t + stride, ... (column -1 at and
+// past end), with their values where the instance reads values.
+template <typename T, bool VALUES>
+struct Batch {
+  int32_t k[kUnroll];
+  T v[kUnroll];
+
+  __device__ __forceinline__ void issue(const MxmtArgs& o, int32_t t, int32_t end, int stride) {
+    const T* __restrict__ b_vals = static_cast<const T*>(o.b_vals);
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int32_t e = t + u * stride;
       k[u] = e < end ? __ldg(o.b_cols + e) : -1;
-      if constexpr (kValues) bv[u] = e < end ? __ldg(b_vals + e) : T(0);
+      if constexpr (VALUES) v[u] = e < end ? __ldg(b_vals + e) : T(0);
     }
-    if constexpr (MODE == kGather) {
+  }
+};
+
+// Fold one batch against A's row a[0, na) (staged or in global memory; na
+// >= 1 unless the gather, which reads no A).
+template <int MODE, typename T, int MUL, int ADD, bool GLOBAL>
+__device__ __forceinline__ void fold_batch(const Batch<T, MUL != kStruct>& b, const int32_t* __restrict__ a,
+                                           const T* __restrict__ av, int32_t na, AccOf<MODE, T, MUL>& acc,
+                                           bool& any) {
+  if constexpr (MODE == kGather) {
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if (k[u] >= 0) {
-          acc ^= static_cast<uint32_t>(k[u]);
-          if constexpr (kValues) acc ^= bits_of(bv[u]);
-        }
-      }
-    } else {
-      int32_t p[kUnroll];
-      lower_bounds<GLOBAL>(a, na, k, p);
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if (k[u] >= 0 && p[u] < na && load<GLOBAL>(a + p[u]) == k[u]) {
-          T av_p = T(0);
-          if constexpr (kValues) av_p = load<GLOBAL>(av + p[u]);
-          accumulate<MODE, ADD>(acc, product<MUL>(av_p, bv[u]));
-          any = true;
-        }
+    for (int u = 0; u < kUnroll; ++u) {
+      if (b.k[u] >= 0) {
+        acc ^= static_cast<uint32_t>(b.k[u]);
+        if constexpr (MUL != kStruct) acc ^= bits_of(b.v[u]);
       }
     }
-    if (end - t <= kUnroll * stride) break;  // no overflow of t past end
+  } else {
+    int32_t p[kUnroll];
+    lower_bounds<GLOBAL>(a, na, b.k, p);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (b.k[u] >= 0 && p[u] < na && load<GLOBAL>(a + p[u]) == b.k[u]) {
+        T av_p = T(0);
+        if constexpr (MUL != kStruct) av_p = load<GLOBAL>(av + p[u]);
+        accumulate<MODE, ADD>(acc, product<MUL>(av_p, b.v[u]));
+        any = true;
+      }
+    }
   }
 }
 
-// One unit, walked by one warp: stage A's row, load each entry's B range,
-// then teams of G lanes fold the entries.  Kernel 4 leaves its sums in
-// lane_acc; kernels 5 and the gather write each entry.
+// Fold this lane's share of B's entries [t, end) (t, t + stride, ...),
+// whose first batch is already issued into `first`.  The one routine of
+// all three modes.
+template <int MODE, typename T, int MUL, int ADD, bool GLOBAL>
+__device__ __forceinline__ void walk(const MxmtArgs& o, const int32_t* __restrict__ a,
+                                     const T* __restrict__ av, int32_t na, const Batch<T, MUL != kStruct>& first,
+                                     int32_t t, int32_t end, int stride, AccOf<MODE, T, MUL>& acc, bool& any) {
+  fold_batch<MODE, T, MUL, ADD, GLOBAL>(first, a, av, na, acc, any);
+  const int32_t step = kUnroll * stride;
+  for (int32_t off = step; off < end - t; off += step) {  // no overflow of t + off past end
+    Batch<T, MUL != kStruct> b;
+    b.issue(o, t + off, end, stride);
+    fold_batch<MODE, T, MUL, ADD, GLOBAL>(b, a, av, na, acc, any);
+  }
+}
+
+// One window of stored entries, walked by one warp, a lane an entry: each
+// lane loads its entry's row, column and selection (the one-pass streams,
+// with the streaming hint), then its A row's bounds and B range; the
+// window's rows are consecutive, so their rows of A are one stretch, which
+// the warp stages in shared memory; then teams of G lanes fold the
+// entries, each team issuing its next entry's first batch before it folds
+// the current one.  Kernel 4 leaves its sums in lane_acc; kernel 5 and the
+// gather write each entry.
 template <int MODE, typename T, int MUL, int ADD, int LOG2G>
-__device__ __forceinline__ void unit_walk(const MxmtArgs& o, const MxmtPlan& p, const Sink<T>& s,
-                                          MxmtShared<T, MUL != kStruct>& sh, long long u, int warp,
-                                          int lane, AccOf<MODE, T, MUL>& lane_acc) {
+__device__ __forceinline__ void window_walk(const MxmtArgs& o, const MxmtPlan& p, const Sink<T>& s,
+                                            MxmtShared<T, MUL != kStruct>& sh, long long w, int warp, int lane,
+                                            AccOf<MODE, T, MUL>& lane_acc) {
   using Acc = AccOf<MODE, T, MUL>;
   constexpr bool kValues = MUL != kStruct;
   constexpr int g = 1 << LOG2G;
   const T* __restrict__ a_vals = static_cast<const T*>(o.a_vals);
-  const int32_t row = p.unit_row[u], e0 = p.unit_e0[u];
-  const int32_t row_end = o.m_indptr[row + 1];
-  int32_t a_lo = 0, na = 0;  // the gather reads no A
-  if constexpr (MODE != kGather) {
-    a_lo = o.a_indptr[row];
-    na = o.a_indptr[row + 1] - a_lo;
+  const long long e0 = w * kWindow, e = e0 + lane;
+  const int ne = static_cast<int>(min(static_cast<long long>(kWindow), p.stored - e0));
+  const bool in = lane < ne;
+  int32_t row = 0, j = 0;
+  bool selected = false;
+  if (in) {
+    row = __ldcs(o.m_rows + e);
+    j = __ldcs(o.m_cols + e);
+    selected = o.sel == nullptr || __ldcs(o.sel + e);
   }
-  const int32_t ne = min(kUnitEntries, row_end - e0);
-  // a lane an entry: its selection, column and B range, issued beside A's row
-  const int32_t e = e0 + lane;
-  int32_t lo = 0, hi = 0;
-  bool empty = false;  // selected with no product, or not selected: written here
-  if (lane < ne) {
-    const bool selected = o.sel == nullptr || __ldcs(o.sel + e);
-    const int32_t j = __ldcs(o.m_cols + e);
+  int32_t a0 = 0, a1 = 0, lo = 0, hi = 0;
+  if (in) {
+    if constexpr (MODE != kGather) {
+      a0 = __ldg(o.a_indptr + row);
+      a1 = __ldg(o.a_indptr + row + 1);
+    }
     if (selected) {
       lo = __ldg(o.b_indptr + j);
       hi = __ldg(o.b_indptr + j + 1);
     }
-    if (hi - lo > p.hub_len) {
-      lo = hi = 0;  // the entry's chunk CTAs write it
-    } else {
-      empty = hi == lo || (MODE != kGather && na == 0);
-    }
   }
-  const bool staged = MODE != kGather && na <= kStage;
+  const int32_t base = __shfl_sync(kFullMask, a0, 0), top = __shfl_sync(kFullMask, a1, ne - 1);
+  const bool staged = MODE != kGather && top - base <= kStage;
   int32_t* __restrict__ s_cols = sh.cols + warp * kStage;
   T* __restrict__ s_vals = sh.vals + (kValues ? warp * kStage : 0);
   if (staged) {
-    for (int32_t k = lane; k < na; k += 32) {
-      s_cols[k] = __ldg(o.a_cols + a_lo + k);
-      if constexpr (kValues) s_vals[k] = __ldg(a_vals + a_lo + k);
+    for (int32_t k = lane; k < top - base; k += 32) {
+      s_cols[k] = __ldg(o.a_cols + base + k);
+      if constexpr (kValues) s_vals[k] = __ldg(a_vals + base + k);
+    }
+  }
+  bool empty = false;  // selected with no product, or not selected: written here
+  if (in) {
+    if (hi - lo > p.hub_len) {
+      lo = hi = 0;  // the entry's chunk CTAs write it
+    } else {
+      empty = hi == lo || (MODE != kGather && a1 == a0);
     }
   }
   if (empty) {
@@ -295,39 +334,60 @@ __device__ __forceinline__ void unit_walk(const MxmtArgs& o, const MxmtPlan& p, 
   }
   sh.lo[warp][lane] = lo;
   sh.hi[warp][lane] = hi;
+  sh.a_off[warp][lane] = staged ? a0 - base : a0;
+  sh.a_len[warp][lane] = a1 - a0;
   __syncwarp();
   const int team = lane >> LOG2G, sub = lane & (g - 1);
   const unsigned tmask = g == 32 ? kFullMask : ((1u << g) - 1u) << (lane & ~(g - 1));
-  const int32_t* a = staged ? s_cols : o.a_cols + a_lo;
-  const T* av = staged ? s_vals : a_vals + a_lo;
+  const int32_t* a_cols = staged ? s_cols : o.a_cols;
+  const T* av = staged ? s_vals : a_vals;
+  int32_t blo = 0, bhi = 0;
+  if (team < ne) {
+    blo = sh.lo[warp][team];
+    bhi = sh.hi[warp][team];
+  }
+  Batch<T, kValues> cur;
+  cur.issue(o, blo + sub, bhi, g);
   for (int q = team; q < ne; q += 32 >> LOG2G) {
-    const int32_t blo = sh.lo[warp][q], bhi = sh.hi[warp][q];
-    if (blo == bhi) continue;  // uniform across the team
-    Acc acc = acc_identity<MODE, ADD, Acc>();
-    bool any = false;
-    if (staged) {
-      walk<MODE, T, MUL, ADD, false>(o, a, av, na, blo + sub, bhi, g, acc, any);
-    } else {
-      walk<MODE, T, MUL, ADD, true>(o, a, av, na, blo + sub, bhi, g, acc, any);
+    const int qn = q + (32 >> LOG2G);
+    int32_t nlo = 0, nhi = 0;
+    if (qn < ne) {
+      nlo = sh.lo[warp][qn];
+      nhi = sh.hi[warp][qn];
     }
-    if constexpr (MODE == kReduce) {
-      lane_acc += acc;
-    } else {
+    Batch<T, kValues> next;
+    next.issue(o, nlo + sub, nhi, g);
+    if (blo != bhi) {  // uniform across the team
+      const int32_t off = sh.a_off[warp][q], na = sh.a_len[warp][q];
+      Acc acc = acc_identity<MODE, ADD, Acc>();
+      bool any = false;
+      if (staged) {
+        walk<MODE, T, MUL, ADD, false>(o, a_cols + off, av + off, na, cur, blo + sub, bhi, g, acc, any);
+      } else {
+        walk<MODE, T, MUL, ADD, true>(o, a_cols + off, av + off, na, cur, blo + sub, bhi, g, acc, any);
+      }
+      if constexpr (MODE == kReduce) {
+        lane_acc += acc;
+      } else {
 #pragma unroll
-      for (int off = g >> 1; off > 0; off >>= 1) acc = combine<MODE, ADD>(acc, __shfl_xor_sync(tmask, acc, off));
-      any = (__ballot_sync(tmask, any) & tmask) != 0;
-      if (sub == 0) {
-        if constexpr (MODE == kMasked) {
-          const T init_v = s.init_of();
-          static_cast<T*>(s.out)[e0 + q] = any ? apply_op<ADD>(init_v, acc) : init_v;
-          s.has[e0 + q] = any;
-        } else {
-          static_cast<uint32_t*>(s.out)[e0 + q] = acc;
+        for (int o2 = g >> 1; o2 > 0; o2 >>= 1) acc = combine<MODE, ADD>(acc, __shfl_xor_sync(tmask, acc, o2));
+        any = (__ballot_sync(tmask, any) & tmask) != 0;
+        if (sub == 0) {
+          if constexpr (MODE == kMasked) {
+            const T init_v = s.init_of();
+            static_cast<T*>(s.out)[e0 + q] = any ? apply_op<ADD>(init_v, acc) : init_v;
+            s.has[e0 + q] = any;
+          } else {
+            static_cast<uint32_t*>(s.out)[e0 + q] = acc;
+          }
         }
       }
     }
+    cur = next;
+    blo = nlo;
+    bhi = nhi;
   }
-  __syncwarp();  // the unit's shared rows are read before the next unit stages its own
+  __syncwarp();  // the window's shared rows are read before the next window stages its own
 }
 
 // This CTA's hub chunk: a stretch of a long B row for one mask entry.
@@ -341,9 +401,12 @@ __device__ __forceinline__ void chunk_walk(const MxmtArgs& o, const MxmtPlan& p,
   __shared__ bool red_any[kWarps];
   const int32_t b = static_cast<int32_t>(blockIdx.x);
   const int32_t e = p.chunk_entry[b];
-  if (o.sel != nullptr && !o.sel[e]) return;  // uniform: the unit walk writes init
+  if (o.sel != nullptr && !o.sel[e]) return;  // uniform: the window walk writes init
   const int32_t row = p.chunk_row[b], c0 = p.chunk_c0[b], c1 = p.chunk_c1[b];
   const T* __restrict__ a_vals = static_cast<const T*>(o.a_vals);
+  const int tid = threadIdx.x;
+  Batch<T, kValues> first;
+  first.issue(o, c0 + tid, c1, kThreads);
   int32_t a_lo = 0, na = 0;
   if constexpr (MODE != kGather) {
     a_lo = o.a_indptr[row];
@@ -351,7 +414,6 @@ __device__ __forceinline__ void chunk_walk(const MxmtArgs& o, const MxmtPlan& p,
   }
   Acc acc = acc_identity<MODE, ADD, Acc>();
   bool any = false;
-  const int tid = threadIdx.x;
   if (MODE == kGather || na > 0) {
     const bool staged = MODE != kGather && na <= kChunkStage;
     if (staged) {
@@ -360,10 +422,10 @@ __device__ __forceinline__ void chunk_walk(const MxmtArgs& o, const MxmtPlan& p,
         if constexpr (kValues) sh.vals[k] = __ldg(a_vals + a_lo + k);
       }
       __syncthreads();
-      walk<MODE, T, MUL, ADD, false>(o, sh.cols, sh.vals, na, c0 + tid, c1, kThreads, acc, any);
+      walk<MODE, T, MUL, ADD, false>(o, sh.cols, sh.vals, na, first, c0 + tid, c1, kThreads, acc, any);
     } else {
-      walk<MODE, T, MUL, ADD, true>(o, o.a_cols + a_lo, a_vals + a_lo, na, c0 + tid, c1, kThreads, acc,
-                                    any);
+      walk<MODE, T, MUL, ADD, true>(o, o.a_cols + a_lo, a_vals + a_lo, na, first, c0 + tid, c1, kThreads,
+                                    acc, any);
     }
   }
   if constexpr (MODE == kReduce) {
@@ -390,9 +452,9 @@ __device__ __forceinline__ void chunk_walk(const MxmtArgs& o, const MxmtPlan& p,
       atomicXor(static_cast<unsigned int*>(s.out) + e, v);
     } else {
       const int32_t hub = p.chunk_hub[b];
-      const int32_t first = p.chunk_first[hub], count = p.chunk_first[hub + 1] - first;
-      if (count > 1 && !fold_chunks<ADD>(static_cast<T*>(p.part), p.part_any, p.done, hub, b, first, count,
-                                         v, hit)) {
+      const int32_t first_chunk = p.chunk_first[hub], count = p.chunk_first[hub + 1] - first_chunk;
+      if (count > 1 && !fold_chunks<ADD>(static_cast<T*>(p.part), p.part_any, p.done, hub, b, first_chunk,
+                                         count, v, hit)) {
         return;  // another chunk of the entry folds them all
       }
       const T init_v = s.init_of();
@@ -415,12 +477,13 @@ mxmt_kernel(MxmtArgs o, MxmtPlan p, Sink<T> s) {
   } else {
     const long long ctas = static_cast<long long>(gridDim.x) - p.nchunks;
     const long long cta = static_cast<long long>(blockIdx.x) - p.nchunks;
-    for (long long u = cta * kWarps + warp; u < p.nunits; u += ctas * kWarps) {
-      unit_walk<MODE, T, MUL, ADD, LOG2G>(o, p, s, sh, u, warp, lane, lane_acc);
+    const long long windows = (p.stored + kWindow - 1) / kWindow;
+    for (long long w = cta * kWarps + warp; w < windows; w += ctas * kWarps) {
+      window_walk<MODE, T, MUL, ADD, LOG2G>(o, p, s, sh, w, warp, lane, lane_acc);
     }
     if constexpr (MODE == kMasked) {  // capacity padding past indptr[m]
       const T init_v = s.init_of();
-      for (long long e = o.m_indptr[o.m] + cta * kThreads + threadIdx.x; e < o.cap; e += ctas * kThreads) {
+      for (long long e = p.stored + cta * kThreads + threadIdx.x; e < o.cap; e += ctas * kThreads) {
         static_cast<T*>(s.out)[e] = init_v;
         s.has[e] = 0;
       }
@@ -457,9 +520,10 @@ struct MxmtLaunch {
     T init_value;
     memcpy(&init_value, &init_bits, sizeof(T));
     const Sink<T> s{static_cast<const T*>(init), init_value, out, static_cast<uint8_t*>(has), total};
-    const long long want = (p.nunits + kWarps - 1) / kWarps;
-    const unsigned unit_ctas = static_cast<unsigned>(want < 1 ? 1 : (want < kMaxUnitCtas ? want : kMaxUnitCtas));
-    mxmt_kernel<MODE, T, MUL, ADD, LOG2G><<<static_cast<unsigned>(p.nchunks) + unit_ctas, kThreads, 0, stream>>>(
+    const long long windows = (p.stored + kWindow - 1) / kWindow;
+    const long long want = (windows + kWarps - 1) / kWarps;
+    const unsigned window_ctas = static_cast<unsigned>(want < 1 ? 1 : (want < kMaxWindowCtas ? want : kMaxWindowCtas));
+    mxmt_kernel<MODE, T, MUL, ADD, LOG2G><<<static_cast<unsigned>(p.nchunks) + window_ctas, kThreads, 0, stream>>>(
         o, p, s);
   }
 
@@ -469,8 +533,7 @@ struct MxmtLaunch {
       case 1: launch<MODE, T, MUL, ADD, 1>(); break;
       case 2: launch<MODE, T, MUL, ADD, 2>(); break;
       case 3: launch<MODE, T, MUL, ADD, 3>(); break;
-      case 4: launch<MODE, T, MUL, ADD, 4>(); break;
-      default: launch<MODE, T, MUL, ADD, 5>();
+      default: launch<MODE, T, MUL, ADD, 4>();
     }
   }
 
@@ -504,30 +567,29 @@ struct StructLaunch {
 };
 
 bool plan_ok(const MxmtPlan& p) {
-  return p.log2g >= 1 && p.log2g <= 5 && p.hub_len >= 0 && p.nunits >= 0 && p.nhub >= 0 &&
+  return p.log2g >= 1 && p.log2g <= 4 && p.hub_len >= 0 && p.stored >= 0 && p.nhub >= 0 &&
          p.nchunks >= p.nhub;
 }
 
 }  // namespace
 
-extern "C" int spla_mxmt(int mode, int mul, int add, int dtype, int structural, long long m, long long cap,
-                         const void* m_indptr, const void* m_cols, const void* sel, const void* a_indptr,
+extern "C" int spla_mxmt(int mode, int mul, int add, int dtype, int structural, long long cap,
+                         const void* m_rows, const void* m_cols, const void* sel, const void* a_indptr,
                          const void* a_cols, const void* a_vals, const void* b_indptr, const void* b_cols,
-                         const void* b_vals, int log2g, int hub_len, long long nunits, const void* unit_row,
-                         const void* unit_e0, long long nhub, long long nchunks, const void* chunk_entry,
+                         const void* b_vals, int log2g, int hub_len, long long stored, long long nhub,
+                         long long nchunks, const void* chunk_entry,
                          const void* chunk_row, const void* chunk_c0, const void* chunk_c1,
                          const void* chunk_hub, const void* chunk_first, void* part, void* part_any, void* done,
                          const void* init, unsigned init_bits, void* out, void* has, void* total, void* stream) {
   if (cap == 0) return 0;
-  const MxmtArgs o{m, cap, static_cast<const int32_t*>(m_indptr), static_cast<const int32_t*>(m_cols),
+  const MxmtArgs o{cap, static_cast<const int32_t*>(m_rows), static_cast<const int32_t*>(m_cols),
                    static_cast<const uint8_t*>(sel), static_cast<const int32_t*>(a_indptr),
                    static_cast<const int32_t*>(a_cols), a_vals, static_cast<const int32_t*>(b_indptr),
                    static_cast<const int32_t*>(b_cols), b_vals};
-  const MxmtPlan p{static_cast<const int32_t*>(unit_row), static_cast<const int32_t*>(unit_e0),
-                   static_cast<const int32_t*>(chunk_entry), static_cast<const int32_t*>(chunk_row),
+  const MxmtPlan p{static_cast<const int32_t*>(chunk_entry), static_cast<const int32_t*>(chunk_row),
                    static_cast<const int32_t*>(chunk_c0), static_cast<const int32_t*>(chunk_c1),
                    static_cast<const int32_t*>(chunk_hub), static_cast<const int32_t*>(chunk_first),
-                   nunits, nhub, nchunks, log2g, hub_len, part, static_cast<uint8_t*>(part_any),
+                   stored, nhub, nchunks, log2g, hub_len, part, static_cast<uint8_t*>(part_any),
                    static_cast<int32_t*>(done)};
   if (!plan_ok(p)) return static_cast<int>(cudaErrorInvalidValue);
   MxmtLaunch launch{o, p, init, init_bits, out, has, total, static_cast<cudaStream_t>(stream)};

@@ -22,13 +22,14 @@ treats every hit's product as 1 and reads no values.
 Kernel 4 sums i32 products and hits in int64 and f32 products in float64;
 its result is a 0-d tensor of that dtype.
 
-The kernels' launch is shaped by ``mxmt_plan``, built on the device from
-the mask and B at their first CUDA call and cached per tensor: the mask's
-rows cut into units of at most ``UNIT`` entries (a warp each, which stages
-A's row in shared memory when it holds at most ``A_STAGE`` entries), the
-team size G of kernel 1's rule over the B rows the mask reaches, and the
-entries whose B row is longer than ``HUB_LEN``, cut into chunks of
-``HUB_CHUNK`` B entries, a CTA each.  Building it reads the host once.  No
+The kernels walk the mask's stored entries in windows of ``WINDOW``, a
+warp a window, which stages the window's rows of A in shared memory when
+they hold at most ``A_STAGE`` entries (it reads ``mask.row_ids``).  Their
+launch is shaped by ``mxmt_plan``, built on the device from the mask and B
+at their first CUDA call and cached per tensor: the team size G of kernel
+1's rule over the B rows the mask reaches (at ``LANE_LOADS`` entries a
+lane), and the entries whose B row is longer than ``HUB_LEN``, cut into
+chunks of ``HUB_CHUNK`` B entries, a CTA each.  Building it reads the host once.  No
 argument or setting chooses any of it.  The CUDA source's header says what
 bounds the kernels and how they are laid out.
 """
@@ -53,10 +54,11 @@ from .spmv import (DTYPE_CODES, PULL_ADDS, _init_arg, _mask, _on_cpu, _ptr, _req
 
 __all__ = [
     "PRODUCT_CHUNK",
-    "UNIT",
+    "WINDOW",
     "A_STAGE",
     "HUB_LEN",
     "HUB_CHUNK",
+    "LANE_LOADS",
     "MxmtPlan",
     "mxmt_plan",
     "masked_codes",
@@ -71,10 +73,13 @@ __all__ = [
 # mask is cut into ranges of whole entries, so no entry's fold is split
 PRODUCT_CHUNK = 1 << 26
 
-UNIT = 32  # mask entries a warp walks at once, a lane each (csrc/mxmt.cu kUnitEntries)
-A_STAGE = 256  # entries of A's row a warp stages in shared memory (kStage); longer: global memory
+WINDOW = 32  # stored mask entries a warp walks at once, a lane each (csrc/mxmt.cu kWindow)
+A_STAGE = 256  # entries of A's rows a warp stages in shared memory (kStage); more: global memory
 HUB_LEN = 256  # a B row of more entries is walked in chunks, a CTA each
 HUB_CHUNK = 2048  # entries of a long B row a CTA walks
+# a lane's share of a mean B row; G, the least power of two from 2 at or above
+# the mean over it, stays at most 16: B rows of more than HUB_LEN are chunked
+LANE_LOADS = 16
 
 _PLANS = WeakIdCache()  # (mask.indptr ref, B.indptr ref, MxmtPlan) per mask.cols tensor
 
@@ -199,10 +204,9 @@ def mxmt_reduce_plain(mask: CsrMatrix, A: CsrMatrix, B: CsrMatrix, op_mul, sel=N
 @dataclass(frozen=True)
 class MxmtPlan:
     """The launch shape of kernels 4 and 5 (and of the gather) for one mask
-    and B, on their device.  Unit u walks mask entries ``[unit_e0[u],
-    min(unit_e0[u] + UNIT, indptr[unit_row[u] + 1]))`` of row
-    ``unit_row[u]``, a warp a unit; a row of more than UNIT entries has
-    several units.  The hub entries are the stored entries whose B row is
+    and B, on their device.  ``stored`` is the mask's ``indptr[m]``: its
+    ``ceil(stored / WINDOW)`` windows are walked a warp each.  The hub
+    entries are the stored entries whose B row is
     longer than ``HUB_LEN``, in entry order; hub h has chunks
     ``chunk_first[h]`` .. ``chunk_first[h + 1] - 1``, chunk b walking B's
     entries ``[chunk_c0[b], chunk_c1[b])`` for mask entry ``chunk_entry[b]``
@@ -210,15 +214,13 @@ class MxmtPlan:
     an entry.  Where a hub has several chunks, ``part``/``part_any``/``done``
     are kernel 5's scratch (``spmv.hub_scratch``)."""
 
-    unit_row: torch.Tensor  # int32 [nunits]
-    unit_e0: torch.Tensor  # int32 [nunits]
     chunk_entry: torch.Tensor  # int32 [nchunks]
     chunk_row: torch.Tensor  # int32 [nchunks]
     chunk_c0: torch.Tensor  # int32 [nchunks]
     chunk_c1: torch.Tensor  # int32 [nchunks]
     chunk_hub: torch.Tensor  # int32 [nchunks]
     chunk_first: torch.Tensor  # int32 [nhub + 1]
-    nunits: int
+    stored: int
     nhub: int
     nchunks: int
     team: int
@@ -229,10 +231,10 @@ class MxmtPlan:
 
 def mxmt_plan(mask: CsrMatrix, B: CsrMatrix) -> MxmtPlan:
     """The plan of ``mask`` against ``B``, built on their device and cached
-    per (mask.cols, mask.indptr, B.indptr) tensors; the unit, hub and chunk
-    counts and the walked B entries are read on the host once, at the first
-    build.  G is kernel 1's ``team_size`` over the B rows the stored
-    non-hub entries reach."""
+    per (mask.cols, mask.indptr, B.indptr) tensors; the stored, hub and
+    chunk counts and the walked B entries are read on the host once, at the first
+    build.  G is kernel 1's ``team_size`` rule over the B rows the stored
+    non-hub entries reach, at ``LANE_LOADS`` entries a lane."""
     key = (id(mask.indptr), id(B.indptr))
     hit = _PLANS.get(mask.cols, key)
     if hit is not None and hit[0]() is mask.indptr and hit[1]() is B.indptr:
@@ -240,19 +242,14 @@ def mxmt_plan(mask: CsrMatrix, B: CsrMatrix) -> MxmtPlan:
     device = mask.cols.device
     m, cap = mask.shape[0], mask.capacity
     mip, bip = mask.indptr.long(), B.indptr.long()
-    row_units = torch.div(mip[1:] - mip[:-1] + UNIT - 1, UNIT, rounding_mode="floor")
     e = torch.arange(cap, device=device)
     stored = e < mip[m]
     j = mask.cols.long().clamp(0, max(B.shape[0] - 1, 0))
     blen = torch.where(stored, (bip[1:] - bip[:-1])[j], 0)
     hub = blen > HUB_LEN
     chunks = torch.where(hub, torch.div(blen + HUB_CHUNK - 1, HUB_CHUNK, rounding_mode="floor"), 0)
-    nunits, nhub, nchunks, walked, entries = (int(v) for v in torch.stack(
-        [row_units.sum(), hub.sum(), chunks.sum(), torch.where(hub, 0, blen).sum(),
-         (stored & ~hub).sum()]).tolist())
-    unit_row = torch.repeat_interleave(torch.arange(m, device=device), row_units, output_size=nunits)
-    unit_first = torch.cumsum(row_units, 0) - row_units
-    unit_e0 = mip[unit_row] + (torch.arange(nunits, device=device) - unit_first[unit_row]) * UNIT
+    nstored, nhub, nchunks, walked, entries = (int(v) for v in torch.stack(
+        [mip[m], hub.sum(), chunks.sum(), torch.where(hub, 0, blen).sum(), (stored & ~hub).sum()]).tolist())
     # each hub entry's rank among the hub entries; the others go to slot nhub, dropped
     slot = torch.where(hub, torch.cumsum(hub, 0) - 1, nhub)
     ents = torch.empty(nhub + 1, dtype=torch.long, device=device)
@@ -266,9 +263,9 @@ def mxmt_plan(mask: CsrMatrix, B: CsrMatrix) -> MxmtPlan:
     chunk_c0 = bip[jc] + (torch.arange(nchunks, device=device) - chunk_first[chunk_hub]) * HUB_CHUNK
     chunk_c1 = torch.minimum(chunk_c0 + HUB_CHUNK, bip[jc + 1])
     scratch = hub_scratch(nchunks, nhub, device) if nchunks > nhub else {}
-    i32 = [t.to(torch.int32) for t in (unit_row, unit_e0, chunk_entry, mask.row_ids[chunk_entry],
-                                       chunk_c0, chunk_c1, chunk_hub, chunk_first)]
-    plan = MxmtPlan(*i32, nunits, nhub, nchunks, team_size(walked, entries), **scratch)
+    i32 = [t.to(torch.int32) for t in (chunk_entry, mask.row_ids[chunk_entry], chunk_c0, chunk_c1,
+                                       chunk_hub, chunk_first)]
+    plan = MxmtPlan(*i32, nstored, nhub, nchunks, team_size(walked, entries, LANE_LOADS), **scratch)
     _PLANS.put(mask.cols, (weakref.ref(mask.indptr), weakref.ref(B.indptr), plan), key)
     return plan
 
@@ -280,12 +277,13 @@ def _check_operands(what, mask, A, B, sel, values):
     """Raise unless mask, A, B and sel lie on one CUDA device with int32
     indices, contiguous, in matching shapes (and, with ``values``, one value
     dtype)."""
-    _require_cuda(what, A, {"mask.indptr": mask.indptr, "mask.cols": mask.cols,
-                            "sel": _mask(sel, what, "sel")}, {"sel": mask.capacity})
+    _require_cuda(what, A, {"mask.indptr": mask.indptr, "mask.cols": mask.cols, "mask.row_ids": mask.row_ids,
+                            "sel": _mask(sel, what, "sel")},
+                  {"mask.row_ids": mask.capacity, "sel": mask.capacity})
     _require_cuda(what, B, {}, {})
     if B.values.device != A.values.device:
         raise ValueError(f"{what}: B is on {B.values.device}, A on {A.values.device}")
-    if mask.indptr.dtype != torch.int32 or mask.cols.dtype != torch.int32:
+    if any(t.dtype != torch.int32 for t in (mask.indptr, mask.cols, mask.row_ids)):
         raise TypeError(f"{what}: mask indices must be int32")
     if mask.indptr.shape != (mask.shape[0] + 1,):
         raise ValueError(f"{what}: mask.indptr has shape {tuple(mask.indptr.shape)}, "
@@ -304,10 +302,10 @@ def _launch(what, mode, codes, mask, A, B, sel, init=None, init_bits=0, out=None
     mul, add, dtype, structural = codes
     plan = mxmt_plan(mask, B)
     rc = load_library().spla_mxmt(
-        mode, mul, add, dtype, structural, mask.shape[0], mask.capacity, mask.indptr.data_ptr(),
-        mask.cols.data_ptr(), _ptr(sel), A.indptr.data_ptr(), A.cols.data_ptr(), A.values.data_ptr(),
-        B.indptr.data_ptr(), B.cols.data_ptr(), B.values.data_ptr(), plan.team.bit_length() - 1, HUB_LEN,
-        plan.nunits, plan.unit_row.data_ptr(), plan.unit_e0.data_ptr(), plan.nhub, plan.nchunks,
+        mode, mul, add, dtype, structural, mask.capacity, mask.row_ids.data_ptr(), mask.cols.data_ptr(),
+        _ptr(sel), A.indptr.data_ptr(), A.cols.data_ptr(), A.values.data_ptr(), B.indptr.data_ptr(),
+        B.cols.data_ptr(), B.values.data_ptr(), plan.team.bit_length() - 1, HUB_LEN, plan.stored, plan.nhub,
+        plan.nchunks,
         *(t.data_ptr() for t in (plan.chunk_entry, plan.chunk_row, plan.chunk_c0, plan.chunk_c1,
                                  plan.chunk_hub, plan.chunk_first)),
         _ptr(plan.part), _ptr(plan.part_any), _ptr(plan.done), _ptr(init), init_bits, _ptr(out),

@@ -258,8 +258,9 @@ def mxmt_gather(mask: CsrMatrix, B: CsrMatrix, values: bool = True):
     if _on_cpu(B.values, mask.cols):
         return mxmt_gather_plain(mask, B, values)
     what = "mxmt_gather"
-    _require_cuda(what, B, {"mask.indptr": mask.indptr, "mask.cols": mask.cols}, {})
-    if mask.indptr.dtype != torch.int32 or mask.cols.dtype != torch.int32:
+    _require_cuda(what, B, {"mask.indptr": mask.indptr, "mask.cols": mask.cols, "mask.row_ids": mask.row_ids},
+                  {"mask.row_ids": mask.capacity})
+    if any(t.dtype != torch.int32 for t in (mask.indptr, mask.cols, mask.row_ids)):
         raise TypeError(f"{what}: mask indices must be int32")
     if mask.indptr.shape != (mask.shape[0] + 1,) or mask.shape[1] != B.shape[0]:
         raise ValueError(f"{what}: mask {mask.shape} does not reach the rows of B {B.shape}")

@@ -49,11 +49,15 @@ def count_mxmT_products(mask: CsrMatrix, B: CsrMatrix) -> int:
     return int(_row_degrees(B)[mask.cols[:nnz].long()].sum())
 
 
-def _selection(mask: CsrMatrix, op_select, struct_only: bool) -> torch.Tensor | None:
+def _selection(mask: CsrMatrix, op_select, struct_only: bool, kernel: bool = False):
     """The mask entries that take part: stored ones, kept by ``op_select``
-    unless ``struct_only`` (then None: every stored entry, which the kernels
-    read from ``mask.indptr``)."""
-    return None if struct_only else op_select(mask.values) & mask.valid_mask()
+    unless ``struct_only`` (then None: every stored entry).  The kernels
+    read entries below ``mask.indptr[m]`` only, so theirs skips the
+    stored-ness test."""
+    if struct_only:
+        return None
+    keep = op_select(mask.values)
+    return keep if kernel else keep & mask.valid_mask()
 
 
 def _to_csr(mask: CsrMatrix, out, has, init_t, out_capacity) -> CsrMatrix:
@@ -106,7 +110,7 @@ def mxmT_masked(mask: CsrMatrix, A: CsrMatrix, B: CsrMatrix, op_mul, op_add, op_
     DISPATCH_STATS["mxmT_kernel"] += 1
     init_t = _scalar(init, A.values)
     out, has = K.mxmt_masked(mask, A, B, op_mul, op_add, init_t,
-                             _selection(mask, op_select, struct_only), struct_only)
+                             _selection(mask, op_select, struct_only, kernel=True), struct_only)
     return _to_csr(mask, out, has, init_t, out_capacity)
 
 
@@ -117,10 +121,10 @@ def mxmT_masked_reduce(mask: CsrMatrix, A: CsrMatrix, B: CsrMatrix, op_mul, op_s
     ``struct_only`` (the hit count), float64 for floats.  The fused
     mxmT + m_reduce of triangle counting; kernel 4 on CUDA tensors when it
     covers ``op_mul``."""
-    sel = _selection(mask, op_select, struct_only)
     if (A.values.device.type == "cuda"
             and K.reduce_codes(op_mul, A.values.dtype, struct_only) is not None):
         DISPATCH_STATS["mxmT_kernel"] += 1
-        return K.mxmt_reduce(mask, A, B, op_mul, sel, struct_only)
+        return K.mxmt_reduce(mask, A, B, op_mul, _selection(mask, op_select, struct_only, kernel=True),
+                             struct_only)
     DISPATCH_STATS["mxmT_torch"] += 1
-    return K.mxmt_reduce_plain(mask, A, B, op_mul, sel, struct_only)
+    return K.mxmt_reduce_plain(mask, A, B, op_mul, _selection(mask, op_select, struct_only), struct_only)

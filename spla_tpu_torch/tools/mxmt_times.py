@@ -14,7 +14,11 @@ without values, no probe of A) and, with ``--teams``, kernel 4 structural
 and kernel 5 at every team size G (the plan's G replaced, on a copy of the
 mask's columns; the plan's own G among them on such a copy too).  At
 n = 2^20 also the walls of ``tc`` and of ``mxmT_masked`` MULT/PLUS i32
-(host clock around a synchronized call, median of 3).  Each function is launched ``--reps`` times after 3 warm-up
+(host clock around a synchronized call, median of 3) and, with
+``--profile``, one call of each under ``torch.profiler``: its wall with the
+profiler on, the device's busy time (the union of its kernel, copy and
+memset intervals), the idle share (1 - busy / wall) and the largest device
+items.  Each function is launched ``--reps`` times after 3 warm-up
 launches, every graph's functions forward and then backward, and the two
 means averaged.  The calls name nothing a tree before the gather lacks, so
 one copy of this file and of ``graphs.py`` times an older tree's kernels
@@ -22,7 +26,8 @@ too: run it there and here in turns (old, new, new, old).
 
 Usage::
 
-    python -m spla_tpu_torch.tools.mxmt_times [--graphs tc15,tc20,hub] [--reps 20] [--label NAME] [--teams]
+    python -m spla_tpu_torch.tools.mxmt_times [--graphs tc15,tc20,hub] [--reps 20] [--label NAME]
+        [--teams] [--profile]
 """
 
 from __future__ import annotations
@@ -82,7 +87,7 @@ def with_team(mask, B, g):
 def team_functions(mask, A):
     """Kernel 4 structural and kernel 5 MULT/PLUS i32 at each G."""
     fns = {}
-    for g in (2, 4, 8, 16, 32):
+    for g in (2, 4, 8, 16):
         M = with_team(mask, A, g)
         fns[f"k4 structural G={g}"] = lambda M=M: K45.mxmt_reduce(M, A, A, None, struct_only=True)
         fns[f"k5 MULT/PLUS i32 G={g}"] = lambda M=M: K45.mxmt_masked(M, A, A, op.MULT_INT, op.PLUS_INT, 0)
@@ -114,12 +119,40 @@ def wall_ms(fn):
     return sorted(walls)[1]
 
 
+def profiled(fn):
+    """One call of ``fn`` under torch.profiler (after one without):
+    ``{"wall_ms", "busy_ms", "idle_share", "top"}``, top the four device
+    items with the most time as ``[name, calls, ms]``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, end, items = 0.0, float("-inf"), {}
+    for start, stop, name in spans:
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+        calls, us = items.get(name, (0, 0.0))
+        items[name] = (calls + 1, us + stop - start)
+    top = sorted(items.items(), key=lambda kv: -kv[1][1])[:4]
+    return {"wall_ms": wall, "busy_ms": busy / 1e3, "idle_share": 1 - busy / 1e3 / wall,
+            "top": [[name[:80], calls, us / 1e3] for name, (calls, us) in top]}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--graphs", default=",".join(GRAPHS), help=f"comma-separated, of {GRAPHS}")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--label", default="", help="names the tree in the JSON line")
     ap.add_argument("--teams", action="store_true", help="also time kernels 4 and 5 at every G")
+    ap.add_argument("--profile", action="store_true", help="profile tc and mxmT_masked at n = 2^20")
     args = ap.parse_args(argv)
     names = args.graphs.split(",")
     unknown = set(names) - set(GRAPHS)
@@ -140,11 +173,14 @@ def main(argv=None):
                "mask_nnz": int(mask.nnz), "ms": ms, "card": smi}
         if hasattr(K45, "mxmt_plan"):
             plan = K45.mxmt_plan(mask, A)
-            row["plan"] = {"team": plan.team, "units": plan.nunits, "hubs": plan.nhub, "chunks": plan.nchunks}
+            row["plan"] = {"team": plan.team, "hubs": plan.nhub, "chunks": plan.nchunks}
         if name == "tc20":
-            row["walls_ms"] = {"tc": wall_ms(lambda: alg.tc(A)),
-                               "mxmT_masked MULT/PLUS i32": wall_ms(
-                                   lambda: mxmT_masked(A, A, A, op.MULT_INT, op.PLUS_INT, op.GTZERO_INT, 0))}
+            calls = {"tc": lambda: alg.tc(A),
+                     "mxmT_masked MULT/PLUS i32": lambda: mxmT_masked(A, A, A, op.MULT_INT, op.PLUS_INT,
+                                                                       op.GTZERO_INT, 0)}
+            row["walls_ms"] = {k: wall_ms(fn) for k, fn in calls.items()}
+            if args.profile:
+                row["profiled"] = {k: profiled(fn) for k, fn in calls.items()}
         print(json.dumps(row), flush=True)
 
 

@@ -393,7 +393,7 @@ def _plan_operands(seed=61, n=300):
     and of the kernels: B's row 5 holds 2,500 entries (duplicate columns,
     two HUB_CHUNK chunks) and row 6 holds 300 (one chunk); A's row 9 holds
     280 distinct columns (above A_STAGE); mask row 3 is empty, row 11 holds
-    100 entries (four units), and column 5 and row 9 are reached; values
+    100 entries (more than a window), and column 5 and row 9 are reached; values
     in {-1, 1, 2}, so GTZERO deselects some entries; capacities above nnz."""
     rng = np.random.default_rng(seed)
 
@@ -414,13 +414,12 @@ def _plan_operands(seed=61, n=300):
 
 
 def _plan_reference(mask, B):
-    """numpy: (units [(row, e0)], hub entries [(entry, row, [(c0, c1)])],
-    walked, entries) of kernels 4 and 5's plan."""
+    """numpy: (hub entries [(entry, row, [(c0, c1)])], walked, entries) of
+    kernels 4 and 5's plan."""
     mip, bip = to_numpy(mask.indptr).astype(np.int64), to_numpy(B.indptr).astype(np.int64)
     mcols = to_numpy(mask.cols)
-    units, hubs, walked, entries = [], [], 0, 0
+    hubs, walked, entries = [], 0, 0
     for i in range(mask.shape[0]):
-        units += [(i, e0) for e0 in range(mip[i], mip[i + 1], K.UNIT)]
         for e in range(mip[i], mip[i + 1]):
             j = mcols[e]
             lo, hi = bip[j], bip[j + 1]
@@ -428,22 +427,19 @@ def _plan_reference(mask, B):
                 hubs.append((e, i, [(c, min(c + K.HUB_CHUNK, hi)) for c in range(lo, hi, K.HUB_CHUNK)]))
             else:
                 walked, entries = walked + hi - lo, entries + 1
-    return units, hubs, walked, entries
+    return hubs, walked, entries
 
 
 def test_mxmt_plan_matches_numpy():
-    """The plan built on the CPU against a numpy reference: units of at
-    most UNIT entries over the stored entries (none for the empty row,
-    several for the long one, none past indptr[m]), the hub entries whose B
-    row (duplicates counted) exceeds HUB_LEN with their HUB_CHUNK chunks,
-    and G from the other entries' B rows; cached per tensor."""
+    """The plan built on the CPU against a numpy reference: the stored
+    entries (the windows end at indptr[m], not at the capacity), the hub
+    entries whose B row (duplicates counted) exceeds HUB_LEN with their
+    HUB_CHUNK chunks, and G from the other entries' B rows; cached per
+    tensor."""
     mask, A, B = _plan_operands()
     plan = K.mxmt_plan(mask, B)
-    units, hubs, walked, entries = _plan_reference(mask, B)
-    got_units = list(zip(to_numpy(plan.unit_row).tolist(), to_numpy(plan.unit_e0).tolist()))
-    assert plan.nunits == len(units) and got_units == units
-    assert 3 not in {r for r, _ in units} and sum(r == 11 for r, _ in units) == 4
-    assert all(e0 < int(mask.nnz) for _, e0 in units)
+    hubs, walked, entries = _plan_reference(mask, B)
+    assert plan.stored == int(mask.nnz) == int(mask.indptr[-1]) < mask.capacity
     chunks = [(e, i, c0, c1) for e, i, cs in hubs for c0, c1 in cs]
     got = list(zip(*(to_numpy(t).tolist() for t in (plan.chunk_entry, plan.chunk_row, plan.chunk_c0,
                                                      plan.chunk_c1))))
@@ -455,20 +451,20 @@ def test_mxmt_plan_matches_numpy():
                                                                       [len(cs) for _, _, cs in hubs]))
     from spla_tpu_torch.kernels.spmv import team_size
 
-    assert plan.team == team_size(walked, entries)
+    assert plan.team == team_size(walked, entries, K.LANE_LOADS)
     assert plan.part is not None and plan.done.shape == (plan.nhub,) and not bool(plan.done.any())
     assert K.mxmt_plan(mask, B) is plan
     assert K.mxmt_plan(mask, A) is not plan  # another B
 
 
 def test_mxmt_plan_of_an_empty_mask_and_team_sizes():
-    """A mask with no stored entry has no unit and no hub; G follows the
-    mean length of the B rows reached (2 to 32)."""
+    """A mask with no stored entry has no window and no hub; G follows the
+    mean length of the B rows reached (2 to 16; longer rows are hubs)."""
     (_, _, _), (_, ta, tb) = _operands("INT", 17, 0)
     empty = F.csr_from_entries((N, N), [], [], [], dtype="int32", capacity=4, device="cpu")
     plan = K.mxmt_plan(empty, tb)
-    assert (plan.nunits, plan.nhub, plan.nchunks) == (0, 0, 0)
-    for deg, team in ((1, 2), (8, 4), (16, 8), (24, 16), (70, 32)):
+    assert (plan.stored, plan.nhub, plan.nchunks) == (0, 0, 0)
+    for deg, team in ((1, 2), (48, 4), (96, 8), (192, 16), (256, 16), (400, 2)):
         rows = np.repeat(np.arange(40), deg)
         b = _csr_kept(40, rows, np.arange(rows.size) % 40, np.ones(rows.size, np.int32))
         m = F.csr_from_entries((40, 40), np.arange(40), np.arange(40), np.ones(40), dtype="int32",
