@@ -878,14 +878,14 @@ def paired_ms(kernel_fn, plain_fn, plain_reps=TIMED_RUNS):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def mxmt_bound(mask, A, values, sel=False, out_bytes=0):
-    """Kernels 4 and 5 (B = A) and the gather: each distinct input read once
-    (mask indptr and cols, the selection, A's indptr, cols and, with
-    ``values``, values; the gather no A but B's, which is A), the outputs
-    written once."""
+def mxmt_bound(mask, A, values, out_bytes):
+    """Kernels 4 and 5 (B = A, every stored entry selected) and the gather:
+    each distinct input read once (the mask's indptr and columns, A's
+    indptr, columns and, with ``values``, values; the gather no A but B's,
+    which is A), the outputs written once."""
     ins = [mask.indptr, mask.cols, A.indptr, A.cols, *((A.values,) if values else ())]
     nbytes = sum(t.numel() * t.element_size() for t in {t.data_ptr(): t for t in ins}.values())
-    return bound(nbytes + (mask.capacity if sel else 0) + out_bytes)
+    return bound(nbytes + out_bytes)
 
 
 def time_spgemm(G, card):

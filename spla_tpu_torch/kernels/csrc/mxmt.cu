@@ -78,15 +78,15 @@
 
 namespace {
 
-enum Mode : int { kReduce = 0, kMasked = 1, kGather = 2 };  // kept equal to kernels/mxmt.py MODES
+enum Mode : int { kReduce = 0, kMasked = 1, kGather = 2 };  // spla_mxmt's mode (kernels/mxmt.py _launch)
 
 constexpr int kStruct = -1;          // MUL of the structural instances (and of the gather without values)
 constexpr int kWarps = kThreads / 32;
-constexpr int kWindow = 32;         // stored entries a warp walks at once, a lane each; kernels/mxmt.py WINDOW
-constexpr int kStage = 256;          // A-row entries a warp stages; kept equal to kernels/mxmt.py A_STAGE
+constexpr int kWindow = 32;          // stored entries a warp walks at once; kept equal to kernels/mxmt.py WINDOW
+constexpr int kStage = 256;          // A entries a warp stages; kept equal to kernels/mxmt.py A_STAGE
 constexpr int kChunkStage = kStage * kWarps;  // A-row entries a chunk CTA stages
 constexpr int kUnroll = 4;           // B loads a lane issues before it probes
-constexpr unsigned kMaxWindowCtas = 132 * 8;
+constexpr unsigned kMaxWindowCtas = 132 * 8;  // CTAs of the windows' grid-stride loop
 
 // i32 products and hits sum as uint64 (two's complement int64); f32 in f64.
 template <typename T, int MUL>
@@ -151,7 +151,7 @@ __device__ __forceinline__ void lower_bounds(const int32_t* __restrict__ a, int3
 
 template <int MUL, typename T>
 __device__ __forceinline__ T product(T a, T b) {
-  if constexpr (MUL == kStruct) return T(1);
+  if constexpr (MUL == kStruct) return T(1);  // every hit's product is 1
   else return apply_op<MUL>(a, b);
 }
 
@@ -218,7 +218,7 @@ struct Batch {
     for (int u = 0; u < kUnroll; ++u) {
       const int32_t e = t + u * stride;
       k[u] = e < end ? __ldg(o.b_cols + e) : -1;
-      if constexpr (VALUES) v[u] = e < end ? __ldg(b_vals + e) : T(0);
+      v[u] = VALUES && e < end ? __ldg(b_vals + e) : T(0);
     }
   }
 };
