@@ -54,8 +54,8 @@
 //     of the structural instance in int64, f32 products in f64 (the f64
 //     atomics add in no fixed order).  Its structural instance takes no
 //     selection: every stored entry (the windows end at indptr[m]).
-// Tried and dropped (tools/mxmt_times.py; PERF.md has the numbers): PR 2's
-// design, a warp per entry with each lane bisecting A's row in global
+// Tried and dropped (tools/mxmt_times.py; PERF.md has the numbers): the
+// first design, a warp per entry with each lane bisecting A's row in global
 // memory (half the lanes idle at degree 16, one entry in flight a warp);
 // units of one mask row a warp (~16 entries, one more dependent load a
 // unit; kernel 5 and the gather 7-15% slower, in another call); G from 2

@@ -29,9 +29,9 @@ launch is shaped by ``mxmt_plan``, built on the device from the mask and B
 at their first CUDA call and cached per tensor: the team size G of kernel
 1's rule over the B rows the mask reaches (at ``LANE_LOADS`` entries a
 lane), and the entries whose B row is longer than ``HUB_LEN``, cut into
-chunks of ``HUB_CHUNK`` B entries, a CTA each.  Building it reads the host once.  No
-argument or setting chooses any of it.  The CUDA source's header says what
-bounds the kernels and how they are laid out.
+chunks of ``HUB_CHUNK`` B entries, a CTA each.  Building it reads the host
+once.  No argument or setting chooses any of it.  The CUDA source's header
+says what bounds the kernels and how they are laid out.
 """
 
 from __future__ import annotations
@@ -206,8 +206,8 @@ class MxmtPlan:
     """The launch shape of kernels 4 and 5 (and of the gather) for one mask
     and B, on their device.  ``stored`` is the mask's ``indptr[m]``: its
     ``ceil(stored / WINDOW)`` windows are walked a warp each.  The hub
-    entries are the stored entries whose B row is
-    longer than ``HUB_LEN``, in entry order; hub h has chunks
+    entries are the stored entries whose B row is longer than ``HUB_LEN``,
+    in entry order; hub h has chunks
     ``chunk_first[h]`` .. ``chunk_first[h + 1] - 1``, chunk b walking B's
     entries ``[chunk_c0[b], chunk_c1[b])`` for mask entry ``chunk_entry[b]``
     of row ``chunk_row[b]``, a CTA each.  ``team`` is G, the lanes that walk
@@ -232,8 +232,8 @@ class MxmtPlan:
 def mxmt_plan(mask: CsrMatrix, B: CsrMatrix) -> MxmtPlan:
     """The plan of ``mask`` against ``B``, built on their device and cached
     per (mask.cols, mask.indptr, B.indptr) tensors; the stored, hub and
-    chunk counts and the walked B entries are read on the host once, at the first
-    build.  G is kernel 1's ``team_size`` rule over the B rows the stored
+    chunk counts and the walked B entries are read on the host once, at the
+    first build.  G is kernel 1's ``team_size`` rule over the B rows the stored
     non-hub entries reach, at ``LANE_LOADS`` entries a lane."""
     key = (id(mask.indptr), id(B.indptr))
     hit = _PLANS.get(mask.cols, key)
