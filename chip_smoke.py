@@ -137,8 +137,9 @@ KERNELS = {
                      "spla_tpu/pallas/spmv.py:2789"),
     "mxmt_reduce": ("cuda", "spla_tpu_torch/kernels/csrc/mxmt.cu", "spla_tpu/pallas/mxmt.py:335"),
     "mxmt_masked": ("cuda", "spla_tpu_torch/kernels/csrc/mxmt.cu", "spla_tpu/pallas/mxmt.py:362"),
-    # kernels 4 and 5's walk with no probe of A: the floor of their gathers (a diagnostic)
-    "mxmt_gather": ("cuda", "spla_tpu_torch/kernels/csrc/mxmt.cu", "spla_tpu/pallas/mxmt.py:309"),
+    # a diagnostic with no TPU counterpart: kernels 4 and 5's walk with no probe of A,
+    # the floor of their gathers (it bounds mxmt_reduce and mxmt_masked)
+    "mxmt_gather": ("cuda", "spla_tpu_torch/kernels/csrc/mxmt.cu", None),
     "bfs_resident": ("cuda", "spla_tpu_torch/kernels/csrc/resident.cu", "spla_tpu/pallas/spmv.py:2709"),
     "sssp_resident": ("cuda", "spla_tpu_torch/kernels/csrc/resident.cu",
                       "spla_tpu/pallas/spmv.py:2716"),

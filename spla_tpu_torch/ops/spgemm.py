@@ -21,7 +21,7 @@ import torch
 from ..containers import CooMatrix, CsrMatrix
 from ..formats import compact, coo_to_csr
 from ..kernels import mxmt as K
-from .spmv import DISPATCH_STATS, _scalar
+from .spmv import DISPATCH_STATS
 
 __all__ = [
     "count_mxm_products",
@@ -60,6 +60,19 @@ def _selection(mask: CsrMatrix, op_select, struct_only: bool, kernel: bool = Fal
     return keep if kernel else keep & mask.valid_mask()
 
 
+def _fill(init, like: torch.Tensor) -> torch.Tensor:
+    """``init`` as a 0-d tensor of like's dtype on its device, made there: a
+    number (or a host tensor's value) fills it, a tensor on that device is
+    converted.  No call copies from the host, which would wait for the
+    stream."""
+    value = init.value if hasattr(init, "value") else init
+    if isinstance(value, torch.Tensor) and value.device == like.device:
+        return value.to(like.dtype).reshape(())
+    if hasattr(value, "item"):  # a host tensor or a numpy scalar
+        value = value.item()
+    return torch.full((), value, dtype=like.dtype, device=like.device)
+
+
 def _to_csr(mask: CsrMatrix, out, has, init_t, out_capacity) -> CsrMatrix:
     """CSR of the entries with ``has`` and a value other than ``init``, in
     mask order; at most ``out_capacity`` (default: the mask's capacity)."""
@@ -84,7 +97,7 @@ def mxmT_masked_plain(mask: CsrMatrix, A: CsrMatrix, B: CsrMatrix, op_mul, op_ad
     """The plain torch path for any semiring (kernel 5's plain version and
     the same compaction); ``products_cap`` as in spla_tpu: one expansion of
     that many slots, later ones dropped."""
-    init_t = _scalar(init, A.values)
+    init_t = _fill(init, A.values)
     out, has = K.mxmt_masked_plain(mask, A, B, op_mul, op_add, init_t,
                                    _selection(mask, op_select, struct_only), struct_only,
                                    products_cap)
@@ -108,7 +121,7 @@ def mxmT_masked(mask: CsrMatrix, A: CsrMatrix, B: CsrMatrix, op_mul, op_add, op_
         return mxmT_masked_plain(mask, A, B, op_mul, op_add, op_select, init, products_cap,
                                  out_capacity, struct_only)
     DISPATCH_STATS["mxmT_kernel"] += 1
-    init_t = _scalar(init, A.values)
+    init_t = _fill(init, A.values)
     out, has = K.mxmt_masked(mask, A, B, op_mul, op_add, init_t,
                              _selection(mask, op_select, struct_only, kernel=True), struct_only)
     return _to_csr(mask, out, has, init_t, out_capacity)

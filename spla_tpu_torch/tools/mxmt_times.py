@@ -5,14 +5,18 @@ with CUDA events; one JSON line a run.
   mask = A = B, as ``tc`` calls it;
 * ``tc20`` — ``random_graph(2**20, 16)`` (``bench_suite.py:24``), the same;
 * ``hub`` — ``graphs.hub_spgemm(2**17)``: A = B with three rows of 2^16
-  drawn columns, and a mask that reaches them.
+  drawn columns, and a mask that reaches them;
+* ``deg48``, ``deg96``, ``deg192`` — ``random_graph(n, d)`` at d = 48, 96
+  and 192 and n = 2^18, 2^17 and 2^16 (12.6 M stored entries each), mask =
+  A = B: the degrees at which the plan's rule picks G = 4, 8 and 16.
 
-On each: kernel 4 structural (tc's call) and MULT i32, kernel 5 MULT/PLUS
-i32, each with every stored mask entry selected, and, where this tree has
-them, the gather floor (``kernels.probe.mxmt_gather``: B's rows with and
-without values, no probe of A) and, with ``--teams``, kernel 4 structural
-and kernel 5 at every team size G (the plan's G replaced, on a copy of the
-mask's columns; the plan's own G among them on such a copy too).  At
+On each: kernel 4 structural (tc's call) and MULT i32 and kernel 5
+MULT/PLUS i32, with every stored mask entry selected (no selection, as the
+structural calls of ``tc`` pass), and the gather floor
+(``kernels.probe.mxmt_gather``: B's rows with and without values, no probe
+of A); with ``--teams``, kernel 4 structural and kernel 5 at every team
+size G (the plan's G replaced, on a copy of the mask's columns; the plan's
+own G among them on such a copy too).  At
 n = 2^20 also the walls of ``tc`` and of ``mxmT_masked`` MULT/PLUS i32
 (host clock around a synchronized call, median of 3) and, with
 ``--profile``, one call of each under ``torch.profiler``: its wall with the
@@ -20,13 +24,11 @@ profiler on, the device's busy time (the union of its kernel, copy and
 memset intervals), the idle share (1 - busy / wall) and the largest device
 items.  Each function is launched ``--reps`` times after 3 warm-up
 launches, every graph's functions forward and then backward, and the two
-means averaged.  The calls name nothing a tree before the gather lacks, so
-one copy of this file and of ``graphs.py`` times an older tree's kernels
-too: run it there and here in turns (old, new, new, old).
+means averaged.
 
 Usage::
 
-    python -m spla_tpu_torch.tools.mxmt_times [--graphs tc15,tc20,hub] [--reps 20] [--label NAME]
+    python -m spla_tpu_torch.tools.mxmt_times [--graphs tc15,tc20,hub,deg48,...] [--reps 20] [--label NAME]
         [--teams] [--profile]
 """
 
@@ -49,6 +51,7 @@ from .graphs import hub_spgemm, random_graph
 from .resident_levels import card
 
 GRAPHS = ("tc15", "tc20", "hub")
+DEG_GRAPHS = {"deg48": (1 << 18, 48), "deg96": (1 << 17, 96), "deg192": (1 << 16, 192)}
 
 
 def operands(name, device):
@@ -58,21 +61,21 @@ def operands(name, device):
         a = a.astype(np.int32)
         a.data = np.random.default_rng(7).integers(-1000, 1000, a.nnz, dtype=np.int32)
         return F.csr_from_scipy(mask.astype(np.int32), device=device), F.csr_from_scipy(a, device=device)
-    a = random_graph(1 << 15, 24, seed=3) if name == "tc15" else random_graph(1 << 20, 16)
+    if name in DEG_GRAPHS:
+        a = random_graph(*DEG_GRAPHS[name], seed=5)
+    else:
+        a = random_graph(1 << 15, 24, seed=3) if name == "tc15" else random_graph(1 << 20, 16)
     A = F.csr_from_scipy(a.astype(np.int32), device=device)
     return A, A
 
 
 def functions(mask, A):
     """The timed calls on one graph, by name."""
-    valid = mask.valid_mask()
-    fns = {"k4 structural": lambda: K45.mxmt_reduce(mask, A, A, None, valid, True),
-           "k4 MULT i32": lambda: K45.mxmt_reduce(mask, A, A, op.MULT_INT, valid),
-           "k5 MULT/PLUS i32": lambda: K45.mxmt_masked(mask, A, A, op.MULT_INT, op.PLUS_INT, 0, valid)}
-    if hasattr(K8, "mxmt_gather"):
-        fns["gather cols"] = lambda: K8.mxmt_gather(mask, A, False)
-        fns["gather cols+values"] = lambda: K8.mxmt_gather(mask, A, True)
-    return fns
+    return {"k4 structural": lambda: K45.mxmt_reduce(mask, A, A, None, struct_only=True),
+            "k4 MULT i32": lambda: K45.mxmt_reduce(mask, A, A, op.MULT_INT),
+            "k5 MULT/PLUS i32": lambda: K45.mxmt_masked(mask, A, A, op.MULT_INT, op.PLUS_INT, 0),
+            "gather cols": lambda: K8.mxmt_gather(mask, A, False),
+            "gather cols+values": lambda: K8.mxmt_gather(mask, A, True)}
 
 
 def with_team(mask, B, g):
@@ -148,16 +151,16 @@ def profiled(fn):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--graphs", default=",".join(GRAPHS), help=f"comma-separated, of {GRAPHS}")
+    ap.add_argument("--graphs", default=",".join(GRAPHS), help=f"comma-separated, of {(*GRAPHS, *DEG_GRAPHS)}")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--label", default="", help="names the tree in the JSON line")
     ap.add_argument("--teams", action="store_true", help="also time kernels 4 and 5 at every G")
     ap.add_argument("--profile", action="store_true", help="profile tc and mxmT_masked at n = 2^20")
     args = ap.parse_args(argv)
     names = args.graphs.split(",")
-    unknown = set(names) - set(GRAPHS)
+    unknown = set(names) - {*GRAPHS, *DEG_GRAPHS}
     if unknown:
-        raise ValueError(f"unknown graphs {sorted(unknown)}; graphs: {GRAPHS}")
+        raise ValueError(f"unknown graphs {sorted(unknown)}; graphs: {(*GRAPHS, *DEG_GRAPHS)}")
     device = device_of("cuda")
     smi = card()
     for name in names:
@@ -171,9 +174,8 @@ def main(argv=None):
                 ms[k] += cuda_ms(fns[k], args.reps) / 2
         row = {"label": args.label, "graph": name, "n": A.shape[0], "nnz": int(A.nnz),
                "mask_nnz": int(mask.nnz), "ms": ms, "card": smi}
-        if hasattr(K45, "mxmt_plan"):
-            plan = K45.mxmt_plan(mask, A)
-            row["plan"] = {"team": plan.team, "hubs": plan.nhub, "chunks": plan.nchunks}
+        plan = K45.mxmt_plan(mask, A)
+        row["plan"] = {"team": plan.team, "hubs": plan.nhub, "chunks": plan.nchunks}
         if name == "tc20":
             calls = {"tc": lambda: alg.tc(A),
                      "mxmT_masked MULT/PLUS i32": lambda: mxmT_masked(A, A, A, op.MULT_INT, op.PLUS_INT,

@@ -342,10 +342,13 @@ def test_mxmt_gather_matches_plain(dev, graph):
 def test_mxmt_kernels_do_not_synchronize(dev):
     """Once the plan is built, no call of kernel 4 or 5 (value and
     structural, init a Python number or a CUDA tensor, no selection for the
-    structural ones) waits for the stream."""
+    structural ones), nor of ``mxmT_masked`` around kernel 5, waits for the
+    stream."""
     mask, A = _mxmt_operands(dev, "i32", "hub")
     sel = _sel(mask, op.INT)
     init_t = torch.zeros((), dtype=torch.int32, device=dev)
+    calls = [(op.MULT_INT, op.PLUS_INT, 0, False), (op.MULT_INT, op.PLUS_INT, init_t, False),
+             (None, op.MAX_INT, 0, True)]
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -355,8 +358,14 @@ def test_mxmt_kernels_do_not_synchronize(dev):
             got.append(K45.mxmt_masked(mask, A, A, None, op.MAX_INT, init, struct_only=True))
         total = K45.mxmt_reduce(mask, A, A, op.MULT_INT, sel)
         hits = K45.mxmt_reduce(mask, A, A, None, struct_only=True)
+        results = [TG.mxmT_masked(mask, A, A, om, oa, op.GTZERO_INT, init, struct_only=s)
+                   for om, oa, init, s in calls]
     finally:
         torch.cuda.set_sync_debug_mode(0)
+    for r, (om, oa, init, s) in zip(results, calls):
+        ref = TG.mxmT_masked_plain(mask, A, A, om, oa, op.GTZERO_INT, init, struct_only=s)
+        for field in ("indptr", "cols", "values", "row_ids", "nnz", "fill"):
+            _assert_same(getattr(r, field), getattr(ref, field))
     ref = [K45.mxmt_masked_plain(mask, A, A, op.MULT_INT, op.PLUS_INT, 0, sel),
            K45.mxmt_masked_plain(mask, A, A, None, op.MAX_INT, 0, struct_only=True)] * 2
     for g, r in zip(got, ref):
