@@ -37,7 +37,7 @@ says what bounds the kernels and how they are laid out.
 from __future__ import annotations
 
 import weakref
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -61,6 +61,7 @@ __all__ = [
     "LANE_LOADS",
     "MxmtPlan",
     "mxmt_plan",
+    "mask_with_team",
     "masked_codes",
     "reduce_codes",
     "mxmt_masked",
@@ -268,6 +269,19 @@ def mxmt_plan(mask: CsrMatrix, B: CsrMatrix) -> MxmtPlan:
     plan = MxmtPlan(*i32, nstored, nhub, nchunks, team_size(walked, entries, LANE_LOADS), **scratch)
     _PLANS.put(mask.cols, (weakref.ref(mask.indptr), weakref.ref(B.indptr), plan), key)
     return plan
+
+
+def mask_with_team(mask: CsrMatrix, B: CsrMatrix, g: int) -> CsrMatrix:
+    """``mask`` with a copy of its columns whose cached plan against B walks
+    entries in teams of ``g`` lanes (a power of two from 2 to 16), the rest
+    of the plan as ``mxmt_plan(mask, B)``'s.  For timing each G
+    (``tools/mxmt_times.py --teams``); the library itself never calls it."""
+    if g not in (2, 4, 8, 16):
+        raise ValueError(f"mask_with_team: g must be 2, 4, 8 or 16, got {g}")
+    M = replace(mask, cols=mask.cols.clone())
+    plan = replace(mxmt_plan(mask, B), team=g)
+    _PLANS.put(M.cols, (weakref.ref(M.indptr), weakref.ref(B.indptr), plan), (id(M.indptr), id(B.indptr)))
+    return M
 
 
 # ---------------------------------------------------------------- kernels

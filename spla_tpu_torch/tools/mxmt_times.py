@@ -1,5 +1,5 @@
-"""Kernels 4 and 5 on the three SpGEMM-T graphs of ``chip_smoke.py``, timed
-with CUDA events; one JSON line a run.
+"""Kernels 4 and 5 on the three SpGEMM-T graphs of ``chip_smoke.py`` and on
+three of higher degree, timed with CUDA events; one JSON line a graph.
 
 * ``tc15`` — ``random_graph(2**15, 24, seed=3)`` (``bench_suite.py:513-514``),
   mask = A = B, as ``tc`` calls it;
@@ -37,8 +37,6 @@ from __future__ import annotations
 import argparse
 import json
 import time
-import weakref
-from dataclasses import replace
 
 import numpy as np
 import torch
@@ -78,20 +76,11 @@ def functions(mask, A):
             "gather cols+values": lambda: K8.mxmt_gather(mask, A, True)}
 
 
-def with_team(mask, B, g):
-    """``mask`` with a copy of its columns whose cached plan against B walks
-    entries in teams of g lanes (the rest of the plan as the mask's)."""
-    M = replace(mask, cols=mask.cols.clone())
-    plan = replace(K45.mxmt_plan(mask, B), team=g)
-    K45._PLANS.put(M.cols, (weakref.ref(M.indptr), weakref.ref(B.indptr), plan), (id(M.indptr), id(B.indptr)))
-    return M
-
-
 def team_functions(mask, A):
     """Kernel 4 structural and kernel 5 MULT/PLUS i32 at each G."""
     fns = {}
     for g in (2, 4, 8, 16):
-        M = with_team(mask, A, g)
+        M = K45.mask_with_team(mask, A, g)
         fns[f"k4 structural G={g}"] = lambda M=M: K45.mxmt_reduce(M, A, A, None, struct_only=True)
         fns[f"k5 MULT/PLUS i32 G={g}"] = lambda M=M: K45.mxmt_masked(M, A, A, op.MULT_INT, op.PLUS_INT, 0)
     return fns
