@@ -398,15 +398,15 @@ def check_reduce(label, mask, A, om, sel, struct_only=False):
 
 def mxmt_plan_line(mask, B):
     p = K45.mxmt_plan(mask, B)
-    return (f"G = {p.team}, {-(-p.stored // K45.WINDOW)} windows of {K45.WINDOW} stored entries, {p.nhub} "
+    return (f"{-(-p.stored // K45.WINDOW)} windows of {K45.WINDOW} stored entries, {p.nhub} "
             f"entries whose B row is over {K45.HUB_LEN} in {p.nchunks} chunks of at most {K45.HUB_CHUNK}")
 
 
-def mxmt_resources(mode, dtype, mul, add, log2g):
+def mxmt_resources(mode, dtype, mul, add):
     """ptxas' registers and shared memory of one csrc/mxmt.cu instance
-    (mxmt_kernel<mode, dtype, mul, add, log2 G>; dtype "i" or "f"), from the
-    build log."""
-    ints = [f"Li{'n' if v < 0 else ''}{abs(v)}E" for v in (mode, mul, add, log2g)]
+    (mxmt_kernel<mode, dtype, mul, add>; dtype "i" or "f"), from the build
+    log."""
+    ints = [f"Li{'n' if v < 0 else ''}{abs(v)}E" for v in (mode, mul, add)]
     name, found = f"mxmt_kernelI{ints[0]}{dtype}{''.join(ints[1:])}E", False
     for line in build_log().splitlines():
         if "Compiling entry function" in line:
@@ -460,10 +460,9 @@ def check_mxmt(G):
               f"its plain version", flush=True)
     for label, mask in (("tc n=2^15", G["T"]), ("tc n=2^20", G["Aint"])):
         print(f"kernels 4 and 5 plan on {label}: {mxmt_plan_line(mask, mask)}", flush=True)
-    log2g = K45.mxmt_plan(G["Aint"], G["Aint"]).team.bit_length() - 1
     for what, key in (("kernel 4 structural", (0, "i", -1, 0)), ("kernel 4 MULT i32", (0, "i", 1, 0)),
                       ("kernel 5 MULT/PLUS i32", (1, "i", 1, 0)), ("gather, values", (2, "i", 0, 0))):
-        print(f"{what} at G = {1 << log2g} (n=2^20's): {mxmt_resources(*key, log2g)}", flush=True)
+        print(f"{what}: {mxmt_resources(*key)}", flush=True)
     return errs
 
 

@@ -31,9 +31,7 @@
 //     are one stretch of A, which the warp stages in shared memory when it
 //     holds at most kStage entries: a probe is then a shared-memory access.
 //     Otherwise the window's entries probe A in global memory;
-//   * teams of G lanes fold the window's entries, 32 / G at once, G a power
-//     of two from 2 to 16 from the mean length of the B rows the mask
-//     reaches (kernel 1's rule at 16 entries a lane; an instance per G).  A
+//   * teams of kTeam (2) lanes fold the window's entries, 16 at once.  A
 //     lane issues kUnroll loads of B's columns (and values) at once and
 //     bisects for all kUnroll together (the trip count depends only on A's
 //     row length, so the steps interleave), and a team issues its next
@@ -58,18 +56,19 @@
 // first design, a warp per entry with each lane bisecting A's row in global
 // memory (half the lanes idle at degree 16, one entry in flight a warp);
 // units of one mask row a warp (~16 entries, one more dependent load a
-// unit; kernel 5 and the gather 7-15% slower, in another call); G from 2
-// or 4 entries a lane (G = 16 or 8 at n = 2^20, up to 2.1x slower than
-// G = 2); 8 CTAs an SM by __launch_bounds__ (spills, 1.6-6x slower); no
-// streaming hint on the mask (no change); the next batch of an entry kept
-// in flight while one is folded (within 2%, 9-24 more registers).
+// unit; kernel 5 and the gather 7-15% slower, in another call); teams of 4,
+// 8 or 16 lanes from the mean length of the B rows reached (kernel 1's
+// rule; up to 2.1x slower than teams of 2 at n = 2^20, and no faster at
+// degree 48-192), and of 1 lane; 8 CTAs an SM by __launch_bounds__
+// (spills, 1.6-6x slower); no streaming hint on the mask (no change); the
+// next batch of an entry kept in flight while one is folded (within 2%,
+// 9-24 more registers).
 //
-// Coverage (compile time), each at G in {2, 4, 8, 16}: kernel 5, mul in
-// {PLUS, MULT, FIRST, SECOND, MIN, MAX} x add in {PLUS, MIN, MAX} x {f32,
-// i32}, and a structural instance per (add, dtype) whose every hit's
-// product is 1; kernel 4, the 6 muls x {f32, i32} and a structural
-// instance that counts hits and reads no values; the gather with and
-// without values.
+// Coverage (compile time): kernel 5, mul in {PLUS, MULT, FIRST, SECOND,
+// MIN, MAX} x add in {PLUS, MIN, MAX} x {f32, i32}, and a structural
+// instance per (add, dtype) whose every hit's product is 1; kernel 4, the
+// 6 muls x {f32, i32} and a structural instance that counts hits and reads
+// no values; the gather with and without values.
 
 #include <cstring>
 #include <type_traits>
@@ -86,6 +85,7 @@ constexpr int kWindow = 32;          // stored entries a warp walks at once; kep
 constexpr int kStage = 256;          // A entries a warp stages; kept equal to kernels/mxmt.py A_STAGE
 constexpr int kChunkStage = kStage * kWarps;  // A-row entries a chunk CTA stages
 constexpr int kUnroll = 4;           // B loads a lane issues before it probes
+constexpr int kTeam = 2;             // lanes that walk one entry
 constexpr unsigned kMaxWindowCtas = 132 * 8;  // CTAs of the windows' grid-stride loop
 
 // i32 products and hits sum as uint64 (two's complement int64); f32 in f64.
@@ -178,7 +178,7 @@ struct MxmtPlan {
   const int32_t *chunk_entry, *chunk_row, *chunk_c0, *chunk_c1, *chunk_hub;  // [nchunks]
   const int32_t* chunk_first;         // [nhub + 1]
   long long stored, nhub, nchunks;    // stored: the mask's indptr[m]
-  int log2g, hub_len;
+  int hub_len;
   void* part;          // [nchunks] T: each chunk's fold (kernel 5, hubs of several chunks)
   uint8_t* part_any;   // [nchunks]
   int32_t* done;       // [nhub]: chunks of each hub finished; zero between launches
@@ -272,17 +272,17 @@ __device__ __forceinline__ void walk(const MxmtArgs& o, const int32_t* __restric
 // lane loads its entry's row, column and selection (the one-pass streams,
 // with the streaming hint), then its A row's bounds and B range; the
 // window's rows are consecutive, so their rows of A are one stretch, which
-// the warp stages in shared memory; then teams of G lanes fold the
+// the warp stages in shared memory; then teams of kTeam lanes fold the
 // entries, each team issuing its next entry's first batch before it folds
 // the current one.  Kernel 4 leaves its sums in lane_acc; kernel 5 and the
 // gather write each entry.
-template <int MODE, typename T, int MUL, int ADD, int LOG2G>
+template <int MODE, typename T, int MUL, int ADD>
 __device__ __forceinline__ void window_walk(const MxmtArgs& o, const MxmtPlan& p, const Sink<T>& s,
                                             MxmtShared<T, MUL != kStruct>& sh, long long w, int warp, int lane,
                                             AccOf<MODE, T, MUL>& lane_acc) {
   using Acc = AccOf<MODE, T, MUL>;
   constexpr bool kValues = MUL != kStruct;
-  constexpr int g = 1 << LOG2G;
+  constexpr int g = kTeam, teams = 32 / kTeam;
   const T* __restrict__ a_vals = static_cast<const T*>(o.a_vals);
   const long long e0 = w * kWindow, e = e0 + lane;
   const int ne = static_cast<int>(min(static_cast<long long>(kWindow), p.stored - e0));
@@ -337,8 +337,8 @@ __device__ __forceinline__ void window_walk(const MxmtArgs& o, const MxmtPlan& p
   sh.a_off[warp][lane] = staged ? a0 - base : a0;
   sh.a_len[warp][lane] = a1 - a0;
   __syncwarp();
-  const int team = lane >> LOG2G, sub = lane & (g - 1);
-  const unsigned tmask = g == 32 ? kFullMask : ((1u << g) - 1u) << (lane & ~(g - 1));
+  const int team = lane / g, sub = lane % g;
+  const unsigned tmask = ((1u << g) - 1u) << (lane & ~(g - 1));
   const int32_t* a_cols = staged ? s_cols : o.a_cols;
   const T* av = staged ? s_vals : a_vals;
   int32_t blo = 0, bhi = 0;
@@ -348,8 +348,8 @@ __device__ __forceinline__ void window_walk(const MxmtArgs& o, const MxmtPlan& p
   }
   Batch<T, kValues> cur;
   cur.issue(o, blo + sub, bhi, g);
-  for (int q = team; q < ne; q += 32 >> LOG2G) {
-    const int qn = q + (32 >> LOG2G);
+  for (int q = team; q < ne; q += teams) {
+    const int qn = q + teams;
     int32_t nlo = 0, nhi = 0;
     if (qn < ne) {
       nlo = sh.lo[warp][qn];
@@ -464,7 +464,7 @@ __device__ __forceinline__ void chunk_walk(const MxmtArgs& o, const MxmtPlan& p,
   }
 }
 
-template <int MODE, typename T, int MUL, int ADD, int LOG2G>
+template <int MODE, typename T, int MUL, int ADD>
 __global__ void __launch_bounds__(kThreads)
 mxmt_kernel(MxmtArgs o, MxmtPlan p, Sink<T> s) {
   using Acc = AccOf<MODE, T, MUL>;
@@ -479,7 +479,7 @@ mxmt_kernel(MxmtArgs o, MxmtPlan p, Sink<T> s) {
     const long long cta = static_cast<long long>(blockIdx.x) - p.nchunks;
     const long long windows = (p.stored + kWindow - 1) / kWindow;
     for (long long w = cta * kWarps + warp; w < windows; w += ctas * kWarps) {
-      window_walk<MODE, T, MUL, ADD, LOG2G>(o, p, s, sh, w, warp, lane, lane_acc);
+      window_walk<MODE, T, MUL, ADD>(o, p, s, sh, w, warp, lane, lane_acc);
     }
     if constexpr (MODE == kMasked) {  // capacity padding past indptr[m]
       const T init_v = s.init_of();
@@ -514,8 +514,8 @@ struct MxmtLaunch {
   void *out, *has, *total;
   cudaStream_t stream;
 
-  template <int MODE, typename T, int MUL, int ADD, int LOG2G>
-  void launch() {
+  template <int MODE, typename T, int MUL, int ADD>
+  void run_mode() {
     static_assert(sizeof(T) == sizeof(init_bits), "init travels as its 32 bits");
     T init_value;
     memcpy(&init_value, &init_bits, sizeof(T));
@@ -523,18 +523,8 @@ struct MxmtLaunch {
     const long long windows = (p.stored + kWindow - 1) / kWindow;
     const long long want = (windows + kWarps - 1) / kWarps;
     const unsigned window_ctas = static_cast<unsigned>(want < 1 ? 1 : (want < kMaxWindowCtas ? want : kMaxWindowCtas));
-    mxmt_kernel<MODE, T, MUL, ADD, LOG2G><<<static_cast<unsigned>(p.nchunks) + window_ctas, kThreads, 0, stream>>>(
+    mxmt_kernel<MODE, T, MUL, ADD><<<static_cast<unsigned>(p.nchunks) + window_ctas, kThreads, 0, stream>>>(
         o, p, s);
-  }
-
-  template <int MODE, typename T, int MUL, int ADD>
-  void run_mode() {
-    switch (p.log2g) {
-      case 1: launch<MODE, T, MUL, ADD, 1>(); break;
-      case 2: launch<MODE, T, MUL, ADD, 2>(); break;
-      case 3: launch<MODE, T, MUL, ADD, 3>(); break;
-      default: launch<MODE, T, MUL, ADD, 4>();
-    }
   }
 
   // the functor semiring.cuh's dispatch calls: kernel 5's (mul, add, dtype)
@@ -567,8 +557,7 @@ struct StructLaunch {
 };
 
 bool plan_ok(const MxmtPlan& p) {
-  return p.log2g >= 1 && p.log2g <= 4 && p.hub_len >= 0 && p.stored >= 0 && p.nhub >= 0 &&
-         p.nchunks >= p.nhub;
+  return p.hub_len >= 0 && p.stored >= 0 && p.nhub >= 0 && p.nchunks >= p.nhub;
 }
 
 }  // namespace
@@ -576,7 +565,7 @@ bool plan_ok(const MxmtPlan& p) {
 extern "C" int spla_mxmt(int mode, int mul, int add, int dtype, int structural, long long cap,
                          const void* m_rows, const void* m_cols, const void* sel, const void* a_indptr,
                          const void* a_cols, const void* a_vals, const void* b_indptr, const void* b_cols,
-                         const void* b_vals, int log2g, int hub_len, long long stored, long long nhub,
+                         const void* b_vals, int hub_len, long long stored, long long nhub,
                          long long nchunks, const void* chunk_entry,
                          const void* chunk_row, const void* chunk_c0, const void* chunk_c1,
                          const void* chunk_hub, const void* chunk_first, void* part, void* part_any, void* done,
@@ -589,7 +578,7 @@ extern "C" int spla_mxmt(int mode, int mul, int add, int dtype, int structural, 
   const MxmtPlan p{static_cast<const int32_t*>(chunk_entry), static_cast<const int32_t*>(chunk_row),
                    static_cast<const int32_t*>(chunk_c0), static_cast<const int32_t*>(chunk_c1),
                    static_cast<const int32_t*>(chunk_hub), static_cast<const int32_t*>(chunk_first),
-                   stored, nhub, nchunks, log2g, hub_len, part, static_cast<uint8_t*>(part_any),
+                   stored, nhub, nchunks, hub_len, part, static_cast<uint8_t*>(part_any),
                    static_cast<int32_t*>(done)};
   if (!plan_ok(p)) return static_cast<int>(cudaErrorInvalidValue);
   MxmtLaunch launch{o, p, init, init_bits, out, has, total, static_cast<cudaStream_t>(stream)};

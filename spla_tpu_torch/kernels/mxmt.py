@@ -24,20 +24,20 @@ its result is a 0-d tensor of that dtype.
 
 The kernels walk the mask's stored entries in windows of ``WINDOW``, a
 warp a window, which stages the window's rows of A in shared memory when
-they hold at most ``A_STAGE`` entries (it reads ``mask.row_ids``).  Their
-launch is shaped by ``mxmt_plan``, built on the device from the mask and B
-at their first CUDA call and cached per tensor: the team size G of kernel
-1's rule over the B rows the mask reaches (at ``LANE_LOADS`` entries a
-lane), and the entries whose B row is longer than ``HUB_LEN``, cut into
-chunks of ``HUB_CHUNK`` B entries, a CTA each.  Building it reads the host
-once.  No argument or setting chooses any of it.  The CUDA source's header
+they hold at most ``A_STAGE`` entries (it reads ``mask.row_ids``), and fold
+each entry with a team of two lanes.  Their launch is shaped by
+``mxmt_plan``, built on the device from the mask and B at their first CUDA
+call and cached per tensor: the stored count and the entries whose B row
+is longer than ``HUB_LEN``, cut into chunks of ``HUB_CHUNK`` B entries, a
+CTA each.  Building it reads the host once.  No argument or setting
+chooses any of it.  The CUDA source's header
 says what bounds the kernels and how they are laid out.
 """
 
 from __future__ import annotations
 
 import weakref
-from dataclasses import dataclass, replace
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -49,8 +49,7 @@ from ..utils.search import bisect_steps, rowwise_find
 from ..utils.segments import segment_fold
 from . import LAUNCHES
 from .build import check, load_library
-from .spmv import (DTYPE_CODES, PULL_ADDS, _init_arg, _mask, _on_cpu, _ptr, _require_cuda,
-                   hub_scratch, team_size)
+from .spmv import DTYPE_CODES, PULL_ADDS, _init_arg, _mask, _on_cpu, _ptr, _require_cuda, hub_scratch
 
 __all__ = [
     "PRODUCT_CHUNK",
@@ -58,10 +57,8 @@ __all__ = [
     "A_STAGE",
     "HUB_LEN",
     "HUB_CHUNK",
-    "LANE_LOADS",
     "MxmtPlan",
     "mxmt_plan",
-    "mask_with_team",
     "masked_codes",
     "reduce_codes",
     "mxmt_masked",
@@ -78,9 +75,6 @@ WINDOW = 32  # stored mask entries a warp walks at once, a lane each (csrc/mxmt.
 A_STAGE = 256  # entries of A's rows a warp stages in shared memory (kStage); more: global memory
 HUB_LEN = 256  # a B row of more entries is walked in chunks, a CTA each
 HUB_CHUNK = 2048  # entries of a long B row a CTA walks
-# a lane's share of a mean B row; G, the least power of two from 2 at or above
-# the mean over it, stays at most 16: B rows of more than HUB_LEN are chunked
-LANE_LOADS = 16
 
 _PLANS = WeakIdCache()  # (mask.indptr ref, B.indptr ref, MxmtPlan) per mask.cols tensor
 
@@ -208,12 +202,12 @@ class MxmtPlan:
     and B, on their device.  ``stored`` is the mask's ``indptr[m]``: its
     ``ceil(stored / WINDOW)`` windows are walked a warp each.  The hub
     entries are the stored entries whose B row is longer than ``HUB_LEN``,
-    in entry order; hub h has chunks
-    ``chunk_first[h]`` .. ``chunk_first[h + 1] - 1``, chunk b walking B's
-    entries ``[chunk_c0[b], chunk_c1[b])`` for mask entry ``chunk_entry[b]``
-    of row ``chunk_row[b]``, a CTA each.  ``team`` is G, the lanes that walk
-    an entry.  Where a hub has several chunks, ``part``/``part_any``/``done``
-    are kernel 5's scratch (``spmv.hub_scratch``)."""
+    in entry order; hub h has chunks ``chunk_first[h]`` ..
+    ``chunk_first[h + 1] - 1``, chunk b walking B's entries ``[chunk_c0[b],
+    chunk_c1[b])`` for mask entry ``chunk_entry[b]`` of row
+    ``chunk_row[b]``, a CTA each.  Where a hub has several chunks,
+    ``part``/``part_any``/``done`` are kernel 5's scratch
+    (``spmv.hub_scratch``)."""
 
     chunk_entry: torch.Tensor  # int32 [nchunks]
     chunk_row: torch.Tensor  # int32 [nchunks]
@@ -224,7 +218,6 @@ class MxmtPlan:
     stored: int
     nhub: int
     nchunks: int
-    team: int
     part: torch.Tensor | None = None
     part_any: torch.Tensor | None = None
     done: torch.Tensor | None = None
@@ -233,9 +226,7 @@ class MxmtPlan:
 def mxmt_plan(mask: CsrMatrix, B: CsrMatrix) -> MxmtPlan:
     """The plan of ``mask`` against ``B``, built on their device and cached
     per (mask.cols, mask.indptr, B.indptr) tensors; the stored, hub and
-    chunk counts and the walked B entries are read on the host once, at the
-    first build.  G is kernel 1's ``team_size`` rule over the B rows the stored
-    non-hub entries reach, at ``LANE_LOADS`` entries a lane."""
+    chunk counts are read on the host once, at the first build."""
     key = (id(mask.indptr), id(B.indptr))
     hit = _PLANS.get(mask.cols, key)
     if hit is not None and hit[0]() is mask.indptr and hit[1]() is B.indptr:
@@ -249,8 +240,7 @@ def mxmt_plan(mask: CsrMatrix, B: CsrMatrix) -> MxmtPlan:
     blen = torch.where(stored, (bip[1:] - bip[:-1])[j], 0)
     hub = blen > HUB_LEN
     chunks = torch.where(hub, torch.div(blen + HUB_CHUNK - 1, HUB_CHUNK, rounding_mode="floor"), 0)
-    nstored, nhub, nchunks, walked, entries = (int(v) for v in torch.stack(
-        [mip[m], hub.sum(), chunks.sum(), torch.where(hub, 0, blen).sum(), (stored & ~hub).sum()]).tolist())
+    nstored, nhub, nchunks = (int(v) for v in torch.stack([mip[m], hub.sum(), chunks.sum()]).tolist())
     # each hub entry's rank among the hub entries; the others go to slot nhub, dropped
     slot = torch.where(hub, torch.cumsum(hub, 0) - 1, nhub)
     ents = torch.empty(nhub + 1, dtype=torch.long, device=device)
@@ -266,22 +256,9 @@ def mxmt_plan(mask: CsrMatrix, B: CsrMatrix) -> MxmtPlan:
     scratch = hub_scratch(nchunks, nhub, device) if nchunks > nhub else {}
     i32 = [t.to(torch.int32) for t in (chunk_entry, mask.row_ids[chunk_entry], chunk_c0, chunk_c1,
                                        chunk_hub, chunk_first)]
-    plan = MxmtPlan(*i32, nstored, nhub, nchunks, team_size(walked, entries, LANE_LOADS), **scratch)
+    plan = MxmtPlan(*i32, nstored, nhub, nchunks, **scratch)
     _PLANS.put(mask.cols, (weakref.ref(mask.indptr), weakref.ref(B.indptr), plan), key)
     return plan
-
-
-def mask_with_team(mask: CsrMatrix, B: CsrMatrix, g: int) -> CsrMatrix:
-    """``mask`` with a copy of its columns whose cached plan against B walks
-    entries in teams of ``g`` lanes (a power of two from 2 to 16), the rest
-    of the plan as ``mxmt_plan(mask, B)``'s.  For timing each G
-    (``tools/mxmt_times.py --teams``); the library itself never calls it."""
-    if g not in (2, 4, 8, 16):
-        raise ValueError(f"mask_with_team: g must be 2, 4, 8 or 16, got {g}")
-    M = replace(mask, cols=mask.cols.clone())
-    plan = replace(mxmt_plan(mask, B), team=g)
-    _PLANS.put(M.cols, (weakref.ref(M.indptr), weakref.ref(B.indptr), plan), (id(M.indptr), id(B.indptr)))
-    return M
 
 
 # ---------------------------------------------------------------- kernels
@@ -318,8 +295,7 @@ def _launch(what, mode, codes, mask, A, B, sel, init=None, init_bits=0, out=None
     rc = load_library().spla_mxmt(
         mode, mul, add, dtype, structural, mask.capacity, mask.row_ids.data_ptr(), mask.cols.data_ptr(),
         _ptr(sel), A.indptr.data_ptr(), A.cols.data_ptr(), A.values.data_ptr(), B.indptr.data_ptr(),
-        B.cols.data_ptr(), B.values.data_ptr(), plan.team.bit_length() - 1, HUB_LEN, plan.stored, plan.nhub,
-        plan.nchunks,
+        B.cols.data_ptr(), B.values.data_ptr(), HUB_LEN, plan.stored, plan.nhub, plan.nchunks,
         *(t.data_ptr() for t in (plan.chunk_entry, plan.chunk_row, plan.chunk_c0, plan.chunk_c1,
                                  plan.chunk_hub, plan.chunk_first)),
         _ptr(plan.part), _ptr(plan.part_any), _ptr(plan.done), _ptr(init), init_bits, _ptr(out),

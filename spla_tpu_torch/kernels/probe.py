@@ -39,7 +39,7 @@ place.  The flat phases and ``ring_fold`` need 16-byte aligned ``cols`` and
 ``values``.
 
 Phase ``mxmt_gather`` (``mxmt_gather(mask, B)``) is the floor of kernels 4
-and 5 (``csrc/mxmt.cu``): their walk of the mask by units and teams, and
+and 5 (``csrc/mxmt.cu``): their walk of the mask in windows and teams, and
 their chunk CTAs for long B rows, with no probe of A.  For each stored mask
 entry (i, j), ``out[e]`` (int32) is the XOR of B's row j: its columns, and
 with ``values`` the 32 bits of its values; 0 past the stored entries.

@@ -90,11 +90,11 @@ class PullPlan:
     done: torch.Tensor | None = None  # int32 [nhub]
 
 
-def team_size(walked: int, rows: int, per_lane: int = ENTRIES_PER_LANE) -> int:
+def team_size(walked: int, rows: int) -> int:
     """G for ``rows`` rows holding ``walked`` entries: the least power of two
-    from 2 to ``MAX_TEAM`` at or above their mean length over ``per_lane``
-    (``ENTRIES_PER_LANE`` for kernel 1)."""
-    want = walked / max(rows, 1) / per_lane
+    from 2 to ``MAX_TEAM`` at or above their mean length over
+    ``ENTRIES_PER_LANE``."""
+    want = walked / max(rows, 1) / ENTRIES_PER_LANE
     g = 2
     while g < MAX_TEAM and g < want:
         g *= 2

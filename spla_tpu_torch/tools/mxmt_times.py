@@ -8,28 +8,25 @@ three of higher degree, timed with CUDA events; one JSON line a graph.
   drawn columns, and a mask that reaches them;
 * ``deg48``, ``deg96``, ``deg192`` — ``random_graph(n, d)`` at d = 48, 96
   and 192 and n = 2^18, 2^17 and 2^16 (12.6 M stored entries each), mask =
-  A = B: the degrees at which the plan's rule picks G = 4, 8 and 16.
+  A = B: B rows several times longer than a team of two lanes' batch.
 
 On each: kernel 4 structural (tc's call) and MULT i32 and kernel 5
 MULT/PLUS i32, with every stored mask entry selected (no selection, as the
 structural calls of ``tc`` pass), and the gather floor
 (``kernels.probe.mxmt_gather``: B's rows with and without values, no probe
-of A); with ``--teams``, kernel 4 structural and kernel 5 at every team
-size G (the plan's G replaced, on a copy of the mask's columns; the plan's
-own G among them on such a copy too).  At
-n = 2^20 also the walls of ``tc`` and of ``mxmT_masked`` MULT/PLUS i32
-(host clock around a synchronized call, median of 3) and, with
-``--profile``, one call of each under ``torch.profiler``: its wall with the
-profiler on, the device's busy time (the union of its kernel, copy and
-memset intervals), the idle share (1 - busy / wall) and the largest device
-items.  Each function is launched ``--reps`` times after 3 warm-up
+of A).  At n = 2^20 also the walls of ``tc`` and of ``mxmT_masked``
+MULT/PLUS i32 (host clock around a synchronized call, median of 3) and,
+with ``--profile``, one call of each under ``torch.profiler``: its wall
+with the profiler on, the device's busy time (the union of its kernel,
+copy and memset intervals), the idle share (1 - busy / wall) and the
+largest device items.  Each function is launched ``--reps`` times after 3 warm-up
 launches, every graph's functions forward and then backward, and the two
 means averaged.
 
 Usage::
 
     python -m spla_tpu_torch.tools.mxmt_times [--graphs tc15,tc20,hub,deg48,...] [--reps 20] [--label NAME]
-        [--teams] [--profile]
+        [--profile]
 """
 
 from __future__ import annotations
@@ -74,16 +71,6 @@ def functions(mask, A):
             "k5 MULT/PLUS i32": lambda: K45.mxmt_masked(mask, A, A, op.MULT_INT, op.PLUS_INT, 0),
             "gather cols": lambda: K8.mxmt_gather(mask, A, False),
             "gather cols+values": lambda: K8.mxmt_gather(mask, A, True)}
-
-
-def team_functions(mask, A):
-    """Kernel 4 structural and kernel 5 MULT/PLUS i32 at each G."""
-    fns = {}
-    for g in (2, 4, 8, 16):
-        M = K45.mask_with_team(mask, A, g)
-        fns[f"k4 structural G={g}"] = lambda M=M: K45.mxmt_reduce(M, A, A, None, struct_only=True)
-        fns[f"k5 MULT/PLUS i32 G={g}"] = lambda M=M: K45.mxmt_masked(M, A, A, op.MULT_INT, op.PLUS_INT, 0)
-    return fns
 
 
 def cuda_ms(fn, reps, warmup=3):
@@ -143,7 +130,6 @@ def main(argv=None):
     ap.add_argument("--graphs", default=",".join(GRAPHS), help=f"comma-separated, of {(*GRAPHS, *DEG_GRAPHS)}")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--label", default="", help="names the tree in the JSON line")
-    ap.add_argument("--teams", action="store_true", help="also time kernels 4 and 5 at every G")
     ap.add_argument("--profile", action="store_true", help="profile tc and mxmT_masked at n = 2^20")
     args = ap.parse_args(argv)
     names = args.graphs.split(",")
@@ -155,8 +141,6 @@ def main(argv=None):
     for name in names:
         mask, A = operands(name, device)
         fns = functions(mask, A)
-        if args.teams:
-            fns.update(team_functions(mask, A))
         ms = {k: 0.0 for k in fns}
         for order in (list(fns), list(fns)[::-1]):
             for k in order:
@@ -164,7 +148,7 @@ def main(argv=None):
         row = {"label": args.label, "graph": name, "n": A.shape[0], "nnz": int(A.nnz),
                "mask_nnz": int(mask.nnz), "ms": ms, "card": smi}
         plan = K45.mxmt_plan(mask, A)
-        row["plan"] = {"team": plan.team, "hubs": plan.nhub, "chunks": plan.nchunks}
+        row["plan"] = {"hubs": plan.nhub, "chunks": plan.nchunks}
         if name == "tc20":
             calls = {"tc": lambda: alg.tc(A),
                      "mxmT_masked MULT/PLUS i32": lambda: mxmT_masked(A, A, A, op.MULT_INT, op.PLUS_INT,

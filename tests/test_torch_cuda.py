@@ -256,15 +256,15 @@ def _deg_operands(dev, dtype, deg, n=2000):
     return mask, A
 
 
-# graph: its G; "hub" also has hub entries of two chunks and rows of A above A_STAGE
-MXMT_GRAPHS = {"hub": 2, "deg48": 4, "deg96": 8, "deg192": 16}
+# "hub" has hub entries of two chunks and rows of A above A_STAGE; the others
+# B rows of mean 48 to 192, many batches of a team
+MXMT_GRAPHS = ("hub", "deg48", "deg96", "deg192")
 
 
 def _mxmt_operands(dev, dtype, graph, nan=False):
     mask, A = (_spgemm_operands(dev, dtype, nan) if graph == "hub"
                else _deg_operands(dev, dtype, int(graph[3:])))
     plan = K45.mxmt_plan(mask, A)
-    assert plan.team == MXMT_GRAPHS[graph]
     if graph == "hub":
         assert plan.nchunks > plan.nhub > 0
         assert int((A.indptr[1:] - A.indptr[:-1]).max()) > K45.A_STAGE
@@ -279,9 +279,9 @@ def _sel(mask, T):
 @pytest.mark.parametrize("dtype", ["f32", "i32"])
 @pytest.mark.parametrize("add", ["PLUS", "MIN", "MAX"])
 def test_mxmt_masked_matches_plain(dev, graph, dtype, add):
-    """Every kernel-5 instance against its plain version, on a graph of
-    each team size G and on the hub graph (chunked B rows, A rows probed
-    in global memory, NaN values)."""
+    """Every kernel-5 instance against its plain version, on graphs of B
+    rows of mean 48, 96 and 192 and on the hub graph (chunked B rows, A
+    rows probed in global memory, NaN values)."""
     mask, A = _mxmt_operands(dev, dtype, graph, nan=True)
     T = op.FLOAT if dtype == "f32" else op.INT
     oa = getattr(T, add)

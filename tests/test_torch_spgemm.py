@@ -414,31 +414,28 @@ def _plan_operands(seed=61, n=300):
 
 
 def _plan_reference(mask, B):
-    """numpy: (hub entries [(entry, row, [(c0, c1)])], walked, entries) of
-    kernels 4 and 5's plan."""
+    """numpy: the hub entries [(entry, row, [(c0, c1)])] of kernels 4 and
+    5's plan."""
     mip, bip = to_numpy(mask.indptr).astype(np.int64), to_numpy(B.indptr).astype(np.int64)
     mcols = to_numpy(mask.cols)
-    hubs, walked, entries = [], 0, 0
+    hubs = []
     for i in range(mask.shape[0]):
         for e in range(mip[i], mip[i + 1]):
             j = mcols[e]
             lo, hi = bip[j], bip[j + 1]
             if hi - lo > K.HUB_LEN:
                 hubs.append((e, i, [(c, min(c + K.HUB_CHUNK, hi)) for c in range(lo, hi, K.HUB_CHUNK)]))
-            else:
-                walked, entries = walked + hi - lo, entries + 1
-    return hubs, walked, entries
+    return hubs
 
 
 def test_mxmt_plan_matches_numpy():
     """The plan built on the CPU against a numpy reference: the stored
     entries (the windows end at indptr[m], not at the capacity), the hub
     entries whose B row (duplicates counted) exceeds HUB_LEN with their
-    HUB_CHUNK chunks, and G from the other entries' B rows; cached per
-    tensor."""
+    HUB_CHUNK chunks; cached per tensor."""
     mask, A, B = _plan_operands()
     plan = K.mxmt_plan(mask, B)
-    hubs, walked, entries = _plan_reference(mask, B)
+    hubs = _plan_reference(mask, B)
     assert plan.stored == int(mask.nnz) == int(mask.indptr[-1]) < mask.capacity
     chunks = [(e, i, c0, c1) for e, i, cs in hubs for c0, c1 in cs]
     got = list(zip(*(to_numpy(t).tolist() for t in (plan.chunk_entry, plan.chunk_row, plan.chunk_c0,
@@ -449,27 +446,28 @@ def test_mxmt_plan_matches_numpy():
     np.testing.assert_array_equal(to_numpy(plan.chunk_first), first)
     np.testing.assert_array_equal(to_numpy(plan.chunk_hub), np.repeat(np.arange(len(hubs)),
                                                                       [len(cs) for _, _, cs in hubs]))
-    from spla_tpu_torch.kernels.spmv import team_size
-
-    assert plan.team == team_size(walked, entries, K.LANE_LOADS)
     assert plan.part is not None and plan.done.shape == (plan.nhub,) and not bool(plan.done.any())
     assert K.mxmt_plan(mask, B) is plan
     assert K.mxmt_plan(mask, A) is not plan  # another B
 
 
 def test_mxmt_plan_of_an_empty_mask_and_team_sizes():
-    """A mask with no stored entry has no window and no hub; G follows the
-    mean length of the B rows reached (2 to 16; longer rows are hubs)."""
+    """A mask with no stored entry has no window and no hub.  Every entry
+    is walked by a team of two lanes, so B rows of any mean length up to
+    HUB_LEN (the sizes at which kernel 1's rule would pick teams of 2 to
+    16) leave the plan without hubs; longer rows are all hubs."""
     (_, _, _), (_, ta, tb) = _operands("INT", 17, 0)
     empty = F.csr_from_entries((N, N), [], [], [], dtype="int32", capacity=4, device="cpu")
     plan = K.mxmt_plan(empty, tb)
     assert (plan.stored, plan.nhub, plan.nchunks) == (0, 0, 0)
-    for deg, team in ((1, 2), (48, 4), (96, 8), (192, 16), (256, 16), (400, 2)):
+    for deg in (1, 48, 96, 192, 256, 400):
         rows = np.repeat(np.arange(40), deg)
         b = _csr_kept(40, rows, np.arange(rows.size) % 40, np.ones(rows.size, np.int32))
         m = F.csr_from_entries((40, 40), np.arange(40), np.arange(40), np.ones(40), dtype="int32",
                                device="cpu")
-        assert K.mxmt_plan(m, b).team == team
+        plan = K.mxmt_plan(m, b)
+        hubs = 40 if deg > K.HUB_LEN else 0
+        assert (plan.stored, plan.nhub, plan.nchunks) == (40, hubs, hubs)
 
 
 def _intersections_numpy(mask, A, B, sel):
