@@ -24,7 +24,7 @@ Phases:
      each of kernel 8's phase probes against its plain version; kernels 4
      and 5, every instance, and their gather floor (``kernels.probe.
      mxmt_gather``) on the n = 2^15 SpGEMM graph and the hub graph, with
-     each plan (G, windows, hub chunks) and the registers of the timed
+     each plan (team, windows, hub chunks) and the registers of the timed
      instances;
   4. the slices through the public entry points, each with the launch
      counts set to 0 just before it and read just after:
@@ -398,8 +398,9 @@ def check_reduce(label, mask, A, om, sel, struct_only=False):
 
 def mxmt_plan_line(mask, B):
     p = K45.mxmt_plan(mask, B)
-    return (f"{-(-p.stored // K45.WINDOW)} windows of {K45.WINDOW} stored entries, {p.nhub} "
-            f"entries whose B row is over {K45.HUB_LEN} in {p.nchunks} chunks of at most {K45.HUB_CHUNK}")
+    return (f"teams of {K45.TEAM} lanes, {-(-p.stored // K45.WINDOW)} windows of {K45.WINDOW} stored entries, "
+            f"{p.nhub} entries whose B row is over {K45.HUB_LEN} in {p.nchunks} chunks of at most "
+            f"{K45.HUB_CHUNK}")
 
 
 def mxmt_resources(mode, dtype, mul, add):

@@ -85,7 +85,7 @@ constexpr int kWindow = 32;          // stored entries a warp walks at once; kep
 constexpr int kStage = 256;          // A entries a warp stages; kept equal to kernels/mxmt.py A_STAGE
 constexpr int kChunkStage = kStage * kWarps;  // A-row entries a chunk CTA stages
 constexpr int kUnroll = 4;           // B loads a lane issues before it probes
-constexpr int kTeam = 2;             // lanes that walk one entry
+constexpr int kTeam = 2;             // lanes that fold one entry; kept equal to kernels/mxmt.py TEAM
 constexpr unsigned kMaxWindowCtas = 132 * 8;  // CTAs of the windows' grid-stride loop
 
 // i32 products and hits sum as uint64 (two's complement int64); f32 in f64.

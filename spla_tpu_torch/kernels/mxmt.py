@@ -25,7 +25,7 @@ its result is a 0-d tensor of that dtype.
 The kernels walk the mask's stored entries in windows of ``WINDOW``, a
 warp a window, which stages the window's rows of A in shared memory when
 they hold at most ``A_STAGE`` entries (it reads ``mask.row_ids``), and fold
-each entry with a team of two lanes.  Their launch is shaped by
+each entry with a team of ``TEAM`` (two) lanes.  Their launch is shaped by
 ``mxmt_plan``, built on the device from the mask and B at their first CUDA
 call and cached per tensor: the stored count and the entries whose B row
 is longer than ``HUB_LEN``, cut into chunks of ``HUB_CHUNK`` B entries, a
@@ -55,6 +55,7 @@ __all__ = [
     "PRODUCT_CHUNK",
     "WINDOW",
     "A_STAGE",
+    "TEAM",
     "HUB_LEN",
     "HUB_CHUNK",
     "MxmtPlan",
@@ -73,6 +74,7 @@ PRODUCT_CHUNK = 1 << 26
 
 WINDOW = 32  # stored mask entries a warp walks at once, a lane each (csrc/mxmt.cu kWindow)
 A_STAGE = 256  # entries of A's rows a warp stages in shared memory (kStage); more: global memory
+TEAM = 2  # lanes that fold one entry (kTeam)
 HUB_LEN = 256  # a B row of more entries is walked in chunks, a CTA each
 HUB_CHUNK = 2048  # entries of a long B row a CTA walks
 
