@@ -25,13 +25,23 @@ Phases:
      and 5, every instance, and their gather floor (``kernels.probe.
      mxmt_gather``) on the n = 2^15 SpGEMM graph and the hub graph, with
      each plan (team, windows, hub chunks) and the registers of the timed
-     instances;
+     instances; the level loop's push levels (kernel 2's push fused with
+     kernel 3's update) and pull updates, level by level against their
+     plain versions, on the n = 2^20 random graph, the road grids and
+     bench_suite's skewed graph (from its longest row);
   4. the slices through the public entry points, each with the launch
      counts set to 0 just before it and read just after:
      * SpMV: mxv_masked / vxm_masked / vxm_masked_dense on the bench.py
        graph (n = 2^21, 16 entries a row), bfs / sssp / pr on the
        bench_suite.py graph (n = 2^20, degree 16), against scipy's oracles
        and the plain path, in every traversal mode;
+     * push: kernel 2's public spmv_push (MIN-plus) and
+       spmv_push_structural at the depth-3 frontier of the n = 2^20 graph,
+       against their plain versions;
+     * skewed: bfs / sssp on bench_suite.py's skewed graph (n = 2^18,
+       zipf(2.1) out-degrees, bench_suite.py:441-448) in every mode, which
+       the skew gate keeps on the level loop, and bfs on the side-3072 road
+       grid, which the byte budget sends there, against scipy;
      * SpGEMM-T: tc on the bench_suite.py SpGEMM graph (n = 2^15, degree
        24) against scipy and on the traversal graph against the plain path;
        mxmT_masked at n = 2^20 against the plain path;
@@ -57,7 +67,12 @@ Phases:
      beside their gather floor on the n = 2^15, n = 2^20 and hub graphs,
      and the walls of tc and mxmT_masked; road BFS / SSSP walls on the
      resident route and on the level loop, with road_bfs_gteps and
-     road_sssp_ms (bench_suite.py:265,346);
+     road_sssp_ms (bench_suite.py:265,346); the level loop on the road
+     grids (sides 1024, 512 and 3072) a level, split into count reads and
+     the host's own time, with the device's time a push level from one
+     torch.profiler run each (tools/level_times.py), the push levels' rows,
+     and the skewed graph's walls; kernels 2 and 3 also as a CUDA graph of
+     20 calls (their device time);
      kernel 6's rounds, wide rounds and us a round on the road, path,
      barbell and random 2^18 graphs, and on the side-3072 grid with the
      byte budget lifted, checked against scipy;
@@ -99,15 +114,16 @@ import torch
 from spla_tpu_torch import Descriptor, DenseVec, algorithms as alg, formats as F, kernels, op
 from spla_tpu_torch.interop import csr_from_numpy
 from spla_tpu_torch.io import MtxLoader
-from spla_tpu_torch.kernels import PROBE_PHASES, level_update as K3, mxmt as K45, probe as K8
-from spla_tpu_torch.kernels import resident as K6, spmv as K1, staged as K7, traversal as K2
+from spla_tpu_torch.kernels import PROBE_PHASES, frontier as KF, level_update as K3, mxmt as K45
+from spla_tpu_torch.kernels import probe as K8, resident as K6, spmv as K1, staged as K7, traversal as K2
 from spla_tpu_torch.kernels.build import build_log, load_library
 from spla_tpu_torch.ops import (DISPATCH_STATS, count_mxmT_products, m_reduce, masked_spmv,
                                 mxmT_masked, mxv_masked, vxm_masked, vxm_masked_dense)
 from spla_tpu_torch.ops.spgemm import mxmT_masked_plain
-from spla_tpu_torch.tools import ab_spmv as AB, probe_spmv as PROBE, resident_levels as RL
+from spla_tpu_torch.tools import ab_spmv as AB, level_times as LT, probe_spmv as PROBE, resident_levels as RL
 from spla_tpu_torch.tools.graphs import (HUB_ROWS, barbell_graph, build_graph, hub_graph, hub_spgemm,
-                                         path_graph, powerlaw_graph, random_graph, road_graphs, road_grid)
+                                         path_graph, powerlaw_graph, random_graph, road_graphs, road_grid,
+                                         skewed_graph)
 
 N_SPMV, DEG_SPMV = 1 << 21, 16      # bench.py:37 build_graph
 N_GRAPH, DEG_GRAPH = 1 << 20, 16    # bench_suite.py:24 random_graph, bench_suite.py:122
@@ -117,8 +133,11 @@ N_SMALL, SMALL_DEGREES = 1 << 16, (1, 6, 16, 24, 64, 300)  # kernel 1: teams of 
 N_HUB_TC, HUB_LEN_TC = 1 << 17, 1 << 16
 SIDE_BFS, SIDE_SSSP, SEED_ROAD = 1024, 512, 9  # bench_suite.py:226,323,326
 SIDE_BIG = 3072  # bench_suite.py:269-319 road_big_bfs_gteps
+N_SKEW = 1 << 18  # bench_suite.py:441-448 skewed_spmv_gbps / skewed_bfs_gteps
+CHECK_LEVELS = 60  # levels of each run that phase 3 holds against the plain versions
 N_CLI_SMALL = 2000  # the pr and tc CLIs' graph: their naive oracles are Python loops
 TIMED_RUNS = 20
+DEVICE_MS = {}  # kernel: its device time, where measured apart from the eager time
 PLAIN_RUNS_BIG = 3  # the plain SpGEMM-T at n = 2^20 expands 285M products per call
 PLAIN_RUNS_ROAD = 2  # kernel 6's plain versions read the host once per level
 PROBE_ITERS = 20
@@ -133,8 +152,11 @@ ADDS = ("PLUS", "MIN", "MAX")
 KERNELS = {
     "spmv_pull": ("cuda", "spla_tpu_torch/kernels/csrc/spmv_pull.cu", "spla_tpu/pallas/spmv.py:2055"),
     "spmv_push": ("cuda", "spla_tpu_torch/kernels/csrc/spmv_push.cu", "spla_tpu/pallas/spmv.py:2346"),
-    "level_update": ("triton", "spla_tpu_torch/kernels/level_update_triton.py",
-                     "spla_tpu/pallas/spmv.py:2789"),
+    "level_update": ("cuda", "spla_tpu_torch/kernels/csrc/level_update.cu", "spla_tpu/pallas/spmv.py:2789"),
+    # the push levels: kernel 2's push fused with kernel 3's update, the counterparts of the
+    # sparse grid of fused_spmv2d_adaptive followed by the chunk-sparse level updates
+    "bfs_push_level": ("cuda", "spla_tpu_torch/kernels/csrc/spmv_push.cu", "spla_tpu/pallas/spmv.py:2925"),
+    "sssp_push_level": ("cuda", "spla_tpu_torch/kernels/csrc/spmv_push.cu", "spla_tpu/pallas/spmv.py:2858"),
     "mxmt_reduce": ("cuda", "spla_tpu_torch/kernels/csrc/mxmt.cu", "spla_tpu/pallas/mxmt.py:335"),
     "mxmt_masked": ("cuda", "spla_tpu_torch/kernels/csrc/mxmt.cu", "spla_tpu/pallas/mxmt.py:362"),
     # a diagnostic with no TPU counterpart: kernels 4 and 5's walk with no probe of A,
@@ -151,9 +173,11 @@ KERNELS = {
                            ("ring_copy", 248), ("ring_alu", 248), ("ring_copy_alu", 248), ("warp_row", 99),
                            ("flat_stream", 498), ("flat_gather", 146), ("ring_fold", 248))},
 }
-# the kernels each slice of phase 4 must launch
-PATHS = {"spmv": ("spmv_pull", "spmv_push", "level_update"), "spgemm": ("mxmt_reduce", "mxmt_masked"),
-         "road": ("bfs_resident", "sssp_resident"), "staged": ("spmv_pull_staged",),
+# the kernels each slice of phase 4 must launch, each kernel's row from the first slice naming it
+PATHS = {"spmv": ("spmv_pull", "level_update", "bfs_push_level", "sssp_push_level"),
+         "push": ("spmv_push",), "skewed": ("bfs_push_level", "sssp_push_level", "level_update"),
+         "spgemm": ("mxmt_reduce", "mxmt_masked"), "road": ("bfs_resident", "sssp_resident"),
+         "staged": ("spmv_pull_staged",),
          "probes": (*(f"spmv_probe_{phase}" for phase in PROBE_PHASES), "mxmt_gather")}
 
 
@@ -323,6 +347,70 @@ def check_kernels(G):
         check_close(f"sssp_level_update {name}", torch.as_tensor(a), torch.as_tensor(b), True)
     print(f"kernel 3: BFS and SSSP updates match (count {outs[0][2]})", flush=True)
     return errs
+
+
+def plain_level(kind, S, At, push):
+    """One level of the level loop by the plain versions alone (on the card)."""
+    inf = float("inf")
+    if kind == "bfs":
+        if push:
+            K2.bfs_push_level_plain(S)
+        else:
+            K3.bfs_pull_update_plain(S, K1.spmv_pull_structural_plain(At, S.mask, S.v == 0))
+    elif push:
+        K2.sssp_push_level_plain(S)
+    else:
+        hits, _ = K1.spmv_pull_plain(At, S.v, op.PLUS_FLOAT, op.MIN_FLOAT, inf, x_valid=S.mask)
+        K3.sssp_pull_update_plain(S, hits)
+
+
+def same_state(what, S, R):
+    """A level's state on the kernels' run S against the plain run R: v and
+    the mask bitwise, the next list as a set, its size word, and S's degree
+    offsets those of its own list order."""
+    check_close(f"{what} v", S.v, R.v, True)
+    check_close(f"{what} mask", S.mask, R.mask, True)
+    KF.read_count(S), KF.read_count(R)
+    if (S.k, S.edges) != (R.k, R.edges):
+        raise AssertionError(f"{what}: list of {S.k} vertices, {S.edges} edges; plain {R.k}, {R.edges}")
+    cur = S.level % 2
+    lst = S.lists[cur, :S.k]
+    check_close(f"{what} list", torch.sort(lst).values, torch.sort(R.lists[cur, :R.k]).values, True)
+    eoff, total = KF.degree_offsets(S.A.indptr, lst)
+    check_close(f"{what} offsets", S.eoff[cur, :S.k], eoff, True)
+    if total != S.edges:
+        raise AssertionError(f"{what}: offsets sum to {total}, the size word says {S.edges}")
+
+
+def check_push_levels(G):
+    """The push levels (kernel 2's push fused with kernel 3's update) and the
+    pull levels' stream update against their plain versions, level by level,
+    for the first CHECK_LEVELS levels of BFS and SSSP runs on the n = 2^20
+    random graph, the road grids and the skewed graph (from its longest
+    row, so that a hub row is in the frontier): two levels of three push,
+    the third pulls, so that each kind of level hands over to the other."""
+    levels = {"bfs_push_level": 0, "sssp_push_level": 0}
+    for label, kind, A, source in (("random", "bfs", G["Aint"], 0), ("random", "sssp", G["Aw"], 0),
+                                   ("road", "bfs", G["Road"], 0), ("road", "sssp", G["RoadW"], 0),
+                                   ("skewed", "bfs", G["Skew"], G["skew_hub"]),
+                                   ("skewed", "sssp", G["Skew"], G["skew_hub"])):
+        At = alg._default_At(A)
+        make = KF.bfs_state if kind == "bfs" else KF.sssp_state
+        step = alg.bfs_level if kind == "bfs" else alg.sssp_level
+        S, R = make(A, source), make(A, source)
+        level = pushed = 0
+        while S.k > 0 and level < CHECK_LEVELS:
+            push = level % 3 != 2
+            step(S, At, push)
+            plain_level(kind, R, At, push)
+            same_state(f"{label} {kind} level {level}", S, R)
+            pushed += push
+            level += 1
+        levels[f"{kind}_push_level"] += pushed
+        print(f"{kind} on {label} from {source}: {level} levels ({pushed} push) equal their plain "
+              f"versions: depths or distances, mask, list, size word and offsets", flush=True)
+    print(f"push levels held against their plain versions: {levels}", flush=True)
+    return {k: 0.0 for k in levels}
 
 
 def check_resident(G):
@@ -681,6 +769,67 @@ def check_spgemm(G, R):
           f"(nnz {int(R['mxmT minplus'].nnz)}) equal the plain path bitwise", flush=True)
 
 
+def run_push(G):
+    """Phase 4's push slice: kernel 2's public entries at a real frontier,
+    the vertices at depth 3 of a BFS from vertex 0 on the n = 2^20 graph
+    (the spmv slice's scipy depths)."""
+    front = torch.nonzero(G["bfs_ref"] == 3).flatten().to(torch.int32)
+    d = torch.from_numpy(np.random.default_rng(13).uniform(0, 10, N_GRAPH).astype(np.float32)).to(DEVICE)
+    R = {"front": front, "d": d,
+         "minplus": K2.spmv_push(G["Aw"], front, d, op.PLUS_FLOAT, op.MIN_FLOAT, float("inf")),
+         "structural": K2.spmv_push_structural(G["Aw"], front)}
+    torch.cuda.synchronize()
+    return R
+
+
+def check_push(G, R):
+    front, d = R["front"], R["d"]
+    check_close("spmv_push MIN-plus (push slice)", R["minplus"],
+                K2.spmv_push_plain(G["Aw"], front, d, op.PLUS_FLOAT, op.MIN_FLOAT, float("inf")), True)
+    check_close("spmv_push OR (push slice)", R["structural"], K2.spmv_push_structural_plain(G["Aw"], front),
+                True)
+    print(f"spmv_push MIN-plus and OR at the depth-3 frontier of {front.numel()} vertices equal the plain "
+          f"versions", flush=True)
+
+
+def run_skewed(G):
+    """Phase 4's skewed slice: the level loop where users meet it.  The
+    public bfs and sssp on bench_suite's skewed graph (the skew gate keeps
+    them off the resident route), in every mode, and bfs on the side-3072
+    road grid with the byte budget, which sends it to the level loop."""
+    R = {}
+    for name, d in (("default", None), ("push_only", Descriptor(push_only=True)),
+                    ("pull_only", Descriptor(pull_only=True))):
+        R[f"bfs {name}"] = alg.bfs(G["Skew"], 0, d)
+        R[f"sssp {name}"] = alg.sssp(G["Skew"], 0, d)
+    R["road3072"] = alg.bfs(G["Road3072"], 0, At=G["Road3072"])
+    torch.cuda.synchronize()
+    return R
+
+
+def check_skewed(G, R):
+    a = G["Skew_sp"]
+    lev = cg.shortest_path(a, method="D", unweighted=True, indices=0)
+    lev_ref = torch.from_numpy(np.where(np.isfinite(lev), lev + 1, 0).astype(np.int32)).to(DEVICE)
+    dist_ref = torch.from_numpy(cg.dijkstra(a, indices=0)).to(DEVICE)
+    fin = torch.isfinite(dist_ref)
+    for name in ("default", "push_only", "pull_only"):
+        check_close(f"skewed bfs {name}", R[f"bfs {name}"].values, lev_ref, True)
+        d = R[f"sssp {name}"].values
+        check_close(f"skewed sssp {name} = default", d, R["sssp default"].values, True)
+        if not torch.equal(torch.isinf(d), ~fin):
+            raise AssertionError(f"skewed sssp {name}: unreachable set differs from dijkstra")
+        torch.testing.assert_close(d[fin].double(), dist_ref[fin], rtol=1e-5, atol=0,
+                                   msg=f"skewed sssp {name} vs dijkstra")
+    print(f"skewed bfs: depths equal scipy's in all 3 modes ({int((lev_ref > 0).sum())} reached, "
+          f"{int(lev_ref.max())} levels); skewed sssp: dijkstra within rtol 1e-5, identical in all 3 "
+          f"modes", flush=True)
+    lev = cg.shortest_path(G["Road3072_sp"], method="D", unweighted=True, indices=0)
+    check_close("road bfs side 3072, level loop", R["road3072"].values,
+                torch.from_numpy((lev + 1).astype(np.int32)).to(DEVICE), True)
+    print(f"road bfs side {SIDE_BIG} on the level loop: depths equal scipy's", flush=True)
+
+
 def run_road(G):
     """Phase 4's road-slice calls: the public bfs and sssp on the road grids,
     which take the resident route."""
@@ -985,8 +1134,11 @@ def time_kernels(G, card):
     edges = int((ip[front.long() + 1] - ip[front.long()]).sum())
     # the frontier, its indptr pairs and x values, its rows' cols and values; the hits written
     times["spmv_push"] = (k, p, *bound(16 * front.numel() + 8 * edges + 4 * n, 2 * edges))
-    print(f"time spmv_push MIN-plus f32 n={n} frontier={n // 20}: kernel {k:.4f} ms, plain {p:.4f} ms "
-          f"[{card}]", flush=True)
+    inf_t = torch.tensor(float("inf"), device=DEVICE)
+    DEVICE_MS["spmv_push"] = LT.graph_ms(lambda: K2.spmv_push(A, front, d, op.PLUS_FLOAT, op.MIN_FLOAT,
+                                                               inf_t), TIMED_RUNS)
+    print(f"time spmv_push MIN-plus f32 n={n} frontier={n // 20}: kernel {k:.4f} ms (device, a CUDA graph "
+          f"of {TIMED_RUNS} calls: {DEVICE_MS['spmv_push']:.4f}), plain {p:.4f} ms [{card}]", flush=True)
     k, p = paired_ms(lambda: K2.spmv_push_structural(A, front),
                      lambda: K2.spmv_push_structural_plain(A, front))
     print(f"time spmv_push OR n={n} frontier={n // 20}: kernel {k:.4f} ms, plain {p:.4f} ms [{card}]",
@@ -997,11 +1149,19 @@ def time_kernels(G, card):
     f = torch.from_numpy(rng.random(n) < 0.05).to(DEVICE)
     lst = torch.empty(n, dtype=torch.int32, device=DEVICE)
     cnt = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+    # the first call's inputs: hits and front read, v where a hit lands outside the frontier, front
+    # and v written where they change, the new frontier's list
+    level_bytes = 2 * n + 4 * int((hits & ~f).sum()) + 5 * int(f.sum()) + 4 * int((hits & ~f).sum())
     k, p = paired_ms(lambda: K3.bfs_level_update(hits, v.zero_(), f, 3, lst, cnt),
                      lambda: K3.bfs_level_update_plain(hits, v.zero_(), f, 3, lst, cnt))
     # hits, v and the frontier read; v and the frontier written, and the new frontier's list
-    times["level_update"] = (k, p, *bound(11 * n + 4 * int(hits.sum())))
-    print(f"time level_update BFS n={n}: kernel {k:.4f} ms, plain {p:.4f} ms [{card}]", flush=True)
+    times["level_update"] = (k, p, *bound(level_bytes))
+    print(f"bound level_update: {level_bytes} bytes, a pass over n = {n} (2 bytes a vertex) and the "
+          f"first call's frontier and hits", flush=True)
+    DEVICE_MS["level_update"] = LT.graph_ms(lambda: K3.bfs_level_update(hits, v.zero_(), f, 3, lst, cnt),
+                                            TIMED_RUNS)
+    print(f"time level_update BFS n={n}: kernel {k:.4f} ms (device, a CUDA graph of {TIMED_RUNS} calls "
+          f"with v's memset: {DEVICE_MS['level_update']:.4f}), plain {p:.4f} ms [{card}]", flush=True)
     hv = torch.from_numpy(rng.uniform(0, 10, n).astype(np.float32)).to(DEVICE)
     sv = torch.full((n,), float("inf"), device=DEVICE)
     ch = torch.zeros(n, dtype=torch.bool, device=DEVICE)
@@ -1065,7 +1225,7 @@ def time_road(G, card):
             print(f"time {kind}_resident {label} n={row['n']} nnz={row['nnz']} "
                   f"({K6.resident_plan(M)}): {row['ms']:.4f} ms, {row['rounds']} rounds, {row['wide']} "
                   f"wide, {row['us_per_round']:.4f} us a round{extra} [{card}]", flush=True)
-    time_road_big(card)
+    time_road_big(G, card)
     walls = {}
     for name, algo, M in (("bfs", alg.bfs, G["Road"]), ("sssp", alg.sssp, G["RoadW"])):
         for route, budget in (("resident", alg.RESIDENT_BYTES), ("level loop", 0)):
@@ -1093,13 +1253,12 @@ def time_road(G, card):
     return times
 
 
-def time_road_big(card):
+def time_road_big(G, card):
     """road_big_bfs_gteps's graph (the side-3072 grid, six times the byte
     budget): the public bfs with the budget lifted takes kernel 6 and
     equals scipy's depths; kernel 6's time, rounds and us a round.  Its
     GTEPS are over the kernel's time, not bench_suite's host wall of bfs."""
-    a = road_grid(SIDE_BIG)
-    M = F.csr_from_scipy(a, device=DEVICE)
+    a, M = G["Road3072_sp"], G["Road3072"]
     with resident_budget(1 << 40):
         for key in alg.STATS:
             alg.STATS[key] = 0
@@ -1115,6 +1274,99 @@ def time_road_big(card):
           f"{row['ms']:.4f} ms, {row['rounds']} rounds, {row['wide']} wide, {row['us_per_round']:.4f} us a "
           f"round; equal to scipy; kernel6_side3072_gteps {row['nnz'] / row['ms'] / 1e6:.4f} "
           f"(entries over the kernel's CUDA-event time) [{card}]", flush=True)
+
+
+@contextlib.contextmanager
+def list_sizes():
+    """The level loop's lists, as each count read finds them: yields the list
+    of (k, E) that the reads append to."""
+    read, sizes = alg._host_count, []
+
+    def record(S):
+        count = read(S)
+        sizes.append((S.k, S.edges))
+        return count
+
+    alg._host_count = record
+    try:
+        yield sizes
+    finally:
+        alg._host_count = read
+
+
+def push_level_bytes(kind, M, source, sizes):
+    """Bytes a run's push levels need, each read or written once, from each
+    level's list (k vertices, E edges) and the next list's k.  A listed
+    vertex: its slot, offset and indptr pair, its depth written and front
+    byte cleared (BFS) or its distance read and changed byte cleared (SSSP),
+    21 bytes; an edge: its column (BFS, 4) and value (SSSP, 8); a vertex of
+    the next list: its bit or hits slot, front or changed byte, slot,
+    offset and degree (BFS 17; SSSP adds its distance read and written and
+    its hits slot reset, 29).  Targets that the level reaches but does not
+    list are not counted."""
+    ip = M.indptr
+    cur = [(1, int(ip[source + 1] - ip[source]))] + sizes[:-1]
+    per_edge, per_next = (4, 17) if kind == "bfs" else (8, 29)
+    return sum(21 * k + per_edge * e for k, e in cur) + per_next * sum(k for k, _ in sizes)
+
+
+def plain_level_ms(kind, M, levels=100):
+    """The plain versions' time a level (host clock, count read included),
+    over the first ``levels`` levels of a run from vertex 0, all pushed."""
+    At = alg._default_At(M)
+    S = (KF.bfs_state if kind == "bfs" else KF.sssp_state)(M, 0)
+    torch.cuda.synchronize()
+    t0, done = time.perf_counter(), 0
+    while done < levels and S.k > 0:
+        plain_level(kind, S, At, True)
+        KF.read_count(S)
+        done += 1
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / done
+
+
+def time_levels(G, card):
+    """The level loop on the road grids (budget 0; every level pushes) and
+    the skewed graph: wall, us a level, its split into count reads and the
+    host's own time, and from one torch.profiler run each the device's time
+    a level; the push levels' rows (their time a level in the loop and on
+    the device, the plain versions', and the bound of what the run's
+    frontiers need); the skewed walls."""
+    times, per_level = {}, {}
+    dev = torch.device(DEVICE)
+    for label, kind, M in (("side 1024", "bfs", G["Road"]), ("side 512", "sssp", G["RoadW"]),
+                           (f"side {SIDE_BIG}", "bfs", G["Road3072"])):
+        row = LT.loop_row(kind, M, dev)
+        prof = LT.profile_row(kind, M, row["wall_ms"], row["levels"])
+        if row["pull"]:
+            raise AssertionError(f"road {kind} {label}: {row['pull']} pull levels; every level should push")
+        per_level[label] = prof["device_us_per_level"]
+        print(f"time road {kind} {label} level loop n={M.shape[0]}: wall {row['wall_ms']:.3f} ms, "
+              f"{row['levels']} levels, {row['us_per_level']:.3f} us a level (count reads "
+              f"{row['read_ms']:.3f} ms, the host's own {row['host_ms']:.3f}); device "
+              f"{prof['device_us_per_level']:.3f} us a push level ({prof['kernel_us_per_level']:.3f} in "
+              f"kernels), idle share "
+              f"{prof['idle_share']:.3f}; items {json.dumps(prof['items'])} [{card}]", flush=True)
+        if label in ("side 1024", "side 512"):
+            with resident_budget(0), list_sizes() as sizes:
+                (alg.bfs if kind == "bfs" else alg.sssp)(M, 0)
+            levels = row["levels"]
+            nbytes = push_level_bytes(kind, M, 0, sizes) / levels
+            times[f"{kind}_push_level"] = (row["wall_ms"] / levels, plain_level_ms(kind, M), *bound(nbytes))
+            DEVICE_MS[f"{kind}_push_level"] = prof["kernel_busy_ms"] / levels
+            print(f"bound {kind}_push_level: {nbytes:.1f} bytes a level, the mean over the run's {levels} "
+                  f"levels of what each frontier needs (its list and rows, the vertices it lists next; "
+                  f"n not counted) [{card}]", flush=True)
+    ratio = per_level[f"side {SIDE_BIG}"] / per_level["side 1024"]
+    print(f"device us a push level: side 1024 {per_level['side 1024']:.3f}, side {SIDE_BIG} "
+          f"{per_level[f'side {SIDE_BIG}']:.3f} (x{ratio:.3f} for 9x the vertices) [{card}]", flush=True)
+    for kind in ("bfs", "sssp"):
+        row = LT.loop_row(kind, G["Skew"], dev)
+        print(f"time skewed {kind} n={N_SKEW} nnz={int(G['Skew'].nnz)}: wall {row['wall_ms']:.3f} ms (median "
+              f"of 3; runs {', '.join(f'{w:.3f}' for w in row['walls_ms'])}), {row['levels']} levels "
+              f"({row['push']} push, {row['pull']} pull), count reads {row['read_ms']:.3f} ms [{card}]",
+              flush=True)
+    return times
 
 
 def bound(nbytes, flops=0):
@@ -1289,6 +1541,7 @@ def main():
 
     phase("3 kernels against their plain versions")
     errs = check_kernels(G)
+    errs.update(check_push_levels(G))
     errs.update(check_mxmt(G))
     errs.update(check_resident(G))
     errs.update(check_staged(G))
@@ -1297,6 +1550,8 @@ def main():
     phase("4 the slices through the public entry points")
     launches, stats, astats, results = {}, {}, {}, {}
     for slice_name, run, check in (("spmv", run_slice, check_slice),
+                                   ("push", run_push, check_push),
+                                   ("skewed", run_skewed, check_skewed),
                                    ("spgemm", run_spgemm, check_spgemm),
                                    ("road", run_road, check_road),
                                    ("staged", run_staged, check_staged_path),
@@ -1332,6 +1587,11 @@ def main():
         raise AssertionError("the road slice must run twice on the resident route, one host sync each")
     if astats["spmv"]["resident"]:
         raise AssertionError("the n = 2^20 traversals must keep the level loop")
+    skewed = astats["skewed"]
+    print(f"skewed: algorithms.STATS {json.dumps(skewed)}", flush=True)
+    if skewed["resident"] or skewed["level_loop"] != 7 or skewed["push"] == 0 or skewed["pull"] == 0:
+        raise AssertionError("the skewed graph's six runs and the side-3072 bfs must take the level loop, "
+                             "both directions")
     staged = astats["staged"]
     print(f"staged: algorithms.STATS {json.dumps(staged)}", flush=True)
     if launches["staged"]["spmv_pull"] or staged["pull"] == 0 or staged["resident"]:
@@ -1342,6 +1602,7 @@ def main():
     time_algorithms(G, card)
     times.update(time_spgemm(G, card))
     times.update(time_road(G, card))
+    times.update(time_levels(G, card))
     staged_times, cusparse_ms = time_pull(G, card)
     times.update(staged_times)
     times.update(time_probes(G, results["probes"], card))
@@ -1349,15 +1610,21 @@ def main():
 
     # one PyTorch call computes the same function only for the pull SpMVs
     library = {"spmv_pull": cusparse_ms, "spmv_pull_staged": cusparse_ms}
-    rows_out = []
+    rows_out, seen = [], set()
     for slice_name, kernel_names in PATHS.items():
         for k in kernel_names:
+            if k in seen:
+                continue
+            seen.add(k)
             route, source, replaces = KERNELS[k]
             ms, plain_ms, bound_ms, bound_by = times[k]
-            rows_out.append({"name": k, "route": route, "source": source, "replaces": replaces,
-                             "launches": launches[slice_name][k], "max_abs_err": errs[k], "ms": ms,
-                             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                             "library_ms": library.get(k)})
+            row = {"name": k, "route": route, "source": source, "replaces": replaces,
+                   "launches": launches[slice_name][k], "max_abs_err": errs[k], "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": library.get(k)}
+            if k in DEVICE_MS:
+                row["device_ms"] = DEVICE_MS[k]
+            rows_out.append(row)
     print(json.dumps({"kernels": rows_out}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
@@ -1405,6 +1672,13 @@ def build_graphs():
     G["Path"], G["PathW"] = F.csr_from_scipy(path, fill=np.float32(np.inf), device=DEVICE), path.diagonal(1)
     G["Barbell"] = F.csr_from_scipy(barbell_graph(*RL.BARBELL), fill=np.float32(np.inf), device=DEVICE)
     G["Rand18"] = F.csr_from_scipy(RL.weighted_random(), fill=np.float32(np.inf), device=DEVICE)
+    sk = skewed_graph(N_SKEW)
+    G["Skew_sp"], G["Skew"] = sk, F.csr_from_scipy(sk, fill=np.float32(np.inf), device=DEVICE)
+    G["skew_hub"] = int(np.argmax(np.diff(sk.indptr)))
+    big = road_grid(SIDE_BIG)
+    G["Road3072_sp"], G["Road3072"] = big, F.csr_from_scipy(big, device=DEVICE)
+    print(f"graphs: skewed n={N_SKEW} nnz={sk.nnz} (longest row {G['skew_hub']}, "
+          f"{int(np.diff(sk.indptr).max())} entries); road n={big.shape[0]} nnz={big.nnz}", flush=True)
     print(f"graphs: spmv n={N_SPMV} nnz={rows.size}; hub n={N_GRAPH} nnz={hr.size}; powerlaw "
           f"n={N_SPMV} nnz={pr_.size}; n={N_SMALL} at degrees {SMALL_DEGREES}; "
           f"traversal n={N_GRAPH} nnz={a.nnz}; spgemm n={N_TC} nnz={t.nnz}; spgemm hub "

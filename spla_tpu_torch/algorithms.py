@@ -10,12 +10,16 @@ BFS and SSSP take one of two routes, as the JAX package does
   (``formats.is_skewed``), SSSP's weights are finite f32, and CSR(A) plus
   the traversal state fit ``RESIDENT_BYTES``.  It ignores the Descriptor's
   push/pull modes, as the JAX resident route does;
-* otherwise the level loop: each level runs kernel 1 (pull over ``At``,
-  the unvisited mask fused) or kernel 2 (push of the frontier list over
-  CSR(A)), then kernel 3 (the level update, which also writes the next
-  frontier list).  A level pushes when its frontier holds at most
+* otherwise the level loop: a push level is kernel 2's fused push level
+  over CSR(A) (BFS: one launch; SSSP: two, the second kernel 3's update of
+  the vertices the push touched), whose work follows the frontier's edges;
+  a pull level is kernel 1 (pull over ``At``, the unvisited mask fused)
+  then kernel 3's stream update.  Both write the next frontier list with
+  its degree offsets.  A level pushes when its frontier holds at most
   ``front_factor * n`` vertices (``Descriptor.push_only``: always;
   ``pull_only``: never); every mode gives identical depths and distances.
+  The run's state (``kernels.frontier.LevelState``) is allocated once: a
+  level allocates nothing and copies nothing to the device.
 
 Host sync: the level loop reads the frontier count (PageRank: the error) on
 the host once per level, as the C++ reference does
@@ -37,10 +41,11 @@ from . import op as OP
 from .containers import CsrMatrix, DenseVec
 from .descriptor import Descriptor
 from .formats import WeakIdCache, csr_transpose_host, is_skewed, transpose_of
-from .kernels.level_update import bfs_level_update, sssp_level_update
+from .kernels.frontier import LevelState, bfs_state, read_count, sssp_state
+from .kernels.level_update import bfs_pull_update, sssp_pull_update
 from .kernels.resident import bfs_resident, sssp_resident
 from .kernels.spmv import spmv_pull, spmv_pull_structural
-from .kernels.traversal import spmv_push, spmv_push_structural
+from .kernels.traversal import bfs_push_level, sssp_push_level
 from .ops.matrix import m_reduce
 from .ops.spgemm import mxmT_masked, mxmT_masked_reduce
 
@@ -106,9 +111,9 @@ def _front_factor_of(descriptor) -> float:
     return descriptor.front_factor
 
 
-def _host_count(count) -> int:
+def _host_count(S: LevelState) -> int:
     STATS["host_syncs"] += 1
-    return int(count)
+    return read_count(S)
 
 
 def _pushes(count: int, n: int, front_factor: float) -> bool:
@@ -161,6 +166,28 @@ def _read_resident(stats) -> None:
     STATS["resident"] += 1
 
 
+def bfs_level(S: LevelState, At: CsrMatrix, push: bool) -> None:
+    """One BFS level: kernel 2's push level, or kernel 1's pull over ``At``
+    (the unvisited rows only) and kernel 3's update."""
+    if push:
+        bfs_push_level(S)
+    else:
+        row_sel = torch.eq(S.v, 0, out=S.row_sel)
+        bfs_pull_update(S, spmv_pull_structural(At, S.mask, row_sel=row_sel, out=S.pull_out))
+
+
+def sssp_level(S: LevelState, At: CsrMatrix, push: bool) -> None:
+    """One SSSP level: kernel 2's push level, or kernel 1's (PLUS, MIN)
+    pull of the changed distances and kernel 3's update.  The reference's
+    feedback vector, changed ? v : +inf, is carried as (v, changed)."""
+    if push:
+        sssp_push_level(S)
+    else:
+        hits, _ = spmv_pull(At, S.v, OP.PLUS_FLOAT, OP.MIN_FLOAT, float("inf"), x_valid=S.mask,
+                            out=S.pull_out)
+        sssp_pull_update(S, hits)
+
+
 def bfs(A: CsrMatrix, source: int, descriptor: Descriptor | None = None,
         At: CsrMatrix | None = None) -> DenseVec:
     """Depth of every vertex from ``source`` (1-based; 0 = unreachable).
@@ -179,23 +206,12 @@ def bfs(A: CsrMatrix, source: int, descriptor: Descriptor | None = None,
     STATS["level_loop"] += 1
     ff = _front_factor_of(descriptor)
     n = At.shape[0]
-    device = At.values.device
-    v = torch.zeros(n, dtype=torch.int32, device=device)
-    front = torch.zeros(n, dtype=torch.bool, device=device)
-    front[source] = True
-    lst = torch.empty(n, dtype=torch.int32, device=device)
-    lst[0] = source
-    count_t = torch.ones(1, dtype=torch.int32, device=device)
-    count, depth = 1, 1
+    S = bfs_state(Apush, int(source))
+    count = 1
     while count > 0:
-        if _pushes(count, n, ff):
-            hits = spmv_push_structural(Apush, lst[:count])
-        else:
-            hits = spmv_pull_structural(At, front, row_sel=v == 0)
-        bfs_level_update(hits, v, front, depth, lst, count_t)
-        count = _host_count(count_t)
-        depth += 1
-    return DenseVec(v, torch.zeros((), dtype=torch.int32, device=device))
+        bfs_level(S, At, _pushes(count, n, ff))
+        count = _host_count(S)
+    return DenseVec(S.v, torch.zeros((), dtype=torch.int32, device=S.v.device))
 
 
 def sssp(A: CsrMatrix, source: int, descriptor: Descriptor | None = None,
@@ -218,25 +234,13 @@ def sssp(A: CsrMatrix, source: int, descriptor: Descriptor | None = None,
         Apush = replace(Apush, values=Apush.values.float(), fill=Apush.fill.float())
     ff = _front_factor_of(descriptor)
     n = At.shape[0]
-    device = At.values.device
     inf = float("inf")
-    v = torch.full((n,), inf, dtype=torch.float32, device=device)
-    v[source] = 0.0
-    changed = torch.zeros(n, dtype=torch.bool, device=device)
-    changed[source] = True
-    lst = torch.empty(n, dtype=torch.int32, device=device)
-    lst[0] = source
-    count_t = torch.ones(1, dtype=torch.int32, device=device)
+    S = sssp_state(Apush, int(source))
     count = 1
     while count > 0:
-        # feedback = changed ? v : +inf, carried as (v, changed)
-        if _pushes(count, n, ff):
-            hits = spmv_push(Apush, lst[:count], v, OP.PLUS_FLOAT, OP.MIN_FLOAT, inf)
-        else:
-            hits, _ = spmv_pull(At, v, OP.PLUS_FLOAT, OP.MIN_FLOAT, inf, x_valid=changed)
-        sssp_level_update(hits, v, changed, lst, count_t)
-        count = _host_count(count_t)
-    return DenseVec(v, torch.tensor(inf, dtype=torch.float32, device=device))
+        sssp_level(S, At, _pushes(count, n, ff))
+        count = _host_count(S)
+    return DenseVec(S.v, torch.tensor(inf, dtype=torch.float32, device=S.v.device))
 
 
 def pr(A: CsrMatrix, alpha: float = 0.85, eps: float = 1e-6,

@@ -1,9 +1,12 @@
 """Hand-written Hopper kernels of the masked SpMV, traversal and masked SpGEMM-T paths.
 
 * ``spmv`` — kernel 1, the CSR pull SpMV (CUDA, ``csrc/spmv_pull.cu``);
-* ``traversal`` — kernel 2, the frontier push SpMV (CUDA, ``csrc/spmv_push.cu``);
+* ``traversal`` — kernel 2, the frontier push SpMV, and the level loop's
+  push levels fused with kernel 3's update (CUDA, ``csrc/spmv_push.cu``);
 * ``level_update`` — kernel 3, the BFS/SSSP level update with frontier
-  compaction (Triton);
+  compaction, and the update of an SSSP push level's touched vertices
+  (CUDA, ``csrc/level_update.cu``); ``frontier`` holds the level loop's
+  state, whose lists both keep (``csrc/frontier.cuh``);
 * ``mxmt`` — kernels 4 and 5, the masked SpGEMM-T intersections: the
   summed products (triangle counting) and one folded value per mask
   entry (CUDA, ``csrc/mxmt.cu``);
@@ -23,15 +26,16 @@
 
 Each wrapper runs its plain PyTorch version for CPU tensors, and launches
 its kernel or raises for CUDA tensors.  ``LAUNCHES`` counts the kernel
-launches of each wrapper, and nothing else.  Importing these modules
-imports neither ``triton`` nor the compiled library.
+launches of each wrapper, and nothing else (``sssp_push_level`` counts its
+two).  Importing these modules builds and loads nothing.
 """
 
 PROBE_PHASES = ("stream", "gather", "fullfix", "alu", "xgather", "ring_copy", "ring_alu",
                 "ring_copy_alu", "warp_row", "flat_stream", "flat_gather",
                 "ring_fold")  # kernel 8's phases, in the order of enum ProbePhase
 
-LAUNCHES = {"spmv_pull": 0, "spmv_push": 0, "level_update": 0, "mxmt_reduce": 0, "mxmt_masked": 0,
+LAUNCHES = {"spmv_pull": 0, "spmv_push": 0, "level_update": 0, "bfs_push_level": 0, "sssp_push_level": 0,
+            "mxmt_reduce": 0, "mxmt_masked": 0,
             "mxmt_gather": 0,
             "bfs_resident": 0, "sssp_resident": 0, "spmv_pull_staged": 0,
             **{f"spmv_probe_{phase}": 0 for phase in PROBE_PHASES}}

@@ -36,10 +36,21 @@ SIGNATURES = {
     # m, log2 team, hub_len, nhub, nchunks, chunk_row, chunk_c0, chunk_c1, chunk_hub, chunk_first,
     # indptr, cols, x_valid, row_sel, hits, stream
     "spla_spmv_pull_structural": (_I64, _INT, _INT, _I64, _I64, *(_P,) * 11),
-    # mul, add, dtype, k, front, indptr, cols, values, x, out, stream
-    "spla_spmv_push": (_INT, _INT, _INT, _I64, _P, _P, _P, _P, _P, _P, _P),
-    # k, front, indptr, cols, hits, stream
-    "spla_spmv_push_structural": (_I64, _P, _P, _P, _P, _P),
+    # mul, add, dtype, k, edges (a bound), list, eoff, total (device), indptr, cols, values, x, out,
+    # stream
+    "spla_spmv_push": (_INT, _INT, _INT, _I64, _I64, *(_P,) * 9),
+    # k, edges (a bound), list, eoff, total (device), indptr, cols, hits, stream
+    "spla_spmv_push_structural": (_I64, _I64, *(_P,) * 7),
+    # k, edges, list, eoff, total, indptr, cols, v, front, vis, depth, next list, next eoff,
+    # next word, clear word, stream
+    "spla_bfs_push_level": (_I64, _I64, *(_P,) * 8, _INT, *(_P,) * 5),
+    # k, edges, n, list, eoff, total, indptr, cols, values, d, hits, changed, touched, tcount,
+    # tclear, next list, next eoff, next word, clear word, stream
+    "spla_sssp_push_level": (_I64, _I64, _I64, *(_P,) * 17),
+    # n, hits, v, front, depth, list, count, wide, eoff, indptr, vis, clear, stream
+    "spla_bfs_level_update": (_I64, _P, _P, _P, _INT, _P, _P, _INT, *(_P,) * 5),
+    # n, hits, v, changed, list, count, wide, eoff, indptr, clear, stream
+    "spla_sssp_level_update": (_I64, *(_P,) * 5, _INT, *(_P,) * 4),
     # mode (0 kernel 4, 1 kernel 5, 2 gather), mul, add, dtype, structural, cap, mask row_ids/cols,
     # sel, A indptr/cols/values, B indptr/cols/values, hub_len, stored, nhub, nchunks, chunk_entry,
     # chunk_row, chunk_c0, chunk_c1, chunk_hub, chunk_first, part, part_any, done, init (device

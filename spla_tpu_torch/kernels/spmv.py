@@ -282,6 +282,19 @@ def _out_arg(out, m, x, what):
     return out
 
 
+def _hits_arg(out, m, x_valid, nhub, what):
+    """The bool output of a structural launch: ``out`` if given (raises
+    unless it is a contiguous bool [m] tensor on x_valid's device) or a new
+    one; zeroed where a hub row's chunks, which only ever write True, take
+    their False from it (kernels 1 and 7)."""
+    if out is None:
+        return (torch.zeros if nhub else torch.empty)(m, dtype=torch.bool, device=x_valid.device)
+    if out.shape != (m,) or out.dtype != torch.bool or out.device != x_valid.device \
+            or not out.is_contiguous():
+        raise ValueError(f"{what}: out must be a contiguous bool [{m}] tensor on {x_valid.device}")
+    return out.zero_() if nhub else out
+
+
 def _into(out, res):
     if out is None:
         return res
@@ -301,23 +314,23 @@ def spmv_pull_structural_plain(A: CsrMatrix, x_valid, row_sel=None):
     return hits & row_sel if row_sel is not None else hits
 
 
-def spmv_pull_structural(A: CsrMatrix, x_valid, row_sel=None):
-    """Structural kernel 1 (reads no values); bool ``hits`` of length m.
+def spmv_pull_structural(A: CsrMatrix, x_valid, row_sel=None, out=None):
+    """Structural kernel 1 (reads no values); bool ``hits`` of length m,
+    written to ``out`` if it is given (a contiguous bool [m] tensor).
     Under ``staged.MANUAL_DMA`` it is kernel 7's structural variant."""
     from . import staged
 
     if staged.MANUAL_DMA:
-        return staged.spmv_pull_staged_structural(A, x_valid, row_sel)
+        return staged.spmv_pull_staged_structural(A, x_valid, row_sel, out=out)
     if _on_cpu(A.cols, x_valid, row_sel):
-        return spmv_pull_structural_plain(A, x_valid, row_sel)
+        return _into(out, spmv_pull_structural_plain(A, x_valid, row_sel))
     what = "spmv_pull_structural"
     m, n = A.shape
     _require_cuda(what, A, {"x_valid": _mask(x_valid, what, "x_valid"),
                             "row_sel": _mask(row_sel, what, "row_sel")},
                   {"x_valid": n, "row_sel": m})
     plan = pull_plan(A)
-    # a hub row's chunks only ever write True: its False comes from the zeros
-    hits = (torch.zeros if plan.nhub else torch.empty)(m, dtype=torch.bool, device=x_valid.device)
+    hits = _hits_arg(out, m, x_valid, plan.nhub, what)
     rc = load_library().spla_spmv_pull_structural(
         m, *_plan_args(plan), A.indptr.data_ptr(), A.cols.data_ptr(), x_valid.data_ptr(), _ptr(row_sel),
         hits.data_ptr(), torch.cuda.current_stream(x_valid.device).cuda_stream)

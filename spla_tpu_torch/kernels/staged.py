@@ -41,7 +41,8 @@ from ..formats import WeakIdCache
 from ..utils.segments import segment_fold
 from . import LAUNCHES
 from .build import check, load_library
-from .spmv import _init_arg, _into, _mask, _on_cpu, _out_arg, _ptr, _require_cuda, hub_scratch, pull_codes
+from .spmv import (_hits_arg, _init_arg, _into, _mask, _on_cpu, _out_arg, _ptr, _require_cuda, hub_scratch,
+                   pull_codes)
 
 __all__ = [
     "MANUAL_DMA",
@@ -275,19 +276,20 @@ def spmv_pull_staged_structural_plain(A: CsrMatrix, x_valid, row_sel=None, slots
     return hits & row_sel if row_sel is not None else hits
 
 
-def spmv_pull_staged_structural(A: CsrMatrix, x_valid, row_sel=None, slots=None, stage=MAX_STAGE):
-    """Structural kernel 7 (reads no values); bool ``hits`` of length m."""
+def spmv_pull_staged_structural(A: CsrMatrix, x_valid, row_sel=None, slots=None, stage=MAX_STAGE,
+                                out=None):
+    """Structural kernel 7 (reads no values); bool ``hits`` of length m,
+    written to ``out`` if it is given."""
     slots = resolve_slots(slots)
     if _on_cpu(A.cols, x_valid, row_sel):
-        return spmv_pull_staged_structural_plain(A, x_valid, row_sel, slots, stage)
+        return _into(out, spmv_pull_staged_structural_plain(A, x_valid, row_sel, slots, stage))
     what = "spmv_pull_staged_structural"
     m, n = A.shape
     _require_cuda(what, A, {"x_valid": _mask(x_valid, what, "x_valid"),
                             "row_sel": _mask(row_sel, what, "row_sel")},
                   {"x_valid": n, "row_sel": m})
     plan = staged_plan(A, stage)
-    # a hub's chunks only ever write True: its False comes from the zeros
-    hits = (torch.zeros if plan.nhub else torch.empty)(m, dtype=torch.bool, device=x_valid.device)
+    hits = _hits_arg(out, m, x_valid, plan.nhub, what)
     rc = load_library().spla_spmv_staged_structural(
         slots, _check_stage(stage), *_plan_args(plan)[:3], A.indptr.data_ptr(), A.cols.data_ptr(),
         x_valid.data_ptr(), _ptr(row_sel), hits.data_ptr(),

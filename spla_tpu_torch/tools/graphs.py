@@ -9,6 +9,9 @@
   the Morton-ordered road grids of the road cells;
 * ``path_graph``, ``barbell_graph`` — graphs whose traversal rounds hold one
   vertex each, or change between one vertex and most of a random block;
+* ``skewed_graph`` — ``bench_suite.py:441-448``: the skewed_* cells'
+  directed graph of zipf(2.1) out-degrees, the class that the skew gate
+  sends to the level loop;
 * ``hub_spgemm`` — the SpGEMM-T hub graph: short rows plus a few rows far
   longer than a mask row or a B row that one warp walks, and a mask that
   reaches them.
@@ -25,7 +28,8 @@ import numpy as np
 import scipy.sparse as sp
 
 __all__ = ["build_graph", "random_graph", "hub_graph", "powerlaw_graph", "indptr_of", "morton",
-           "road_edges", "road_grid", "road_graphs", "path_graph", "barbell_graph", "hub_spgemm"]
+           "road_edges", "road_grid", "road_graphs", "path_graph", "barbell_graph", "skewed_graph",
+           "hub_spgemm"]
 
 HUB_ROWS, HUB_LEN = 3, 1 << 17
 
@@ -181,6 +185,21 @@ def barbell_graph(path_len, block_n, block_deg, blocks=2, seed=0):
         vs.append(np.array([start + order[-1]]))
         last, start = start + order[-2], start + block_n
     return _symmetric(np.concatenate(us), np.concatenate(vs), start, np.random.default_rng(seed))
+
+
+def skewed_graph(n=1 << 18, seed=7):
+    """bench_suite.py:441-448: row i holds min(zipf(2.1) * 8, n // 4)
+    uniform random columns, values uniform in [0, 1), float32; a repeated
+    (row, column) keeps its last value, as ``csr_from_entries`` does."""
+    rng = np.random.default_rng(seed)
+    degs = np.minimum(rng.zipf(2.1, n) * 8, n // 4).astype(np.int64)
+    rows = np.repeat(np.arange(n, dtype=np.int32), degs)
+    cols = rng.integers(0, n, rows.size, dtype=np.int32)
+    vals = rng.random(rows.size, np.float32)
+    key = rows.astype(np.int64) * n + cols
+    order = np.argsort(key, kind="stable")
+    last = order[np.r_[key[order][1:] != key[order][:-1], True]]
+    return sp.csr_matrix((vals[last], (rows[last], cols[last])), shape=(n, n))
 
 
 def hub_spgemm(n, seed=4, hub_len=1 << 16):

@@ -18,8 +18,9 @@ import jax.numpy as jnp
 import spla_tpu.algorithms as JALG
 import spla_tpu.formats as JF
 
-from spla_tpu_torch import Descriptor, algorithms as alg
+from spla_tpu_torch import Descriptor, algorithms as alg, formats as F
 from spla_tpu_torch.interop import from_spla_tpu, to_numpy
+from spla_tpu_torch.tools.graphs import skewed_graph
 
 N = 500
 MODES = {"default": None, "push_only": Descriptor(push_only=True),
@@ -60,6 +61,28 @@ def test_sssp_matches_spla_tpu(symmetric, mode, monkeypatch):
     JA = JF.csr_from_scipy(a, fill=np.float32(np.inf))
     want = np.asarray(JALG.sssp(JA, 3).values)
     got = alg.sssp(from_spla_tpu(JA, "cpu"), 3, MODES[mode]).values
+    np.testing.assert_array_equal(to_numpy(got), want)
+
+
+@pytest.mark.parametrize("kind", ["bfs", "sssp"])
+@pytest.mark.parametrize("mode", list(MODES))
+def test_skewed_graph_matches_spla_tpu(kind, mode):
+    """bench_suite's skewed graph at n = 2^10 (directed, zipf out-degrees):
+    the skew gate sends it to the level loop, whose depths and distances
+    equal spla_tpu's bitwise in every mode."""
+    a = skewed_graph(1 << 10)
+    JA = JF.csr_from_scipy(a.astype(np.int32)) if kind == "bfs" else \
+        JF.csr_from_scipy(a, fill=np.float32(np.inf))
+    assert F.is_skewed(F.csr_from_scipy(a, device="cpu"))
+    for k in alg.STATS:
+        alg.STATS[k] = 0
+    if kind == "bfs":
+        want = np.asarray(JALG.bfs(JA, 0).values)
+        got = alg.bfs(from_spla_tpu(JA, "cpu"), 0, MODES[mode]).values
+    else:
+        want = np.asarray(JALG.sssp(JA, 0).values)
+        got = alg.sssp(from_spla_tpu(JA, "cpu"), 0, MODES[mode]).values
+    assert alg.STATS["level_loop"] == 1 and alg.STATS["resident"] == 0 and alg.STATS["levels"] > 2
     np.testing.assert_array_equal(to_numpy(got), want)
 
 

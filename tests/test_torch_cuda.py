@@ -14,11 +14,12 @@ import scipy.sparse as sp
 import torch
 
 from spla_tpu_torch import DenseVec, Descriptor, algorithms as alg, formats as F, kernels, op
-from spla_tpu_torch.kernels import level_update as K3, mxmt as K45, resident as K6, spmv as K1
-from spla_tpu_torch.kernels import probe as K8, staged as K7, traversal as K2
+from spla_tpu_torch.kernels import frontier as KF, level_update as K3, mxmt as K45, resident as K6
+from spla_tpu_torch.kernels import probe as K8, spmv as K1, staged as K7, traversal as K2
 from spla_tpu_torch.interop import csr_from_numpy
 from spla_tpu_torch.ops import spgemm as TG, spmv as TS
-from spla_tpu_torch.tools.graphs import barbell_graph, indptr_of, path_graph
+from spla_tpu_torch.tools.graphs import (barbell_graph, indptr_of, path_graph, random_graph, road_grid,
+                                         skewed_graph)
 
 pytestmark = pytest.mark.cuda
 
@@ -212,7 +213,98 @@ def test_algorithms_match_cpu(dev, monkeypatch):
     got = alg.pr(F.csr_from_scipy(ap, device=dev)).values
     ref = alg.pr(F.csr_from_scipy(ap, device="cpu")).values
     torch.testing.assert_close(got.cpu(), ref, rtol=1e-5, atol=1e-6)
-    assert all(kernels.LAUNCHES[k] > 0 for k in ("spmv_pull", "spmv_push", "level_update"))
+    assert all(kernels.LAUNCHES[k] > 0
+               for k in ("spmv_pull", "level_update", "bfs_push_level", "sssp_push_level"))
+
+
+def _level_graph(name):
+    """The push levels' test graphs, weighted in [0.1, 2): ``random`` (n =
+    3000, degree 16, symmetric), ``road`` (the side-40 Morton grid) and
+    ``skewed`` (``skewed_graph(2**12)``, directed, with rows of up to 1,024
+    entries)."""
+    a = {"random": lambda: random_graph(3000, 16, seed=3), "road": lambda: road_grid(40),
+         "skewed": lambda: skewed_graph(1 << 12)}[name]().astype(np.float32)
+    a.data = np.random.default_rng(9).uniform(0.1, 2.0, a.nnz).astype(np.float32)
+    return a
+
+
+def _same_state(S, R, what):
+    """Card state S against the plain state R after a level: v and the mask
+    bitwise, the next list as a set with the plain size word, and the card's
+    degree offsets those of its own list order."""
+    _assert_same(S.v, R.v)
+    _assert_same(S.mask, R.mask)
+    KF.read_count(S), KF.read_count(R)
+    assert (S.k, S.edges) == (R.k, R.edges), what
+    cur = S.level % 2
+    lst = S.lists[cur, :S.k]
+    _assert_same(torch.sort(lst).values, torch.sort(R.lists[cur, :R.k]).values)
+    eoff, total = KF.degree_offsets(S.A.indptr, lst)
+    _assert_same(S.eoff[cur, :S.k], eoff)
+    assert total == S.edges, what
+
+
+@pytest.mark.parametrize("graph", ["random", "road", "skewed"])
+@pytest.mark.parametrize("kind", ["bfs", "sssp"])
+def test_push_levels_match_plain(dev, graph, kind):
+    """Level by level, the card's push levels and pull updates against their
+    plain versions on a CPU copy: every state after every level, with push
+    and pull levels mixed so that each hands over to the other.  From the
+    skewed graph's hub the first frontier's row is its longest."""
+    a = _level_graph(graph)
+    source = int(np.argmax(np.diff(a.indptr))) if graph == "skewed" else 0
+    states = []
+    for device in (dev, "cpu"):
+        A = F.csr_from_scipy(a, fill=np.float32(np.inf), device=device)
+        At = alg._default_At(A)
+        S = (KF.bfs_state if kind == "bfs" else KF.sssp_state)(A, source)
+        states.append((S, At))
+    step = alg.bfs_level if kind == "bfs" else alg.sssp_level
+    (S, At), (R, Rt) = states
+    level = 0
+    while S.k > 0:
+        push = level % 3 != 2
+        step(S, At, push)
+        step(R, Rt, push)
+        _same_state(S, R, f"{graph} {kind} level {level} push={push}")
+        level += 1
+    assert level > 3
+
+
+def test_level_kernels_do_not_synchronize(dev):
+    """Once a matrix's degrees are cached, no call of kernel 2 (init a number
+    or a CUDA tensor, and structural) or kernel 3 waits for the stream; a
+    push level is one launch (BFS) or two (SSSP), and allocates nothing."""
+    a = _level_graph("skewed")
+    A = F.csr_from_scipy(a, fill=np.float32(np.inf), device=dev)
+    n = a.shape[0]
+    front = torch.tensor([0, 5, int(np.argmax(np.diff(a.indptr)))], dtype=torch.int32, device=dev)
+    x = torch.from_numpy(np.random.default_rng(19).random(n, dtype=np.float32)).to(dev)
+    hits = torch.from_numpy(np.random.default_rng(20).random(n) < 0.2).to(dev)
+    init_t = torch.tensor(float("inf"), device=dev)
+    v, f = torch.zeros(n, dtype=torch.int32, device=dev), hits.roll(1)
+    d, ch = torch.full((n,), float("inf"), device=dev), torch.zeros(n, dtype=torch.bool, device=dev)
+    lst, cnt = torch.empty(n, dtype=torch.int32, device=dev), torch.zeros(1, dtype=torch.int32, device=dev)
+    states = {kind: make(A, 0) for kind, make in (("bfs", KF.bfs_state), ("sssp", KF.sssp_state))}
+    K2.push_degrees(A)  # the public push's bound: one host read a matrix
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for init in (float("inf"), init_t):
+            K2.spmv_push(A, front, x, op.PLUS_FLOAT, op.MIN_FLOAT, init)
+        K2.spmv_push_structural(A, front)
+        K3.bfs_level_update(hits, v, f, 2, lst, cnt)
+        K3.sssp_level_update(x, d, ch, lst, cnt)
+        for kind, level, most in (("bfs", K2.bfs_push_level, 1), ("sssp", K2.sssp_push_level, 2)):
+            before, mem = sum(kernels.LAUNCHES.values()), torch.cuda.memory_allocated()
+            level(states[kind])
+            assert 1 <= sum(kernels.LAUNCHES.values()) - before <= most
+            assert torch.cuda.memory_allocated() == mem
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    out = set(a.indices[a.indptr[0]:a.indptr[1]].tolist()) - {0}
+    assert KF.read_count(states["bfs"]) == len(out)  # the level's list: vertex 0's out-neighbours
+    assert set(states["bfs"].lists[1, :len(out)].tolist()) == out
 
 
 def _spgemm_operands(dev, dtype, nan=False):
