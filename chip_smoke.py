@@ -28,7 +28,14 @@ Phases:
      instances; the level loop's push levels (kernel 2's push fused with
      kernel 3's update) and pull updates, level by level against their
      plain versions, on the n = 2^20 random graph, the road grids and
-     bench_suite's skewed graph (from its longest row);
+     bench_suite's skewed graph (from its longest row); kernel 9 (the
+     Gustavson SpGEMM of mxm) against its plain version, every instance on
+     graphs.spgemm_bins (rows in all three of its bins), MULT/PLUS f32 on
+     the mxm_mprod_s graph (random_graph(2^13, 16, seed=5), also against
+     scipy's A @ A), the n = 2^20 traversal graph and the skewed graph,
+     PLUS/MIN f32 (init +inf) and MULT/PLUS, PLUS/MIN, PLUS/MAX i32 on the
+     2^13 graph, and a ±1 i32 PLUS case whose sums cancel (the init drop),
+     printing each plan;
   4. the slices through the public entry points, each with the launch
      counts set to 0 just before it and read just after:
      * SpMV: mxv_masked / vxm_masked / vxm_masked_dense on the bench.py
@@ -57,6 +64,9 @@ Phases:
        SPLA_MANUAL_SLOTS=3 in a subprocess;
      * probes: ``tools/probe_spmv.py``'s run at n = 2^21, degree 16, and
        the gather floor of kernels 4 and 5 on tc's n = 2^20 call;
+     * mxm: the public ops.mxm, MULT/PLUS f32, on the 2^13 graph (against
+       scipy) and the n = 2^20 graph (against the plain version), and once
+       with products_cap, which takes the torch path;
   5. the launch counts of phase 4: each slice's kernels must be above 0;
      the road slice reads the host once per run; the staged slice launches
      no kernel 1;
@@ -81,7 +91,12 @@ Phases:
      flat_gather, and cuSPARSE (one ``torch.sparse_csr_tensor @ x`` call,
      the library's time) on the n = 2^21, powerlaw and hub graphs, with
      kernel 1 at each team size; the probe table in ns per entry;
-     ab_spmv's chained kernel 1, split2, split4 and kernel 7 steps.
+     ab_spmv's chained kernel 1, split2, split4 and kernel 7 steps;
+     kernel 9 against its plain version and cuSPARSE (one
+     ``torch.sparse.mm`` of two CSR tensors; a failure is printed as that
+     graph's result) on the 2^13, 2^20 and skewed graphs, and mxm_mprod_s
+     (bench_suite.py:524-557: products over the time of chained calls) at
+     n = 2^13.
 
 Each kernel's row in the JSON line carries ``bound_ms``: the larger of its
 bytes (each input read once, each output written once, at this run's
@@ -115,15 +130,16 @@ from spla_tpu_torch import Descriptor, DenseVec, algorithms as alg, formats as F
 from spla_tpu_torch.interop import csr_from_numpy
 from spla_tpu_torch.io import MtxLoader
 from spla_tpu_torch.kernels import PROBE_PHASES, frontier as KF, level_update as K3, mxmt as K45
-from spla_tpu_torch.kernels import probe as K8, resident as K6, spmv as K1, staged as K7, traversal as K2
+from spla_tpu_torch.kernels import probe as K8, resident as K6, spgemm as K9, spmv as K1, staged as K7
+from spla_tpu_torch.kernels import traversal as K2
 from spla_tpu_torch.kernels.build import build_log, load_library
-from spla_tpu_torch.ops import (DISPATCH_STATS, count_mxmT_products, m_reduce, masked_spmv,
+from spla_tpu_torch.ops import (DISPATCH_STATS, count_mxmT_products, m_reduce, masked_spmv, mxm,
                                 mxmT_masked, mxv_masked, vxm_masked, vxm_masked_dense)
 from spla_tpu_torch.ops.spgemm import mxmT_masked_plain
 from spla_tpu_torch.tools import ab_spmv as AB, level_times as LT, probe_spmv as PROBE, resident_levels as RL
 from spla_tpu_torch.tools.graphs import (HUB_ROWS, barbell_graph, build_graph, hub_graph, hub_spgemm,
                                          path_graph, powerlaw_graph, random_graph, road_graphs, road_grid,
-                                         skewed_graph)
+                                         skewed_graph, spgemm_bins)
 
 N_SPMV, DEG_SPMV = 1 << 21, 16      # bench.py:37 build_graph
 N_GRAPH, DEG_GRAPH = 1 << 20, 16    # bench_suite.py:24 random_graph, bench_suite.py:122
@@ -131,6 +147,8 @@ N_TC, DEG_TC, SEED_TC = 1 << 15, 24, 3  # bench_suite.py:513-514
 N_FEW = 256  # kernel 7's fewer-stages-than-slots graph: 256 entries, one unit
 N_SMALL, SMALL_DEGREES = 1 << 16, (1, 6, 16, 24, 64, 300)  # kernel 1: teams of 2-32 lanes, hub rows
 N_HUB_TC, HUB_LEN_TC = 1 << 17, 1 << 16
+N_MXM, DEG_MXM, SEED_MXM = 1 << 13, 16, 5  # bench_suite.py:528 mxm_mprod_s
+MXM_CHAIN = 6  # bench_suite.py:541 mreps
 SIDE_BFS, SIDE_SSSP, SEED_ROAD = 1024, 512, 9  # bench_suite.py:226,323,326
 SIDE_BIG = 3072  # bench_suite.py:269-319 road_big_bfs_gteps
 N_SKEW = 1 << 18  # bench_suite.py:441-448 skewed_spmv_gbps / skewed_bfs_gteps
@@ -162,6 +180,7 @@ KERNELS = {
     # a diagnostic with no TPU counterpart: kernels 4 and 5's walk with no probe of A,
     # the floor of their gathers (it bounds mxmt_reduce and mxmt_masked)
     "mxmt_gather": ("cuda", "spla_tpu_torch/kernels/csrc/mxmt.cu", None),
+    "spgemm_mxm": ("cuda", "spla_tpu_torch/kernels/csrc/spgemm.cu", "spla_tpu/pallas/spmv.py:2055"),
     "bfs_resident": ("cuda", "spla_tpu_torch/kernels/csrc/resident.cu", "spla_tpu/pallas/spmv.py:2709"),
     "sssp_resident": ("cuda", "spla_tpu_torch/kernels/csrc/resident.cu",
                       "spla_tpu/pallas/spmv.py:2716"),
@@ -178,7 +197,8 @@ PATHS = {"spmv": ("spmv_pull", "level_update", "bfs_push_level", "sssp_push_leve
          "push": ("spmv_push",), "skewed": ("bfs_push_level", "sssp_push_level", "level_update"),
          "spgemm": ("mxmt_reduce", "mxmt_masked"), "road": ("bfs_resident", "sssp_resident"),
          "staged": ("spmv_pull_staged",),
-         "probes": (*(f"spmv_probe_{phase}" for phase in PROBE_PHASES), "mxmt_gather")}
+         "probes": (*(f"spmv_probe_{phase}" for phase in PROBE_PHASES), "mxmt_gather"),
+         "mxm": ("spgemm_mxm",)}
 
 
 def phase(title):
@@ -555,6 +575,94 @@ def check_mxmt(G):
     return errs
 
 
+def mxm_plan_line(A, B):
+    p = K9.mxm_plan(A, B)
+    slots, words = K9.large_shape(p, B.shape[1], A.values.device)
+    tables = dict(zip(K9.MEDIUM_SLOTS, p.medium_counts))
+    return (f"{p.products} products; {p.nsmall} small rows (a warp, <= {K9.SMALL_MAX} products), "
+            f"{p.nmedium} medium (a CTA, <= {K9.MEDIUM_MAX}; by table size {tables}), "
+            f"{p.nlarge} large (dense accumulators, {slots} in flight, bitmaps of {words} words)")
+
+
+def same_mxm(label, got, ref, exact, ref64=None):
+    """Kernel 9's C against a reference C: structure (indptr, columns, rows,
+    nnz, capacity) bitwise, values by check_close.  Returns the max abs
+    error of the values against ``ref``."""
+    if got.capacity != ref.capacity:
+        raise AssertionError(f"{label}: capacity {got.capacity}, want {ref.capacity}")
+    for f in ("indptr", "cols", "row_ids", "nnz"):
+        check_close(f"{label} {f}", getattr(got, f), getattr(ref, f), True)
+    return check_close(f"{label} values", got.values, ref.values, exact, ref64)
+
+
+def check_mxm_pair(label, A, B, om, oa, init, ref64=None):
+    """Kernel 9 on (A, B) against its plain version; f32 PLUS within
+    check_close's tolerance of ``ref64`` (default: the plain version over
+    float64 values)."""
+    got = K9.mxm(A, B, om, oa, init)
+    ref = K9.mxm_plain(A, B, om, oa, init)
+    exact = A.values.dtype != torch.float32 or oa.name != "PLUS"
+    if not exact and ref64 is None:
+        ref64 = K9.mxm_plain(as64(A), as64(B), om, oa, float(init)).values
+    return same_mxm(label, got, ref, exact, ref64), got, ref
+
+
+def check_mxm(G):
+    """Kernel 9 against its plain version: every instance on
+    graphs.spgemm_bins; MULT/PLUS f32 on the mxm_mprod_s graph (also
+    against scipy), the n = 2^20 graph and the skewed graph; PLUS/MIN f32
+    with init +inf and the three i32 adds on the 2^13 graph; ±1 i32 sums
+    that cancel.  Keeps the n = 2^20 plain result for phase 4."""
+    err = 0.0
+    A, B = G["Bins_f32"]
+    Ai, Bi = G["Bins_i32"]
+    print(f"kernel 9 plan on graphs.spgemm_bins(): {mxm_plan_line(A, B)}", flush=True)
+    for dtype, (X, Y) in (("f32", (A, B)), ("i32", (Ai, Bi))):
+        T = op.FLOAT if dtype == "f32" else op.INT
+        for add in ADDS:
+            oa = getattr(T, add)
+            for mul in MULS:
+                e, _, _ = check_mxm_pair(f"mxm bins {mul}/{add} {dtype}", X, Y, getattr(T, mul), oa, oa.identity)
+                err = max(err, e)
+    print("kernel 9: all 36 instances match the plain version on graphs.spgemm_bins (small, medium and "
+          "large rows)", flush=True)
+    M = G["MX13"]
+    print(f"kernel 9 plan on random_graph(2^13, 16, seed={SEED_MXM}): {mxm_plan_line(M, M)}", flush=True)
+    ref = (G["MX13_sp"].astype(np.float64) @ G["MX13_sp"].astype(np.float64)).tocsr()
+    ref.sort_indices()
+    e, got, _ = check_mxm_pair("mxm n=2^13 MULT/PLUS f32", M, M, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0,
+                               torch.from_numpy(ref.data).to(DEVICE))
+    err = max(err, e)
+    check_close("mxm n=2^13 indptr against scipy", got.indptr.cpu().long(), torch.from_numpy(ref.indptr).long(),
+                True)
+    check_close("mxm n=2^13 columns against scipy", got.cols.cpu(), torch.from_numpy(ref.indices), True)
+    G["MX13_ref"] = ref
+    err = max(err, check_mxm_pair("mxm n=2^13 PLUS/MIN f32", G["MX13inf"], G["MX13inf"], op.PLUS_FLOAT,
+                                  op.MIN_FLOAT, float("inf"))[0])
+    Mi = G["MX13i"]
+    for om, oa, init in ((op.MULT_INT, op.PLUS_INT, 0), (op.PLUS_INT, op.MIN_INT, np.iinfo(np.int32).max),
+                         (op.PLUS_INT, op.MAX_INT, np.iinfo(np.int32).min)):
+        check_mxm_pair(f"mxm n=2^13 {om.name}/{oa.name} i32", Mi, Mi, om, oa, init)
+    Mpm = G["MX13pm"]
+    _, got, ref = check_mxm_pair("mxm n=2^13 MULT/PLUS ±1 i32", Mpm, Mpm, op.MULT_INT, op.PLUS_INT, 0)
+    dropped = got.capacity - int(got.nnz)
+    if dropped <= 0:
+        raise AssertionError("mxm ±1: no sum cancelled, so no init-valued result was dropped")
+    print(f"kernel 9 at n=2^13: MULT/PLUS f32 matches scipy's A @ A ({G['MX13_ref'].nnz} entries); PLUS/MIN "
+          f"f32, MULT/PLUS, PLUS/MIN and PLUS/MAX i32 match the plain version bitwise; ±1 i32 drops {dropped} "
+          f"init-valued sums of {got.capacity}", flush=True)
+    for label, M in (("n=2^20", G["Aw"]), ("skewed", G["Skew"])):
+        print(f"kernel 9 plan on the {label} graph: {mxm_plan_line(M, M)}", flush=True)
+        got = K9.mxm(M, M, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)
+        ref = K9.mxm_plain(M, M, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)
+        err = max(err, same_mxm(f"mxm {label} MULT/PLUS f32", got, ref, False, ref.values.double()))
+        print(f"kernel 9 on the {label} graph: C of {int(got.nnz)} entries matches the plain version", flush=True)
+        if label == "n=2^20":
+            G["mxm_big_plain"] = ref
+        del got, ref
+    return {"spgemm_mxm": err}
+
+
 def check_staged(G):
     """Kernel 7 against its plain version and kernel 1: all 18 f32 (mul,
     add) instances, both operand orders, with and without masks, and the
@@ -767,6 +875,34 @@ def check_spgemm(G, R):
              mxmT_masked_plain(W, W, W, op.PLUS_FLOAT, op.MIN_FLOAT, op.GTZERO_FLOAT, float("inf")))
     print(f"mxmT_masked at n={N_GRAPH}: MULT/PLUS i32 (nnz {int(R['mxmT'].nnz)}) and PLUS/MIN f32 "
           f"(nnz {int(R['mxmT minplus'].nnz)}) equal the plain path bitwise", flush=True)
+
+
+def run_mxm(G):
+    """Phase 4's mxm slice: the public ops.mxm, MULT/PLUS f32, on the
+    mxm_mprod_s graph and the n = 2^20 graph (kernel 9), and once with
+    products_cap on the 2^13 graph (the torch path)."""
+    M = G["MX13"]
+    R = {"small": mxm(M, M, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0),
+         "big": mxm(G["Aw"], G["Aw"], op.MULT_FLOAT, op.PLUS_FLOAT, 0.0),
+         "capped": mxm(M, M, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0, products_cap=K9.mxm_plan(M, M).products)}
+    torch.cuda.synchronize()
+    return R
+
+
+def check_mxm_slice(G, R):
+    ref = G["MX13_ref"]
+    got = R["small"]
+    check_close("ops.mxm n=2^13 indptr against scipy", got.indptr.cpu().long(), torch.from_numpy(ref.indptr).long(),
+                True)
+    check_close("ops.mxm n=2^13 columns against scipy", got.cols.cpu(), torch.from_numpy(ref.indices), True)
+    check_close("ops.mxm n=2^13 values against scipy", got.values, got.values, False,
+                torch.from_numpy(ref.data).to(DEVICE))
+    same_mxm("ops.mxm n=2^13 products_cap (torch path)", R["capped"], got, False,
+             torch.from_numpy(ref.data).to(DEVICE))
+    plain = G.pop("mxm_big_plain")
+    same_mxm("ops.mxm n=2^20", R["big"], plain, False, plain.values.double())
+    print(f"ops.mxm: n=2^13 ({int(got.nnz)} entries) equals scipy's A @ A, n=2^20 ({int(R['big'].nnz)} entries) "
+          f"the plain version; products_cap took the torch path with the same C", flush=True)
 
 
 def run_push(G):
@@ -1507,6 +1643,74 @@ def time_variants(G, card):
               f"GB/s-model) [{card}]", flush=True)
 
 
+def mxm_bound(A, C, products):
+    """Kernel 9 on A @ A: A's indptr, columns and values read once, C's
+    indptr, columns, values and row ids written once; 2 operations a
+    product."""
+    nnz_a, nnz_c = int(A.nnz), int(C.nnz)
+    return bound(4 * (A.shape[0] + 1) + 8 * nnz_a + 4 * (C.shape[0] + 1) + 12 * nnz_c, 2 * products)
+
+
+def time_mxm(G, card):
+    """Kernel 9 (MULT/PLUS f32, A @ A) against its plain version and
+    cuSPARSE (``torch.sparse.mm`` of two CSR tensors: the library's time,
+    not a port) on the 2^13, 2^20 and skewed graphs; a cuSPARSE failure is
+    printed as that graph's result.  Then mxm_mprod_s at n = 2^13, chained
+    as bench_suite.py:534-552 chains it (B's values scaled by a device
+    scalar from the last result).  Returns the n = 2^20 row and its
+    library time."""
+    rows = {}
+    for label, M in (("n=2^13", G["MX13"]), ("n=2^20", G["Aw"]), ("skewed", G["Skew"])):
+        n, nnz = M.shape[0], int(M.nnz)
+        products = K9.mxm_plan(M, M).products
+        kfn = lambda M=M: K9.mxm(M, M, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)
+        pfn = lambda M=M: K9.mxm_plain(M, M, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)
+        if label == "n=2^13":
+            k, p = paired_ms(kfn, pfn)
+        else:  # the plain version takes seconds here: one call
+            k, p = cuda_ms(kfn, 5, 1), cuda_ms(pfn, 1, 0)
+        C = kfn()
+        bound_ms, bound_by = mxm_bound(M, C, products)
+        lib_ms, lib_note = None, ""
+        L = torch.sparse_csr_tensor(M.indptr, M.cols[:nnz], M.values[:nnz], size=(n, n))
+        try:
+            if label == "n=2^13":  # the yardstick computes the same C: its entry count and sum
+                ref = torch.sparse.mm(L, L)
+                want = float(C.values[:int(C.nnz)].double().sum())
+                if ref._nnz() != int(C.nnz) or abs(float(ref.values().double().sum()) - want) > 1e-5 * want:
+                    raise AssertionError("cuSPARSE's A @ A differs from kernel 9's at n=2^13")
+                del ref
+            lib_ms = cuda_ms(lambda: torch.sparse.mm(L, L), 5 if label == "n=2^13" else 2, 1)
+            lib_note = f"cuSPARSE {lib_ms:.4f} ms"
+        except RuntimeError as e:  # out of memory, or a refusal: this graph's library result
+            lib_note = f"cuSPARSE failed: {type(e).__name__}: {str(e).splitlines()[0][:200]}"
+        del L
+        torch.cuda.empty_cache()
+        print(f"time spgemm_mxm MULT/PLUS f32 {label} n={n} nnz={nnz} products={products} C nnz={int(C.nnz)}: "
+              f"kernel {k:.4f} ms ({products / k / 1e3:.1f} Mproducts/s), plain {p:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}); {lib_note} [{card}]", flush=True)
+        rows[label] = (k, p, bound_ms, bound_by, lib_ms)
+        del C
+    A = G["MX13"]
+    products = K9.mxm_plan(A, A).products
+    mxm(A, A, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)
+    walls = []
+    for _ in range(3):
+        s = torch.ones((), device=DEVICE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for k in range(MXM_CHAIN):
+            R = mxm(A, replace(A, values=A.values * s), op.MULT_FLOAT, op.PLUS_FLOAT, 0.0,
+                    check_init_sparsify=False)
+            s = 1.0 + R.values[0] * 0 + (k + 1) * 1e-9
+        float(s)
+        walls.append((time.perf_counter() - t0) / MXM_CHAIN)
+    wall = sorted(walls)[1]
+    print(f"time mxm_mprod_s n=2^13: {products / wall / 1e6:.1f} Mproducts/s, {wall * 1e3:.4f} ms a call "
+          f"(median of 3 chains of {MXM_CHAIN}; {', '.join(f'{w * 1e3:.4f}' for w in walls)}) [{card}]", flush=True)
+    return {"spgemm_mxm": rows["n=2^20"][:4]}, rows["n=2^20"][4]
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -1543,6 +1747,7 @@ def main():
     errs = check_kernels(G)
     errs.update(check_push_levels(G))
     errs.update(check_mxmt(G))
+    errs.update(check_mxm(G))
     errs.update(check_resident(G))
     errs.update(check_staged(G))
     torch.cuda.synchronize()
@@ -1555,7 +1760,8 @@ def main():
                                    ("spgemm", run_spgemm, check_spgemm),
                                    ("road", run_road, check_road),
                                    ("staged", run_staged, check_staged_path),
-                                   ("probes", run_probes, check_probes)):
+                                   ("probes", run_probes, check_probes),
+                                   ("mxm", run_mxm, check_mxm_slice)):
         kernels.reset_launches()
         for k in DISPATCH_STATS:
             DISPATCH_STATS[k] = 0
@@ -1592,6 +1798,8 @@ def main():
     if skewed["resident"] or skewed["level_loop"] != 7 or skewed["push"] == 0 or skewed["pull"] == 0:
         raise AssertionError("the skewed graph's six runs and the side-3072 bfs must take the level loop, "
                              "both directions")
+    if launches["mxm"]["spgemm_mxm"] != 2 or stats["mxm"]["mxm_kernel"] != 2 or stats["mxm"]["mxm_torch"] != 1:
+        raise AssertionError("the mxm slice must launch kernel 9 twice and take the torch path with products_cap")
     staged = astats["staged"]
     print(f"staged: algorithms.STATS {json.dumps(staged)}", flush=True)
     if launches["staged"]["spmv_pull"] or staged["pull"] == 0 or staged["resident"]:
@@ -1607,9 +1815,11 @@ def main():
     times.update(staged_times)
     times.update(time_probes(G, results["probes"], card))
     time_variants(G, card)
+    mxm_times, mxm_library_ms = time_mxm(G, card)
+    times.update(mxm_times)
 
-    # one PyTorch call computes the same function only for the pull SpMVs
-    library = {"spmv_pull": cusparse_ms, "spmv_pull_staged": cusparse_ms}
+    # one PyTorch call computes the same function only for the pull SpMVs and mxm
+    library = {"spmv_pull": cusparse_ms, "spmv_pull_staged": cusparse_ms, "spgemm_mxm": mxm_library_ms}
     rows_out, seen = [], set()
     for slice_name, kernel_names in PATHS.items():
         for k in kernel_names:
@@ -1672,6 +1882,19 @@ def build_graphs():
     G["Path"], G["PathW"] = F.csr_from_scipy(path, fill=np.float32(np.inf), device=DEVICE), path.diagonal(1)
     G["Barbell"] = F.csr_from_scipy(barbell_graph(*RL.BARBELL), fill=np.float32(np.inf), device=DEVICE)
     G["Rand18"] = F.csr_from_scipy(RL.weighted_random(), fill=np.float32(np.inf), device=DEVICE)
+    a_bins, b_bins = spgemm_bins()
+    G["Bins_f32"] = tuple(F.csr_from_scipy(x, device=DEVICE) for x in (a_bins, b_bins))
+    G["Bins_i32"] = tuple(F.csr_from_scipy((x * 1000).astype(np.int32), device=DEVICE) for x in (a_bins, b_bins))
+    mx = random_graph(N_MXM, DEG_MXM, seed=SEED_MXM)
+    rng = np.random.default_rng(11)
+    mx.data = rng.uniform(0.5, 1.5, mx.nnz).astype(np.float32)
+    G["MX13_sp"], G["MX13"] = mx, F.csr_from_scipy(mx, device=DEVICE)
+    G["MX13inf"] = F.csr_from_scipy(mx, fill=np.float32(np.inf), device=DEVICE)
+    mi = mx.astype(np.int32)
+    mi.data = rng.integers(1, 10, mx.nnz).astype(np.int32)
+    G["MX13i"] = F.csr_from_scipy(mi, device=DEVICE)
+    mi.data = rng.choice([-1, 1], mx.nnz).astype(np.int32)
+    G["MX13pm"] = F.csr_from_scipy(mi, device=DEVICE)
     sk = skewed_graph(N_SKEW)
     G["Skew_sp"], G["Skew"] = sk, F.csr_from_scipy(sk, fill=np.float32(np.inf), device=DEVICE)
     G["skew_hub"] = int(np.argmax(np.diff(sk.indptr)))
@@ -1685,7 +1908,7 @@ def build_graphs():
           f"n={N_HUB_TC} nnz={ah.nnz} with a mask of {mh.nnz}; road bfs n={road.shape[0]} "
           f"nnz={road.nnz}; road sssp n={road_w.shape[0]} nnz={road_w.nnz}; kernel 6's path n={RL.PATH_N}, "
           f"barbell n={G['Barbell'].shape[0]} nnz={int(G['Barbell'].nnz)} and random n={RL.RANDOM_N} "
-          f"nnz={int(G['Rand18'].nnz)}", flush=True)
+          f"nnz={int(G['Rand18'].nnz)}; mxm n={N_MXM} nnz={mx.nnz}", flush=True)
     return G
 
 

@@ -1,4 +1,4 @@
-"""Hand-written Hopper kernels of the masked SpMV, traversal and masked SpGEMM-T paths.
+"""Hand-written Hopper kernels of the masked SpMV, traversal and SpGEMM paths.
 
 * ``spmv`` — kernel 1, the CSR pull SpMV (CUDA, ``csrc/spmv_pull.cu``);
 * ``traversal`` — kernel 2, the frontier push SpMV, and the level loop's
@@ -10,6 +10,10 @@
 * ``mxmt`` — kernels 4 and 5, the masked SpGEMM-T intersections: the
   summed products (triangle counting) and one folded value per mask
   entry (CUDA, ``csrc/mxmt.cu``);
+* ``spgemm`` — kernel 9, the row-wise Gustavson SpGEMM of ``mxm``: a
+  symbolic phase, then each row's products folded in a hash table in
+  shared memory (a warp or a CTA a row) or a dense accumulator (a CTA a
+  long row), its entries sorted by column (CUDA, ``csrc/spgemm.cu``);
 * ``resident`` — kernel 6, a whole BFS or SSSP in one persistent
   cooperative launch with a grid-wide barrier between levels (CUDA,
   ``csrc/resident.cu``);
@@ -27,7 +31,7 @@
 Each wrapper runs its plain PyTorch version for CPU tensors, and launches
 its kernel or raises for CUDA tensors.  ``LAUNCHES`` counts the kernel
 launches of each wrapper, and nothing else (``sssp_push_level`` counts its
-two).  Importing these modules builds and loads nothing.
+two; ``spgemm_mxm`` one a call of its three steps).  Importing these modules builds and loads nothing.
 """
 
 PROBE_PHASES = ("stream", "gather", "fullfix", "alu", "xgather", "ring_copy", "ring_alu",
@@ -36,7 +40,7 @@ PROBE_PHASES = ("stream", "gather", "fullfix", "alu", "xgather", "ring_copy", "r
 
 LAUNCHES = {"spmv_pull": 0, "spmv_push": 0, "level_update": 0, "bfs_push_level": 0, "sssp_push_level": 0,
             "mxmt_reduce": 0, "mxmt_masked": 0,
-            "mxmt_gather": 0,
+            "mxmt_gather": 0, "spgemm_mxm": 0,
             "bfs_resident": 0, "sssp_resident": 0, "spmv_pull_staged": 0,
             **{f"spmv_probe_{phase}": 0 for phase in PROBE_PHASES}}
 

@@ -1,8 +1,8 @@
-"""Functional op layer: the masked SpMV and masked SpGEMM-T slices of
-``spla_tpu/ops``, and ``m_reduce``."""
+"""Functional op layer: the masked SpMV, SpGEMM and masked SpGEMM-T slices
+of ``spla_tpu/ops``, and ``m_reduce``."""
 
 from .matrix import m_reduce
-from .spgemm import count_mxm_products, count_mxmT_products, mxmT_masked, mxmT_masked_reduce
+from .spgemm import count_mxm_products, count_mxmT_products, mxm, mxmT_masked, mxmT_masked_reduce
 from .spmv import (
     DISPATCH_STATS,
     best_spmv_fn,
@@ -21,6 +21,7 @@ __all__ = [
     "mxv_masked",
     "vxm_masked",
     "vxm_masked_dense",
+    "mxm",
     "mxmT_masked",
     "mxmT_masked_reduce",
     "count_mxm_products",

@@ -1,5 +1,13 @@
-"""Masked SpGEMM-T (counterpart of the ``mxmT_masked`` half of
-``spla_tpu/ops/spgemm.py``; ``mxm`` waits for its own kernel).
+"""SpGEMM (counterpart of ``spla_tpu/ops/spgemm.py``): ``mxm`` and the
+masked ``mxmT_masked``.
+
+``mxm(A, B, ...)`` computes ``C = A (+).(x) B``: ``C[i, j] = init (+)
+fold_(+) mul(A[i, p], B[p, j])`` over the p that row i of A and column j of
+B share; results equal to ``init`` are not stored (reference
+``cpu_mxm.hpp:109-113``).  For CUDA tensors a (mul, add, dtype) that kernel
+9 covers launches it, unless ``products_cap`` or ``block_products`` asks
+for the plain path's truncation or windows; everything else takes the plain
+torch path (``kernels.spgemm.mxm_plain``).
 
 ``mxmT_masked(mask, A, B, ...)`` computes, for each stored mask entry
 (i, j) that ``op_select`` keeps, ``R[i,j] = init (+) fold_(+) mul(A[i,k],
@@ -9,9 +17,9 @@ entries with no product, and entries equal to ``init``, are not stored
 A and B must be sorted by column, as the port's builders make them.
 
 Dispatch is the static semiring gate of ``ops.spmv``: for CUDA tensors a
-(mul, add, dtype) that kernel 5 covers launches it; anything else takes the
-plain torch path.  ``DISPATCH_STATS`` counts each.  The result is compacted
-on the device with no host read.
+(mul, add, dtype) that kernel 5 (9 for ``mxm``) covers launches it;
+anything else takes the plain torch path.  ``DISPATCH_STATS`` counts each.
+Results are compacted on the device with no host read.
 """
 
 from __future__ import annotations
@@ -20,10 +28,12 @@ import torch
 
 from ..containers import CooMatrix, CsrMatrix
 from ..formats import compact, coo_to_csr
-from ..kernels import mxmt as K
+from ..kernels import mxmt as K, spgemm as K9
+from ..kernels.spmv import _init_tensor
 from .spmv import DISPATCH_STATS
 
 __all__ = [
+    "mxm",
     "count_mxm_products",
     "count_mxmT_products",
     "mxmT_masked",
@@ -42,6 +52,32 @@ def count_mxm_products(A: CsrMatrix, B: CsrMatrix) -> int:
     return int(_row_degrees(B)[A.cols[:nnz].long()].sum())
 
 
+def mxm(A: CsrMatrix, B: CsrMatrix, op_mul, op_add, init, products_cap: int | None = None,
+        out_capacity: int | None = None, block_products: int | None = None,
+        check_init_sparsify: bool = True) -> CsrMatrix:
+    """``C = A (+).(x) B``, results equal to ``init`` not stored, rows sorted
+    by column; result fill ``init``.  The signature of ``spla_tpu.ops.mxm``.
+
+    ``products_cap`` keeps the first that many products in expansion order
+    (A's entries in order, each over B's row) and ``block_products`` folds
+    windows of about that many products; either takes the plain path, as
+    spla_tpu routes an explicit cap to its XLA path.  ``check_init_sparsify``
+    is accepted and has no effect: init-valued results are always dropped,
+    on the device and with no host read (spla_tpu's opt-out skips the read
+    its kernel path needs to find them).  The result's capacity is
+    ``out_capacity``, or else the number of distinct (i, j) the products
+    reach (spla_tpu's XLA path pads to ``products_cap``); with more entries
+    than ``out_capacity`` the first ones in (row, column) order are stored
+    and ``nnz`` is the capacity (spla_tpu reports the uncut count)."""
+    if (A.values.device.type != "cuda" or products_cap is not None or block_products is not None
+            or K9.mxm_codes(op_mul, op_add, A.values.dtype) is None):
+        DISPATCH_STATS["mxm_torch"] += 1
+        return K9.mxm_plain(A, B, op_mul, op_add, _init_tensor(init, A.values), products_cap, out_capacity,
+                            block_products)
+    DISPATCH_STATS["mxm_kernel"] += 1
+    return K9.mxm(A, B, op_mul, op_add, _init_tensor(init, A.values), out_capacity)
+
+
 def count_mxmT_products(mask: CsrMatrix, B: CsrMatrix) -> int:
     """Exact product-slot count of ``mxmT_masked``: one per (mask entry,
     element of B's row) pair (one host read)."""
@@ -58,19 +94,6 @@ def _selection(mask: CsrMatrix, op_select, struct_only: bool, kernel: bool = Fal
         return None
     keep = op_select(mask.values)
     return keep if kernel else keep & mask.valid_mask()
-
-
-def _fill(init, like: torch.Tensor) -> torch.Tensor:
-    """``init`` as a 0-d tensor of like's dtype on its device, made there: a
-    number (or a host tensor's value) fills it, a tensor on that device is
-    converted.  No call copies from the host, which would wait for the
-    stream."""
-    value = init.value if hasattr(init, "value") else init
-    if isinstance(value, torch.Tensor) and value.device == like.device:
-        return value.to(like.dtype).reshape(())
-    if hasattr(value, "item"):  # a host tensor or a numpy scalar
-        value = value.item()
-    return torch.full((), value, dtype=like.dtype, device=like.device)
 
 
 def _to_csr(mask: CsrMatrix, out, has, init_t, out_capacity) -> CsrMatrix:
@@ -97,7 +120,7 @@ def mxmT_masked_plain(mask: CsrMatrix, A: CsrMatrix, B: CsrMatrix, op_mul, op_ad
     """The plain torch path for any semiring (kernel 5's plain version and
     the same compaction); ``products_cap`` as in spla_tpu: one expansion of
     that many slots, later ones dropped."""
-    init_t = _fill(init, A.values)
+    init_t = _init_tensor(init, A.values)
     out, has = K.mxmt_masked_plain(mask, A, B, op_mul, op_add, init_t,
                                    _selection(mask, op_select, struct_only), struct_only,
                                    products_cap)
@@ -121,7 +144,7 @@ def mxmT_masked(mask: CsrMatrix, A: CsrMatrix, B: CsrMatrix, op_mul, op_add, op_
         return mxmT_masked_plain(mask, A, B, op_mul, op_add, op_select, init, products_cap,
                                  out_capacity, struct_only)
     DISPATCH_STATS["mxmT_kernel"] += 1
-    init_t = _fill(init, A.values)
+    init_t = _init_tensor(init, A.values)
     out, has = K.mxmt_masked(mask, A, B, op_mul, op_add, init_t,
                              _selection(mask, op_select, struct_only, kernel=True), struct_only)
     return _to_csr(mask, out, has, init_t, out_capacity)

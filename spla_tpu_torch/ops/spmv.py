@@ -32,9 +32,9 @@ __all__ = [
     "best_spmv_fn",
 ]
 
-# the op layer's dispatch counts; ops.spgemm counts mxmT_masked here too
+# the op layer's dispatch counts; ops.spgemm counts mxmT_masked and mxm here too
 DISPATCH_STATS = {"mxv_kernel": 0, "mxv_torch": 0, "vxm_kernel": 0, "vxm_torch": 0,
-                  "mxmT_kernel": 0, "mxmT_torch": 0}
+                  "mxmT_kernel": 0, "mxmT_torch": 0, "mxm_kernel": 0, "mxm_torch": 0}
 
 
 def _scalar(x, like: torch.Tensor) -> torch.Tensor:

@@ -14,12 +14,14 @@
   sends to the level loop;
 * ``hub_spgemm`` — the SpGEMM-T hub graph: short rows plus a few rows far
   longer than a mask row or a B row that one warp walks, and a mask that
-  reaches them.
+  reaches them;
+* ``spgemm_bins`` — A and B whose product A @ B has rows in each of
+  kernel 9's three bins (``kernels.spgemm.mxm_plan``).
 
 ``build_graph``, ``hub_graph`` and ``powerlaw_graph`` return
 ``(indptr, rows, cols, vals)`` with rows sorted and duplicate (row, col)
 pairs kept as separate entries; the others return scipy CSR matrices
-(``hub_spgemm`` two).
+(``hub_spgemm`` and ``spgemm_bins`` two).
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import scipy.sparse as sp
 
 __all__ = ["build_graph", "random_graph", "hub_graph", "powerlaw_graph", "indptr_of", "morton",
            "road_edges", "road_grid", "road_graphs", "path_graph", "barbell_graph", "skewed_graph",
-           "hub_spgemm"]
+           "hub_spgemm", "spgemm_bins"]
 
 HUB_ROWS, HUB_LEN = 3, 1 << 17
 
@@ -222,3 +224,26 @@ def hub_spgemm(n, seed=4, hub_len=1 << 16):
     mask = sp.coo_matrix((np.ones(mr.size, np.float32), (mr, mc)), shape=(n, n)).tocsr()
     mask.sum_duplicates()
     return a, mask
+
+
+def spgemm_bins(n=2000, seed=40):
+    """``(a, b)``, n x n, values uniform in [0.5, 1.5) (f32; rows sorted,
+    duplicates summed): b's rows hold 4 random columns on average, 40 of
+    them 300 draws; a's rows 4 random columns (A @ B's small rows), rows 9,
+    21 and 33 have 60, 200 and 500 columns (medium rows for n >= 400) and
+    rows 7 and 11 every column (large rows: all of b's products), row 13
+    half of them."""
+    rng = np.random.default_rng(seed)
+    heavy = {7: n, 11: n, 13: n // 2, 9: 60, 21: 200, 33: 500}
+    rows = np.concatenate([rng.integers(0, n, 4 * n), *(np.full(min(k, n), r) for r, k in heavy.items())])
+    cols = np.concatenate([rng.integers(0, n, 4 * n),
+                           *(rng.choice(n, min(k, n), replace=False) for k in heavy.values())])
+    b_rows = np.concatenate([rng.integers(0, n, 4 * n), np.repeat(rng.integers(0, n, 40), 300)])
+    b_cols = rng.integers(0, n, b_rows.size)
+    out = []
+    for r, c in ((rows, cols), (b_rows, b_cols)):
+        m = sp.coo_matrix((np.ones(r.size, np.float32), (r, c)), shape=(n, n)).tocsr()
+        m.sum_duplicates()
+        m.data = rng.uniform(0.5, 1.5, m.nnz).astype(np.float32)
+        out.append(m)
+    return tuple(out)

@@ -1,0 +1,186 @@
+"""Kernel 9 (``kernels.spgemm.mxm``, MULT/PLUS f32, C = A @ A) on the graphs
+of ``chip_smoke.py``'s mxm slice, timed with CUDA events; one JSON line a
+graph.
+
+* ``mx13`` — ``random_graph(2**13, 16, seed=5)`` (``bench_suite.py:528``,
+  the mxm_mprod_s graph), values uniform in [0.5, 1.5);
+* ``mx20`` — ``random_graph(2**20, 16)`` (``bench_suite.py:24``), values
+  uniform in [0.1, 2.0) (the SSSP weights of ``chip_smoke.py``);
+* ``skewed`` — ``graphs.skewed_graph()`` (``bench_suite.py:441-448``):
+  rows of up to 2.2 M products, in every bin;
+* ``bins`` — ``graphs.spgemm_bins()``: A @ B with rows in each bin.
+
+On each: the plan's bins, kernel 9's time a call (``--reps`` calls after
+one, the host read of each call's layout included) and, with
+``--profile``, one call under ``torch.profiler``: its wall, the device's
+busy time (the union of its kernel, copy and memset intervals), the idle
+share and the device time of each kernel by name (the symbolic, numeric
+and compaction kernels of each bin); with ``--library``, cuSPARSE's time
+(one ``torch.sparse.mm`` of two CSR tensors), or its failure.  With
+``--large MB:PER_SM,...`` it instead times the call and its large-bin
+kernels once for each accumulator budget in MiB and cap of large rows in
+flight an SM (``kernels.spgemm.LARGE_BYTES`` and ``LARGE_CTAS_PER_SM``,
+restored after), checking that every setting gives C's structure.
+
+Usage::
+
+    python -m spla_tpu_torch.tools.mxm_times [--graphs mx13,mx20,skewed,bins] [--reps 5] [--label NAME]
+        [--profile] [--library] [--large 2048:4,128:4,...]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import time
+
+import numpy as np
+import torch
+
+from .. import formats as F, op
+from ..kernels import spgemm as K9
+from .ab_spmv import device_of
+from .graphs import random_graph, skewed_graph, spgemm_bins
+from .resident_levels import card
+
+GRAPHS = ("mx13", "mx20", "skewed", "bins")
+
+
+def operands(name, device):
+    """``(A, B)`` of a graph, f32, on ``device``."""
+    if name == "bins":
+        a, b = spgemm_bins()
+        return F.csr_from_scipy(a, device=device), F.csr_from_scipy(b, device=device)
+    if name == "skewed":
+        a = skewed_graph()
+    else:
+        a = random_graph(1 << 13, 16, seed=5) if name == "mx13" else random_graph(1 << 20, 16)
+        lo, hi, seed = (0.5, 1.5, 11) if name == "mx13" else (0.1, 2.0, 2)
+        a.data = np.random.default_rng(seed).uniform(lo, hi, a.nnz).astype(np.float32)
+    A = F.csr_from_scipy(a, device=device)
+    return A, A
+
+
+def cuda_ms(fn, reps, warmup=1):
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def kernel_name(name):
+    """A kernel's short name: ``numeric_small`` for a mangled instance."""
+    found = re.search(r"(symbolic|numeric|compact)_[a-z]+", name)
+    return found.group(0) if found else name[:60]
+
+
+def profiled(fn):
+    """One call of ``fn`` under torch.profiler (after one without): its
+    wall, the device's busy time and idle share, and each kernel's (or
+    copy's) device time by short name, as ``[calls, ms]``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, end, items = 0.0, float("-inf"), {}
+    for start, stop, name in spans:
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+        calls, us = items.get(kernel_name(name), (0, 0.0))
+        items[kernel_name(name)] = (calls + 1, us + stop - start)
+    return {"wall_ms": wall, "busy_ms": busy / 1e3, "idle_share": 1 - busy / 1e3 / wall,
+            "kernels": {k: [c, us / 1e3] for k, (c, us) in sorted(items.items(), key=lambda kv: -kv[1][1])}}
+
+
+def library_ms(A, B, reps):
+    """cuSPARSE's time for A @ B (``torch.sparse.mm`` of two CSR tensors),
+    or its failure as a string."""
+    try:
+        L = torch.sparse_csr_tensor(A.indptr, A.cols[:int(A.nnz)], A.values[:int(A.nnz)], size=A.shape)
+        R = L if B is A else torch.sparse_csr_tensor(B.indptr, B.cols[:int(B.nnz)], B.values[:int(B.nnz)],
+                                                     size=B.shape)
+        return cuda_ms(lambda: torch.sparse.mm(L, R), reps)
+    except RuntimeError as e:  # out of memory, or a refusal: the result
+        return f"failed: {type(e).__name__}: {str(e).splitlines()[0][:200]}"
+    finally:
+        torch.cuda.empty_cache()
+
+
+def large_sweep(name, A, B, settings, reps, smi):
+    """The call and its large-bin kernels at each (MiB, CTAs an SM) setting;
+    one JSON line each."""
+    n = B.shape[1]
+    saved = K9.LARGE_BYTES, K9.LARGE_CTAS_PER_SM
+    ref = None
+    try:
+        for mib, per_sm in settings:
+            K9.LARGE_BYTES, K9.LARGE_CTAS_PER_SM = mib << 20, per_sm
+            fn = lambda: K9.mxm(A, B, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)  # noqa: E731
+            ms = cuda_ms(fn, reps)
+            kernels = profiled(fn)["kernels"]
+            C = fn()
+            ref = C if ref is None else ref
+            same = all(torch.equal(getattr(C, f), getattr(ref, f)) for f in ("indptr", "cols", "row_ids", "nnz"))
+            if not same:
+                raise AssertionError(f"{name}: C's structure changed at {mib} MiB, {per_sm} CTAs an SM")
+            print(json.dumps({"graph": name, "large_mib": mib, "per_sm": per_sm,
+                              "ctas": K9.large_shape(K9.mxm_plan(A, B), n, A.values.device)[0], "ms": ms,
+                              "numeric_large_ms": kernels.get("numeric_large", [0, 0.0])[1],
+                              "symbolic_large_ms": kernels.get("symbolic_large", [0, 0.0])[1], "card": smi}),
+                  flush=True)
+    finally:
+        K9.LARGE_BYTES, K9.LARGE_CTAS_PER_SM = saved
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--graphs", default=",".join(GRAPHS), help=f"comma-separated, of {GRAPHS}")
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--label", default="", help="names the tree in the JSON line")
+    ap.add_argument("--profile", action="store_true", help="one profiled call a graph")
+    ap.add_argument("--library", action="store_true", help="time cuSPARSE too")
+    ap.add_argument("--large", default="", help="MiB:PER_SM,... settings of the large bin to time in turn")
+    args = ap.parse_args(argv)
+    names = args.graphs.split(",")
+    unknown = set(names) - set(GRAPHS)
+    if unknown:
+        raise ValueError(f"unknown graphs {sorted(unknown)}; graphs: {GRAPHS}")
+    device = device_of("cuda")
+    smi = card()
+    for name in names:
+        A, B = operands(name, device)
+        if args.large:
+            settings = [tuple(int(v) for v in s.split(":")) for s in args.large.split(",")]
+            large_sweep(name, A, B, settings, args.reps, smi)
+            continue
+        plan = K9.mxm_plan(A, B)
+        fn = lambda: K9.mxm(A, B, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)  # noqa: E731
+        ms = cuda_ms(fn, args.reps)
+        row = {"label": args.label, "graph": name, "n": A.shape[0], "nnz": int(A.nnz), "products": plan.products,
+               "c_nnz": int(fn().nnz), "ms": ms, "mproducts_s": plan.products / ms / 1e3,
+               "bins": [plan.nsmall, plan.nmedium, plan.nlarge], "card": smi}
+        if args.profile:
+            row["profiled"] = profiled(fn)
+        if args.library:
+            row["library_ms"] = library_ms(A, B, max(2, args.reps // 2))
+        print(json.dumps(row), flush=True)
+        torch.cuda.empty_cache()
+
+
+if __name__ == "__main__":
+    main()

@@ -128,6 +128,29 @@ def test_pin_unreached_sssp_is_inf():
     np.testing.assert_allclose(d[np.isfinite(ref)], ref[np.isfinite(ref)], rtol=1e-5)
 
 
+def test_pin_unreached_sssp_with_int32_weights_is_inf():
+    """A reference fault the port does not copy: on int32 weights spla_tpu
+    reports each unreached vertex as 2147483648.0, not +inf.  Its XLA path
+    passes inf as init to masked_spmv (spla_tpu/algorithms.py:413-419),
+    which casts init to the values' dtype (spla_tpu/ops/spmv.py:69), the
+    largest int32.  The port gives +inf there, as scipy's dijkstra does,
+    and spla_tpu's distances everywhere else."""
+    rng = np.random.default_rng(2)
+    n = 200
+    r, c = rng.integers(0, n, 800), rng.integers(0, n, 800)
+    a = sp.csr_matrix((rng.integers(1, 5, 800).astype(np.int32), (r, c)), shape=(n, n))
+    JA = JF.csr_from_scipy(a)
+    want = np.asarray(JALG.sssp(JA, 5).values)
+    got = to_numpy(alg.sssp(from_spla_tpu(JA, "cpu"), 5).values)
+    ref = cg.dijkstra(a, indices=5)
+    unreached = np.isinf(ref)
+    assert unreached.sum() >= 3
+    assert np.all(np.isposinf(got[unreached]))
+    np.testing.assert_array_equal(want[unreached], np.float32(2147483648.0))
+    np.testing.assert_array_equal(got[~unreached], want[~unreached])
+    np.testing.assert_array_equal(got[~unreached], ref[~unreached])
+
+
 def test_pin_directed_pull_uses_the_transpose(monkeypatch):
     """Deliberate difference from the C++ spla: pull over a directed graph
     walks Aᵀ, so the default traversal follows A's edges (0 -> 1 -> 2) in

@@ -15,11 +15,12 @@ import torch
 
 from spla_tpu_torch import DenseVec, Descriptor, algorithms as alg, formats as F, kernels, op
 from spla_tpu_torch.kernels import frontier as KF, level_update as K3, mxmt as K45, resident as K6
-from spla_tpu_torch.kernels import probe as K8, spmv as K1, staged as K7, traversal as K2
+from spla_tpu_torch.kernels import probe as K8, spgemm as K9, spmv as K1, staged as K7, traversal as K2
+from spla_tpu_torch.kernels.build import BuildError
 from spla_tpu_torch.interop import csr_from_numpy
 from spla_tpu_torch.ops import spgemm as TG, spmv as TS
 from spla_tpu_torch.tools.graphs import (barbell_graph, indptr_of, path_graph, random_graph, road_grid,
-                                         skewed_graph)
+                                         skewed_graph, spgemm_bins)
 
 pytestmark = pytest.mark.cuda
 
@@ -528,6 +529,124 @@ def test_tc_and_mxmT_masked_match_cpu(dev):
             _assert_same(getattr(got, f), getattr(ref, f))
     assert kernels.LAUNCHES["mxmt_reduce"] == 3 and kernels.LAUNCHES["mxmt_masked"] == 2
     assert TG.DISPATCH_STATS["mxmT_torch"] == before["mxmT_torch"] + 5  # the CPU runs
+
+
+def _bins_operands(dev, dtype, signed=False):
+    """graphs.spgemm_bins (small, medium and large rows of A @ B) on the card:
+    f32 values in [0.5, 1.5), i32 the f32 ones x 1000 truncated, or with
+    ``signed`` i32 values of ±1 whose sums cancel; A's capacity above nnz."""
+    a, b = spgemm_bins()
+    if dtype == "i32":
+        a, b = (a * 1000).astype(np.int32), (b * 1000).astype(np.int32)
+        if signed:
+            rng = np.random.default_rng(21)
+            a.data, b.data = (rng.choice([-1, 1], m.nnz).astype(np.int32) for m in (a, b))
+    return F.csr_from_scipy(a, capacity=a.nnz + 13, device=dev), F.csr_from_scipy(b, device=dev)
+
+
+def _same_csr(got, ref, float_plus=False):
+    """Every field, padding too; f32 PLUS values within rtol=1e-5, atol=1e-5."""
+    assert got.shape == ref.shape and got.capacity == ref.capacity
+    for f in ("indptr", "cols", "row_ids", "nnz", "fill"):
+        _assert_same(getattr(got, f), getattr(ref, f))
+    if float_plus:
+        torch.testing.assert_close(got.values.cpu(), ref.values.cpu(), rtol=1e-5, atol=1e-5)
+    else:
+        _assert_same(got.values, ref.values)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "i32"])
+@pytest.mark.parametrize("add", ["PLUS", "MIN", "MAX"])
+def test_mxm_matches_plain(dev, dtype, add):
+    """Kernel 9, every mul with this add and dtype, against its plain version
+    on the same CUDA tensors, with rows in each of its three bins."""
+    A, B = _bins_operands(dev, dtype)
+    plan = K9.mxm_plan(A, B)
+    assert plan.nsmall > 0 and plan.nmedium > 0 and plan.nlarge > 0
+    T = op.FLOAT if dtype == "f32" else op.INT
+    oa = getattr(T, add)
+    for mul in MULS:
+        om = getattr(T, mul)
+        kernels.reset_launches()
+        got = K9.mxm(A, B, om, oa, oa.identity)
+        assert kernels.LAUNCHES["spgemm_mxm"] == 1
+        _same_csr(got, K9.mxm_plain(A, B, om, oa, oa.identity), float_plus=dtype == "f32" and add == "PLUS")
+
+
+def test_mxm_large_rows_in_column_windows(dev, monkeypatch):
+    """Large rows whose columns are wider than the bitmap go in windows of
+    its width (here 512 columns, four windows at n = 2000), the row walked
+    once a window, bitwise against the plain version (f32 MIN, i32 PLUS)."""
+    monkeypatch.setattr(K9, "LARGE_WORDS", 16)
+    A, B = _bins_operands(dev, "f32")
+    assert K9.large_shape(K9.mxm_plan(A, B), B.shape[1], dev)[1] == 16
+    _same_csr(K9.mxm(A, B, op.PLUS_FLOAT, op.MIN_FLOAT, float("inf")),
+              K9.mxm_plain(A, B, op.PLUS_FLOAT, op.MIN_FLOAT, float("inf")))
+    A, B = _bins_operands(dev, "i32")
+    _same_csr(K9.mxm(A, B, op.MULT_INT, op.PLUS_INT, 0), K9.mxm_plain(A, B, op.MULT_INT, op.PLUS_INT, 0))
+
+
+def test_mxm_drops_init_valued_results(dev):
+    """Results equal to init are left out in every bin, on the device, and
+    the rows after them move up: ±1 i32 sums that cancel, and PLUS/MIN f32
+    with init 2.0 (every min at or above 2 is init), bitwise against the
+    plain version."""
+    A, B = _bins_operands(dev, "i32", signed=True)
+    got = K9.mxm(A, B, op.MULT_INT, op.PLUS_INT, 0)
+    ref = K9.mxm_plain(A, B, op.MULT_INT, op.PLUS_INT, 0)
+    assert int(ref.nnz) < ref.capacity - 100
+    large = K9.mxm_plan(A, B).rows[-1].item()
+    ip = ref.indptr.cpu()
+    assert int(ip[large + 1] - ip[large]) < A.shape[0]  # a large row left something out
+    _same_csr(got, ref)
+    A, B = _bins_operands(dev, "f32")
+    got = K9.mxm(A, B, op.PLUS_FLOAT, op.MIN_FLOAT, 2.0)
+    ref = K9.mxm_plain(A, B, op.PLUS_FLOAT, op.MIN_FLOAT, 2.0)
+    assert 0 < int(ref.nnz) < ref.capacity
+    _same_csr(got, ref)
+
+
+def test_mxm_out_capacity_and_empty_operands(dev):
+    """out_capacity below the result keeps its first entries (nnz the
+    capacity), above it pads; A with no entries and B with no entries give
+    an empty C; a rectangular A x B."""
+    A, B = _bins_operands(dev, "i32")
+    full = K9.mxm(A, B, op.MULT_INT, op.PLUS_INT, 0)
+    for cap in (1000, int(full.nnz) + 50):
+        _same_csr(K9.mxm(A, B, op.MULT_INT, op.PLUS_INT, 0, out_capacity=cap),
+                  K9.mxm_plain(A, B, op.MULT_INT, op.PLUS_INT, 0, out_capacity=cap))
+    empty = F.csr_from_entries((A.shape[0], A.shape[0]), [], [], [], dtype=np.int32, device=dev)
+    for a, b in ((empty, B), (A, empty)):
+        got = K9.mxm(a, b, op.MULT_INT, op.PLUS_INT, 0)
+        assert int(got.nnz) == 0 and got.capacity == 0 and int(got.indptr[-1]) == 0
+    a, b = spgemm_bins(600, seed=3)
+    Ar = F.csr_from_scipy(a[:, :450].tocsr(), device=dev)
+    Br = F.csr_from_scipy(b[:450, :300].tocsr(), device=dev)
+    _same_csr(K9.mxm(Ar, Br, op.MULT_FLOAT, op.MAX_FLOAT, -np.inf),
+              K9.mxm_plain(Ar, Br, op.MULT_FLOAT, op.MAX_FLOAT, -np.inf))
+
+
+def test_mxm_dispatch_and_raises_without_its_library(dev, monkeypatch):
+    """ops.mxm launches kernel 9 for a covered request (products_cap takes
+    the torch path), and raises, not falls back, when the library fails to
+    build."""
+    A, B = _bins_operands(dev, "f32")
+    kernels.reset_launches()
+    before = dict(TG.DISPATCH_STATS)
+    got = TG.mxm(A, B, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)
+    capped = TG.mxm(A, B, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0, products_cap=K9.mxm_plan(A, B).products)
+    assert kernels.LAUNCHES["spgemm_mxm"] == 1
+    assert TG.DISPATCH_STATS["mxm_kernel"] == before["mxm_kernel"] + 1
+    assert TG.DISPATCH_STATS["mxm_torch"] == before["mxm_torch"] + 1
+    _same_csr(got, capped, float_plus=True)
+
+    def broken():
+        raise BuildError("nvcc failed")
+
+    monkeypatch.setattr(K9, "load_library", broken)
+    with pytest.raises(BuildError):
+        TG.mxm(A, B, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)
+    assert kernels.LAUNCHES["spgemm_mxm"] == 1
 
 
 def _road(side, seed=9):

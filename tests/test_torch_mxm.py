@@ -1,0 +1,324 @@
+"""spla_tpu_torch's mxm against spla_tpu's on the same numpy inputs, and
+kernel 9's plain version against spla_tpu's numeric phase and its Pallas
+ESC path (interpret mode).
+
+Tolerances: f32 PLUS within rtol=1e-5, atol=1e-5 (the summation order
+differs); everything else bitwise.  Only stored entries are compared
+(``indptr``, and ``cols``, ``row_ids`` and ``values`` below ``nnz``):
+spla_tpu's XLA path pads its result to ``products_cap``, the port to the
+number of distinct (i, j) that products reach.
+"""
+
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import torch
+
+import jax.numpy as jnp
+
+import spla_tpu.formats as JF
+import spla_tpu.op as JOP
+import spla_tpu.ops as JOPS
+from spla_tpu.ops import spgemm as JG
+
+from spla_tpu_torch import op as OP
+from spla_tpu_torch.interop import from_spla_tpu, to_numpy
+from spla_tpu_torch.kernels import spgemm as K9
+from spla_tpu_torch.ops import spgemm as TG
+from spla_tpu_torch.tools.graphs import spgemm_bins
+
+NP_DTYPES = {"FLOAT": np.float32, "INT": np.int32}
+
+
+def _stored(r):
+    """indptr, and cols, row_ids and values below nnz, of a spla_tpu or port CSR."""
+    d = to_numpy(r) if isinstance(r.values, torch.Tensor) else \
+        {f: np.asarray(getattr(r, f)) for f in ("indptr", "cols", "row_ids", "values", "nnz")}
+    k = int(d["nnz"])
+    return d["indptr"], d["cols"][:k], d["row_ids"][:k], d["values"][:k], k
+
+
+def _same(got, want, float_plus=False, nnz=True):
+    g, w = _stored(got), _stored(want)
+    if nnz:
+        assert g[4] == w[4]
+    for x, y in zip(g[:3], w[:3]):
+        np.testing.assert_array_equal(x, y)
+    assert g[3].dtype == w[3].dtype
+    if float_plus:
+        np.testing.assert_allclose(g[3], w[3], rtol=1e-5, atol=1e-5)
+    else:
+        np.testing.assert_array_equal(g[3], w[3])
+
+
+def _matrix(rng, m, n, density, tname, empty_rows=(), capacity_extra=0, fill=0):
+    """m x n CSR, rows sorted by column, values in [-2, 2) (FLOAT) or
+    [-5, 6) (INT), the rows in ``empty_rows`` empty; spla_tpu's and the
+    port's."""
+    a = sp.random(m, n, density=density, random_state=rng, dtype=np.float32).tocsr()
+    for r in empty_rows:
+        a.data[a.indptr[r]:a.indptr[r + 1]] = 0
+    a.eliminate_zeros()
+    if tname == "FLOAT":
+        a.data = rng.uniform(-2, 2, a.nnz).astype(np.float32)
+    else:
+        a = a.astype(np.int32)
+        a.data = rng.integers(-5, 6, a.nnz).astype(np.int32)
+    j = JF.csr_from_scipy(a, fill=NP_DTYPES[tname](fill), capacity=a.nnz + capacity_extra)
+    return a, j, from_spla_tpu(j, "cpu")
+
+
+def _ops(mul, add, tname):
+    return ((JOP.lookup(mul, getattr(JOP, tname)), JOP.lookup(add, getattr(JOP, tname))),
+            (OP.lookup(mul, getattr(OP, tname)), OP.lookup(add, getattr(OP, tname))))
+
+
+SEMIRINGS = [
+    ("MULT", "PLUS", "FLOAT", 0.0),
+    ("PLUS", "MIN", "FLOAT", np.inf),
+    ("MULT", "PLUS", "INT", 0),
+    ("PLUS", "MIN", "INT", np.iinfo(np.int32).max),
+    ("PLUS", "MAX", "INT", np.iinfo(np.int32).min),
+]
+
+
+@pytest.mark.parametrize("mul,add,tname,init", SEMIRINGS)
+def test_mxm_matches_spla_tpu(mul, add, tname, init):
+    """The public mxm on spla_tpu's XLA path and the port's plain path:
+    rectangular A (45 x 30) x B (30 x 50), empty rows in A and B,
+    capacities above the stored counts."""
+    rng = np.random.default_rng(31)
+    _, ja, ta = _matrix(rng, 45, 30, 0.15, tname, empty_rows=(3, 17), capacity_extra=7, fill=init)
+    _, jb, tb = _matrix(rng, 30, 50, 0.15, tname, empty_rows=(5,), capacity_extra=3, fill=init)
+    (jm, jadd), (tm, tadd) = _ops(mul, add, tname)
+    want = JOPS.mxm(ja, jb, jm, jadd, init)
+    got = TG.mxm(ta, tb, tm, tadd, init)
+    assert got.shape == (45, 50) and int(want.nnz) > 100
+    _same(got, want, float_plus=tname == "FLOAT" and add == "PLUS")
+    assert to_numpy(got.fill) == NP_DTYPES[tname](init)
+    # the capacity: the distinct (i, j) that products reach; the padding row m
+    assert got.capacity == (_pattern(ta) @ _pattern(tb)).nnz
+    assert np.all(to_numpy(got.row_ids)[int(got.nnz):] == 45)
+
+
+def _pattern(t):
+    d = to_numpy(t)
+    k = int(d["nnz"])
+    return sp.csr_matrix((np.ones(k), d["cols"][:k], d["indptr"]), shape=t.shape)
+
+
+def test_mxm_matches_scipy_in_float64():
+    """MULT/PLUS f32 against scipy's A @ B, rows sorted by column."""
+    rng = np.random.default_rng(32)
+    a, _, ta = _matrix(rng, 40, 60, 0.1, "FLOAT")
+    b, _, tb = _matrix(rng, 60, 35, 0.1, "FLOAT")
+    got = TG.mxm(ta, tb, OP.MULT_FLOAT, OP.PLUS_FLOAT, 0.0)
+    ref = (a.astype(np.float64) @ b.astype(np.float64)).tocsr()
+    ref.sort_indices()
+    indptr, cols, rows, vals, k = _stored(got)
+    assert k == ref.nnz
+    np.testing.assert_array_equal(indptr, ref.indptr)
+    np.testing.assert_array_equal(cols, ref.indices)
+    np.testing.assert_array_equal(rows, np.repeat(np.arange(40), np.diff(ref.indptr)))
+    np.testing.assert_allclose(vals, ref.data, rtol=1e-5, atol=1e-5)
+
+
+def test_mxm_drops_init_valued_folds():
+    """Accumulated values equal to init are not stored (cpu_mxm.hpp R_tmp[j]
+    != I), as in tests/test_spgemm.py::test_mxm_identity_sparsification; and
+    on a larger ±1 graph whose sums cancel, bitwise against spla_tpu."""
+    a = JF.csr_from_entries((2, 2), [0, 0], [0, 1], [1.0, -1.0], fill=0.0)
+    b = JF.csr_from_entries((2, 2), [0, 1], [0, 0], [1.0, 1.0], fill=0.0)
+    got = TG.mxm(from_spla_tpu(a, "cpu"), from_spla_tpu(b, "cpu"), OP.MULT_FLOAT, OP.PLUS_FLOAT, 0.0)
+    assert int(got.nnz) == 0 and int(JOPS.mxm(a, b, JOP.MULT_FLOAT, JOP.PLUS_FLOAT, 0.0).nnz) == 0
+    assert got.capacity == 1 and to_numpy(got.indptr).tolist() == [0, 0, 0]
+    rng = np.random.default_rng(33)
+    a = sp.random(60, 60, density=0.1, random_state=rng, dtype=np.float32).tocsr().astype(np.int32)
+    a.data = rng.choice([-1, 1], a.nnz).astype(np.int32)
+    ja = JF.csr_from_scipy(a)
+    want = JOPS.mxm(ja, ja, JOP.MULT_INT, JOP.PLUS_INT, 0)
+    got = TG.mxm(from_spla_tpu(ja, "cpu"), from_spla_tpu(ja, "cpu"), OP.MULT_INT, OP.PLUS_INT, 0)
+    dropped = (_pattern(from_spla_tpu(ja, "cpu")) @ _pattern(from_spla_tpu(ja, "cpu"))).nnz - int(got.nnz)
+    assert dropped > 10
+    _same(got, want)
+
+
+def test_mxm_products_cap_truncates_as_spla_tpu():
+    """A products_cap below the product count keeps the first products in
+    expansion order, bitwise as spla_tpu's XLA path (i32)."""
+    rng = np.random.default_rng(34)
+    _, ja, ta = _matrix(rng, 50, 50, 0.12, "INT")
+    total = JOPS.count_mxm_products(ja, ja)
+    assert TG.count_mxm_products(ta, ta) == total
+    for cap in (1, total // 3, total - 1):
+        want = JOPS.mxm(ja, ja, JOP.MULT_INT, JOP.PLUS_INT, 0, products_cap=cap)
+        got = TG.mxm(ta, ta, OP.MULT_INT, OP.PLUS_INT, 0, products_cap=cap)
+        _same(got, want)
+        assert int(got.nnz) < int(TG.mxm(ta, ta, OP.MULT_INT, OP.PLUS_INT, 0).nnz)
+
+
+@pytest.mark.parametrize("block", [256, 1024, 5000])
+def test_mxm_product_windows_match_spla_tpu(block):
+    """block_products folds windows of about that many products and merges
+    them: against spla_tpu's blocked and unblocked results (f32 PLUS within
+    the tolerance); i32 MIN bitwise against the port's unblocked result,
+    which test_mxm_matches_spla_tpu holds to spla_tpu's."""
+    rng = np.random.default_rng(35)
+    _, ja, ta = _matrix(rng, 80, 80, 0.1, "FLOAT")
+    assert JOPS.count_mxm_products(ja, ja) > 5000
+    unblocked = JOPS.mxm(ja, ja, JOP.MULT_FLOAT, JOP.PLUS_FLOAT, 0.0)
+    blocked = JOPS.mxm(ja, ja, JOP.MULT_FLOAT, JOP.PLUS_FLOAT, 0.0, block_products=block)
+    got = TG.mxm(ta, ta, OP.MULT_FLOAT, OP.PLUS_FLOAT, 0.0, block_products=block)
+    _same(got, unblocked, float_plus=True)
+    _same(got, blocked, float_plus=True)
+    _, _, ti = _matrix(rng, 80, 80, 0.1, "INT", fill=np.iinfo(np.int32).max)
+    big = np.iinfo(np.int32).max
+    _same(TG.mxm(ti, ti, OP.PLUS_INT, OP.MIN_INT, big, block_products=block),
+          TG.mxm(ti, ti, OP.PLUS_INT, OP.MIN_INT, big))
+
+
+def test_pin_mxm_windows_fold_init_once():
+    """A deliberate difference: with an init that is not op_add's identity,
+    spla_tpu's product windows fold init into each window's partial sums and
+    again at the merge (spla_tpu/ops/spgemm.py:526-527,536-538), so a blocked
+    result differs from the unblocked one; the port folds init once, in
+    every case (reference cpu_mxm.hpp:88-114 starts each row at init)."""
+    rng = np.random.default_rng(36)
+    _, ja, ta = _matrix(rng, 40, 40, 0.15, "FLOAT")
+    unblocked = JOPS.mxm(ja, ja, JOP.MULT_FLOAT, JOP.PLUS_FLOAT, 1.0)
+    blocked = JOPS.mxm(ja, ja, JOP.MULT_FLOAT, JOP.PLUS_FLOAT, 1.0, block_products=64)
+    got = TG.mxm(ta, ta, OP.MULT_FLOAT, OP.PLUS_FLOAT, 1.0, block_products=64)
+    _same(got, unblocked, float_plus=True)
+    w = _stored(blocked)
+    assert np.abs(w[3] - _stored(unblocked)[3]).max() >= 1.0  # spla_tpu's extra inits
+
+
+def test_mxm_out_capacity():
+    """With more entries than out_capacity the first ones in (row, column)
+    order are stored, as spla_tpu stores them; the port's nnz is the
+    capacity where spla_tpu's is the uncut count.  A larger out_capacity
+    pads."""
+    rng = np.random.default_rng(37)
+    _, ja, ta = _matrix(rng, 40, 40, 0.15, "INT")
+    full = TG.mxm(ta, ta, OP.MULT_INT, OP.PLUS_INT, 0)
+    total = int(full.nnz)
+    want = JOPS.mxm(ja, ja, JOP.MULT_INT, JOP.PLUS_INT, 0, out_capacity=25)
+    got = TG.mxm(ta, ta, OP.MULT_INT, OP.PLUS_INT, 0, out_capacity=25)
+    assert int(want.nnz) == total and int(got.nnz) == 25 and got.capacity == 25
+    g, w = _stored(got), _stored(want)
+    np.testing.assert_array_equal(g[0], w[0])
+    for x, y in zip(g[1:4], w[1:4]):
+        np.testing.assert_array_equal(x, y[:25])
+    big = TG.mxm(ta, ta, OP.MULT_INT, OP.PLUS_INT, 0, out_capacity=total + 10)
+    assert big.capacity == total + 10
+    _same(big, full)
+    assert np.all(to_numpy(big.values)[total:] == 0) and np.all(to_numpy(big.row_ids)[total:] == 40)
+
+
+def test_mxm_plain_matches_spla_tpu_numeric():
+    """kernels.spgemm.mxm_plain against spla_tpu's _mxm_numeric called
+    directly (MULT/MAX f32, MULT/PLUS i32)."""
+    rng = np.random.default_rng(38)
+    _, ja, ta = _matrix(rng, 50, 40, 0.12, "FLOAT", capacity_extra=5)
+    _, jb, tb = _matrix(rng, 40, 45, 0.12, "FLOAT")
+    cap = JOPS.count_mxm_products(ja, jb)
+    want = JG._mxm_numeric(ja, jb, jnp.float32(-np.inf), JOP.MULT_FLOAT, JOP.MAX_FLOAT, cap, None)
+    _same(K9.mxm_plain(ta, tb, OP.MULT_FLOAT, OP.MAX_FLOAT, -np.inf), want)
+    _, ja, ta = _matrix(rng, 50, 40, 0.12, "INT")
+    _, jb, tb = _matrix(rng, 40, 45, 0.12, "INT")
+    cap = JOPS.count_mxm_products(ja, jb)
+    want = JG._mxm_numeric(ja, jb, jnp.int32(0), JOP.MULT_INT, JOP.PLUS_INT, cap, None)
+    _same(K9.mxm_plain(ta, tb, OP.MULT_INT, OP.PLUS_INT, 0), want)
+    # the kernel's wrapper on CPU tensors is its plain version
+    _same(K9.mxm(ta, tb, OP.MULT_INT, OP.PLUS_INT, 0), want)
+
+
+def test_mxm_plain_matches_the_pallas_esc_path(monkeypatch):
+    """The Pallas ESC path (_mxm_pallas_try: three fused_cell_spmv_apply
+    passes, interpret mode) against the port's plain version, MULT/PLUS
+    f32, as tests/test_spgemm.py::test_mxm_pallas_esc_matches_scipy runs it."""
+    from spla_tpu.pallas.cellpack_native import _native_lib
+
+    if _native_lib() is None:
+        pytest.skip("no native toolchain for spla_tpu's packer")
+    monkeypatch.setenv("SPLA_FORCE_PALLAS_DISPATCH", "1")
+    rng = np.random.default_rng(39)
+    a = sp.random(300, 250, density=0.03, random_state=1, dtype=np.float32).tocsr()
+    b = sp.random(250, 280, density=0.03, random_state=2, dtype=np.float32).tocsr()
+    a.data[:] = rng.random(a.nnz, np.float32) + 0.5
+    b.data[:] = rng.random(b.nnz, np.float32) + 0.5
+    ja, jb = JF.csr_from_scipy(a), JF.csr_from_scipy(b)
+    want = JOPS.mxm(ja, jb, JOP.MULT_FLOAT, JOP.PLUS_FLOAT, 0.0)
+    prep = JG._MXM_ESC_CACHE.get(ja.cols, ("mxm_esc",))
+    assert prep is not None and prep["ok"]  # the Pallas path was taken
+    got = K9.mxm_plain(from_spla_tpu(ja, "cpu"), from_spla_tpu(jb, "cpu"), OP.MULT_FLOAT, OP.PLUS_FLOAT, 0.0)
+    _same(got, want, float_plus=True)
+
+
+def _plan_reference(a, b):
+    """Each row's products, and its group: 0 small, 1 + c medium with a table
+    of MEDIUM_SLOTS[c] slots (the least of them at or above twice its
+    products), 5 large."""
+    prods = np.array([np.diff(b.indptr)[a.indices[a.indptr[i]:a.indptr[i + 1]]].sum()
+                      for i in range(a.shape[0])], np.int64)
+    table = np.searchsorted(np.array(K9.MEDIUM_SLOTS), 2 * prods)
+    group = np.where(prods <= K9.SMALL_MAX, 0, np.where(prods <= K9.MEDIUM_MAX, 1 + table, 5))
+    return prods, group
+
+
+def test_mxm_plan_fills_the_three_bins():
+    """mxm_plan against numpy on graphs.spgemm_bins (small, medium and large
+    rows): each row's products, the bins in row order (medium rows by table
+    size), the cache; and every bin's rows through the plain version
+    against scipy."""
+    a, b = spgemm_bins(400)
+    ta, tb = (from_spla_tpu(JF.csr_from_scipy(x), "cpu") for x in (a, b))
+    plan = K9.mxm_plan(ta, tb)
+    prods, group = _plan_reference(a, b)
+    np.testing.assert_array_equal(to_numpy(plan.row_products), prods)
+    counts = np.bincount(group, minlength=6)
+    assert (plan.nsmall, *plan.medium_counts, plan.nlarge) == tuple(counts)
+    assert plan.nsmall > 0 and plan.nlarge > 0 and np.count_nonzero(plan.medium_counts) >= 2
+    assert plan.nmedium == sum(plan.medium_counts)
+    np.testing.assert_array_equal(to_numpy(plan.rows), np.argsort(group, kind="stable"))
+    assert plan.products == prods.sum()
+    assert K9.mxm_plan(ta, tb) is plan
+    got = K9.mxm(ta, tb, OP.MULT_FLOAT, OP.PLUS_FLOAT, 0.0)
+    ref = (a @ b).tocsr()
+    ref.sort_indices()
+    _, c, _, v, k = _stored(got)
+    assert k == ref.nnz
+    np.testing.assert_array_equal(c, ref.indices)
+    np.testing.assert_allclose(v, ref.data, rtol=1e-5)
+
+
+def test_mxm_codes_and_cpu_dispatch():
+    """The gate is kernel 1's: the six muls, PLUS / MIN / MAX, f32 and i32;
+    CPU tensors and explicit caps count as the torch path."""
+    assert K9.mxm_codes(OP.MULT_FLOAT, OP.PLUS_FLOAT, torch.float32) == (1, 0, 0)
+    assert K9.mxm_codes(OP.SECOND_INT, OP.MAX_INT, torch.int32) == (3, 5, 1)
+    assert K9.mxm_codes(OP.MULT_INT, OP.BOR_INT, torch.int32) is None
+    assert K9.mxm_codes(OP.MULT_UINT, OP.PLUS_UINT, torch.uint32) is None
+    rng = np.random.default_rng(41)
+    _, _, ta = _matrix(rng, 20, 20, 0.2, "FLOAT")
+    before = dict(TG.DISPATCH_STATS)
+    TG.mxm(ta, ta, OP.MULT_FLOAT, OP.PLUS_FLOAT, 0.0)
+    TG.mxm(ta, ta, OP.MULT_FLOAT, OP.PLUS_FLOAT, 0.0, check_init_sparsify=False)
+    assert TG.DISPATCH_STATS["mxm_torch"] == before["mxm_torch"] + 2
+    assert TG.DISPATCH_STATS["mxm_kernel"] == before["mxm_kernel"]
+
+
+def test_mxm_times_tool_graphs_and_kernel_names():
+    """tools/mxm_times.py's graphs on the CPU (A = B, f32; A @ B for bins),
+    its short kernel names, and its refusal of an unknown graph."""
+    from spla_tpu_torch.tools import mxm_times as MT
+
+    A, B = MT.operands("bins", torch.device("cpu"))
+    assert A.values.dtype == torch.float32 and A.shape == B.shape and A is not B
+    A, B = MT.operands("mx13", torch.device("cpu"))
+    assert A is B and A.shape == (1 << 13, 1 << 13)
+    assert MT.kernel_name("void (anonymous namespace)::numeric_small<float, 1, 0>(Operands, Bins, Out<float>)") \
+        == "numeric_small"
+    assert MT.kernel_name("_ZN41_GLOBAL__N__e3c8_9_spgemm_cu14symbolic_largeENS_8OperandsE") == "symbolic_large"
+    with pytest.raises(ValueError, match="unknown graphs"):
+        MT.main(["--graphs", "mx99"])
