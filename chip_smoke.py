@@ -30,7 +30,9 @@ Phases:
      plain versions, on the n = 2^20 random graph, the road grids and
      bench_suite's skewed graph (from its longest row); kernel 9 (the
      Gustavson SpGEMM of mxm) against its plain version, every instance on
-     graphs.spgemm_bins (rows in all three of its bins), MULT/PLUS f32 on
+     graphs.spgemm_bins (rows in all three of its bins), MULT/PLUS f32 and
+     PLUS/MIN i32 on graphs.spgemm_bins(2^20) (large rows of ~4.2 M
+     products over four cluster windows), MULT/PLUS f32 on
      the mxm_mprod_s graph (random_graph(2^13, 16, seed=5), also against
      scipy's A @ A), the n = 2^20 traversal graph and the skewed graph,
      PLUS/MIN f32 (init +inf) and MULT/PLUS, PLUS/MIN, PLUS/MAX i32 on the
@@ -577,11 +579,15 @@ def check_mxmt(G):
 
 def mxm_plan_line(A, B):
     p = K9.mxm_plan(A, B)
-    slots, words = K9.large_shape(p, B.shape[1], A.values.device)
+    n = B.shape[1]
+    sms = torch.cuda.get_device_properties(A.values.device).multi_processor_count
+    cluster, width, windows = K9.cluster_shape(n, sms, K9.LARGE_SHARED_BYTES)
     tables = dict(zip(K9.MEDIUM_SLOTS, p.medium_counts))
     return (f"{p.products} products; {p.nsmall} small rows (a warp, <= {K9.SMALL_MAX} products), "
-            f"{p.nmedium} medium (a CTA, <= {K9.MEDIUM_MAX}; by table size {tables}), "
-            f"{p.nlarge} large (dense accumulators, {slots} in flight, bitmaps of {words} words)")
+            f"{p.nmedium} medium (a CTA of 512 threads, <= {K9.MEDIUM_MAX}; by table size "
+            f"{tables}; {K9.radix_passes(n)} radix passes), {p.nlarge} large (clusters of {cluster} CTAs, "
+            f"{width} columns a CTA, {windows} windows of {cluster * width}; symbolic bitmaps of "
+            f"{min((n + 31) // 32, K9.LARGE_WORDS)} words)")
 
 
 def same_mxm(label, got, ref, exact, ref64=None):
@@ -609,7 +615,9 @@ def check_mxm_pair(label, A, B, om, oa, init, ref64=None):
 
 def check_mxm(G):
     """Kernel 9 against its plain version: every instance on
-    graphs.spgemm_bins; MULT/PLUS f32 on the mxm_mprod_s graph (also
+    graphs.spgemm_bins, and two f32 adds there with init NaN (which
+    the large bin must not keep for an untouched column); MULT/PLUS f32
+    on the mxm_mprod_s graph (also
     against scipy), the n = 2^20 graph and the skewed graph; PLUS/MIN f32
     with init +inf and the three i32 adds on the 2^13 graph; ±1 i32 sums
     that cancel.  Keeps the n = 2^20 plain result for phase 4."""
@@ -624,8 +632,17 @@ def check_mxm(G):
             for mul in MULS:
                 e, _, _ = check_mxm_pair(f"mxm bins {mul}/{add} {dtype}", X, Y, getattr(T, mul), oa, oa.identity)
                 err = max(err, e)
+    for om, oa in ((op.PLUS_FLOAT, op.MIN_FLOAT), (op.MULT_FLOAT, op.PLUS_FLOAT)):  # only reached columns kept
+        check_mxm_pair(f"mxm bins {om.name}/{oa.name} f32 init NaN", A, B, om, oa, float("nan"))
     print("kernel 9: all 36 instances match the plain version on graphs.spgemm_bins (small, medium and "
-          "large rows)", flush=True)
+          "large rows), and PLUS/MIN and MULT/PLUS f32 with init NaN", flush=True)
+    A, B = G["Bins20_f32"]
+    print(f"kernel 9 plan on graphs.spgemm_bins(2^20): {mxm_plan_line(A, B)}", flush=True)
+    err = max(err, check_mxm_pair("mxm bins n=2^20 MULT/PLUS f32", A, B, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)[0])
+    Ai, Bi = G["Bins20_i32"]
+    check_mxm_pair("mxm bins n=2^20 PLUS/MIN i32", Ai, Bi, op.PLUS_INT, op.MIN_INT, np.iinfo(np.int32).max)
+    print("kernel 9 on graphs.spgemm_bins(2^20): MULT/PLUS f32 and PLUS/MIN i32 match the plain version",
+          flush=True)
     M = G["MX13"]
     print(f"kernel 9 plan on random_graph(2^13, 16, seed={SEED_MXM}): {mxm_plan_line(M, M)}", flush=True)
     ref = (G["MX13_sp"].astype(np.float64) @ G["MX13_sp"].astype(np.float64)).tocsr()
@@ -1885,6 +1902,9 @@ def build_graphs():
     a_bins, b_bins = spgemm_bins()
     G["Bins_f32"] = tuple(F.csr_from_scipy(x, device=DEVICE) for x in (a_bins, b_bins))
     G["Bins_i32"] = tuple(F.csr_from_scipy((x * 1000).astype(np.int32), device=DEVICE) for x in (a_bins, b_bins))
+    a_bins, b_bins = spgemm_bins(1 << 20)
+    G["Bins20_f32"] = tuple(F.csr_from_scipy(x, device=DEVICE) for x in (a_bins, b_bins))
+    G["Bins20_i32"] = tuple(F.csr_from_scipy((x * 1000).astype(np.int32), device=DEVICE) for x in (a_bins, b_bins))
     mx = random_graph(N_MXM, DEG_MXM, seed=SEED_MXM)
     rng = np.random.default_rng(11)
     mx.data = rng.uniform(0.5, 1.5, mx.nnz).astype(np.float32)

@@ -73,12 +73,13 @@ SIGNATURES = {
     # phase, m, n, indptr, cols, values, x, out_f, out_i, stream
     "spla_spmv_probe": (_INT, _I64, _I64, *(_P,) * 7),
     # m, n, A indptr/cols, B indptr/cols, bins: rows, nsmall, the 4 medium counts, nlarge,
-    # row_products, large_ctas, large_words; row_nnz, stream
-    "spla_mxm_symbolic": (_I64, _I64, *(_P,) * 5, *(_I64,) * 6, _P, _INT, _INT, _P, _P),
-    # mul, add, dtype, m, n, A indptr/cols/values, B indptr/cols/values, the bins as above, ws_vals,
-    # sym, init (device pointer or null), init's 32 bits (when null), cols, values, rows, kept, stream
-    "spla_mxm_numeric": (_INT, _INT, _INT, _I64, _I64, *(_P,) * 7, *(_I64,) * 6, _P, _INT, _INT,
-                         _P, _P, _P, ctypes.c_uint32, *(_P,) * 5),
+    # row_products; large_words, row_nnz, stream
+    "spla_mxm_symbolic": (_I64, _I64, *(_P,) * 5, *(_I64,) * 6, _P, _INT, _P, _P),
+    # mul, add, dtype, m, n, A indptr/cols/values, B indptr/cols/values, the bins as above, cluster,
+    # log2 W, radix passes, sym, init (device pointer or null), init's 32 bits (when null), cols,
+    # values, rows, kept, stream
+    "spla_mxm_numeric": (_INT, _INT, _INT, _I64, _I64, *(_P,) * 7, *(_I64,) * 6, _P, *(_INT,) * 3,
+                         _P, _P, ctypes.c_uint32, *(_P,) * 5),
     # m, size, sym, ptr, kept, cols, values, rows, tmp cols, tmp values, init (device pointer or
     # null), init's 32 bits (when null), stream
     "spla_mxm_compact": (_I64, _I64, *(_P,) * 9, ctypes.c_uint32, _P),

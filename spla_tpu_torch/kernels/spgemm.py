@@ -22,11 +22,17 @@ the left-out entries leave, on the device (it moves nothing when no entry
 was left out).  Both phases take each row in one of three bins of
 ``mxm_plan``, by its product count: up to ``SMALL_MAX`` products a warp
 with a hash table in shared memory, its entries ranked; up to
-``MEDIUM_MAX`` a CTA with a larger one (a launch for each table size in
-``MEDIUM_SLOTS``), its entries sorted; more, a CTA with a dense
-accumulator of n values in device memory and an occupancy bitmap in
-shared memory (``large_shape``).  The
-CUDA source's header says what bounds the kernel and how it is laid out.
+``MEDIUM_MAX`` a CTA (512 threads in the numeric phase) with a larger
+one (a launch for each table size in ``MEDIUM_SLOTS``), its kept entries
+radix-sorted by column straight into C; more, in the numeric
+phase, a thread-block cluster of ``CLUSTER`` CTAs that holds the row's
+values for a window of columns in their shared memory and folds into it
+through distributed shared memory (``cluster_shape``; with a NaN
+``init`` each product also marks its column in a bitmap there, since NaN
+(+) identity is not equal to NaN), and in the
+symbolic phase a CTA with an occupancy bitmap of ``LARGE_WORDS`` words at
+most.  Nothing but C and the compaction's scratch is allocated.  The CUDA
+source's header says what bounds the kernel and how it is laid out.
 """
 
 from __future__ import annotations
@@ -50,11 +56,12 @@ __all__ = [
     "MXM_BLOCK_P",
     "SMALL_MAX",
     "MEDIUM_MAX",
-    "LARGE_BYTES",
+    "CLUSTER",
     "MxmPlan",
     "mxm_plan",
     "mxm_codes",
-    "large_shape",
+    "cluster_shape",
+    "radix_passes",
     "mxm",
     "mxm_plain",
 ]
@@ -68,11 +75,10 @@ MXM_BLOCK_P = 1 << 22
 SMALL_MAX = 512  # products of a small row: a warp, a table of at most 2 * SMALL_MAX slots (kSmallMax)
 MEDIUM_MAX = 8192  # of a medium row: a CTA, a table of at most 2 * MEDIUM_MAX slots (kMediumMax)
 MEDIUM_SLOTS = (2048, 4096, 8192, 16384)  # the medium tables, a launch each (kMediumLog2Min, kMediumClasses)
-LARGE_BYTES = 1 << 31  # device memory the large rows' accumulators may take in all
-LARGE_CTAS_PER_SM = 2  # large rows in flight an SM, at most (CTAs of 512 threads)
-LARGE_WORDS = 48 * 1024  # a large row's bitmap in shared memory, 32-bit words: a window of 1,572,864 columns
-SHARED_BYTES = 227 * 1024  # shared memory an SM gives its CTAs
-LARGE_STATIC_BYTES = 9 * 1024  # a large CTA's own shared memory besides its bitmap
+LARGE_WORDS = 48 * 1024  # the symbolic phase's bitmap of a large row, 32-bit words: a window of 1,572,864 columns
+CLUSTER = 16  # CTAs of a large row's cluster (numeric phase); 16, non-portable, beat 8 on the skewed graph
+LARGE_SHARED_BYTES = 227 * 1024  # shared memory a CTA may have (H100: 232,448 bytes)
+LARGE_STATIC_BYTES = 9 * 1024  # a numeric large CTA's own shared memory besides its values and bitmap
 
 _PLANS = WeakIdCache()  # (A.indptr ref, B.indptr ref, MxmPlan) per A.cols tensor
 
@@ -258,19 +264,26 @@ def mxm_plan(A: CsrMatrix, B: CsrMatrix) -> MxmPlan:
     return plan
 
 
-def large_shape(plan: MxmPlan, n: int, device) -> tuple:
-    """``(ctas, words)`` of the large bin: its bitmap of ``words`` 32-bit
-    words in shared memory (all of n's columns, up to ``LARGE_WORDS``; a
-    wider n is walked in windows), and its CTAs (large rows in flight, an
-    accumulator of n values each): as many as an SM's shared memory holds,
-    at most ``LARGE_CTAS_PER_SM`` an SM, ``LARGE_BYTES`` of accumulators
-    and the large rows."""
-    words = min((n + 31) // 32, LARGE_WORDS)
-    if plan.nlarge == 0:
-        return 0, words
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    per_sm = max(1, min(LARGE_CTAS_PER_SM, SHARED_BYTES // (4 * words + LARGE_STATIC_BYTES)))
-    return max(1, min(plan.nlarge, per_sm * sms, LARGE_BYTES // max(4 * n, 1))), words
+def cluster_shape(n: int, sms: int, shared_bytes: int, cluster: int | None = None) -> tuple:
+    """``(C, W, windows)`` of the numeric phase's large rows for B of ``n``
+    columns on a card of ``sms`` SMs whose CTAs may have ``shared_bytes``
+    of shared memory: a cluster of C CTAs (``cluster``, default
+    ``CLUSTER``, at most the SMs, a power of two), each holding W values
+    and W bits (the least power of two, at least 32, that lets C of them
+    cover n, and at most what its shared memory holds besides
+    ``LARGE_STATIC_BYTES``: 33 bits a column), so a row is walked once for
+    each of ``windows`` windows of C x W columns."""
+    c = 1 << (max(1, min(CLUSTER if cluster is None else cluster, sms)).bit_length() - 1)
+    fit = (shared_bytes - LARGE_STATIC_BYTES) * 8 // 33
+    if fit < 32:
+        raise ValueError(f"cluster_shape: {shared_bytes} bytes of shared memory hold no 32 columns")
+    w = min(max(32, 1 << max(-(-n // c) - 1, 0).bit_length()), 1 << (fit.bit_length() - 1))
+    return c, w, max(1, -(-n // (c * w)))
+
+
+def radix_passes(n: int) -> int:
+    """8-bit digits of the medium rows' radix sort: the bytes of column n - 1, at least 1."""
+    return max(1, -(-max(n - 1, 0).bit_length() // 8))
 
 
 # ---------------------------------------------------------------- the kernel
@@ -303,15 +316,17 @@ def mxm(A: CsrMatrix, B: CsrMatrix, op_mul, op_add, init, out_capacity: int | No
     fill = _init_tensor(init, A.values)
     init_t, init_bits = _init_arg(fill, A.values)
     plan = mxm_plan(A, B)
-    slots, words = large_shape(plan, n, device)
-    ws_vals = torch.empty(slots * n, dtype=A.values.dtype, device=device) if slots else None
+    cluster, width = 1, 32  # the large bin's shape, asked for only when it has rows
+    if plan.nlarge:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        cluster, width, _ = cluster_shape(n, sms, LARGE_SHARED_BYTES)
     lib = load_library()
     stream = torch.cuda.current_stream(device).cuda_stream
-    bins = (plan.rows.data_ptr(), plan.nsmall, *plan.medium_counts, plan.nlarge, plan.row_products.data_ptr(),
-            slots, words)
+    bins = (plan.rows.data_ptr(), plan.nsmall, *plan.medium_counts, plan.nlarge, plan.row_products.data_ptr())
     operands = (A.indptr.data_ptr(), A.cols.data_ptr(), B.indptr.data_ptr(), B.cols.data_ptr())
     row_nnz = torch.empty(m, dtype=torch.int32, device=device)
-    check(lib.spla_mxm_symbolic(m, n, *operands, *bins, row_nnz.data_ptr(), stream), what)
+    check(lib.spla_mxm_symbolic(m, n, *operands, *bins, min((n + 31) // 32, LARGE_WORDS), row_nnz.data_ptr(),
+                                stream), what)
     sym = torch.zeros(m + 1, dtype=torch.long, device=device)
     torch.cumsum(row_nnz, 0, out=sym[1:])
     total = int(sym[m])  # C's layout: the one host read
@@ -324,7 +339,7 @@ def mxm(A: CsrMatrix, B: CsrMatrix, op_mul, op_add, init, out_capacity: int | No
     kept = torch.empty(m, dtype=torch.int32, device=device)
     check(lib.spla_mxm_numeric(*codes, m, n, A.indptr.data_ptr(), A.cols.data_ptr(), A.values.data_ptr(),
                                B.indptr.data_ptr(), B.cols.data_ptr(), B.values.data_ptr(), *bins,
-                               _ptr(ws_vals), sym.data_ptr(), _ptr(init_t), init_bits, cols.data_ptr(),
+                               cluster, width.bit_length() - 1, radix_passes(n), sym.data_ptr(), _ptr(init_t), init_bits, cols.data_ptr(),
                                vals.data_ptr(), rows.data_ptr(), kept.data_ptr(), stream), what)
     ptr = torch.zeros(m + 1, dtype=torch.long, device=device)
     torch.cumsum(kept, 0, out=ptr[1:])

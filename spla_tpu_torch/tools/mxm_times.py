@@ -11,21 +11,24 @@ graph.
 * ``bins`` — ``graphs.spgemm_bins()``: A @ B with rows in each bin.
 
 On each: the plan's bins, kernel 9's time a call (``--reps`` calls after
-one, the host read of each call's layout included) and, with
+one, the host read of each call's layout included); with ``--chain``,
+``mxm_mprod_s``'s time a call (``bench_suite.py:534-552``: the public
+``ops.mxm`` chained six times through a device scalar, on the host's clock,
+the median of three chains, as ``chip_smoke.py`` times it); and, with
 ``--profile``, one call under ``torch.profiler``: its wall, the device's
 busy time (the union of its kernel, copy and memset intervals), the idle
 share and the device time of each kernel by name (the symbolic, numeric
 and compaction kernels of each bin); with ``--library``, cuSPARSE's time
 (one ``torch.sparse.mm`` of two CSR tensors), or its failure.  With
-``--large MB:PER_SM,...`` it instead times the call and its large-bin
-kernels once for each accumulator budget in MiB and cap of large rows in
-flight an SM (``kernels.spgemm.LARGE_BYTES`` and ``LARGE_CTAS_PER_SM``,
-restored after), checking that every setting gives C's structure.
+``--cluster C,...`` it instead times the call and its numeric large and
+medium kernels once for each number of CTAs in a large row's cluster
+(``kernels.spgemm.CLUSTER``, restored after), checking that every setting
+gives C's structure.
 
 Usage::
 
     python -m spla_tpu_torch.tools.mxm_times [--graphs mx13,mx20,skewed,bins] [--reps 5] [--label NAME]
-        [--profile] [--library] [--large 2048:4,128:4,...]
+        [--profile] [--library] [--chain] [--cluster 8,16,...]
 """
 
 from __future__ import annotations
@@ -34,12 +37,14 @@ import argparse
 import json
 import re
 import time
+from dataclasses import replace
 
 import numpy as np
 import torch
 
 from .. import formats as F, op
 from ..kernels import spgemm as K9
+from ..ops import mxm
 from .ab_spmv import device_of
 from .graphs import random_graph, skewed_graph, spgemm_bins
 from .resident_levels import card
@@ -73,6 +78,25 @@ def cuda_ms(fn, reps, warmup=1):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def chained_ms(A, B, links=6, chains=3):
+    """ms a call of ``links`` public ``ops.mxm`` calls chained through a
+    device scalar (B's values scaled by it, the next scalar taken from the
+    result), on the host's clock from a synchronize to one read at the end;
+    the median of ``chains`` chains (``bench_suite.py:534-552``)."""
+    mxm(A, B, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)
+    walls = []
+    for _ in range(chains):
+        s = torch.ones((), device=A.values.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for k in range(links):
+            R = mxm(A, replace(B, values=B.values * s), op.MULT_FLOAT, op.PLUS_FLOAT, 0.0, check_init_sparsify=False)
+            s = 1.0 + R.values[0] * 0 + (k + 1) * 1e-9
+        float(s)
+        walls.append((time.perf_counter() - t0) / links * 1e3)
+    return sorted(walls)[len(walls) // 2]
 
 
 def kernel_name(name):
@@ -121,15 +145,25 @@ def library_ms(A, B, reps):
         torch.cuda.empty_cache()
 
 
-def large_sweep(name, A, B, settings, reps, smi):
-    """The call and its large-bin kernels at each (MiB, CTAs an SM) setting;
-    one JSON line each."""
-    n = B.shape[1]
-    saved = K9.LARGE_BYTES, K9.LARGE_CTAS_PER_SM
+def cluster_settings(text):
+    """``[cluster, ...]`` from ``"8,16"``: clusters of 1 to 16 CTAs, a power of two."""
+    settings = []
+    for item in text.split(","):
+        if item.strip() not in ("1", "2", "4", "8", "16"):
+            raise ValueError(f"--cluster {item}: clusters of 1, 2, 4, 8 or 16 CTAs")
+        settings.append(int(item))
+    return settings
+
+
+def cluster_sweep(name, A, B, settings, reps, smi):
+    """The call and its numeric large and medium kernels at each cluster
+    size; one JSON line each."""
+    saved = K9.CLUSTER
+    sms = torch.cuda.get_device_properties(A.values.device).multi_processor_count
     ref = None
     try:
-        for mib, per_sm in settings:
-            K9.LARGE_BYTES, K9.LARGE_CTAS_PER_SM = mib << 20, per_sm
+        for cluster in settings:
+            K9.CLUSTER = cluster
             fn = lambda: K9.mxm(A, B, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)  # noqa: E731
             ms = cuda_ms(fn, reps)
             kernels = profiled(fn)["kernels"]
@@ -137,14 +171,14 @@ def large_sweep(name, A, B, settings, reps, smi):
             ref = C if ref is None else ref
             same = all(torch.equal(getattr(C, f), getattr(ref, f)) for f in ("indptr", "cols", "row_ids", "nnz"))
             if not same:
-                raise AssertionError(f"{name}: C's structure changed at {mib} MiB, {per_sm} CTAs an SM")
-            print(json.dumps({"graph": name, "large_mib": mib, "per_sm": per_sm,
-                              "ctas": K9.large_shape(K9.mxm_plan(A, B), n, A.values.device)[0], "ms": ms,
+                raise AssertionError(f"{name}: C's structure changed at clusters of {cluster}")
+            print(json.dumps({"graph": name, "cluster": cluster,
+                              "shape": K9.cluster_shape(B.shape[1], sms, K9.LARGE_SHARED_BYTES), "ms": ms,
                               "numeric_large_ms": kernels.get("numeric_large", [0, 0.0])[1],
-                              "symbolic_large_ms": kernels.get("symbolic_large", [0, 0.0])[1], "card": smi}),
+                              "numeric_medium_ms": kernels.get("numeric_medium", [0, 0.0])[1], "card": smi}),
                   flush=True)
     finally:
-        K9.LARGE_BYTES, K9.LARGE_CTAS_PER_SM = saved
+        K9.CLUSTER = saved
 
 
 def main(argv=None):
@@ -154,19 +188,20 @@ def main(argv=None):
     ap.add_argument("--label", default="", help="names the tree in the JSON line")
     ap.add_argument("--profile", action="store_true", help="one profiled call a graph")
     ap.add_argument("--library", action="store_true", help="time cuSPARSE too")
-    ap.add_argument("--large", default="", help="MiB:PER_SM,... settings of the large bin to time in turn")
+    ap.add_argument("--chain", action="store_true", help="time mxm_mprod_s's chain of public mxm calls too")
+    ap.add_argument("--cluster", default="", help="CTAs of a large row's cluster, comma-separated, to time in turn")
     args = ap.parse_args(argv)
     names = args.graphs.split(",")
     unknown = set(names) - set(GRAPHS)
     if unknown:
         raise ValueError(f"unknown graphs {sorted(unknown)}; graphs: {GRAPHS}")
+    settings = cluster_settings(args.cluster) if args.cluster else None
     device = device_of("cuda")
     smi = card()
     for name in names:
         A, B = operands(name, device)
-        if args.large:
-            settings = [tuple(int(v) for v in s.split(":")) for s in args.large.split(",")]
-            large_sweep(name, A, B, settings, args.reps, smi)
+        if settings:
+            cluster_sweep(name, A, B, settings, args.reps, smi)
             continue
         plan = K9.mxm_plan(A, B)
         fn = lambda: K9.mxm(A, B, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)  # noqa: E731
@@ -174,6 +209,9 @@ def main(argv=None):
         row = {"label": args.label, "graph": name, "n": A.shape[0], "nnz": int(A.nnz), "products": plan.products,
                "c_nnz": int(fn().nnz), "ms": ms, "mproducts_s": plan.products / ms / 1e3,
                "bins": [plan.nsmall, plan.nmedium, plan.nlarge], "card": smi}
+        if args.chain:
+            row["chain_ms"] = chained_ms(A, B)
+            row["chain_mproducts_s"] = plan.products / row["chain_ms"] / 1e3
         if args.profile:
             row["profiled"] = profiled(fn)
         if args.library:

@@ -573,17 +573,153 @@ def test_mxm_matches_plain(dev, dtype, add):
         _same_csr(got, K9.mxm_plain(A, B, om, oa, oa.identity), float_plus=dtype == "f32" and add == "PLUS")
 
 
-def test_mxm_large_rows_in_column_windows(dev, monkeypatch):
-    """Large rows whose columns are wider than the bitmap go in windows of
-    its width (here 512 columns, four windows at n = 2000), the row walked
-    once a window, bitwise against the plain version (f32 MIN, i32 PLUS)."""
+@pytest.mark.parametrize("cluster", [2, 8, 16])
+def test_mxm_large_rows_in_cluster_windows(dev, monkeypatch, cluster):
+    """Large rows whose columns are wider than a cluster's window go in
+    windows of C x W columns (here W = 64: four windows at n = 2000 with 8
+    CTAs, sixteen with 2, two with 16), the row walked once a window, and
+    the symbolic phase's bitmap in windows of 512 columns, bitwise against
+    the plain version (f32 MIN, i32 PLUS)."""
     monkeypatch.setattr(K9, "LARGE_WORDS", 16)
+    monkeypatch.setattr(K9, "LARGE_SHARED_BYTES", K9.LARGE_STATIC_BYTES + 4 * 64 + 64 // 8)
+    monkeypatch.setattr(K9, "CLUSTER", cluster)
     A, B = _bins_operands(dev, "f32")
-    assert K9.large_shape(K9.mxm_plan(A, B), B.shape[1], dev)[1] == 16
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert K9.cluster_shape(B.shape[1], sms, K9.LARGE_SHARED_BYTES) == (cluster, 64, -(-2000 // (64 * cluster)))
     _same_csr(K9.mxm(A, B, op.PLUS_FLOAT, op.MIN_FLOAT, float("inf")),
               K9.mxm_plain(A, B, op.PLUS_FLOAT, op.MIN_FLOAT, float("inf")))
     A, B = _bins_operands(dev, "i32")
     _same_csr(K9.mxm(A, B, op.MULT_INT, op.PLUS_INT, 0), K9.mxm_plain(A, B, op.MULT_INT, op.PLUS_INT, 0))
+
+
+def _wide_operands(dev, n=1 << 22, m=8, k=1000, per_row=20, seed=23):
+    """A: m x k, every entry stored (large rows of k x per_row products); B:
+    k x n with per_row random columns a row; f32 values in [0.5, 1.5)."""
+    rng = np.random.default_rng(seed)
+    a = sp.csr_matrix(rng.uniform(0.5, 1.5, (m, k)).astype(np.float32))
+    rows = np.repeat(np.arange(k), per_row)
+    b = sp.csr_matrix((rng.uniform(0.5, 1.5, rows.size).astype(np.float32), (rows, rng.integers(0, n, rows.size))),
+                      shape=(k, n))
+    b.sum_duplicates()
+    return F.csr_from_scipy(a, device=dev), F.csr_from_scipy(b, device=dev)
+
+
+def test_mxm_numeric_allocates_only_c(dev):
+    """Kernel 9 allocates C, the compaction's scratch and its small m-sized
+    arrays, and nothing that grows with n: 8 large rows against B of 2^22
+    columns (sixteen cluster windows), where one dense accumulator a row
+    would take 128 MiB.  Against the plain version too."""
+    A, B = _wide_operands(dev)
+    plan = K9.mxm_plan(A, B)
+    assert plan.nlarge == A.shape[0]
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    got = K9.mxm(A, B, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - before
+    size = got.capacity
+    assert size > 100_000
+    # cols, values, rows (12 bytes an entry) and the compaction's copy (8); 1 MiB for the m-sized arrays
+    assert peak <= 20 * size + (1 << 20), (peak, size)
+    _same_csr(got, K9.mxm_plain(A, B, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0), float_plus=True)
+
+
+def test_mxm_large_cluster_that_does_not_fit_raises(dev, monkeypatch):
+    """A cluster whose CTAs' shared memory the card cannot give (here W of
+    2^18 columns, 1 MiB of values a CTA) raises; nothing falls back."""
+    A, B = _wide_operands(dev)
+    monkeypatch.setattr(K9, "LARGE_SHARED_BYTES", 4 << 20)
+    kernels.reset_launches()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        K9.mxm(A, B, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)
+    assert kernels.LAUNCHES["spgemm_mxm"] == 0
+
+
+def _medium_operands(dev, dtype, n=1 << 18, nan=False, seed=24):
+    """A @ B with medium rows whose columns span n = 2^18 (three radix
+    passes): rows 0-3 take 200 to 1,600 of B's first 2,000 rows (4 random
+    columns each, 800 to 6,400 products); row 4 takes B's rows 3,000-3,999,
+    whose one entry is column 12,345 (1,000 products, one column); the
+    other rows are small.  With ``nan`` some of B's f32 values are NaN."""
+    rng = np.random.default_rng(seed)
+    k = 4000
+    b_rows = np.concatenate([np.repeat(np.arange(3000), 4), np.arange(3000, 4000)])
+    b_cols = np.concatenate([rng.integers(0, n, 3 * 4000), np.full(1000, 12345)])
+    b = sp.csr_matrix((rng.uniform(0.5, 1.5, b_rows.size).astype(np.float32), (b_rows, b_cols)), shape=(k, n))
+    b.sum_duplicates()
+    heavy = [rng.choice(2000, c, replace=False) for c in (200, 400, 800, 1600)] + [np.arange(3000, 4000)]
+    a_rows = np.concatenate([np.repeat(np.arange(5), [len(h) for h in heavy]), rng.integers(5, 300, 900)])
+    a_cols = np.concatenate([*heavy, rng.integers(0, k, 900)])
+    a = sp.csr_matrix((rng.uniform(0.5, 1.5, a_rows.size).astype(np.float32), (a_rows, a_cols)), shape=(300, k))
+    a.sum_duplicates()
+    if nan:
+        b.data[rng.random(b.nnz) < 0.01] = np.nan
+    if dtype == "i32":
+        a, b = (a * 1000).astype(np.int32), (b * 1000).astype(np.int32)
+    return F.csr_from_scipy(a, device=dev), F.csr_from_scipy(b, device=dev)
+
+
+def test_mxm_medium_rows_radix_sorted(dev):
+    """Medium rows of columns up to 2^18 (three 8-bit radix passes) and one
+    whose 1,000 products all hit one column, against the plain version:
+    MULT/PLUS f32, PLUS/MIN and PLUS/MAX i32 bitwise."""
+    assert K9.radix_passes(1 << 18) == 3
+    A, B = _medium_operands(dev, "f32")
+    plan = K9.mxm_plan(A, B)
+    assert plan.nmedium == 5 and plan.nlarge == 0
+    _same_csr(K9.mxm(A, B, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0),
+              K9.mxm_plain(A, B, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0), float_plus=True)
+    one = K9.mxm(A, B, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)
+    assert int(one.indptr[5] - one.indptr[4]) == 1 and int(one.cols[int(one.indptr[4])]) == 12345
+    A, B = _medium_operands(dev, "i32")
+    for oa, init in ((op.MIN_INT, np.iinfo(np.int32).max), (op.MAX_INT, np.iinfo(np.int32).min)):
+        _same_csr(K9.mxm(A, B, op.PLUS_INT, oa, init), K9.mxm_plain(A, B, op.PLUS_INT, oa, init))
+
+
+@pytest.mark.parametrize("add", ["MIN", "MAX"])
+def test_mxm_nan_through_remote_cas(dev, add):
+    """f32 MIN / MAX fold NaN (torch.minimum / maximum propagate it) through
+    the CAS loop: into a cluster neighbour's shared memory in the large
+    bin, into the table in the others; bitwise against the plain version,
+    NaN equal to NaN, on spgemm_bins and on the medium rows."""
+    a, b = spgemm_bins()
+    rng = np.random.default_rng(25)
+    b.data[rng.random(b.nnz) < 0.01] = np.nan
+    A, B = F.csr_from_scipy(a, device=dev), F.csr_from_scipy(b, device=dev)
+    oa = getattr(op.FLOAT, add)
+    for mul in ("PLUS", "MULT"):
+        om = getattr(op.FLOAT, mul)
+        got = K9.mxm(A, B, om, oa, oa.identity)
+        assert torch.isnan(got.values[:int(got.nnz)]).any()
+        _same_csr(got, K9.mxm_plain(A, B, om, oa, oa.identity))
+    A, B = _medium_operands(dev, "f32", nan=True)
+    _same_csr(K9.mxm(A, B, op.PLUS_FLOAT, oa, oa.identity), K9.mxm_plain(A, B, op.PLUS_FLOAT, oa, oa.identity))
+
+
+@pytest.mark.parametrize("windows", [False, True])
+def test_mxm_nan_init_keeps_only_reached_columns(dev, monkeypatch, windows):
+    """With init NaN every folded value is NaN and is kept (NaN != NaN), but
+    only at the (i, j) that some product reaches: the large bin, whose
+    untouched columns also hold NaN once init is folded in, must keep them
+    out (its occupancy bitmap), in one cluster window or, with W = 64 forced,
+    in many.  PLUS/MIN and MULT/PLUS f32 on spgemm_bins, bitwise against the
+    plain version (NaN equal to NaN), and C's structure against A @ B's."""
+    if windows:
+        monkeypatch.setattr(K9, "LARGE_SHARED_BYTES", K9.LARGE_STATIC_BYTES + 4 * 64 + 64 // 8)
+    a, b = spgemm_bins()
+    A, B = _bins_operands(dev, "f32")
+    assert K9.mxm_plan(A, B).nlarge > 0
+    pattern = ((a != 0).astype(np.int32) @ (b != 0).astype(np.int32)).tocsr()
+    pattern.sort_indices()
+    for om, oa in ((op.PLUS_FLOAT, op.MIN_FLOAT), (op.MULT_FLOAT, op.PLUS_FLOAT)):
+        got = K9.mxm(A, B, om, oa, float("nan"))
+        _same_csr(got, K9.mxm_plain(A, B, om, oa, float("nan")))
+        k = int(got.nnz)
+        assert k == pattern.nnz
+        np.testing.assert_array_equal(got.indptr.cpu().numpy(), pattern.indptr)
+        np.testing.assert_array_equal(got.cols[:k].cpu().numpy(), pattern.indices)
+        assert torch.isnan(got.values[:k]).all()
 
 
 def test_mxm_drops_init_valued_results(dev):
@@ -595,9 +731,14 @@ def test_mxm_drops_init_valued_results(dev):
     got = K9.mxm(A, B, op.MULT_INT, op.PLUS_INT, 0)
     ref = K9.mxm_plain(A, B, op.MULT_INT, op.PLUS_INT, 0)
     assert int(ref.nnz) < ref.capacity - 100
-    large = K9.mxm_plan(A, B).rows[-1].item()
-    ip = ref.indptr.cpu()
-    assert int(ip[large + 1] - ip[large]) < A.shape[0]  # a large row left something out
+    plan = K9.mxm_plan(A, B)
+    a, b = spgemm_bins()
+    reached = np.diff(((a != 0).astype(np.int32) @ (b != 0).astype(np.int32)).tocsr().indptr)
+    kept = np.diff(ref.indptr.cpu().numpy())
+    rows = plan.rows.cpu().numpy()
+    medium, large = rows[plan.nsmall:plan.nsmall + plan.nmedium], rows[plan.nsmall + plan.nmedium:]
+    assert (kept[large] < reached[large]).any()  # a large row left something out
+    assert (kept[medium] < reached[medium]).any()  # and a medium row
     _same_csr(got, ref)
     A, B = _bins_operands(dev, "f32")
     got = K9.mxm(A, B, op.PLUS_FLOAT, op.MIN_FLOAT, 2.0)

@@ -292,6 +292,31 @@ def test_mxm_plan_fills_the_three_bins():
     np.testing.assert_allclose(v, ref.data, rtol=1e-5)
 
 
+@pytest.mark.parametrize("n,shape,passes", [
+    (2000, (16, 128, 1), 2),
+    (1 << 18, (16, 1 << 14, 1), 3),
+    (1 << 20, (16, 1 << 15, 2), 3),
+    (1 << 24, (16, 1 << 15, 32), 3),
+])
+def test_cluster_shape(n, shape, passes):
+    """The large rows' cluster at 132 SMs and 227 KB of shared memory a CTA:
+    CLUSTER (16) CTAs, W the least power of two that covers n with them, at
+    most 2^15 (128 KB of f32 values and 4 KB of bitmap), and the windows that cover n; a
+    cluster of 8 holds twice as many columns a CTA, up to 2^15; the medium
+    rows' radix passes (bytes of n - 1)."""
+    assert K9.CLUSTER == 16
+    c, w, windows = K9.cluster_shape(n, 132, K9.LARGE_SHARED_BYTES)
+    assert (c, w, windows) == shape
+    assert c * w * windows >= n > c * w * (windows - 1)
+    assert 4 * w + w // 8 + K9.LARGE_STATIC_BYTES <= K9.LARGE_SHARED_BYTES
+    c8, w8, windows8 = K9.cluster_shape(n, 132, K9.LARGE_SHARED_BYTES, 8)
+    assert c8 == 8 and c8 * w8 * windows8 >= n and w8 == min(2 * w, 1 << 15)
+    assert K9.cluster_shape(n, 4, K9.LARGE_SHARED_BYTES)[0] == 4  # no cluster wider than the card
+    assert K9.radix_passes(n) == passes
+    with pytest.raises(ValueError, match="hold no 32 columns"):
+        K9.cluster_shape(n, 132, K9.LARGE_STATIC_BYTES + 64)
+
+
 def test_mxm_codes_and_cpu_dispatch():
     """The gate is kernel 1's: the six muls, PLUS / MIN / MAX, f32 and i32;
     CPU tensors and explicit caps count as the torch path."""
@@ -320,5 +345,11 @@ def test_mxm_times_tool_graphs_and_kernel_names():
     assert MT.kernel_name("void (anonymous namespace)::numeric_small<float, 1, 0>(Operands, Bins, Out<float>)") \
         == "numeric_small"
     assert MT.kernel_name("_ZN41_GLOBAL__N__e3c8_9_spgemm_cu14symbolic_largeENS_8OperandsE") == "symbolic_large"
+    assert MT.kernel_name("void (anonymous namespace)::numeric_medium<float, 1, 0>(Operands, Bins, long long, "
+                          "long long, int, Out<float>)") == "numeric_medium"
     with pytest.raises(ValueError, match="unknown graphs"):
         MT.main(["--graphs", "mx99"])
+    assert MT.cluster_settings("8,16,1") == [8, 16, 1]
+    for bad in ("3", "8:512", "32", "16,0"):
+        with pytest.raises(ValueError, match="--cluster"):
+            MT.main(["--graphs", "mx13", "--cluster", bad])
