@@ -69,9 +69,21 @@ Phases:
      * mxm: the public ops.mxm, MULT/PLUS f32, on the 2^13 graph (against
        scipy) and the n = 2^20 graph (against the plain version), and once
        with products_cap, which takes the torch path;
+     * ops: the plain-PyTorch op layer at full size, every call under
+       torch.cuda.set_sync_debug_mode("error") but bsr_from_csr_host (host
+       code): on A, the n = 2^21 SpMV graph's entries (rows sorted by
+       column, duplicates summed, capacity 33,554,432), m_transpose,
+       m_eadd(A, Aᵀ, PLUS), m_emult(A, Aᵀ, MIN), the row and column sums and
+       the longest row and column extracted; kron(random_graph(2^11, 16,
+       seed=7), B) with B 1,024 x 1,024 of 1,024 entries (n = 2^21); every
+       vector op on two sparse vectors of 2^17 entries and dense ones at
+       n = 2^21; bsr_spmv and bsr_spmm (X of 64 columns) on a band of
+       half-width 64 at n = 2^17 in 128-tiles; against scipy and numpy
+       (A + Aᵀ, A.minimum(Aᵀ), scipy.sparse.kron, float64 sums), exact but
+       for the PLUS folds;
   5. the launch counts of phase 4: each slice's kernels must be above 0;
      the road slice reads the host once per run; the staged slice launches
-     no kernel 1;
+     no kernel 1; the ops slice none at all;
   6. times on the card: each kernel against its plain version (CUDA events),
      SpMV in GB/s of the bench.py byte model, the masked SpGEMM-T in
      products/s (bench_suite.py masked_spgemm_mprod_s), BFS / SSSP / PR /
@@ -98,15 +110,18 @@ Phases:
      ``torch.sparse.mm`` of two CSR tensors; a failure is printed as that
      graph's result) on the 2^13, 2^20 and skewed graphs, and mxm_mprod_s
      (bench_suite.py:524-557: products over the time of chained calls) at
-     n = 2^13.
+     n = 2^13; each call of the ops slice beside its bound and, for
+     m_transpose, m_eadd and bsr_spmm, one PyTorch call computing the same
+     function (``to_sparse_csc()``, the sum of two CSR tensors, a BSR
+     tensor times X; a failure printed as its result).
 
 Each kernel's row in the JSON line carries ``bound_ms``: the larger of its
 bytes (each input read once, each output written once, at this run's
 shapes and data) over 3.35 TB/s and its f32 operations over 67 TFLOP/s
 (``bound``).
 
-The line before the last is a JSON object of the kernels; the last line is
-``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
+The two lines before the last are JSON objects of the ops' times and of the
+kernels; the last line is ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
 Imports neither jax nor spla_tpu.
 """
 
@@ -135,10 +150,12 @@ from spla_tpu_torch.kernels import PROBE_PHASES, frontier as KF, level_update as
 from spla_tpu_torch.kernels import probe as K8, resident as K6, spgemm as K9, spmv as K1, staged as K7
 from spla_tpu_torch.kernels import traversal as K2
 from spla_tpu_torch.kernels.build import build_log, load_library
+from spla_tpu_torch import ops as O
 from spla_tpu_torch.ops import (DISPATCH_STATS, count_mxmT_products, m_reduce, masked_spmv, mxm,
                                 mxmT_masked, mxv_masked, vxm_masked, vxm_masked_dense)
 from spla_tpu_torch.ops.spgemm import mxmT_masked_plain
-from spla_tpu_torch.tools import ab_spmv as AB, level_times as LT, probe_spmv as PROBE, resident_levels as RL
+from spla_tpu_torch.tools import ab_spmv as AB, level_times as LT, ops_times as OT, probe_spmv as PROBE
+from spla_tpu_torch.tools import resident_levels as RL
 from spla_tpu_torch.tools.graphs import (HUB_ROWS, barbell_graph, build_graph, hub_graph, hub_spgemm,
                                          path_graph, powerlaw_graph, random_graph, road_graphs, road_grid,
                                          skewed_graph, spgemm_bins)
@@ -1156,6 +1173,134 @@ def check_probes(G, R):
     print(f"mxmt_gather at n={N_GRAPH}: equal to its plain version with and without values", flush=True)
 
 
+@contextlib.contextmanager
+def no_sync():
+    """torch.cuda.set_sync_debug_mode("error") inside the block: a host read
+    or a copy from the host raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def run_ops(G):
+    """Phase 4's ops slice (``tools/ops_times.py``'s calls), every call under
+    set_sync_debug_mode("error") but bsr_from_csr_host (host code by
+    design): Aᵀ = m_transpose(A), the band's BSR, then each call."""
+    I = G["ops"]
+    with no_sync():
+        I["At"] = O.m_transpose(I["A"], op.IDENTITY_FLOAT)
+    I["band"] = F.bsr_from_csr_host(I["Band"], block=OT.BLOCK)
+    calls = OT.calls(I)
+    with no_sync():
+        R = {name: call() for name, call in calls.items()}
+    torch.cuda.synchronize()
+    return R
+
+
+def same_stored(what, got, ref, capacity):
+    """A CsrMatrix result against a scipy CSR: capacity, nnz, indptr, columns
+    and values of the stored entries, bitwise."""
+    nnz = ref.nnz
+    if got.capacity != capacity or int(got.nnz) != nnz:
+        raise AssertionError(f"{what}: capacity {got.capacity}, nnz {int(got.nnz)}; want {capacity}, {nnz}")
+    for name, g, r in (("indptr", got.indptr, ref.indptr), ("columns", got.cols[:nnz], ref.indices),
+                       ("values", got.values[:nnz], ref.data)):
+        check_close(f"{what} {name}", g.cpu().long() if name != "values" else g.cpu(),
+                    torch.from_numpy(r.astype(np.int64) if name != "values" else r), True)
+
+
+def same_vec(what, got, idx, vals, capacity):
+    """A SparseVec result against numpy's indices and values, bitwise."""
+    k = idx.size
+    if got.capacity != capacity or int(got.nnz) != k:
+        raise AssertionError(f"{what}: capacity {got.capacity}, nnz {int(got.nnz)}; want {capacity}, {k}")
+    check_close(f"{what} indices", got.indices[:k].cpu().long(), torch.from_numpy(idx.astype(np.int64)), True)
+    check_close(f"{what} values", got.values[:k].cpu(), torch.from_numpy(vals.astype(np.float32)), True)
+    if bool((got.indices[k:] != got.n).any()):
+        raise AssertionError(f"{what}: padding indices are not n")
+
+
+def check_ops(G, R):
+    """Each result against scipy / numpy: structures and element-wise values
+    bitwise, PLUS folds within check_close's tolerance of float64."""
+    I = G["ops"]
+    a, n = I["A_sp"], OT.N
+    cap = I["A"].capacity
+    at = a.T.tocsr()
+    at.sort_indices()
+    same_stored("m_transpose", I["At"], at, cap)
+    same_stored("m_transpose (the timed call)", R["m_transpose"], at, cap)
+    sym = (a + a.T).tocsr()
+    sym.eliminate_zeros()
+    sym.sort_indices()
+    same_stored("m_eadd(A, Aᵀ, PLUS) against A + Aᵀ", R["m_eadd"], sym, 2 * cap)
+    recip = a.minimum(a.T).tocsr()
+    recip.eliminate_zeros()
+    recip.sort_indices()
+    same_stored("m_emult(A, Aᵀ, MIN) against A.minimum(Aᵀ)", R["m_emult"], recip, 2 * cap)
+    a64 = a.astype(np.float64)
+    for what, got, axis in (("m_reduce_by_row", R["m_reduce_by_row"], 1),
+                            ("m_reduce_by_column", R["m_reduce_by_column"], 0)):
+        ref64 = torch.from_numpy(np.asarray(a64.sum(axis=axis)).ravel()).to(DEVICE)
+        check_close(f"{what} PLUS", got.values, ref64.float(), False, ref64)
+    i, j = I["row"], I["col"]
+    same_vec(f"m_extract_row({i})", R["m_extract_row"], a.indices[a.indptr[i]:a.indptr[i + 1]],
+             a.data[a.indptr[i]:a.indptr[i + 1]], n)
+    same_vec(f"m_extract_column({j})", R["m_extract_column"], at.indices[at.indptr[j]:at.indptr[j + 1]],
+             at.data[at.indptr[j]:at.indptr[j + 1]], n)
+    k = sp.kron(I["KronA_sp"], I["KronB_sp"], format="csr")
+    k.sort_indices()
+    same_stored("kron against scipy.sparse.kron", R["kron"], k, I["KronA"].capacity * I["KronB"].capacity)
+    V = I["Vec_np"]
+    du, dv, dd, dd2 = (np.zeros(n, np.float32) for _ in range(4))
+    du[V["iu"]], dv[V["iv"]], dd[:], dd2[:] = V["vu"], V["vv"], V["d"], V["d2"]
+    su, sv = np.zeros(n, bool), np.zeros(n, bool)
+    su[V["iu"]], sv[V["iv"]] = True, True
+    ucap = R["v_map"].capacity
+    union = np.nonzero(su | sv)[0]
+    same_vec("v_eadd PLUS", R["v_eadd"], union, (du + dv)[union], 2 * ucap)
+    union = np.nonzero(su | (dd != 0))[0]
+    same_vec("v_eadd MIN sparse-dense", R["v_eadd sparse-dense"], union, np.minimum(du, dd)[union], ucap + n)
+    both = np.nonzero(su & sv)[0]
+    same_vec("v_emult MULT", R["v_emult"], both, (du * dv)[both], 2 * ucap)
+    same_vec("v_map AINV", R["v_map"], np.sort(V["iu"]), -du[np.sort(V["iu"])], ucap)
+    check_close("v_assign_masked", R["v_assign_masked"].values.cpu(),
+                torch.from_numpy(np.where(su & (du > 0), np.float32(0.25), dd)), True)
+    new = np.where(sv, np.minimum(dd, dv), dd)
+    r, fdb = R["v_eadd_fdb"]
+    check_close("v_eadd_fdb r", r.values.cpu(), torch.from_numpy(new), True)
+    changed = np.nonzero(new != dd)[0]
+    same_vec("v_eadd_fdb feedback", fdb, changed, new[changed], R["v_map"].capacity)
+    new = np.minimum(dd, dd2)
+    r, fdb = R["v_eadd_fdb dense"]
+    check_close("v_eadd_fdb dense r", r.values.cpu(), torch.from_numpy(new), True)
+    check_close("v_eadd_fdb dense feedback", fdb.values.cpu(), torch.from_numpy(np.where(new != dd, new, 0)),
+                True)
+    for what, got, ref in (("v_reduce PLUS", R["v_reduce"], du.astype(np.float64).sum()),
+                           ("v_reduce dense PLUS", R["v_reduce dense"], dd.astype(np.float64).sum())):
+        ref64 = torch.tensor([ref], dtype=torch.float64, device=DEVICE)
+        check_close(what, got.value.reshape(1), ref64.float(), False, ref64)
+    for what, got, want in (("v_count_mf", R["v_count_mf"], V["iu"].size),
+                            ("v_count_mf dense", R["v_count_mf dense"], int((dd != 0).sum()))):
+        if got.value.dtype != torch.uint32 or int(got.value.to(torch.int64)) != want:
+            raise AssertionError(f"{what}: {got.value}, want {want} (uint32)")
+    band = I["Band_sp"].astype(np.float64)
+    ref64 = torch.from_numpy(band @ V["x"].astype(np.float64)).to(DEVICE)
+    check_close("bsr_spmv", R["bsr_spmv"], ref64.float(), False, ref64)
+    ref64 = torch.from_numpy(band @ V["X"].astype(np.float64)).to(DEVICE)
+    check_close("bsr_spmm", R["bsr_spmm"], ref64.float(), False, ref64)
+    b = I["band"]
+    print(f"ops: A n={n} nnz={a.nnz} (capacity {cap}); Aᵀ, A + Aᵀ ({sym.nnz} entries), A.minimum(Aᵀ) "
+          f"({recip.nnz}), kron ({k.nnz}, n={k.shape[0]}) equal scipy's; row and column sums within "
+          f"1e-5 of float64; row {i} ({int(R['m_extract_row'].nnz)} entries) and column {j} "
+          f"({int(R['m_extract_column'].nnz)}) extracted; the vector chain at n={n} equals numpy; "
+          f"bsr_spmv / bsr_spmm (n={OT.N_BAND}, {int(b.nnzb)} blocks of {b.block}, X of {OT.SPMM_COLS} columns) "
+          f"within 1e-5 of float64; every call with no host sync", flush=True)
+
+
 # ---------------------------------------------------------------- timing
 
 
@@ -1728,6 +1873,41 @@ def time_mxm(G, card):
     return {"spgemm_mxm": rows["n=2^20"][:4]}, rows["n=2^20"][4]
 
 
+def library_call(name, fn):
+    """``(ms, note)`` of one PyTorch call that computes the same function;
+    a failure (out of memory, a refusal) is printed as the result."""
+    try:
+        fn()
+        torch.cuda.synchronize()
+        ms = cuda_ms(fn, 5, 1)
+        return ms, f"library {name} {ms:.4f} ms"
+    except RuntimeError as e:
+        return None, f"library {name} failed: {type(e).__name__}: {str(e).splitlines()[0][:200]}"
+
+
+def time_ops(G, R, card):
+    """Each ops call (CUDA events; 5 calls after 1 for the matrix ops of
+    33.5 M entries, 20 after 3 for the rest) beside its bound (``bound`` of
+    ``tools/ops_times.py``'s ``work``) and, where one PyTorch call computes
+    the same function, that call's time: ``to_sparse_csc()`` for
+    m_transpose, ``A + B`` of two CSR tensors for m_eadd PLUS and
+    ``torch.sparse_bsr_tensor(...) @ X`` for bsr_spmm.  Returns the rows of
+    the ops JSON line."""
+    I = G["ops"]
+    bounds = {name: bound(*w) for name, w in OT.work(I, R).items()}
+    library = OT.library(I)
+    big = {"m_transpose", "m_eadd", "m_emult", "kron"}
+    rows = []
+    for name, call in OT.calls(I).items():
+        ms = cuda_ms(call, 5, 1) if name in big else cuda_ms(call)
+        bound_ms, bound_by = bounds[name]
+        lib_ms, note = library_call(*library[name]) if name in library else (None, "no library call")
+        torch.cuda.empty_cache()
+        print(f"time op {name}: {ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); {note} [{card}]", flush=True)
+        rows.append({"name": name, "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+                     "library": library[name][0] if name in library else None})
+    return rows
+
 # ---------------------------------------------------------------- main
 
 
@@ -1778,7 +1958,8 @@ def main():
                                    ("road", run_road, check_road),
                                    ("staged", run_staged, check_staged_path),
                                    ("probes", run_probes, check_probes),
-                                   ("mxm", run_mxm, check_mxm_slice)):
+                                   ("mxm", run_mxm, check_mxm_slice),
+                                   ("ops", run_ops, check_ops)):
         kernels.reset_launches()
         for k in DISPATCH_STATS:
             DISPATCH_STATS[k] = 0
@@ -1817,6 +1998,9 @@ def main():
                              "both directions")
     if launches["mxm"]["spgemm_mxm"] != 2 or stats["mxm"]["mxm_kernel"] != 2 or stats["mxm"]["mxm_torch"] != 1:
         raise AssertionError("the mxm slice must launch kernel 9 twice and take the torch path with products_cap")
+    print(f"ops: kernels.LAUNCHES {json.dumps(launches['ops'])}", flush=True)
+    if any(launches["ops"].values()):
+        raise AssertionError("the ops slice launched a kernel: its ops are plain PyTorch")
     staged = astats["staged"]
     print(f"staged: algorithms.STATS {json.dumps(staged)}", flush=True)
     if launches["staged"]["spmv_pull"] or staged["pull"] == 0 or staged["resident"]:
@@ -1834,6 +2018,7 @@ def main():
     time_variants(G, card)
     mxm_times, mxm_library_ms = time_mxm(G, card)
     times.update(mxm_times)
+    ops_rows = time_ops(G, results["ops"], card)
 
     # one PyTorch call computes the same function only for the pull SpMVs and mxm
     library = {"spmv_pull": cusparse_ms, "spmv_pull_staged": cusparse_ms, "spgemm_mxm": mxm_library_ms}
@@ -1852,6 +2037,7 @@ def main():
             if k in DEVICE_MS:
                 row["device_ms"] = DEVICE_MS[k]
             rows_out.append(row)
+    print(json.dumps({"ops": ops_rows}))
     print(json.dumps({"kernels": rows_out}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
@@ -1863,6 +2049,10 @@ def build_graphs():
     G = {"M": csr(indptr, rows, cols, vals, N_SPMV),
          "Minf": csr(indptr, rows, cols, vals, N_SPMV, fill=np.float32(np.inf)),
          "Mi": csr(indptr, rows, cols, (vals * 2000 - 1000).astype(np.int32), N_SPMV)}
+    G["ops"] = I = OT.build_inputs(DEVICE, (indptr, rows, cols, vals))
+    print(f"graphs: ops A n={N_SPMV} nnz={I['A_sp'].nnz} (capacity {I['A'].capacity}), row {I['row']} and "
+          f"column {I['col']} the longest; kron operands nnz {I['KronA_sp'].nnz} and {I['KronB_sp'].nnz}; band "
+          f"n={OT.N_BAND} nnz={I['Band_sp'].nnz}", flush=True)
     hp, hr, hc, hv = hub_graph(N_GRAPH)
     G["H"] = csr(hp, hr, hc, hv, N_GRAPH)
     fp, fr, fc, fv = build_graph(N_FEW, 1, seed=4)

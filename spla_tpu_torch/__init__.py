@@ -1,4 +1,4 @@
-"""spla_tpu_torch — spla_tpu's SpMV, traversal and SpGEMM-T slices on PyTorch and CUDA.
+"""spla_tpu_torch — spla_tpu's op layer, traversals and SpGEMM on PyTorch and CUDA.
 
 A port of ``spla_tpu`` (JAX/XLA/Pallas, kept beside it as the reference)
 to PyTorch, with hand-written Hopper kernels for each slice's hot path:
@@ -8,7 +8,13 @@ to PyTorch, with hand-written Hopper kernels for each slice's hot path:
   (``algorithms.bfs``, ``sssp``, ``pr``); BFS and SSSP on graphs whose CSR
   and state fit the L2 run whole in one persistent kernel instead;
 * the masked SpGEMM-T (``ops.mxmT_masked``), with ``ops.m_reduce``, and
-  triangle counting over it (``algorithms.tc``);
+  triangle counting over it (``algorithms.tc``); the SpGEMM ``ops.mxm``;
+* the rest of the op layer, in plain PyTorch: the vector ops
+  (``ops.v_eadd``, ``v_emult``, ``v_map``, ``v_reduce``, ``v_count_mf``,
+  ``v_assign_masked``, ``v_eadd_fdb``), the matrix ops (``ops.m_eadd``,
+  ``m_emult``, ``m_reduce_by_row``/``_by_column``, ``m_transpose``,
+  ``m_extract_row``/``_column``, ``kron``), the BSR products
+  (``ops.bsr_spmv``, ``bsr_spmm``) and the reference's ``exec_*`` names;
 * MatrixMarket IO (``io``), a timer (``timer``), the library settings
   (``library``) and the ``bfs``, ``sssp``, ``pr`` and ``tc`` example CLIs
   (``python -m spla_tpu_torch.examples.bfs ...``).
@@ -21,7 +27,7 @@ or raise.  This package imports neither jax nor spla_tpu.
 
 from . import algorithms, formats, interop, kernels, op, ops
 from .algorithms import tc
-from .containers import CooMatrix, CsrMatrix, DenseVec, Scalar, SparseVec
+from .containers import BsrMatrix, CooMatrix, CsrMatrix, DenseVec, Scalar, SparseVec
 from .descriptor import Descriptor
 from .ops import count_mxm_products, count_mxmT_products, m_reduce, mxmT_masked
 from .types import BOOL, FLOAT, INT, UINT, Type, type_from_dtype
@@ -45,6 +51,7 @@ __all__ = [
     "SparseVec",
     "CooMatrix",
     "CsrMatrix",
+    "BsrMatrix",
     "Descriptor",
     "Type",
     "BOOL",

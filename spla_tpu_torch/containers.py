@@ -1,4 +1,4 @@
-"""Frozen containers of tensors: Scalar, DenseVec, SparseVec, CooMatrix, CsrMatrix.
+"""Frozen containers of tensors: Scalar, DenseVec, SparseVec, CooMatrix, CsrMatrix, BsrMatrix.
 
 Counterpart of ``spla_tpu/containers.py``, with the same fields and the
 same conventions:
@@ -17,9 +17,10 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
-__all__ = ["Scalar", "DenseVec", "SparseVec", "CooMatrix", "CsrMatrix"]
+__all__ = ["Scalar", "DenseVec", "SparseVec", "CooMatrix", "CsrMatrix", "BsrMatrix"]
 
 
 @dataclass(frozen=True)
@@ -27,6 +28,10 @@ class Scalar:
     """Typed 0-d value."""
 
     value: torch.Tensor
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.value.dtype
 
 
 @dataclass(frozen=True)
@@ -39,6 +44,16 @@ class DenseVec:
     @property
     def n(self) -> int:
         return self.values.shape[0]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.values.dtype
+
+    @staticmethod
+    def full(n: int, fill, dtype=None, *, device) -> "DenseVec":
+        """n slots of ``fill`` (a numpy ``dtype``, as the builders take) on ``device``."""
+        fill_t = torch.from_numpy(np.asarray(fill, dtype=dtype)).to(device)
+        return DenseVec(fill_t.expand(n).clone(), fill_t)
 
     def stored_mask(self) -> torch.Tensor:
         return self.values != self.fill
@@ -58,6 +73,10 @@ class SparseVec:
     def capacity(self) -> int:
         return self.indices.shape[0]
 
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.values.dtype
+
     def valid_mask(self) -> torch.Tensor:
         return torch.arange(self.capacity, device=self.indices.device) < self.nnz
 
@@ -76,6 +95,10 @@ class CooMatrix:
     @property
     def capacity(self) -> int:
         return self.rows.shape[0]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.values.dtype
 
     def valid_mask(self) -> torch.Tensor:
         return torch.arange(self.capacity, device=self.rows.device) < self.nnz
@@ -102,8 +125,43 @@ class CsrMatrix:
         return self.cols.shape[0]
 
     @property
+    def dtype(self) -> torch.dtype:
+        return self.values.dtype
+
+    @property
     def device(self) -> torch.device:
         return self.values.device
 
     def valid_mask(self) -> torch.Tensor:
         return torch.arange(self.capacity, device=self.cols.device) < self.nnz
+
+
+@dataclass(frozen=True)
+class BsrMatrix:
+    """Block-sparse rows of dense ``block x block`` tiles; padding block rows
+    = ``mb``.  A stored block's unstored elements hold the fill."""
+
+    shape: tuple  # (m, n) in elements
+    block: int
+    indptr: torch.Tensor  # [mb+1] int32 block-row pointers
+    cols: torch.Tensor  # [bcap] int32 block columns
+    blocks: torch.Tensor  # [bcap, block, block]
+    row_ids: torch.Tensor  # [bcap] int32 block rows
+    nnzb: torch.Tensor  # 0-d int32
+    fill: torch.Tensor  # 0-d
+
+    @property
+    def block_shape(self) -> tuple:
+        bs = self.block
+        return ((self.shape[0] + bs - 1) // bs, (self.shape[1] + bs - 1) // bs)
+
+    @property
+    def capacity(self) -> int:
+        return self.cols.shape[0]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.blocks.dtype
+
+    def valid_mask(self) -> torch.Tensor:
+        return torch.arange(self.capacity, device=self.cols.device) < self.nnzb

@@ -11,13 +11,16 @@ import weakref
 import numpy as np
 import torch
 
-from .containers import CooMatrix, CsrMatrix, DenseVec, SparseVec
+from .containers import BsrMatrix, CooMatrix, CsrMatrix, DenseVec, SparseVec
 
 __all__ = [
     "WeakIdCache",
     "host_coo",
     "skew_stats",
     "is_skewed",
+    "sparse_vec_from_entries",
+    "dense_vec_from_entries",
+    "coo_from_entries",
     "csr_from_entries",
     "csr_from_scipy",
     "csr_transpose_host",
@@ -27,6 +30,9 @@ __all__ = [
     "csr_to_coo",
     "coo_to_csr",
     "csr_to_dense",
+    "coo_to_dense",
+    "bsr_from_csr_host",
+    "kept_positions",
     "split_rows",
 ]
 
@@ -101,33 +107,80 @@ def _csr_from_sorted_host(shape, r, c, v, fillv, capacity, device) -> CsrMatrix:
     pv = np.full(cap, fillv, fillv.dtype)
     pr = np.full(cap, m, np.int32)
     pc[:nnz], pv[:nnz], pr[:nnz] = c, v, r
-
-    def dev(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
     return CsrMatrix(
         shape=(m, n),
-        indptr=dev(indptr.astype(np.int32)),
-        cols=dev(pc),
-        values=dev(pv),
-        row_ids=dev(pr),
+        indptr=_on(indptr.astype(np.int32), device),
+        cols=_on(pc, device),
+        values=_on(pv, device),
+        row_ids=_on(pr, device),
         nnz=torch.tensor(nnz, dtype=torch.int32, device=device),
-        fill=dev(np.asarray(fillv)),
+        fill=_on(np.asarray(fillv), device),
     )
+
+
+def _on(a, device) -> torch.Tensor:
+    # np.asarray keeps a 0-d fill 0-d (np.ascontiguousarray makes it [1])
+    return torch.from_numpy(np.asarray(a, order="C")).to(device)
+
+
+def sparse_vec_from_entries(n: int, indices, values, fill=0, dtype=None, reduce_fn=None,
+                            capacity: int | None = None, *, device) -> SparseVec:
+    """SparseVec from (index, value) pairs; duplicates fold left to right
+    with ``reduce_fn`` (default: keep the last)."""
+    indices = np.asarray(indices, dtype=np.int64)
+    fillv = np.asarray(fill, dtype=dtype)
+    idx, val = _dedup_host(indices, np.asarray(values, dtype=fillv.dtype), reduce_fn)
+    nnz = int(idx.size)
+    cap = capacity if capacity is not None else max(nnz, 1)
+    if cap < nnz:
+        raise ValueError(f"capacity {cap} < nnz {nnz}")
+    pidx = np.full(cap, n, np.int32)
+    pval = np.full(cap, fillv, fillv.dtype)
+    pidx[:nnz], pval[:nnz] = idx, val
+    return SparseVec(n=n, indices=_on(pidx, device), values=_on(pval, device),
+                     nnz=torch.tensor(nnz, dtype=torch.int32, device=device), fill=_on(fillv, device))
+
+
+def dense_vec_from_entries(n: int, indices, values, fill=0, dtype=None, reduce_fn=None, *,
+                           device) -> DenseVec:
+    return sparse_to_dense_vec(sparse_vec_from_entries(n, indices, values, fill, dtype, reduce_fn,
+                                                       device=device))
+
+
+def _matrix_entries_host(shape, rows, cols, values, fill, dtype, reduce_fn):
+    """Host ``(rows, cols, values, fill)`` sorted row-major, duplicates folded."""
+    m, n = shape
+    rows = np.asarray(rows, dtype=np.int64)
+    cols = np.asarray(cols, dtype=np.int64)
+    fillv = np.asarray(fill, dtype=dtype)
+    k, v = _dedup_host(rows * n + cols, np.asarray(values, dtype=fillv.dtype), reduce_fn)
+    return (k // n).astype(np.int32), (k % n).astype(np.int32), v, fillv
+
+
+def coo_from_entries(shape, rows, cols, values, fill=0, dtype=None, reduce_fn=None, capacity=None, *,
+                     device) -> CooMatrix:
+    """COO from (row, col, value) triples, sorted row-major; duplicates as
+    in ``csr_from_entries``."""
+    m, n = shape
+    r, c, v, fillv = _matrix_entries_host(shape, rows, cols, values, fill, dtype, reduce_fn)
+    nnz = int(r.size)
+    cap = capacity if capacity is not None else max(nnz, 1)
+    if cap < nnz:
+        raise ValueError(f"capacity {cap} < nnz {nnz}")
+    pr = np.full(cap, m, np.int32)
+    pc = np.zeros(cap, np.int32)
+    pv = np.full(cap, fillv, fillv.dtype)
+    pr[:nnz], pc[:nnz], pv[:nnz] = r, c, v
+    return CooMatrix(shape=(m, n), rows=_on(pr, device), cols=_on(pc, device), values=_on(pv, device),
+                     nnz=torch.tensor(nnz, dtype=torch.int32, device=device), fill=_on(fillv, device))
 
 
 def csr_from_entries(shape, rows, cols, values, fill=0, dtype=None, reduce_fn=None,
                      capacity=None, *, device) -> CsrMatrix:
     """CSR from (row, col, value) triples; duplicates fold left to right
     with ``reduce_fn`` (default: keep the last)."""
-    m, n = shape
-    rows = np.asarray(rows, dtype=np.int64)
-    cols = np.asarray(cols, dtype=np.int64)
-    fillv = np.asarray(fill, dtype=dtype)
-    values = np.asarray(values, dtype=fillv.dtype)
-    k, v = _dedup_host(rows * n + cols, values, reduce_fn)
-    return _csr_from_sorted_host((m, n), (k // n).astype(np.int32), (k % n).astype(np.int32),
-                                 v, fillv, capacity, device)
+    r, c, v, fillv = _matrix_entries_host(shape, rows, cols, values, fill, dtype, reduce_fn)
+    return _csr_from_sorted_host(shape, r, c, v, fillv, capacity, device)
 
 
 def csr_from_scipy(sp, fill=0, dtype=None, capacity=None, *, device) -> CsrMatrix:
@@ -209,19 +262,27 @@ def sparse_to_dense_vec(sv: SparseVec) -> DenseVec:
     return DenseVec(dense[: sv.n], sv.fill)
 
 
+def kept_positions(keep, size: int):
+    """``(pos, ok)``: the positions of the first ``size`` True entries of
+    ``keep``, in order, and which of the ``size`` slots hold one (``pos`` is
+    0 at the others): ``jnp.nonzero(keep, size=size)`` with no host read."""
+    k = keep.shape[0]
+    rank = torch.cumsum(keep, 0) - 1
+    target = torch.where(keep & (rank < size), rank, size)
+    pos = torch.full((size + 1,), k, dtype=torch.int64, device=keep.device)
+    pos.scatter_(0, target, torch.arange(k, device=keep.device))
+    ok = pos[:size] < k
+    return torch.where(ok, pos[:size], 0), ok
+
+
 def compact(values, keep, capacity: int, fill) -> SparseVec:
     """SparseVec of the entries where ``keep``, in index order, without a
     host sync: at most ``capacity`` entries, padding index ``n``."""
     n = keep.shape[0]
-    device = keep.device
-    pos = torch.cumsum(keep, 0) - 1
-    target = torch.where(keep & (pos < capacity), pos, capacity)
-    idx = torch.full((capacity + 1,), n, dtype=torch.int32, device=device)
-    idx.scatter_(0, target, torch.arange(n, dtype=torch.int32, device=device))
-    idx = idx[:capacity]
-    vals = torch.where(idx < n, values[idx.clamp(max=max(n - 1, 0)).long()], fill)
+    pos, ok = kept_positions(keep, capacity)
     nnz = torch.clamp(keep.sum(), max=capacity).to(torch.int32)
-    return SparseVec(n=n, indices=idx, values=vals, nnz=nnz, fill=fill)
+    return SparseVec(n=n, indices=torch.where(ok, pos, n).to(torch.int32),
+                     values=torch.where(ok, values[pos], fill), nnz=nnz, fill=fill)
 
 
 def dense_to_sparse_vec(dv: DenseVec, capacity: int | None = None) -> SparseVec:
@@ -281,3 +342,40 @@ def csr_to_dense(a: CsrMatrix) -> torch.Tensor:
     flat = a.row_ids.long() * (n + 1) + torch.where(valid, a.cols.long(), n)
     dense = index_set(a.fill.expand((m + 1) * (n + 1)).clone(), flat, vals)
     return dense.reshape(m + 1, n + 1)[:m, :n]
+
+
+def coo_to_dense(a: CooMatrix) -> torch.Tensor:
+    return csr_to_dense(coo_to_csr(a))
+
+
+def bsr_from_csr_host(a: CsrMatrix, block: int = 128, capacity=None) -> BsrMatrix:
+    """BSR of ``a`` in ``block x block`` tiles, built on the host; the result
+    lives on ``a``'s device.  Stored blocks are ordered by (block row, block
+    column); their unstored elements hold ``a.fill``."""
+    m, n = a.shape
+    mb, nb = -(-m // block), -(-n // block)
+    r, c, v = host_coo(a)
+    r, c = r.astype(np.int64), c.astype(np.int64)
+    bkey = (r // block) * nb + c // block
+    order = np.argsort(bkey, kind="stable")
+    bkey_s = bkey[order]
+    heads = np.ones(bkey_s.size, dtype=bool)
+    heads[1:] = bkey_s[1:] != bkey_s[:-1]
+    ukeys = bkey_s[heads]
+    nnzb = int(ukeys.size)
+    cap = capacity if capacity is not None else max(nnzb, 1)
+    if cap < nnzb:
+        raise ValueError(f"capacity {cap} < stored blocks {nnzb}")
+    fill = a.fill.cpu().numpy()
+    blocks = np.full((cap, block, block), fill, dtype=v.dtype)
+    blocks[np.cumsum(heads) - 1, r[order] % block, c[order] % block] = v[order]
+    bcols = np.zeros(cap, np.int32)
+    brows = np.full(cap, mb, np.int32)
+    bcols[:nnzb] = ukeys % nb
+    brows[:nnzb] = ukeys // nb
+    indptr = np.zeros(mb + 1, np.int64)
+    np.cumsum(np.bincount(brows[:nnzb], minlength=mb), out=indptr[1:])
+    dev = a.device
+    return BsrMatrix(shape=(m, n), block=block, indptr=_on(indptr.astype(np.int32), dev),
+                     cols=_on(bcols, dev), blocks=_on(blocks, dev), row_ids=_on(brows, dev),
+                     nnzb=torch.tensor(nnzb, dtype=torch.int32, device=dev), fill=_on(fill, dev))

@@ -23,7 +23,7 @@ __all__ = [
 ]
 
 # fields that are static Python values, not arrays
-_STATIC = {"shape", "n"}
+_STATIC = {"shape", "n", "block"}
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -61,7 +61,8 @@ def sparse_vec_from_numpy(n, indices, values, nnz, fill, device) -> C.SparseVec:
 
 def from_spla_tpu(obj, device):
     """The port's container of the same class name and fields as ``obj``
-    (a ``spla_tpu`` Scalar, DenseVec, SparseVec, CooMatrix or CsrMatrix)."""
+    (a ``spla_tpu`` Scalar, DenseVec, SparseVec, CooMatrix, CsrMatrix or
+    BsrMatrix)."""
     cls = getattr(C, type(obj).__name__, None)
     if cls is None or not dataclasses.is_dataclass(cls):
         raise TypeError(f"no port container for {type(obj).__name__}")

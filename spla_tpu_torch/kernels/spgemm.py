@@ -46,10 +46,10 @@ import torch
 from ..containers import CooMatrix, CsrMatrix
 from ..formats import WeakIdCache, compact, coo_to_csr
 from ..utils.primitives import expand_schedule
-from ..utils.segments import segmented_scan_fold
+from ..utils.segments import scalar_on, segmented_scan_fold
 from . import LAUNCHES
 from .build import check, load_library
-from .spmv import DTYPE_CODES, PULL_ADDS, _init_arg, _init_tensor, _on_cpu, _ptr, _require_cuda
+from .spmv import DTYPE_CODES, PULL_ADDS, _init_arg, _on_cpu, _ptr, _require_cuda
 
 __all__ = [
     "MXM_BLOCK_THRESHOLD",
@@ -313,7 +313,7 @@ def mxm(A: CsrMatrix, B: CsrMatrix, op_mul, op_add, init, out_capacity: int | No
     _check_shapes(A, B)
     m, n = A.shape[0], B.shape[1]
     device = A.values.device
-    fill = _init_tensor(init, A.values)
+    fill = scalar_on(init, A.values.dtype, A.values.device)
     init_t, init_bits = _init_arg(fill, A.values)
     plan = mxm_plan(A, B)
     cluster, width = 1, 32  # the large bin's shape, asked for only when it has rows

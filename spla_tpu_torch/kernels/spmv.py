@@ -272,19 +272,6 @@ def _init_arg(init, x):
     return None, int(value) & 0xFFFFFFFF
 
 
-def _init_tensor(init, like: torch.Tensor) -> torch.Tensor:
-    """``init`` as a 0-d tensor of like's dtype on its device, made there: a
-    number (or a host tensor's value) fills it, a tensor on that device is
-    converted.  No call copies from the host, which would wait for the
-    stream."""
-    value = init.value if hasattr(init, "value") else init
-    if isinstance(value, torch.Tensor) and value.device == like.device:
-        return value.to(like.dtype).reshape(())
-    if hasattr(value, "item"):  # a host tensor or a numpy scalar
-        value = value.item()
-    return torch.full((), value, dtype=like.dtype, device=like.device)
-
-
 def _out_arg(out, m, x, what):
     """The output of a CUDA launch: ``out`` if it is a contiguous [m] tensor
     of x's dtype on x's device (raises otherwise), or a new one."""

@@ -29,7 +29,7 @@ import torch
 from ..containers import CooMatrix, CsrMatrix
 from ..formats import compact, coo_to_csr
 from ..kernels import mxmt as K, spgemm as K9
-from ..kernels.spmv import _init_tensor
+from ..utils.segments import scalar_on
 from .spmv import DISPATCH_STATS
 
 __all__ = [
@@ -69,13 +69,13 @@ def mxm(A: CsrMatrix, B: CsrMatrix, op_mul, op_add, init, products_cap: int | No
     reach (spla_tpu's XLA path pads to ``products_cap``); with more entries
     than ``out_capacity`` the first ones in (row, column) order are stored
     and ``nnz`` is the capacity (spla_tpu reports the uncut count)."""
+    init_t = scalar_on(init, A.values.dtype, A.values.device)
     if (A.values.device.type != "cuda" or products_cap is not None or block_products is not None
             or K9.mxm_codes(op_mul, op_add, A.values.dtype) is None):
         DISPATCH_STATS["mxm_torch"] += 1
-        return K9.mxm_plain(A, B, op_mul, op_add, _init_tensor(init, A.values), products_cap, out_capacity,
-                            block_products)
+        return K9.mxm_plain(A, B, op_mul, op_add, init_t, products_cap, out_capacity, block_products)
     DISPATCH_STATS["mxm_kernel"] += 1
-    return K9.mxm(A, B, op_mul, op_add, _init_tensor(init, A.values), out_capacity)
+    return K9.mxm(A, B, op_mul, op_add, init_t, out_capacity)
 
 
 def count_mxmT_products(mask: CsrMatrix, B: CsrMatrix) -> int:
@@ -120,7 +120,7 @@ def mxmT_masked_plain(mask: CsrMatrix, A: CsrMatrix, B: CsrMatrix, op_mul, op_ad
     """The plain torch path for any semiring (kernel 5's plain version and
     the same compaction); ``products_cap`` as in spla_tpu: one expansion of
     that many slots, later ones dropped."""
-    init_t = _init_tensor(init, A.values)
+    init_t = scalar_on(init, A.values.dtype, A.values.device)
     out, has = K.mxmt_masked_plain(mask, A, B, op_mul, op_add, init_t,
                                    _selection(mask, op_select, struct_only), struct_only,
                                    products_cap)
@@ -144,7 +144,7 @@ def mxmT_masked(mask: CsrMatrix, A: CsrMatrix, B: CsrMatrix, op_mul, op_add, op_
         return mxmT_masked_plain(mask, A, B, op_mul, op_add, op_select, init, products_cap,
                                  out_capacity, struct_only)
     DISPATCH_STATS["mxmT_kernel"] += 1
-    init_t = _init_tensor(init, A.values)
+    init_t = scalar_on(init, A.values.dtype, A.values.device)
     out, has = K.mxmt_masked(mask, A, B, op_mul, op_add, init_t,
                              _selection(mask, op_select, struct_only, kernel=True), struct_only)
     return _to_csr(mask, out, has, init_t, out_capacity)

@@ -21,6 +21,7 @@ import torch
 from ..containers import CsrMatrix, DenseVec, SparseVec
 from ..formats import compact, index_set
 from ..kernels import spmv as K
+from ..utils.segments import scalar_on
 
 __all__ = [
     "DISPATCH_STATS",
@@ -37,11 +38,6 @@ DISPATCH_STATS = {"mxv_kernel": 0, "mxv_torch": 0, "vxm_kernel": 0, "vxm_torch":
                   "mxmT_kernel": 0, "mxmT_torch": 0, "mxm_kernel": 0, "mxm_torch": 0}
 
 
-def _scalar(x, like: torch.Tensor) -> torch.Tensor:
-    value = x.value if hasattr(x, "value") else x
-    return torch.as_tensor(value, dtype=like.dtype, device=like.device)
-
-
 def _kernel_covers(M: CsrMatrix, op_mul, op_add) -> bool:
     return M.values.device.type == "cuda" and K.pull_codes(op_mul, op_add, M.values.dtype) is not None
 
@@ -50,7 +46,7 @@ def masked_spmv(A: CsrMatrix, x_vals, op_mul, op_add, init, x_valid=None, mask_v
                 op_select=None):
     """The plain torch path for any semiring: returns ``(vals [m], has [m])``."""
     sel = op_select(mask_vals) if mask_vals is not None and op_select is not None else None
-    return K.spmv_pull_plain(A, x_vals, op_mul, op_add, _scalar(init, A.values),
+    return K.spmv_pull_plain(A, x_vals, op_mul, op_add, scalar_on(init, A.values.dtype, A.values.device),
                              x_valid=x_valid, row_sel=sel)
 
 
@@ -63,7 +59,7 @@ def masked_spmv_structural(A: CsrMatrix, x_active, mask_sel=None):
 def mxv_masked(mask: DenseVec, M: CsrMatrix, v: DenseVec, op_mul, op_add, op_select, init,
                desc=None) -> DenseVec:
     """Pull SpMV with a dense result; the mask select is fused into the kernel."""
-    init_t = _scalar(init, M.values)
+    init_t = scalar_on(init, M.values.dtype, M.values.device)
     sel = op_select(mask.values)
     if _kernel_covers(M, op_mul, op_add):
         DISPATCH_STATS["mxv_kernel"] += 1
@@ -105,7 +101,7 @@ def vxm_masked(mask: DenseVec, v, M_t: CsrMatrix, op_mul, op_add, op_select, ini
     ``v`` is a SparseVec or a DenseVec (stored = != fill); the product order
     is ``mul(v[i], M[i,j])``.  The kernel writes the stored-ness ``has`` in
     the same pass as the values."""
-    init_t = _scalar(init, M_t.values)
+    init_t = scalar_on(init, M_t.values.dtype, M_t.values.device)
     out, has = _vxm(mask, v, M_t, op_mul, op_add, op_select, init_t, want_has=True)
     cap = out_capacity if out_capacity is not None else M_t.shape[0]
     return compact(out, has, cap, init_t)
@@ -115,7 +111,7 @@ def vxm_masked_dense(mask: DenseVec, v, M_t: CsrMatrix, op_mul, op_add, op_selec
                      desc=None) -> DenseVec:
     """Dense-result push SpMV, value-equal to ``dense(vxm_masked(...))``:
     unstored slots hold ``init``."""
-    init_t = _scalar(init, M_t.values)
+    init_t = scalar_on(init, M_t.values.dtype, M_t.values.device)
     out, _ = _vxm(mask, v, M_t, op_mul, op_add, op_select, init_t, want_has=False)
     return DenseVec(out, init_t)
 
@@ -126,7 +122,7 @@ def best_spmv_fn(A: CsrMatrix, op_mul, op_add, init):
     use_kernel = _kernel_covers(A, op_mul, op_add)
 
     def fn(A, x):
-        init_t = _scalar(init, A.values)
+        init_t = scalar_on(init, A.values.dtype, A.values.device)
         if use_kernel:
             return K.spmv_pull(A, x, op_mul, op_add, init_t)[0]
         return K.spmv_pull_plain(A, x, op_mul, op_add, init_t)[0]

@@ -4,7 +4,10 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["sort_by_key", "prefix_sum", "expand_schedule"]
+from .segments import segment_fold
+
+__all__ = ["sort_by_key", "reduce_by_key", "prefix_sum", "inclusive_scan", "exclusive_scan",
+           "lex_order", "expand_schedule"]
 
 
 def sort_by_key(keys, *values):
@@ -13,9 +16,51 @@ def sort_by_key(keys, *values):
     return (keys[order], *(v[order] for v in values))
 
 
+def reduce_by_key(keys, values, op, num_segments, init=None):
+    """Fold the runs of equal sorted ``keys``: dense ``(out[num_segments],
+    has[num_segments])``, ``out[k]`` the fold of key k's values onto
+    ``init``.  ``init`` defaults to the op's identity; an op with none needs
+    an explicit ``init`` (a silent 0 would corrupt a MIN fold)."""
+    if init is None:
+        init = getattr(op, "identity", None)
+        if init is None:
+            raise ValueError(f"op {getattr(op, 'name', op)} has no identity; pass init=")
+    valid = torch.ones(keys.shape, dtype=torch.bool, device=keys.device)
+    return segment_fold(values, keys, valid, num_segments, op, init)
+
+
 def prefix_sum(x):
     """Exclusive prefix sum, in the dtype of ``x``."""
     return (torch.cumsum(x, 0) - x).to(x.dtype)
+
+
+def inclusive_scan(x):
+    """Inclusive prefix sum in the dtype of ``x`` (int32 for bool, as
+    ``jnp.cumsum`` gives)."""
+    return torch.cumsum(x, 0).to(torch.int32 if x.dtype == torch.bool else x.dtype)
+
+
+exclusive_scan = prefix_sum
+
+
+def lex_order(keys, sizes):
+    """The stable permutation that sorts by ``keys[0]``, then ``keys[1]``,
+    ... (``lax.sort`` with ``num_keys=len(keys)``); ``keys[i]`` lies in
+    ``[0, sizes[i])``.  One argsort of a fused int64 key when the product
+    of ``sizes`` is at most 2**63, else one stable argsort a key, from the
+    last key to the first."""
+    total = 1
+    for s in sizes:
+        total *= s
+    if total <= 1 << 63:
+        fused = keys[0].long()
+        for k, s in zip(keys[1:], sizes[1:]):
+            fused = fused * s + k.long()
+        return torch.argsort(fused, stable=True)
+    order = torch.argsort(keys[-1], stable=True)
+    for k in reversed(keys[:-1]):
+        order = order[torch.argsort(k[order], stable=True)]
+    return order
 
 
 def expand_schedule(outer_deg, valid, products_cap: int):

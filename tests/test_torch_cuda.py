@@ -18,7 +18,9 @@ from spla_tpu_torch.kernels import frontier as KF, level_update as K3, mxmt as K
 from spla_tpu_torch.kernels import probe as K8, spgemm as K9, spmv as K1, staged as K7, traversal as K2
 from spla_tpu_torch.kernels.build import BuildError
 from spla_tpu_torch.interop import csr_from_numpy
+from spla_tpu_torch import ops as TO
 from spla_tpu_torch.ops import spgemm as TG, spmv as TS
+from spla_tpu_torch.utils.primitives import lex_order
 from spla_tpu_torch.tools.graphs import (barbell_graph, indptr_of, path_graph, random_graph, road_grid,
                                          skewed_graph, spgemm_bins)
 
@@ -1079,3 +1081,165 @@ def test_manual_dma_routes_f32_to_kernel7(dev, manual_dma, monkeypatch):
     for name, fn in (("bfs", alg.bfs), ("sssp", alg.sssp)):
         _assert_same(staged[name], fn(A, 0, Descriptor(pull_only=True)).values)
     torch.testing.assert_close(staged["pr"], alg.pr(A, 0.85, 1e-6).values, rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------- the op layer (plain PyTorch, no kernel)
+
+
+def _op_inputs(device):
+    """The op-layer tests' inputs, from one seed, on ``device``: f32 and i32
+    matrices sorted by column (300 x 300, row 7 and column 11 of 150
+    entries), small kron operands, sparse and dense vectors of n = 300 and
+    banded BSR matrices."""
+    rng = np.random.default_rng(70)
+    n = 300
+
+    def matrix(seed, dtype, fill=0):
+        r = np.random.default_rng(seed)
+        rows = np.concatenate([r.integers(0, n, 2400), np.full(150, 7), r.integers(0, n, 150)])
+        cols = np.concatenate([r.integers(0, n, 2400), r.integers(0, n, 150), np.full(150, 11)])
+        vals = r.uniform(-2, 2, rows.size) if dtype == np.float32 else r.integers(-9, 9, rows.size)
+        return F.csr_from_entries((n, n), rows, cols, vals, fill=fill, dtype=dtype,
+                                  capacity=rows.size + 5, device=device)
+
+    def band(dtype):
+        offs = np.arange(-9, 10)
+        rows = np.repeat(np.arange(256), offs.size)
+        cols = rows + np.tile(offs, 256)
+        keep = (cols >= 0) & (cols < 256)
+        vals = rng.uniform(0.5, 1.5, keep.sum()) if dtype == np.float32 else rng.integers(-50, 50, keep.sum())
+        A = F.csr_from_entries((256, 256), rows[keep], cols[keep], vals, dtype=dtype, device=device)
+        return F.bsr_from_csr_host(A, block=32)
+
+    def vec(idx_seed, nnz):
+        r = np.random.default_rng(idx_seed)
+        return F.sparse_vec_from_entries(n, r.choice(n, nnz, replace=False), r.uniform(-1, 1, nnz),
+                                         dtype=np.float32, capacity=nnz + 3, device=device)
+
+    dvals = rng.uniform(-1, 1, n).astype(np.float32)
+    dvals[rng.random(n) < 0.3] = 0
+    dev_of = (lambda a: torch.from_numpy(a).to(device))
+    return {
+        "A": matrix(71, np.float32), "A2": matrix(72, np.float32),
+        "Ainf": matrix(71, np.float32, np.float32(np.inf)), "A2inf": matrix(72, np.float32, np.float32(np.inf)),
+        "Ai": matrix(73, np.int32), "A2i": matrix(74, np.int32),
+        "K": F.csr_from_entries((12, 10), rng.integers(0, 12, 30), rng.integers(0, 10, 30), rng.uniform(0.5, 1.5, 30),
+                                dtype=np.float32, device=device),
+        "B": F.csr_from_entries((9, 11), rng.integers(0, 9, 20), rng.integers(0, 11, 20), rng.uniform(0.5, 1.5, 20),
+                                dtype=np.float32, device=device),
+        "Ki": F.csr_from_entries((12, 10), rng.integers(0, 12, 30), rng.integers(0, 10, 30), rng.integers(-9, 9, 30),
+                                 dtype=np.int32, device=device),
+        "u": vec(75, 60), "v": vec(76, 60),
+        "d": DenseVec(dev_of(dvals), torch.tensor(0.0, device=device)),
+        "d2": DenseVec(dev_of(rng.uniform(-1, 1, n).astype(np.float32)), torch.tensor(0.0, device=device)),
+        "band": band(np.float32), "band_i": band(np.int32),
+        "x": dev_of(rng.uniform(-1, 1, 256).astype(np.float32)),
+        "xi": dev_of(rng.integers(-9, 9, 256).astype(np.int32)),
+        "X": dev_of(rng.uniform(-1, 1, (256, 24)).astype(np.float32)),
+        "Xi": dev_of(rng.integers(-9, 9, (256, 24)).astype(np.int32)),
+        "index": torch.tensor(7, device=device),
+    }
+
+
+# name: (the call on the inputs, f32 PLUS fold: compared within rtol 1e-5, else bitwise)
+OP_CALLS = {
+    "m_transpose": (lambda I: TO.m_transpose(I["A"], op.AINV_FLOAT), False),
+    "m_eadd PLUS f32": (lambda I: TO.m_eadd(I["A"], I["A2"], op.PLUS_FLOAT), False),
+    "m_eadd PLUS i32 cut": (lambda I: TO.m_eadd(I["Ai"], I["A2i"], op.PLUS_INT, out_capacity=1000), False),
+    "m_emult MIN +inf": (lambda I: TO.m_emult(I["Ainf"], I["A2inf"], op.MIN_FLOAT), False),
+    "m_reduce_by_row PLUS f32": (lambda I: TO.m_reduce_by_row(I["A"], op.PLUS_FLOAT, 0.0), True),
+    "m_reduce_by_row BOR i32": (lambda I: TO.m_reduce_by_row(I["Ai"], op.BOR_INT, 0), False),
+    "m_reduce_by_column MIN +inf": (lambda I: TO.m_reduce_by_column(I["Ainf"], op.MIN_FLOAT, np.inf), False),
+    "m_reduce_by_column LOR i32": (lambda I: TO.m_reduce_by_column(I["Ai"], op.LOR_INT, 0), False),
+    "m_extract_row": (lambda I: (TO.m_extract_row(I["A"], 7, op.IDENTITY_FLOAT),
+                                 TO.m_extract_row(I["A"], I["index"], op.IDENTITY_FLOAT, 40)), False),
+    "m_extract_column": (lambda I: (TO.m_extract_column(I["Ai"], 11, op.AINV_INT),
+                                    TO.m_extract_column(I["Ai"], I["index"], op.AINV_INT, 20)), False),
+    "kron MULT f32": (lambda I: TO.kron(I["K"], I["B"], op.MULT_FLOAT), False),
+    "kron MULT i32 cut": (lambda I: TO.kron(I["Ki"], I["Ki"], op.MULT_INT, 300), False),
+    "v_eadd": (lambda I: (TO.v_eadd(I["u"], I["v"], op.PLUS_FLOAT), TO.v_eadd(I["u"], I["d"], op.MIN_FLOAT),
+                          TO.v_eadd(I["d"], I["d2"], op.MAX_FLOAT)), False),
+    "v_emult": (lambda I: (TO.v_emult(I["u"], I["v"], op.MULT_FLOAT), TO.v_emult(I["d"], I["v"], op.MINUS_FLOAT)),
+                False),
+    "v_map": (lambda I: (TO.v_map(I["u"], op.ABS_FLOAT), TO.v_map(I["d"], op.AINV_FLOAT)), False),
+    "v_reduce PLUS f32": (lambda I: (TO.v_reduce(0.0, I["u"], op.PLUS_FLOAT),
+                                     TO.v_reduce(1.0, I["d"], op.PLUS_FLOAT, stored_only=True)), True),
+    "v_reduce MIN": (lambda I: TO.v_reduce(np.inf, I["d"], op.MIN_FLOAT), False),
+    "v_count_mf": (lambda I: (TO.v_count_mf(I["u"]), TO.v_count_mf(I["d"])), False),
+    "v_assign_masked": (lambda I: (TO.v_assign_masked(I["d"], I["u"], 0.25, op.SECOND_FLOAT, op.GTZERO_FLOAT),
+                                   TO.v_assign_masked(I["d"], I["d2"], 2.0, op.PLUS_FLOAT, op.LTZERO_FLOAT)),
+                        False),
+    "v_eadd_fdb": (lambda I: (TO.v_eadd_fdb(I["d"], I["v"], op.MIN_FLOAT),
+                              TO.v_eadd_fdb(I["d"], I["d2"], op.MIN_FLOAT)), False),
+    "bsr_spmv f32": (lambda I: (TO.bsr_spmv(I["band"], I["x"]), TO.bsr_spmv(I["band"], I["x"], init=1.5)), True),
+    "bsr_spmv i32": (lambda I: TO.bsr_spmv(I["band_i"], I["xi"], init=3), False),
+    "bsr_spmm f32": (lambda I: TO.bsr_spmm(I["band"], I["X"]), True),
+    "bsr_spmm i32": (lambda I: TO.bsr_spmm(I["band_i"], I["Xi"]), False),
+}
+
+
+def _same_result(got, ref, float_plus):
+    """A CUDA result against the CPU one: every tensor field (uint32 through
+    int64), bitwise or within the f32 PLUS tolerance."""
+    if isinstance(ref, tuple):
+        for g, r in zip(got, ref):
+            _same_result(g, r, float_plus)
+        return
+    if not isinstance(ref, torch.Tensor):
+        assert type(got) is type(ref)
+        for name, value in vars(ref).items():
+            if isinstance(value, torch.Tensor):
+                _same_result(getattr(got, name), value, float_plus and name in ("value", "values"))
+            else:
+                assert getattr(got, name) == value
+        return
+    assert got.device.type == "cuda" and got.dtype == ref.dtype and got.shape == ref.shape
+    got, ref = got.cpu(), ref.cpu()
+    if ref.dtype == torch.uint32:
+        got, ref = got.to(torch.int64), ref.to(torch.int64)
+    if float_plus:
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+    else:
+        _assert_same(got, ref)
+
+
+@pytest.mark.parametrize("name", list(OP_CALLS))
+def test_op_layer_matches_cpu_without_synchronizing(dev, name):
+    """Each op of the op layer on CUDA tensors against the same op on CPU
+    tensors, the CUDA call under set_sync_debug_mode("error") (no host read,
+    no copy from the host)."""
+    call, float_plus = OP_CALLS[name]
+    cpu, card = _op_inputs("cpu"), _op_inputs(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = call(card)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    _same_result(got, call(cpu), float_plus)
+
+
+def test_lex_order_past_63_bits_on_the_card(dev):
+    """The multi-key sort with key ranges whose product passes 2**63 (one
+    stable sort a key) and one that fits (a fused key), on the card and
+    without a host read, against numpy's lexsort."""
+    rng = np.random.default_rng(77)
+    keys = [rng.integers(0, 1 << 40, 5000) // (1 << 37) * (1 << 37), rng.integers(0, 1 << 33, 5000) // 4,
+            rng.integers(0, 3, 5000)]
+    card = [torch.from_numpy(k).to(dev) for k in keys]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        wide = lex_order(card, (1 << 40, 1 << 33, 3))
+        fused = lex_order(card[1:], (1 << 33, 3))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    np.testing.assert_array_equal(wide.cpu().numpy(), np.lexsort(keys[::-1]))
+    np.testing.assert_array_equal(fused.cpu().numpy(), np.lexsort(keys[:0:-1]))
+
+
+def test_bsr_products_refuse_tf32(dev, monkeypatch):
+    I = _op_inputs(dev)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    with pytest.raises(RuntimeError, match="allow_tf32"):
+        TO.bsr_spmm(I["band"], I["X"])
