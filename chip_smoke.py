@@ -81,9 +81,26 @@ Phases:
        half-width 64 at n = 2^17 in 128-tiles; against scipy and numpy
        (A + Aᵀ, A.minimum(Aᵀ), scipy.sparse.kron, float64 sums), exact but
        for the PLUS folds;
+     * facade: the pyspla-style objects, every one made with no device= (so
+       on cuda:0, which the slice checks): bench_suite.py's facade chain
+       uncut (random_graph(2^18, 8, seed=7) scaled by 0.85 / in-degree,
+       built by Matrix.build of three MemViews; ten Vector.vxm from a
+       vector with 1.0 at every 256th vertex, then reduce(PLUS)) against
+       scipy's float64 chain, Matrix.mxv on the same graph, Vector.eadd /
+       emult / map / reduce and Matrix.transpose / reduce_by_row on the
+       chain's objects against numpy, Matrix.mxm (MULT/PLUS f32) on the
+       mxm_mprod_s graph against scipy's A @ A, Matrix.mxmT masked by A
+       on the n = 2^15 SpGEMM-T graph in i32 (exact) and f32 against
+       scipy, the pi example at its default 10^6 samples (within 0.01 of
+       pi), the convert example on a written side-512 road grid (reloaded
+       equal), ``python -m spla_tpu_torch`` in a subprocess (it must name
+       the card), a Schedule of callback tasks (three vxm, then a reduce,
+       in order) and one chain under the time profiler and torch.profiler
+       (vector_vxm ten times; the record_function names in the trace);
   5. the launch counts of phase 4: each slice's kernels must be above 0;
      the road slice reads the host once per run; the staged slice launches
-     no kernel 1; the ops slice none at all;
+     no kernel 1; the ops slice none at all; the facade slice kernel 1 24
+     times, kernel 9 once and kernel 5 twice, and no torch path;
   6. times on the card: each kernel against its plain version (CUDA events),
      SpMV in GB/s of the bench.py byte model, the masked SpGEMM-T in
      products/s (bench_suite.py masked_spgemm_mprod_s), BFS / SSSP / PR /
@@ -113,21 +130,25 @@ Phases:
      n = 2^13; each call of the ops slice beside its bound and, for
      m_transpose, m_eadd and bsr_spmm, one PyTorch call computing the same
      function (``to_sparse_csc()``, the sum of two CSR tensors, a BSR
-     tensor times X; a failure printed as its result).
+     tensor times X; a failure printed as its result); facade_chain_ratio
+     (bench_suite.py:349-412: the facade chain's wall over that of the same
+     chain of ops.best_spmv_fn on DenseVecs, medians of 7 interleaved
+     pairs) and one vxm's host cost against ops.vxm_masked_dense's.
 
 Each kernel's row in the JSON line carries ``bound_ms``: the larger of its
 bytes (each input read once, each output written once, at this run's
 shapes and data) over 3.35 TB/s and its f32 operations over 67 TFLOP/s
 (``bound``).
 
-The two lines before the last are JSON objects of the ops' times and of the
-kernels; the last line is ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
+The three lines before the last are JSON objects of the facade chain's
+times, of the ops' times and of the kernels; the last line is ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
 Imports neither jax nor spla_tpu.
 """
 
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import re
@@ -144,6 +165,11 @@ import scipy.sparse.csgraph as cg
 import torch
 
 from spla_tpu_torch import Descriptor, DenseVec, algorithms as alg, formats as F, kernels, op
+from spla_tpu_torch import FLOAT, INT, MemView, get_library, make_schedule
+from spla_tpu_torch import facade as FC
+from spla_tpu_torch.examples import convert as CONVERT, pi as PI
+from spla_tpu_torch.profiling import profiler
+from spla_tpu_torch.schedule import make_sched_task_callback
 from spla_tpu_torch.interop import csr_from_numpy
 from spla_tpu_torch.io import MtxLoader
 from spla_tpu_torch.kernels import PROBE_PHASES, frontier as KF, level_update as K3, mxmt as K45
@@ -173,6 +199,12 @@ SIDE_BIG = 3072  # bench_suite.py:269-319 road_big_bfs_gteps
 N_SKEW = 1 << 18  # bench_suite.py:441-448 skewed_spmv_gbps / skewed_bfs_gteps
 CHECK_LEVELS = 60  # levels of each run that phase 3 holds against the plain versions
 N_CLI_SMALL = 2000  # the pr and tc CLIs' graph: their naive oracles are Python loops
+N_FACADE, DEG_FACADE, SEED_FACADE = 1 << 18, 8, 7  # bench_suite.py:355-356 facade_chain_ratio
+FACADE_CHAIN = 10  # bench_suite.py:371 CH
+FACADE_PAIRS = 7  # interleaved facade / functional chain pairs; the ratio is of their medians
+FACADE_HOST_CALLS = 50  # calls whose host time gives one vxm's host cost
+PI_TOL = 0.01  # pi at 10^6 samples: about 6 standard errors
+SIDE_CONVERT = 512
 TIMED_RUNS = 20
 DEVICE_MS = {}  # kernel: its device time, where measured apart from the eager time
 PLAIN_RUNS_BIG = 3  # the plain SpGEMM-T at n = 2^20 expands 285M products per call
@@ -217,7 +249,7 @@ PATHS = {"spmv": ("spmv_pull", "level_update", "bfs_push_level", "sssp_push_leve
          "spgemm": ("mxmt_reduce", "mxmt_masked"), "road": ("bfs_resident", "sssp_resident"),
          "staged": ("spmv_pull_staged",),
          "probes": (*(f"spmv_probe_{phase}" for phase in PROBE_PHASES), "mxmt_gather"),
-         "mxm": ("spgemm_mxm",)}
+         "mxm": ("spgemm_mxm",), "facade": ("spmv_pull", "spgemm_mxm", "mxmt_masked")}
 
 
 def phase(title):
@@ -1301,6 +1333,206 @@ def check_ops(G, R):
           f"within 1e-5 of float64; every call with no host sync", flush=True)
 
 
+# ---------------------------------------------------------------- the facade
+
+
+def facade_matrix(a, dtype):
+    """A facade Matrix of the scipy matrix ``a`` on the default device,
+    built through the bulk path (``Matrix.build`` of three MemViews)."""
+    coo = a.tocoo()
+    M = FC.Matrix(a.shape, dtype)
+    M.build(MemView(coo.row), MemView(coo.col), MemView(coo.data.astype(dtype.np_dtype)))
+    return M
+
+
+def facade_chain(r, mask, M, steps=FACADE_CHAIN):
+    """bench_suite.py:374-378: ``steps`` chained vxm, then reduce(PLUS) read on the host."""
+    for _ in range(steps):
+        r = r.vxm(mask, M, FLOAT.MULT, FLOAT.PLUS, FLOAT.ALWAYS)
+    return r, float(r.reduce(FLOAT.PLUS).get())
+
+
+def run_facade(G):
+    """Phase 4's facade slice: every object made with no device= (so on
+    the accelerator), bench_suite.py's facade chain uncut, mxv, the vector
+    and matrix ops on the chain's objects, mxm, mxmT (i32 and f32), the pi
+    example at its default n, convert on a side-512 road grid, the banner
+    in a subprocess, a Schedule of callback tasks, and one chain under the
+    time profiler and torch.profiler."""
+    I = G["facade"]
+    n = N_FACADE
+    R = {"seconds": {}}
+    t0 = time.perf_counter()
+    M = facade_matrix(I["S"], FLOAT)
+    r0 = FC.Vector.from_lists(I["start"], np.ones(I["start"].size, np.float32), n, FLOAT)
+    mask = FC.Vector(n, FLOAT)
+    r, R["chain_sum"] = facade_chain(r0, mask, M)
+    R["chain"] = r.to_numpy()
+    R["mxv"] = M.mxv(mask, r0, FLOAT.MULT, FLOAT.PLUS, FLOAT.ALWAYS).to_numpy()
+    R["eadd"] = r.eadd(FLOAT.PLUS, r0).to_numpy()
+    R["emult"] = r.emult(FLOAT.MULT, r0).to_numpy()
+    R["map"] = r.map(FLOAT.AINV).to_numpy()
+    R["reduce_max"] = r.reduce(FLOAT.MAX).get()
+    R["transpose"] = M.transpose().read()
+    R["reduce_by_row"] = M.reduce_by_row(FLOAT.PLUS).to_numpy()
+    A13 = facade_matrix(G["MX13_sp"], FLOAT)
+    R["mxm"] = A13.mxm(A13, FLOAT.MULT, FLOAT.PLUS).read()
+    objs = [M, r0, mask, r, A13]
+    for name, t in (("i32", INT), ("f32", FLOAT)):
+        objs.append(facade_matrix(I[f"T_{name}"], t))
+        R[f"mxmT_{name}"] = objs[-1].mxmT(objs[-1], objs[-1], t.MULT, t.PLUS, t.ALWAYS).read()
+    R["devices"] = {str(o.device) for o in objs}
+    torch.cuda.synchronize()
+    t0 = lap(R, "chain, mxv, vector and matrix ops, mxm, mxmT", t0)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        PI.run([])
+    print(out.getvalue(), end="", flush=True)
+    R["pi"] = float(re.search(r"Pi is roughly ([0-9.]+)", out.getvalue()).group(1))
+    t0 = lap(R, "pi", t0)
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst = Path(tmp) / "road512.mtx", Path(tmp) / "road512.out.mtx"
+        write_mtx(src, road_grid(SIDE_CONVERT))
+        CONVERT.run(["--in", str(src), "--out", str(dst), "--offset-indices", "true", "--make-undirected",
+                     "false", "--remove-loops", "false"])
+        kw = {"make_undirected": False, "remove_loops": False}
+        R["convert"] = (MtxLoader(verbose=False).load(src, **kw), MtxLoader(verbose=False).load(dst, **kw))
+    t0 = lap(R, "convert", t0)
+    R["banner"] = subprocess.run([sys.executable, "-m", "spla_tpu_torch"], cwd=ROOT, capture_output=True,
+                                 text=True, timeout=300)
+    t0 = lap(R, "banner", t0)
+    order, box = [], {"r": r0}
+
+    def step(k):
+        order.append(k)
+        box["r"] = box["r"].vxm(mask, M, FLOAT.MULT, FLOAT.PLUS, FLOAT.ALWAYS)
+
+    def total():
+        order.append("reduce")
+        return box["r"].reduce(FLOAT.PLUS).get()
+
+    sched = make_schedule()
+    first = sched.add_step(make_sched_task_callback(lambda: step(0)))
+    for k in range(1, 3):
+        sched.add_task(first, make_sched_task_callback(lambda k=k: step(k)))
+    sched.add_step(make_sched_task_callback(total))
+    R["schedule"] = (order, sched.submit(), box["r"].to_numpy())
+    lib = get_library()
+    profiler.reset()
+    lib.set_time_profiling(True)
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            facade_chain(r0, mask, M)
+        R["profile"] = (profiler.stats(), lib.time_profile_dump(), {e.key for e in prof.key_averages()})
+    finally:
+        lib.set_time_profiling(False)
+        profiler.reset()
+    torch.cuda.synchronize()
+    lap(R, "schedule, profiled chain", t0)
+    return R
+
+
+def lap(R, what, t0):
+    R["seconds"][what] = time.perf_counter() - t0
+    return time.perf_counter()
+
+
+def check_facade(G, R):
+    """The facade slice against scipy and numpy: the chain within rtol 1e-5
+    of scipy's float64 chain (check_close), the element-wise ops and the
+    transpose bitwise, sums within 1e-5 of float64, mxm and mxmT (f32)
+    within 1e-5 of scipy and mxmT (i32) exact; pi within PI_TOL; convert's
+    file equal to its input; the banner names the card; the schedule's
+    tasks ran in order; the profile holds vector_vxm ten times."""
+    I = G["facade"]
+    if R["devices"] != {"cuda:0"}:
+        raise AssertionError(f"facade objects made with no device= live on {R['devices']}, not cuda:0")
+    s64 = I["S"].astype(np.float64)
+    st64 = s64.T.tocsr()
+    x = np.zeros(N_FACADE)
+    x[I["start"]] = 1.0
+    x0 = x.copy()
+    for _ in range(FACADE_CHAIN):
+        x = st64 @ x
+
+    def near(what, got, ref64):
+        ref64 = torch.from_numpy(np.asarray(ref64, np.float64))
+        return check_close(what, torch.from_numpy(np.asarray(got)), ref64.float(), False, ref64)
+
+    near(f"facade chain of {FACADE_CHAIN} vxm", R["chain"], x)
+    near("facade chain reduce(PLUS)", [R["chain_sum"]], [x.sum()])
+    near("facade mxv", R["mxv"], s64 @ x0)
+    chain = R["chain"]
+    r0 = x0.astype(np.float32)
+    for what, got, ref in (("eadd PLUS", R["eadd"], chain + r0), ("emult MULT", R["emult"], chain * r0),
+                           ("map AINV", R["map"], -chain)):
+        check_close(f"facade {what}", torch.from_numpy(got), torch.from_numpy(ref.astype(np.float32)), True)
+    if R["reduce_max"] != float(chain.max()):
+        raise AssertionError(f"facade reduce(MAX) {R['reduce_max']}, want {chain.max()}")
+    near("facade reduce_by_row(PLUS)", R["reduce_by_row"], np.asarray(s64.sum(axis=1)).ravel())
+    st = I["S"].T.tocsr()
+    st.sort_indices()
+    rows, cols, vals = R["transpose"]
+    want = st.tocoo()
+    for what, g, w in (("rows", rows, want.row), ("cols", cols, want.col), ("values", vals, want.data)):
+        check_close(f"facade transpose {what}", torch.from_numpy(np.asarray(g)),
+                    torch.from_numpy(np.asarray(w).astype(np.asarray(g).dtype)), True)
+
+    def same_entries(what, got, ref, exact):
+        ref = ref.tocsr()
+        ref.eliminate_zeros()
+        ref.sort_indices()
+        ref = ref.tocoo()
+        rows, cols, vals = got
+        if rows.size != ref.nnz:
+            raise AssertionError(f"{what}: {rows.size} entries, want {ref.nnz}")
+        for name, g, w in (("rows", rows, ref.row), ("cols", cols, ref.col)):
+            check_close(f"{what} {name}", torch.from_numpy(g.astype(np.int64)), torch.from_numpy(w.astype(np.int64)),
+                        True)
+        if exact:
+            check_close(f"{what} values", torch.from_numpy(vals), torch.from_numpy(ref.data.astype(vals.dtype)), True)
+        else:
+            near(f"{what} values", vals, ref.data)
+
+    a13 = G["MX13_sp"].astype(np.float64)
+    same_entries("facade mxm MULT/PLUS f32 n=2^13", R["mxm"], a13 @ a13, False)
+    for name in ("i32", "f32"):
+        t = I[f"T_{name}"].astype(np.float64)
+        pattern = t.copy()
+        pattern.data[:] = 1.0
+        same_entries(f"facade mxmT {name} n=2^15", R[f"mxmT_{name}"], (t @ t.T).multiply(pattern), name == "i32")
+    if abs(R["pi"] - np.pi) > PI_TOL:
+        raise AssertionError(f"pi example: {R['pi']}, more than {PI_TOL} from pi")
+    src, dst = R["convert"]
+    if (src.n_rows, src.n_cols) != (dst.n_rows, dst.n_cols) or not all(
+            np.array_equal(getattr(src, f), getattr(dst, f)) for f in ("rows", "cols", "vals")):
+        raise AssertionError("convert: the written file does not load back equal")
+    banner = R["banner"]
+    if banner.returncode != 0 or torch.cuda.get_device_name(0) not in banner.stdout:
+        raise AssertionError(f"python -m spla_tpu_torch: exit {banner.returncode}\n{banner.stdout}{banner.stderr}")
+    order, results, sched_r = R["schedule"]
+    y = x0.copy()
+    for _ in range(3):
+        y = st64 @ y
+    if order != [0, 1, 2, "reduce"] or results[:3] != [None] * 3:
+        raise AssertionError(f"schedule: tasks ran as {order}")
+    near("schedule's three vxm", sched_r, y)
+    near("schedule's reduce", [results[3]], [y.sum()])
+    stats, _, names = R["profile"]
+    if stats.get("vector_vxm", {}).get("count") != FACADE_CHAIN or stats["vector_reduce"]["count"] != 1:
+        raise AssertionError(f"time profile: {stats}")
+    if not {"vector_vxm", "vector_reduce"} <= names:
+        raise AssertionError("torch.profiler shows no record_function of the facade's scopes")
+    print(f"facade: chain of {FACADE_CHAIN} vxm at n={N_FACADE} ({I['S'].nnz} entries) and its reduce within "
+          f"1e-5 of scipy's float64; mxv, eadd, emult, map, reduce(MAX), transpose, reduce_by_row equal; mxm "
+          f"n=2^13 and mxmT n=2^15 (i32 exact, f32 within 1e-5) equal scipy's; pi {R['pi']}; convert's "
+          f"side-{SIDE_CONVERT} grid loads back equal; banner: {banner.stdout.strip().splitlines()[-1]}; the "
+          f"schedule ran in order; vector_vxm x{stats['vector_vxm']['count']} in "
+          f"{stats['vector_vxm']['ms']:.3f} ms under profiling", flush=True)
+    print("facade seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in R["seconds"].items()), flush=True)
+
+
 # ---------------------------------------------------------------- timing
 
 
@@ -1908,6 +2140,105 @@ def time_ops(G, R, card):
                      "library": library[name][0] if name in library else None})
     return rows
 
+def host_us(fn, calls=FACADE_HOST_CALLS):
+    """Host microseconds a call: ``calls`` calls issued with no wait, after one."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def device_busy(fn):
+    """One call of ``fn`` under torch.profiler: the device's busy ms (the
+    union of its kernel, copy and memset spans) and the count of those spans."""
+    from torch.autograd import DeviceType
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, last = 0.0, float("-inf")
+    for start, stop in spans:
+        busy += max(0.0, stop - max(start, last))
+        last = max(last, stop)
+    return busy / 1e3, len(spans)
+
+
+def time_facade(G, card):
+    """bench_suite.py:349-412's facade_chain_ratio on the card: the facade
+    chain (ten Vector.vxm, then reduce read on the host) against its
+    functional baseline (``ops.best_spmv_fn`` over the CSR of Sᵀ on
+    DenseVecs, the same kernel, then a sum read on the host), host clock
+    from a synchronized start, FACADE_PAIRS interleaved pairs whose order
+    alternates; the ratio is of the medians.  Then one vxm's host cost (a
+    facade vxm against ops.vxm_masked_dense on the same snapshots, in
+    turns) and its time by CUDA events.  Returns the facade JSON line's
+    object."""
+    I = G["facade"]
+    n, S = N_FACADE, I["S"]
+    M = facade_matrix(S, FLOAT)
+    r0 = FC.Vector.from_lists(I["start"], np.ones(I["start"].size, np.float32), n, FLOAT)
+    mask = FC.Vector(n, FLOAT)
+    At = F.csr_transpose_host(F.csr_from_scipy(S, device=DEVICE))
+    spmv_fn = O.best_spmv_fn(At, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)
+    x0 = torch.zeros(n, dtype=torch.float32, device=DEVICE)
+    x0[torch.from_numpy(I["start"]).to(DEVICE)] = 1.0
+    zero = torch.zeros((), dtype=torch.float32, device=DEVICE)
+
+    def chain_facade():
+        return facade_chain(r0, mask, M)[1]
+
+    def chain_functional():
+        r = DenseVec(x0, zero)
+        for _ in range(FACADE_CHAIN):
+            r = DenseVec(spmv_fn(At, r.values), zero)
+        return float(r.values.sum())
+
+    sums = (chain_facade(), chain_functional())
+    if abs(sums[0] - sums[1]) > 1e-5 * abs(sums[1]):
+        raise AssertionError(f"facade chain {sums[0]} and its functional baseline {sums[1]} differ")
+    walls = {"facade": [], "functional": []}
+    for i in range(FACADE_PAIRS):
+        for name in ("facade", "functional")[:: 1 if i % 2 == 0 else -1]:
+            fn = chain_facade if name == "facade" else chain_functional
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+    f_ms, fn_ms = (float(np.median(walls[k])) for k in ("facade", "functional"))
+    (f_busy, f_items), (fn_busy, fn_items) = device_busy(chain_facade), device_busy(chain_functional)
+    mask_d, r0_d, Mt = mask._device(), r0._device(), M._device_t()
+
+    def vxm_facade():
+        return r0.vxm(mask, M, FLOAT.MULT, FLOAT.PLUS, FLOAT.ALWAYS)
+
+    def vxm_dense():
+        return O.vxm_masked_dense(mask_d, r0_d, Mt, op.MULT_FLOAT, op.PLUS_FLOAT, op.ALWAYS_FLOAT, 0.0)
+
+    hf1, hd1, hd2, hf2 = host_us(vxm_facade), host_us(vxm_dense), host_us(vxm_dense), host_us(vxm_facade)
+    row = {"name": "facade_chain", "n": n, "nnz": int(S.nnz), "steps": FACADE_CHAIN, "pairs": FACADE_PAIRS,
+           "facade_ms": f_ms, "functional_ms": fn_ms, "facade_chain_ratio": f_ms / fn_ms,
+           "facade_runs_ms": walls["facade"], "functional_runs_ms": walls["functional"],
+           "vxm_host_us": (hf1 + hf2) / 2, "vxm_masked_dense_host_us": (hd1 + hd2) / 2,
+           "vxm_ms": cuda_ms(vxm_facade), "vxm_masked_dense_ms": cuda_ms(vxm_dense),
+           "facade_device_busy_ms": f_busy, "facade_device_items": f_items, "facade_idle_share": 1 - f_busy / f_ms,
+           "functional_device_busy_ms": fn_busy, "functional_device_items": fn_items,
+           "functional_idle_share": 1 - fn_busy / fn_ms, "card": card}
+    print(f"time facade chain n=2^18: facade {f_ms:.4f} ms, functional {fn_ms:.4f} ms, facade_chain_ratio "
+          f"{f_ms / fn_ms:.4f} (medians of {FACADE_PAIRS} interleaved pairs); one vxm: host "
+          f"{row['vxm_host_us']:.1f} us (vxm_masked_dense {row['vxm_masked_dense_host_us']:.1f}), events "
+          f"{row['vxm_ms']:.4f} ms ({row['vxm_masked_dense_ms']:.4f}); device busy {f_busy:.4f} ms in {f_items} "
+          f"items, idle share {row['facade_idle_share']:.3f} (functional {fn_busy:.4f} ms, {fn_items} items, "
+          f"{row['functional_idle_share']:.3f}) [{card}]", flush=True)
+    return row
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -1959,7 +2290,8 @@ def main():
                                    ("staged", run_staged, check_staged_path),
                                    ("probes", run_probes, check_probes),
                                    ("mxm", run_mxm, check_mxm_slice),
-                                   ("ops", run_ops, check_ops)):
+                                   ("ops", run_ops, check_ops),
+                                   ("facade", run_facade, check_facade)):
         kernels.reset_launches()
         for k in DISPATCH_STATS:
             DISPATCH_STATS[k] = 0
@@ -2001,6 +2333,11 @@ def main():
     print(f"ops: kernels.LAUNCHES {json.dumps(launches['ops'])}", flush=True)
     if any(launches["ops"].values()):
         raise AssertionError("the ops slice launched a kernel: its ops are plain PyTorch")
+    facade_want = {"spmv_pull": 2 * FACADE_CHAIN + 4, "spgemm_mxm": 1, "mxmt_masked": 2}
+    if ({k: launches["facade"][k] for k in facade_want} != facade_want
+            or any(v for k, v in stats["facade"].items() if k.endswith("_torch"))):
+        raise AssertionError(f"the facade slice must launch {facade_want} (two chains, mxv and the "
+                             f"schedule's three vxm; mxm; mxmT i32 and f32) and take no torch path")
     staged = astats["staged"]
     print(f"staged: algorithms.STATS {json.dumps(staged)}", flush=True)
     if launches["staged"]["spmv_pull"] or staged["pull"] == 0 or staged["resident"]:
@@ -2019,6 +2356,7 @@ def main():
     mxm_times, mxm_library_ms = time_mxm(G, card)
     times.update(mxm_times)
     ops_rows = time_ops(G, results["ops"], card)
+    facade_row = time_facade(G, card)
 
     # one PyTorch call computes the same function only for the pull SpMVs and mxm
     library = {"spmv_pull": cusparse_ms, "spmv_pull_staged": cusparse_ms, "spgemm_mxm": mxm_library_ms}
@@ -2037,6 +2375,7 @@ def main():
             if k in DEVICE_MS:
                 row["device_ms"] = DEVICE_MS[k]
             rows_out.append(row)
+    print(json.dumps({"facade": facade_row}))
     print(json.dumps({"ops": ops_rows}))
     print(json.dumps({"kernels": rows_out}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -2108,6 +2447,13 @@ def build_graphs():
     sk = skewed_graph(N_SKEW)
     G["Skew_sp"], G["Skew"] = sk, F.csr_from_scipy(sk, fill=np.float32(np.inf), device=DEVICE)
     G["skew_hub"] = int(np.argmax(np.diff(sk.indptr)))
+    fa = random_graph(N_FACADE, DEG_FACADE, seed=SEED_FACADE)
+    indeg = np.asarray(fa.sum(axis=0)).ravel()
+    tf = t.astype(np.float32)
+    tf.data = np.random.default_rng(12).uniform(0.5, 1.5, t.nnz).astype(np.float32)
+    G["facade"] = {"S": (fa @ sp.diags(0.85 / np.maximum(indeg, 1))).tocsr().astype(np.float32),
+                   "start": np.arange(0, N_FACADE, N_FACADE // 1024), "T_i32": t.astype(np.int32), "T_f32": tf}
+    print(f"graphs: facade chain n={N_FACADE} nnz={G['facade']['S'].nnz}", flush=True)
     big = road_grid(SIDE_BIG)
     G["Road3072_sp"], G["Road3072"] = big, F.csr_from_scipy(big, device=DEVICE)
     print(f"graphs: skewed n={N_SKEW} nnz={sk.nnz} (longest row {G['skew_hub']}, "

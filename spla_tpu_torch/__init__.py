@@ -15,24 +15,62 @@ to PyTorch, with hand-written Hopper kernels for each slice's hot path:
   ``m_emult``, ``m_reduce_by_row``/``_by_column``, ``m_transpose``,
   ``m_extract_row``/``_column``, ``kron``), the BSR products
   (``ops.bsr_spmv``, ``bsr_spmm``) and the reference's ``exec_*`` names;
-* MatrixMarket IO (``io``), a timer (``timer``), the library settings
-  (``library``) and the ``bfs``, ``sssp``, ``pr`` and ``tc`` example CLIs
+* the pyspla-style facade (``Matrix``, ``Vector``, ``Scalar``, ``Array``,
+  ``MemView``; module ``facade``), a schedule of tasks (``Schedule``),
+  time profiling (``profiling``), MatrixMarket IO (``io``), a timer
+  (``timer``), the library settings (``library``) and the example CLIs
+  ``bfs``, ``sssp``, ``pr``, ``tc``, ``pi`` and ``convert``
   (``python -m spla_tpu_torch.examples.bfs ...``).
 
 The device is explicit: containers are built with ``device=`` and ops run
-where their tensors live; nothing picks ``cuda`` on its own.  CPU tensors
+where their tensors live.  A facade object made with no ``device=`` lives
+on the accelerator (``cuda``, or an error without one) unless
+``get_library().set_force_no_acceleration(True)`` asks for the CPU;
+nothing picks a device on its own.  CPU tensors
 take each kernel's plain PyTorch version; CUDA tensors launch the kernel
 or raise.  This package imports neither jax nor spla_tpu.
 """
 
 from . import algorithms, formats, interop, kernels, op, ops
 from .algorithms import tc
-from .containers import BsrMatrix, CooMatrix, CsrMatrix, DenseVec, Scalar, SparseVec
+from .containers import BsrMatrix, CooMatrix, CsrMatrix, DenseVec, SparseVec
 from .descriptor import Descriptor
+from .library import Library, get_library
 from .ops import count_mxm_products, count_mxmT_products, m_reduce, mxmT_masked
+from .schedule import Schedule, ScheduleTask, make_schedule
 from .types import BOOL, FLOAT, INT, UINT, Type, type_from_dtype
 
+# the facade is imported at first use, as spla_tpu's is; its Scalar is the
+# top-level one (containers.Scalar stays spla_tpu_torch.containers.Scalar)
+_LAZY_FACADE = ("Matrix", "Vector", "Scalar", "Array", "MemView", "Object",
+                "FormatMatrix", "FormatVector")
+_LAZY_OP = ("Op", "OpUnary", "OpBinary", "OpSelect")
+
+
+def __getattr__(name):
+    import importlib
+
+    if name in _LAZY_FACADE:
+        return getattr(importlib.import_module(".facade", __name__), name)
+    if name in _LAZY_OP:
+        return getattr(op, name)
+    if name == "MtxLoader":
+        return importlib.import_module(".io", __name__).MtxLoader
+    if name == "Timer":
+        return importlib.import_module(".timer", __name__).Timer
+    if name in ("io", "profiling", "timer", "facade", "schedule", "library"):
+        return importlib.import_module(f".{name}", __name__)
+    raise AttributeError(f"module 'spla_tpu_torch' has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(set(globals()) | set(__all__))
+
+
 __version__ = "0.1.0"
+
+# the reference pyspla exports a list of versions (python/pyspla/version.py)
+VERSIONS = [__version__]
 
 __all__ = [
     "algorithms",
@@ -59,5 +97,25 @@ __all__ = [
     "UINT",
     "FLOAT",
     "type_from_dtype",
+    "Library",
+    "get_library",
+    "Schedule",
+    "ScheduleTask",
+    "make_schedule",
     "__version__",
+    "VERSIONS",
+    # imported at first use (module __getattr__)
+    "Matrix",
+    "Vector",
+    "Array",
+    "MemView",
+    "Object",
+    "FormatMatrix",
+    "FormatVector",
+    "Op",
+    "OpUnary",
+    "OpBinary",
+    "OpSelect",
+    "MtxLoader",
+    "Timer",
 ]

@@ -12,4 +12,9 @@ against the sequential naive oracle, and prints the lap times::
 The flags are the reference's (``examples/options.hpp:34-66``).  With
 ``--run-acc true`` and no CUDA device the CLI raises: it never runs the
 accelerator laps on the CPU.
+
+Two more go through the facade and the host tools::
+
+    python -m spla_tpu_torch.examples.pi --n 1000000 [--cpu]
+    python -m spla_tpu_torch.examples.convert --in graph.mtx --out out.mtx
 """

@@ -1,8 +1,12 @@
-"""Carry container state between the JAX package and this one, through numpy.
+"""Carry container and facade state between the JAX package and this one,
+through numpy.
 
 ``from_spla_tpu`` reads the fields of a ``spla_tpu`` container with
 ``np.asarray``, so this package never imports jax; ``to_numpy`` is the
-way back.  The tests use these to give both packages the same inputs.
+way back.  ``matrix_from_numpy`` and ``vector_from_numpy`` make facade
+objects from what a ``spla_tpu.facade`` Matrix or Vector's ``read()`` and
+``fill_value`` give.  The tests use these to give both packages the same
+inputs.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ import numpy as np
 import torch
 
 from . import containers as C
+from .types import Type, type_from_dtype
 
 __all__ = [
     "csr_from_numpy",
@@ -20,6 +25,8 @@ __all__ = [
     "sparse_vec_from_numpy",
     "from_spla_tpu",
     "to_numpy",
+    "matrix_from_numpy",
+    "vector_from_numpy",
 ]
 
 # fields that are static Python values, not arrays
@@ -83,3 +90,28 @@ def to_numpy(obj):
     if dataclasses.is_dataclass(obj):
         return {f.name: to_numpy(getattr(obj, f.name)) for f in dataclasses.fields(obj)}
     return obj
+
+
+def _type(dtype) -> Type:
+    return dtype if isinstance(dtype, Type) else type_from_dtype(dtype)
+
+
+def matrix_from_numpy(shape, dtype, rows, cols, vals, fill, device):
+    """A facade Matrix of ``shape`` and element type ``dtype`` (a Type or a
+    dtype) holding the entries ``(rows, cols, vals)``, whose unstored
+    slots read ``fill``, on ``device``."""
+    from .facade import Matrix
+
+    t = _type(dtype)
+    m = Matrix.from_lists(np.asarray(rows), np.asarray(cols), np.asarray(vals), shape, t, device=device)
+    m.set_fill_value(t.np_dtype.type(fill))
+    return m
+
+
+def vector_from_numpy(n, dtype, idx, vals, fill, device):
+    """A facade Vector of ``n`` slots holding the entries ``(idx, vals)``,
+    whose unstored slots read ``fill``, on ``device``."""
+    from .facade import Vector
+
+    t = _type(dtype)
+    return Vector.from_lists(np.asarray(idx), np.asarray(vals), n, t, fill_value=fill, device=device)

@@ -60,6 +60,16 @@ class Op:
     def key(self) -> str:
         return f"{self.name}_{self.type.name}"
 
+    # the reference accessors (python/pyspla/op.py:79-192): ops are T -> T
+    # or (T, T) -> T here, as every reference built-in is
+    @property
+    def dtype_res(self) -> Type:
+        return self.type
+
+    @property
+    def dtype_arg0(self) -> Type:
+        return self.type
+
     def __call__(self, *args):
         return self.fn(*args)
 
@@ -79,12 +89,17 @@ class Op:
 class OpUnary(Op):
     """T -> T elementwise operator."""
 
+    @staticmethod
+    def make(name: str, type: Type, fn: Callable) -> "OpUnary":
+        """A user op (reference ``OpUnary::make_*``): ``fn`` maps a tensor of
+        ``type`` to one of the same shape and type."""
+        return OpUnary(name=name, type=type, fn=fn)
+
 
 @dataclass(frozen=True, eq=False)
 class OpBinary(Op):
     """(T, T) -> T operator with its monoid and kernel metadata.  A user op
-    is constructed directly and keeps ``kernel_code=None``: it never
-    reaches the kernels."""
+    (:meth:`make`) keeps ``kernel_code=None``: it never reaches the kernels."""
 
     identity: Optional[object] = None
     scatter: Optional[str] = None
@@ -92,10 +107,31 @@ class OpBinary(Op):
     commutative: bool = False
     kernel_code: Optional[KernelCode] = None
 
+    @property
+    def dtype_arg1(self) -> Type:
+        return self.type
+
+    @staticmethod
+    def make(name: str, type: Type, fn: Callable, identity=None, scatter=None,
+             associative=False, commutative=False) -> "OpBinary":
+        """A user op (reference ``OpBinary::make_*``): ``fn`` combines two
+        tensors of ``type``.  Its ``kernel_code`` is None, so the static
+        semiring gate (``ops/spmv.py`` ``_kernel_covers``, and kernel 9's
+        and kernels 4 and 5's codes) sends every op that uses it down the
+        plain PyTorch path, on CUDA tensors too: no kernel is tried first."""
+        return OpBinary(name=name, type=type, fn=fn, identity=identity, scatter=scatter,
+                        associative=associative, commutative=commutative)
+
 
 @dataclass(frozen=True, eq=False)
 class OpSelect(Op):
     """T -> bool predicate."""
+
+    @staticmethod
+    def make(name: str, type: Type, fn: Callable) -> "OpSelect":
+        """A user predicate (reference ``OpSelect::make_*``): ``fn`` maps a
+        tensor of ``type`` to a bool tensor of the same shape."""
+        return OpSelect(name=name, type=type, fn=fn)
 
 
 BUILTIN_OPS: dict[str, Op] = {}

@@ -13,11 +13,14 @@ import pytest
 import scipy.sparse as sp
 import torch
 
-from spla_tpu_torch import DenseVec, Descriptor, algorithms as alg, formats as F, kernels, op
+from spla_tpu_torch import DenseVec, Descriptor, algorithms as alg, facade as FC, formats as F, kernels, op
 from spla_tpu_torch.kernels import frontier as KF, level_update as K3, mxmt as K45, resident as K6
 from spla_tpu_torch.kernels import probe as K8, spgemm as K9, spmv as K1, staged as K7, traversal as K2
 from spla_tpu_torch.kernels.build import BuildError
 from spla_tpu_torch.interop import csr_from_numpy
+from spla_tpu_torch.library import get_library
+from spla_tpu_torch.profiling import profiler
+from spla_tpu_torch.types import FLOAT, INT
 from spla_tpu_torch import ops as TO
 from spla_tpu_torch.ops import spgemm as TG, spmv as TS
 from spla_tpu_torch.utils.primitives import lex_order
@@ -1243,3 +1246,120 @@ def test_bsr_products_refuse_tf32(dev, monkeypatch):
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
     with pytest.raises(RuntimeError, match="allow_tf32"):
         TO.bsr_spmm(I["band"], I["X"])
+
+
+# ---------------------------------------------------------------- the facade
+
+
+@pytest.fixture
+def facade_lib():
+    """The library with acceleration on and device 0, restored after the test."""
+    lib = get_library()
+    saved = dict(vars(lib))
+    lib.set_force_no_acceleration(False)
+    lib.set_device(0)
+    yield lib
+    vars(lib).update(saved)
+    profiler.enabled = False
+    profiler.reset()
+
+
+def _facade_graph(n=3000, seed=4, device=None):
+    """A facade f32 Matrix of random_graph(n, 12) with values in [0.5, 1.5),
+    built through the bulk path."""
+    a = random_graph(n, 12, seed=seed).tocoo()
+    vals = np.random.default_rng(seed).uniform(0.5, 1.5, a.nnz).astype(np.float32)
+    M = FC.Matrix((n, n), FLOAT, device=device)
+    M.build(FC.MemView(a.row), FC.MemView(a.col), FC.MemView(vals))
+    return M
+
+
+def test_facade_default_device_is_cuda(dev, facade_lib):
+    assert FC.Matrix((4, 4), FLOAT).device == torch.device("cuda", 0)
+    assert FC.Vector.dense(4, FLOAT, 1.0).device == torch.device("cuda", 0)
+    v = FC.Vector.from_lists([1], [2.0], 4, FLOAT)
+    assert v._device().values.device.type == "cuda"
+    facade_lib.set_force_no_acceleration(True)
+    assert FC.Vector(4, FLOAT).device == torch.device("cpu")
+
+
+def test_facade_ops_launch_kernels_1_9_and_5(dev, facade_lib):
+    """Vector.vxm and Matrix.mxv launch kernel 1, Matrix.mxm kernel 9 and
+    Matrix.mxmT kernel 5; each result equals the same call on the CPU."""
+    M, Mc = _facade_graph(), _facade_graph(device="cpu")
+    n = M.n_rows
+    rng = np.random.default_rng(5)
+    idx = np.sort(rng.choice(n, 300, replace=False))
+    vals = rng.uniform(0.5, 1.5, idx.size).astype(np.float32)
+    v, vc = (FC.Vector.from_lists(idx, vals, n, FLOAT, device=d) for d in (None, "cpu"))
+    mask, maskc = (FC.Vector(n, FLOAT, device=d) for d in (None, "cpu"))
+    F_ = (op.MULT_FLOAT, op.PLUS_FLOAT)
+    runs = {
+        "vxm": (lambda: v.vxm(mask, M, *F_, op.ALWAYS_FLOAT), lambda: vc.vxm(maskc, Mc, *F_, op.ALWAYS_FLOAT),
+                "spmv_pull", "vxm_kernel"),
+        "mxv": (lambda: M.mxv(mask, v, *F_, op.ALWAYS_FLOAT), lambda: Mc.mxv(maskc, vc, *F_, op.ALWAYS_FLOAT),
+                "spmv_pull", "mxv_kernel"),
+        "mxm": (lambda: M.mxm(M, *F_), lambda: Mc.mxm(Mc, *F_), "spgemm_mxm", "mxm_kernel"),
+        "mxmT": (lambda: M.mxmT(M, M, *F_, op.ALWAYS_FLOAT), lambda: Mc.mxmT(Mc, Mc, *F_, op.ALWAYS_FLOAT),
+                 "mxmt_masked", "mxmT_kernel"),
+    }
+    for name, (gpu, cpu, kernel, stat) in runs.items():
+        kernels.reset_launches()
+        for k in TS.DISPATCH_STATS:
+            TS.DISPATCH_STATS[k] = 0
+        got = gpu()
+        assert kernels.LAUNCHES[kernel] == 1 and TS.DISPATCH_STATS[stat] == 1, name
+        assert got.device == torch.device("cuda", 0)
+        want = cpu()
+        if isinstance(got, FC.Vector):
+            torch.testing.assert_close(torch.from_numpy(got.to_numpy()), torch.from_numpy(want.to_numpy()),
+                                       rtol=1e-5, atol=1e-6)
+        else:
+            (gr, gc, gv), (wr, wc, wv) = got.read(), want.read()
+            np.testing.assert_array_equal(gr, wr)
+            np.testing.assert_array_equal(gc, wc)
+            np.testing.assert_allclose(gv, wv, rtol=1e-5, atol=1e-6)
+    # an integer semiring and a user op's gate on the card
+    Mi = FC.Matrix.from_lists([0, 1, 2], [1, 2, 0], [1, 2, 3], (3, 3), INT)
+    vi = FC.Vector.from_lists([0, 1, 2], [1, 10, 100], 3, INT)
+    ones = FC.Vector.dense(3, INT, 1)
+    kernels.reset_launches()
+    assert Mi.mxv(ones, vi, INT.MULT, INT.PLUS, INT.NQZERO).to_numpy().tolist() == [10, 200, 3]
+    assert kernels.LAUNCHES["spmv_pull"] == 1
+    user_add = op.OpBinary.make("user_plus", INT, lambda a, b: a + b, identity=np.int32(0), scatter="add",
+                                associative=True, commutative=True)
+    kernels.reset_launches()
+    assert vi.vxm(ones, Mi, INT.MULT, user_add, INT.NQZERO).to_numpy().tolist() == [300, 1, 20]
+    assert kernels.LAUNCHES["spmv_pull"] == 0  # the static gate: no kernel code, the plain path
+
+
+def test_facade_instrument_synchronizes_when_profiling(dev, facade_lib, monkeypatch):
+    M = _facade_graph()
+    v = FC.Vector.dense(M.n_rows, FLOAT, 1.0)
+    mask = FC.Vector(M.n_rows, FLOAT)
+    calls = []
+    real = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: (calls.append(device), real(device)))
+    v.vxm(mask, M, op.MULT_FLOAT, op.PLUS_FLOAT, op.ALWAYS_FLOAT)
+    assert calls == []  # profiling off: no wait
+    profiler.reset()
+    facade_lib.set_time_profiling(True)
+    r = v.vxm(mask, M, op.MULT_FLOAT, op.PLUS_FLOAT, op.ALWAYS_FLOAT)
+    assert calls == [torch.device("cuda", 0)]
+    assert torch.cuda.current_stream().query()  # the result's work is done
+    s = profiler.stats()["vector_vxm"]
+    assert s["count"] == 1 and s["ms"] > 0
+    r.reduce(op.PLUS_FLOAT)
+    assert calls == [torch.device("cuda", 0)]  # a Scalar result is on the host already
+
+
+def test_facade_device_transpose_equals_host_transpose(dev, facade_lib):
+    A = _facade_graph(n=2000)
+    B = A.mxm(A, op.MULT_FLOAT, op.PLUS_FLOAT)
+    for M in (A, B):
+        got, host = M._device_t(), F.csr_transpose_host(M._device())
+        nnz = int(host.nnz)
+        assert got.shape == host.shape and int(got.nnz) == nnz
+        _assert_same(got.indptr, host.indptr)
+        for field in ("cols", "values", "row_ids"):
+            _assert_same(getattr(got, field)[:nnz], getattr(host, field)[:nnz])

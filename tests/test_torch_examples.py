@@ -2,11 +2,17 @@
 
 ``MtxLoader`` must give spla_tpu's rows, cols, values and shape bitwise on
 the same file; each CLI runs on the CPU and checks itself against its naive
-oracle; with ``--run-acc true`` and no CUDA device a CLI raises.
+oracle; with ``--run-acc true`` and no CUDA device a CLI raises.  pi's user
+op gives ``examples/pi.py``'s 0/1 on every seed tried, and convert writes
+a file that loads back equal.
 """
 
+import importlib.util
+import re
 import shutil
+from pathlib import Path
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -15,7 +21,7 @@ from spla_tpu.io import MtxLoader as JMtxLoader
 
 from spla_tpu_torch import io as mtx_io
 from spla_tpu_torch import library as L
-from spla_tpu_torch.examples import bfs, pr, sssp, tc
+from spla_tpu_torch.examples import bfs, convert, pi, pr, sssp, tc
 from spla_tpu_torch.io import MtxLoader, load_mtx
 from spla_tpu_torch.timer import Timer
 
@@ -142,3 +148,63 @@ def test_timer_laps_on_the_host(capsys):
     assert t.get_elapsed_ms() >= sum(laps) and t.get_elapsed_sec() == t.get_elapsed_ms() / 1e3
     t.print(end="\n")
     assert capsys.readouterr().out.count(",") == 2
+
+
+def _reference_example(name):
+    """examples/<name>.py of the JAX package (a script, not a package module)."""
+    path = Path(__file__).resolve().parents[1] / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"reference_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_pi_op_matches_the_reference_op():
+    """The same 0/1 as examples/pi.py's jnp op on 4,096 seeds: random int32
+    seeds, the 2^16 - 1 seeds just below 2^31 - 1 in steps, the edges, and
+    negative seeds (which the reference casts to uint32)."""
+    ref = _reference_example("pi")
+    rng = np.random.default_rng(31)
+    seeds = np.concatenate([rng.integers(0, 2**31 - 1, 2048), np.arange(2**31 - 2**16, 2**31, 64),
+                            [0, 1, 2**31 - 1, -1, -(2**31)], -rng.integers(1, 2**31, 1019)]).astype(np.int32)
+    assert seeds.size == 4096
+    want = np.asarray(ref.is_in_unit_circle_fn(jnp.asarray(seeds)))
+    got = pi.is_in_unit_circle_fn(torch.from_numpy(seeds))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert 0.70 < want.mean() < 0.87  # the circle's share, pi / 4
+
+
+def test_pi_cli_on_the_cpu(capsys):
+    lib = L.get_library()
+    try:
+        assert pi.run(["--n", "20000", "--cpu"]) == 0
+        assert lib.force_no_acceleration
+    finally:
+        lib.set_force_no_acceleration(False)
+    est = float(re.search(r"Pi is roughly ([0-9.]+)", capsys.readouterr().out).group(1))
+    assert abs(est - np.pi) < 0.08  # ~7 standard errors at 20,000 samples
+
+
+def test_pi_cli_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pi.run(["--n", "100"])
+
+
+@needs_gxx
+@pytest.mark.parametrize("undirected", ["false", "true"])
+def test_convert_round_trip(mtx_path, tmp_path, undirected, capsys):
+    out = tmp_path / "converted.mtx"
+    assert convert.run(["--in", mtx_path, "--out", str(out), "--offset-indices", "true",
+                        "--make-undirected", undirected]) == 0
+    assert f"saved to {out}" in capsys.readouterr().out
+    kw = {"make_undirected": undirected == "true", "remove_loops": True}
+    want = JMtxLoader(verbose=False).load(mtx_path, **kw)
+    got = load_mtx(out, make_undirected=False, remove_loops=False)
+    assert (got.n_rows, got.n_cols) == (want.n_rows, want.n_cols)
+    np.testing.assert_array_equal(got.rows, want.rows)
+    np.testing.assert_array_equal(got.cols, want.cols)
+    np.testing.assert_allclose(got.vals, want.vals, rtol=1e-8)
+    assert convert.run(["--in", str(out), "--stats-only", "true", "--make-undirected", "false"]) == 0
+    assert "saved to" not in capsys.readouterr().out

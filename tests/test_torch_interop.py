@@ -42,6 +42,10 @@ def _run(code, **env):
 
 def test_import_leaves_jax_and_spla_tpu_out():
     r = _run("import sys, spla_tpu_torch, spla_tpu_torch.algorithms, spla_tpu_torch.ops\n"
+             "import spla_tpu_torch.facade, spla_tpu_torch.schedule, spla_tpu_torch.profiling\n"
+             "import spla_tpu_torch.__main__, spla_tpu_torch.examples.pi, spla_tpu_torch.examples.convert\n"
+             "import spla_tpu_torch.interop, spla_tpu_torch.library, spla_tpu_torch.op\n"
+             "spla_tpu_torch.Matrix, spla_tpu_torch.Scalar, spla_tpu_torch.MtxLoader, spla_tpu_torch.Timer\n"
              "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
              " or m == 'spla_tpu' or m.startswith('spla_tpu.')]\n"
              "assert not bad, bad\n")
