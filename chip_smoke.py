@@ -43,7 +43,8 @@ Phases:
      * SpMV: mxv_masked / vxm_masked / vxm_masked_dense on the bench.py
        graph (n = 2^21, 16 entries a row), bfs / sssp / pr on the
        bench_suite.py graph (n = 2^20, degree 16), against scipy's oracles
-       and the plain path, in every traversal mode;
+       (pr: a float64 PageRank, within rtol 1e-5) and the plain path, in
+       every traversal mode;
      * push: kernel 2's public spmv_push (MIN-plus) and
        spmv_push_structural at the depth-3 frontier of the n = 2^20 graph,
        against their plain versions;
@@ -97,10 +98,27 @@ Phases:
        the card), a Schedule of callback tasks (three vxm, then a reduce,
        in order) and one chain under the time profiler and torch.profiler
        (vector_vxm ten times; the record_function names in the trace);
+     * dist: the sharded layer (spla_tpu_torch.parallel, tools/dist_times.py).
+       (a) A world of one NCCL rank in this process, every dist function at
+       the main path's size: dist_masked_spmv on the n = 2^21 graph,
+       dist_pagerank / _overlap / _pallas / _pallas_overlap, dist_bfs /
+       _pallas / _pallas_overlap and dist_sssp / _pallas / _pallas_overlap
+       on the n = 2^20 graph, dist_bfs with the default ladder on the
+       side-1024 road grid, dist_tc at n = 2^15 and 2^20, dist_mxm on the
+       mxm_mprod_s graph, against scipy, the float64 PageRank and the
+       single-card entry points
+       (BFS, TC and structure bitwise; f32 within section 2's tolerances),
+       each launching kernel 1 (kernel 4 for dist_tc) and no torch path.
+       (b) DIST_RANKS gloo ranks spawned on cuda:0, every collective staged
+       through host memory, each rank launching kernels 1 and 4 on its
+       shards of tools/dist_times.py SMALL's graphs (n = 2^17), their rows
+       stacked equal to the world of one on the same graphs, BFS / SSSP stats
+       equal to the JAX package's at S = 4 (recorded in dist_times.JAX_STATS_S4);
   5. the launch counts of phase 4: each slice's kernels must be above 0;
      the road slice reads the host once per run; the staged slice launches
      no kernel 1; the ops slice none at all; the facade slice kernel 1 24
-     times, kernel 9 once and kernel 5 twice, and no torch path;
+     times, kernel 9 once and kernel 5 twice, and no torch path; the dist
+     slice kernels 1 and 4, and no torch path;
   6. times on the card: each kernel against its plain version (CUDA events),
      SpMV in GB/s of the bench.py byte model, the masked SpGEMM-T in
      products/s (bench_suite.py masked_spgemm_mprod_s), BFS / SSSP / PR /
@@ -133,15 +151,22 @@ Phases:
      tensor times X; a failure printed as its result); facade_chain_ratio
      (bench_suite.py:349-412: the facade chain's wall over that of the same
      chain of ops.best_spmv_fn on DenseVecs, medians of 7 interleaved
-     pairs) and one vxm's host cost against ops.vxm_masked_dense's.
+     pairs) and one vxm's host cost against ops.vxm_masked_dense's;
+     the dist slice's walls at world 1 beside the single-card walls on the
+     same graphs, with each function's iterations, host reads, logical
+     comm bytes and kernel launches, one profiled
+     dist_pagerank_pallas_overlap call (device busy and idle share, and how
+     long kernel 1 ran beside NCCL's kernels), and (b)'s host-staged walls.
 
 Each kernel's row in the JSON line carries ``bound_ms``: the larger of its
 bytes (each input read once, each output written once, at this run's
 shapes and data) over 3.35 TB/s and its f32 operations over 67 TFLOP/s
 (``bound``).
 
-The three lines before the last are JSON objects of the facade chain's
-times, of the ops' times and of the kernels; the last line is ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
+The four lines before the last are JSON objects of the dist slice's
+times, of the facade chain's times, of the ops' times and of the kernels;
+the last line is ``{"ok": true, "device": {...}}``.  Any failure raises and
+exits non-zero.
 Imports neither jax nor spla_tpu.
 """
 
@@ -166,7 +191,7 @@ import torch
 
 from spla_tpu_torch import Descriptor, DenseVec, algorithms as alg, formats as F, kernels, op
 from spla_tpu_torch import FLOAT, INT, MemView, get_library, make_schedule
-from spla_tpu_torch import facade as FC
+from spla_tpu_torch import facade as FC, parallel as PAR
 from spla_tpu_torch.examples import convert as CONVERT, pi as PI
 from spla_tpu_torch.profiling import profiler
 from spla_tpu_torch.schedule import make_sched_task_callback
@@ -176,12 +201,13 @@ from spla_tpu_torch.kernels import PROBE_PHASES, frontier as KF, level_update as
 from spla_tpu_torch.kernels import probe as K8, resident as K6, spgemm as K9, spmv as K1, staged as K7
 from spla_tpu_torch.kernels import traversal as K2
 from spla_tpu_torch.kernels.build import build_log, load_library
+from spla_tpu_torch.parallel import comm as COMM, dist_ops as DOPS
 from spla_tpu_torch import ops as O
 from spla_tpu_torch.ops import (DISPATCH_STATS, count_mxmT_products, m_reduce, masked_spmv, mxm,
                                 mxmT_masked, mxv_masked, vxm_masked, vxm_masked_dense)
 from spla_tpu_torch.ops.spgemm import mxmT_masked_plain
 from spla_tpu_torch.tools import ab_spmv as AB, level_times as LT, ops_times as OT, probe_spmv as PROBE
-from spla_tpu_torch.tools import resident_levels as RL
+from spla_tpu_torch.tools import dist_times as DT, resident_levels as RL
 from spla_tpu_torch.tools.graphs import (HUB_ROWS, barbell_graph, build_graph, hub_graph, hub_spgemm,
                                          path_graph, powerlaw_graph, random_graph, road_graphs, road_grid,
                                          skewed_graph, spgemm_bins)
@@ -206,6 +232,7 @@ FACADE_HOST_CALLS = 50  # calls whose host time gives one vxm's host cost
 PI_TOL = 0.01  # pi at 10^6 samples: about 6 standard errors
 SIDE_CONVERT = 512
 TIMED_RUNS = 20
+DIST_RANKS = 4  # the gloo world on cuda:0 (part b of the dist slice)
 DEVICE_MS = {}  # kernel: its device time, where measured apart from the eager time
 PLAIN_RUNS_BIG = 3  # the plain SpGEMM-T at n = 2^20 expands 285M products per call
 PLAIN_RUNS_ROAD = 2  # kernel 6's plain versions read the host once per level
@@ -249,7 +276,8 @@ PATHS = {"spmv": ("spmv_pull", "level_update", "bfs_push_level", "sssp_push_leve
          "spgemm": ("mxmt_reduce", "mxmt_masked"), "road": ("bfs_resident", "sssp_resident"),
          "staged": ("spmv_pull_staged",),
          "probes": (*(f"spmv_probe_{phase}" for phase in PROBE_PHASES), "mxmt_gather"),
-         "mxm": ("spgemm_mxm",), "facade": ("spmv_pull", "spgemm_mxm", "mxmt_masked")}
+         "mxm": ("spgemm_mxm",), "facade": ("spmv_pull", "spgemm_mxm", "mxmt_masked"),
+         "dist": ("spmv_pull", "mxmt_reduce")}
 
 
 def phase(title):
@@ -872,7 +900,7 @@ def check_slice(G, R):
     lev_ref = torch.from_numpy(np.where(np.isfinite(lev), lev + 1, 0).astype(np.int32)).to(DEVICE)
     dist_ref = torch.from_numpy(cg.dijkstra(G["Aw_sp"], indices=src)).to(DEVICE)
     G["bfs_ref"], G["sssp_ref"] = lev_ref, dist_ref  # the staged path's oracles
-    p_ref = pr_plain(G["Ap"], 0.85, 1e-6)
+    G["pr_ref64"] = p64 = pr_ref64(G["Ap"], 0.85, 1e-6)  # the staged and dist paths' oracle too
     for name in ("default", "push_only", "pull_only"):
         check_close(f"bfs {name}", R[f"bfs {name}"].values, lev_ref, True)
         check_close(f"bfs {name} = default", R[f"bfs {name}"].values, R["bfs default"].values, True)
@@ -883,21 +911,19 @@ def check_slice(G, R):
         fin = torch.isfinite(dist_ref)
         torch.testing.assert_close(d[fin].double(), dist_ref[fin], rtol=1e-5, atol=0,
                                    msg=f"sssp {name} vs dijkstra")
-        p = R[f"pr {name}"].values
-        err = float((p - p_ref).abs().max())
-        if err > 1e-5:
-            raise AssertionError(f"pr {name}: max abs diff {err} against the plain path")
+        err = check_close(f"pr {name}", R[f"pr {name}"].values, p64.float(), False, p64)
     reached = int((lev_ref > 0).sum())
     print(f"bfs: depths equal scipy's shortest_path + 1 in all 3 modes ({reached} reached, "
           f"{int(lev_ref.max())} levels)", flush=True)
     print("sssp: equal to dijkstra within rtol 1e-5 and identical in all 3 modes", flush=True)
-    print(f"pr: max abs diff {err:.3g} against the plain path in all 3 modes", flush=True)
+    print(f"pr: within rtol 1e-5 of a float64 PageRank in all 3 modes (max abs diff {err:.3g})", flush=True)
 
 
-def pr_plain(A, alpha, eps):
-    """PageRank with the plain torch SpMV (the loop of algorithms.pr)."""
+def pr_ref64(A, alpha, eps):
+    """PageRank in float64 with the plain torch SpMV (the loop of algorithms.pr)."""
     n = A.shape[0]
-    p = torch.full((n,), 1.0 / n, dtype=torch.float32, device=DEVICE)
+    A = as64(A)
+    p = torch.full((n,), 1.0 / n, dtype=torch.float64, device=DEVICE)
     err, it = eps + 0.1, 0
     while err > eps and it < 10_000:
         ap, _ = masked_spmv(A, p, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)
@@ -1056,6 +1082,7 @@ def check_road(G, R):
     lev = cg.shortest_path(G["Road_sp"], method="D", unweighted=True, indices=0)
     lev_ref = torch.from_numpy(np.where(np.isfinite(lev), lev + 1, 0).astype(np.int32)).to(DEVICE)
     check_close("road bfs", R["bfs"].values, lev_ref, True)
+    G["road_bfs_ref"] = lev_ref  # the dist slice's oracle
     levels = int(lev_ref.max())
     if levels != 2 * SIDE_BFS - 1:
         raise AssertionError(f"road bfs: {levels} levels, want {2 * SIDE_BFS - 1}")
@@ -1167,12 +1194,11 @@ def check_staged_path(G, R):
         check_close("staged bfs = unstaged", R["bfs"].values, alg.bfs(G["Aint"], 0, At=G["Aint"]).values,
                     True)
         check_close("staged sssp = unstaged", R["sssp"].values, alg.sssp(G["Aw"], 0).values, True)
-        err = float((R["pr"].values - alg.pr(G["Ap"], 0.85, 1e-6).values).abs().max())
-    if err > 1e-5:
-        raise AssertionError(f"staged pr: max abs diff {err} against the unstaged run")
+        unstaged = alg.pr(G["Ap"], 0.85, 1e-6).values
+    err = check_close("staged pr", R["pr"].values, unstaged, False, G["pr_ref64"])
     print(f"staged path: mxv_masked (MULT/PLUS, PLUS/MIN) match the plain path; bfs equals scipy "
           f"and the unstaged run, sssp dijkstra (rtol 1e-5) and the unstaged run bitwise; pr within "
-          f"{err:.3g} of the unstaged run", flush=True)
+          f"rtol 1e-5 of a float64 PageRank, {err:.3g} from the unstaged run", flush=True)
     proc = R["ab"]
     lines = proc.stdout.strip().splitlines()
     if proc.returncode != 0 or not lines:
@@ -1531,6 +1557,129 @@ def check_facade(G, R):
           f"schedule ran in order; vector_vxm x{stats['vector_vxm']['count']} in "
           f"{stats['vector_vxm']['ms']:.3f} ms under profiling", flush=True)
     print("facade seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in R["seconds"].items()), flush=True)
+
+
+# ---------------------------------------------------------------- the sharded layer
+
+
+DIST_SPMV = ("spmv", "pr", "pr_overlap", "pr_pallas", "pr_pallas_overlap", "bfs", "bfs_pallas",
+             "bfs_pallas_overlap", "sssp", "sssp_pallas", "sssp_pallas_overlap", "road_bfs")
+
+
+def dist_mats(G):
+    """Part (a)'s inputs, the main path's graphs uncut: SpMV on bench.py's
+    n = 2^21 graph, PageRank / BFS / SSSP on bench_suite.py's n = 2^20 graph,
+    BFS with the default ladder on the side-1024 road grid, TC at n = 2^15
+    and 2^20, mxm on the mxm_mprod_s graph.  SSSP pulls over Aᵀ (the
+    weights are not symmetric)."""
+    return {"spmv": G["M"], "pr": G["Ap"], "bfs": G["Aint"], "sssp": F.csr_transpose_host(G["Aw"]),
+            "road": G["Road"], "tc": G["T"],
+            "tc_big": G["Aint"], "mxm": G["MX13"]}
+
+
+def run_dist(G):
+    """Phase 4's dist slice.  (a) A world of one NCCL rank in this process
+    (the card's count is 1 where it runs), every dist function once at the
+    main path's size (``tools.dist_times``); then the same functions on
+    ``DT.SMALL``'s graphs, the reference of (b).  (b) DIST_RANKS gloo ranks
+    on cuda:0, spawned, each launching kernels 1 and 4 on its shards of
+    ``DT.SMALL``'s graphs, with their walls (host-staged collectives)."""
+    t0 = time.perf_counter()
+    mesh = PAR.make_device_mesh(device=DEVICE)
+    R = {"mesh": mesh, "shards": DT.shard_all(mesh, dist_mats(G))}
+    torch.cuda.synchronize()
+    print(f"dist: world of {mesh.size} ({mesh.backend}) on {mesh.device}; shards made in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    R["one"] = DT.run_all(mesh, R["shards"])
+    R["small_shards"] = DT.shard_all(mesh, DT.graphs(DT.SMALL, DEVICE))
+    R["small_one"] = DT.run_all(mesh, R["small_shards"])
+    t0 = time.perf_counter()
+    R["ranks"] = PAR.spawn_world(DT.rank_job, DIST_RANKS, "gloo", [DEVICE] * DIST_RANKS, args=(DT.SMALL, True),
+                                 timeout_s=600.0, threads=1)
+    print(f"dist: {DIST_RANKS} gloo ranks on {DEVICE} ran in {time.perf_counter() - t0:.1f} s", flush=True)
+    return R
+
+
+def check_dist(G, R):
+    one, x = R["one"], R["shards"]["x"]
+    check_close("dist_masked_spmv MULT/PLUS n=2^21", torch.from_numpy(one["spmv"]["result"]).to(DEVICE),
+                K1.spmv_pull(G["M"], x, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)[0], False,
+                masked_spmv(as64(G["M"]), x.double(), op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)[0])
+    p_one = alg.pr(G["Ap"], 0.85, DT.EPS).values
+    for name in ("pr", "pr_overlap", "pr_pallas", "pr_pallas_overlap"):
+        check_close(f"dist {name}", torch.from_numpy(one[name]["result"]).to(DEVICE)[:N_GRAPH], p_one, False,
+                    G["pr_ref64"])
+    bfs_one = alg.bfs(G["Aint"], 0, At=G["Aint"]).values
+    sssp_one = alg.sssp(G["Aw"], 0).values
+    fin = torch.isfinite(G["sssp_ref"])
+    for name in ("bfs", "bfs_pallas", "bfs_pallas_overlap"):
+        v = torch.from_numpy(one[name]["result"]).to(DEVICE)[:N_GRAPH]
+        check_close(f"dist {name} against scipy", v, G["bfs_ref"], True)
+        check_close(f"dist {name} against algorithms.bfs", v, bfs_one, True)
+    for name in ("sssp", "sssp_pallas", "sssp_pallas_overlap"):
+        d = torch.from_numpy(one[name]["result"]).to(DEVICE)[:N_GRAPH]
+        if not torch.equal(torch.isinf(d), ~fin):
+            raise AssertionError(f"dist {name}: unreachable set differs from dijkstra")
+        torch.testing.assert_close(d[fin].double(), G["sssp_ref"][fin], rtol=1e-5, atol=0, msg=f"dist {name}")
+        torch.testing.assert_close(d[fin], sssp_one[fin], rtol=1e-5, atol=0, msg=f"dist {name} vs sssp")
+    road = torch.from_numpy(one["road_bfs"]["result"]).to(DEVICE)[:G["Road"].shape[0]]
+    check_close("dist road bfs against scipy", road, G["road_bfs_ref"], True)
+    tc_small, tc_big = alg.tc(G["T"]), alg.tc(G["Aint"])
+    if one["tc"]["result"] != tc_small or one["tc_big"]["result"] != tc_big:
+        raise AssertionError(f"dist_tc {one['tc']['result']}, {one['tc_big']['result']}: algorithms.tc "
+                             f"{tc_small}, {tc_big}")
+    ref, got = G["MX13_ref"], one["mxm"]["result"]
+    check_close("dist_mxm rows against scipy", torch.from_numpy(got["row_ids"]).long(),
+                torch.from_numpy(np.repeat(np.arange(N_MXM), np.diff(ref.indptr))), True)
+    check_close("dist_mxm cols against scipy", torch.from_numpy(got["cols"]), torch.from_numpy(ref.indices), True)
+    check_close("dist_mxm values against scipy", torch.from_numpy(got["values"]).to(DEVICE),
+                torch.from_numpy(got["values"]).to(DEVICE), False, torch.from_numpy(ref.data).to(DEVICE))
+    for name, r in one.items():
+        if name in DIST_SPMV and r["launches"].get("spmv_pull", 0) <= 0:
+            raise AssertionError(f"dist {name} launched no kernel 1")
+        if any(k.endswith("_torch") for k in r["dispatch"]):
+            raise AssertionError(f"dist {name} took a torch path: {r['dispatch']}")
+    if one["tc"]["launches"].get("mxmt_reduce", 0) <= 0 or one["tc_big"]["launches"].get("mxmt_reduce", 0) <= 0:
+        raise AssertionError("dist_tc launched no kernel 4")
+    print(f"dist (a): every function equals the single-card path and scipy (tc {tc_small} and {tc_big}, "
+          f"mxm {len(got['cols'])} entries); kernel 1 on every SpMV path, kernel 4 in dist_tc", flush=True)
+    check_dist_ranks(R)
+
+
+def check_dist_ranks(R):
+    """(b): the ranks' rows stacked equal the world of one on the same
+    graphs (min-plus, depths, counts and structure bitwise; f32 PLUS within
+    rtol 1e-5); stats equal the JAX package's at S = DIST_RANKS."""
+    small = R["small_one"]
+    for name, want in small.items():
+        parts = [r["calls"][name] for r in R["ranks"]]
+        for rank, p in enumerate(parts):
+            if any(k.endswith("_torch") for k in p["dispatch"]):
+                raise AssertionError(f"dist (b) rank {rank} {name} took a torch path: {p['dispatch']}")
+            if name in DIST_SPMV and p["launches"].get("spmv_pull", 0) <= 0:
+                raise AssertionError(f"dist (b) rank {rank} {name} launched no kernel 1")
+            if name == "tc" and p["launches"].get("mxmt_reduce", 0) <= 0:
+                raise AssertionError(f"dist (b) rank {rank} tc launched no kernel 4")
+            if name in DT.JAX_STATS_S4 and p["stats"] != DT.JAX_STATS_S4[name]:
+                raise AssertionError(f"dist (b) {name} stats {p['stats']}, the JAX package's {DT.JAX_STATS_S4[name]}")
+        w = want["result"]
+        if name == "mxm":
+            mloc = -(-DT.SMALL["mxm_n"] // DIST_RANKS)  # the ranks' rows are local
+            for f in ("row_ids", "cols"):
+                got = np.concatenate([p["result"][f] + (rank * mloc if f == "row_ids" else 0)
+                                      for rank, p in enumerate(parts)])
+                np.testing.assert_array_equal(got, w[f], err_msg=f"dist (b) mxm {f}")
+            np.testing.assert_allclose(np.concatenate([p["result"]["values"] for p in parts]), w["values"], rtol=1e-5)
+        elif isinstance(w, np.ndarray):
+            got = np.concatenate([p["result"] for p in parts])[:w.shape[0]]
+            if name == "spmv" or name.startswith("pr"):
+                np.testing.assert_allclose(got, w, rtol=1e-5, atol=1e-7, err_msg=f"dist (b) {name}")
+            else:
+                np.testing.assert_array_equal(got, w, err_msg=f"dist (b) {name}")
+        elif any(p["result"] != w for p in parts):
+            raise AssertionError(f"dist (b) {name}: {[p['result'] for p in parts]}, world of one {w}")
+    print(f"dist (b): {DIST_RANKS} gloo ranks on {DEVICE} equal the world of one on n={DT.SMALL['n']}; BFS and "
+          f"SSSP stats equal the JAX package's at S={DIST_RANKS}; kernels 1 and 4 on every rank", flush=True)
 
 
 # ---------------------------------------------------------------- timing
@@ -2170,6 +2319,102 @@ def device_busy(fn):
     return busy / 1e3, len(spans)
 
 
+def host_profile(fn, top=6):
+    """One call of ``fn`` under torch.profiler: its wall, the device's busy
+    ms and idle share, and the ``top`` operators by the host's own time."""
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, last = 0.0, float("-inf")
+    for start, stop in spans:
+        busy += max(0.0, stop - max(start, last))
+        last = max(last, stop)
+    ops = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total, reverse=True)[:top]
+    return {"wall_ms": wall, "busy_ms": busy / 1e3, "idle_share": 1 - busy / 1e3 / wall,
+            "host_ms_by_op": {e.key[:48]: [round(e.self_cpu_time_total / 1e3, 3), e.count] for e in ops}}
+
+
+def overlap_profile(mesh, sh):
+    """One dist_pagerank_pallas_overlap under torch.profiler: its wall, the
+    device's busy ms (the union of kernel, copy and memset spans), the
+    collective's spans (NCCL's kernels, or its copies at world 1) and how
+    long kernel 1 ran while one of them did."""
+    from torch.autograd import DeviceType
+
+    fn = lambda: DT.CALLS["pr_pallas_overlap"](mesh, sh)  # noqa: E731
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    ev = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy, last = 0.0, float("-inf")
+    for _, start, stop in sorted(ev, key=lambda e: e[1]):
+        busy += max(0.0, stop - max(start, last))
+        last = max(last, stop)
+    coll = [e for e in ev if "nccl" in e[0].lower()]
+    k1 = [e for e in ev if "spmv_pull" in e[0]]
+    both = sum(max(0.0, min(a[2], b[2]) - max(a[1], b[1])) for a in coll for b in k1)
+    return {"wall_ms": wall, "busy_ms": busy / 1e3, "idle_share": 1 - busy / 1e3 / wall, "items": len(ev),
+            "nccl_items": len(coll), "nccl_names": sorted({e[0][:60] for e in coll}), "kernel1_items": len(k1),
+            "kernel1_ms": sum(e[2] - e[1] for e in k1) / 1e3, "overlap_ms": both / 1e3}
+
+
+def time_dist(G, R, card):
+    """(a)'s walls beside the single-card walls on the same graphs, with each
+    function's iterations, host reads, logical comm bytes and kernel 1
+    launches; one profiled overlap step; (b)'s host-staged walls."""
+    mesh, one = R["mesh"], R["one"]
+    ms = DT.time_all(mesh, R["shards"], list(one))
+    single = {"pr": wall_ms(lambda: alg.pr(G["Ap"], 0.85, DT.EPS)),
+              "bfs": wall_ms(lambda: alg.bfs(G["Aint"], 0, At=G["Aint"])),
+              "sssp": wall_ms(lambda: alg.sssp(G["Aw"], 0)),
+              "spmv": cuda_ms(lambda: K1.spmv_pull(G["M"], R["shards"]["x"], op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)),
+              "tc": wall_ms(lambda: alg.tc(G["T"])), "tc_big": wall_ms(lambda: alg.tc(G["Aint"])),
+              "mxm": wall_ms(lambda: mxm(G["MX13"], G["MX13"], op.MULT_FLOAT, op.PLUS_FLOAT, 0.0))}
+    with resident_budget(0):
+        single["road_bfs"] = wall_ms(lambda: alg.bfs(G["Road"], 0, At=G["Road"]))
+    rows = {}
+    for name, r in one.items():
+        base = single.get(name) or single.get(name.split("_")[0])
+        rows[name] = {"ms": ms[name], "single_ms": base, "ratio": ms[name] / base if base else None,
+                      "iterations": r["iterations"], "host_reads": r["host_reads"],
+                      "comm_bytes": (r["stats"] or {}).get("comm_bytes"), "moved_bytes": r["comm"].get("bytes", 0),
+                      "kernel1_launches": r["launches"].get("spmv_pull", 0),
+                      "kernel4_launches": r["launches"].get("mxmt_reduce", 0)}
+        print(f"time dist {name} (world of 1, NCCL): {ms[name]:.3f} ms, single card {base:.3f} ms "
+              f"({single_name(name)}), {r['iterations']} iterations, {r['host_reads']} host reads, "
+              f"{rows[name]['kernel1_launches']} kernel-1 launches [{card}]", flush=True)
+    prof = overlap_profile(mesh, R["shards"])
+    print(f"time dist pr_pallas_overlap profiled: {json.dumps(prof)} [{card}]", flush=True)
+    loops = {name: host_profile(lambda name=name: DT.CALLS[name](mesh, R["shards"])) for name in ("bfs", "road_bfs")}
+    for name, p in loops.items():
+        print(f"time dist {name} profiled (world of 1, NCCL): {json.dumps(p)} [{card}]", flush=True)
+    staged = R["ranks"][0]["ms"]
+    small = DT.time_all(mesh, R["small_shards"], list(staged))
+    for name, t in staged.items():
+        print(f"time dist {name} ({DIST_RANKS} gloo ranks on one card, host-staged, n={DT.SMALL['n']}): "
+              f"{t:.3f} ms; world of 1 (NCCL) on the same graph {small[name]:.3f} ms [{card}]", flush=True)
+    return {"world1_nccl": rows, "profile": prof, "loop_profiles": loops, "gloo4_host_staged_ms": staged,
+            "world1_small_ms": small, "card": card}
+
+
+def single_name(name):
+    return {"spmv": "kernel 1, CUDA events", "tc": "algorithms.tc n=2^15", "tc_big": "algorithms.tc n=2^20",
+            "mxm": "ops.mxm", "road_bfs": "algorithms.bfs, level loop"}.get(name, f"algorithms.{name.split('_')[0]}")
+
+
 def time_facade(G, card):
     """bench_suite.py:349-412's facade_chain_ratio on the card: the facade
     chain (ten Vector.vxm, then reduce read on the host) against its
@@ -2291,7 +2536,8 @@ def main():
                                    ("probes", run_probes, check_probes),
                                    ("mxm", run_mxm, check_mxm_slice),
                                    ("ops", run_ops, check_ops),
-                                   ("facade", run_facade, check_facade)):
+                                   ("facade", run_facade, check_facade),
+                                   ("dist", run_dist, check_dist)):
         kernels.reset_launches()
         for k in DISPATCH_STATS:
             DISPATCH_STATS[k] = 0
@@ -2338,6 +2584,8 @@ def main():
             or any(v for k, v in stats["facade"].items() if k.endswith("_torch"))):
         raise AssertionError(f"the facade slice must launch {facade_want} (two chains, mxv and the "
                              f"schedule's three vxm; mxm; mxmT i32 and f32) and take no torch path")
+    if stats["dist"]["mxv_torch"] or stats["dist"]["mxmT_torch"]:
+        raise AssertionError("the dist slice took the torch path for a covered request")
     staged = astats["staged"]
     print(f"staged: algorithms.STATS {json.dumps(staged)}", flush=True)
     if launches["staged"]["spmv_pull"] or staged["pull"] == 0 or staged["resident"]:
@@ -2357,6 +2605,8 @@ def main():
     times.update(mxm_times)
     ops_rows = time_ops(G, results["ops"], card)
     facade_row = time_facade(G, card)
+    dist_row = time_dist(G, results["dist"], card)
+    torch.distributed.destroy_process_group()
 
     # one PyTorch call computes the same function only for the pull SpMVs and mxm
     library = {"spmv_pull": cusparse_ms, "spmv_pull_staged": cusparse_ms, "spgemm_mxm": mxm_library_ms}
@@ -2375,6 +2625,7 @@ def main():
             if k in DEVICE_MS:
                 row["device_ms"] = DEVICE_MS[k]
             rows_out.append(row)
+    print(json.dumps({"dist": dist_row}))
     print(json.dumps({"facade": facade_row}))
     print(json.dumps({"ops": ops_rows}))
     print(json.dumps({"kernels": rows_out}))

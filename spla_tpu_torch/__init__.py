@@ -58,7 +58,7 @@ def __getattr__(name):
         return importlib.import_module(".io", __name__).MtxLoader
     if name == "Timer":
         return importlib.import_module(".timer", __name__).Timer
-    if name in ("io", "profiling", "timer", "facade", "schedule", "library"):
+    if name in ("io", "profiling", "timer", "facade", "schedule", "library", "parallel", "reorder"):
         return importlib.import_module(f".{name}", __name__)
     raise AttributeError(f"module 'spla_tpu_torch' has no attribute {name!r}")
 

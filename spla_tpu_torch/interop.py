@@ -5,8 +5,9 @@ through numpy.
 ``np.asarray``, so this package never imports jax; ``to_numpy`` is the
 way back.  ``matrix_from_numpy`` and ``vector_from_numpy`` make facade
 objects from what a ``spla_tpu.facade`` Matrix or Vector's ``read()`` and
-``fill_value`` give.  The tests use these to give both packages the same
-inputs.
+``fill_value`` give.  ``sharded_csr_from_numpy`` makes one rank's shard of
+``parallel`` from a ``spla_tpu.parallel`` shard's arrays.  The tests use
+these to give both packages the same inputs.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ __all__ = [
     "to_numpy",
     "matrix_from_numpy",
     "vector_from_numpy",
+    "sharded_csr_from_numpy",
 ]
 
 # fields that are static Python values, not arrays
@@ -115,3 +117,29 @@ def vector_from_numpy(n, dtype, idx, vals, fill, device):
 
     t = _type(dtype)
     return Vector.from_lists(np.asarray(idx), np.asarray(vals), n, t, fill_value=fill, device=device)
+
+
+def sharded_csr_from_numpy(fields: dict, rank: int, device):
+    """Rank ``rank``'s shard of the port's ``parallel`` layer from a
+    ``spla_tpu.parallel`` source, as numpy: the fields of a ``ShardedCsr``
+    (``shape``, ``n_shards``, the stacked ``indptr``, ``cols``, ``values``,
+    ``row_ids``, ``nnz`` and ``fill``; ``np.asarray`` of each) give a
+    ``ShardedCsr``.  The TPU cell format of a ``ShardedCellSpmv`` has no
+    counterpart, so it comes as the host COO of the matrix it was packed
+    from (``shape``, ``n_shards``, ``rows``, ``cols``, ``values``, and
+    ``split`` True for the diagonal / off-diagonal pair) and gives the
+    port's ``ShardedCellSpmv`` (or its ``(diag, off)`` pair)."""
+    from .parallel import dist_cell, dist_matrix
+
+    shape, n_shards = tuple(int(s) for s in fields["shape"]), int(fields["n_shards"])
+    if "indptr" in fields:
+        return dist_matrix.shard_of(shape, n_shards, fields, fields["fill"], rank, device)
+    values = np.asarray(fields["values"], np.float32)
+    rows = np.asarray(fields["rows"], np.int32)
+    indptr = np.zeros(shape[0] + 1, np.int32)
+    np.cumsum(np.bincount(rows, minlength=shape[0]), out=indptr[1:])
+    a = csr_from_numpy(shape, indptr, fields["cols"], values, rows, values.size, 0.0, device)
+    if fields.get("split"):
+        diag, off = dist_cell.shard_cell_spmv_split(a, n_shards)
+        return diag[rank], off[rank]
+    return dist_cell.shard_cell_spmv(a, n_shards)[rank]

@@ -1363,3 +1363,147 @@ def test_facade_device_transpose_equals_host_transpose(dev, facade_lib):
         _assert_same(got.indptr, host.indptr)
         for field in ("cols", "values", "row_ids"):
             _assert_same(getattr(got, field)[:nnz], getattr(host, field)[:nnz])
+
+
+# ---------------------------------------------------------------- the sharded layer (parallel)
+
+DIST_SPEC = {"n": 4096, "deg": 8, "road": 32, "mxm_n": 512}  # tools.dist_times.SMALL, cut
+
+
+@pytest.fixture(scope="module")
+def dist_meshes():
+    """A world of one rank in this process: its NCCL mesh on cuda:0, and a
+    gloo group of the same rank whose mesh holds CPU tensors (the plain
+    versions) or CUDA tensors (staged through host memory)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.distributed as dist
+    from spla_tpu_torch import parallel as P
+
+    nccl = P.make_device_mesh(device="cuda:0")
+    gloo = dist.new_group(backend="gloo")
+    yield {"nccl": nccl, "cpu": P.Mesh(gloo, 0, 1, torch.device("cpu"), "gloo"),
+           "staged": P.Mesh(gloo, 0, 1, torch.device("cuda:0"), "gloo")}
+    dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def dist_runs(dist_meshes):
+    """Every dist function once on each mesh, with what it launched."""
+    from spla_tpu_torch.parallel import comm
+    from spla_tpu_torch.tools import dist_times as DT
+
+    out = {}
+    for name, mesh in dist_meshes.items():
+        sh = DT.shard_all(mesh, DT.graphs(DIST_SPEC, mesh.device))
+        comm.reset_comm_stats()
+        out[name] = DT.run_all(mesh, sh)
+        out[name + " staged bytes"] = comm.COMM_STATS["staged_bytes"]
+    return out
+
+
+DIST_SPMV = ("spmv", "pr", "pr_overlap", "pr_pallas", "pr_pallas_overlap", "bfs", "bfs_pallas",
+             "bfs_pallas_overlap", "sssp", "sssp_pallas", "sssp_pallas_overlap", "road_bfs")
+
+
+def _same_dist(name, got, want):
+    g, w = got["result"], want["result"]
+    if name == "mxm":
+        for f in ("row_ids", "cols"):
+            np.testing.assert_array_equal(g[f], w[f])
+        np.testing.assert_allclose(g["values"], w["values"], rtol=1e-5)
+    elif name in ("spmv",) or name.startswith("pr"):
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-7)  # f32 PLUS: the fold order differs
+    else:
+        np.testing.assert_array_equal(g, w)  # depths, min-plus distances, counts
+    assert got["stats"] == want["stats"] and got["host_reads"] == want["host_reads"]
+
+
+@pytest.mark.parametrize("name", [*DIST_SPMV, "tc", "mxm"])
+def test_dist_on_the_card_matches_the_plain_versions(dist_runs, name):
+    """World of one on NCCL (kernels 1 and 4) against the same loop on CPU
+    tensors (their plain versions), and the gloo mesh's staged run."""
+    card, plain, staged = (dist_runs[k][name] for k in ("nccl", "cpu", "staged"))
+    _same_dist(name, card, plain)
+    _same_dist(name, staged, card)
+    for run in (card, staged):
+        assert not any(k.endswith("_torch") for k in run["dispatch"])
+        if name in DIST_SPMV:
+            assert run["launches"]["spmv_pull"] > 0
+        if name == "tc":
+            assert run["launches"]["mxmt_reduce"] > 0
+    assert dist_runs["staged staged bytes"] > 0 and dist_runs["nccl staged bytes"] == 0
+
+
+def test_kernel1_on_an_empty_off_diagonal_block(dist_meshes):
+    """At world 1 every column is on the diagonal: the off-diagonal block
+    stores nothing, and kernel 1 gives init and no hit on every row."""
+    from spla_tpu_torch import parallel as P
+
+    mesh = dist_meshes["nccl"]
+    a = F.csr_from_scipy(random_graph(1000, 8).astype(np.float32), device=mesh.device)
+    diag, off = P.shard_cell_spmv_split(a, 1, mesh)
+    assert int(off.block.nnz) == 0 and int(diag.block.nnz) == int(a.nnz)
+    x = torch.rand(1000, device=mesh.device)
+    kernels.reset_launches()
+    out, _ = K1.spmv_pull(off.block, x, op.MULT_FLOAT, op.PLUS_FLOAT, 3.0)
+    hits = K1.spmv_pull_structural(off.block, x > 0.5)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["spmv_pull"] == 2
+    _assert_same(out, torch.full((1000,), 3.0, device=mesh.device))
+    assert not hits.any()
+
+
+def test_pin_dist_tc_sums_in_int64_on_the_card(dist_meshes):
+    """Kernel 4 sums in int64 on the card; on CPU tensors the sum is taken
+    in int32 and wraps, as the JAX package's does
+    (``tests/test_torch_dist.py::test_pin_dist_tc_int32_sum_wraps_on_the_cpu``)."""
+    from spla_tpu_torch import parallel as P
+    from spla_tpu_torch.ops.spmv import DISPATCH_STATS
+
+    a = random_graph(60, 8, seed=6).astype(np.int32)
+    a.data[:] = 30_000
+    b = a.astype(np.int64)
+    exact = int((b @ b.T).multiply(b > 0).sum())  # the products of the selected mask entries
+    got = {}
+    for name in ("nccl", "cpu"):
+        mesh = dist_meshes[name]
+        sc = P.shard_csr_by_rows(F.csr_from_scipy(a, device=mesh.device), 1, mesh)
+        for k in DISPATCH_STATS:
+            DISPATCH_STATS[k] = 0
+        got[name] = P.dist_tc(mesh, sc)
+        assert DISPATCH_STATS["mxmT_kernel" if name == "nccl" else "mxmT_torch"] == 1
+    assert exact > 1 << 31
+    assert got["nccl"] == exact
+    assert got["cpu"] == (exact + (1 << 31)) % (1 << 32) - (1 << 31)
+
+
+def test_dist_on_four_gloo_ranks_of_one_card(dist_runs):
+    """Four ranks on cuda:0 in a gloo world (collectives staged through host
+    memory), each launching kernels 1 and 4 on its shard, equal to the
+    world of one."""
+    from spla_tpu_torch import parallel as P
+    from spla_tpu_torch.kernels.build import load_library
+    from spla_tpu_torch.tools import dist_times as DT
+
+    load_library()
+    res = P.spawn_world(DT.rank_job, 4, "gloo", ["cuda:0"] * 4, args=(DIST_SPEC,), timeout_s=300.0)
+    one = dist_runs["nccl"]
+    for name, want in one.items():
+        parts = [r["calls"][name] for r in res]
+        for p in parts:
+            assert not any(k.endswith("_torch") for k in p["dispatch"])
+            assert p["launches"].get("spmv_pull", 0) > 0 or name not in DIST_SPMV
+            assert p["launches"].get("mxmt_reduce", 0) > 0 or name != "tc"
+        w = want["result"]
+        if name == "mxm":
+            got = np.concatenate([p["result"]["cols"] for p in parts])
+            np.testing.assert_array_equal(got, w["cols"])
+        elif isinstance(w, np.ndarray):
+            g = np.concatenate([p["result"] for p in parts])[:w.shape[0]]
+            if g.dtype.kind == "f" and (name == "spmv" or name.startswith("pr")):
+                np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-7)
+            else:
+                np.testing.assert_array_equal(g, w)
+        else:
+            assert all(p["result"] == w for p in parts)
