@@ -22,7 +22,7 @@ Phases:
      graph, the hub graph, a graph of one stage and the n = 2^16 graphs, at
      its default slots on the powerlaw graph, and a repeated call bitwise;
      each of kernel 8's phase probes against its plain version; kernels 4
-     and 5, every instance, and their gather floor (``kernels.probe.
+     and 5, the six muls in f32 and i32, and their gather floor (``kernels.probe.
      mxmt_gather``) on the n = 2^15 SpGEMM graph and the hub graph, with
      each plan (team, windows, hub chunks) and the registers of the timed
      instances; the level loop's push levels (kernel 2's push fused with
@@ -37,7 +37,16 @@ Phases:
      scipy's A @ A), the n = 2^20 traversal graph and the skewed graph,
      PLUS/MIN f32 (init +inf) and MULT/PLUS, PLUS/MIN, PLUS/MAX i32 on the
      2^13 graph, and a ±1 i32 PLUS case whose sums cancel (the init drop),
-     printing each plan;
+     printing each plan; then the semirings beyond the six muls in f32
+     and i32 (the mul a kernel argument: every built-in mul, u32, the
+     bitwise and logical adds): kernel 1's generic family on the n = 2^21,
+     hub and powerlaw graphs in seven cases
+     (BAND/BOR i32, MULT/PLUS u32 with values near 2^32, MIN/MAX u32,
+     MINUS/MIN f32, DIV/PLUS i32 with x / 0 and INT_MIN / -1 both ways,
+     LAND/LOR u32, BONE/BXOR i32), each with and without masks and swapped,
+     and MULT/PLUS f32 sent to the family; kernels 5 and 4 in u32 and f32
+     (MINUS_POW2/MIN, DIV) on the n = 2^15 graph; kernel 9 DIV/MAX and
+     MINUS/PLUS f32 on graphs.spgemm_bins and at n = 2^13;
   4. the slices through the public entry points, each with the launch
      counts set to 0 just before it and read just after:
      * SpMV: mxv_masked / vxm_masked / vxm_masked_dense on the bench.py
@@ -114,11 +123,18 @@ Phases:
        shards of tools/dist_times.py SMALL's graphs (n = 2^17), their rows
        stacked equal to the world of one on the same graphs, BFS / SSSP stats
        equal to the JAX package's at S = 4 (recorded in dist_times.JAX_STATS_S4);
+     * semirings: requests beyond the six muls in f32 and i32, at full width:
+       mxv_masked MULT/PLUS u32 and BAND/BOR i32 and vxm_masked_dense
+       BAND/BOR i32 at n = 2^21, mxmT_masked MULT/PLUS u32 and tc on a u32
+       n = 2^20 graph of values {1, 2, 3}, mxm MINUS/PLUS f32 at n = 2^20
+       (~285 M products), against the plain path;
   5. the launch counts of phase 4: each slice's kernels must be above 0;
      the road slice reads the host once per run; the staged slice launches
      no kernel 1; the ops slice none at all; the facade slice kernel 1 24
      times, kernel 9 once and kernel 5 twice, and no torch path; the dist
-     slice kernels 1 and 4, and no torch path;
+     slice kernels 1 and 4, and no torch path; the semirings slice kernel
+     1's generic family three times and no templated kernel 1, kernels 5, 4
+     and 9 once each, and no torch path;
   6. times on the card: each kernel against its plain version (CUDA events),
      SpMV in GB/s of the bench.py byte model, the masked SpGEMM-T in
      products/s (bench_suite.py masked_spgemm_mprod_s), BFS / SSSP / PR /
@@ -156,7 +172,9 @@ Phases:
      same graphs, with each function's iterations, host reads, logical
      comm bytes and kernel launches, one profiled
      dist_pagerank_pallas_overlap call (device busy and idle share, and how
-     long kernel 1 ran beside NCCL's kernels), and (b)'s host-staged walls.
+     long kernel 1 ran beside NCCL's kernels), and (b)'s host-staged walls;
+     kernel 1's generic family beside its templated instance on MULT/PLUS
+     f32, and on BAND/BOR i32, in time_pull's rotation.
 
 Each kernel's row in the JSON line carries ``bound_ms``: the larger of its
 bytes (each input read once, each output written once, at this run's
@@ -245,8 +263,17 @@ DEVICE = "cuda"
 
 MULS = ("PLUS", "MULT", "FIRST", "SECOND", "MIN", "MAX")
 ADDS = ("PLUS", "MIN", "MAX")
+TYPES = {"f32": op.FLOAT, "i32": op.INT, "u32": op.UINT}
+INT_MIN = int(np.iinfo(np.int32).min)
+RUNTIME_MUL = 64  # csrc/semiring.cuh kRuntimeMul: the MUL of the instances whose mul is a kernel argument
+# kernel 1's generic family in phase 3: (mul, add, dtype) on the n = 2^21, hub and powerlaw graphs
+GENERIC_PULL = (("BAND", "BOR", "i32"), ("MULT", "PLUS", "u32"), ("MIN", "MAX", "u32"), ("MINUS", "MIN", "f32"),
+                ("DIV", "PLUS", "i32"), ("LAND", "LOR", "u32"), ("BONE", "BXOR", "i32"))
 KERNELS = {
     "spmv_pull": ("cuda", "spla_tpu_torch/kernels/csrc/spmv_pull.cu", "spla_tpu/pallas/spmv.py:2055"),
+    # kernel 1's generic family: the mul a kernel argument (every built-in mul, u32, the bitwise and logical adds)
+    "spmv_pull_generic": ("cuda", "spla_tpu_torch/kernels/csrc/spmv_pull_generic.cu",
+                          "spla_tpu/pallas/spmv.py:2055"),
     "spmv_push": ("cuda", "spla_tpu_torch/kernels/csrc/spmv_push.cu", "spla_tpu/pallas/spmv.py:2346"),
     "level_update": ("cuda", "spla_tpu_torch/kernels/csrc/level_update.cu", "spla_tpu/pallas/spmv.py:2789"),
     # the push levels: kernel 2's push fused with kernel 3's update, the counterparts of the
@@ -277,7 +304,8 @@ PATHS = {"spmv": ("spmv_pull", "level_update", "bfs_push_level", "sssp_push_leve
          "staged": ("spmv_pull_staged",),
          "probes": (*(f"spmv_probe_{phase}" for phase in PROBE_PHASES), "mxmt_gather"),
          "mxm": ("spgemm_mxm",), "facade": ("spmv_pull", "spgemm_mxm", "mxmt_masked"),
-         "dist": ("spmv_pull", "mxmt_reduce")}
+         "dist": ("spmv_pull", "mxmt_reduce"),
+         "semirings": ("spmv_pull_generic", "mxmt_masked", "mxmt_reduce", "spgemm_mxm")}
 
 
 def phase(title):
@@ -289,6 +317,12 @@ def phase(title):
 
 def csr(indptr, rows, cols, vals, n, fill=0):
     return csr_from_numpy((n, n), indptr, cols, vals, rows, rows.size, fill, DEVICE)
+
+
+def u32_values(vals):
+    """u32 values of f32 ones in [0, 1): small below 0.5, within 1000 of 2^32
+    above (MULT and PLUS wrap)."""
+    return np.where(vals < 0.5, vals * 16, (1 << 32) - 1 - vals * 1000).astype(np.uint32)
 
 
 def signed_mask(a, dtype, seed):
@@ -316,6 +350,8 @@ def check_close(what, got, ref, exact, ref64=None):
     f32 PLUS: within rtol=1e-5 of a float64 reference, atol = 1e-6 max|ref|
     (the summation order differs).  Returns the max abs error against ``ref``."""
     if exact:
+        if got.dtype == torch.uint32:  # compared as the int32 of the same bits
+            got, ref = got.view(torch.int32), ref.view(torch.int32)
         torch.testing.assert_close(got, ref, rtol=0, atol=0, equal_nan=True, msg=what)
         return 0.0
     nan = torch.isnan(ref64)
@@ -337,8 +373,9 @@ def as64(M):
     return replace(M, values=M.values.double(), fill=M.fill.double())
 
 
-def check_pull(label, M, x, op_mul, op_add, init, x_valid, row_sel, swap=False):
-    got, has = K1.spmv_pull(M, x, op_mul, op_add, init, x_valid, row_sel, want_has=True, swap=swap)
+def check_pull(label, M, x, op_mul, op_add, init, x_valid, row_sel, swap=False, generic=False):
+    got, has = K1.spmv_pull(M, x, op_mul, op_add, init, x_valid, row_sel, want_has=True, swap=swap,
+                            generic=generic)
     ref, ref_has = K1.spmv_pull_plain(M, x, op_mul, op_add, init, x_valid, row_sel, swap)
     if not torch.equal(has, ref_has):
         raise AssertionError(f"{label}: has differs")
@@ -592,8 +629,8 @@ def mxmt_plan_line(mask, B):
 
 def mxmt_resources(mode, dtype, mul, add):
     """ptxas' registers and shared memory of one csrc/mxmt.cu instance
-    (mxmt_kernel<mode, dtype, mul, add>; dtype "i" or "f"), from the build
-    log."""
+    (mxmt_kernel<mode, dtype, mul, add>; dtype "i" or "f"; mul RUNTIME_MUL for
+    the instances whose mul is a kernel argument), from the build log."""
     ints = [f"Li{'n' if v < 0 else ''}{abs(v)}E" for v in (mode, mul, add)]
     name, found = f"mxmt_kernelI{ints[0]}{dtype}{''.join(ints[1:])}E", False
     for line in build_log().splitlines():
@@ -607,10 +644,11 @@ def mxmt_resources(mode, dtype, mul, add):
 
 
 def check_mxmt(G):
-    """Kernels 5 and 4, every instance, on the SpGEMM graph (n = 2^15) with a
-    mask that GTZERO partly deselects, and on the hub graph; the structural
-    instances with every stored entry selected (no selection) too.  Prints
-    each plan and the registers of the instances timed in phase 6."""
+    """Kernels 5 and 4, the six muls with every add in f32 and i32, on the
+    SpGEMM graph (n = 2^15) with a mask that GTZERO partly deselects, and on
+    the hub graph; the structural instances with every stored entry
+    selected (no selection) too.  Prints each plan and the registers of
+    the instances timed in phase 6."""
     errs = {"mxmt_reduce": 0.0, "mxmt_masked": 0.0, "mxmt_gather": 0.0}
     for graph in ("T", "HT"):
         for dtype in ("f32", "i32"):
@@ -643,13 +681,13 @@ def check_mxmt(G):
                         K8.mxmt_gather_plain(mask, A, values), True)
         what = (f"n={N_TC} degree {DEG_TC}" if graph == "T"
                 else f"hub graph n={N_HUB_TC}, {HUB_ROWS} rows of {HUB_LEN_TC} drawn columns")
-        print(f"kernels 4 and 5 on the {what} (plan: {mxmt_plan_line(mask, A)}): 36 + 6 structural "
-              f"instances of kernel 5 and 12 + 1 of kernel 4 match the plain versions, and the gather floor "
-              f"its plain version", flush=True)
+        print(f"kernels 4 and 5 on the {what} (plan: {mxmt_plan_line(mask, A)}): the six muls' 36 (mul, add, "
+              f"dtype) + 6 structural of kernel 5 and 12 + 1 of kernel 4 match the plain versions, and the "
+              f"gather floor its plain version", flush=True)
     for label, mask in (("tc n=2^15", G["T"]), ("tc n=2^20", G["Aint"])):
         print(f"kernels 4 and 5 plan on {label}: {mxmt_plan_line(mask, mask)}", flush=True)
-    for what, key in (("kernel 4 structural", (0, "i", -1, 0)), ("kernel 4 MULT i32", (0, "i", 1, 0)),
-                      ("kernel 5 MULT/PLUS i32", (1, "i", 1, 0)), ("gather, values", (2, "i", 0, 0))):
+    for what, key in (("kernel 4 structural", (0, "i", -1, 0)), ("kernel 4 i32", (0, "i", RUNTIME_MUL, 0)),
+                      ("kernel 5 PLUS i32", (1, "i", RUNTIME_MUL, 0)), ("gather, values", (2, "i", 0, 0))):
         print(f"{what}: {mxmt_resources(*key)}", flush=True)
     return errs
 
@@ -691,8 +729,8 @@ def check_mxm_pair(label, A, B, om, oa, init, ref64=None):
 
 
 def check_mxm(G):
-    """Kernel 9 against its plain version: every instance on
-    graphs.spgemm_bins, and two f32 adds there with init NaN (which
+    """Kernel 9 against its plain version: the six muls with every add in
+    f32 and i32 on graphs.spgemm_bins, and two f32 adds there with init NaN (which
     the large bin must not keep for an untouched column); MULT/PLUS f32
     on the mxm_mprod_s graph (also
     against scipy), the n = 2^20 graph and the skewed graph; PLUS/MIN f32
@@ -711,8 +749,8 @@ def check_mxm(G):
                 err = max(err, e)
     for om, oa in ((op.PLUS_FLOAT, op.MIN_FLOAT), (op.MULT_FLOAT, op.PLUS_FLOAT)):  # only reached columns kept
         check_mxm_pair(f"mxm bins {om.name}/{oa.name} f32 init NaN", A, B, om, oa, float("nan"))
-    print("kernel 9: all 36 instances match the plain version on graphs.spgemm_bins (small, medium and "
-          "large rows), and PLUS/MIN and MULT/PLUS f32 with init NaN", flush=True)
+    print("kernel 9: the six muls' 36 (mul, add, dtype) match the plain version on graphs.spgemm_bins (small, "
+          "medium and large rows), and PLUS/MIN and MULT/PLUS f32 with init NaN", flush=True)
     A, B = G["Bins20_f32"]
     print(f"kernel 9 plan on graphs.spgemm_bins(2^20): {mxm_plan_line(A, B)}", flush=True)
     err = max(err, check_mxm_pair("mxm bins n=2^20 MULT/PLUS f32", A, B, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)[0])
@@ -755,6 +793,109 @@ def check_mxm(G):
             G["mxm_big_plain"] = ref
         del got, ref
     return {"spgemm_mxm": err}
+
+
+def as_u32(M):
+    """M's value bits as u32 (negative i32 values become values past 2^31)."""
+    return replace(M, values=M.values.view(torch.uint32), fill=M.fill.view(torch.uint32))
+
+
+def typed_x(dtype, n, rng):
+    """A dense x for the generic checks: f32 with NaN, +-inf and 0; i32 in
+    [-4, 4] (zeros and -1 for DIV) with INT_MIN at every 97th; u32 small or
+    within 1000 of 2^32 (MULT and PLUS wrap)."""
+    if dtype == "f32":
+        x = rng.uniform(-2, 2, n).astype(np.float32)
+        x[[7, 11, 13, 17]] = np.nan, np.inf, -np.inf, 0.0
+    elif dtype == "i32":
+        x = rng.integers(-4, 5, n).astype(np.int32)
+        x[::97] = INT_MIN
+    else:
+        x = np.where(rng.random(n) < 0.5, rng.integers(0, 8, n), (1 << 32) - rng.integers(1, 1000, n))
+        x = x.astype(np.uint32)
+    return torch.from_numpy(x).to(DEVICE)
+
+
+def div_values(Mi):
+    """Mi with INT_MIN at every 7th entry, -1 at every 11th and 0 at every
+    13th: kernel 1's DIV meets x / 0 and INT_MIN / -1 in both operand orders."""
+    v = Mi.values.clone()
+    e = torch.arange(v.numel(), device=v.device)
+    v = torch.where(e % 7 == 0, INT_MIN, torch.where(e % 11 == 0, -1, torch.where(e % 13 == 0, 0, v)))
+    return replace(Mi, values=v)
+
+
+def check_generic(G):
+    """The semirings beyond the six muls in f32 and i32 (the mul a kernel
+    argument) against their plain versions: kernel 1's generic family on
+    the n = 2^21, hub and powerlaw graphs, each case of GENERIC_PULL with
+    no masks, with both masks and with both masks and vxm's swapped
+    operands (u32 values near 2^32, so that MULT and PLUS wrap), and
+    MULT/PLUS f32 sent to the family; kernel 5 in u32 (the six muls x PLUS,
+    MIN, MAX, and the structural u32 instances) and f32 MINUS_POW2/MIN, and
+    kernel 4 in u32 (the six muls) and f32 DIV, on the n = 2^15 SpGEMM-T
+    graph; kernel 9 f32 DIV/MAX and MINUS/PLUS on graphs.spgemm_bins and at
+    n = 2^13.  Integer, MIN and MAX results bitwise, f32 PLUS within
+    check_close's tolerance.  Returns each kernel's max error."""
+    errs = dict.fromkeys(("spmv_pull_generic", "mxmt_masked", "mxmt_reduce", "spgemm_mxm"), 0.0)
+    rng = np.random.default_rng(15)
+    kernels.reset_launches()
+    calls = 0
+    for label, key in (("n=2^21", "M"), ("hub", "H"), ("powerlaw", "P")):
+        mats = {"f32": G[key], "i32": G[f"{key}i"], "u32": G[f"{key}u"]}
+        m, n = mats["f32"].shape
+        xs = {dtype: typed_x(dtype, n, rng) for dtype in mats}
+        x_valid = torch.from_numpy(rng.random(n) < 0.9).to(DEVICE)
+        row_sel = torch.from_numpy(rng.random(m) < 0.7).to(DEVICE)
+        for mul, add, dtype in GENERIC_PULL:
+            T = TYPES[dtype]
+            om, oa = getattr(T, mul), getattr(T, add)
+            A = div_values(mats["i32"]) if mul == "DIV" else mats[dtype]
+            for xv, rs, swap in ((None, None, False), (x_valid, row_sel, False), (x_valid, row_sel, True)):
+                e = check_pull(f"spmv_pull generic {label} {mul}/{add} {dtype} masks={xv is not None} swap={swap}",
+                               A, xs[dtype], om, oa, oa.identity, xv, rs, swap)
+                errs["spmv_pull_generic"] = max(errs["spmv_pull_generic"], e)
+                calls += 1
+        e = check_pull(f"spmv_pull generic {label} MULT/PLUS f32 sent to the family", mats["f32"], xs["f32"],
+                       op.MULT_FLOAT, op.PLUS_FLOAT, 0.0, x_valid, row_sel, generic=True)
+        errs["spmv_pull_generic"] = max(errs["spmv_pull_generic"], e)
+        calls += 1
+        print(f"kernel 1's generic family on {label}: {len(GENERIC_PULL)} (mul, add, dtype) x 3 mask/order "
+              f"settings and MULT/PLUS f32 match the plain version", flush=True)
+    if kernels.LAUNCHES["spmv_pull_generic"] != calls or kernels.LAUNCHES["spmv_pull"]:
+        raise AssertionError(f"kernel 1's checks launched {kernels.LAUNCHES}, want {calls} of the family")
+
+    A, mask = as_u32(G["Tw_i32"]), as_u32(G["Tm_i32"])
+    U = op.UINT
+    sel = U.GTZERO(mask.values) & mask.valid_mask()
+    for add in ADDS:
+        oa = getattr(U, add)
+        for mul in MULS:
+            e = check_masked(f"mxmt_masked T {mul}/{add} u32", mask, A, getattr(U, mul), oa, sel)
+            errs["mxmt_masked"] = max(errs["mxmt_masked"], e)
+        check_masked(f"mxmt_masked T structural/{add} u32", mask, A, None, oa, mask.valid_mask(), struct_only=True)
+    for mul in MULS:
+        e = check_reduce(f"mxmt_reduce T {mul} u32", mask, A, getattr(U, mul), sel)
+        errs["mxmt_reduce"] = max(errs["mxmt_reduce"], e)
+    A, mask = G["Tw_f32"], G["Tm_f32"]
+    sel = op.GTZERO_FLOAT(mask.values) & mask.valid_mask()
+    e = check_masked("mxmt_masked T MINUS_POW2/MIN f32", mask, A, op.MINUS_POW2_FLOAT, op.MIN_FLOAT, sel)
+    errs["mxmt_masked"] = max(errs["mxmt_masked"], e)
+    e = check_reduce("mxmt_reduce T DIV f32", mask, A, op.DIV_FLOAT, sel)
+    errs["mxmt_reduce"] = max(errs["mxmt_reduce"], e)
+    print(f"kernels 5 and 4 on n={N_TC}: u32 (18 + 3 structural of kernel 5, 6 of kernel 4) and f32 "
+          f"(MINUS_POW2/MIN; DIV) match the plain versions", flush=True)
+
+    for label, (A, B) in (("bins", G["Bins_f32"]), ("n=2^13", (G["MX13"], G["MX13"]))):
+        for om, oa, init in ((op.DIV_FLOAT, op.MAX_FLOAT, float("-inf")), (op.MINUS_FLOAT, op.PLUS_FLOAT, 0.0)):
+            e, _, _ = check_mxm_pair(f"mxm {label} {om.name}/{oa.name} f32", A, B, om, oa, init)
+            errs["spgemm_mxm"] = max(errs["spgemm_mxm"], e)
+    print("kernel 9: DIV/MAX and MINUS/PLUS f32 match the plain version on graphs.spgemm_bins and at n=2^13",
+          flush=True)
+    want = {"mxmt_masked": 18 + 3 + 1, "mxmt_reduce": 6 + 1, "spgemm_mxm": 4}
+    if {k: kernels.LAUNCHES[k] for k in want} != want:
+        raise AssertionError(f"the SpGEMM checks launched {kernels.LAUNCHES}, want {want}")
+    return errs
 
 
 def check_staged(G):
@@ -995,6 +1136,57 @@ def check_mxm_slice(G, R):
     same_mxm("ops.mxm n=2^20", R["big"], plain, False, plain.values.double())
     print(f"ops.mxm: n=2^13 ({int(got.nnz)} entries) equals scipy's A @ A, n=2^20 ({int(R['big'].nnz)} entries) "
           f"the plain version; products_cap took the torch path with the same C", flush=True)
+
+
+def run_semirings(G):
+    """Phase 4's semiring slice: requests beyond the six muls in f32 and
+    i32, through the public ops at full width: mxv_masked UINT MULT/PLUS
+    and INT BAND/BOR and vxm_masked_dense INT BAND/BOR on the n = 2^21
+    graph, mxmT_masked UINT MULT/PLUS and tc on a UINT n = 2^20 graph
+    (values in {1, 2, 3}), and mxm MINUS/PLUS f32 at n = 2^20."""
+    rng = np.random.default_rng(16)
+    n = N_SPMV
+    xu = DenseVec(typed_x("u32", n, rng), torch.zeros((), dtype=torch.uint32, device=DEVICE))
+    xi = DenseVec(torch.from_numpy(rng.integers(0, 1 << 20, n).astype(np.int32)).to(DEVICE),
+                  torch.zeros((), dtype=torch.int32, device=DEVICE))
+    mask = DenseVec(torch.from_numpy((rng.random(n) < 0.7).astype(np.float32)).to(DEVICE),
+                    torch.tensor(0.0, device=DEVICE))
+    U, I = op.UINT, op.INT
+    R = {"xu": xu, "xi": xi, "mask": mask}
+    R["mxv u32"] = mxv_masked(mask, G["Mu"], xu, U.MULT, U.PLUS, op.NQZERO_FLOAT, 0)
+    R["mxv band/bor"] = mxv_masked(mask, G["Mi"], xi, I.BAND, I.BOR, op.NQZERO_FLOAT, 0)
+    R["vxm band/bor"] = vxm_masked_dense(mask, xi, G["Mi"], I.BAND, I.BOR, op.NQZERO_FLOAT, 0)
+    A = G["Au"]
+    R["mxmT u32"] = mxmT_masked(A, A, A, U.MULT, U.PLUS, U.GTZERO, 0)
+    R["tc u32"] = alg.tc(A)
+    R["mxm minus"] = mxm(G["Aw"], G["Aw"], op.MINUS_FLOAT, op.PLUS_FLOAT, 0.0)
+    torch.cuda.synchronize()
+    return R
+
+
+def check_semirings(G, R):
+    """The semiring slice against the plain path: bitwise (integers), and
+    the MINUS/PLUS mxm within check_close's tolerance."""
+    xu, xi, mask = R["xu"], R["xi"], R["mask"]
+    U, I, sel = op.UINT, op.INT, op.NQZERO_FLOAT
+    ref, _ = masked_spmv(G["Mu"], xu.values, U.MULT, U.PLUS, 0, mask_vals=mask.values, op_select=sel)
+    check_close("mxv_masked MULT/PLUS u32", R["mxv u32"].values, ref, True)
+    ref, _ = masked_spmv(G["Mi"], xi.values, I.BAND, I.BOR, 0, mask_vals=mask.values, op_select=sel)
+    check_close("mxv_masked BAND/BOR i32", R["mxv band/bor"].values, ref, True)
+    ref, has = masked_spmv(G["Mi"], xi.values, lambda a, b: I.BAND(b, a), I.BOR, 0, x_valid=xi.stored_mask(),
+                           mask_vals=mask.values, op_select=sel)
+    check_close("vxm_masked_dense BAND/BOR i32", R["vxm band/bor"].values, torch.where(has, ref, 0), True)
+    A = G["Au"]
+    same_csr("mxmT_masked MULT/PLUS u32", R["mxmT u32"], mxmT_masked_plain(A, A, A, U.MULT, U.PLUS, U.GTZERO, 0))
+    want = int(K45.mxmt_reduce_plain(A, A, A, U.MULT, U.GTZERO(A.values) & A.valid_mask()))
+    if R["tc u32"] != want:
+        raise AssertionError(f"tc u32 n={N_GRAPH}: {R['tc u32']}, the plain version's int64 sum {want}")
+    ref = K9.mxm_plain(G["Aw"], G["Aw"], op.MINUS_FLOAT, op.PLUS_FLOAT, 0.0)
+    same_mxm("ops.mxm MINUS/PLUS f32 n=2^20", R["mxm minus"], ref, False, ref.values.double())
+    print(f"semirings: mxv_masked MULT/PLUS u32 and BAND/BOR i32, vxm_masked_dense BAND/BOR i32 (n={N_SPMV}), "
+          f"mxmT_masked MULT/PLUS u32 (nnz {int(R['mxmT u32'].nnz)}) and tc u32 ({want}) at n={N_GRAPH}, "
+          f"mxm MINUS/PLUS f32 ({int(R['mxm minus'].nnz)} entries) equal the plain path", flush=True)
+    del ref
 
 
 def run_push(G):
@@ -2101,18 +2293,22 @@ def time_pull(G, card):
     flat_gather (the phases that bound kernel 7), cuSPARSE (one
     ``torch.sparse_csr_tensor @ x`` call: the library's time, not a port)
     and kernel 1 at every team size, in turns (forward, then backward),
-    MULT/PLUS f32, on the n = 2^21, powerlaw and hub graphs; then kernel 7's
-    plain version.  Returns kernel 7's row and the library time on the
-    n = 2^21 graph."""
+    MULT/PLUS f32, on the n = 2^21, powerlaw and hub graphs, with kernel 1's
+    generic family on the same request and on BAND/BOR i32 (which only the
+    family serves) beside them; then kernel 7's plain version.  Returns
+    kernel 7's row, the library time and every time on the n = 2^21 graph."""
     for label, key in (("n=2^21", "M"), ("powerlaw", "P"), ("hub", "H")):
-        M = G[key]
+        M, Mi = G[key], G[f"{key}i"]
         n, nnz = M.shape[0], int(M.nnz)
         gb_model = (nnz * 12 + n * 4 + (n + 1) * 4) / 1e9  # bench.py:207
         x = torch.from_numpy(np.random.default_rng(1).random(n, dtype=np.float32)).to(DEVICE)
         lib = torch.sparse_csr_tensor(M.indptr, M.cols, M.values, size=(n, n), check_invariants=False)
         torch.testing.assert_close(lib @ x, K1.spmv_pull(M, x, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)[0],
                                    rtol=1e-5, atol=1e-5, msg="cuSPARSE against kernel 1")
+        xi = torch.from_numpy(np.random.default_rng(1).integers(0, 1 << 20, n).astype(np.int32)).to(DEVICE)
         fns = {"kernel 1": lambda: K1.spmv_pull(M, x, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0),
+               "kernel 1 generic": lambda: K1.spmv_pull(M, x, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0, generic=True),
+               "kernel 1 generic BAND/BOR i32": lambda: K1.spmv_pull(Mi, xi, op.BAND_INT, op.BOR_INT, 0),
                "warp_row": lambda: K8.spmv_probe("warp_row", M, x),
                **{f"kernel 7 slots={s}": (lambda s=s: K7.spmv_pull_staged(M, x, op.MULT_FLOAT, op.PLUS_FLOAT,
                                                                           0.0, slots=s))
@@ -2131,7 +2327,8 @@ def time_pull(G, card):
         print(f"kernel 1 on {label}: {plan_line(M)}; kernel 7: {plan.nunits} units, {plan.nhub} rows of "
               f"several chunks", flush=True)
         for name, t in ms.items():
-            print(f"time {name} MULT/PLUS f32 {label} n={n} nnz={nnz}: {t:.4f} ms ({gb_model / t * 1e3:.1f} "
+            semiring = "" if name.endswith(" i32") else " MULT/PLUS f32"  # the name holds any other
+            print(f"time {name}{semiring} {label} n={n} nnz={nnz}: {t:.4f} ms ({gb_model / t * 1e3:.1f} "
                   f"GB/s-model) [{card}]", flush=True)
         if key == "M":
             kept = ms
@@ -2142,7 +2339,7 @@ def time_pull(G, card):
     print(f"time kernel 7 plain version: {plain:.4f} ms [{card}]", flush=True)
     default = f"kernel 7 slots={K7.resolve_slots(None)}"
     # kernel 1's function, so kernel 1's bound: the plan's unit descriptors are this design's bytes
-    return {"spmv_pull_staged": (kept[default], plain, *spmv_bound(M))}, kept["cuSPARSE"]
+    return {"spmv_pull_staged": (kept[default], plain, *spmv_bound(M))}, kept["cuSPARSE"], kept
 
 
 def time_probes(G, R, card):
@@ -2252,6 +2449,18 @@ def time_mxm(G, card):
     print(f"time mxm_mprod_s n=2^13: {products / wall / 1e6:.1f} Mproducts/s, {wall * 1e3:.4f} ms a call "
           f"(median of 3 chains of {MXM_CHAIN}; {', '.join(f'{w * 1e3:.4f}' for w in walls)}) [{card}]", flush=True)
     return {"spgemm_mxm": rows["n=2^20"][:4]}, rows["n=2^20"][4]
+
+
+def time_generic(G, times, pull_ms, card):
+    """Kernel 1's generic family beside its templated instance on the same
+    request, MULT/PLUS f32 at n = 2^21 (time_pull's rotation), with
+    BAND/BOR i32, which only the family serves.  Returns the family's row:
+    the plain time and bound of the same function on the same inputs."""
+    k, p = pull_ms["kernel 1 generic"], times["spmv_pull"][1]
+    print(f"time spmv_pull_generic MULT/PLUS f32 n={N_SPMV}: generic {k:.4f} ms, templated "
+          f"{pull_ms['kernel 1']:.4f} ms ({k / pull_ms['kernel 1']:.3f}x); BAND/BOR i32 (generic only) "
+          f"{pull_ms['kernel 1 generic BAND/BOR i32']:.4f} ms; plain {p:.4f} ms [{card}]", flush=True)
+    return {"spmv_pull_generic": (k, p, *spmv_bound(G["M"]))}
 
 
 def library_call(name, fn):
@@ -2523,6 +2732,8 @@ def main():
     errs.update(check_mxm(G))
     errs.update(check_resident(G))
     errs.update(check_staged(G))
+    for k, e in check_generic(G).items():
+        errs[k] = max(errs.get(k, 0.0), e)
     torch.cuda.synchronize()
 
     phase("4 the slices through the public entry points")
@@ -2537,7 +2748,8 @@ def main():
                                    ("mxm", run_mxm, check_mxm_slice),
                                    ("ops", run_ops, check_ops),
                                    ("facade", run_facade, check_facade),
-                                   ("dist", run_dist, check_dist)):
+                                   ("dist", run_dist, check_dist),
+                                   ("semirings", run_semirings, check_semirings)):
         kernels.reset_launches()
         for k in DISPATCH_STATS:
             DISPATCH_STATS[k] = 0
@@ -2586,6 +2798,10 @@ def main():
                              f"schedule's three vxm; mxm; mxmT i32 and f32) and take no torch path")
     if stats["dist"]["mxv_torch"] or stats["dist"]["mxmT_torch"]:
         raise AssertionError("the dist slice took the torch path for a covered request")
+    semirings_want = {"spmv_pull_generic": 3, "spmv_pull": 0, "mxmt_masked": 1, "mxmt_reduce": 1, "spgemm_mxm": 1}
+    if ({k: launches["semirings"][k] for k in semirings_want} != semirings_want
+            or any(v for k, v in stats["semirings"].items() if k.endswith("_torch"))):
+        raise AssertionError(f"the semirings slice must launch {semirings_want} and take no torch path")
     staged = astats["staged"]
     print(f"staged: algorithms.STATS {json.dumps(staged)}", flush=True)
     if launches["staged"]["spmv_pull"] or staged["pull"] == 0 or staged["resident"]:
@@ -2597,19 +2813,22 @@ def main():
     times.update(time_spgemm(G, card))
     times.update(time_road(G, card))
     times.update(time_levels(G, card))
-    staged_times, cusparse_ms = time_pull(G, card)
+    staged_times, cusparse_ms, pull_ms = time_pull(G, card)
     times.update(staged_times)
     times.update(time_probes(G, results["probes"], card))
     time_variants(G, card)
     mxm_times, mxm_library_ms = time_mxm(G, card)
     times.update(mxm_times)
+    times.update(time_generic(G, times, pull_ms, card))
     ops_rows = time_ops(G, results["ops"], card)
     facade_row = time_facade(G, card)
     dist_row = time_dist(G, results["dist"], card)
     torch.distributed.destroy_process_group()
 
-    # one PyTorch call computes the same function only for the pull SpMVs and mxm
-    library = {"spmv_pull": cusparse_ms, "spmv_pull_staged": cusparse_ms, "spgemm_mxm": mxm_library_ms}
+    # one PyTorch call computes the same function only for the pull SpMVs and mxm (kernel 1's
+    # generic family is timed on MULT/PLUS f32, which cuSPARSE computes too)
+    library = {"spmv_pull": cusparse_ms, "spmv_pull_generic": cusparse_ms, "spmv_pull_staged": cusparse_ms,
+               "spgemm_mxm": mxm_library_ms}
     rows_out, seen = [], set()
     for slice_name, kernel_names in PATHS.items():
         for k in kernel_names:
@@ -2638,7 +2857,8 @@ def build_graphs():
     indptr, rows, cols, vals = build_graph(N_SPMV, DEG_SPMV)
     G = {"M": csr(indptr, rows, cols, vals, N_SPMV),
          "Minf": csr(indptr, rows, cols, vals, N_SPMV, fill=np.float32(np.inf)),
-         "Mi": csr(indptr, rows, cols, (vals * 2000 - 1000).astype(np.int32), N_SPMV)}
+         "Mi": csr(indptr, rows, cols, (vals * 2000 - 1000).astype(np.int32), N_SPMV),
+         "Mu": csr(indptr, rows, cols, u32_values(vals), N_SPMV)}
     G["ops"] = I = OT.build_inputs(DEVICE, (indptr, rows, cols, vals))
     print(f"graphs: ops A n={N_SPMV} nnz={I['A_sp'].nnz} (capacity {I['A'].capacity}), row {I['row']} and "
           f"column {I['col']} the longest; kron operands nnz {I['KronA_sp'].nnz} and {I['KronB_sp'].nnz}; band "
@@ -2648,8 +2868,10 @@ def build_graphs():
     fp, fr, fc, fv = build_graph(N_FEW, 1, seed=4)
     G["Few"] = csr(fp, fr, fc, fv, N_FEW)
     G["Hi"] = csr(hp, hr, hc, (hv * 2000 - 1000).astype(np.int32), N_GRAPH)
+    G["Hu"] = csr(hp, hr, hc, u32_values(hv), N_GRAPH)
     pp, pr_, pc, pv = powerlaw_graph(N_SPMV, DEG_SPMV)
     G["P"], G["Pi"] = csr(pp, pr_, pc, pv, N_SPMV), csr(pp, pr_, pc, (pv * 2000 - 1000).astype(np.int32), N_SPMV)
+    G["Pu"] = csr(pp, pr_, pc, u32_values(pv), N_SPMV)
     for d in SMALL_DEGREES:
         sp_, sr, sc, sv = build_graph(N_SMALL, d, seed=d)
         G[f"S{d}"] = csr(sp_, sr, sc, sv, N_SMALL)
@@ -2657,6 +2879,9 @@ def build_graphs():
     a = random_graph(N_GRAPH, DEG_GRAPH)
     G["A_sp"] = a
     G["Aint"] = F.csr_from_scipy(a.astype(np.int32), device=DEVICE)
+    au = a.astype(np.uint32)
+    au.data = np.random.default_rng(13).integers(1, 4, a.nnz).astype(np.uint32)
+    G["Au"] = F.csr_from_scipy(au, device=DEVICE)  # UINT values in {1, 2, 3}: tc is not structural
     aw = a.copy()
     aw.data = np.random.default_rng(2).uniform(0.1, 2.0, a.nnz).astype(np.float32)
     G["Aw_sp"] = aw

@@ -48,6 +48,8 @@ from .kernels.spmv import spmv_pull, spmv_pull_structural
 from .kernels.traversal import bfs_push_level, sssp_push_level
 from .ops.matrix import m_reduce
 from .ops.spgemm import mxmT_masked, mxmT_masked_reduce
+from .types import type_from_dtype
+from .utils.bits import bits
 
 __all__ = ["STATS", "RESIDENT_BYTES", "resident_bytes", "bfs", "sssp", "pr", "tc", "bfs_naive",
            "sssp_naive", "pr_naive", "tc_naive"]
@@ -266,7 +268,7 @@ def _is_pattern(A: CsrMatrix) -> bool:
     """Every stored value is 1 (one host read per matrix, cached)."""
     hit = _TC_PATTERN_CACHE.get(A.values)
     if hit is None:
-        hit = bool(torch.all(torch.where(A.valid_mask(), A.values, 1) == 1))
+        hit = bool(torch.all(~A.valid_mask() | (bits(A.values) == 1)))
         _TC_PATTERN_CACHE.put(A.values, hit)
     return hit
 
@@ -282,14 +284,16 @@ def tc(A: CsrMatrix, products_cap: int | None = None) -> int:
     int64 (float64 for float values; rounded to the nearest int); on CPU
     tensors through ``mxmT_masked`` and ``m_reduce(PLUS_INT)``, which sums in
     the value dtype: for int32 it wraps past 2^31 where kernel 4 does not.
-    Reads one scalar on the host."""
+    Reads one scalar on the host.  The ops are those of A's value type
+    (MULT, PLUS and GTZERO of INT, UINT or FLOAT), so a UINT graph compares
+    and multiplies as unsigned, and launches kernel 4's u32 instance."""
     is_pattern = _is_pattern(A)
+    T = type_from_dtype(A.values.dtype)
     if A.values.device.type == "cuda":
-        total = mxmT_masked_reduce(A, A, A, OP.MULT_INT, OP.GTZERO_INT, struct_only=is_pattern)
+        total = mxmT_masked_reduce(A, A, A, T.MULT, T.GTZERO, struct_only=is_pattern)
         return int(round(float(total))) if total.is_floating_point() else int(total)
-    B = mxmT_masked(A, A, A, OP.MULT_INT, OP.PLUS_INT, OP.GTZERO_INT, 0,
-                    products_cap=products_cap, struct_only=is_pattern)
-    return int(m_reduce(0, B, OP.PLUS_INT).value)
+    B = mxmT_masked(A, A, A, T.MULT, T.PLUS, T.GTZERO, 0, products_cap=products_cap, struct_only=is_pattern)
+    return int(m_reduce(0, B, T.PLUS).value)
 
 
 def bfs_naive(adj: list, source: int) -> np.ndarray:

@@ -20,6 +20,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .utils.bits import bits
+
 __all__ = ["Scalar", "DenseVec", "SparseVec", "CooMatrix", "CsrMatrix", "BsrMatrix"]
 
 
@@ -56,7 +58,7 @@ class DenseVec:
         return DenseVec(fill_t.expand(n).clone(), fill_t)
 
     def stored_mask(self) -> torch.Tensor:
-        return self.values != self.fill
+        return bits(self.values) != bits(self.fill)
 
 
 @dataclass(frozen=True)

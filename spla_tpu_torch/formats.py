@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from .containers import BsrMatrix, CooMatrix, CsrMatrix, DenseVec, SparseVec
+from .utils.bits import gather, where
 
 __all__ = [
     "WeakIdCache",
@@ -282,7 +283,7 @@ def compact(values, keep, capacity: int, fill) -> SparseVec:
     pos, ok = kept_positions(keep, capacity)
     nnz = torch.clamp(keep.sum(), max=capacity).to(torch.int32)
     return SparseVec(n=n, indices=torch.where(ok, pos, n).to(torch.int32),
-                     values=torch.where(ok, values[pos], fill), nnz=nnz, fill=fill)
+                     values=where(ok, gather(values, pos), fill), nnz=nnz, fill=fill)
 
 
 def dense_to_sparse_vec(dv: DenseVec, capacity: int | None = None) -> SparseVec:

@@ -33,6 +33,9 @@ SIGNATURES = {
     # init (device pointer or null), init's 32 bits (when null), out, has, stream
     "spla_spmv_pull": (_INT, _INT, _INT, _I64, _INT, _INT, _I64, _I64, *(_P,) * 15, ctypes.c_uint32,
                        _P, _P, _P),
+    # mul, swap, add, dtype, then spla_spmv_pull's arguments from m on
+    "spla_spmv_pull_generic": (_INT, _INT, _INT, _INT, _I64, _INT, _INT, _I64, _I64, *(_P,) * 15,
+                               ctypes.c_uint32, _P, _P, _P),
     # m, log2 team, hub_len, nhub, nchunks, chunk_row, chunk_c0, chunk_c1, chunk_hub, chunk_first,
     # indptr, cols, x_valid, row_sel, hits, stream
     "spla_spmv_pull_structural": (_I64, _INT, _INT, _I64, _I64, *(_P,) * 11),

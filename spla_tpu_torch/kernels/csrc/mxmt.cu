@@ -64,11 +64,15 @@
 // next batch of an entry kept in flight while one is folded (within 2%,
 // 9-24 more registers).
 //
-// Coverage (compile time): kernel 5, mul in {PLUS, MULT, FIRST, SECOND,
-// MIN, MAX} x add in {PLUS, MIN, MAX} x {f32, i32}, and a structural
-// instance per (add, dtype) whose every hit's product is 1; kernel 4, the
-// 6 muls x {f32, i32} and a structural instance that counts hits and reads
-// no values; the gather with and without values.
+// Coverage: one family each (semiring.cuh's generic family), whose mul is a
+// kernel argument.  Kernel 5, add in {PLUS, MIN, MAX} x {f32, i32, u32}
+// (kernels/mxmt.py sends it every f32 mul and PLUS, MULT, FIRST, SECOND,
+// MIN, MAX in i32 and u32: spla_tpu's Pallas SpGEMM-T gate), and a
+// structural instance per (add, dtype) whose every hit's product is 1.
+// Kernel 4, an instance each in f32, i32 and u32 (u32 products sum
+// zero-extended in uint64), and a structural instance that counts hits and
+// reads no values; the gather with and without values.  A templated
+// instance per mul was no faster (PERF.md).
 
 #include <cstring>
 #include <type_traits>
@@ -150,9 +154,9 @@ __device__ __forceinline__ void lower_bounds(const int32_t* __restrict__ a, int3
 }
 
 template <int MUL, typename T>
-__device__ __forceinline__ T product(T a, T b) {
+__device__ __forceinline__ T product(T a, T b, int mul) {
   if constexpr (MUL == kStruct) return T(1);  // every hit's product is 1
-  else return apply_op<MUL>(a, b);
+  else return apply_mul<MUL>(a, b, mul, false);
 }
 
 }  // namespace
@@ -166,6 +170,7 @@ struct MxmtArgs {
   const void* a_vals;
   const int32_t *b_indptr, *b_cols;
   const void* b_vals;
+  int mul;  // the generic instances' mul (a KernelCode)
 };
 
 // The launch shape (kernels/mxmt.py mxmt_plan).  Window w holds stored
@@ -227,7 +232,7 @@ struct Batch {
 // >= 1 unless the gather, which reads no A).
 template <int MODE, typename T, int MUL, int ADD, bool GLOBAL>
 __device__ __forceinline__ void fold_batch(const Batch<T, MUL != kStruct>& b, const int32_t* __restrict__ a,
-                                           const T* __restrict__ av, int32_t na, AccOf<MODE, T, MUL>& acc,
+                                           const T* __restrict__ av, int32_t na, int mul, AccOf<MODE, T, MUL>& acc,
                                            bool& any) {
   if constexpr (MODE == kGather) {
 #pragma unroll
@@ -245,7 +250,7 @@ __device__ __forceinline__ void fold_batch(const Batch<T, MUL != kStruct>& b, co
       if (b.k[u] >= 0 && p[u] < na && load<GLOBAL>(a + p[u]) == b.k[u]) {
         T av_p = T(0);
         if constexpr (MUL != kStruct) av_p = load<GLOBAL>(av + p[u]);
-        accumulate<MODE, ADD>(acc, product<MUL>(av_p, b.v[u]));
+        accumulate<MODE, ADD>(acc, product<MUL>(av_p, b.v[u], mul));
         any = true;
       }
     }
@@ -259,12 +264,12 @@ template <int MODE, typename T, int MUL, int ADD, bool GLOBAL>
 __device__ __forceinline__ void walk(const MxmtArgs& o, const int32_t* __restrict__ a,
                                      const T* __restrict__ av, int32_t na, const Batch<T, MUL != kStruct>& first,
                                      int32_t t, int32_t end, int stride, AccOf<MODE, T, MUL>& acc, bool& any) {
-  fold_batch<MODE, T, MUL, ADD, GLOBAL>(first, a, av, na, acc, any);
+  fold_batch<MODE, T, MUL, ADD, GLOBAL>(first, a, av, na, o.mul, acc, any);
   const int32_t step = kUnroll * stride;
   for (int32_t off = step; off < end - t; off += step) {  // no overflow of t + off past end
     Batch<T, MUL != kStruct> b;
     b.issue(o, t + off, end, stride);
-    fold_batch<MODE, T, MUL, ADD, GLOBAL>(b, a, av, na, acc, any);
+    fold_batch<MODE, T, MUL, ADD, GLOBAL>(b, a, av, na, o.mul, acc, any);
   }
 }
 
@@ -527,25 +532,12 @@ struct MxmtLaunch {
         o, p, s);
   }
 
-  // the functor semiring.cuh's dispatch calls: kernel 5's (mul, add, dtype)
+  // the functor semiring.cuh's dispatch_generic calls: kernel 5's (add, dtype)
   template <typename T, int MUL, int ADD>
   void run() {
     run_mode<kMasked, T, MUL, ADD>();
   }
 };
-
-template <typename T>
-bool dispatch_reduce_mul(int mul, MxmtLaunch& launch) {
-  switch (mul) {
-    case KC_PLUS: launch.run_mode<kReduce, T, KC_PLUS, KC_PLUS>(); return true;
-    case KC_MULT: launch.run_mode<kReduce, T, KC_MULT, KC_PLUS>(); return true;
-    case KC_FIRST: launch.run_mode<kReduce, T, KC_FIRST, KC_PLUS>(); return true;
-    case KC_SECOND: launch.run_mode<kReduce, T, KC_SECOND, KC_PLUS>(); return true;
-    case KC_MIN: launch.run_mode<kReduce, T, KC_MIN, KC_PLUS>(); return true;
-    case KC_MAX: launch.run_mode<kReduce, T, KC_MAX, KC_PLUS>(); return true;
-    default: return false;
-  }
-}
 
 // The structural kernel 5 instances: the functor dispatch_add calls.
 struct StructLaunch {
@@ -574,7 +566,7 @@ extern "C" int spla_mxmt(int mode, int mul, int add, int dtype, int structural, 
   const MxmtArgs o{cap, static_cast<const int32_t*>(m_rows), static_cast<const int32_t*>(m_cols),
                    static_cast<const uint8_t*>(sel), static_cast<const int32_t*>(a_indptr),
                    static_cast<const int32_t*>(a_cols), a_vals, static_cast<const int32_t*>(b_indptr),
-                   static_cast<const int32_t*>(b_cols), b_vals};
+                   static_cast<const int32_t*>(b_cols), b_vals, mul};
   const MxmtPlan p{static_cast<const int32_t*>(chunk_entry), static_cast<const int32_t*>(chunk_row),
                    static_cast<const int32_t*>(chunk_c0), static_cast<const int32_t*>(chunk_c1),
                    static_cast<const int32_t*>(chunk_hub), static_cast<const int32_t*>(chunk_first),
@@ -583,14 +575,19 @@ extern "C" int spla_mxmt(int mode, int mul, int add, int dtype, int structural, 
   if (!plan_ok(p)) return static_cast<int>(cudaErrorInvalidValue);
   MxmtLaunch launch{o, p, init, init_bits, out, has, total, static_cast<cudaStream_t>(stream)};
   bool ok = true;
+  if (!structural && mode != kGather && !runtime_mul_ok(mul, dtype)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (mode == kMasked) {
     StructLaunch st{launch};
     if (!structural) {
-      ok = dispatch<true>(mul, add, dtype, launch);
+      ok = dispatch_generic<true, true, true, false>(add, dtype, launch);
     } else if (dtype == DT_F32) {
       ok = dispatch_add<true, float, kStruct>(add, st);
     } else if (dtype == DT_I32) {
       ok = dispatch_add<true, int32_t, kStruct>(add, st);
+    } else if (dtype == DT_U32) {
+      ok = dispatch_add<true, uint32_t, kStruct>(add, st);
     } else {
       ok = false;
     }
@@ -598,9 +595,11 @@ extern "C" int spla_mxmt(int mode, int mul, int add, int dtype, int structural, 
     if (structural) {
       launch.run_mode<kReduce, int32_t, kStruct, KC_PLUS>();  // reads no values: one instance for every dtype
     } else if (dtype == DT_F32) {
-      ok = dispatch_reduce_mul<float>(mul, launch);
+      launch.run_mode<kReduce, float, kRuntimeMul, KC_PLUS>();
     } else if (dtype == DT_I32) {
-      ok = dispatch_reduce_mul<int32_t>(mul, launch);
+      launch.run_mode<kReduce, int32_t, kRuntimeMul, KC_PLUS>();
+    } else if (dtype == DT_U32) {
+      launch.run_mode<kReduce, uint32_t, kRuntimeMul, KC_PLUS>();
     } else {
       ok = false;
     }

@@ -77,10 +77,13 @@
 // or a cluster neighbour's.  f32 PLUS sums in the order the atomics land:
 // not bitwise equal to the plain version; everything else is.
 //
-// Coverage (compile time): mul in {PLUS, MULT, FIRST, SECOND, MIN, MAX} x
-// add in {PLUS, MIN, MAX} x {f32, i32} (semiring.cuh's dispatch), each with a
-// small, a medium and a large instance; the symbolic
-// and compaction kernels read no values (one instance each).
+// Coverage: semiring.cuh's generic family, whose mul is a kernel argument,
+// in f32 and i32 x add in {PLUS, MIN, MAX} (kernels/spgemm.py sends it
+// every f32 mul, spla_tpu's Pallas ESC gate, spla_tpu/ops/spgemm.py:229,
+// and PLUS, MULT, FIRST, SECOND, MIN, MAX in i32), each with a small, a
+// medium and a large instance; the symbolic and compaction kernels read no
+// values (one instance each).  A templated instance per mul was no faster
+// (PERF.md).
 
 #include <cooperative_groups.h>
 #include <cstring>
@@ -115,6 +118,7 @@ struct Operands {
   const void* a_vals;
   const int32_t *b_indptr, *b_cols;
   const void* b_vals;
+  int mul;  // a KernelCode
 };
 
 struct Bins {
@@ -268,7 +272,7 @@ __device__ __forceinline__ void walk_row(const Grp& g, const Operands& o, int32_
       const int32_t t = ch.b0[r] + static_cast<int32_t>(q - ch.off[r]);
       const int32_t j = __ldg(o.b_cols + t);
       T prod = T(0);
-      if constexpr (VALUES) prod = apply_op<MUL>(ch.av[r], __ldg(b_vals + t));
+      if constexpr (VALUES) prod = apply_mul<MUL>(ch.av[r], __ldg(b_vals + t), o.mul, false);
       fn(j, prod);
     }
     before += total;
@@ -975,7 +979,7 @@ extern "C" int spla_mxm_symbolic(long long m, long long n, const void* a_indptr,
   const Bins b = make_bins(rows, nsmall, {nm0, nm1, nm2, nm3}, nlarge, row_products);
   if (!bins_ok(b, m) || (nlarge > 0 && large_words <= 0)) return static_cast<int>(cudaErrorInvalidValue);
   const Operands o{static_cast<const int32_t*>(a_indptr), static_cast<const int32_t*>(a_cols), nullptr,
-                   static_cast<const int32_t*>(b_indptr), static_cast<const int32_t*>(b_cols), nullptr};
+                   static_cast<const int32_t*>(b_indptr), static_cast<const int32_t*>(b_cols), nullptr, 0};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   int32_t* out = static_cast<int32_t*>(row_nnz);
   if (nsmall > 0) symbolic_small<<<ctas_for(nsmall, kSmallWarps), kSmallWarps * 32, 0, s>>>(o, b, out);
@@ -1005,11 +1009,12 @@ extern "C" int spla_mxm_numeric(int mul, int add, int dtype, long long m, long l
   const Bins b = make_bins(rows, nsmall, {nm0, nm1, nm2, nm3}, nlarge, row_products, cluster, large_log2w,
                            radix_passes);
   if (!bins_ok(b, m) || !numeric_ok(b)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!runtime_mul_ok(mul, dtype)) return static_cast<int>(cudaErrorInvalidValue);
   const Operands o{static_cast<const int32_t*>(a_indptr), static_cast<const int32_t*>(a_cols), a_vals,
-                   static_cast<const int32_t*>(b_indptr), static_cast<const int32_t*>(b_cols), b_vals};
+                   static_cast<const int32_t*>(b_indptr), static_cast<const int32_t*>(b_cols), b_vals, mul};
   NumericLaunch launch{o, b, n, static_cast<const long long*>(sym), init, init_bits,
                        out_cols, out_vals, out_rows, kept, static_cast<cudaStream_t>(stream)};
-  if (!dispatch<true>(mul, add, dtype, launch)) return -1;
+  if (!dispatch_generic<true, true, false, false>(add, dtype, launch)) return -1;
   const cudaError_t last = cudaGetLastError();  // read, and so cleared, on every return
   return static_cast<int>(launch.err != cudaSuccess ? launch.err : last);
 }

@@ -1,0 +1,336 @@
+// Kernel 1: CSR semiring pull SpMV,  out[i] = init (+) fold_(+) { mul(M[i,j], x[j]) : x_valid[j] }.
+//
+// Replaces spla_tpu/pallas/spmv.py fused_cell_spmv_apply (:2055, kernel
+// _make_fused_kernel :1923) and the full-grid branch of fused_spmv2d_adaptive
+// (:2346).  The TPU kernel streams a packed cell/pair/oct tile format because
+// the TPU has no hardware gather; on Hopper x[col] is one load, so this kernel
+// reads the plain CSR (indptr / cols / values) the port keeps.
+//
+// Bound: bytes.  Per stored entry it reads a 4-byte column, a 4-byte value
+// (none in the structural variant) and a gathered 4-byte x element; per row
+// two indptr words and one output word.  A random x gather moves a whole
+// 32-byte L2 sector, so on a graph with random columns the gathers, not the
+// column and value streams, set the floor (PERF.md).  The design keeps as
+// many bytes in flight as it can and leaves the gathers in L2:
+//   * a team of G lanes per row, G a power of two from 2 to 32 picked from
+//     the mean row length (kernels/spmv.py pull_plan; an instance per G), so
+//     a warp walks 32 / G rows at once rather than one half-empty row;
+//   * each lane issues kUnroll column and value loads, then kUnroll x
+//     gathers, before it folds any;
+//   * cols and values are read with the streaming hint (ld.global.cs, evict
+//     first), so x (8 MB at n = 2^21) stays in the 50 MB L2 and its gathers
+//     cost L2 rather than HBM traffic; x goes through the read-only path;
+//   * rows longer than hub_len entries (the hub rows, listed by pull_plan)
+//     are cut into chunks of HUB_CHUNK entries, a CTA each, folded through
+//     shared memory; the last CTA of a row to finish folds the chunks'
+//     partials in chunk order and zeroes the row's counter again (the
+//     partials and counters belong to the plan, so launches on one matrix
+//     follow one another on a stream).  Those CTAs come first in the launch;
+//   * the row-select mask and the x-validity mask are fused: an unselected
+//     row reads nothing but its mask byte, and the separate mask-select and
+//     stored-ness passes of the TPU path disappear (`has` is written here).
+// A team folds its lanes with a shuffle of width G in the add monoid; every
+// lane of a warp takes part in every shuffle, past the last row too.
+//
+// Coverage (see semiring.cuh): the templated instances (spmv_pull.cu), mul
+// in {PLUS, MULT, FIRST, SECOND, MIN, MAX}, add in {PLUS, MIN, MAX}, f32 and
+// i32; the generic family (spmv_pull_generic.cu), every built-in mul as a
+// kernel argument, with its operands swapped where vxm asks, in f32 with add
+// in {PLUS, MIN, MAX} and in i32 and u32 with add in {PLUS, MULT, MIN, MAX,
+// LOR, BOR, BAND, BXOR}: what spla_tpu's Pallas SpMV takes
+// (kernels/spmv.py pull_codes); and a structural variant that reads no
+// values: hits[i] = selected && any valid x[j] in row i, whose team (or
+// chunk CTA) stops at its first hit.  This header holds the kernels; each of
+// the two sources compiles its own instances, in parallel.
+#pragma once
+
+#include <cstring>
+
+#include "semiring.cuh"
+
+namespace {
+
+constexpr int kWarpsPerCta = kThreads / 32;
+constexpr int kUnroll = 4;  // column and value loads a lane issues before it uses one
+
+template <typename T>
+struct PullArgs {
+  long long m;
+  const int32_t* indptr;
+  const int32_t* cols;
+  const T* values;
+  const T* x;
+  const uint8_t* x_valid;
+  const uint8_t* row_sel;
+  const T* init;  // on the device, or null: then init_value
+  T init_value;
+  T* out;
+  uint8_t* has;
+  int mul;    // the generic family's mul (a KernelCode); unused by the templated instances
+  bool swap;  // the generic family computes mul(x[j], M[i,j])
+
+  __device__ T init_of() const { return init != nullptr ? *init : init_value; }
+};
+
+// The launch shape (kernels/spmv.py pull_plan) and the hub rows' scratch.
+// Hub h (the h-th row longer than hub_len) has chunks chunk_first[h] ..
+// chunk_first[h + 1] - 1; chunk b walks entries [chunk_c0[b], chunk_c1[b])
+// of row chunk_row[b].
+struct PullPlan {
+  const int32_t *chunk_row, *chunk_c0, *chunk_c1, *chunk_hub;  // [nchunks]
+  const int32_t* chunk_first;                                 // [nhub + 1]
+  long long nhub, nchunks;
+  int log2g;  // a team is 1 << log2g lanes
+  int hub_len;
+  void* part;          // [nchunks] T: each chunk's fold (value kernel, hubs of several chunks)
+  uint8_t* part_any;   // [nchunks]: whether it folded anything
+  int32_t* done;       // [nhub]: chunks of each hub finished; zero between launches
+};
+
+// A lane's next kUnroll entries k, k + stride, ... (column -1 at and past end).
+template <typename T, bool VALUES>
+__device__ __forceinline__ void issue(int32_t (&c)[kUnroll], T (&v)[kUnroll], const int32_t* cols,
+                                      const T* values, int32_t k, int32_t end, int stride) {
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const int32_t e = k + u * stride;
+    const bool in = e < end;
+    c[u] = in ? __ldcs(cols + e) : -1;
+    if constexpr (VALUES) v[u] = in ? __ldcs(values + e) : T(0);
+  }
+}
+
+// Fold this lane's entries k, k + stride, ... < end: per round, kUnroll
+// column and value loads, then kUnroll x gathers, then the products.
+template <typename T, int MUL, int ADD>
+__device__ __forceinline__ void fold_range(int32_t k, int32_t end, int stride, const PullArgs<T>& a,
+                                           T& acc, bool& any) {
+  for (; k < end; k += kUnroll * stride) {
+    int32_t c[kUnroll];
+    T v[kUnroll];
+    issue<T, true>(c, v, a.cols, a.values, k, end, stride);
+    T xv[kUnroll];
+    bool ok[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      ok[u] = c[u] >= 0 && (a.x_valid == nullptr || __ldg(a.x_valid + c[u]));
+      xv[u] = c[u] >= 0 ? __ldg(a.x + c[u]) : T(0);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (ok[u]) {
+        acc = apply_op<ADD>(acc, apply_mul<MUL>(v[u], xv[u], a.mul, a.swap));
+        any = true;
+      }
+    }
+    if (end - k <= kUnroll * stride) break;  // no overflow of k past end
+  }
+}
+
+// A lane's row in its warp's slab (the 32 / G rows a warp walks at once):
+// which entries it walks and whether its team writes the row.  An
+// unselected row reads only its mask byte and is written with init; a
+// selected hub row is left to its chunk CTAs.
+struct Head {
+  long long row;
+  int32_t start, end;
+  bool walk, store;
+};
+
+template <int LOG2G>
+__device__ __forceinline__ Head head(long long m, const int32_t* indptr, const uint8_t* row_sel,
+                                     const PullPlan& p, long long slab, int team) {
+  Head h{(slab << (5 - LOG2G)) + team, 0, 0, false, false};
+  h.store = h.row < m;
+  if (h.store && (row_sel == nullptr || row_sel[h.row])) {
+    h.start = indptr[h.row];
+    h.end = indptr[h.row + 1];
+    h.walk = h.store = h.end - h.start <= p.hub_len;
+  }
+  return h;
+}
+
+template <int LOG2G>
+__device__ __forceinline__ unsigned team_mask(int lane) {
+  constexpr int g = 1 << LOG2G;
+  return g == 32 ? kFullMask : ((1u << g) - 1u) << (lane & ~(g - 1));
+}
+
+// This CTA's hub chunk: its row, entry range and siblings; false if the
+// row is not selected (uniform across the CTA).
+struct Chunk {
+  long long row;
+  int32_t hub, first, count, c0, c1;
+
+  __device__ bool load(const PullPlan& p, const uint8_t* row_sel) {
+    row = p.chunk_row[blockIdx.x];
+    c0 = p.chunk_c0[blockIdx.x];
+    c1 = p.chunk_c1[blockIdx.x];
+    hub = p.chunk_hub[blockIdx.x];
+    if (row_sel != nullptr && !row_sel[row]) return false;
+    first = p.chunk_first[hub];
+    count = p.chunk_first[hub + 1] - first;
+    return true;
+  }
+};
+
+template <typename T, int MUL, int ADD>
+__device__ void pull_chunk(const PullArgs<T>& a, const PullPlan& p) {
+  __shared__ T red[kWarpsPerCta];
+  __shared__ bool red_any[kWarpsPerCta];
+  Chunk ch;
+  if (!ch.load(p, a.row_sel)) return;  // the slab pass writes init
+  T acc = monoid_identity<ADD, T>();
+  bool any = false;
+  fold_range<T, MUL, ADD>(ch.c0 + static_cast<int32_t>(threadIdx.x), ch.c1, kThreads, a, acc, any);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc = apply_op<ADD>(acc, __shfl_xor_sync(kFullMask, acc, off));
+  any = __any_sync(kFullMask, any);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) {
+    red[warp] = acc;
+    red_any[warp] = any;
+  }
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  T v = red[0];
+  bool hit = red_any[0];
+  for (int w = 1; w < kWarpsPerCta; ++w) {
+    v = apply_op<ADD>(v, red[w]);
+    hit = hit || red_any[w];
+  }
+  if (ch.count > 1 && !fold_chunks<ADD>(static_cast<T*>(p.part), p.part_any, p.done, ch.hub,
+                                         static_cast<int32_t>(blockIdx.x), ch.first, ch.count, v, hit)) {
+    return;  // another chunk of the row folds them all
+  }
+  const T init_v = a.init_of();
+  a.out[ch.row] = hit ? apply_op<ADD>(init_v, v) : init_v;
+  if (a.has != nullptr) a.has[ch.row] = hit;
+}
+
+template <typename T, int MUL, int ADD, int LOG2G>
+__global__ void __launch_bounds__(kThreads)
+spmv_pull_kernel(PullArgs<T> a, PullPlan p) {
+  constexpr int g = 1 << LOG2G;
+  if (blockIdx.x < p.nchunks) {
+    pull_chunk<T, MUL, ADD>(a, p);
+    return;
+  }
+  const long long slab = (static_cast<long long>(blockIdx.x) - p.nchunks) * kWarpsPerCta + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  const int team = lane >> LOG2G, sub = lane & (g - 1);
+  const Head h = head<LOG2G>(a.m, a.indptr, a.row_sel, p, slab, team);
+  T acc = monoid_identity<ADD, T>();
+  bool any = false;
+  if (h.walk) fold_range<T, MUL, ADD>(h.start + sub, h.end, g, a, acc, any);
+#pragma unroll
+  for (int off = g >> 1; off > 0; off >>= 1) acc = apply_op<ADD>(acc, __shfl_xor_sync(kFullMask, acc, off));
+  any = (__ballot_sync(kFullMask, any) & team_mask<LOG2G>(lane)) != 0;
+  if (sub == 0 && h.store) {
+    const T init_v = a.init_of();
+    a.out[h.row] = any ? apply_op<ADD>(init_v, acc) : init_v;
+    if (a.has != nullptr) a.has[h.row] = any;
+  }
+}
+
+struct HitArgs {
+  long long m;
+  const int32_t* indptr;
+  const int32_t* cols;
+  const uint8_t* x_valid;
+  const uint8_t* row_sel;
+  uint8_t* hits;  // zero at launch where the matrix has hub rows
+};
+
+__device__ __forceinline__ bool round_hits(const int32_t (&c)[kUnroll], const uint8_t* x_valid) {
+  bool found = false;
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) found = found || (c[u] >= 0 && __ldg(x_valid + c[u]));
+  return found;
+}
+
+template <int LOG2G>
+__global__ void __launch_bounds__(kThreads)
+spmv_pull_structural_kernel(HitArgs a, PullPlan p) {
+  int32_t c[kUnroll];
+  int32_t unused[kUnroll];
+  if (blockIdx.x < p.nchunks) {  // a hub chunk: the CTA stops at its first round with a hit
+    Chunk ch;
+    if (!ch.load(p, a.row_sel)) return;
+    for (int32_t base = ch.c0; base < ch.c1; base += kUnroll * kThreads) {
+      issue<int32_t, false>(c, unused, a.cols, nullptr, base + static_cast<int32_t>(threadIdx.x), ch.c1,
+                            kThreads);
+      if (__syncthreads_or(round_hits(c, a.x_valid))) {
+        if (threadIdx.x == 0) a.hits[ch.row] = 1;  // every chunk that hits writes 1
+        return;
+      }
+      if (ch.c1 - base <= kUnroll * kThreads) break;
+    }
+    return;
+  }
+  const long long slab = (static_cast<long long>(blockIdx.x) - p.nchunks) * kWarpsPerCta + (threadIdx.x >> 5);
+  constexpr int g = 1 << LOG2G;
+  const int lane = threadIdx.x & 31;
+  const int team = lane >> LOG2G, sub = lane & (g - 1);
+  const unsigned tmask = team_mask<LOG2G>(lane);
+  const Head h = head<LOG2G>(a.m, a.indptr, a.row_sel, p, slab, team);
+  // every lane votes in every round until each team has a hit or its row ends
+  bool active = h.walk, hit = false;
+  for (int32_t k = h.start + sub; __any_sync(kFullMask, active); k += kUnroll * g) {
+    if (active) issue<int32_t, false>(c, unused, a.cols, nullptr, k, h.end, g);
+    const bool team_hit = (__ballot_sync(kFullMask, active && round_hits(c, a.x_valid)) & tmask) != 0;
+    hit = hit || team_hit;
+    active = active && !team_hit && h.end - k > kUnroll * g;
+  }
+  if (sub == 0 && h.store) a.hits[h.row] = hit;
+}
+
+unsigned grid_of(long long m, const PullPlan& p) {
+  const long long slabs = (m + (32 >> p.log2g) - 1) >> (5 - p.log2g);
+  return static_cast<unsigned>(p.nchunks + (slabs + kWarpsPerCta - 1) / kWarpsPerCta);
+}
+
+struct PullLaunch {
+  long long m;
+  const void *indptr, *cols, *values, *x, *x_valid, *row_sel, *init;
+  uint32_t init_bits;
+  void *out, *has;
+  PullPlan plan;
+  cudaStream_t stream;
+  int mul = 0;  // the generic family's mul and operand swap
+  bool swap = false;
+
+  template <typename T, int MUL, int ADD>
+  void run() {
+    static_assert(sizeof(T) == sizeof(init_bits), "init travels as its 32 bits");
+    T init_value;
+    memcpy(&init_value, &init_bits, sizeof(T));
+    const PullArgs<T> a{m, static_cast<const int32_t*>(indptr), static_cast<const int32_t*>(cols),
+                        static_cast<const T*>(values), static_cast<const T*>(x),
+                        static_cast<const uint8_t*>(x_valid), static_cast<const uint8_t*>(row_sel),
+                        static_cast<const T*>(init), init_value, static_cast<T*>(out),
+                        static_cast<uint8_t*>(has), mul, swap};
+    switch (plan.log2g) {
+      case 1: spmv_pull_kernel<T, MUL, ADD, 1><<<grid_of(m, plan), kThreads, 0, stream>>>(a, plan); break;
+      case 2: spmv_pull_kernel<T, MUL, ADD, 2><<<grid_of(m, plan), kThreads, 0, stream>>>(a, plan); break;
+      case 3: spmv_pull_kernel<T, MUL, ADD, 3><<<grid_of(m, plan), kThreads, 0, stream>>>(a, plan); break;
+      case 4: spmv_pull_kernel<T, MUL, ADD, 4><<<grid_of(m, plan), kThreads, 0, stream>>>(a, plan); break;
+      default: spmv_pull_kernel<T, MUL, ADD, 5><<<grid_of(m, plan), kThreads, 0, stream>>>(a, plan);
+    }
+  }
+};
+
+PullPlan plan_of(int log2g, int hub_len, long long nhub, long long nchunks, const void* chunk_row,
+                 const void* chunk_c0, const void* chunk_c1, const void* chunk_hub, const void* chunk_first,
+                 void* part, void* part_any, void* done) {
+  return PullPlan{static_cast<const int32_t*>(chunk_row), static_cast<const int32_t*>(chunk_c0),
+                  static_cast<const int32_t*>(chunk_c1), static_cast<const int32_t*>(chunk_hub),
+                  static_cast<const int32_t*>(chunk_first), nhub, nchunks, log2g, hub_len,
+                  part, static_cast<uint8_t*>(part_any), static_cast<int32_t*>(done)};
+}
+
+bool plan_ok(const PullPlan& p) {
+  return p.log2g >= 1 && p.log2g <= 5 && p.hub_len >= 0 && p.nhub >= 0 && p.nchunks >= p.nhub;
+}
+
+}  // namespace

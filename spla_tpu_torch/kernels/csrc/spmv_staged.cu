@@ -1,5 +1,5 @@
 // Kernel 7: the staged-stream CSR pull SpMV.  Kernel 1's function
-// (spmv_pull.cu:1-25) for f32,
+// (spmv_pull.cuh:1-33) for f32,
 //   out[i] = init (+) fold_(+) { mul(M[i,j], x[j]) : x_valid[j] },  has[i] = any product,
 // with the row-select mask fused, and a structural variant
 //   hits[i] = row_sel[i] && any stored (i, j) with x_valid[j].

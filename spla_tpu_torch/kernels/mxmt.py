@@ -19,8 +19,15 @@ product of B's row j counts, duplicates included; in A's row i only the
 first of equal columns matches (a lower-bound search).  ``struct_only``
 treats every hit's product as 1 and reads no values.
 
-Kernel 4 sums i32 products and hits in int64 and f32 products in float64;
-its result is a 0-d tensor of that dtype.
+Kernel 4 sums i32 and u32 products and hits in int64 and f32 products in
+float64; its result is a 0-d tensor of that dtype.
+
+They take what spla_tpu's Pallas SpGEMM-T takes (``_pallas_mxmT_try``,
+``spla_tpu/ops/spgemm.py:630``; ``masked_codes``): an add of PLUS, MIN or
+MAX (``_MXMT_IDENT``), with every built-in mul in f32 and with PLUS, MULT,
+FIRST, SECOND, MIN or MAX (``_MXMT_INT_MULS``) in i32 and u32; kernel 4 the
+same muls.  One instance per (add, dtype) serves them all: the mul is a
+kernel argument (``csrc/mxmt.cu``).
 
 The kernels walk the mask's stored entries in windows of ``WINDOW``, a
 warp a window, which stages the window's rows of A in shared memory when
@@ -42,14 +49,17 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import op as OP
 from ..containers import CsrMatrix
 from ..formats import WeakIdCache
+from ..utils.bits import cat, gather
 from ..utils.primitives import expand_schedule
 from ..utils.search import bisect_steps, rowwise_find
 from ..utils.segments import segment_fold
 from . import LAUNCHES
 from .build import check, load_library
-from .spmv import DTYPE_CODES, PULL_ADDS, _init_arg, _mask, _on_cpu, _ptr, _require_cuda, hub_scratch
+from .spmv import (DTYPE_CODES, PULL_ADDS, TEMPLATED_MULS, _init_arg, _mask, _on_cpu, _ptr, _require_cuda,
+                   hub_scratch, semiring_codes)
 
 __all__ = [
     "PRODUCT_CHUNK",
@@ -83,22 +93,25 @@ _PLANS = WeakIdCache()  # (mask.indptr ref, B.indptr ref, MxmtPlan) per mask.col
 
 def masked_codes(op_mul, op_add, dtype, struct_only=False):
     """``(mul, add, dtype)`` codes when kernel 5 covers the request, else None
-    (mul is 0 and unused for ``struct_only``)."""
-    add = getattr(op_add, "kernel_code", None)
-    mul = 0 if struct_only else getattr(op_mul, "kernel_code", None)
-    if mul is None or add not in PULL_ADDS or dtype not in DTYPE_CODES:
+    (mul is 0 and unused for ``struct_only``, which takes any mul)."""
+    if struct_only:
+        add = getattr(op_add, "kernel_code", None)
+        if add not in PULL_ADDS or dtype not in DTYPE_CODES:
+            return None
+        return 0, int(add), DTYPE_CODES[dtype]
+    codes = semiring_codes(op_mul, op_add, dtype, int_adds=PULL_ADDS)
+    if codes is None or (not dtype.is_floating_point and codes[0] not in TEMPLATED_MULS):
         return None
-    return int(mul), int(add), DTYPE_CODES[dtype]
+    return codes
 
 
 def reduce_codes(op_mul, dtype, struct_only=False):
-    """``(mul, dtype)`` codes when kernel 4 covers the request, else None."""
+    """``(mul, dtype)`` codes when kernel 4 covers the request (the muls of
+    ``masked_codes``), else None."""
     if struct_only:
         return 0, 0
-    mul = getattr(op_mul, "kernel_code", None)
-    if mul is None or dtype not in DTYPE_CODES:
-        return None
-    return int(mul), DTYPE_CODES[dtype]
+    codes = masked_codes(op_mul, OP.PLUS_FLOAT, dtype)  # the gate reads the add's code only
+    return None if codes is None else (codes[0], codes[2])
 
 
 # ---------------------------------------------------------------- plain versions
@@ -166,11 +179,11 @@ def mxmt_masked_plain(mask: CsrMatrix, A: CsrMatrix, B: CsrMatrix, op_mul, op_ad
         if struct_only:
             prod = torch.ones(valid.shape, dtype=init.dtype, device=init.device)
         else:
-            prod = op_mul(A.values[a_pos], B.values[b_pos])
+            prod = op_mul(gather(A.values, a_pos), gather(B.values, b_pos))
         out, has = segment_fold(prod, src, valid, e1 - e0, op_add, init, sorted_ids=True)
         outs.append(out)
         hass.append(has)
-    return torch.cat(outs), torch.cat(hass)
+    return cat(outs), torch.cat(hass)
 
 
 def _acc_dtype(dtype, struct_only):
@@ -190,7 +203,7 @@ def mxmt_reduce_plain(mask: CsrMatrix, A: CsrMatrix, B: CsrMatrix, op_mul, sel=N
         if struct_only:
             total += valid.sum()
         else:
-            prod = op_mul(A.values[a_pos], B.values[b_pos]).to(acc)
+            prod = op_mul(gather(A.values, a_pos), gather(B.values, b_pos)).to(acc)
             total += torch.where(valid, prod, 0).sum()
     return total
 
@@ -330,7 +343,7 @@ def mxmt_masked(mask: CsrMatrix, A: CsrMatrix, B: CsrMatrix, op_mul, op_add, ini
 
 
 def mxmt_reduce(mask: CsrMatrix, A: CsrMatrix, B: CsrMatrix, op_mul, sel=None, struct_only=False):
-    """Kernel 4: the 0-d int64 (i32, hits) or float64 (f32) sum of all
+    """Kernel 4: the 0-d int64 (i32, u32, hits) or float64 (f32) sum of all
     products; ``sel`` None selects every stored entry.  CPU tensors take the
     plain version; CUDA tensors launch the kernel, and a request it does not
     cover raises."""

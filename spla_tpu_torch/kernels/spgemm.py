@@ -49,7 +49,7 @@ from ..utils.primitives import expand_schedule
 from ..utils.segments import scalar_on, segmented_scan_fold
 from . import LAUNCHES
 from .build import check, load_library
-from .spmv import DTYPE_CODES, PULL_ADDS, _init_arg, _on_cpu, _ptr, _require_cuda
+from .spmv import PULL_ADDS, TEMPLATED_MULS, _init_arg, _on_cpu, _ptr, _require_cuda, semiring_codes
 
 __all__ = [
     "MXM_BLOCK_THRESHOLD",
@@ -85,13 +85,16 @@ _PLANS = WeakIdCache()  # (A.indptr ref, B.indptr ref, MxmPlan) per A.cols tenso
 
 def mxm_codes(op_mul, op_add, dtype):
     """``(mul, add, dtype)`` codes when kernel 9 covers the request, else None:
-    mul in {PLUS, MULT, FIRST, SECOND, MIN, MAX}, add in {PLUS, MIN, MAX},
-    f32 and i32 (kernel 1's gate)."""
-    mul = getattr(op_mul, "kernel_code", None)
-    add = getattr(op_add, "kernel_code", None)
-    if mul is None or add not in PULL_ADDS or dtype not in DTYPE_CODES:
+    every built-in mul in f32 with add in {PLUS, MIN, MAX} (spla_tpu's
+    Pallas ESC gate, ``_mxm_pallas_try``, ``spla_tpu/ops/spgemm.py:213``),
+    and in i32 PLUS, MULT, FIRST, SECOND, MIN and MAX (the JAX path has no
+    i32 kernel; the port had these before it took every f32 mul)."""
+    if dtype not in (torch.float32, torch.int32):
         return None
-    return int(mul), int(add), DTYPE_CODES[dtype]
+    codes = semiring_codes(op_mul, op_add, dtype, int_adds=PULL_ADDS)
+    if codes is None or (dtype == torch.int32 and codes[0] not in TEMPLATED_MULS):
+        return None
+    return codes
 
 
 def _check_shapes(A: CsrMatrix, B: CsrMatrix):
@@ -337,10 +340,11 @@ def mxm(A: CsrMatrix, B: CsrMatrix, op_mul, op_add, init, out_capacity: int | No
     vals = torch.empty(size, dtype=A.values.dtype, device=device)
     rows = torch.empty(size, dtype=torch.int32, device=device)
     kept = torch.empty(m, dtype=torch.int32, device=device)
-    check(lib.spla_mxm_numeric(*codes, m, n, A.indptr.data_ptr(), A.cols.data_ptr(), A.values.data_ptr(),
-                               B.indptr.data_ptr(), B.cols.data_ptr(), B.values.data_ptr(), *bins,
-                               cluster, width.bit_length() - 1, radix_passes(n), sym.data_ptr(), _ptr(init_t), init_bits, cols.data_ptr(),
-                               vals.data_ptr(), rows.data_ptr(), kept.data_ptr(), stream), what)
+    check(lib.spla_mxm_numeric(*codes, m, n, A.indptr.data_ptr(), A.cols.data_ptr(),
+                               A.values.data_ptr(), B.indptr.data_ptr(), B.cols.data_ptr(), B.values.data_ptr(),
+                               *bins, cluster, width.bit_length() - 1, radix_passes(n), sym.data_ptr(),
+                               _ptr(init_t), init_bits, cols.data_ptr(), vals.data_ptr(), rows.data_ptr(),
+                               kept.data_ptr(), stream), what)
     ptr = torch.zeros(m + 1, dtype=torch.long, device=device)
     torch.cumsum(kept, 0, out=ptr[1:])
     tmp_cols = torch.empty(total, dtype=torch.int32, device=device)

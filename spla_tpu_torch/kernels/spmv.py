@@ -12,7 +12,19 @@ source's header says what bounds the kernel and how it is laid out.
 
 ``swap=True`` computes ``mul(x[j], A[i,j])`` instead (vxm's product order,
 ``spla_tpu/ops/spmv.py:575``); the kernel then runs FIRST as SECOND and
-SECOND as FIRST.
+SECOND as FIRST, and the generic family swaps the operands of MINUS, DIV
+and MINUS_POW2 (spla_tpu's ``_swapped_mul``).
+
+The kernel takes what spla_tpu's Pallas SpMV takes (``pull_codes``): every
+built-in mul; in f32 an add of PLUS, MIN or MAX (``_SCATTER_MONOIDS``,
+``spla_tpu/pallas/spmv.py:573``), in i32 and u32 any add with an identity
+(``_pallas_spmv_fn_int_native``, ``:1059``): PLUS, MULT, MIN, MAX, LOR,
+BOR, BAND, BXOR.  Two kinds of instance serve it (``csrc/semiring.cuh``):
+templated ones for the six muls PLUS, MULT, FIRST, SECOND, MIN, MAX with
+PLUS, MIN or MAX in f32 and i32 (``csrc/spmv_pull.cu``), and the generic
+family, whose mul is a kernel argument, for the rest
+(``csrc/spmv_pull_generic.cu``; ``generic=True`` sends a templated request
+there too, to hold the two against each other).
 
 The kernel's launch is shaped by ``pull_plan``, built on the device from
 ``indptr`` at a matrix's first CUDA call and cached per indptr tensor (a
@@ -33,12 +45,18 @@ import torch
 from ..containers import CsrMatrix
 from ..formats import WeakIdCache
 from ..op import KernelCode
+from ..utils.bits import gather, where
 from ..utils.segments import segment_fold
 from . import LAUNCHES
 from .build import check, load_library
 
 __all__ = [
     "DTYPE_CODES",
+    "PULL_ADDS",
+    "INT_ADDS",
+    "TEMPLATED_MULS",
+    "semiring_codes",
+    "templated",
     "HUB_LEN",
     "HUB_CHUNK",
     "PullPlan",
@@ -52,9 +70,17 @@ __all__ = [
 ]
 
 # kept equal to ``enum DtypeCode`` in csrc/semiring.cuh
-DTYPE_CODES = {torch.float32: 0, torch.int32: 1}
+DTYPE_CODES = {torch.float32: 0, torch.int32: 1, torch.uint32: 2}
+_TEMPLATED_DTYPES = frozenset({0, 1})
+# the adds of f32 requests, and of the templated instances
 PULL_ADDS = frozenset({KernelCode.PLUS, KernelCode.MIN, KernelCode.MAX})
+# the adds of i32 and u32 requests: every built-in add with an identity
+INT_ADDS = PULL_ADDS | {KernelCode.MULT, KernelCode.LOR, KernelCode.BOR, KernelCode.BAND, KernelCode.BXOR}
+TEMPLATED_MULS = frozenset({KernelCode.PLUS, KernelCode.MULT, KernelCode.FIRST, KernelCode.SECOND,
+                            KernelCode.MIN, KernelCode.MAX})
+_BITWISE = frozenset({KernelCode.BOR, KernelCode.BAND, KernelCode.BXOR})  # integer muls only
 _SWAPPED = {KernelCode.FIRST: KernelCode.SECOND, KernelCode.SECOND: KernelCode.FIRST}
+_ORDERED = frozenset({KernelCode.MINUS, KernelCode.DIV, KernelCode.MINUS_POW2})  # swapped at run time
 
 HUB_LEN = 256  # a row of more entries is a hub row, walked by CTAs
 HUB_CHUNK = 4096  # entries of a hub row a CTA walks
@@ -151,15 +177,38 @@ def _plan_args(plan: PullPlan):
                                      plan.chunk_first)))
 
 
-def pull_codes(op_mul, op_add, dtype, swap=False):
-    """``(mul, add, dtype)`` kernel codes when kernel 1 covers the request, else None."""
+def semiring_codes(op_mul, op_add, dtype, int_adds=INT_ADDS):
+    """``(mul, add, dtype)`` codes of a built-in mul in ``dtype`` (the bitwise
+    ones in i32 and u32 only) with an add of ``PULL_ADDS`` (f32) or
+    ``int_adds`` (i32, u32), else None.  The gates of kernels 1, 5 and 9
+    narrow it further."""
     mul = getattr(op_mul, "kernel_code", None)
     add = getattr(op_add, "kernel_code", None)
-    if mul is None or add not in PULL_ADDS or dtype not in DTYPE_CODES:
+    if mul is None or dtype not in DTYPE_CODES:
         return None
-    if swap:
-        mul = _SWAPPED.get(mul, mul)
+    if dtype.is_floating_point:
+        if add not in PULL_ADDS or mul in _BITWISE:
+            return None
+    elif add not in int_adds:
+        return None
     return int(mul), int(add), DTYPE_CODES[dtype]
+
+
+def templated(mul, add, dtype) -> bool:
+    """Whether the codes have a templated instance of kernel 1 (the generic
+    family serves the others); kernel 7 has the f32 ones."""
+    return mul in TEMPLATED_MULS and add in PULL_ADDS and dtype in _TEMPLATED_DTYPES
+
+
+def pull_codes(op_mul, op_add, dtype, swap=False):
+    """``(mul, add, dtype)`` kernel codes when kernel 1 covers the request,
+    else None: spla_tpu's Pallas SpMV gate (module docstring).  With
+    ``swap`` FIRST and SECOND trade places."""
+    codes = semiring_codes(op_mul, op_add, dtype)
+    if codes is None:
+        return None
+    mul, add, dt = codes
+    return (int(_SWAPPED.get(mul, mul)) if swap else mul), add, dt
 
 
 def _on_cpu(*tensors) -> bool:
@@ -203,24 +252,25 @@ def spmv_pull_plain(A: CsrMatrix, x, op_mul, op_add, init, x_valid=None, row_sel
     m, n = A.shape
     init = torch.as_tensor(init, dtype=A.values.dtype, device=A.values.device)
     cols = A.cols.long().clamp(0, max(n - 1, 0))
-    xg = x[cols]
+    xg = gather(x, cols)
     valid = A.valid_mask()
     if x_valid is not None:
         valid = valid & x_valid[cols]
     prod = op_mul(xg, A.values) if swap else op_mul(A.values, xg)
     out, has = segment_fold(prod, A.row_ids, valid, m, op_add, init, sorted_ids=True)
     if row_sel is not None:
-        out = torch.where(row_sel, out, init)
+        out = where(row_sel, out, init)
         has = has & row_sel
     return out, has
 
 
 def spmv_pull(A: CsrMatrix, x, op_mul, op_add, init, x_valid=None, row_sel=None,
-              want_has=False, swap=False, out=None):
+              want_has=False, swap=False, out=None, generic=False):
     """Kernel 1.  Returns ``(out, has)``; ``has`` is None unless ``want_has``.
     CPU tensors take the plain version; CUDA tensors launch the kernel, and
     a request the kernel does not cover raises.  ``out``, if given, is the
-    contiguous tensor the result is written to.
+    contiguous tensor the result is written to.  ``generic`` launches the
+    generic family for a request a templated instance holds.
 
     Under ``staged.MANUAL_DMA`` an f32 request that the kernels cover goes
     to kernel 7 (``staged.spmv_pull_staged``, its plain version on CPU
@@ -249,13 +299,18 @@ def spmv_pull(A: CsrMatrix, x, op_mul, op_add, init, x_valid=None, row_sel=None,
     out = _out_arg(out, m, x, what)
     has = torch.empty(m, dtype=torch.bool, device=x.device) if want_has else None
     plan = pull_plan(A)
-    rc = load_library().spla_spmv_pull(
-        *codes, m, *_plan_args(plan), _ptr(plan.part), _ptr(plan.part_any), _ptr(plan.done),
-        A.indptr.data_ptr(), A.cols.data_ptr(), A.values.data_ptr(), x.data_ptr(), _ptr(x_valid),
-        _ptr(row_sel), _ptr(init_t), init_bits, out.data_ptr(), _ptr(has),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    args = (m, *_plan_args(plan), _ptr(plan.part), _ptr(plan.part_any), _ptr(plan.done),
+            A.indptr.data_ptr(), A.cols.data_ptr(), A.values.data_ptr(), x.data_ptr(), _ptr(x_valid),
+            _ptr(row_sel), _ptr(init_t), init_bits, out.data_ptr(), _ptr(has),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    mul, add, dt = codes
+    if generic or not templated(*codes):
+        rc, name = load_library().spla_spmv_pull_generic(mul, int(swap and mul in _ORDERED), add, dt,
+                                                         *args), "spmv_pull_generic"
+    else:
+        rc, name = load_library().spla_spmv_pull(*codes, *args), "spmv_pull"
     check(rc, what)
-    LAUNCHES["spmv_pull"] += 1
+    LAUNCHES[name] += 1
     return out, has
 
 

@@ -42,7 +42,7 @@ from ..utils.segments import segment_fold
 from . import LAUNCHES
 from .build import check, load_library
 from .spmv import (_hits_arg, _init_arg, _into, _mask, _on_cpu, _out_arg, _ptr, _require_cuda, hub_scratch,
-                   pull_codes)
+                   pull_codes, templated)
 
 __all__ = [
     "MANUAL_DMA",
@@ -112,10 +112,16 @@ def _check_stage(stage: int) -> int:
 
 def staged_codes(op_mul, op_add, dtype, swap=False):
     """Kernel codes when ``MANUAL_DMA`` routes this request to kernel 7 (f32,
-    a covered semiring), else None."""
-    if not MANUAL_DMA or dtype != torch.float32:
+    a semiring of kernel 1's templated instances), else None: kernel 1
+    takes every other request."""
+    if not MANUAL_DMA:
         return None
-    return pull_codes(op_mul, op_add, dtype, swap)
+    return _staged_codes(op_mul, op_add, dtype, swap)
+
+
+def _staged_codes(op_mul, op_add, dtype, swap):
+    codes = pull_codes(op_mul, op_add, dtype, swap) if dtype == torch.float32 else None
+    return codes if codes is not None and templated(*codes) else None
 
 
 def long_row_len(stage: int) -> int:
@@ -218,7 +224,8 @@ def spmv_pull_staged(A: CsrMatrix, x, op_mul, op_add, init, x_valid=None, row_se
                      want_has=False, swap=False, slots=None, stage=MAX_STAGE, out=None):
     """Kernel 7.  Returns ``(out, has)``; ``has`` is None unless ``want_has``.
     CPU tensors take the plain version; CUDA tensors launch the kernel, and
-    a request it does not cover (not f32, or an uncovered semiring) raises.
+    a request it does not cover (not f32, or not one of the 18 semirings of
+    kernel 1's templated f32 instances) raises.
     ``out``, if given, is the contiguous tensor the result is written to
     (kernel 1's ``out``, which ``spmv_pull`` passes on under ``MANUAL_DMA``).
     ``init`` reaches the kernel as kernel 1's does, by value or by device
@@ -229,8 +236,8 @@ def spmv_pull_staged(A: CsrMatrix, x, op_mul, op_add, init, x_valid=None, row_se
                                           slots, stage)
         return _into(out, res), (has if want_has else None)
     what = "spmv_pull_staged"
-    codes = pull_codes(op_mul, op_add, A.values.dtype, swap)
-    if codes is None or A.values.dtype != torch.float32:
+    codes = _staged_codes(op_mul, op_add, A.values.dtype, swap)
+    if codes is None:
         raise NotImplementedError(
             f"{what}: no kernel instance for mul={getattr(op_mul, 'key', op_mul)}, "
             f"add={getattr(op_add, 'key', op_add)}, dtype={A.values.dtype}")

@@ -37,7 +37,7 @@ from . import LAUNCHES
 from .build import check, load_library
 from .frontier import LevelState, write_next_plain
 from .level_update import bfs_update_plain, sssp_update_plain
-from .spmv import DTYPE_CODES, _on_cpu, _require_cuda
+from .spmv import DTYPE_CODES, TEMPLATED_MULS, _on_cpu, _require_cuda
 
 __all__ = ["push_codes", "spmv_push", "spmv_push_plain", "spmv_push_structural",
            "spmv_push_structural_plain", "push_degrees", "bfs_push_level", "bfs_push_level_plain",
@@ -48,10 +48,11 @@ _DEGREES = WeakIdCache()  # (out-degrees, longest row) per indptr tensor
 
 
 def push_codes(op_mul, op_add, dtype):
-    """``(mul, add, dtype)`` kernel codes when kernel 2 covers the request, else None."""
+    """``(mul, add, dtype)`` kernel codes when kernel 2 covers the request
+    (mul in ``TEMPLATED_MULS``, add MIN or MAX, f32 or i32), else None."""
     mul = getattr(op_mul, "kernel_code", None)
     add = getattr(op_add, "kernel_code", None)
-    if mul is None or add not in PUSH_ADDS or dtype not in DTYPE_CODES:
+    if mul not in TEMPLATED_MULS or add not in PUSH_ADDS or dtype not in (torch.float32, torch.int32):
         return None
     return int(mul), int(add), DTYPE_CODES[dtype]
 

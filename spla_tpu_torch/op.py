@@ -7,8 +7,9 @@ kernels and the segment folds need to know about them:
 * ``scatter`` — the ``Tensor.scatter_reduce`` kind ("add" / "mul" /
   "min" / "max") when the op coincides with one;
 * ``associative`` / ``commutative``;
-* ``kernel_code`` — the :class:`KernelCode` the CUDA kernels switch on, or
-  ``None`` for ops the kernels do not cover and for user ops.
+* ``kernel_code`` — the :class:`KernelCode` the CUDA kernels switch on
+  (every built-in binary op has one); ``None`` for user ops.  Which
+  (mul, add, dtype) a kernel takes is each kernel's gate, in its wrapper.
 
 torch has few CPU kernels for ``uint32`` tensors, so UINT ops compute in
 int64 and wrap the result back to 32 bits.
@@ -46,6 +47,15 @@ class KernelCode(enum.IntEnum):
     SECOND = 3
     MIN = 4
     MAX = 5
+    MINUS = 6
+    DIV = 7
+    MINUS_POW2 = 8
+    BONE = 9
+    LOR = 10
+    LAND = 11
+    BOR = 12
+    BAND = 13
+    BXOR = 14
 
 
 @dataclass(frozen=True)
@@ -169,19 +179,30 @@ def _full_ones(a, b, dtype):
     return torch.ones(shape, dtype=dtype, device=device)
 
 
+def _int_div(a, b):
+    """Integer division as XLA's ``lax.div`` gives it: toward zero, ``x / 0``
+    all ones (-1; 0xFFFFFFFF once a UINT result wraps) and ``INT_MIN / -1``
+    INT_MIN, by a ``where`` on a safe divisor (no branch on values, no host
+    read)."""
+    a, b = (x if isinstance(x, torch.Tensor) else torch.as_tensor(x, dtype=y.dtype, device=y.device)
+            for x, y in ((a, b), (b, a)))
+    zero = b == 0
+    overflow = (a == torch.iinfo(a.dtype).min) & (b == -1)
+    return torch.where(zero, -1, torch.div(a, torch.where(zero | overflow, 1, b), rounding_mode="trunc"))
+
+
 def register_builtins() -> None:
     for t in (INT, UINT, FLOAT):
         # compute dtype: UINT works in int64 (see _via_int64)
         d = torch.int64 if t is UINT else t.dtype
         wrap = _via_int64 if t is UINT else (lambda f: f)
         lo, hi = _limits(t)
-        code = (lambda c: None) if t is UINT else (lambda c: c)
 
         def unary(name, f):
             _register(OpUnary(name, t, wrap(f)))
 
         def binary(name, f, **kw):
-            _register(OpBinary(name, t, wrap(f), **kw))
+            _register(OpBinary(name, t, wrap(f), kernel_code=KernelCode[name], **kw))
 
         def select(name, f):
             _register(OpSelect(name, t, wrap(f)))
@@ -196,23 +217,20 @@ def register_builtins() -> None:
             unary("BNOT", lambda a: ~a)
 
         binary("PLUS", lambda a, b: a + b, identity=t.np_dtype.type(0), scatter="add",
-               associative=True, commutative=True, kernel_code=code(KernelCode.PLUS))
+               associative=True, commutative=True)
         binary("MINUS", lambda a, b: a - b)
         binary("MULT", lambda a, b: a * b, identity=t.np_dtype.type(1), scatter="mul",
-               associative=True, commutative=True, kernel_code=code(KernelCode.MULT))
-        if t is FLOAT:
-            binary("DIV", lambda a, b: a / b)
-        else:
-            # C++ integer division truncates toward zero
-            binary("DIV", lambda a, b: torch.div(a, b, rounding_mode="trunc"))
+               associative=True, commutative=True)
+        # integer DIV gives lax.div's answers (spla_tpu.op), x / 0 and INT_MIN / -1 included
+        binary("DIV", (lambda a, b: a / b) if t is FLOAT else _int_div)
         binary("MINUS_POW2", lambda a, b: (a - b) * (a - b))
-        binary("FIRST", lambda a, b: a, kernel_code=code(KernelCode.FIRST))
-        binary("SECOND", lambda a, b: b, associative=True, kernel_code=code(KernelCode.SECOND))
+        binary("FIRST", lambda a, b: a)
+        binary("SECOND", lambda a, b: b, associative=True)
         binary("BONE", lambda a, b, d=d: _full_ones(a, b, d))
         binary("MIN", torch.minimum, identity=hi, scatter="min", associative=True,
-               commutative=True, kernel_code=code(KernelCode.MIN))
+               commutative=True)
         binary("MAX", torch.maximum, identity=lo, scatter="max", associative=True,
-               commutative=True, kernel_code=code(KernelCode.MAX))
+               commutative=True)
         binary("LOR", lambda a, b, d=d: ((a != 0) | (b != 0)).to(d),
                identity=t.np_dtype.type(0), associative=True, commutative=True)
         binary("LAND", lambda a, b, d=d: ((a != 0) & (b != 0)).to(d),

@@ -29,6 +29,7 @@ import torch
 from ..containers import CooMatrix, CsrMatrix
 from ..formats import compact, coo_to_csr
 from ..kernels import mxmt as K, spgemm as K9
+from ..utils.bits import bits
 from ..utils.segments import scalar_on
 from .spmv import DISPATCH_STATS
 
@@ -101,7 +102,7 @@ def _to_csr(mask: CsrMatrix, out, has, init_t, out_capacity) -> CsrMatrix:
     mask order; at most ``out_capacity`` (default: the mask's capacity)."""
     m, n = mask.shape
     cap = out_capacity if out_capacity is not None else mask.capacity
-    kept = compact(out, has & (out != init_t), cap, init_t)
+    kept = compact(out, has & (bits(out) != bits(init_t)), cap, init_t)
     ok = kept.indices < mask.capacity
     idx = kept.indices.clamp(max=mask.capacity - 1).long()
     return coo_to_csr(CooMatrix(

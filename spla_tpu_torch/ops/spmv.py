@@ -21,6 +21,7 @@ import torch
 from ..containers import CsrMatrix, DenseVec, SparseVec
 from ..formats import compact, index_set
 from ..kernels import spmv as K
+from ..utils.bits import where
 from ..utils.segments import scalar_on
 
 __all__ = [
@@ -75,8 +76,7 @@ def _dense_x(v, n_in: int, init_t):
     if isinstance(v, SparseVec):
         valid = v.valid_mask()
         idx = v.indices.long()
-        x = index_set(init_t.expand(n_in + 1).clone(), idx,
-                      torch.where(valid, v.values.to(init_t.dtype), init_t))
+        x = index_set(init_t.expand(n_in + 1).clone(), idx, where(valid, v.values.to(init_t.dtype), init_t))
         x_valid = torch.zeros(n_in + 1, dtype=torch.bool, device=idx.device)
         x_valid[idx] = valid
         return x[:n_in], x_valid[:n_in]

@@ -99,8 +99,7 @@ def shard_cell_spmv_split(A: CsrMatrix, n_shards: int, mesh: Mesh | None = None,
     (``shard_csr_split_diag``): per rank, the DIAGONAL block (columns in the
     rank's own row range, rebased to local ids, frame ``mloc``) and the
     OFF-DIAGONAL block (the other columns, global, over the gathered
-    frame); duplicate stored entries fold as that partitioner folds them
-    (the last kept).  Returns ``(diag, off)``."""
+    frame), every stored entry kept, duplicates too.  Returns ``(diag, off)``."""
     diag, off = shard_csr_split_diag(_f32(A, values), n_shards, mesh)
     mloc = (A.shape[0] + n_shards - 1) // n_shards
     return _cells(A, diag, mloc, cw), _cells(A, off, None, cw)

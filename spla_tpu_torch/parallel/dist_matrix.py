@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ..containers import CsrMatrix
-from ..formats import csr_from_entries, host_coo
+from ..formats import host_coo
 from ..reorder import relabel_degree_sorted
 from .mesh import Mesh
 
@@ -71,6 +71,16 @@ class ShardedCsr:
 def _host(a: CsrMatrix):
     """A's ``(indptr, cols, values)`` on the host, indptr as int64."""
     return a.indptr.cpu().numpy().astype(np.int64), a.cols.cpu().numpy(), a.values.cpu().numpy()
+
+
+def _sorted_entries(m: int, rows, cols, vals):
+    """``(indptr, cols, values)`` of the entries sorted by (row, column), every
+    one kept: duplicates of (i, j) stay, in their order (as
+    ``shard_csr_by_rows`` keeps them)."""
+    order = np.lexsort((cols, rows))  # stable
+    indptr = np.zeros(m + 1, np.int64)
+    np.cumsum(np.bincount(rows, minlength=m), out=indptr[1:])
+    return indptr, np.asarray(cols, np.int32)[order], np.asarray(vals)[order]
 
 
 def shard_arrays(m: int, n_shards: int, indptr, cols, vals, fill) -> dict:
@@ -134,7 +144,9 @@ def shard_csr_by_rows_balanced(a: CsrMatrix, n_shards: int, mesh: Mesh | None = 
     the same permutation on rows and columns, then block-row sharded.
     Returns ``(sharded, old_of_new, new_of_old)``; translate a source with
     ``new_of_old[src]`` and read a result back with
-    ``v_old[i] = v_new_flat[new_of_old[i]]``."""
+    ``v_old[i] = v_new_flat[new_of_old[i]]``.  Every stored entry is kept,
+    duplicates too (the JAX package's rebuild keeps the last of each
+    duplicated (i, j))."""
     m, n = a.shape
     if m != n:
         raise ValueError("balanced sharding relabels vertices: square graphs only")
@@ -142,9 +154,7 @@ def shard_csr_by_rows_balanced(a: CsrMatrix, n_shards: int, mesh: Mesh | None = 
     mloc = (m + n_shards - 1) // n_shards
     old_of_new, new_of_old = relabel_degree_sorted(rows, cols, m, n_shards, mloc)
     fill = a.fill.cpu().numpy()
-    ap = csr_from_entries((m, n), new_of_old[rows], new_of_old[cols], vals, fill=fill, dtype=vals.dtype,
-                          device="cpu")
-    arrays = shard_arrays(m, n_shards, *_host(ap), fill)
+    arrays = shard_arrays(m, n_shards, *_sorted_entries(m, new_of_old[rows], new_of_old[cols], vals), fill)
     return _place(a.shape, n_shards, arrays, fill, mesh, a.values.device), old_of_new, new_of_old
 
 
@@ -154,7 +164,8 @@ def shard_csr_split_diag(a: CsrMatrix, n_shards: int, mesh: Mesh | None = None, 
     in ``[s * mloc, (s + 1) * mloc)``, rebased to local ids (shape
     ``(m, mloc)``): its SpMV needs only the rank's own vector.  The
     OFF-DIAGONAL part keeps global columns and takes the gathered vector.
-    Returns ``(diag, off)``."""
+    Every stored entry is kept, duplicates too (the JAX package's rebuild
+    keeps the last of each duplicated (i, j)).  Returns ``(diag, off)``."""
     m, n = a.shape
     mloc = (m + n_shards - 1) // n_shards
     rows, cols, vals = host_coo(a)
@@ -167,8 +178,7 @@ def shard_csr_split_diag(a: CsrMatrix, n_shards: int, mesh: Mesh | None = None, 
         if local_cols:
             c = c - np.minimum(r // mloc, n_shards - 1) * mloc
         shape = (m, mloc if local_cols else n)
-        part = csr_from_entries(shape, r, c, v, fill=fill, dtype=vals.dtype, device="cpu")
-        arrays = shard_arrays(m, n_shards, *_host(part), fill)
+        arrays = shard_arrays(m, n_shards, *_sorted_entries(m, r, c, v), fill)
         return _place(shape, n_shards, arrays, fill, mesh, a.values.device)
 
     return build(is_diag, True), build(~is_diag, False)

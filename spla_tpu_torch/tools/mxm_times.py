@@ -23,12 +23,18 @@ and compaction kernels of each bin); with ``--library``, cuSPARSE's time
 ``--cluster C,...`` it instead times the call and its numeric large and
 medium kernels once for each number of CTAs in a large row's cluster
 (``kernels.spgemm.CLUSTER``, restored after), checking that every setting
-gives C's structure.
+gives C's structure.  With ``--dense D,...`` it instead times, on
+``random_graph(11585, D)`` (values uniform in [0.5, 1.5); 11,585 is the
+largest n whose dense operands spla_tpu's ``MXM_DENSE_CAP`` of 2^27
+elements admits), kernel 9 against the dense route of spla_tpu's
+``_mxm_dense`` (``spla_tpu/ops/spgemm.py:441-495``), which the port does
+not have: A and B densified with zero fill, one f32 ``torch.matmul`` with
+TF32 off, the nonzeros compacted into CSR; both in turns, C checked equal.
 
 Usage::
 
     python -m spla_tpu_torch.tools.mxm_times [--graphs mx13,mx20,skewed,bins] [--reps 5] [--label NAME]
-        [--profile] [--library] [--chain] [--cluster 8,16,...]
+        [--profile] [--library] [--chain] [--cluster 8,16,...] [--dense 128,256,512]
 """
 
 from __future__ import annotations
@@ -145,6 +151,78 @@ def library_ms(A, B, reps):
         torch.cuda.empty_cache()
 
 
+N_DENSE = 11585  # floor(sqrt(2^27)): spla_tpu's MXM_DENSE_CAP on an n x n operand
+
+
+def dense_operand(d, device):
+    a = random_graph(N_DENSE, d)
+    a.data = np.random.default_rng(d).uniform(0.5, 1.5, a.nnz).astype(np.float32)
+    return F.csr_from_scipy(a, device=device)
+
+
+def densify(M):
+    """M as a dense f32 matrix, absent entries 0 (duplicates added)."""
+    k = int(M.nnz)
+    out = torch.zeros(M.shape, dtype=torch.float32, device=M.values.device)
+    return out.index_put_((M.row_ids[:k].long(), M.cols[:k].long()), M.values[:k], accumulate=True)
+
+
+def dense_mxm(A, B):
+    """C = A @ B by the dense route (MULT/PLUS f32, init 0): densify, one
+    full-f32 matmul, the nonzeros compacted in row order into
+    ``(indptr, cols, values)``.  Returns them and three CUDA events: before
+    the densify, before the matmul and after it."""
+    m, n = A.shape[0], B.shape[1]
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    events[0].record()
+    Ad, Bd = densify(A), densify(B)
+    events[1].record()
+    R = torch.matmul(Ad, Bd)
+    events[2].record()
+    keep = R != 0
+    indptr = torch.zeros(m + 1, dtype=torch.long, device=R.device)
+    torch.cumsum(keep.sum(1), 0, out=indptr[1:])
+    pos = torch.nonzero(keep.reshape(-1)).squeeze(1)
+    return (indptr, (pos % n).to(torch.int32), R.reshape(-1)[pos]), events
+
+
+def dense_sweep(degrees, reps, label, smi):
+    """Kernel 9 against the dense route on random_graph(11585, d) for each
+    d, in turns (kernel, dense, dense, kernel); one JSON line each."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False  # full f32, as precision=HIGHEST
+    try:
+        for d in degrees:
+            A = dense_operand(d, device_of("cuda"))
+            plan = K9.mxm_plan(A, A)
+            kfn = lambda: K9.mxm(A, A, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)  # noqa: E731
+            dfn = lambda: dense_mxm(A, A)  # noqa: E731
+            C = kfn()
+            (indptr, cols, vals), events = dfn()
+            k = int(C.nnz)
+            if not (torch.equal(indptr.to(torch.int32), C.indptr) and torch.equal(cols, C.cols[:k])):
+                raise AssertionError(f"dense route d={d}: C's structure differs from kernel 9's")
+            torch.testing.assert_close(vals, C.values[:k], rtol=1e-5, atol=1e-5)
+            k1, d1 = cuda_ms(kfn, reps), cuda_ms(dfn, reps)
+            d2, k2 = cuda_ms(dfn, reps), cuda_ms(kfn, reps)
+            parts = []
+            for _ in range(reps):
+                _, ev = dfn()
+                ev[2].synchronize()
+                parts.append((ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])))
+            densify_ms, matmul_ms = sorted(parts, key=lambda p: p[1])[len(parts) // 2]
+            print(json.dumps({"label": label, "graph": f"random_graph({N_DENSE}, {d})", "n": N_DENSE,
+                              "nnz": int(A.nnz), "products": plan.products, "c_nnz": k,
+                              "kernel9_ms": (k1 + k2) / 2, "dense_ms": (d1 + d2) / 2,
+                              "dense_densify_ms": densify_ms, "dense_matmul_ms": matmul_ms,
+                              "kernel9_mproducts_s": plan.products / ((k1 + k2) / 2) / 1e3, "card": smi}),
+                  flush=True)
+            del A, C, indptr, cols, vals
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
 def cluster_settings(text):
     """``[cluster, ...]`` from ``"8,16"``: clusters of 1 to 16 CTAs, a power of two."""
     settings = []
@@ -190,7 +268,12 @@ def main(argv=None):
     ap.add_argument("--library", action="store_true", help="time cuSPARSE too")
     ap.add_argument("--chain", action="store_true", help="time mxm_mprod_s's chain of public mxm calls too")
     ap.add_argument("--cluster", default="", help="CTAs of a large row's cluster, comma-separated, to time in turn")
+    ap.add_argument("--dense", default="", help="degrees d, comma-separated: kernel 9 against the dense route "
+                                                "on random_graph(11585, d)")
     args = ap.parse_args(argv)
+    if args.dense:
+        dense_sweep([int(d) for d in args.dense.split(",")], args.reps, args.label, card())
+        return
     names = args.graphs.split(",")
     unknown = set(names) - set(GRAPHS)
     if unknown:

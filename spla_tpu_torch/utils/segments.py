@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from .bits import cat, gather, where
+
 __all__ = ["scalar_on", "segmented_scan_fold", "segment_fold", "combine_segments"]
 
 _REDUCE = {"add": "sum", "mul": "prod", "min": "amin", "max": "amax"}
@@ -33,8 +35,8 @@ def segmented_scan_fold(values, valid, heads, op):
     while d < k:
         av, ah, af = v[:-d], h[:-d], f[:-d]
         bv, bh, bf = v[d:], h[d:], f[d:]
-        merged = torch.where(ah & bh, op(av, bv), torch.where(bh, bv, av))
-        v = torch.cat([v[:d], torch.where(bf, bv, merged)])
+        merged = where(ah & bh, op(av, bv), where(bh, bv, av))
+        v = cat([v[:d], where(bf, bv, merged)])
         h = torch.cat([h[:d], torch.where(bf, bh, ah | bh)])
         f = torch.cat([f[:d], af | bf])
         d *= 2
@@ -58,7 +60,7 @@ def combine_segments(values, has, init, op):
     """``op(init, values)`` where ``has``, else ``init`` (the reference's
     ``sum = init; sum = add(sum, ...)`` chain)."""
     init_b = scalar_on(init, values.dtype, values.device).expand(values.shape)
-    return torch.where(has, op(init_b, values), init_b)
+    return where(has, op(init_b, values), init_b)
 
 
 def segment_fold(values, seg_ids, valid, num_segments, op, init, sorted_ids=True):
@@ -112,7 +114,7 @@ def segment_fold(values, seg_ids, valid, num_segments, op, init, sorted_ids=True
                 torch.zeros(num_segments, dtype=torch.bool, device=device))
     if not sorted_ids:
         order = torch.argsort(seg_ids, stable=True)
-        seg_ids, values, valid = seg_ids[order], values[order], valid[order]
+        seg_ids, values, valid = seg_ids[order], gather(values, order), valid[order]
     heads = torch.ones(k, dtype=torch.bool, device=device)
     heads[1:] = seg_ids[1:] != seg_ids[:-1]
     scan_v, scan_h = segmented_scan_fold(values, valid, heads, op)
@@ -121,5 +123,5 @@ def segment_fold(values, seg_ids, valid, num_segments, op, init, sorted_ids=True
     starts = torch.searchsorted(seg_ids, seg_range, right=False)
     last = torch.clamp(ends - 1, 0, k - 1)
     has = (ends > starts) & scan_h[last]
-    folded = torch.where(has, scan_v[last], init)
+    folded = where(has, gather(scan_v, last), init)
     return combine_segments(folded, has, init, op).to(values.dtype), has

@@ -8,6 +8,8 @@ imports jax):
     python -m pytest tests/test_torch_cuda.py --noconftest -m cuda -q
 """
 
+from dataclasses import replace
+
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -20,7 +22,7 @@ from spla_tpu_torch.kernels.build import BuildError
 from spla_tpu_torch.interop import csr_from_numpy
 from spla_tpu_torch.library import get_library
 from spla_tpu_torch.profiling import profiler
-from spla_tpu_torch.types import FLOAT, INT
+from spla_tpu_torch.types import FLOAT, INT, UINT
 from spla_tpu_torch import ops as TO
 from spla_tpu_torch.ops import spgemm as TG, spmv as TS
 from spla_tpu_torch.utils.primitives import lex_order
@@ -30,6 +32,12 @@ from spla_tpu_torch.tools.graphs import (barbell_graph, indptr_of, path_graph, r
 pytestmark = pytest.mark.cuda
 
 MULS = ("PLUS", "MULT", "FIRST", "SECOND", "MIN", "MAX")
+# the generic families' cases: every built-in mul of the type, and kernel 1's adds
+GENERIC_MULS = {"f32": (*MULS, "MINUS", "DIV", "MINUS_POW2", "BONE", "LOR", "LAND")}
+GENERIC_MULS["i32"] = GENERIC_MULS["u32"] = (*GENERIC_MULS["f32"], "BOR", "BAND", "BXOR")
+GENERIC_ADDS = {"f32": ("PLUS", "MIN", "MAX")}
+GENERIC_ADDS["i32"] = GENERIC_ADDS["u32"] = ("PLUS", "MULT", "MIN", "MAX", "LOR", "BOR", "BAND", "BXOR")
+TYPES = {"f32": FLOAT, "i32": INT, "u32": UINT}
 
 
 @pytest.fixture
@@ -127,6 +135,88 @@ def test_spmv_pull_matches_plain(dev, graph, dtype, add):
                 _assert_same(got, ref)
     for xv, rs in ((x_valid, None), (x_valid, row_sel), (x > 0.99 if dtype == "f32" else x > 97, row_sel)):
         _assert_same(K1.spmv_pull_structural(A, xv, rs), K1.spmv_pull_structural_plain(A, xv, rs))
+
+
+def _bits(t):
+    """A CPU copy to compare bitwise: uint32 as the int32 of its bits."""
+    t = t.cpu()
+    return t.view(torch.int32) if t.dtype == torch.uint32 else t
+
+
+def _same_values(got, ref, float_plus):
+    """Bitwise (NaN equal to NaN), or within rtol=1e-5, atol=1e-5 for f32 PLUS folds."""
+    if float_plus:
+        torch.testing.assert_close(got.cpu(), ref.cpu(), rtol=1e-5, atol=1e-5, equal_nan=True)
+    else:
+        _assert_same(_bits(got), _bits(ref))
+
+
+def _typed(vals, dtype, rng):
+    """f32 values as they are; i32 in [-1000, 1000) with INT_MIN, -1 and 0 among
+    them; u32 small or within 1000 of 2^32 (MULT and PLUS wrap)."""
+    if dtype == "f32":
+        return vals
+    if dtype == "i32":
+        out = rng.integers(-1000, 1000, vals.size).astype(np.int32)
+        out[rng.random(vals.size) < 0.05] = np.iinfo(np.int32).min
+        out[rng.random(vals.size) < 0.05] = -1
+        return out
+    out = rng.integers(0, 8, vals.size).astype(np.int64)
+    big = rng.random(vals.size) < 0.5
+    out[big] = (1 << 32) - rng.integers(1, 1000, int(big.sum()))
+    return out.astype(np.uint32)
+
+
+def _typed_pull_matrix(graph, dtype, dev):
+    indptr, rows, cols, vals = _pull_graph(graph)
+    n = indptr.size - 1
+    vals = _typed(vals, dtype, np.random.default_rng(3))
+    return csr_from_numpy((n, n), indptr, cols, vals, rows, rows.size, vals.dtype.type(0), dev)
+
+
+def _typed_x(n, dtype, dev, rng):
+    if dtype == "f32":
+        x = rng.uniform(-2, 2, n).astype(np.float32)
+        x[3], x[5], x[9] = np.nan, np.inf, 0.0
+    else:
+        x = _typed(np.zeros(n, np.float32), dtype, rng)
+        x[rng.random(n) < 0.1] = 0  # zero divisors
+    return torch.from_numpy(x).to(dev)
+
+
+@pytest.mark.parametrize("graph", ["deg1", "deg16", "deg64", "hub", "hub_ends"])
+@pytest.mark.parametrize("dtype", ["f32", "i32", "u32"])
+def test_spmv_pull_generic_matches_plain(dev, graph, dtype):
+    """Kernel 1's generic family against its plain version: every (mul, add)
+    that kernel 1's gate admits in the dtype, each with one of the three
+    mask and operand-order settings in turn (the swap reaches MINUS, DIV
+    and MINUS_POW2 on some), the templated requests sent to the family by
+    ``generic=True``; f32 PLUS within the tolerance, the rest bitwise."""
+    A = _typed_pull_matrix(graph, dtype, dev)
+    n = A.shape[0]
+    rng = np.random.default_rng(2)
+    T = TYPES[dtype]
+    x = _typed_x(n, dtype, dev, rng)
+    x_valid = torch.from_numpy(rng.random(n) < 0.8).to(dev)
+    row_sel = torch.from_numpy(rng.random(n) < 0.6).to(dev)
+    settings = ((None, None, False), (x_valid, row_sel, False), (x_valid, row_sel, True))
+    k = 0
+    for add in GENERIC_ADDS[dtype]:
+        oa = getattr(T, add)
+        for mul in GENERIC_MULS[dtype]:
+            om = getattr(T, mul)
+            xv, rs, swap = settings[k % 3]
+            k += 1
+            kernels.reset_launches()
+            got, has = K1.spmv_pull(A, x, om, oa, oa.identity, xv, rs, want_has=True, swap=swap, generic=True)
+            assert kernels.LAUNCHES["spmv_pull_generic"] == 1 and kernels.LAUNCHES["spmv_pull"] == 0
+            ref, ref_has = K1.spmv_pull_plain(A, x, om, oa, oa.identity, xv, rs, swap=swap)
+            assert torch.equal(has, ref_has), (mul, add)
+            _same_values(got, ref, dtype == "f32" and add == "PLUS")
+            if not K1.templated(*K1.pull_codes(om, oa, T.dtype)):  # no generic=: the family all the same
+                again, _ = K1.spmv_pull(A, x, om, oa, oa.identity, xv, rs, swap=swap)
+                assert kernels.LAUNCHES["spmv_pull_generic"] == 2
+                _same_values(again, got, False)
 
 
 def test_spmv_pull_split_parts_have_their_own_plans(dev):
@@ -427,6 +517,104 @@ def test_mxmt_reduce_matches_plain(dev, graph, dtype):
     _assert_same(K45.mxmt_reduce(mask, A, A, None, struct_only=True), ref)
 
 
+def _as_u32(M):
+    """An i32 matrix's bits as u32 (negative values become values past 2^31)."""
+    return replace(M, values=M.values.view(torch.uint32), fill=M.fill.view(torch.uint32))
+
+
+@pytest.mark.parametrize("graph", ["hub", "deg48"])
+@pytest.mark.parametrize("dtype", ["f32", "u32"])
+def test_mxmt_generic_matches_plain(dev, graph, dtype):
+    """Kernels 5 and 4 (one instance per add and dtype, the mul a kernel
+    argument) against their plain versions: every mul kernel 5's gate
+    admits in the dtype (f32: all 12; u32: the six) with PLUS, MIN and MAX,
+    the structural u32 instances, and kernel 4 on the same muls."""
+    mask, A = _mxmt_operands(dev, "f32" if dtype == "f32" else "i32", graph, nan=dtype == "f32")
+    if dtype == "u32":
+        mask, A = _as_u32(mask), _as_u32(A)
+    T = TYPES[dtype]
+    sel = T.GTZERO(mask.values) & mask.valid_mask()
+    muls = GENERIC_MULS["f32"] if dtype == "f32" else MULS
+    for add in ("PLUS", "MIN", "MAX"):
+        oa = getattr(T, add)
+        for mul in muls:
+            om = getattr(T, mul)
+            kernels.reset_launches()
+            got, has = K45.mxmt_masked(mask, A, A, om, oa, oa.identity, sel)
+            assert kernels.LAUNCHES["mxmt_masked"] == 1
+            ref, ref_has = K45.mxmt_masked_plain(mask, A, A, om, oa, oa.identity, sel)
+            assert torch.equal(has, ref_has) and bool(has.any())
+            _same_values(got, ref, dtype == "f32" and add == "PLUS")
+        if dtype == "u32":
+            got = K45.mxmt_masked(mask, A, A, None, oa, oa.identity, None, struct_only=True)
+            ref = K45.mxmt_masked_plain(mask, A, A, None, oa, oa.identity, mask.valid_mask(), struct_only=True)
+            for g, r in zip(got, ref):
+                _same_values(g, r, False)
+    for mul in muls:
+        om = getattr(T, mul)
+        kernels.reset_launches()
+        got = K45.mxmt_reduce(mask, A, A, om, sel)
+        assert kernels.LAUNCHES["mxmt_reduce"] == 1
+        ref = K45.mxmt_reduce_plain(mask, A, A, om, sel)
+        assert got.dtype == ref.dtype == (torch.float64 if dtype == "f32" else torch.int64)
+        if dtype == "f32":  # float64 sums of the same f32 products, in another order
+            torch.testing.assert_close(got, ref, rtol=1e-9, atol=0, equal_nan=True)
+        else:
+            _assert_same(got, ref)
+
+
+def _uint_inputs(device, n=3000):
+    """A u32 matrix (values anywhere in 32 bits, a hub row), a dense and a
+    sparse u32 vector and an f32 mask vector, from one seed, on ``device``."""
+    rng = np.random.default_rng(41)
+    a = _graph(n=n, seed=11, hub=300)
+    a.data = rng.integers(0, 1 << 32, a.nnz, dtype=np.uint64).astype(np.uint32)
+    xv = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+    xv[rng.random(n) < 0.3] = 0
+    mvals = (rng.random(n) < 0.7).astype(np.float32)
+    idx = np.sort(rng.choice(n, 400, replace=False))
+    A = F.csr_from_scipy(a, device=device)
+    x = DenseVec(torch.from_numpy(xv).to(device), torch.zeros((), dtype=torch.uint32).to(device))
+    sv = F.sparse_vec_from_entries(n, idx, xv[idx], dtype=np.uint32, capacity=450, device=device)
+    mask = DenseVec(torch.from_numpy(mvals).to(device), torch.zeros((), device=device))
+    return A, x, sv, mask
+
+
+def _uint_calls(A, x, sv, mask):
+    U = UINT
+    n = A.shape[0]
+    return (TS.mxv_masked(mask, A, x, U.BAND, U.BOR, op.NQZERO_FLOAT, 0),
+            TS.mxv_masked(mask, A, x, U.MULT, U.PLUS, op.NQZERO_FLOAT, 7),
+            TS.vxm_masked(mask, sv, A, U.MINUS, U.MIN, op.NQZERO_FLOAT, U.MIN.identity, out_capacity=n),
+            TS.vxm_masked_dense(mask, x, A, U.BAND, U.BOR, op.NQZERO_FLOAT, 0),
+            TG.mxmT_masked(A, A, A, U.MULT, U.PLUS, U.GTZERO, 0),
+            TG.mxmT_masked(A, A, A, U.MULT, U.MAX, U.GTZERO, 0, struct_only=True),
+            TG.mxmT_masked_reduce(A, A, A, U.MULT, U.GTZERO))
+
+
+def test_uint_path_runs_on_the_card_without_synchronizing(dev):
+    """The UINT path through the public ops, on CUDA tensors under
+    set_sync_debug_mode("error") (no host read, no copy from the host):
+    mxv_masked (BAND/BOR, MULT/PLUS), vxm_masked (sparse v, compacted) and
+    vxm_masked_dense, mxmT_masked (MULT/PLUS and structural) and
+    mxmT_masked_reduce, against the same calls on the CPU, each launching
+    a kernel (no torch path)."""
+    card = _uint_inputs(dev)
+    K1.pull_plan(card[0]), K45.mxmt_plan(card[0], card[0])  # the plans read the host once, at their first build
+    kernels.reset_launches()
+    before = dict(TS.DISPATCH_STATS)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = _uint_calls(*card)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert all(TS.DISPATCH_STATS[k] == before[k] for k in before if k.endswith("_torch"))
+    assert kernels.LAUNCHES["spmv_pull_generic"] == 4 and kernels.LAUNCHES["spmv_pull"] == 0
+    assert kernels.LAUNCHES["mxmt_masked"] == 2 and kernels.LAUNCHES["mxmt_reduce"] == 1
+    _same_result(got, _uint_calls(*_uint_inputs("cpu")), False)
+
+
 @pytest.mark.parametrize("graph", ["hub", "deg48"])
 def test_mxmt_gather_matches_plain(dev, graph):
     """The gather floor of kernels 4 and 5 (kernel 8's module) against its
@@ -576,6 +764,45 @@ def test_mxm_matches_plain(dev, dtype, add):
         got = K9.mxm(A, B, om, oa, oa.identity)
         assert kernels.LAUNCHES["spgemm_mxm"] == 1
         _same_csr(got, K9.mxm_plain(A, B, om, oa, oa.identity), float_plus=dtype == "f32" and add == "PLUS")
+
+
+@pytest.mark.parametrize("add", ["PLUS", "MIN", "MAX"])
+def test_mxm_generic_matches_plain(dev, add):
+    """Kernel 9 (the mul a kernel argument) with every f32 mul and this add
+    against its plain version on the same CUDA tensors, with rows in each
+    of its three bins; an i32 mul outside the six raises."""
+    A, B = _bins_operands(dev, "f32")
+    oa = getattr(op.FLOAT, add)
+    for mul in GENERIC_MULS["f32"]:
+        om = getattr(op.FLOAT, mul)
+        kernels.reset_launches()
+        got = K9.mxm(A, B, om, oa, oa.identity)
+        assert kernels.LAUNCHES["spgemm_mxm"] == 1
+        _same_csr(got, K9.mxm_plain(A, B, om, oa, oa.identity), float_plus=add == "PLUS")
+    with pytest.raises(NotImplementedError):
+        K9.mxm(*_bins_operands(dev, "i32"), op.MINUS_INT, op.PLUS_INT, 0)
+
+
+def test_generic_entries_refuse_f32_bitwise_muls(dev, monkeypatch):
+    """An f32 request with a bitwise mul (which no gate lets through, and
+    which the kernels cannot compute in f32) reaches the C entries of
+    kernel 1's generic family and of kernels 5, 4 and 9 through a widened
+    gate: each refuses it (cudaErrorInvalidValue) and the wrapper raises."""
+    bor, plus, f32 = int(op.KernelCode.BOR), int(op.KernelCode.PLUS), K1.DTYPE_CODES[torch.float32]
+    A = _typed_pull_matrix("deg16", "f32", dev)
+    monkeypatch.setattr(K1, "pull_codes", lambda *a, **k: (bor, plus, f32))
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        K1.spmv_pull(A, torch.ones(A.shape[1], device=dev), op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)
+    mask, M = _mxmt_operands(dev, "f32", "deg48")
+    monkeypatch.setattr(K45, "masked_codes", lambda *a, **k: (bor, plus, f32))
+    monkeypatch.setattr(K45, "reduce_codes", lambda *a, **k: (bor, f32))
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        K45.mxmt_masked(mask, M, M, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        K45.mxmt_reduce(mask, M, M, op.MULT_FLOAT)
+    monkeypatch.setattr(K9, "mxm_codes", lambda *a, **k: (bor, plus, f32))
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        K9.mxm(*_bins_operands(dev, "f32"), op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)
 
 
 @pytest.mark.parametrize("cluster", [2, 8, 16])

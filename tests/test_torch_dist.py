@@ -45,6 +45,7 @@ from spla_tpu_torch import formats as F, parallel as P
 from spla_tpu_torch.interop import csr_from_numpy, to_numpy
 from spla_tpu_torch.parallel import World, dist_ops
 from spla_tpu_torch.reorder import deal_permutation, relabel_degree_sorted
+from spla_tpu_torch.tools.graphs import indptr_of
 
 S = 4
 REPO = Path(__file__).resolve().parents[1]
@@ -394,6 +395,74 @@ def test_dist_pallas_overlap_matches_jax(mesh, world, kind, frontier_cap):
     else:
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-8)
         np.testing.assert_allclose(got, plain, rtol=1e-5, atol=1e-8)
+
+
+def _duplicates(values):
+    """ROADMAP queue 3's 8-vertex Aᵀ (row i lists i's in-edges): vertex 1 is
+    reached from 0 by two stored entries of (1, 0), then 1 -> 2 -> 3;
+    vertices 4-7 are unreached.  As a scipy CSR with both entries kept."""
+    indptr = np.array([0, 0, 2, 3, 4, 4, 4, 4, 4])
+    return sp.csr_matrix((np.asarray(values, np.float32), np.array([0, 0, 1, 2]), indptr), shape=(8, 8))
+
+
+def _dup_fields(a, split):
+    c = a.tocoo()  # keeps both entries of (1, 0)
+    return {"shape": a.shape, "n_shards": 1, "rows": c.row, "cols": c.col, "values": c.data, "split": split}
+
+
+def test_pin_overlap_loops_keep_duplicate_entries():
+    """ROADMAP queue 3 items 1-2: the split partitioner keeps every stored
+    entry, as shard_csr_by_rows does, so at world 1 the ``_overlap`` loops
+    equal the ``_pallas`` loops on a graph with a duplicated entry: SSSP
+    distances 1, 2, 3 over weights (1, 5) on (1, 0), PageRank 0.03375 at
+    vertex 1 over values (0.4, 0.4).  The JAX package's split keeps the last
+    of the two (its rebuild through csr_from_entries), which is recorded:
+    its dist_pagerank_overlap gives 0.02625 there, its dist_pagerank and
+    dist_sssp 0.03375 and 1, 2, 3."""
+    sssp_a, pr_a = _duplicates([1, 5, 1, 1]), _duplicates([0.4, 0.4, 0.85, 0.85])
+    with World(1, threads=1) as w:
+        for suffix in ("", "_overlap"):
+            split = bool(suffix)
+            d = w.run(J.pallas, f"dist_sssp_pallas{suffix}", _dup_fields(sssp_a, split), 0)[0]
+            np.testing.assert_array_equal(d, [0, 1, 2, 3, *[np.inf] * 4])
+            p = w.run(J.pallas, f"dist_pagerank_pallas{suffix}", _dup_fields(pr_a, split), 0.85, 1e-6)[0]
+            np.testing.assert_allclose(p[1], 0.03375, rtol=1e-5)
+    diag, off = P.shard_csr_split_diag(F.csr_from_scipy(pr_a, device="cpu"), 1)
+    assert int(diag[0].nnz) + int(off[0].nnz) == 4
+    jmesh = JP.make_device_mesh(1)
+    jdiag, joff = JP.shard_csr_split_diag(JF.csr_from_scipy(pr_a), 1, jmesh)
+    assert int(np.asarray(jdiag.nnz).sum() + np.asarray(joff.nnz).sum()) == 3  # the reference drops one
+    j_overlap = np.asarray(JP.dist_pagerank_overlap(jmesh, jdiag, joff, 0.85, 1e-6)).ravel()
+    j_plain = np.asarray(JP.dist_pagerank(jmesh, JP.shard_csr_by_rows(JF.csr_from_scipy(pr_a), 1, jmesh),
+                                          0.85, 1e-6)).ravel()
+    np.testing.assert_allclose([j_overlap[1], j_plain[1]], [0.02625, 0.03375], rtol=1e-5)
+    j_sssp = np.asarray(JP.dist_sssp(jmesh, JP.shard_csr_by_rows(JF.csr_from_scipy(sssp_a), 1, jmesh), 0))
+    np.testing.assert_array_equal(j_sssp.ravel()[:4], [0, 1, 2, 3])
+
+
+def test_pin_balanced_partitioner_keeps_duplicate_entries(mesh):
+    """ROADMAP queue 3 item 2: the degree-balanced partitioner keeps every
+    stored entry (in (row, column) order, duplicates in their order), as
+    shard_csr_by_rows does; the JAX package's keeps the last of each
+    duplicated (i, j), which is recorded."""
+    rng = np.random.default_rng(16)
+    n = 40
+    r, c = rng.integers(0, n, 300), rng.integers(0, n, 300)
+    r, c = np.concatenate([r, r[:50]]), np.concatenate([c, c[:50]])  # 50 duplicated (i, j) at least
+    order = np.lexsort((c, r))
+    r, c = r[order], c[order]
+    vals = np.arange(1, r.size + 1, dtype=np.float32)[order]
+    a = sp.csr_matrix((vals, c, indptr_of(r, n)), shape=(n, n))
+    distinct = len(set(zip(r.tolist(), c.tolist())))
+    got, old_of_new, _ = P.shard_csr_by_rows_balanced(F.csr_from_scipy(a, device="cpu"), S)
+    assert sum(int(g.nnz) for g in got) == r.size
+    # every entry, relabelled back: the same multiset of (row, col, value)
+    ent = sorted((int(old_of_new[g.rank * g.mloc + i]), int(old_of_new[k]), float(v))
+                 for g in got for i, k, v in zip(to_numpy(g.row_ids)[:int(g.nnz)], to_numpy(g.cols)[:int(g.nnz)],
+                                                  to_numpy(g.values)[:int(g.nnz)]))
+    assert ent == sorted(zip(r.tolist(), c.tolist(), vals.tolist()))
+    want, _, _ = JP.shard_csr_by_rows_balanced(JF.csr_from_scipy(a), S, mesh)
+    assert int(np.asarray(want.nnz).sum()) == distinct < r.size
 
 
 # ---------------------------------------------------------------- SpGEMM

@@ -81,7 +81,7 @@ def test_kernel_codes_match_the_cuda_enum():
     codes = dict(re.findall(r"KC_(\w+) = (\d+)", src))
     assert {k: int(v) for k, v in codes.items()} == {c.name: c.value for c in OP.KernelCode}
     dts = dict(re.findall(r"DT_(\w+) = (\d+)", src))
-    assert {int(dts["F32"]): torch.float32, int(dts["I32"]): torch.int32} == \
+    assert {int(dts["F32"]): torch.float32, int(dts["I32"]): torch.int32, int(dts["U32"]): torch.uint32} == \
         {v: k for k, v in K1.DTYPE_CODES.items()}
 
 
@@ -91,8 +91,8 @@ def _meta_csr():
 
 
 @pytest.mark.parametrize("op_mul,op_add", [
-    (OP.MINUS_FLOAT, OP.PLUS_FLOAT),   # mul the kernels do not cover
-    (OP.MULT_FLOAT, OP.LOR_FLOAT),     # add the kernels do not cover
+    (OP.OpBinary.make("USER", OP.FLOAT, lambda a, b: a - b), OP.PLUS_FLOAT),  # a user mul: no kernel
+    (OP.MULT_FLOAT, OP.LOR_FLOAT),     # add the kernels do not cover in f32
 ])
 def test_cuda_wrappers_raise_on_uncovered_requests(op_mul, op_add):
     A = _meta_csr()
@@ -164,14 +164,33 @@ def test_builtin_op_matches_spla_tpu(key):
         np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("tname", ["INT", "UINT"])
+def test_int_div_is_xla_division(tname):
+    """INT and UINT DIV bitwise equal to spla_tpu's lax.div: x / 0 all ones,
+    INT_MIN / -1 INT_MIN, toward zero otherwise (C++ would trap or be
+    undefined on the first two)."""
+    dt = np.int32 if tname == "INT" else np.uint32
+    lo, hi = np.iinfo(dt).min, np.iinfo(dt).max
+    a = np.array([7, 7, 0, lo, lo, hi, hi, 9, 5, 1], dt)
+    b = np.array([0, 2, 0, 0, 1, 0, 3, 9, 7, 1], dt)
+    if tname == "INT":
+        a = np.concatenate([a, np.array([lo, -7, -7, 7, lo], dt)])
+        b = np.concatenate([b, np.array([-1, 2, -2, -2, 2], dt)])
+    want = np.asarray(JOP.lookup("DIV", getattr(JOP, tname))(jnp.asarray(a), jnp.asarray(b)))
+    top = OP.lookup("DIV", getattr(OP, tname))
+    np.testing.assert_array_equal(to_numpy(top(torch.from_numpy(a), torch.from_numpy(b))), want)
+    for i in range(a.size):  # scalars broadcast against tensors too
+        np.testing.assert_array_equal(to_numpy(top(torch.from_numpy(a[i:i + 1]), int(b[i]))), want[i:i + 1])
+
+
 def test_kernel_codes_only_on_covered_ops():
+    """Every built-in binary op carries its KernelCode (the kernels' gates
+    choose the requests); a user op carries none."""
     for key, o in OP.BUILTIN_OPS.items():
         if not isinstance(o, OP.OpBinary):
             continue
-        covered = o.type.name in ("INT", "FLOAT") and o.name in OP.KernelCode.__members__
-        assert (o.kernel_code is not None) == covered, key
-        if covered:
-            assert o.kernel_code == OP.KernelCode[o.name]
+        assert o.kernel_code == OP.KernelCode[o.name], key
+    assert OP.OpBinary.make("USER", OP.INT, lambda a, b: a | b).kernel_code is None
 
 
 # ---------------------------------------------------------------- interop and formats

@@ -157,6 +157,40 @@ def test_mxm_products_cap_truncates_as_spla_tpu():
         assert int(got.nnz) < int(TG.mxm(ta, ta, OP.MULT_INT, OP.PLUS_INT, 0).nnz)
 
 
+def test_pin_mxm_products_cap_truncates_at_the_dense_size():
+    """ROADMAP queue 3 item 3, a reference fault the port does not copy: with
+    products_cap >= 2^22 on MULT/PLUS f32, init 0, spla_tpu takes its dense
+    product (``_mxm_dense_try``, spla_tpu/ops/spgemm.py:402-405,441-462) and
+    returns the whole product, which is recorded; the port keeps the first
+    2^22 products in expansion order (A's entries in order, each over B's
+    row), as spla_tpu's XLA path does below the dense size.  Held against a
+    numpy expansion cut there (values within the f32 PLUS tolerance)."""
+    n, deg, cap = 2048, 48, 1 << 22
+    rng = np.random.default_rng(37)
+    cols = np.concatenate([np.sort(rng.choice(n, deg, replace=False)) for _ in range(n)]).astype(np.int32)
+    indptr = np.arange(0, n * deg + 1, deg)
+    a = sp.csr_matrix((rng.uniform(0.5, 1.5, n * deg).astype(np.float32), cols, indptr), shape=(n, n))
+    ja, ta = JF.csr_from_scipy(a), from_spla_tpu(JF.csr_from_scipy(a), "cpu")
+    assert a.nnz == 98304 and JOPS.count_mxm_products(ja, ja) > cap
+    got = TG.mxm(ta, ta, OP.MULT_FLOAT, OP.PLUS_FLOAT, 0.0, products_cap=cap)
+    # the expansion: entry e of A (row i, column p) meets B's row p
+    deg_b = np.diff(a.indptr)[a.indices]
+    src = np.repeat(np.arange(a.nnz), deg_b)[:cap]
+    t = a.indptr[a.indices[src]] + np.arange(src.size) - np.repeat(np.cumsum(deg_b) - deg_b, deg_b)[:cap]
+    rows = np.repeat(np.arange(n), np.diff(a.indptr))
+    ref = sp.coo_matrix((a.data[src].astype(np.float64) * a.data[t], (rows[src], a.indices[t])),
+                        shape=(n, n)).tocsr()
+    ref.sort_indices()
+    g = to_numpy(got)
+    k = int(g["nnz"])
+    assert k == ref.nnz < (a @ a).nnz
+    np.testing.assert_array_equal(g["indptr"], ref.indptr)
+    np.testing.assert_array_equal(g["cols"][:k], ref.indices)
+    np.testing.assert_allclose(g["values"][:k], ref.data, rtol=1e-5, atol=1e-5)
+    want = JOPS.mxm(ja, ja, JOP.MULT_FLOAT, JOP.PLUS_FLOAT, 0.0, products_cap=cap)
+    assert int(np.asarray(want.nnz)) == (a @ a).nnz  # the whole product, past the cap
+
+
 @pytest.mark.parametrize("block", [256, 1024, 5000])
 def test_mxm_product_windows_match_spla_tpu(block):
     """block_products folds windows of about that many products and merges

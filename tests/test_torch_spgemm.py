@@ -272,6 +272,20 @@ def test_tc_matches_spla_tpu_and_tc_naive(values):
         assert got == int(((d @ d.T) * (d > 0)).sum())
 
 
+@pytest.mark.parametrize("values", ["pattern", "valued"])
+def test_tc_on_uint_values_matches_spla_tpu(values):
+    """tc on a UINT graph takes UINT's MULT, PLUS and GTZERO (unsigned
+    compares; on the card, kernel 4's u32 instance), and equals spla_tpu's
+    tc and the int64 masked sum: a pattern, and values in {1, 2, 3}."""
+    a = _tc_graph(34).astype(np.uint32)
+    if values == "valued":
+        a.data = np.random.default_rng(35).integers(1, 4, a.nnz).astype(np.uint32)
+    JA = JF.csr_from_scipy(a, capacity=a.nnz + 5)
+    got = alg.tc(from_spla_tpu(JA, "cpu"))
+    d = a.toarray().astype(np.int64)
+    assert got == JALG.tc(JA) == int(((d @ d.T) * (d > 0)).sum()) > 0
+
+
 def test_tc_float_values_and_pattern_cache():
     a = _tc_graph(33)
     JA = JF.csr_from_scipy(a)

@@ -57,16 +57,31 @@ def _vector(tname, fill, seed=1, n=N):
     return JDenseVec(jnp.asarray(x), jnp.asarray(fill, x.dtype))
 
 
+# The first nine hold the templated instances' semirings and a few of the
+# generic family's; the rest are more of the generic family's (on the card;
+# here each takes kernel 1's plain version): every built-in mul, u32, and the
+# bitwise, logical and MULT adds of i32 and u32.
 SEMIRINGS = [
     ("MULT", "PLUS", "FLOAT", 0),
     ("PLUS", "MIN", "FLOAT", np.inf),
     ("MIN", "MAX", "FLOAT", -np.inf),
     ("SECOND", "MIN", "FLOAT", np.inf),  # vxm swaps the operands
-    ("MINUS", "PLUS", "FLOAT", 0),  # not covered, not commutative: plain path, product order
+    ("MINUS", "PLUS", "FLOAT", 0),  # not commutative: vxm's product order, swapped at run time on the card
     ("MULT", "PLUS", "INT", 0),
     ("FIRST", "MAX", "INT", np.iinfo(np.int32).min),
-    ("BAND", "BOR", "INT", 0),  # the reference BFS semiring: segmented-scan fold
+    ("BAND", "BOR", "INT", 0),  # the reference BFS semiring: a bitwise add (segmented-scan fold here)
     ("MULT", "PLUS", "UINT", 0),
+    ("MINUS", "MIN", "FLOAT", np.inf),
+    ("DIV", "MAX", "FLOAT", -np.inf),
+    ("MINUS_POW2", "PLUS", "FLOAT", 0),
+    ("LAND", "MAX", "FLOAT", 0),
+    ("DIV", "PLUS", "INT", 0),  # zero divisors in x: XLA's x / 0
+    ("BONE", "BXOR", "INT", 0),
+    ("MINUS_POW2", "LOR", "INT", 0),
+    ("MIN", "MAX", "UINT", 0),
+    ("LAND", "LOR", "UINT", 0),
+    ("DIV", "MULT", "UINT", 1),
+    ("BXOR", "BAND", "UINT", np.uint32(np.iinfo(np.uint32).max)),
 ]
 
 
@@ -169,6 +184,102 @@ def test_forced_pallas_dispatch_matches(monkeypatch):
     got = TS.mxv_masked(from_spla_tpu(jmask, "cpu"), from_spla_tpu(JA, "cpu"),
                         from_spla_tpu(jv, "cpu"), OP.MULT_FLOAT, OP.PLUS_FLOAT, OP.NQZERO_FLOAT, 0.0)
     _close(got.values, want.values, True)
+
+
+# (mul, add, type): spla_tpu's Pallas dispatch runs each (its int-native path
+# for the integers), and kernel 1's generic family on the card
+FORCED_GENERIC = [("BAND", "BOR", "INT"), ("MULT", "PLUS", "UINT"), ("MINUS", "MIN", "FLOAT")]
+
+
+@pytest.mark.parametrize("mul,add,tname", FORCED_GENERIC)
+def test_forced_pallas_dispatch_matches_generic_semirings(monkeypatch, mul, add, tname):
+    """spla_tpu's mxv_masked on semirings that the port serves with kernel 1's
+    generic family: its DISPATCH_STATS show the Pallas path (interpret mode,
+    forced as tests/test_spmv.py forces it), and the port's result equals
+    it (MINUS/MIN bitwise: a MIN fold of exact differences)."""
+    from spla_tpu.pallas.cellpack_native import _native_lib
+
+    if _native_lib() is None:
+        pytest.skip("no native toolchain for spla_tpu's packer")
+    monkeypatch.setenv("SPLA_FORCE_PALLAS_DISPATCH", "1")
+    init = np.inf if add == "MIN" else 0
+    a, JA = _matrix(tname, init, seed=12, n=256)
+    jv = _vector(tname, init, seed=13, n=256)
+    jmask = JDenseVec(jnp.asarray((np.arange(256) % 3 != 0).astype(np.float32)), jnp.float32(0))
+    jt, tt = getattr(JOP, tname), getattr(OP, tname)
+    before = JS.DISPATCH_STATS["mxv_pallas"]
+    want = JS.mxv_masked(jmask, JA, jv, JOP.lookup(mul, jt), JOP.lookup(add, jt), JOP.NQZERO_FLOAT, init)
+    assert JS.DISPATCH_STATS["mxv_pallas"] == before + 1
+    assert K1.pull_codes(OP.lookup(mul, tt), OP.lookup(add, tt), tt.dtype) is not None
+    got = TS.mxv_masked(from_spla_tpu(jmask, "cpu"), from_spla_tpu(JA, "cpu"), from_spla_tpu(jv, "cpu"),
+                        OP.lookup(mul, tt), OP.lookup(add, tt), OP.NQZERO_FLOAT, init)
+    _close(got.values, want.values, False)
+
+
+def _jax_gates():
+    """For each (mul, add, type) of the op tables: whether spla_tpu's Pallas
+    path takes it in mxv_masked, mxmT_masked (and its tc reduce, PLUS only)
+    and mxm, read from the JAX package's own gates."""
+    from spla_tpu.ops.spgemm import _MXMT_IDENT, _MXMT_INT_MULS
+    from spla_tpu.pallas.spmv import _SCATTER_MONOIDS
+
+    for tname in ("FLOAT", "INT", "UINT"):
+        jt = getattr(JOP, tname)
+        binary = [o for o in JOP.BUILTIN_OPS.values() if isinstance(o, JOP.OpBinary) and o.type is jt]
+        for jm in binary:
+            for ja in binary:
+                if tname == "FLOAT":
+                    mxv = ja.scatter in _SCATTER_MONOIDS  # pallas_spmv_fn: any mul
+                else:
+                    mxv = ja.identity is not None and ja.associative  # the int-native path
+                mxmt = ja.scatter in _MXMT_IDENT and (tname == "FLOAT" or jm.name in _MXMT_INT_MULS)
+                mxm = tname == "FLOAT" and ja.scatter in _SCATTER_MONOIDS  # the f32-only ESC path
+                yield tname, jm.name, ja.name, mxv, mxmt, mxm
+
+
+def test_kernel_gates_are_the_jax_pallas_gates():
+    """pull_codes, masked_codes, reduce_codes and mxm_codes hold kernel codes
+    exactly where spla_tpu sends the request to Pallas; the one exception is
+    kernel 9's i32 instances (the six templated muls with PLUS, MIN or MAX),
+    which the port had before its JAX counterpart's gate was matched."""
+    from spla_tpu_torch.kernels import mxmt as K45, spgemm as K9
+
+    templated = {"PLUS", "MULT", "FIRST", "SECOND", "MIN", "MAX"}
+    for tname, mul, add, mxv, mxmt, mxm in _jax_gates():
+        tt = getattr(OP, tname)
+        om, oa, dtype = OP.lookup(mul, tt), OP.lookup(add, tt), tt.dtype
+        case = f"{mul}/{add} {tname}"
+        assert (K1.pull_codes(om, oa, dtype) is not None) == mxv, case
+        assert (K1.pull_codes(om, oa, dtype, swap=True) is not None) == mxv, case
+        assert (K45.masked_codes(om, oa, dtype) is not None) == mxmt, case
+        # struct_only: any mul (spla_tpu skips its int mul gate)
+        assert (K45.masked_codes(om, oa, dtype, struct_only=True) is not None) == (oa.scatter in ("add", "min", "max"))
+        if add == "PLUS":
+            assert (K45.reduce_codes(om, dtype) is not None) == mxmt, case
+        i32_exception = tname == "INT" and mul in templated and add in ("PLUS", "MIN", "MAX")
+        assert (K9.mxm_codes(om, oa, dtype) is not None) == (mxm or i32_exception), case
+    user = OP.OpBinary.make("USER", OP.FLOAT, lambda a, b: a * b)
+    assert K1.pull_codes(user, OP.PLUS_FLOAT, torch.float32) is None
+    assert K9.mxm_codes(user, OP.PLUS_FLOAT, torch.float32) is None
+
+
+def test_mxv_masked_int_div_matches_spla_tpu():
+    """INT DIV in the SpMV: zero divisors and INT_MIN / -1 give XLA's answers
+    (spla_tpu's lax.div), not a crash."""
+    n = 64
+    rng = np.random.default_rng(14)
+    a = sp.random(n, n, density=0.2, random_state=15, dtype=np.float32).tocsr()
+    a.data = rng.choice(np.array([np.iinfo(np.int32).min, -7, 9, 2**31 - 1], np.int64), a.nnz).astype(np.float64)
+    a = a.astype(np.int64).astype(np.int32)
+    JA = JF.csr_from_scipy(a, fill=np.int32(0))
+    x = rng.choice(np.array([0, -1, 1, 3], np.int32), n)
+    jv = JDenseVec(jnp.asarray(x), jnp.int32(5))
+    jmask = JDenseVec(jnp.ones(n, jnp.float32), jnp.float32(0))
+    for add in ("PLUS", "BXOR", "MAX"):
+        want = JS.mxv_masked(jmask, JA, jv, JOP.DIV_INT, JOP.lookup(add, JOP.INT), JOP.NQZERO_FLOAT, 0)
+        got = TS.mxv_masked(from_spla_tpu(jmask, "cpu"), from_spla_tpu(JA, "cpu"), from_spla_tpu(jv, "cpu"),
+                            OP.DIV_INT, OP.lookup(add, OP.INT), OP.NQZERO_FLOAT, 0)
+        _close(got.values, want.values, False)
 
 
 # The older-layout TPU SpMV kernels (spla_tpu/pallas/spmv.py): the MXU

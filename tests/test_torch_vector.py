@@ -88,7 +88,8 @@ def vec(rng, kind, tname, fill, n=N, nnz=12, cap=None):
 
 # (op, type, u's fill, v's fill): zero and non-zero fills, +inf with MIN
 EWISE = [("PLUS", "FLOAT", 1.5, -2.0), ("MIN", "FLOAT", INF, INF),
-         ("MAX", "UINT", 0, 7), ("MINUS", "INT", 3, 0), ("FIRST", "FLOAT", 0, 0)]
+         ("MAX", "UINT", 0, 7), ("MINUS", "INT", 3, 0), ("FIRST", "FLOAT", 0, 0),
+         ("DIV", "INT", 3, 0), ("DIV", "UINT", 0, 2)]  # DIV: stored zeros divide (XLA's x / 0)
 KINDS = [("sparse", "sparse"), ("sparse", "dense"), ("dense", "sparse"), ("dense", "dense"),
          ("empty", "sparse")]
 
