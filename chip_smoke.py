@@ -128,13 +128,21 @@ Phases:
        BAND/BOR i32 at n = 2^21, mxmT_masked MULT/PLUS u32 and tc on a u32
        n = 2^20 graph of values {1, 2, 3}, mxm MINUS/PLUS f32 at n = 2^20
        (~285 M products), against the plain path;
+     * dense: the public ops.mxm, MULT/PLUS f32, init 0, on
+       random_graph(11585, 512) (C fully dense: mxm's dense route) and
+       random_graph(11585, 128) (kernel 9), each C against kernel 9's
+       (structure and capacity bitwise, values within 1e-5 of a float64
+       dense product); the other mxm slices' graphs are below the dense
+       gate or over its cap;
   5. the launch counts of phase 4: each slice's kernels must be above 0;
      the road slice reads the host once per run; the staged slice launches
      no kernel 1; the ops slice none at all; the facade slice kernel 1 24
      times, kernel 9 once and kernel 5 twice, and no torch path; the dist
      slice kernels 1 and 4, and no torch path; the semirings slice kernel
      1's generic family three times and no templated kernel 1, kernels 5, 4
-     and 9 once each, and no torch path;
+     and 9 once each, and no torch path; the dense slice the dense route
+     once (the d = 512 call, before any kernel 9 launch) and kernel 9 once,
+     and no other slice the dense route;
   6. times on the card: each kernel against its plain version (CUDA events),
      SpMV in GB/s of the bench.py byte model, the masked SpGEMM-T in
      products/s (bench_suite.py masked_spgemm_mprod_s), BFS / SSSP / PR /
@@ -174,15 +182,20 @@ Phases:
      dist_pagerank_pallas_overlap call (device busy and idle share, and how
      long kernel 1 ran beside NCCL's kernels), and (b)'s host-staged walls;
      kernel 1's generic family beside its templated instance on MULT/PLUS
-     f32, and on BAND/BOR i32, in time_pull's rotation.
+     f32, and on BAND/BOR i32, in time_pull's rotation; mxm's two routes
+     (kernel 9 and the dense route, in turns, with the dense route's parts
+     and bound) on random_graph(11585, d) at d = 128, 256, 512, and at n =
+     4096 and 8192 on each side of the gate, each with the gate's choice,
+     which must be within 10% of the faster route.
 
 Each kernel's row in the JSON line carries ``bound_ms``: the larger of its
 bytes (each input read once, each output written once, at this run's
 shapes and data) over 3.35 TB/s and its f32 operations over 67 TFLOP/s
 (``bound``).
 
-The four lines before the last are JSON objects of the dist slice's
-times, of the facade chain's times, of the ops' times and of the kernels;
+The five lines before the last are JSON objects of mxm's two routes, of
+the dist slice's times, of the facade chain's times, of the ops' times and
+of the kernels;
 the last line is ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits non-zero.
 Imports neither jax nor spla_tpu.
@@ -223,9 +236,10 @@ from spla_tpu_torch.parallel import comm as COMM, dist_ops as DOPS
 from spla_tpu_torch import ops as O
 from spla_tpu_torch.ops import (DISPATCH_STATS, count_mxmT_products, m_reduce, masked_spmv, mxm,
                                 mxmT_masked, mxv_masked, vxm_masked, vxm_masked_dense)
+from spla_tpu_torch.ops import spgemm as TG
 from spla_tpu_torch.ops.spgemm import mxmT_masked_plain
 from spla_tpu_torch.tools import ab_spmv as AB, level_times as LT, ops_times as OT, probe_spmv as PROBE
-from spla_tpu_torch.tools import dist_times as DT, resident_levels as RL
+from spla_tpu_torch.tools import dist_times as DT, mxm_times as MT, resident_levels as RL
 from spla_tpu_torch.tools.graphs import (HUB_ROWS, barbell_graph, build_graph, hub_graph, hub_spgemm,
                                          path_graph, powerlaw_graph, random_graph, road_graphs, road_grid,
                                          skewed_graph, spgemm_bins)
@@ -238,6 +252,13 @@ N_SMALL, SMALL_DEGREES = 1 << 16, (1, 6, 16, 24, 64, 300)  # kernel 1: teams of 
 N_HUB_TC, HUB_LEN_TC = 1 << 17, 1 << 16
 N_MXM, DEG_MXM, SEED_MXM = 1 << 13, 16, 5  # bench_suite.py:528 mxm_mprod_s
 MXM_CHAIN = 6  # bench_suite.py:541 mreps
+# mxm's dense route: C = A @ A on random_graph(n, d), values uniform in [0.5, 1.5); n = 11,585 is the
+# largest n x n operand within MXM_DENSE_CAP.  Phase 4 drives d = 512 (C fully dense: the dense route)
+# and d = 128 (kernel 9); phase 6 times both routes at each (n, d), one size on each side of the gate
+# at the fit's other n
+N_DENSE, DENSE_SLICE = MT.N_DENSE, (512, 128)
+DENSE_TIMES = ((N_DENSE, 128), (N_DENSE, 256), (N_DENSE, 512), (4096, 64), (4096, 192), (8192, 128), (8192, 384))
+DENSE_SLACK = 1.10  # the gate's route may take at most this times the faster route's time
 SIDE_BFS, SIDE_SSSP, SEED_ROAD = 1024, 512, 9  # bench_suite.py:226,323,326
 SIDE_BIG = 3072  # bench_suite.py:269-319 road_big_bfs_gteps
 N_SKEW = 1 << 18  # bench_suite.py:441-448 skewed_spmv_gbps / skewed_bfs_gteps
@@ -305,7 +326,8 @@ PATHS = {"spmv": ("spmv_pull", "level_update", "bfs_push_level", "sssp_push_leve
          "probes": (*(f"spmv_probe_{phase}" for phase in PROBE_PHASES), "mxmt_gather"),
          "mxm": ("spgemm_mxm",), "facade": ("spmv_pull", "spgemm_mxm", "mxmt_masked"),
          "dist": ("spmv_pull", "mxmt_reduce"),
-         "semirings": ("spmv_pull_generic", "mxmt_masked", "mxmt_reduce", "spgemm_mxm")}
+         "semirings": ("spmv_pull_generic", "mxmt_masked", "mxmt_reduce", "spgemm_mxm"),
+         "dense": ("spgemm_mxm",)}
 
 
 def phase(title):
@@ -1187,6 +1209,58 @@ def check_semirings(G, R):
           f"mxmT_masked MULT/PLUS u32 (nnz {int(R['mxmT u32'].nnz)}) and tc u32 ({want}) at n={N_GRAPH}, "
           f"mxm MINUS/PLUS f32 ({int(R['mxm minus'].nnz)} entries) equal the plain path", flush=True)
     del ref
+
+
+def run_dense(G):
+    """Phase 4's dense slice: the public ops.mxm, MULT/PLUS f32, init 0, C =
+    A @ A on random_graph(11585, 512) (C fully dense: the dense route) and
+    random_graph(11585, 128) (kernel 9).  Records the routes' counts after
+    the first call."""
+    R = {}
+    for d in DENSE_SLICE:
+        R[f"d{d}"] = mxm(G[f"Dense{d}"], G[f"Dense{d}"], op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)
+        R.setdefault("after_first", (DISPATCH_STATS["mxm_dense"], kernels.LAUNCHES["spgemm_mxm"]))
+    torch.cuda.synchronize()
+    return R
+
+
+def dense_ref64(A, C):
+    """C = A @ A's stored entries in float64: A densified in float64 (zero
+    fill, duplicates added), one float64 matmul, read at C's (i, j)."""
+    n = A.shape[0]
+    Ad = TG._dense0(A, n, n, torch.float64)
+    k = int(C.nnz)
+    return torch.matmul(Ad, Ad).reshape(-1)[C.row_ids[:k].long() * n + C.cols[:k].long()]
+
+
+def check_dense(G, R):
+    """Each call's C against kernel 9's on the same input: indptr, columns,
+    rows, nnz and capacity bitwise, both C's values within check_close's
+    tolerance of a float64 reference; the graphs of the other mxm slices
+    are below the gate or over its cap."""
+    for d in DENSE_SLICE:
+        A, got = G[f"Dense{d}"], R[f"d{d}"]
+        ref = K9.mxm(A, A, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)
+        if got.capacity != ref.capacity:
+            raise AssertionError(f"dense d={d}: capacity {got.capacity}, kernel 9 {ref.capacity}")
+        for f in ("indptr", "cols", "row_ids", "nnz"):
+            check_close(f"dense d={d} {f}", getattr(got, f), getattr(ref, f), True)
+        k = int(got.nnz)
+        ref64 = dense_ref64(A, got)
+        check_close(f"dense d={d} values", got.values[:k], ref.values[:k], False, ref64)
+        check_close(f"dense d={d} kernel 9 values", ref.values[:k], ref.values[:k], False, ref64)
+        print(f"ops.mxm on random_graph({N_DENSE}, {d}): C of {k} entries (capacity {got.capacity}) equals "
+              f"kernel 9's, values within 1e-5 of float64", flush=True)
+        del ref, ref64
+    if R["after_first"] != (1, 0):
+        raise AssertionError(f"d={DENSE_SLICE[0]} must take the dense route with no kernel 9 launch: "
+                             f"{R['after_first']}")
+    for label, M in (("n=2^13", G["MX13"]), ("n=2^20", G["Aw"]), ("skewed", G["Skew"])):
+        n = M.shape[0]
+        if TG.mxm_dense_gate(op.MULT_FLOAT, op.PLUS_FLOAT, (M.values.dtype,) * 2, 0.0, n, n, n,
+                             K9.mxm_plan(M, M).products, lambda: True):
+            raise AssertionError(f"the {label} mxm graph passes the dense gate")
+    print("dense gate: the n=2^13, n=2^20 and skewed mxm graphs stay on kernel 9", flush=True)
 
 
 def run_push(G):
@@ -2451,6 +2525,38 @@ def time_mxm(G, card):
     return {"spgemm_mxm": rows["n=2^20"][:4]}, rows["n=2^20"][4]
 
 
+def time_dense(G, card):
+    """mxm's two routes for MULT/PLUS f32, C = A @ A, on random_graph(n, d)
+    at each of DENSE_TIMES, in turns (kernel 9, dense, dense, kernel 9;
+    ``tools/mxm_times.py`` ``dense_row``), with the dense route's parts, its
+    bound (the larger of A read and C written over the HBM rate and the
+    matmul's 2 n^3 f32 operations over the f32 rate) and the route the gate
+    picks, which must be within DENSE_SLACK of the faster.  Returns a row
+    per size."""
+    rows = []
+    for n, d in DENSE_TIMES:
+        A = G[f"Dense{d}"] if n == N_DENSE and d in DENSE_SLICE else MT.dense_operand(n, d, DEVICE)
+        products = K9.mxm_plan(A, A).products
+        row = MT.dense_row(A, 3)
+        gate = MT.dense_gate(A, products)
+        picked = row["dense_ms" if gate == "dense" else "kernel9_ms"]
+        faster = min(row["dense_ms"], row["kernel9_ms"])
+        bound_ms, bound_by = bound(4 * (n + 1) + 8 * int(A.nnz) + 4 * (n + 1) + 12 * row["c_nnz"], 2 * n ** 3)
+        print(f"time mxm routes random_graph({n}, {d}) products={products} ({products / n ** 3:.3e} n^3) C "
+              f"nnz={row['c_nnz']}: kernel 9 {row['kernel9_ms']:.4f} ms, dense {row['dense_ms']:.4f} ms (densify "
+              f"{row['dense_densify_ms']:.4f}, capacity {row['dense_capacity_ms']:.4f}, matmul "
+              f"{row['dense_matmul_ms']:.4f}, compaction {row['dense_compact_ms']:.4f}; bound {bound_ms:.4f} "
+              f"ms, {bound_by}); the gate picks {gate}, {picked / faster:.3f}x the faster [{card}]", flush=True)
+        if picked > DENSE_SLACK * faster:
+            raise AssertionError(f"random_graph({n}, {d}): the gate's route ({gate}) takes {picked / faster:.3f}x "
+                                 f"the faster route's time")
+        rows.append({"n": n, "d": d, "products": products, "gate": gate, "bound_ms": bound_ms,
+                     "bound_by": bound_by, **row})
+        del A
+        torch.cuda.empty_cache()
+    return rows
+
+
 def time_generic(G, times, pull_ms, card):
     """Kernel 1's generic family beside its templated instance on the same
     request, MULT/PLUS f32 at n = 2^21 (time_pull's rotation), with
@@ -2749,7 +2855,8 @@ def main():
                                    ("ops", run_ops, check_ops),
                                    ("facade", run_facade, check_facade),
                                    ("dist", run_dist, check_dist),
-                                   ("semirings", run_semirings, check_semirings)):
+                                   ("semirings", run_semirings, check_semirings),
+                                   ("dense", run_dense, check_dense)):
         kernels.reset_launches()
         for k in DISPATCH_STATS:
             DISPATCH_STATS[k] = 0
@@ -2788,6 +2895,12 @@ def main():
                              "both directions")
     if launches["mxm"]["spgemm_mxm"] != 2 or stats["mxm"]["mxm_kernel"] != 2 or stats["mxm"]["mxm_torch"] != 1:
         raise AssertionError("the mxm slice must launch kernel 9 twice and take the torch path with products_cap")
+    dense = stats["dense"]
+    if (dense["mxm_dense"], dense["mxm_kernel"], dense["mxm_torch"], launches["dense"]["spgemm_mxm"]) != (1, 1, 0, 1):
+        raise AssertionError("the dense slice must take the dense route once (d = 512) and launch kernel 9 once "
+                             "(d = 128)")
+    if any(stats[s]["mxm_dense"] for s in stats if s != "dense"):
+        raise AssertionError("a slice other than dense took mxm's dense route")
     print(f"ops: kernels.LAUNCHES {json.dumps(launches['ops'])}", flush=True)
     if any(launches["ops"].values()):
         raise AssertionError("the ops slice launched a kernel: its ops are plain PyTorch")
@@ -2820,6 +2933,7 @@ def main():
     mxm_times, mxm_library_ms = time_mxm(G, card)
     times.update(mxm_times)
     times.update(time_generic(G, times, pull_ms, card))
+    dense_rows = time_dense(G, card)
     ops_rows = time_ops(G, results["ops"], card)
     facade_row = time_facade(G, card)
     dist_row = time_dist(G, results["dist"], card)
@@ -2844,6 +2958,7 @@ def main():
             if k in DEVICE_MS:
                 row["device_ms"] = DEVICE_MS[k]
             rows_out.append(row)
+    print(json.dumps({"dense": dense_rows}))
     print(json.dumps({"dist": dist_row}))
     print(json.dumps({"facade": facade_row}))
     print(json.dumps({"ops": ops_rows}))
@@ -2920,6 +3035,8 @@ def build_graphs():
     G["MX13i"] = F.csr_from_scipy(mi, device=DEVICE)
     mi.data = rng.choice([-1, 1], mx.nnz).astype(np.int32)
     G["MX13pm"] = F.csr_from_scipy(mi, device=DEVICE)
+    for d in DENSE_SLICE:
+        G[f"Dense{d}"] = MT.dense_operand(N_DENSE, d, DEVICE)
     sk = skewed_graph(N_SKEW)
     G["Skew_sp"], G["Skew"] = sk, F.csr_from_scipy(sk, fill=np.float32(np.inf), device=DEVICE)
     G["skew_hub"] = int(np.argmax(np.diff(sk.indptr)))

@@ -40,7 +40,7 @@ import torch
 from . import op as OP
 from .containers import CsrMatrix, DenseVec
 from .descriptor import Descriptor
-from .formats import WeakIdCache, csr_transpose_host, is_skewed, transpose_of
+from .formats import WeakIdCache, csr_transpose_host, is_skewed, stored_finite as _finite, transpose_of
 from .kernels.frontier import LevelState, bfs_state, read_count, sssp_state
 from .kernels.level_update import bfs_pull_update, sssp_pull_update
 from .kernels.resident import bfs_resident, sssp_resident
@@ -68,7 +68,6 @@ RESIDENT_BYTES = 50 * 1024 * 1024
 
 _AT_CACHE = WeakIdCache()  # default Aᵀ per matrix; True = A is symmetric
 _TC_PATTERN_CACHE = WeakIdCache()  # is-0/1-pattern verdicts, keyed on values
-_FINITE_CACHE = WeakIdCache()  # all-stored-values-finite verdicts, keyed on values
 
 
 def _default_At(A: CsrMatrix) -> CsrMatrix:
@@ -133,15 +132,6 @@ def resident_bytes(n: int, capacity: int, sssp: bool) -> int:
     if sssp:
         words += capacity + n
     return 4 * words
-
-
-def _finite(A: CsrMatrix) -> bool:
-    """Every stored value is finite (one host read per matrix, cached)."""
-    hit = _FINITE_CACHE.get(A.values)
-    if hit is None:
-        hit = bool(torch.all(torch.where(A.valid_mask(), torch.isfinite(A.values), True)))
-        _FINITE_CACHE.put(A.values, hit)
-    return hit
 
 
 def _takes_resident(At: CsrMatrix, Apush: CsrMatrix, sssp: bool) -> bool:

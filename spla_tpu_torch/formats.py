@@ -35,6 +35,7 @@ __all__ = [
     "bsr_from_csr_host",
     "kept_positions",
     "split_rows",
+    "stored_finite",
 ]
 
 
@@ -65,6 +66,18 @@ class WeakIdCache:
             self._alive[id(obj)] = obj
             weakref.finalize(obj, self._gc, id(obj))
         self._data[key] = value
+
+
+_FINITE = WeakIdCache()  # stored_finite's verdicts, keyed on values
+
+
+def stored_finite(A: CsrMatrix) -> bool:
+    """Every stored value of A is finite (one host read per values tensor, cached)."""
+    hit = _FINITE.get(A.values)
+    if hit is None:
+        hit = bool(torch.all(torch.where(A.valid_mask(), torch.isfinite(A.values), True)))
+        _FINITE.put(A.values, hit)
+    return hit
 
 
 def host_coo(A: CsrMatrix):

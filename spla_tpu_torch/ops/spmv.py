@@ -36,7 +36,7 @@ __all__ = [
 
 # the op layer's dispatch counts; ops.spgemm counts mxmT_masked and mxm here too
 DISPATCH_STATS = {"mxv_kernel": 0, "mxv_torch": 0, "vxm_kernel": 0, "vxm_torch": 0,
-                  "mxmT_kernel": 0, "mxmT_torch": 0, "mxm_kernel": 0, "mxm_torch": 0}
+                  "mxmT_kernel": 0, "mxmT_torch": 0, "mxm_kernel": 0, "mxm_dense": 0, "mxm_torch": 0}
 
 
 def _kernel_covers(M: CsrMatrix, op_mul, op_add) -> bool:

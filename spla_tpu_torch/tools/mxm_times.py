@@ -23,24 +23,29 @@ and compaction kernels of each bin); with ``--library``, cuSPARSE's time
 ``--cluster C,...`` it instead times the call and its numeric large and
 medium kernels once for each number of CTAs in a large row's cluster
 (``kernels.spgemm.CLUSTER``, restored after), checking that every setting
-gives C's structure.  With ``--dense D,...`` it instead times, on
-``random_graph(11585, D)`` (values uniform in [0.5, 1.5); 11,585 is the
-largest n whose dense operands spla_tpu's ``MXM_DENSE_CAP`` of 2^27
-elements admits), kernel 9 against the dense route of spla_tpu's
-``_mxm_dense`` (``spla_tpu/ops/spgemm.py:441-495``), which the port does
-not have: A and B densified with zero fill, one f32 ``torch.matmul`` with
-TF32 off, the nonzeros compacted into CSR; both in turns, C checked equal.
+gives C's structure.  With ``--dense D,...`` it instead times,
+on ``random_graph(n, D)`` for each n of ``--dense-n`` (default 11,585,
+the largest n whose n x n operands ``ops.spgemm.MXM_DENSE_CAP`` of 2^27
+elements admits; values uniform in [0.5, 1.5)), kernel 9 against
+``mxm``'s dense route (``ops.spgemm._mxm_dense``: A and B densified with
+zero fill, one full-f32 ``torch.matmul``, the capacity from a bf16
+pattern product, the nonzeros compacted into CSR on the device) in turns,
+C checked equal, and the route's four parts apart; each line names the
+route ``ops.spgemm.mxm_dense_gate`` picks and how far it is from the
+faster one (``gate_over_faster``).
 
 Usage::
 
     python -m spla_tpu_torch.tools.mxm_times [--graphs mx13,mx20,skewed,bins] [--reps 5] [--label NAME]
-        [--profile] [--library] [--chain] [--cluster 8,16,...] [--dense 128,256,512]
+        [--profile] [--library] [--chain] [--cluster 8,16,...]
+        [--dense 128,256,512 [--dense-n 4096,8192,11585]]
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import re
 import time
 from dataclasses import replace
@@ -50,7 +55,7 @@ import torch
 
 from .. import formats as F, op
 from ..kernels import spgemm as K9
-from ..ops import mxm
+from ..ops import mxm, spgemm as TG
 from .ab_spmv import device_of
 from .graphs import random_graph, skewed_graph, spgemm_bins
 from .resident_levels import card
@@ -151,76 +156,109 @@ def library_ms(A, B, reps):
         torch.cuda.empty_cache()
 
 
-N_DENSE = 11585  # floor(sqrt(2^27)): spla_tpu's MXM_DENSE_CAP on an n x n operand
+N_DENSE = 11585  # floor(sqrt(2^27)): the largest n x n operand within MXM_DENSE_CAP
 
 
-def dense_operand(d, device):
-    a = random_graph(N_DENSE, d)
+def dense_operand(n, d, device):
+    """``random_graph(n, d)``, values uniform in [0.5, 1.5) (seed d), on ``device``."""
+    a = random_graph(n, d)
     a.data = np.random.default_rng(d).uniform(0.5, 1.5, a.nnz).astype(np.float32)
     return F.csr_from_scipy(a, device=device)
 
 
-def densify(M):
-    """M as a dense f32 matrix, absent entries 0 (duplicates added)."""
-    k = int(M.nnz)
-    out = torch.zeros(M.shape, dtype=torch.float32, device=M.values.device)
-    return out.index_put_((M.row_ids[:k].long(), M.cols[:k].long()), M.values[:k], accumulate=True)
+def dense_gate(A, products):
+    """The route ``ops.mxm`` takes for MULT/PLUS f32, init 0, C = A @ A."""
+    n = A.shape[0]
+    take = TG.mxm_dense_gate(op.MULT_FLOAT, op.PLUS_FLOAT, (A.values.dtype,) * 2, 0.0, n, n, n, products,
+                             lambda: F.stored_finite(A))
+    return "dense" if take else "kernel9"
 
 
-def dense_mxm(A, B):
-    """C = A @ B by the dense route (MULT/PLUS f32, init 0): densify, one
-    full-f32 matmul, the nonzeros compacted in row order into
-    ``(indptr, cols, values)``.  Returns them and three CUDA events: before
-    the densify, before the matmul and after it."""
-    m, n = A.shape[0], B.shape[1]
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-    events[0].record()
-    Ad, Bd = densify(A), densify(B)
-    events[1].record()
-    R = torch.matmul(Ad, Bd)
-    events[2].record()
-    keep = R != 0
-    indptr = torch.zeros(m + 1, dtype=torch.long, device=R.device)
-    torch.cumsum(keep.sum(1), 0, out=indptr[1:])
-    pos = torch.nonzero(keep.reshape(-1)).squeeze(1)
-    return (indptr, (pos % n).to(torch.int32), R.reshape(-1)[pos]), events
+def dense_row(A, reps):
+    """Kernel 9 against the dense route (``ops.spgemm._mxm_dense``) on C =
+    A @ A, in turns (kernel, dense, dense, kernel), C checked equal; and the
+    route's parts timed apart: densify (A twice), capacity (the pattern
+    product and its one host read), the f32 matmul, compaction."""
+    n = A.shape[0]
+    kfn = lambda: K9.mxm(A, A, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)  # noqa: E731
+    dfn = lambda: TG._mxm_dense(A, A)  # noqa: E731
+    C, D = kfn(), dfn()
+    if C.capacity != D.capacity or not all(torch.equal(getattr(C, f), getattr(D, f))
+                                           for f in ("indptr", "cols", "row_ids", "nnz")):
+        raise AssertionError(f"dense route n={n}: C's structure differs from kernel 9's")
+    torch.testing.assert_close(D.values, C.values, rtol=1e-5, atol=1e-5)
+    c_nnz, capacity = int(C.nnz), C.capacity
+    del C, D
+    k1, d1 = cuda_ms(kfn, reps), cuda_ms(dfn, reps)
+    d2, k2 = cuda_ms(dfn, reps), cuda_ms(kfn, reps)
+    Ad = TG._dense0(A, n, n)
+    R = TG._dense_matmul(Ad, Ad)
+    parts = {"dense_densify_ms": cuda_ms(lambda: (TG._dense0(A, n, n), TG._dense0(A, n, n)), reps),
+             "dense_capacity_ms": cuda_ms(lambda: TG._reached(A, A), reps),
+             "dense_matmul_ms": cuda_ms(lambda: TG._dense_matmul(Ad, Ad), reps),
+             "dense_compact_ms": cuda_ms(lambda: TG._compact_dense(R, capacity), reps)}
+    del Ad, R
+    torch.cuda.empty_cache()
+    return {"c_nnz": c_nnz, "kernel9_ms": (k1 + k2) / 2, "dense_ms": (d1 + d2) / 2, **parts}
 
 
-def dense_sweep(degrees, reps, label, smi):
-    """Kernel 9 against the dense route on random_graph(11585, d) for each
-    d, in turns (kernel, dense, dense, kernel); one JSON line each."""
-    saved = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False  # full f32, as precision=HIGHEST
-    try:
+def crossover(rows):
+    """The products at which kernel 9 and the dense route take the same
+    time, from one n's rows: log products interpolated linearly in log
+    (kernel 9 ms / dense ms) between the two rows about the first change
+    of winner; None when no pair of rows brackets it."""
+    rows = sorted(rows, key=lambda r: r["products"])
+    for lo, hi in zip(rows, rows[1:]):
+        a, b = (math.log(r["kernel9_ms"] / r["dense_ms"]) for r in (lo, hi))
+        if a <= 0 <= b and a < b:
+            t = -a / (b - a)
+            return math.exp((1 - t) * math.log(lo["products"]) + t * math.log(hi["products"]))
+    return None
+
+
+def fit_gate(points):
+    """From ``[(n, crossover products)]`` on n x n operands: c = products /
+    n^3 at each n, their geometric mean, and the least-squares (c, p0) of
+    products = c n^3 + p0 in relative error (each point weighted by 1 /
+    its products)."""
+    per_n = {n: p / n ** 3 for n, p in points}
+    out = {"points": [[n, p] for n, p in points], "c_per_n": per_n}
+    if points:
+        out["c_geomean"] = math.exp(sum(math.log(c) for c in per_n.values()) / len(per_n))
+    if len(points) >= 2:
+        x = np.array([[n ** 3 / p, 1 / p] for n, p in points])
+        (c, p0), *_ = np.linalg.lstsq(x, np.ones(len(points)), rcond=None)
+        out["c_with_p0"], out["p0"] = float(c), float(p0)
+    return out
+
+
+def dense_sweep(ns, degrees, reps, label, smi):
+    """Kernel 9 against the dense route on random_graph(n, d) for each n and
+    d; one JSON line each, with the route the gate picks; then one line of
+    the crossover at each n and the gate's fit (``fit_gate``)."""
+    device = device_of("cuda")
+    points = []
+    for n in ns:
+        rows = []
         for d in degrees:
-            A = dense_operand(d, device_of("cuda"))
-            plan = K9.mxm_plan(A, A)
-            kfn = lambda: K9.mxm(A, A, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)  # noqa: E731
-            dfn = lambda: dense_mxm(A, A)  # noqa: E731
-            C = kfn()
-            (indptr, cols, vals), events = dfn()
-            k = int(C.nnz)
-            if not (torch.equal(indptr.to(torch.int32), C.indptr) and torch.equal(cols, C.cols[:k])):
-                raise AssertionError(f"dense route d={d}: C's structure differs from kernel 9's")
-            torch.testing.assert_close(vals, C.values[:k], rtol=1e-5, atol=1e-5)
-            k1, d1 = cuda_ms(kfn, reps), cuda_ms(dfn, reps)
-            d2, k2 = cuda_ms(dfn, reps), cuda_ms(kfn, reps)
-            parts = []
-            for _ in range(reps):
-                _, ev = dfn()
-                ev[2].synchronize()
-                parts.append((ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])))
-            densify_ms, matmul_ms = sorted(parts, key=lambda p: p[1])[len(parts) // 2]
-            print(json.dumps({"label": label, "graph": f"random_graph({N_DENSE}, {d})", "n": N_DENSE,
-                              "nnz": int(A.nnz), "products": plan.products, "c_nnz": k,
-                              "kernel9_ms": (k1 + k2) / 2, "dense_ms": (d1 + d2) / 2,
-                              "dense_densify_ms": densify_ms, "dense_matmul_ms": matmul_ms,
-                              "kernel9_mproducts_s": plan.products / ((k1 + k2) / 2) / 1e3, "card": smi}),
-                  flush=True)
-            del A, C, indptr, cols, vals
+            A = dense_operand(n, d, device)
+            products = K9.mxm_plan(A, A).products
+            row = dense_row(A, reps)
+            gate = dense_gate(A, products)
+            faster = "dense" if row["dense_ms"] < row["kernel9_ms"] else "kernel9"
+            picked = row["dense_ms" if gate == "dense" else "kernel9_ms"]
+            rows.append({"label": label, "graph": f"random_graph({n}, {d})", "n": n, "d": d, "nnz": int(A.nnz),
+                         "products": products, "products_per_mkn": products / n ** 3, **row,
+                         "kernel9_mproducts_s": products / row["kernel9_ms"] / 1e3, "gate": gate, "faster": faster,
+                         "gate_over_faster": picked / min(row["dense_ms"], row["kernel9_ms"]), "card": smi})
+            print(json.dumps(rows[-1]), flush=True)
+            del A
             torch.cuda.empty_cache()
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = saved
+        at = crossover(rows)
+        if at is not None:
+            points.append((n, at))
+    print(json.dumps({"label": label, "fit": fit_gate(points), "per_mkn_now": TG.MXM_DENSE_PER_MKN,
+                      "card": smi}), flush=True)
 
 
 def cluster_settings(text):
@@ -269,10 +307,12 @@ def main(argv=None):
     ap.add_argument("--chain", action="store_true", help="time mxm_mprod_s's chain of public mxm calls too")
     ap.add_argument("--cluster", default="", help="CTAs of a large row's cluster, comma-separated, to time in turn")
     ap.add_argument("--dense", default="", help="degrees d, comma-separated: kernel 9 against the dense route "
-                                                "on random_graph(11585, d)")
+                                                "on random_graph(n, d)")
+    ap.add_argument("--dense-n", default=str(N_DENSE), help="the n of --dense, comma-separated")
     args = ap.parse_args(argv)
     if args.dense:
-        dense_sweep([int(d) for d in args.dense.split(",")], args.reps, args.label, card())
+        dense_sweep([int(n) for n in args.dense_n.split(",")], [int(d) for d in args.dense.split(",")],
+                    args.reps, args.label, card())
         return
     names = args.graphs.split(",")
     unknown = set(names) - set(GRAPHS)

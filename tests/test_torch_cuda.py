@@ -1022,6 +1022,133 @@ def test_mxm_dispatch_and_raises_without_its_library(dev, monkeypatch):
     assert kernels.LAUNCHES["spgemm_mxm"] == 1
 
 
+def _dense_graph(dev, n=1024, d=128, inf=False):
+    """random_graph(n, d) with values uniform in [0.5, 1.5) on the card: C = A
+    @ A has ~n d^2 products, over the dense gate at n = 1024, d = 128
+    (16.8 M against 2^22 and MXM_DENSE_PER_MKN n^3); with ``inf`` one
+    stored value is +inf."""
+    a = random_graph(n, d)
+    a.data = np.random.default_rng(d).uniform(0.5, 1.5, a.nnz).astype(np.float32)
+    if inf:
+        a.data[a.indptr[3]] = np.inf
+    return a, F.csr_from_scipy(a, device=dev)
+
+
+def test_mxm_dense_route_matches_kernel9(dev):
+    """ops.mxm takes the dense route over the gate (DISPATCH_STATS mxm_dense,
+    no kernel 9 launch), and its C equals kernel 9's on the same input:
+    indptr, columns, rows, nnz, capacity, padding and fill bitwise, values
+    within rtol 1e-5 of scipy's float64 A @ A."""
+    a, A = _dense_graph(dev)
+    products = K9.mxm_plan(A, A).products
+    assert products >= max(TG.MXM_DENSE_MIN_PRODUCTS, TG.MXM_DENSE_PER_MKN * A.shape[0] ** 3)
+    kernels.reset_launches()
+    before = dict(TG.DISPATCH_STATS)
+    got = TG.mxm(A, A, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)
+    assert TG.DISPATCH_STATS["mxm_dense"] == before["mxm_dense"] + 1
+    assert TG.DISPATCH_STATS["mxm_kernel"] == before["mxm_kernel"] and kernels.LAUNCHES["spgemm_mxm"] == 0
+    _same_csr(got, K9.mxm(A, A, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0), float_plus=True)
+    ref = (a.astype(np.float64) @ a.astype(np.float64)).tocsr()
+    ref.sort_indices()
+    k = int(got.nnz)
+    assert k == ref.nnz
+    np.testing.assert_array_equal(got.indptr.cpu().numpy(), ref.indptr)
+    np.testing.assert_array_equal(got.cols[:k].cpu().numpy(), ref.indices)
+    np.testing.assert_allclose(got.values[:k].cpu().numpy(), ref.data, rtol=1e-5)
+
+
+def test_mxm_dense_route_full_f32_whatever_tf32(dev):
+    """With torch.backends.cuda.matmul.allow_tf32 set by the caller the route
+    still multiplies in full f32: C equals the TF32-off C bitwise, the
+    setting is True again after, and a TF32 matmul of the same dense
+    operands would have differed."""
+    _, A = _dense_graph(dev)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        off = TG._mxm_dense(A, A)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        on = TG._mxm_dense(A, A)
+        assert torch.backends.cuda.matmul.allow_tf32
+        _same_csr(on, off)
+        n = A.shape[0]
+        Ad = TG._dense0(A, n, n)
+        assert not torch.equal(torch.matmul(Ad, Ad), TG._dense_matmul(Ad, Ad))
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def test_mxm_dense_route_reads_the_host_once(dev):
+    """No step of the route waits for the device but the one read of C's
+    size: with out_capacity it runs under set_sync_debug_mode("error"),
+    and without it one synchronizing call is reported (mode "warn")."""
+    import warnings
+
+    _, A = _dense_graph(dev)
+    cap = TG._mxm_dense(A, A).capacity
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = TG._mxm_dense(A, A, out_capacity=cap)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert got.capacity == cap
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            TG._mxm_dense(A, A)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert sum("synchroniz" in str(w.message) for w in seen) == 1
+
+
+def test_mxm_dense_route_out_capacity_and_empty_operands(dev):
+    """out_capacity below the entry count keeps the first entries (nnz the
+    capacity), above it pads, as kernel 9 does; operands with no stored
+    entry give an empty C of capacity 0."""
+    _, A = _dense_graph(dev)
+    full = K9.mxm(A, A, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)
+    for cap in (1000, int(full.nnz) + 50):
+        _same_csr(TG._mxm_dense(A, A, out_capacity=cap),
+                  K9.mxm(A, A, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0, out_capacity=cap), float_plus=True)
+    empty = F.csr_from_entries(A.shape, [], [], [], dtype=np.float32, device=dev)
+    for a, b in ((empty, A), (A, empty)):
+        got = TG._mxm_dense(a, b)
+        _same_csr(got, K9.mxm(a, b, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0))
+        assert int(got.nnz) == 0 and got.capacity == 0
+
+
+def test_mxm_dense_gate_dispatch(dev):
+    """Over the gate only MULT/PLUS f32, init 0, finite, with no
+    products_cap or block_products takes the dense route: a stored inf, an
+    i32 graph and MIN/PLUS launch kernel 9, the caps take the torch path,
+    and a graph under the gate launches kernel 9; each result as the
+    route it took computes it."""
+    _, A = _dense_graph(dev)
+    _, Ainf = _dense_graph(dev, inf=True)
+    Ai = replace(A, values=A.values.to(torch.int32), fill=A.fill.to(torch.int32))
+    _, small = _dense_graph(dev, 1024, 16)
+    calls = {"inf": (Ainf, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0, {}, "mxm_kernel"),
+             "i32": (Ai, op.MULT_INT, op.PLUS_INT, 0, {}, "mxm_kernel"),
+             "min": (A, op.PLUS_FLOAT, op.MIN_FLOAT, float("inf"), {}, "mxm_kernel"),
+             "init": (A, op.MULT_FLOAT, op.PLUS_FLOAT, 1.0, {}, "mxm_kernel"),
+             "small": (small, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0, {}, "mxm_kernel"),
+             "capped": (A, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0, {"products_cap": 1 << 30}, "mxm_torch"),
+             "windows": (A, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0, {"block_products": 1 << 22}, "mxm_torch"),
+             "dense": (A, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0, {}, "mxm_dense")}
+    for name, (M, om, oa, init, kw, route) in calls.items():
+        before = dict(TG.DISPATCH_STATS)
+        got = TG.mxm(M, M, om, oa, init, **kw)
+        moved = {k for k in TG.DISPATCH_STATS if TG.DISPATCH_STATS[k] != before[k]}
+        assert moved == {route}, name
+        if route == "mxm_kernel":
+            _same_csr(got, K9.mxm_plain(M, M, om, oa, init), float_plus=oa.name == "PLUS" and name != "i32")
+    assert TG.stored_finite(A) and not TG.stored_finite(Ainf)
+
+
 def _road(side, seed=9):
     """A side x side grid in row-major order, weights uniform(0.1, 1.0),
     symmetric."""

@@ -21,7 +21,9 @@ import spla_tpu.op as JOP
 import spla_tpu.ops as JOPS
 from spla_tpu.ops import spgemm as JG
 
-from spla_tpu_torch import op as OP
+from spla_tpu_torch import formats as F, op as OP
+from spla_tpu_torch.containers import Scalar
+from spla_tpu_torch.formats import stored_finite
 from spla_tpu_torch.interop import from_spla_tpu, to_numpy
 from spla_tpu_torch.kernels import spgemm as K9
 from spla_tpu_torch.ops import spgemm as TG
@@ -387,3 +389,199 @@ def test_mxm_times_tool_graphs_and_kernel_names():
     for bad in ("3", "8:512", "32", "16,0"):
         with pytest.raises(ValueError, match="--cluster"):
             MT.main(["--graphs", "mx13", "--cluster", bad])
+
+
+def _dense_operands():
+    """60 x 60 A and B, values in [0.5, 1.5), in which products reach slots
+    that sum to 0: row 0 of A holds 1.0 at columns 1 and 2, and B 2.0 at
+    (1, 3) and -2.0 at (2, 3) (a cancelling pair); row 5 of A holds one
+    stored 0.0 (column 7); row 9 of A holds (9, 11) twice (duplicates
+    added).  Returns scipy's CSR (duplicates and the stored 0.0 kept),
+    spla_tpu's and the port's of each."""
+    rng = np.random.default_rng(51)
+
+    def entries(density):
+        m = sp.random(60, 60, density=density, random_state=rng, dtype=np.float32).tocoo()
+        return [m.row.tolist(), m.col.tolist(), rng.uniform(0.5, 1.5, m.nnz).tolist()]
+
+    def build(rows, cols, vals):
+        rows, cols, vals = np.array(rows), np.array(cols), np.array(vals, np.float32)
+        order = np.lexsort((cols, rows))
+        indptr = np.searchsorted(rows[order], np.arange(61))
+        s = sp.csr_matrix((vals[order], cols[order].astype(np.int32), indptr), shape=(60, 60))
+        return s, JF.csr_from_scipy(s), from_spla_tpu(JF.csr_from_scipy(s), "cpu")
+
+    ra, ca, va = entries(0.1)
+    keep = [i for i, r in enumerate(ra) if r not in (0, 5, 9)]
+    ra, ca, va = ([x[i] for i in keep] for x in (ra, ca, va))
+    ra += [0, 0, 5, 9, 9]
+    ca += [1, 2, 7, 11, 11]
+    va += [1.0, 1.0, 0.0, 0.5, 0.75]
+    rb, cb, vb = entries(0.1)
+    keep = [i for i, (r, c) in enumerate(zip(rb, cb)) if not (r in (1, 2) and c == 3)]
+    rb, cb, vb = ([x[i] for i in keep] for x in (rb, cb, vb))
+    rb += [1, 2, 7, 11]
+    cb += [3, 3, 20, 30]
+    vb += [2.0, -2.0, 1.0, 1.0]
+    return build(ra, ca, va), build(rb, cb, vb)
+
+
+def test_mxm_dense_route_matches_spla_tpu_dense_route():
+    """The port's dense route (ops.spgemm._mxm_dense) against spla_tpu's
+    (products_cap >= 2^22 takes ``_mxm_dense_try`` at any size, its
+    capacity min(products_cap, m n)): indptr, columns and nnz bitwise,
+    values within rtol 1e-5; against kernel 9's plain version every field
+    (capacity, padding and fill too; values within rtol 1e-5); against
+    scipy's float64 A @ B.  The stored 0.0 and the cancelling pair reach
+    slots that sum to 0: the capacity (reached slots) exceeds nnz."""
+    (a, ja, ta), (b, jb, tb) = _dense_operands()
+    want = JOPS.mxm(ja, jb, JOP.MULT_FLOAT, JOP.PLUS_FLOAT, 0.0, products_cap=1 << 22)
+    assert np.asarray(want.values).shape[0] == 60 * 60  # spla_tpu's dense route
+    got = TG._mxm_dense(ta, tb)
+    _same(got, want, float_plus=True)
+    plain = K9.mxm_plain(ta, tb, OP.MULT_FLOAT, OP.PLUS_FLOAT, 0.0)
+    assert got.capacity == plain.capacity == (_pattern(ta) @ _pattern(tb)).nnz > int(got.nnz)
+    for f in ("indptr", "cols", "row_ids", "nnz", "fill"):
+        np.testing.assert_array_equal(to_numpy(getattr(got, f)), to_numpy(getattr(plain, f)))
+    np.testing.assert_allclose(to_numpy(got.values), to_numpy(plain.values), rtol=1e-5, atol=1e-5)
+    ref = (a.astype(np.float64) @ b.astype(np.float64)).tocsr()
+    ref.eliminate_zeros()
+    ref.sort_indices()
+    g = to_numpy(got)
+    k = int(g["nnz"])
+    assert k == ref.nnz and int(g["indptr"][1] - g["indptr"][0]) > 0
+    np.testing.assert_array_equal(g["indptr"], ref.indptr)
+    np.testing.assert_array_equal(g["cols"][:k], ref.indices)
+    np.testing.assert_allclose(g["values"][:k], ref.data, rtol=1e-5)
+    assert 3 not in g["cols"][g["indptr"][0]:g["indptr"][1]]  # the cancelled slot (0, 3)
+
+
+@pytest.mark.parametrize("extra", [-200, 0, 17])
+def test_mxm_dense_route_out_capacity(extra):
+    """With out_capacity below the entry count the first entries in (row,
+    column) order are stored and nnz is the capacity; at or above it the
+    rest is padding (row m, column 0, value 0): every field as kernel 9's
+    plain version gives it, values within rtol 1e-5."""
+    (_, _, ta), (_, _, tb) = _dense_operands()
+    kept = int(K9.mxm_plain(ta, tb, OP.MULT_FLOAT, OP.PLUS_FLOAT, 0.0).nnz)
+    cap = kept + extra
+    got = TG._mxm_dense(ta, tb, out_capacity=cap)
+    plain = K9.mxm_plain(ta, tb, OP.MULT_FLOAT, OP.PLUS_FLOAT, 0.0, out_capacity=cap)
+    assert got.capacity == plain.capacity == cap and int(got.nnz) == min(kept, cap)
+    for f in ("indptr", "cols", "row_ids", "nnz"):
+        np.testing.assert_array_equal(to_numpy(getattr(got, f)), to_numpy(getattr(plain, f)))
+    np.testing.assert_allclose(to_numpy(got.values), to_numpy(plain.values), rtol=1e-5, atol=1e-5)
+
+
+def _gate_case(**change):
+    """``mxm_dense_gate``'s arguments for a request it admits (4096^3 with
+    the fewest products it takes), with ``change`` applied."""
+    n = 4096
+    args = {"op_mul": OP.MULT_FLOAT, "op_add": OP.PLUS_FLOAT, "dtypes": (torch.float32, torch.float32),
+            "init": 0.0, "m": n, "k": n, "n": n,
+            "products": int(np.ceil(max(TG.MXM_DENSE_MIN_PRODUCTS, TG.MXM_DENSE_PER_MKN * n ** 3))),
+            "finite": lambda: True}
+    args.update(change)
+    return args
+
+
+def _no_read():
+    raise AssertionError("finite() was asked though another condition refused")
+
+
+@pytest.mark.parametrize("change", [
+    {"op_mul": OP.PLUS_FLOAT},
+    {"op_add": OP.MAX_FLOAT},
+    {"dtypes": (torch.int32, torch.int32)},
+    {"dtypes": (torch.float32, torch.float64)},
+    {"init": 1.0},
+    {"init": torch.zeros((), device="meta")},
+    {"init": "zero"},
+    {"m": 1 << 17, "k": 1025, "n": 64, "products": 10 ** 13},
+    {"m": 64, "k": 1025, "n": 1 << 17, "products": 10 ** 13},
+    {"m": 1 << 14, "k": 64, "n": (1 << 13) + 1, "products": 10 ** 13},
+    {"products": _gate_case()["products"] - 1},
+    {"m": 64, "k": 64, "n": 64, "products": TG.MXM_DENSE_MIN_PRODUCTS - 1},
+    {"finite": lambda: False},
+], ids=["mul", "add", "i32", "B f64", "init 1", "init on a device", "init no number", "A over the cap",
+        "B over the cap", "C over the cap", "too few for the density", "too few products", "not finite"])
+def test_mxm_dense_gate_refuses(change):
+    """mxm_dense_gate as a pure function: the base case is admitted (also
+    with init as a Scalar, a CPU tensor or -0.0), and each condition alone
+    refuses; the finiteness check, which reads the host, is asked last."""
+    assert TG.mxm_dense_gate(**_gate_case())
+    assert TG.mxm_dense_gate(**_gate_case(m=1 << 17, k=1 << 10, n=64, products=10 ** 13))  # at the cap
+    for init in (Scalar(torch.zeros(())), torch.zeros(()), np.float32(0), -0.0):
+        assert TG.mxm_dense_gate(**_gate_case(init=init))
+    assert not TG.mxm_dense_gate(**_gate_case(**change))
+    if "finite" not in change:
+        assert not TG.mxm_dense_gate(**_gate_case(**change, finite=_no_read))
+
+
+def test_pin_mxm_dense_route_keeps_infinite_values_out(monkeypatch):
+    """A reference fault the port does not copy: spla_tpu's dense route puts
+    a stored inf into a dense matrix whose absent entries are 0, so inf * 0
+    gives NaN at slots that no product reaches.  With products_cap >= 2^22
+    (its dense route) spla_tpu returns 10 entries, 4 of them NaN at
+    unreached slots, which is recorded; its other route returns the 6
+    reached ones.  The port's gate refuses the request for the inf alone
+    (the density thresholds lifted), admits a finite copy, and its result
+    equals the plain path's and spla_tpu's other route; the dense route on
+    this graph would give NaN too."""
+    rows, cols, vals = [0, 1, 1, 2, 3], [1, 2, 3, 3, 0], [np.inf, 1.0, 2.0, 3.0, 3.0]
+    ja = JF.csr_from_entries((4, 4), rows, cols, vals, fill=0.0)
+    ta = from_spla_tpu(ja, "cpu")
+    reached = _stored(JOPS.mxm(ja, ja, JOP.MULT_FLOAT, JOP.PLUS_FLOAT, 0.0))
+    assert reached[4] == 6 and not np.isnan(reached[3]).any()
+    dense = _stored(JOPS.mxm(ja, ja, JOP.MULT_FLOAT, JOP.PLUS_FLOAT, 0.0, products_cap=1 << 22))
+    nan = np.isnan(dense[3])
+    assert dense[4] == 10 and nan.sum() == 4
+    assert set(zip(dense[2][nan].tolist(), dense[1][nan].tolist())) == {(0, 0), (0, 1), (1, 1), (2, 1)}
+    pattern = _pattern(ta) @ _pattern(ta)
+    assert all(pattern[i, j] == 0 for i, j in zip(dense[2][nan], dense[1][nan]))  # no product reaches them
+    got = TG.mxm(ta, ta, OP.MULT_FLOAT, OP.PLUS_FLOAT, 0.0)
+    _same(got, K9.mxm_plain(ta, ta, OP.MULT_FLOAT, OP.PLUS_FLOAT, 0.0))
+    _same(got, JOPS.mxm(ja, ja, JOP.MULT_FLOAT, JOP.PLUS_FLOAT, 0.0))
+    monkeypatch.setattr(TG, "MXM_DENSE_MIN_PRODUCTS", 0)
+    monkeypatch.setattr(TG, "MXM_DENSE_PER_MKN", 0.0)
+    finite = from_spla_tpu(JF.csr_from_entries((4, 4), rows, cols, [1.0, 1.0, 2.0, 3.0, 3.0], fill=0.0), "cpu")
+    for M, admitted in ((ta, False), (finite, True)):
+        assert TG.mxm_dense_gate(OP.MULT_FLOAT, OP.PLUS_FLOAT, (torch.float32,) * 2, 0.0, 4, 4, 4,
+                                 K9.mxm_plan(M, M).products, lambda: stored_finite(M)) is admitted
+    assert np.isnan(to_numpy(TG._mxm_dense(ta, ta).values)).any()
+
+
+def test_mxm_dense_route_not_on_cpu_tensors_or_with_caps(monkeypatch):
+    """The dense route is for CUDA tensors: CPU tensors take the plain path
+    even where the gate would admit the request, and so do products_cap
+    and block_products; mxm_dense stays 0."""
+    monkeypatch.setattr(TG, "MXM_DENSE_MIN_PRODUCTS", 0)
+    monkeypatch.setattr(TG, "MXM_DENSE_PER_MKN", 0.0)
+    (_, _, ta), (_, _, tb) = _dense_operands()
+    before = dict(TG.DISPATCH_STATS)
+    want = K9.mxm_plain(ta, tb, OP.MULT_FLOAT, OP.PLUS_FLOAT, 0.0)
+    assert TG.mxm_dense_gate(OP.MULT_FLOAT, OP.PLUS_FLOAT, (torch.float32,) * 2, 0.0, 60, 60, 60,
+                             K9.mxm_plan(ta, tb).products, lambda: stored_finite(ta) and stored_finite(tb))
+    _same(TG.mxm(ta, tb, OP.MULT_FLOAT, OP.PLUS_FLOAT, 0.0), want)
+    TG.mxm(ta, tb, OP.MULT_FLOAT, OP.PLUS_FLOAT, 0.0, products_cap=10 ** 6)
+    TG.mxm(ta, tb, OP.MULT_FLOAT, OP.PLUS_FLOAT, 0.0, block_products=64)
+    assert TG.DISPATCH_STATS["mxm_torch"] == before["mxm_torch"] + 3
+    assert TG.DISPATCH_STATS["mxm_dense"] == before["mxm_dense"]
+
+
+def test_mxm_times_dense_fit():
+    """tools/mxm_times.py's crossover (log products interpolated in log
+    time ratio between the rows about the change of winner) and the gate's
+    fit, on made-up rows; the dense operands on the CPU."""
+    from spla_tpu_torch.tools import mxm_times as MT
+
+    rows = [{"products": p, "kernel9_ms": k, "dense_ms": 10.0} for p, k in ((4e8, 20.0), (1e8, 5.0), (2e8, 8.0))]
+    at = MT.crossover(rows)
+    assert 2e8 < at < 4e8
+    assert abs(np.log(at / 2e8) / np.log(2) - np.log(10 / 8) / np.log(20 / 8)) < 1e-9
+    assert MT.crossover([{"products": 1e8, "kernel9_ms": 5.0, "dense_ms": 10.0}]) is None
+    fit = MT.fit_gate([(4096, 7e-4 * 4096 ** 3 + 1e6), (8192, 7e-4 * 8192 ** 3 + 1e6), (11585, 7e-4 * 11585 ** 3 + 1e6)])
+    assert abs(fit["c_with_p0"] - 7e-4) < 1e-9 and abs(fit["p0"] - 1e6) < 1.0
+    assert set(fit["c_per_n"]) == {4096, 8192, 11585}
+    A = MT.dense_operand(300, 8, torch.device("cpu"))
+    assert A.shape == (300, 300) and A.values.dtype == torch.float32 and F.stored_finite(A)
