@@ -134,6 +134,17 @@ Phases:
        (structure and capacity bitwise, values within 1e-5 of a float64
        dense product); the other mxm slices' graphs are below the dense
        gate or over its cap;
+     * surface: spla_tpu's members that the port gained last: INT and UINT
+       MINV on the card at 0, +-1, INT_MIN, INT_MAX and UINT_MAX against
+       spla_tpu's answers (constants here) and the CPU's, Scalar.of,
+       SparseVec.empty and identity_array with device="cuda", and bfs /
+       sssp on the n = 2^20 graph under Descriptor(push_pull=True),
+       (early_exit=True) and (struct_only=True), each bitwise equal to the
+       default descriptor's, with each run's launches printed; then kernel 1
+       against its plain version with stored values of 1e-38 (subnormal)
+       and x = 1.5, bitwise on a graph of one entry a row (n = 2^21) and
+       within check_close's tolerance on the n = 2^21 graph's rows, no
+       result flushed to 0;
   5. the launch counts of phase 4: each slice's kernels must be above 0;
      the road slice reads the host once per run; the staged slice launches
      no kernel 1; the ops slice none at all; the facade slice kernel 1 24
@@ -142,7 +153,7 @@ Phases:
      1's generic family three times and no templated kernel 1, kernels 5, 4
      and 9 once each, and no torch path; the dense slice the dense route
      once (the d = 512 call, before any kernel 9 launch) and kernel 9 once,
-     and no other slice the dense route;
+     and no other slice the dense route; the surface slice kernels 1-3;
   6. times on the card: each kernel against its plain version (CUDA events),
      SpMV in GB/s of the bench.py byte model, the masked SpGEMM-T in
      products/s (bench_suite.py masked_spgemm_mprod_s), BFS / SSSP / PR /
@@ -193,9 +204,9 @@ bytes (each input read once, each output written once, at this run's
 shapes and data) over 3.35 TB/s and its f32 operations over 67 TFLOP/s
 (``bound``).
 
-The five lines before the last are JSON objects of mxm's two routes, of
-the dist slice's times, of the facade chain's times, of the ops' times and
-of the kernels;
+The six lines before the last are JSON objects of mxm's two routes, of
+the dist slice's times, of the facade chain's times, of the ops' times, of
+the surface slice and of the kernels;
 the last line is ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits non-zero.
 Imports neither jax nor spla_tpu.
@@ -223,6 +234,7 @@ import torch
 from spla_tpu_torch import Descriptor, DenseVec, algorithms as alg, formats as F, kernels, op
 from spla_tpu_torch import FLOAT, INT, MemView, get_library, make_schedule
 from spla_tpu_torch import facade as FC, parallel as PAR
+from spla_tpu_torch.containers import Scalar as CScalar, SparseVec
 from spla_tpu_torch.examples import convert as CONVERT, pi as PI
 from spla_tpu_torch.profiling import profiler
 from spla_tpu_torch.schedule import make_sched_task_callback
@@ -271,6 +283,13 @@ FACADE_HOST_CALLS = 50  # calls whose host time gives one vxm's host cost
 PI_TOL = 0.01  # pi at 10^6 samples: about 6 standard errors
 SIDE_CONVERT = 512
 TIMED_RUNS = 20
+# the surface slice: integer MINV's edges with spla_tpu's answers (XLA saturates its
+# float-to-int cast of 1 / a: 1 / 0 is INT_MAX or UINT_MAX), the descriptor fields that the
+# traversals take as advice, and kernel 1's subnormal case (stored 1e-38, x 1.5)
+MINV_EDGES = {"INT": ((0, 1, -1, -(1 << 31), (1 << 31) - 1), ((1 << 31) - 1, 1, -1, 0, 0)),
+              "UINT": ((0, 1, (1 << 32) - 1), ((1 << 32) - 1, 1, 0))}
+ADVISORY = ("push_pull", "early_exit", "struct_only")
+SUBNORMAL, SUBNORMAL_X = 1e-38, 1.5
 DIST_RANKS = 4  # the gloo world on cuda:0 (part b of the dist slice)
 DEVICE_MS = {}  # kernel: its device time, where measured apart from the eager time
 PLAIN_RUNS_BIG = 3  # the plain SpGEMM-T at n = 2^20 expands 285M products per call
@@ -327,7 +346,8 @@ PATHS = {"spmv": ("spmv_pull", "level_update", "bfs_push_level", "sssp_push_leve
          "mxm": ("spgemm_mxm",), "facade": ("spmv_pull", "spgemm_mxm", "mxmt_masked"),
          "dist": ("spmv_pull", "mxmt_reduce"),
          "semirings": ("spmv_pull_generic", "mxmt_masked", "mxmt_reduce", "spgemm_mxm"),
-         "dense": ("spgemm_mxm",)}
+         "dense": ("spgemm_mxm",),
+         "surface": ("spmv_pull", "level_update", "bfs_push_level", "sssp_push_level")}
 
 
 def phase(title):
@@ -1625,6 +1645,94 @@ def check_ops(G, R):
           f"within 1e-5 of float64; every call with no host sync", flush=True)
 
 
+# ---------------------------------------------------------------- the reference's surface
+
+
+def run_surface(G):
+    """Phase 4's surface calls: integer MINV and the builders with device="cuda", then bfs and
+    sssp on the n = 2^20 graph with the default descriptor and with each advisory field set,
+    each run's launches counted apart."""
+    R = {"minv": {}, "launches": {}, "ms": {}}
+    for tname, (a, _) in MINV_EDGES.items():
+        t = getattr(op, tname)
+        R["minv"][tname] = op.lookup("MINV", t)(torch.from_numpy(np.array(a, t.np_dtype)).to(DEVICE))
+    R["scalar"] = CScalar.of(2.5, device=DEVICE)
+    R["empty"] = SparseVec.empty(N_GRAPH, 1024, np.inf, np.float32, device=DEVICE)
+    R["identity"] = {o.key: o.identity_array(device=DEVICE) for o in (op.MIN_FLOAT, op.BAND_UINT, op.PLUS_INT)}
+    for name in ("default", *ADVISORY):
+        d = None if name == "default" else Descriptor(**{name: True})
+        before = dict(kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        R[f"bfs {name}"] = alg.bfs(G["Aint"], 0, d, At=G["Aint"])
+        R[f"sssp {name}"] = alg.sssp(G["Aw"], 0, d)
+        torch.cuda.synchronize()
+        R["ms"][name] = (time.perf_counter() - t0) * 1e3
+        R["launches"][name] = {k: v - before[k] for k, v in kernels.LAUNCHES.items() if v != before[k]}
+    return R
+
+
+def check_surface(G, R):
+    """MINV against spla_tpu's answers and the CPU's; the builders' tensors on the card; every
+    advisory run bitwise equal to the default's (and bfs to scipy); kernel 1 against its plain
+    version with subnormal stored values.  Leaves the surface line in R["row"]."""
+    on = torch.device(DEVICE).type
+    for tname, (a, want) in MINV_EDGES.items():
+        t = getattr(op, tname)
+        got = R["minv"][tname]
+        if got.device.type != on:
+            raise AssertionError(f"MINV_{tname} left the card")
+        check_close(f"MINV_{tname} = spla_tpu's", got.cpu(), torch.from_numpy(np.array(want, t.np_dtype)), True)
+        check_close(f"MINV_{tname} = the CPU's", got.cpu(),
+                    op.lookup("MINV", t)(torch.from_numpy(np.array(a, t.np_dtype))), True)
+    sc, ev = R["scalar"], R["empty"]
+    if not (sc.value.device.type == on and sc.type is FLOAT and sc.item() == np.float32(2.5)):
+        raise AssertionError("Scalar.of on the card")
+    if not (ev.indices.device.type == on and int(ev.nnz) == 0 and bool((ev.indices == N_GRAPH).all())
+            and bool(torch.isinf(ev.values).all())):
+        raise AssertionError("SparseVec.empty on the card")
+    for key, t in R["identity"].items():
+        want = op.BUILTIN_OPS[key].identity_array(device="cpu")
+        if not (t.device.type == on and t.dtype == want.dtype):
+            raise AssertionError(f"{key}.identity_array on the card")
+        check_close(f"{key}.identity_array", t.cpu().reshape(1), want.reshape(1), True)
+    check_close("bfs default = scipy", R["bfs default"].values, G["bfs_ref"], True)
+    for name in ADVISORY:
+        check_close(f"bfs {name} = default", R[f"bfs {name}"].values, R["bfs default"].values, True)
+        check_close(f"sssp {name} = default", R[f"sssp {name}"].values, R["sssp default"].values, True)
+    for name, counts in R["launches"].items():
+        print(f"surface: bfs + sssp with {name}: launches {json.dumps(counts)}, "
+              f"{R['ms'][name]:.3f} ms", flush=True)
+
+    # kernel 1 with stored values of 1e-38: one entry a row (bitwise: a product and init 0), and on
+    # the n = 2^21 graph's rows (PLUS folds: check_close's tolerance); none may flush to 0
+    n = N_SPMV
+    perm = np.random.default_rng(8).permutation(n).astype(np.int32)
+    one = csr(np.arange(n + 1, dtype=np.int32), np.arange(n, dtype=np.int32), perm,
+              np.full(n, SUBNORMAL, np.float32), n)
+    x = torch.full((n,), SUBNORMAL_X, device=DEVICE)
+    got, _ = K1.spmv_pull(one, x, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)
+    ref, _ = K1.spmv_pull_plain(one, x, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)
+    check_close("kernel 1, subnormal stored values, one entry a row", got, ref, True)
+    ieee = float(np.float32(SUBNORMAL) * np.float32(SUBNORMAL_X))
+    if not bool((got == ieee).all()):
+        raise AssertionError("kernel 1 flushed a subnormal stored value")
+    M = replace(G["M"], values=torch.full_like(G["M"].values, SUBNORMAL))
+    xs = torch.full((n,), SUBNORMAL_X, device=DEVICE)
+    err = check_pull("kernel 1, subnormal stored values", M, xs, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0, None, None)
+    got, _ = K1.spmv_pull(M, xs, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)
+    rows = (M.indptr[1:] > M.indptr[:-1])
+    if not bool((got[rows] > 0).all()):
+        raise AssertionError("kernel 1 flushed a row of subnormal products to 0")
+    print(f"surface: MINV, the builders and the advisory descriptors agree; kernel 1 keeps subnormals "
+          f"(product {ieee!r}; degree-16 rows max abs err {err:.3g})", flush=True)
+    R["row"] = {"minv": {t: R["minv"][t].cpu().view(torch.int32).numpy().view(getattr(op, t).np_dtype).tolist()
+                         for t in MINV_EDGES},
+                "descriptors": {name: {"bfs_equal": True, "sssp_equal": True, "launches": R["launches"][name],
+                                       "ms": R["ms"][name]} for name in ("default", *ADVISORY)},
+                "subnormal": {"stored": SUBNORMAL, "x": SUBNORMAL_X, "product": ieee, "one_a_row_bitwise": True,
+                              "max_abs_err": err}}
+
+
 # ---------------------------------------------------------------- the facade
 
 
@@ -2856,7 +2964,8 @@ def main():
                                    ("facade", run_facade, check_facade),
                                    ("dist", run_dist, check_dist),
                                    ("semirings", run_semirings, check_semirings),
-                                   ("dense", run_dense, check_dense)):
+                                   ("dense", run_dense, check_dense),
+                                   ("surface", run_surface, check_surface)):
         kernels.reset_launches()
         for k in DISPATCH_STATS:
             DISPATCH_STATS[k] = 0
@@ -2962,6 +3071,7 @@ def main():
     print(json.dumps({"dist": dist_row}))
     print(json.dumps({"facade": facade_row}))
     print(json.dumps({"ops": ops_rows}))
+    print(json.dumps({"surface": results["surface"]["row"]}))
     print(json.dumps({"kernels": rows_out}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

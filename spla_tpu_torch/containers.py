@@ -20,9 +20,23 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .types import Type, type_from_dtype
 from .utils.bits import bits
 
 __all__ = ["Scalar", "DenseVec", "SparseVec", "CooMatrix", "CsrMatrix", "BsrMatrix"]
+
+# with no dtype given, a value takes the 32-bit type that jnp.asarray gives it
+_CANONICAL = {np.dtype(np.int64): np.int32, np.dtype(np.uint64): np.uint32,
+              np.dtype(np.float64): np.float32}
+
+
+def _value_on(v, dtype, device) -> torch.Tensor:
+    """``v`` as a 0-d tensor of the numpy ``dtype`` (or ``v``'s own, cut to
+    32 bits) on ``device``."""
+    a = np.asarray(v, dtype=dtype)
+    if dtype is None:
+        a = a.astype(_CANONICAL.get(a.dtype, a.dtype))
+    return torch.from_numpy(a).to(device)
 
 
 @dataclass(frozen=True)
@@ -31,9 +45,21 @@ class Scalar:
 
     value: torch.Tensor
 
+    @staticmethod
+    def of(v, dtype=None, *, device) -> "Scalar":
+        return Scalar(_value_on(v, dtype, device))
+
     @property
     def dtype(self) -> torch.dtype:
         return self.value.dtype
+
+    @property
+    def type(self) -> Type:
+        return type_from_dtype(self.dtype)
+
+    def item(self):
+        """The value as a numpy scalar (a host read)."""
+        return self.value.cpu().numpy()[()]
 
 
 @dataclass(frozen=True)
@@ -54,7 +80,7 @@ class DenseVec:
     @staticmethod
     def full(n: int, fill, dtype=None, *, device) -> "DenseVec":
         """n slots of ``fill`` (a numpy ``dtype``, as the builders take) on ``device``."""
-        fill_t = torch.from_numpy(np.asarray(fill, dtype=dtype)).to(device)
+        fill_t = _value_on(fill, dtype, device)
         return DenseVec(fill_t.expand(n).clone(), fill_t)
 
     def stored_mask(self) -> torch.Tensor:
@@ -81,6 +107,14 @@ class SparseVec:
 
     def valid_mask(self) -> torch.Tensor:
         return torch.arange(self.capacity, device=self.indices.device) < self.nnz
+
+    @staticmethod
+    def empty(n: int, capacity: int, fill, dtype=None, *, device) -> "SparseVec":
+        """No stored entries: ``capacity`` padding slots (index ``n``, value ``fill``)."""
+        fill_t = _value_on(fill, dtype, device)
+        return SparseVec(n=n, indices=torch.full((capacity,), n, dtype=torch.int32, device=device),
+                         values=fill_t.expand(capacity).clone(),
+                         nnz=torch.zeros((), dtype=torch.int32, device=device), fill=fill_t)
 
 
 @dataclass(frozen=True)

@@ -93,7 +93,7 @@ def run_laps(args, devices, prepare):
 
 def make_descriptor(args) -> Descriptor:
     return Descriptor(push_only=args.push_pull == 1, pull_only=args.push_pull == 2,
-                      front_factor=args.front_factor)
+                      push_pull=args.push_pull == 3, front_factor=args.front_factor)
 
 
 def verify_exact(name: str, got, ref) -> bool:

@@ -36,7 +36,12 @@ __all__ = [
     "kept_positions",
     "split_rows",
     "stored_finite",
+    "round_up",
 ]
+
+
+def round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
 
 
 class WeakIdCache:
@@ -60,6 +65,9 @@ class WeakIdCache:
             return None
         return self._data.get(key)
 
+    def contains(self, obj, extra=()) -> bool:
+        return self._alive.get(id(obj)) is obj and (id(obj), *extra) in self._data
+
     def put(self, obj, value, extra=()):
         key = (id(obj), *extra)
         if self._alive.get(id(obj)) is not obj:
@@ -80,10 +88,15 @@ def stored_finite(A: CsrMatrix) -> bool:
     return hit
 
 
-def host_coo(A: CsrMatrix):
-    """Host ``(rows, cols, vals)`` numpy arrays of A's stored entries."""
-    nnz = int(A.nnz)
-    return tuple(t[:nnz].cpu().numpy() for t in (A.row_ids, A.cols, A.values))
+def host_coo(A: CsrMatrix, nnz=None, pattern=False):
+    """Host ``(rows, cols, vals)`` numpy arrays of A's first ``nnz`` entries
+    (its stored ones by default); with ``pattern`` the values are f32 ones."""
+    if nnz is None:
+        nnz = int(A.nnz)
+    rows, cols, vals = (t[:nnz].cpu().numpy() for t in (A.row_ids, A.cols, A.values))
+    if pattern:
+        vals = np.ones(nnz, np.float32)
+    return rows, cols, vals
 
 
 def _dedup_host(keys: np.ndarray, values: np.ndarray, reduce_fn):

@@ -132,6 +132,12 @@ class OpBinary(Op):
         return OpBinary(name=name, type=type, fn=fn, identity=identity, scatter=scatter,
                         associative=associative, commutative=commutative)
 
+    def identity_array(self, *, device) -> torch.Tensor:
+        """The identity as a 0-d tensor of the op's dtype on ``device``."""
+        if self.identity is None:
+            raise ValueError(f"op {self.key} has no identity")
+        return torch.from_numpy(np.asarray(self.identity, dtype=self.type.np_dtype)).to(device)
+
 
 @dataclass(frozen=True, eq=False)
 class OpSelect(Op):
@@ -191,6 +197,25 @@ def _int_div(a, b):
     return torch.where(zero, -1, torch.div(a, torch.where(zero | overflow, 1, b), rounding_mode="trunc"))
 
 
+def _float_min(a, b):
+    """torch.minimum with -0.0 below +0.0 in either order, as XLA's min has
+    it (torch.minimum gives ``b`` when ``a == b``, so MIN(0.0, -0.0) would
+    be 0.0 and MIN(-0.0, 0.0) -0.0)."""
+    return torch.where(a == b, torch.where(torch.signbit(a), a, b), torch.minimum(a, b))
+
+
+def _float_max(a, b):
+    """torch.maximum with +0.0 above -0.0 in either order, as XLA's max has it."""
+    return torch.where(a == b, torch.where(torch.signbit(a), b, a), torch.maximum(a, b))
+
+
+def _int_minv(a, hi):
+    """Integer 1 / a as ``spla_tpu``'s saturating float-to-int cast gives it:
+    0 -> ``hi`` (INT_MAX, or UINT_MAX), +-1 -> itself, every other value 0;
+    in integer arithmetic, so no device's cast of inf enters."""
+    return torch.where(a == 0, hi, torch.where((a == 1) | (a == -1), a, 0))
+
+
 def register_builtins() -> None:
     for t in (INT, UINT, FLOAT):
         # compute dtype: UINT works in int64 (see _via_int64)
@@ -209,7 +234,7 @@ def register_builtins() -> None:
 
         unary("IDENTITY", lambda a: a)
         unary("AINV", lambda a: -a)
-        unary("MINV", lambda a, d=d: (1 / a).to(d))
+        unary("MINV", (lambda a: 1 / a) if t is FLOAT else (lambda a, hi=int(hi): _int_minv(a, hi)))
         unary("LNOT", lambda a, d=d: (a == 0).to(d))
         unary("UONE", lambda a: torch.ones_like(a))
         unary("ABS", (lambda a: a) if t is UINT else torch.abs)
@@ -227,10 +252,10 @@ def register_builtins() -> None:
         binary("FIRST", lambda a, b: a)
         binary("SECOND", lambda a, b: b, associative=True)
         binary("BONE", lambda a, b, d=d: _full_ones(a, b, d))
-        binary("MIN", torch.minimum, identity=hi, scatter="min", associative=True,
-               commutative=True)
-        binary("MAX", torch.maximum, identity=lo, scatter="max", associative=True,
-               commutative=True)
+        binary("MIN", _float_min if t is FLOAT else torch.minimum, identity=hi, scatter="min",
+               associative=True, commutative=True)
+        binary("MAX", _float_max if t is FLOAT else torch.maximum, identity=lo, scatter="max",
+               associative=True, commutative=True)
         binary("LOR", lambda a, b, d=d: ((a != 0) | (b != 0)).to(d),
                identity=t.np_dtype.type(0), associative=True, commutative=True)
         binary("LAND", lambda a, b, d=d: ((a != 0) & (b != 0)).to(d),

@@ -44,8 +44,30 @@ class Type:
     def __hash__(self):
         return hash((Type, self.name))
 
+    # pyspla's helper surface (python/pyspla/type.py:170-204)
+    def get_code(self) -> str:
+        """The one-letter code ('B' / 'I' / 'U' / 'F')."""
+        return self.code
+
+    def cast_value(self, value):
+        """A ctypes, numpy or Python value as the Python value of this type."""
+        raw = getattr(value, "value", value)  # unwrap ctypes
+        out = self.np_dtype.type(raw).item()
+        return bool(out) if self.np_dtype == np.bool_ else out
+
+    def format_value(self, value, width: int = 2, precision: int = 2) -> str:
+        """A value as text: floats in ``width.precision``, bools as t / f."""
+        if self.np_dtype == np.bool_ or isinstance(value, bool):
+            return f"{'t' if value else 'f':>{width}}"
+        if self.is_float():
+            return f"{value:>{width}.{precision}}"
+        return f"{value:>{width}}"
+
     def is_float(self) -> bool:
         return self.dtype.is_floating_point
+
+    def is_integral(self) -> bool:
+        return not self.dtype.is_floating_point
 
 
 BOOL = Type("BOOL", "B", torch.bool, np.bool_)

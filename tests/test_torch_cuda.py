@@ -1861,3 +1861,73 @@ def test_dist_on_four_gloo_ranks_of_one_card(dist_runs):
                 np.testing.assert_array_equal(g, w)
         else:
             assert all(p["result"] == w for p in parts)
+
+
+# ---------------------------------------------------------------- the reference's surface on the card
+
+# spla_tpu's answers (XLA saturates its float-to-int cast of 1 / a)
+MINV_EDGES = {"INT": (np.array([0, 1, -1, 2, -2, -2**31, 2**31 - 1], np.int32),
+                      np.array([2**31 - 1, 1, -1, 0, 0, 0, 0], np.int32)),
+              "UINT": (np.array([0, 1, 2, 2**32 - 1], np.uint32),
+                       np.array([2**32 - 1, 1, 0, 0], np.uint32))}
+
+
+@pytest.mark.parametrize("tname", ["INT", "UINT"])
+def test_int_minv_is_the_same_on_both_devices(dev, tname):
+    a, want = MINV_EDGES[tname]
+    o = op.lookup("MINV", getattr(op, tname))
+    got = [o(torch.from_numpy(a).to(d)).cpu() for d in (dev, "cpu")]
+    for g in got:
+        np.testing.assert_array_equal(g.view(torch.int32).numpy().view(a.dtype), want)
+
+
+def test_signed_zero_min_max_is_the_same_on_both_devices(dev):
+    """MIN and MAX f32 put -0.0 below +0.0 in either order, as spla_tpu's do."""
+    a = torch.tensor([0.0, -0.0, 0.0, -0.0, float("nan"), 1.0])
+    b = torch.tensor([-0.0, 0.0, 0.0, -0.0, 1.0, float("nan")])
+    for o, want in ((op.MIN_FLOAT, [-0.0, -0.0, 0.0, -0.0]), (op.MAX_FLOAT, [0.0, 0.0, 0.0, -0.0])):
+        for d in (dev, "cpu"):
+            got = o(a.to(d), b.to(d)).cpu()
+            assert torch.isnan(got[4:]).all()
+            assert got[:4].view(torch.int32).tolist() == torch.tensor(want).view(torch.int32).tolist()
+
+
+def test_surface_builders_on_the_card(dev):
+    from spla_tpu_torch.containers import Scalar, SparseVec
+
+    on = torch.device(dev).type
+    s = Scalar.of(2.5, device=dev)
+    assert s.value.device.type == on and s.type is FLOAT and s.item() == np.float32(2.5)
+    v = SparseVec.empty(10, 4, np.inf, np.float32, device=dev)
+    assert v.indices.device.type == on and int(v.nnz) == 0 and v.indices.tolist() == [10] * 4
+    assert torch.isinf(v.values).all() and not v.valid_mask().any()
+    for o in (op.MIN_FLOAT, op.BAND_UINT, op.PLUS_INT):
+        t = o.identity_array(device=dev)
+        assert t.device.type == on and t.dim() == 0 and t.dtype == o.type.dtype
+        assert t.cpu().view(torch.int32) == o.identity_array(device="cpu").view(torch.int32)
+
+
+@pytest.mark.parametrize("field", ["push_pull", "early_exit", "struct_only"])
+def test_advisory_descriptor_fields_change_nothing_on_the_card(dev, field):
+    a = random_graph(1 << 12, 8, seed=3)
+    aw = a.copy()
+    aw.data = np.random.default_rng(4).uniform(0.1, 2.0, a.nnz).astype(np.float32)
+    A = F.csr_from_scipy(a.astype(np.int32), device=dev)
+    Aw = F.csr_from_scipy(aw, fill=np.float32(np.inf), device=dev)
+    d = Descriptor(**{field: True})
+    _assert_same(alg.bfs(A, 0, d, At=A).values, alg.bfs(A, 0, At=A).values)
+    _assert_same(alg.sssp(Aw, 0, d).values, alg.sssp(Aw, 0).values)
+
+
+def test_kernel_1_keeps_f32_subnormals(dev):
+    """Stored values of 1e-38 (subnormal) times x = 1.5, one entry a row:
+    kernel 1 gives torch's IEEE products, bitwise, none flushed to 0."""
+    n = 1 << 12
+    perm = np.random.default_rng(8).permutation(n).astype(np.int32)
+    indptr, rows = np.arange(n + 1, dtype=np.int32), np.arange(n, dtype=np.int32)
+    M = csr_from_numpy((n, n), indptr, perm, np.full(n, 1e-38, np.float32), rows, n, 0, dev)
+    x = torch.full((n,), 1.5, device=dev)
+    got, _ = K1.spmv_pull(M, x, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)
+    ref, _ = K1.spmv_pull_plain(M, x, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)
+    _assert_same(got, ref)
+    assert (got.cpu() == np.float32(1e-38) * np.float32(1.5)).all()

@@ -80,6 +80,23 @@ def test_mtx_save_round_trip(mtx_path, tmp_path):
     assert A.shape == (a.n_rows, a.n_cols) and int(A.nnz) == a.to_scipy().nnz
 
 
+@pytest.mark.parametrize("mode", [1, 2, 3])
+def test_push_pull_flag_makes_spla_tpus_descriptor(mode):
+    """--push-pull 1 / 2 / 3 give push_only / pull_only / push_pull, as
+    examples/common.py's make_descriptor does."""
+    from dataclasses import asdict
+
+    from examples.common import make_descriptor as j_make_descriptor
+    from spla_tpu_torch.examples.common import make_descriptor
+    from spla_tpu_torch.examples.options import make_options
+
+    args = make_options("bfs", "").parse_args(["--mtxpath", "g.mtx", "--push-pull", str(mode),
+                                              "--front-factor", "0.2"])
+    got = make_descriptor(args)
+    assert asdict(got) == asdict(j_make_descriptor(args))
+    assert (got.push_only, got.pull_only, got.push_pull) == (mode == 1, mode == 2, mode == 3)
+
+
 @needs_gxx
 @pytest.mark.parametrize("name", list(CLIS))
 def test_cli_on_the_cpu(name, mtx_path, capsys):

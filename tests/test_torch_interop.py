@@ -164,6 +164,67 @@ def test_builtin_op_matches_spla_tpu(key):
         np.testing.assert_array_equal(got, want)
 
 
+_I32, _U32 = np.iinfo(np.int32), np.iinfo(np.uint32)
+_EDGES = {
+    "INT": np.array([0, 1, -1, _I32.min, _I32.max], np.int32),
+    "UINT": np.array([0, 1, _U32.max], np.uint32),
+    # normal-range values only: XLA on the CPU flushes f32 subnormals
+    # (test_pin_port_keeps_f32_subnormals), and no pair here makes one
+    "FLOAT": np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1.0, -1.0, 0.5, -2.5, 3.0, 100.0],
+                      np.float32),
+}
+_TRANSCENDENTAL = {"SIN", "COS", "TAN", "ASIN", "ACOS", "ATAN", "EXP", "LOG"}
+
+
+def _ulp_line(x):
+    """f32 values as int64 points on a line where neighbouring floats are 1 apart."""
+    i = x.view(np.int32).astype(np.int64)
+    return np.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+
+@pytest.mark.parametrize("key", sorted(JOP.BUILTIN_OPS))
+def test_builtin_op_edges_match_spla_tpu(key):
+    """Every built-in op on its type's edges (every pair of them for a
+    binary op): 0, +-1, INT_MIN and INT_MAX; 0, 1 and UINT_MAX; 0, -0.0,
+    +-inf, NaN and normal floats.  Bitwise (NaN where NaN, any payload),
+    but within 2 ulp for the transcendental ops."""
+    jop, top = JOP.BUILTIN_OPS[key], OP.BUILTIN_OPS[key]
+    e = _EDGES[jop.type.name]
+    args = (np.repeat(e, e.size), np.tile(e, e.size)) if isinstance(jop, JOP.OpBinary) else (e,)
+    want = np.asarray(jop(*(jnp.asarray(x) for x in args)))
+    got = to_numpy(top(*(torch.from_numpy(x.copy()) for x in args)))
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if got.dtype != np.float32:
+        np.testing.assert_array_equal(got, want)
+        return
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    if jop.name in _TRANSCENDENTAL:
+        assert np.abs(_ulp_line(got[~nan]) - _ulp_line(want[~nan])).max(initial=0) <= 2
+    else:
+        np.testing.assert_array_equal(got[~nan].view(np.uint32), want[~nan].view(np.uint32))
+
+
+def test_pin_port_keeps_f32_subnormals():
+    """A deliberate difference: XLA on the CPU flushes f32 subnormals to
+    zero, in inputs and outputs (the TPU has none); torch keeps IEEE
+    subnormals, and the kernels are built without -ftz."""
+    x, y = np.array([1e-38], np.float32), np.array([1.5], np.float32)
+
+    def both(name, *args):
+        j = np.asarray(JOP.lookup(name, JOP.FLOAT)(*(jnp.asarray(a) for a in args)))
+        t = to_numpy(OP.lookup(name, OP.FLOAT)(*(torch.from_numpy(a) for a in args)))
+        return j, t
+
+    j, t = both("MULT", x, y)
+    assert j[0] == 0 and t[0] == x[0] * y[0] and t[0] > 0
+    j, t = both("SQRT", x)
+    assert j[0] == 0 and t[0] == np.sqrt(x[0]) and t[0] > 0
+    j = np.asarray(JOP.GTZERO_FLOAT(jnp.asarray(x)))
+    t = to_numpy(OP.GTZERO_FLOAT(torch.from_numpy(x)))
+    assert not j[0] and t[0]
+
+
 @pytest.mark.parametrize("tname", ["INT", "UINT"])
 def test_int_div_is_xla_division(tname):
     """INT and UINT DIV bitwise equal to spla_tpu's lax.div: x / 0 all ones,
