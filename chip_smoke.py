@@ -302,6 +302,8 @@ ROOT = Path(__file__).resolve().parent
 DEVICE = "cuda"
 
 MULS = ("PLUS", "MULT", "FIRST", "SECOND", "MIN", "MAX")
+# the f32 muls beyond the six: kernel 1's and kernel 7's generic families serve them
+GENERIC_F32_MULS = ("MINUS", "DIV", "MINUS_POW2", "BONE", "LOR", "LAND")
 ADDS = ("PLUS", "MIN", "MAX")
 TYPES = {"f32": op.FLOAT, "i32": op.INT, "u32": op.UINT}
 INT_MIN = int(np.iinfo(np.int32).min)
@@ -331,6 +333,9 @@ KERNELS = {
                       "spla_tpu/pallas/spmv.py:2716"),
     "spmv_pull_staged": ("cuda", "spla_tpu_torch/kernels/csrc/spmv_staged.cu",
                          "spla_tpu/pallas/spmv.py:2140"),
+    # kernel 7's generic family: the mul a kernel argument (every f32 mul of the manual-DMA kernel)
+    "spmv_pull_staged_generic": ("cuda", "spla_tpu_torch/kernels/csrc/spmv_staged_generic.cu",
+                                 "spla_tpu/pallas/spmv.py:2140"),
     # kernel 8's phases, each against the TPU probe it answers for
     **{f"spmv_probe_{phase}": ("cuda", "spla_tpu_torch/kernels/csrc/spmv_probe.cu", f"tools/probe_spmv.py:{line}")
        for phase, line in (("stream", 121), ("gather", 146), ("fullfix", 109), ("alu", 176), ("xgather", 190),
@@ -341,13 +346,15 @@ KERNELS = {
 PATHS = {"spmv": ("spmv_pull", "level_update", "bfs_push_level", "sssp_push_level"),
          "push": ("spmv_push",), "skewed": ("bfs_push_level", "sssp_push_level", "level_update"),
          "spgemm": ("mxmt_reduce", "mxmt_masked"), "road": ("bfs_resident", "sssp_resident"),
-         "staged": ("spmv_pull_staged",),
+         "staged": ("spmv_pull_staged", "spmv_pull_staged_generic"),
          "probes": (*(f"spmv_probe_{phase}" for phase in PROBE_PHASES), "mxmt_gather"),
          "mxm": ("spgemm_mxm",), "facade": ("spmv_pull", "spgemm_mxm", "mxmt_masked"),
          "dist": ("spmv_pull", "mxmt_reduce"),
          "semirings": ("spmv_pull_generic", "mxmt_masked", "mxmt_reduce", "spgemm_mxm"),
          "dense": ("spgemm_mxm",),
-         "surface": ("spmv_pull", "level_update", "bfs_push_level", "sssp_push_level")}
+         "surface": ("spmv_pull", "level_update", "bfs_push_level", "sssp_push_level"),
+         "zeros": ("spmv_pull", "spmv_pull_generic", "spmv_pull_staged", "spmv_pull_staged_generic", "mxmt_masked",
+                   "spgemm_mxm")}
 
 
 def phase(title):
@@ -387,14 +394,33 @@ def valued(a, seed, lo, hi):
 # ---------------------------------------------------------------- checks
 
 
+def same_bits(what, got, ref):
+    """Bit for bit: a zero's sign counts (-0.0 is not +0.0), NaN equals NaN
+    whatever its payload; uint32 as the int32 of the same bits."""
+    if got.dtype != ref.dtype or got.shape != ref.shape or got.device != ref.device:
+        raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)} on {got.device} against "
+                             f"{ref.dtype} {tuple(ref.shape)} on {ref.device}")
+    if got.is_floating_point():
+        nan = torch.isnan(got)
+        if not torch.equal(nan, torch.isnan(ref)):
+            raise AssertionError(f"{what}: NaN positions differ")
+        ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}[got.element_size()]
+        got, ref = got.masked_fill(nan, 0).view(ints), ref.masked_fill(nan, 0).view(ints)
+    elif got.dtype == torch.uint32:
+        got, ref = got.view(torch.int32), ref.view(torch.int32)
+    bad = got != ref
+    if bool(bad.any()):
+        raise AssertionError(f"{what}: {int(bad.sum())} of {bad.numel()} entries differ in their bits, the "
+                             f"first at {torch.nonzero(bad)[0].tolist()}")
+
+
 def check_close(what, got, ref, exact, ref64=None):
-    """int, bool, MIN, MAX and structural results: bitwise (NaN equal to NaN).
-    f32 PLUS: within rtol=1e-5 of a float64 reference, atol = 1e-6 max|ref|
-    (the summation order differs).  Returns the max abs error against ``ref``."""
+    """int, bool, MIN, MAX and structural results: bit for bit (``same_bits``:
+    a zero's sign counts, NaN equal to NaN).  f32 PLUS: within rtol=1e-5 of a
+    float64 reference, atol = 1e-6 max|ref| (the summation order differs).
+    Returns the max abs error against ``ref``."""
     if exact:
-        if got.dtype == torch.uint32:  # compared as the int32 of the same bits
-            got, ref = got.view(torch.int32), ref.view(torch.int32)
-        torch.testing.assert_close(got, ref, rtol=0, atol=0, equal_nan=True, msg=what)
+        same_bits(what, got, ref)
         return 0.0
     nan = torch.isnan(ref64)
     if not torch.equal(torch.isnan(got), nan):
@@ -940,17 +966,24 @@ def check_generic(G):
     return errs
 
 
+# graphs on which check_staged runs kernel 7's generic family at the default slot count only
+FAMILY_DEFAULT_SLOTS = ("M", *(f"S{d}" for d in SMALL_DEGREES))
+
+
 def check_staged(G):
-    """Kernel 7 against its plain version and kernel 1: all 18 f32 (mul,
-    add) instances, both operand orders, with and without masks, and the
-    structural variant, on kernel 1's graphs: at 2, 3 and 4 slots on the
-    n = 2^21 graph, the hub graph (rows of 2^17 entries, 32 chunks each), a
-    graph of one stage (fewer stages than slots) and the n = 2^16 graphs of
-    degrees 1 to 300, at the default slots on the powerlaw graph; a
-    repeated call gives the same bits.  Then each kernel-8 phase against
-    its plain version on the n = 2^21 graph (f32 sums within rtol 1e-5, XOR
-    checksums bitwise)."""
-    errs = {"spmv_pull_staged": 0.0}
+    """Kernel 7 against its plain version and kernel 1: all 36 f32 (mul,
+    add) requests (the six muls of its templated instances and the six of
+    its generic family, GENERIC_F32_MULS, x PLUS, MIN, MAX), both operand
+    orders, with and without masks, and the structural variant, on kernel
+    1's graphs: at 2, 3 and 4 slots on the n = 2^21 graph, the hub graph
+    (rows of 2^17 entries, 32 chunks each), a graph of one stage (fewer
+    stages than slots) and the n = 2^16 graphs of degrees 1 to 300 (the
+    family's muls at the default slots on the n = 2^21 and n = 2^16
+    graphs), at the default slots on the powerlaw graph; a repeated call
+    gives the same bits.  Then each kernel-8 phase against its plain
+    version on the n = 2^21 graph (f32 sums within rtol 1e-5, XOR checksums
+    bitwise)."""
+    errs = {"spmv_pull_staged": 0.0, "spmv_pull_staged_generic": 0.0}
     rng = np.random.default_rng(10)
     if K7.staged_plan(G["Few"]).nunits != 1:
         raise AssertionError("the fewer-stages graph must be one unit")
@@ -964,24 +997,26 @@ def check_staged(G):
         x[7], x[11], x[13] = float("nan"), float("inf"), float("-inf")
         x_valid = torch.from_numpy(rng.random(n) < 0.9).to(DEVICE)
         row_sel = torch.from_numpy(rng.random(n) < 0.7).to(DEVICE)
-        for mul in MULS:
+        for mul in (*MULS, *GENERIC_F32_MULS):
+            family = mul in GENERIC_F32_MULS
+            name = "spmv_pull_staged_generic" if family else "spmv_pull_staged"
             for add in ADDS:
                 om, oa = getattr(op.FLOAT, mul), getattr(op.FLOAT, add)
                 exact = add != "PLUS"
                 for xv, rs, swap in ((None, None, False), (x_valid, row_sel, True)):
-                    label = f"spmv_pull_staged {gname} {mul}/{add} masks={xv is not None}"
+                    label = f"{name} {gname} {mul}/{add} masks={xv is not None}"
                     ref, ref_has = K7.spmv_pull_staged_plain(M, x, om, oa, oa.identity, xv, rs, swap)
                     k1, k1_has = K1.spmv_pull(M, x, om, oa, oa.identity, xv, rs, want_has=True, swap=swap)
                     ref64 = None if exact else K7.spmv_pull_staged_plain(
                         as64(M), x.double(), om, oa, float(oa.identity), xv, rs, swap)[0]
-                    for slots in slot_counts:
+                    for slots in (default if family and gname in FAMILY_DEFAULT_SLOTS else slot_counts):
                         got, has = K7.spmv_pull_staged(M, x, om, oa, oa.identity, xv, rs, want_has=True,
                                                        swap=swap, slots=slots)
                         if not (torch.equal(has, ref_has) and torch.equal(has, k1_has)):
                             raise AssertionError(f"{label} slots={slots}: has differs")
                         e = check_close(f"{label} slots={slots}", got, ref, exact, ref64)
                         check_close(f"{label} slots={slots} vs kernel 1", got, k1, exact, ref64)
-                        errs["spmv_pull_staged"] = max(errs["spmv_pull_staged"], e)
+                        errs[name] = max(errs[name], e)
         first = K7.spmv_pull_staged(M, x, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)[0]
         check_close(f"spmv_pull_staged {gname} repeated",
                     K7.spmv_pull_staged(M, x, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)[0], first, True)
@@ -993,9 +1028,11 @@ def check_staged(G):
                 check_close(f"spmv_pull_staged {gname} structural slots={slots} vs kernel 1", hits,
                             K1.spmv_pull_structural(M, xv, rs), True)
         plan = K7.staged_plan(M)
+        family_slots = default if gname in FAMILY_DEFAULT_SLOTS else slot_counts
         print(f"kernel 7 on {gname} (n={n}, {plan.nunits} units, {plan.nhub} rows of several chunks): 18 "
-              f"(mul, add) instances x 2 mask settings and the structural variant at {slot_counts} slots "
-              f"match the plain version and kernel 1; a repeated call gives the same bits", flush=True)
+              f"(mul, add) templated instances and the structural variant at {slot_counts} slots, its generic "
+              f"family's 18 at {family_slots}, x 2 mask settings, match the plain version and kernel 1; a "
+              f"repeated call gives the same bits", flush=True)
     M = G["M"]
     x = torch.from_numpy(rng.random(M.shape[1], dtype=np.float32)).to(DEVICE)
     for phase in PROBE_PHASES:
@@ -1435,9 +1472,11 @@ def manual_dma(on=True):
 
 
 def run_staged(G):
-    """Phase 4's staged path: under MANUAL_DMA, mxv_masked at n = 2^21 and
-    pr / sssp / bfs on the n = 2^20 graph (the level loop), then ab_spmv
-    under SPLA_MANUAL_DMA=1 SPLA_MANUAL_SLOTS=3 in a subprocess."""
+    """Phase 4's staged path: under MANUAL_DMA, mxv_masked at n = 2^21
+    (MULT/PLUS, PLUS/MIN, and MINUS/MIN, which kernel 7's generic family
+    serves), vxm_masked_dense DIV/MAX there (the family with vxm's operand
+    swap) and pr / sssp / bfs on the n = 2^20 graph (the level loop), then
+    ab_spmv under SPLA_MANUAL_DMA=1 SPLA_MANUAL_SLOTS=3 in a subprocess."""
     rng = np.random.default_rng(12)
     n = N_SPMV
     x = DenseVec(torch.from_numpy(rng.random(n, dtype=np.float32)).to(DEVICE),
@@ -1449,6 +1488,10 @@ def run_staged(G):
         R["mxv"] = mxv_masked(mask, G["M"], x, op.MULT_FLOAT, op.PLUS_FLOAT, op.NQZERO_FLOAT, 0.0)
         R["mxv_minplus"] = mxv_masked(mask, G["Minf"], x, op.PLUS_FLOAT, op.MIN_FLOAT,
                                       op.NQZERO_FLOAT, float("inf"))
+        R["mxv_minus"] = mxv_masked(mask, G["Minf"], x, op.MINUS_FLOAT, op.MIN_FLOAT, op.NQZERO_FLOAT,
+                                    float("inf"))
+        R["vxm_div"] = vxm_masked_dense(mask, x, G["M"], op.DIV_FLOAT, op.MAX_FLOAT, op.NQZERO_FLOAT,
+                                        float("-inf"))
         R["bfs"] = alg.bfs(G["Aint"], 0, At=G["Aint"])
         R["sssp"] = alg.sssp(G["Aw"], 0)
         R["pr"] = alg.pr(G["Ap"], 0.85, 1e-6)
@@ -1470,6 +1513,13 @@ def check_staged_path(G, R):
     ref, _ = masked_spmv(G["Minf"], x.values, op.PLUS_FLOAT, op.MIN_FLOAT, float("inf"),
                          mask_vals=mask.values, op_select=sel)
     check_close("staged mxv_masked PLUS/MIN", R["mxv_minplus"].values, ref, True)
+    ref, _ = masked_spmv(G["Minf"], x.values, op.MINUS_FLOAT, op.MIN_FLOAT, float("inf"),
+                         mask_vals=mask.values, op_select=sel)
+    check_close("staged mxv_masked MINUS/MIN (generic)", R["mxv_minus"].values, ref, True)
+    ref, has = masked_spmv(G["M"], x.values, lambda a, b: op.DIV_FLOAT(b, a), op.MAX_FLOAT, float("-inf"),
+                           x_valid=x.stored_mask(), mask_vals=mask.values, op_select=sel)
+    check_close("staged vxm_masked_dense DIV/MAX (generic)", R["vxm_div"].values,
+                torch.where(has, ref, float("-inf")), True)
     check_close("staged bfs vs scipy", R["bfs"].values, G["bfs_ref"], True)
     if not torch.equal(torch.isinf(R["sssp"].values), torch.isinf(G["sssp_ref"])):
         raise AssertionError("staged sssp: unreachable set differs from dijkstra")
@@ -1482,7 +1532,8 @@ def check_staged_path(G, R):
         check_close("staged sssp = unstaged", R["sssp"].values, alg.sssp(G["Aw"], 0).values, True)
         unstaged = alg.pr(G["Ap"], 0.85, 1e-6).values
     err = check_close("staged pr", R["pr"].values, unstaged, False, G["pr_ref64"])
-    print(f"staged path: mxv_masked (MULT/PLUS, PLUS/MIN) match the plain path; bfs equals scipy "
+    print(f"staged path: mxv_masked (MULT/PLUS, PLUS/MIN, MINUS/MIN) and vxm_masked_dense DIV/MAX match the "
+          f"plain path; bfs equals scipy "
           f"and the unstaged run, sssp dijkstra (rtol 1e-5) and the unstaged run bitwise; pr within "
           f"rtol 1e-5 of a float64 PageRank, {err:.3g} from the unstaged run", flush=True)
     proc = R["ab"]
@@ -1643,6 +1694,99 @@ def check_ops(G, R):
           f"({int(R['m_extract_column'].nnz)}) extracted; the vector chain at n={n} equals numpy; "
           f"bsr_spmv / bsr_spmm (n={OT.N_BAND}, {int(b.nnzb)} blocks of {b.block}, X of {OT.SPMM_COLS} columns) "
           f"within 1e-5 of float64; every call with no host sync", flush=True)
+
+
+# ---------------------------------------------------------------- signed zeros
+
+
+def zero_ties(n, add, seed):
+    """f32 values of the zeros slice: 40% +0.0, 40% -0.0, the rest in [0.5,
+    2) (MIN) or in (-2, -0.5] (MAX), so that a tie of +0.0 and -0.0 decides
+    most folds of their products with positive values."""
+    rng = np.random.default_rng(seed)
+    r = rng.random(n)
+    far = rng.uniform(0.5, 2.0, n) * (1.0 if add == "MIN" else -1.0)
+    return np.where(r < 0.4, np.float32(0.0), np.where(r < 0.8, np.float32(-0.0), far)).astype(np.float32)
+
+
+def flip_zeros(t):
+    """``t`` with its zeros' signs swapped: the other order of every tie."""
+    return torch.where(t == 0, -t, t)
+
+
+def zero_signs(t):
+    """``(+0.0 count, -0.0 count)`` of ``t``."""
+    z = t[t == 0]
+    neg = int(torch.signbit(z).sum())
+    return z.numel() - neg, neg
+
+
+def run_zeros(G):
+    """Phase 4's signed-zero slice: f32 MIN / MAX folds whose products tie at
+    +0.0 and -0.0, through the public ops, then again with every zero's sign
+    swapped (the other order of each tie): at n = 2^21 mxv_masked MULT/MIN
+    (kernel 1) and vxm_masked_dense DIV/MAX (x[j] / M[i, j]: kernel 1's
+    generic family), both again under MANUAL_DMA (kernel 7 and its family);
+    at n = 2^20 mxmT_masked MULT/MIN (kernel 5) and mxm MULT/MAX (kernel 9)
+    with B's values +-0.0 (A's positive)."""
+    n = N_SPMV
+    mask = DenseVec(torch.from_numpy((np.random.default_rng(18).random(n) < 0.7).astype(np.float32)).to(DEVICE),
+                    torch.tensor(0.0, device=DEVICE))
+    x = {add: torch.from_numpy(zero_ties(n, add, 19 + i)).to(DEVICE) for i, add in enumerate(("MIN", "MAX"))}
+    A, Bmin, Bmax = G["Zpos"], G["Zmin"], G["Zmax"]
+    R = {"mask": mask, "x": {}}
+    for flip in (False, True):
+        xmin = DenseVec(flip_zeros(x["MIN"]) if flip else x["MIN"], torch.tensor(7.0, device=DEVICE))
+        xmax = DenseVec(flip_zeros(x["MAX"]) if flip else x["MAX"], torch.tensor(7.0, device=DEVICE))
+        R["x"][flip] = xmin, xmax
+        for staged in (False, True):
+            with manual_dma(staged):
+                key = f"{'staged ' if staged else ''}{flip}"
+                R[f"mxv {key}"] = mxv_masked(mask, G["Minf"], xmin, op.MULT_FLOAT, op.MIN_FLOAT, op.NQZERO_FLOAT,
+                                             float("inf"))
+                R[f"vxm {key}"] = vxm_masked_dense(mask, xmax, G["M"], op.DIV_FLOAT, op.MAX_FLOAT,
+                                                   op.NQZERO_FLOAT, float("-inf"))
+        bmin = replace(Bmin, values=flip_zeros(Bmin.values)) if flip else Bmin
+        bmax = replace(Bmax, values=flip_zeros(Bmax.values)) if flip else Bmax
+        R[f"B {flip}"] = bmin, bmax
+        R[f"mxmT {flip}"] = mxmT_masked(A, A, bmin, op.MULT_FLOAT, op.MIN_FLOAT, op.ALWAYS_FLOAT, float("inf"))
+        R[f"mxm {flip}"] = mxm(A, bmax, op.MULT_FLOAT, op.MAX_FLOAT, float("-inf"))
+    torch.cuda.synchronize()
+    return R
+
+
+def check_zeros(G, R):
+    """Each result of the zeros slice bit for bit against the plain path
+    (whose folds put -0.0 below +0.0, as spla_tpu's scatters do); each holds
+    zeros of both signs."""
+    mask, sel, A = R["mask"], op.NQZERO_FLOAT, G["Zpos"]
+    counts = {}
+    for flip in (False, True):
+        xmin, xmax = R["x"][flip]
+        ref_mxv, _ = masked_spmv(G["Minf"], xmin.values, op.MULT_FLOAT, op.MIN_FLOAT, float("inf"),
+                                 mask_vals=mask.values, op_select=sel)
+        ref_vxm, has = masked_spmv(G["M"], xmax.values, lambda a, b: op.DIV_FLOAT(b, a), op.MAX_FLOAT,
+                                   float("-inf"), x_valid=xmax.stored_mask(), mask_vals=mask.values, op_select=sel)
+        ref_vxm = torch.where(has, ref_vxm, float("-inf"))
+        for staged in (False, True):
+            key = f"{'staged ' if staged else ''}{flip}"
+            check_close(f"zeros mxv_masked MULT/MIN {key}", R[f"mxv {key}"].values, ref_mxv, True)
+            check_close(f"zeros vxm_masked_dense DIV/MAX {key}", R[f"vxm {key}"].values, ref_vxm, True)
+        counts[f"mxv {flip}"], counts[f"vxm {flip}"] = zero_signs(ref_mxv), zero_signs(ref_vxm)
+        bmin, bmax = R[f"B {flip}"]
+        ref = mxmT_masked_plain(A, A, bmin, op.MULT_FLOAT, op.MIN_FLOAT, op.ALWAYS_FLOAT, float("inf"))
+        same_csr(f"zeros mxmT_masked MULT/MIN {flip}", R[f"mxmT {flip}"], ref)
+        counts[f"mxmT {flip}"] = zero_signs(ref.values[: int(ref.nnz)])
+        ref = K9.mxm_plain(A, bmax, op.MULT_FLOAT, op.MAX_FLOAT, float("-inf"))
+        same_mxm(f"zeros mxm MULT/MAX {flip}", R[f"mxm {flip}"], ref, True)
+        counts[f"mxm {flip}"] = zero_signs(ref.values[: int(ref.nnz)])
+        del ref
+    for what, (pos, neg) in counts.items():
+        if not (pos and neg):
+            raise AssertionError(f"zeros {what}: the result holds {pos} +0.0 and {neg} -0.0, want both")
+    print("zeros: mxv_masked MULT/MIN and vxm_masked_dense DIV/MAX at n={} (kernels 1 and 7, templated and "
+          "generic), mxmT_masked MULT/MIN and mxm MULT/MAX at n={} equal the plain path bit for bit in both "
+          "orders of each tie; (+0.0, -0.0) results: {}".format(N_SPMV, N_GRAPH, json.dumps(counts)), flush=True)
 
 
 # ---------------------------------------------------------------- the reference's surface
@@ -2477,7 +2621,8 @@ def time_pull(G, card):
     and kernel 1 at every team size, in turns (forward, then backward),
     MULT/PLUS f32, on the n = 2^21, powerlaw and hub graphs, with kernel 1's
     generic family on the same request and on BAND/BOR i32 (which only the
-    family serves) beside them; then kernel 7's plain version.  Returns
+    family serves), and kernel 7's generic family at the default slots on
+    the same request, beside them; then kernel 7's plain version.  Returns
     kernel 7's row, the library time and every time on the n = 2^21 graph."""
     for label, key in (("n=2^21", "M"), ("powerlaw", "P"), ("hub", "H")):
         M, Mi = G[key], G[f"{key}i"]
@@ -2495,6 +2640,7 @@ def time_pull(G, card):
                **{f"kernel 7 slots={s}": (lambda s=s: K7.spmv_pull_staged(M, x, op.MULT_FLOAT, op.PLUS_FLOAT,
                                                                           0.0, slots=s))
                   for s in K7.SLOT_COUNTS},
+               "kernel 7 generic": lambda: K7.spmv_pull_staged(M, x, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0, generic=True),
                **{phase: (lambda phase=phase: K8.spmv_probe(phase, M, x))
                   for phase in ("ring_copy", "ring_fold", "flat_gather")},
                "cuSPARSE": lambda: lib @ x}
@@ -2675,6 +2821,27 @@ def time_generic(G, times, pull_ms, card):
           f"{pull_ms['kernel 1']:.4f} ms ({k / pull_ms['kernel 1']:.3f}x); BAND/BOR i32 (generic only) "
           f"{pull_ms['kernel 1 generic BAND/BOR i32']:.4f} ms; plain {p:.4f} ms [{card}]", flush=True)
     return {"spmv_pull_generic": (k, p, *spmv_bound(G["M"]))}
+
+
+def time_staged_generic(G, times, pull_ms, card):
+    """Kernel 7's generic family beside its templated instance on the same
+    request, MULT/PLUS f32 at n = 2^21 and the default slots (time_pull's
+    rotation), then once each (CUDA events, 20 launches after 3) the six
+    muls only the family serves, with PLUS, beside kernel 1's family on the
+    same request.  Returns the family's row: the plain time and bound of
+    the same function on the same inputs."""
+    M = G["M"]
+    x = torch.from_numpy(np.random.default_rng(1).random(M.shape[0], dtype=np.float32)).to(DEVICE)
+    k, t = pull_ms["kernel 7 generic"], pull_ms[f"kernel 7 slots={K7.resolve_slots(None)}"]
+    print(f"time spmv_pull_staged_generic MULT/PLUS f32 n={N_SPMV} slots={K7.resolve_slots(None)}: generic "
+          f"{k:.4f} ms, templated {t:.4f} ms ({k / t:.3f}x) [{card}]", flush=True)
+    for mul in GENERIC_F32_MULS:
+        om = getattr(op.FLOAT, mul)
+        k7 = cuda_ms(lambda: K7.spmv_pull_staged(M, x, om, op.PLUS_FLOAT, 0.0))
+        k1 = cuda_ms(lambda: K1.spmv_pull(M, x, om, op.PLUS_FLOAT, 0.0))
+        print(f"time spmv_pull_staged_generic {mul}/PLUS f32 n={N_SPMV} slots={K7.resolve_slots(None)}: {k7:.4f} "
+              f"ms; kernel 1's family {k1:.4f} ms [{card}]", flush=True)
+    return {"spmv_pull_staged_generic": (k, times["spmv_pull_staged"][1], *spmv_bound(M))}
 
 
 def library_call(name, fn):
@@ -2965,7 +3132,8 @@ def main():
                                    ("dist", run_dist, check_dist),
                                    ("semirings", run_semirings, check_semirings),
                                    ("dense", run_dense, check_dense),
-                                   ("surface", run_surface, check_surface)):
+                                   ("surface", run_surface, check_surface),
+                                   ("zeros", run_zeros, check_zeros)):
         kernels.reset_launches()
         for k in DISPATCH_STATS:
             DISPATCH_STATS[k] = 0
@@ -3026,8 +3194,9 @@ def main():
         raise AssertionError(f"the semirings slice must launch {semirings_want} and take no torch path")
     staged = astats["staged"]
     print(f"staged: algorithms.STATS {json.dumps(staged)}", flush=True)
-    if launches["staged"]["spmv_pull"] or staged["pull"] == 0 or staged["resident"]:
-        raise AssertionError("under MANUAL_DMA every f32 and structural pull level must run kernel 7")
+    if launches["staged"]["spmv_pull"] or launches["staged"]["spmv_pull_generic"] or staged["pull"] == 0 \
+            or staged["resident"]:
+        raise AssertionError("under MANUAL_DMA every f32 request and structural pull level must run kernel 7")
 
     phase("6 times on the card")
     times = time_kernels(G, card)
@@ -3042,16 +3211,17 @@ def main():
     mxm_times, mxm_library_ms = time_mxm(G, card)
     times.update(mxm_times)
     times.update(time_generic(G, times, pull_ms, card))
+    times.update(time_staged_generic(G, times, pull_ms, card))
     dense_rows = time_dense(G, card)
     ops_rows = time_ops(G, results["ops"], card)
     facade_row = time_facade(G, card)
     dist_row = time_dist(G, results["dist"], card)
     torch.distributed.destroy_process_group()
 
-    # one PyTorch call computes the same function only for the pull SpMVs and mxm (kernel 1's
-    # generic family is timed on MULT/PLUS f32, which cuSPARSE computes too)
+    # one PyTorch call computes the same function only for the pull SpMVs and mxm (kernels 1's and 7's
+    # generic families are timed on MULT/PLUS f32, which cuSPARSE computes too)
     library = {"spmv_pull": cusparse_ms, "spmv_pull_generic": cusparse_ms, "spmv_pull_staged": cusparse_ms,
-               "spgemm_mxm": mxm_library_ms}
+               "spmv_pull_staged_generic": cusparse_ms, "spgemm_mxm": mxm_library_ms}
     rows_out, seen = [], set()
     for slice_name, kernel_names in PATHS.items():
         for k in kernel_names:
@@ -3111,6 +3281,13 @@ def build_graphs():
     aw.data = np.random.default_rng(2).uniform(0.1, 2.0, a.nnz).astype(np.float32)
     G["Aw_sp"] = aw
     G["Aw"] = F.csr_from_scipy(aw, fill=np.float32(np.inf), device=DEVICE)
+    # the zeros slice's operands: A's pattern with values in [0.5, 1.5), and with +-0.0 ties (zero_ties)
+    zp = a.copy()
+    zp.data = np.random.default_rng(20).uniform(0.5, 1.5, a.nnz).astype(np.float32)
+    G["Zpos"] = F.csr_from_scipy(zp, device=DEVICE)
+    for i, add in enumerate(("MIN", "MAX")):
+        zp.data = zero_ties(a.nnz, add, 21 + i)
+        G[f"Z{add.lower()}"] = F.csr_from_scipy(zp, device=DEVICE)
     outdeg = np.asarray(a.sum(axis=0)).ravel()
     outdeg[outdeg == 0] = 1
     G["Ap"] = F.csr_from_scipy(a.multiply(0.85 / outdeg).tocsr().astype(np.float32), device=DEVICE)

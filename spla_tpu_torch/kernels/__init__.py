@@ -21,7 +21,9 @@
   ``csrc/resident.cu``);
 * ``staged`` — kernel 7, the pull SpMV with its column and value streams
   staged through a ring of shared-memory slots by asynchronous copies
-  (CUDA, ``csrc/spmv_staged.cu``), taken under ``staged.MANUAL_DMA``;
+  (CUDA, ``csrc/spmv_staged.cuh``): its templated instances
+  (``csrc/spmv_staged.cu``) and its generic family (``csrc/spmv_staged_generic.cu``),
+  taken under ``staged.MANUAL_DMA``;
 * ``probe`` — kernel 8, the phase probes of kernels 1 and 7 (CUDA,
   ``csrc/spmv_probe.cu``): kernel 1's warp-per-row design before its
   redesign (phase ``warp_row``) and its parts, kernel 7's ring and its
@@ -34,7 +36,8 @@ Each wrapper runs its plain PyTorch version for CPU tensors, and launches
 its kernel or raises for CUDA tensors.  ``LAUNCHES`` counts the kernel
 launches of each wrapper, and nothing else (``sssp_push_level`` counts its
 two; ``spgemm_mxm`` one a call of its three steps); a launch of kernel 1's
-generic family counts as ``spmv_pull_generic``.  Importing these modules
+generic family counts as ``spmv_pull_generic``, one of kernel 7's as
+``spmv_pull_staged_generic``.  Importing these modules
 builds and loads nothing.
 """
 
@@ -45,7 +48,7 @@ PROBE_PHASES = ("stream", "gather", "fullfix", "alu", "xgather", "ring_copy", "r
 LAUNCHES = {"spmv_pull": 0, "spmv_pull_generic": 0, "spmv_push": 0, "level_update": 0, "bfs_push_level": 0,
             "sssp_push_level": 0,
             "mxmt_reduce": 0, "mxmt_masked": 0, "mxmt_gather": 0, "spgemm_mxm": 0,
-            "bfs_resident": 0, "sssp_resident": 0, "spmv_pull_staged": 0,
+            "bfs_resident": 0, "sssp_resident": 0, "spmv_pull_staged": 0, "spmv_pull_staged_generic": 0,
             **{f"spmv_probe_{phase}": 0 for phase in PROBE_PHASES}}
 
 

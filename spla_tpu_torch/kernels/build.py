@@ -71,6 +71,8 @@ SIGNATURES = {
     # cols, values, x, x_valid, row_sel, init (device pointer or null), init's 32 bits (when
     # null), out, has, stream
     "spla_spmv_staged": (_INT, _INT, _INT, _INT, _I64, *(_P,) * 13, ctypes.c_uint32, _P, _P, _P),
+    # mul, swap, add, then spla_spmv_staged's arguments from slots on
+    "spla_spmv_staged_generic": (_INT, _INT, _INT, _INT, _INT, _I64, *(_P,) * 13, ctypes.c_uint32, _P, _P, _P),
     # slots, stage, nunits, units, unit_hub, indptr, cols, x_valid, row_sel, hits, stream
     "spla_spmv_staged_structural": (_INT, _INT, _I64, *(_P,) * 8),
     # phase, m, n, indptr, cols, values, x, out_f, out_i, stream

@@ -10,7 +10,7 @@
 // * The stream update of a pull level, four vertices a thread (their bytes
 //   of hits and front, or their distances and hits, in one access each):
 //     BFS:  v' = front ? depth : v;  front' = hits and v' == 0;
-//     SSSP: v' = min(v, hits) (NaN propagates, as torch.minimum);  changed = v' < v;
+//     SSSP: v' = min(v, hits) (semiring.cuh op_min: NaN propagates, -0 below +0);  changed = v' < v;
 //   each vertex of the new frontier (or changed set) appended to the next
 //   list, one atomicAdd a block of 1,024 vertices.  In the level loop
 //   (`wide`) the list is one of frontier.cuh's, with its degree prefix, so
@@ -144,7 +144,7 @@ sssp_update_kernel(int32_t n, bool vec, const float* __restrict__ hits, float* _
 #pragma unroll
   for (int u = 0; u < kPerThread; ++u) {
     const long long i = i0 + u;
-    const float v2 = (h[u] < vi[u] || is_nan(h[u])) ? h[u] : vi[u];
+    const float v2 = op_min(vi[u], h[u]);
     ch[u] = v2 < vi[u];
     if (__float_as_uint(v2) != __float_as_uint(vi[u])) v[i] = v2;  // never past n: h is +inf there
     c_out |= static_cast<uint32_t>(ch[u]) << (8 * u);
@@ -177,7 +177,7 @@ sssp_touched_kernel(const int32_t* __restrict__ touched, const int32_t* __restri
       j = touched[t];
       const float h = hits[j], vj = v[j];
       hits[j] = __uint_as_float(kInfBits);
-      const float v2 = (h < vj || is_nan(h)) ? h : vj;
+      const float v2 = op_min(vj, h);
       ch = v2 < vj;
       if (__float_as_uint(v2) != __float_as_uint(vj)) v[j] = v2;
       if (ch) {

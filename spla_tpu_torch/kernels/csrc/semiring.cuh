@@ -1,5 +1,6 @@
 // Semiring operators shared by the SpMV and SpGEMM kernels (spmv_pull.cu,
-// spmv_pull_generic.cu, spmv_push.cu, spmv_staged.cu, mxmt.cu, spgemm.cu),
+// spmv_pull_generic.cu, spmv_push.cu, spmv_staged.cu, spmv_staged_generic.cu,
+// mxmt.cu, spgemm.cu),
 // and the fold of a row's chunks that kernels 1 and 7 share.
 //
 // Two kinds of instance.  The templated ones fix (mul, add, dtype) at
@@ -9,9 +10,9 @@
 // (MUL = kRuntimeMul: apply_mul switches on it, the same code in every lane
 // of a launch, so the branch never diverges); it covers every built-in mul,
 // an operand swap, u32 and the bitwise and logical adds (dispatch_generic).
-// Kernels 4, 5 and 9 have only the family; kernel 1 has both, its templated
-// instances serving the requests they hold (PERF.md: the family is ~3%
-// slower on a skewed graph).
+// Kernels 4, 5 and 9 have only the family; kernels 1 and 7 have both, their
+// templated instances serving the requests they hold (PERF.md: kernel 1's
+// family is ~3% slower on a skewed graph).
 #pragma once
 
 #include <cstdint>
@@ -30,10 +31,6 @@ constexpr int kRuntimeMul = 64;  // MUL of the generic instances: the mul is a k
 
 constexpr int kThreads = 256;  // 8 warps per block, one row (or frontier vertex) per warp
 constexpr unsigned kFullMask = 0xffffffffu;
-
-__device__ __forceinline__ bool is_nan(float a) { return a != a; }
-__device__ __forceinline__ bool is_nan(int32_t) { return false; }
-__device__ __forceinline__ bool is_nan(uint32_t) { return false; }
 
 // i32 PLUS, MINUS and MULT wrap, as in the reference; computed in uint32_t
 // because signed overflow is undefined behaviour in C++.  u32 wraps natively.
@@ -63,11 +60,33 @@ __device__ __forceinline__ int32_t op_div(int32_t a, int32_t b) {
 }
 __device__ __forceinline__ uint32_t op_div(uint32_t a, uint32_t b) { return b == 0 ? UINT32_MAX : a / b; }
 
-// torch.minimum / torch.maximum propagate NaN; fminf / fmaxf would drop it.
+// f32 MIN / MAX are IEEE 754-2019 minimum / maximum, as the port's MIN and
+// MAX ops (op.py _float_min): -0.0 is below +0.0 in either operand order,
+// so a fold's zero depends on neither the order of its entries nor the
+// device, and a NaN propagates (as the canonical NaN 0x7fffffff; fminf /
+// fmaxf would drop it).  PTX's min.NaN / max.NaN (sm_80 and later) are
+// exactly that, in one instruction: a compare and a select on the sign bit
+// measured 1.8-2.6% slower on kernels 7 and 9 (tools/tie_times.py; PERF.md).
 template <typename T>
-__device__ __forceinline__ T op_min(T a, T b) { return (a < b || is_nan(a)) ? a : b; }
+__device__ __forceinline__ T op_min(T a, T b) {
+  if constexpr (std::is_same_v<T, float>) {
+    float r;
+    asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+    return r;
+  } else {
+    return a < b ? a : b;
+  }
+}
 template <typename T>
-__device__ __forceinline__ T op_max(T a, T b) { return (a > b || is_nan(a)) ? a : b; }
+__device__ __forceinline__ T op_max(T a, T b) {
+  if constexpr (std::is_same_v<T, float>) {
+    float r;
+    asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+    return r;
+  } else {
+    return a > b ? a : b;
+  }
+}
 
 // LOR / LAND: 1 or 0 of the type; a NaN is nonzero.
 template <typename T>

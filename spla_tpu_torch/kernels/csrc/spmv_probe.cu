@@ -364,7 +364,7 @@ int launch_ring(const RingArgs& r) {
     if (err != cudaSuccess) return static_cast<int>(err);
     const StagedArgs a{static_cast<const int32_t*>(r.cols), static_cast<const float*>(r.values),
                        static_cast<const float*>(r.x), nullptr, nullptr, nullptr, 0.f,
-                       static_cast<float*>(r.out_f), nullptr};
+                       static_cast<float*>(r.out_f), nullptr, 0, false};
     kernel<<<grid, kThreads, smem, r.stream>>>(r.p, a, r.resident);
   } else {
     const auto kernel = spmv_ring_probe_kernel<SLOTS, PHASE>;

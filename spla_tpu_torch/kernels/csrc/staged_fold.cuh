@@ -32,6 +32,8 @@ struct StagedArgs {
   float init_value;
   float* out;
   uint8_t* has;       // the structural variant's hits
+  int mul;            // the generic family's mul (MUL = kRuntimeMul) and operand swap
+  bool swap;
 };
 
 template <int MUL, int ADD, bool STRUCT>
@@ -153,7 +155,7 @@ struct StagedFold {
 #pragma unroll
           for (int u = 0; u < kPerThread; ++u) {
             if (ok[u]) {
-              acc_t = apply_op<ADD>(acc_t, apply_op<MUL>(v[u], xv[u]));
+              acc_t = apply_op<ADD>(acc_t, apply_mul<MUL>(v[u], xv[u], a.mul, a.swap));
               any_t = true;
             }
           }
@@ -184,7 +186,7 @@ struct StagedFold {
 #pragma unroll
       for (int u = 0; u < kPerThread; ++u) {
         if (ok[u]) {
-          if (!STRUCT) acc = apply_op<ADD>(acc, apply_op<MUL>(v[u], xv[u]));
+          if (!STRUCT) acc = apply_op<ADD>(acc, apply_mul<MUL>(v[u], xv[u], a.mul, a.swap));
           any = true;
         }
       }

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import torch
 
+from ..op import MIN_FLOAT
 from . import LAUNCHES
 from .build import check, load_library
 from .frontier import LevelState, write_next_plain
@@ -71,7 +72,7 @@ def bfs_update_plain(hits, v, front, depth: int):
 def sssp_update_plain(hits, v, changed):
     """In place: ``v = min(v, hits)``, ``changed`` its decreased entries;
     returns them."""
-    new_v = torch.minimum(v, hits)
+    new_v = MIN_FLOAT(v, hits)
     new = new_v < v
     v.copy_(new_v)
     changed.copy_(new)

@@ -38,6 +38,8 @@ import torch
 
 from ..containers import CsrMatrix
 from ..formats import WeakIdCache
+from ..op import MIN_FLOAT
+from ..utils.segments import segment_fold
 from . import LAUNCHES
 from .build import check, load_library
 from .spmv import _on_cpu, _require_cuda, team_size
@@ -116,9 +118,9 @@ def sssp_resident_plain(A: CsrMatrix, source: int):
         rounds += 1
         wide += queue.numel() > wide_above
         src, e = _frontier_entries(A, queue)
-        hits = inf.expand(n).clone().scatter_reduce(0, A.cols[e].long(), d[src] + A.values[e],
-                                                    "amin")
-        new_d = torch.minimum(d, hits)
+        hits, _ = segment_fold(d[src] + A.values[e], A.cols[e], torch.ones_like(e, dtype=torch.bool), n,
+                               MIN_FLOAT, inf, sorted_ids=False)
+        new_d = MIN_FLOAT(d, hits)
         queue = torch.nonzero(new_d < d).flatten().to(torch.int32)
         d = new_d
     return d, _stats(rounds, queue.numel() > 0, wide, device)

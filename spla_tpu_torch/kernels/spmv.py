@@ -196,7 +196,7 @@ def semiring_codes(op_mul, op_add, dtype, int_adds=INT_ADDS):
 
 def templated(mul, add, dtype) -> bool:
     """Whether the codes have a templated instance of kernel 1 (the generic
-    family serves the others); kernel 7 has the f32 ones."""
+    family serves the others); kernel 7 has the f32 ones, and a family of its own."""
     return mul in TEMPLATED_MULS and add in PULL_ADDS and dtype in _TEMPLATED_DTYPES
 
 
@@ -272,14 +272,15 @@ def spmv_pull(A: CsrMatrix, x, op_mul, op_add, init, x_valid=None, row_sel=None,
     contiguous tensor the result is written to.  ``generic`` launches the
     generic family for a request a templated instance holds.
 
-    Under ``staged.MANUAL_DMA`` an f32 request that the kernels cover goes
-    to kernel 7 (``staged.spmv_pull_staged``, its plain version on CPU
-    tensors) with the default slot count; other requests stay here."""
+    Under ``staged.MANUAL_DMA`` every f32 request goes to kernel 7
+    (``staged.spmv_pull_staged``, its plain version on CPU tensors; with
+    ``generic``, its generic family) with the default slot count; i32 and
+    u32 requests stay here."""
     from . import staged  # imported here: staged imports this module
 
     if staged.staged_codes(op_mul, op_add, A.values.dtype, swap) is not None:
         return staged.spmv_pull_staged(A, x, op_mul, op_add, init, x_valid, row_sel, want_has, swap,
-                                       out=out)
+                                       out=out, generic=generic)
     if _on_cpu(A.values, x, x_valid, row_sel):
         res, has = spmv_pull_plain(A, x, op_mul, op_add, init, x_valid, row_sel, swap)
         return _into(out, res), (has if want_has else None)

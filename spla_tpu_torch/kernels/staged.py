@@ -5,8 +5,14 @@ Replaces ``spla_tpu/pallas/spmv.py`` ``fused_cell_spmv_apply_manual``
 VMEM buffers by hand one batch ahead of the compute.  It computes kernel
 1's function (``kernels/spmv.py``) for f32, with the same arguments and
 results, plus ``slots``; the column and value streams go through a ring of
-``slots`` shared-memory stages of ``stage`` entries (the CUDA source's
-header says how).
+``slots`` shared-memory stages of ``stage`` entries (the CUDA header
+``csrc/spmv_staged.cuh`` says how).  It takes every f32 request that
+spla_tpu's manual kernel takes (``staged_codes``: the 12 muls of f32 x
+PLUS, MIN, MAX), as kernel 1 does, through two kinds of instance: the
+templated ones of kernel 1's six muls (``csrc/spmv_staged.cu``) and a
+generic family whose mul is a kernel argument (``csrc/spmv_staged_generic.cu``;
+``generic=True`` sends a templated request there too, to hold the two
+against each other), counted in ``LAUNCHES["spmv_pull_staged_generic"]``.
 
 The switch is the reference's (``spla_tpu/pallas/spmv.py:2136-2137``):
 ``SPLA_MANUAL_DMA=1`` sets ``MANUAL_DMA``, under which kernel 1's wrappers
@@ -41,8 +47,8 @@ from ..formats import WeakIdCache
 from ..utils.segments import segment_fold
 from . import LAUNCHES
 from .build import check, load_library
-from .spmv import (_hits_arg, _init_arg, _into, _mask, _on_cpu, _out_arg, _ptr, _require_cuda, hub_scratch,
-                   pull_codes, templated)
+from .spmv import (_ORDERED, _hits_arg, _init_arg, _into, _mask, _on_cpu, _out_arg, _ptr, _require_cuda,
+                   hub_scratch, pull_codes, templated)
 
 __all__ = [
     "MANUAL_DMA",
@@ -111,17 +117,16 @@ def _check_stage(stage: int) -> int:
 
 
 def staged_codes(op_mul, op_add, dtype, swap=False):
-    """Kernel codes when ``MANUAL_DMA`` routes this request to kernel 7 (f32,
-    a semiring of kernel 1's templated instances), else None: kernel 1
-    takes every other request."""
+    """Kernel codes when ``MANUAL_DMA`` routes this request to kernel 7, else
+    None: every f32 request kernel 1 covers (spla_tpu's manual kernel is f32
+    only, ``spla_tpu/pallas/spmv.py:2064``); kernel 1 takes i32 and u32."""
     if not MANUAL_DMA:
         return None
     return _staged_codes(op_mul, op_add, dtype, swap)
 
 
 def _staged_codes(op_mul, op_add, dtype, swap):
-    codes = pull_codes(op_mul, op_add, dtype, swap) if dtype == torch.float32 else None
-    return codes if codes is not None and templated(*codes) else None
+    return pull_codes(op_mul, op_add, dtype, swap) if dtype == torch.float32 else None
 
 
 def long_row_len(stage: int) -> int:
@@ -221,15 +226,16 @@ def spmv_pull_staged_plain(A: CsrMatrix, x, op_mul, op_add, init, x_valid=None, 
 
 
 def spmv_pull_staged(A: CsrMatrix, x, op_mul, op_add, init, x_valid=None, row_sel=None,
-                     want_has=False, swap=False, slots=None, stage=MAX_STAGE, out=None):
+                     want_has=False, swap=False, slots=None, stage=MAX_STAGE, out=None, generic=False):
     """Kernel 7.  Returns ``(out, has)``; ``has`` is None unless ``want_has``.
     CPU tensors take the plain version; CUDA tensors launch the kernel, and
-    a request it does not cover (not f32, or not one of the 18 semirings of
-    kernel 1's templated f32 instances) raises.
+    a request it does not cover (not f32, or not one of the 36 f32
+    semirings of ``staged_codes``) raises.
     ``out``, if given, is the contiguous tensor the result is written to
     (kernel 1's ``out``, which ``spmv_pull`` passes on under ``MANUAL_DMA``).
     ``init`` reaches the kernel as kernel 1's does, by value or by device
-    pointer, so a call does not wait for the stream."""
+    pointer, so a call does not wait for the stream.  ``generic`` launches
+    the generic family for a request a templated instance holds."""
     slots = resolve_slots(slots)
     if _on_cpu(A.values, x, x_valid, row_sel):
         res, has = spmv_pull_staged_plain(A, x, op_mul, op_add, init, x_valid, row_sel, swap,
@@ -251,13 +257,18 @@ def spmv_pull_staged(A: CsrMatrix, x, op_mul, op_add, init, x_valid=None, row_se
     plan = staged_plan(A, stage)
     init_t, init_bits = _init_arg(init, x)
     has = torch.empty(m, dtype=torch.bool, device=x.device) if want_has else None
-    rc = load_library().spla_spmv_staged(
-        codes[0], codes[1], slots, _check_stage(stage), *_plan_args(plan), _ptr(plan.part),
-        _ptr(plan.part_any), _ptr(plan.done), A.indptr.data_ptr(), A.cols.data_ptr(), A.values.data_ptr(),
-        x.data_ptr(), _ptr(x_valid), _ptr(row_sel), _ptr(init_t), init_bits, out.data_ptr(), _ptr(has),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    args = (slots, _check_stage(stage), *_plan_args(plan), _ptr(plan.part), _ptr(plan.part_any), _ptr(plan.done),
+            A.indptr.data_ptr(), A.cols.data_ptr(), A.values.data_ptr(), x.data_ptr(), _ptr(x_valid),
+            _ptr(row_sel), _ptr(init_t), init_bits, out.data_ptr(), _ptr(has),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    mul, add, _ = codes
+    if generic or not templated(*codes):
+        rc, name = load_library().spla_spmv_staged_generic(mul, int(swap and mul in _ORDERED), add,
+                                                           *args), "spmv_pull_staged_generic"
+    else:
+        rc, name = load_library().spla_spmv_staged(mul, add, *args), "spmv_pull_staged"
     check(rc, what)
-    LAUNCHES["spmv_pull_staged"] += 1
+    LAUNCHES[name] += 1
     return out, has
 
 

@@ -164,7 +164,7 @@ def dist_sssp_pallas_overlap(mesh: Mesh, diag: ShardedCellSpmv, off: ShardedCell
     the changed entries."""
     def relax(v, changed, wait):
         local = min_plus(diag.block, v, changed)
-        return torch.minimum(local, min_plus(off.block, *wait()))
+        return OP.MIN_FLOAT(local, min_plus(off.block, *wait()))
 
     v, _ = sssp_loop(mesh, diag.mloc, int(source), _default_cap(frontier_cap, diag.mloc), relax, 0,
                      4 * diag.m + 1)

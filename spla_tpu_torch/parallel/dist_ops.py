@@ -272,7 +272,7 @@ def sssp_loop(mesh: Mesh, mloc: int, source: int, caps: tuple, relax, first_it: 
         cap = _tier(maxcnt, caps)
         comm = np.float32(comm + _tier_bytes(cap, mesh.size * mloc * 5, 8, mesh.size))
         sparse += cap is not None
-        new_v = torch.minimum(v, relax(v, changed, exchange_changed(mesh, v, changed, mloc, cap)))
+        new_v = OP.MIN_FLOAT(v, relax(v, changed, exchange_changed(mesh, v, changed, mloc, cap)))
         changed = new_v != v
         v = new_v
         count, maxcnt = _counts(mesh, changed)

@@ -3,7 +3,11 @@
 Two paths:
 
 * **scatter path** — when the combine op coincides with a
-  ``Tensor.scatter_reduce`` kind (sum, prod, amin, amax);
+  ``Tensor.scatter_reduce`` kind (sum, prod, amin, amax); float MIN / MAX
+  fold integer keys in the values' order with -0.0 below +0.0, so that a
+  fold's zero depends on neither the order of its entries nor the device
+  (the rule of the ops' MIN / MAX and of the kernels' ``op_min`` /
+  ``op_max``);
 * **generic path** — for any other associative op (BOR, LOR, user ops, ...),
   a segmented inclusive scan over (value, has, segment-head) triples, with
   validity flags so that the op needs no identity.
@@ -19,6 +23,27 @@ __all__ = ["scalar_on", "segmented_scan_fold", "segment_fold", "combine_segments
 
 _REDUCE = {"add": "sum", "mul": "prod", "min": "amin", "max": "amax"}
 _FULL = {"add": torch.sum, "mul": torch.prod, "min": torch.amin, "max": torch.amax}
+
+
+_KEY_DTYPES = {torch.float32: torch.int32, torch.float64: torch.int64}
+
+
+def _flip(bits):
+    """Signed integer bits of floats to and from order keys: a negative
+    value's magnitude bits inverted (an involution)."""
+    return bits ^ ((bits >> (8 * bits.element_size() - 1)) & torch.iinfo(bits.dtype).max)
+
+
+def _order_keys(t):
+    """Float ``t`` as signed integers in the order of its values, -0.0 just
+    below +0.0 (IEEE 754-2019 ``minimum`` / ``maximum``, op.py ``_float_min``);
+    a NaN gets a key that means nothing."""
+    return _flip(t.view(_KEY_DTYPES[t.dtype]))
+
+
+def _from_keys(keys, dtype):
+    """The floats of ``_order_keys``' keys."""
+    return _flip(keys).view(dtype)
 
 
 def segmented_scan_fold(values, valid, heads, op):
@@ -76,15 +101,25 @@ def segment_fold(values, seg_ids, valid, num_segments, op, init, sorted_ids=True
 
     scatter = getattr(op, "scatter", None)
     if scatter is not None:
-        work = values.to(torch.int64) if values.dtype == torch.uint32 else values
-        init_w = init.to(work.dtype)
+        # f32 MIN / MAX fold order keys (``_order_keys``), so that -0.0 lies below +0.0 whatever
+        # the order of the entries or the device's atomics; NaN, which keys do not order, is put
+        # back by a pass of its own (it propagates, as in the ops' MIN / MAX and the JAX scatter)
+        keyed = scatter in ("min", "max") and values.is_floating_point()
+        if keyed:
+            work, init_w = _order_keys(values), _order_keys(init)
+        else:
+            work = values.to(torch.int64) if values.dtype == torch.uint32 else values
+            init_w = init.to(work.dtype)
         if num_segments == 1:
             # one segment: a tree reduction, whose f32 error grows with log k, not with k as a
             # chain of atomic adds to one address does (1.2e-5 of 2^17 sums on the H100)
             neutral = init_w if scatter in ("min", "max") else (1 if scatter == "mul" else 0)
             total = _FULL[scatter](torch.cat([init_w.reshape(1), torch.where(valid, work, neutral)]))
             out = total.to(work.dtype).reshape(1)
-            if values.dtype == torch.uint32:
+            if keyed:
+                nan = torch.isnan(init) | (torch.isnan(values) & valid).any()
+                out = torch.where(nan, torch.nan, _from_keys(out, values.dtype))
+            elif values.dtype == torch.uint32:
                 out = (out & 0xFFFFFFFF).to(torch.uint32)
             return out, valid.any().reshape(1)
         seg = torch.where(valid, seg_ids.long(), num_segments)
@@ -92,13 +127,11 @@ def segment_fold(values, seg_ids, valid, num_segments, op, init, sorted_ids=True
         safe = torch.where(valid, work, neutral)
         out = init_w.expand(num_segments + 1).clone()
         out.scatter_reduce_(0, seg, safe, _REDUCE[scatter], include_self=True)
-        if scatter in ("min", "max") and work.is_floating_point():
-            # NaN propagates, as in torch.minimum and the JAX scatter; a
-            # device's atomic min/max may drop it
-            nan_seg = torch.zeros(num_segments + 1, dtype=torch.bool, device=device)
-            nan_seg.index_fill_(0, torch.where(torch.isnan(safe), seg, num_segments), True)
-            out = torch.where(nan_seg, torch.nan, out)
-        if values.dtype == torch.uint32:
+        if keyed:
+            nan_seg = torch.isnan(init).expand(num_segments + 1).clone()
+            nan_seg.index_fill_(0, torch.where(torch.isnan(values), seg, num_segments), True)
+            out = torch.where(nan_seg, torch.nan, _from_keys(out, values.dtype))
+        elif values.dtype == torch.uint32:
             out = (out & 0xFFFFFFFF).to(torch.uint32)
         has = torch.zeros(num_segments + 1, dtype=torch.bool, device=device)
         has.index_fill_(0, seg, True)

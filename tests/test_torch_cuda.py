@@ -57,8 +57,18 @@ def _graph(n=3000, seed=0, hub=5000):
 
 
 def _assert_same(got, ref):
-    # bitwise, NaN equal to NaN
-    torch.testing.assert_close(got.cpu(), ref.cpu(), rtol=0, atol=0, equal_nan=True)
+    """Bit for bit (a zero's sign counts), NaN equal to NaN whatever its payload."""
+    got, ref = got.cpu(), ref.cpu()
+    assert got.dtype == ref.dtype and got.shape == ref.shape, (got.dtype, ref.dtype, got.shape, ref.shape)
+    if got.is_floating_point():
+        nan = torch.isnan(got)
+        assert torch.equal(nan, torch.isnan(ref)), "NaN positions differ"
+        ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}[got.element_size()]
+        got, ref = got.masked_fill(nan, 0).view(ints), ref.masked_fill(nan, 0).view(ints)
+    elif got.dtype == torch.uint32:
+        got, ref = got.view(torch.int32), ref.view(torch.int32)
+    bad = got != ref
+    assert not bool(bad.any()), f"{int(bad.sum())} of {bad.numel()} differ, first at {torch.nonzero(bad)[0].tolist()}"
 
 
 def _pull_graph(name, n=3001):
@@ -1438,6 +1448,202 @@ def test_manual_dma_routes_f32_to_kernel7(dev, manual_dma, monkeypatch):
     for name, fn in (("bfs", alg.bfs), ("sssp", alg.sssp)):
         _assert_same(staged[name], fn(A, 0, Descriptor(pull_only=True)).values)
     torch.testing.assert_close(staged["pr"], alg.pr(A, 0.85, 1e-6).values, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("graph", ["deg1", "deg16", "deg64", "hub", "hub_ends"])
+@pytest.mark.parametrize("stage", [16, 1024])
+def test_spmv_pull_staged_generic_matches_plain(dev, graph, stage):
+    """Kernel 7's generic family (the mul a kernel argument) against its plain
+    version: every f32 (mul, add), each with one of the three mask and
+    operand-order settings and one slot count in turn (the swap reaches
+    MINUS, DIV and MINUS_POW2), the templated requests sent to the family by
+    ``generic=True``; f32 PLUS within the tolerance, MIN and MAX bitwise."""
+    A = _typed_pull_matrix(graph, "f32", dev)
+    n = A.shape[0]
+    rng = np.random.default_rng(35)
+    x = _typed_x(n, "f32", dev, rng)
+    x_valid = torch.from_numpy(rng.random(n) < 0.8).to(dev)
+    row_sel = torch.from_numpy(rng.random(n) < 0.6).to(dev)
+    settings = ((None, None, False), (x_valid, row_sel, False), (x_valid, row_sel, True))
+    k = 0
+    for add in GENERIC_ADDS["f32"]:
+        oa = getattr(op.FLOAT, add)
+        for mul in GENERIC_MULS["f32"]:
+            om = getattr(op.FLOAT, mul)
+            xv, rs, swap = settings[k % 3]
+            slots = K7.SLOT_COUNTS[(k // 3) % 3]
+            k += 1
+            kernels.reset_launches()
+            got, has = K7.spmv_pull_staged(A, x, om, oa, oa.identity, xv, rs, want_has=True, swap=swap,
+                                           slots=slots, stage=stage, generic=True)
+            assert kernels.LAUNCHES["spmv_pull_staged_generic"] == 1 and kernels.LAUNCHES["spmv_pull_staged"] == 0
+            ref, ref_has = K7.spmv_pull_staged_plain(A, x, om, oa, oa.identity, xv, rs, swap, stage=stage)
+            assert torch.equal(has, ref_has), (mul, add)
+            _same_values(got, ref, add == "PLUS")
+
+
+def test_manual_dma_takes_every_f32_request_on_kernel7(dev, manual_dma):
+    """Under MANUAL_DMA, mxv_masked and vxm_masked_dense with each of the 36
+    f32 (mul, add) requests count as a kernel dispatch and launch kernel 7
+    once (its templated instance for the six muls, its generic family for
+    MINUS, DIV, MINUS_POW2, BONE, LOR and LAND) and kernel 1 never, with the
+    CPU's results (f32 PLUS within rtol 1e-5, MIN and MAX bitwise)."""
+    A, Ac = (_typed_pull_matrix("hub", "f32", d) for d in (dev, "cpu"))
+    n = A.shape[0]
+    rng = np.random.default_rng(34)
+    xc = _typed_x(n, "f32", "cpu", rng)
+    mc = torch.from_numpy((rng.random(n) < 0.7).astype(np.float32))
+    on = {d: (DenseVec(mc.to(d), torch.tensor(0.0, device=d)), DenseVec(xc.to(d), torch.tensor(7.0, device=d)),
+              A if d == dev else Ac) for d in (dev, "cpu")}
+    calls = {"mxv_kernel": lambda mask, x, M, om, oa: TS.mxv_masked(mask, M, x, om, oa, op.NQZERO_FLOAT, oa.identity),
+             "vxm_kernel": lambda mask, x, M, om, oa: TS.vxm_masked_dense(mask, x, M, om, oa, op.NQZERO_FLOAT,
+                                                                          oa.identity)}
+    for add in GENERIC_ADDS["f32"]:
+        oa = getattr(op.FLOAT, add)
+        for mul in GENERIC_MULS["f32"]:
+            om = getattr(op.FLOAT, mul)
+            name = "spmv_pull_staged" if K1.templated(*K1.pull_codes(om, oa, torch.float32)) else \
+                "spmv_pull_staged_generic"
+            for route, call in calls.items():
+                kernels.reset_launches()
+                before = dict(TS.DISPATCH_STATS)
+                got = call(*on[dev], om, oa).values
+                moved = {k: TS.DISPATCH_STATS[k] - before[k] for k in before if TS.DISPATCH_STATS[k] != before[k]}
+                launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
+                assert moved == {route: 1} and launched == {name: 1}, (mul, add, route, moved, launched)
+                _same_values(got, call(*on["cpu"], om, oa).values, add == "PLUS")
+
+
+# ---------------------------------------------------------------- signed zeros (IEEE 754-2019 MIN / MAX)
+
+
+def _signed_zeros(n, add, rng, neg=0.5):
+    """f32 values, 80% zeros (a share ``neg`` of them -0.0), the rest in
+    [0.5, 2) (MIN) or in (-2, -0.5] (MAX), so that a tie of +0.0 and -0.0
+    decides most folds."""
+    r = rng.random(n)
+    far = rng.uniform(0.5, 2.0, n) * (1.0 if add == "MIN" else -1.0)
+    zero = np.where(rng.random(n) < neg, np.float32(-0.0), np.float32(0.0))
+    return np.where(r < 0.8, zero, far).astype(np.float32)
+
+
+def _flip_zeros(t):
+    """``t`` with its zeros' signs swapped: the other order of every tie."""
+    return torch.where(t == 0, -t, t)
+
+
+def _both_signs(t):
+    """Whether ``t`` holds +0.0 and -0.0."""
+    z = t[t == 0]
+    return bool(torch.signbit(z).any()) and bool((~torch.signbit(z)).any())
+
+
+@pytest.mark.parametrize("add", ["MIN", "MAX"])
+@pytest.mark.parametrize("graph", ["deg1", "deg6", "deg64", "hub", "hub_ends"])
+def test_pull_kernels_fold_signed_zeros_by_the_rule(dev, graph, add):
+    """Kernels 1 and 7, templated and generic, at 2, 3 and 4 slots, on x of
+    +-0.0 (A's values positive) and on x with its zeros' signs swapped (the
+    other order of every tie): bit for bit their plain version, which puts
+    -0.0 below +0.0; MULT, the add as the mul in both operand orders, and
+    DIV under vxm's swap.  The -0.0 share of x's zeros is set by the mean
+    row length so that about half the rows fold no -0.0 (MIN) or, swapped,
+    no +0.0 (MAX): the MULT results of the two orders hold zeros of both signs."""
+    A = _pull_matrix(graph, "f32", dev)
+    A = replace(A, values=A.values + 0.5)
+    n = A.shape[0]
+    rng = np.random.default_rng(31)
+    oa = getattr(op.FLOAT, add)
+    zeros_a_row = 0.8 * 0.9 * int(A.nnz) / n
+    x0 = torch.from_numpy(_signed_zeros(n, add, rng, 1 - 0.5 ** (1 / max(zeros_a_row, 1.0)))).to(dev)
+    x_valid = torch.from_numpy(rng.random(n) < 0.9).to(dev)
+    products = []
+    for x in (x0, _flip_zeros(x0)):
+        for om, swap in ((op.MULT_FLOAT, False), (oa, False), (oa, True), (op.DIV_FLOAT, True)):
+            ref, _ = K1.spmv_pull_plain(A, x, om, oa, oa.identity, x_valid, None, swap)
+            if om is op.MULT_FLOAT:
+                products.append(ref)
+            for generic in (False, True):
+                _assert_same(K1.spmv_pull(A, x, om, oa, oa.identity, x_valid, swap=swap, generic=generic)[0], ref)
+                for slots in K7.SLOT_COUNTS:
+                    _assert_same(K7.spmv_pull_staged(A, x, om, oa, oa.identity, x_valid, swap=swap, slots=slots,
+                                                     generic=generic)[0], ref)
+    assert _both_signs(torch.cat(products))
+
+
+@pytest.mark.parametrize("add", ["MIN", "MAX"])
+@pytest.mark.parametrize("graph", ["hub", "deg48"])
+def test_mxmt_masked_folds_signed_zeros_by_the_rule(dev, graph, add):
+    """Kernel 5 with B's values +-0.0 (A's positive), and with their zeros'
+    signs swapped: bit for bit its plain version; MULT and the add as the mul."""
+    mask, A = _mxmt_operands(dev, "f32", graph)
+    B = replace(A, values=torch.from_numpy(_signed_zeros(A.capacity, add, np.random.default_rng(32))).to(dev))
+    oa = getattr(op.FLOAT, add)
+    for Bz in (B, replace(B, values=_flip_zeros(B.values))):
+        for om in (op.MULT_FLOAT, oa):
+            got, has = K45.mxmt_masked(mask, A, Bz, om, oa, oa.identity)
+            ref, ref_has = K45.mxmt_masked_plain(mask, A, Bz, om, oa, oa.identity)
+            assert torch.equal(has, ref_has)
+            _assert_same(got, ref)
+            assert om is not op.MULT_FLOAT or _both_signs(ref[ref_has])
+
+
+@pytest.mark.parametrize("add", ["MIN", "MAX"])
+def test_mxm_folds_signed_zeros_by_the_rule(dev, add):
+    """Kernel 9 with B's values +-0.0 (A's positive), rows in all three bins
+    (the large bin's CAS folds, the medium bin's sorted folds), and with
+    the zeros' signs swapped: bit for bit its plain version."""
+    A, B = _bins_operands(dev, "f32")
+    B = replace(B, values=torch.from_numpy(_signed_zeros(B.capacity, add, np.random.default_rng(33))).to(dev))
+    oa = getattr(op.FLOAT, add)
+    for Bz in (B, replace(B, values=_flip_zeros(B.values))):
+        for om in (op.MULT_FLOAT, oa):
+            ref = K9.mxm_plain(A, Bz, om, oa, oa.identity)
+            _same_csr(K9.mxm(A, Bz, om, oa, oa.identity), ref)
+            assert om is not op.MULT_FLOAT or _both_signs(ref.values[:int(ref.nnz)])
+
+
+def test_atomics_and_level_updates_order_signed_zeros(dev):
+    """Kernels 2 and 6 fold with integer atomics on the floats' bits
+    (csrc/frontier.cuh atomic_fold, csrc/resident.cu atomic_min_float),
+    which put -0.0 below +0.0.  Kernel 2: products of +-0.0 from half the
+    vertices scattered into their columns, the frontier in two orders and
+    the zeros' signs swapped, MIN and MAX: bit for bit the plain version.
+    Kernel 3's SSSP update (op_min) on ties of +-0.0 in both orders.
+    Kernel 6: SSSP over weights of +-0.0, both ways: the plain version's
+    bits; no distance is -0.0 there (+0.0 + -0.0 is +0.0)."""
+    a = _graph(seed=2)
+    n = a.shape[0]
+    rng = np.random.default_rng(36)
+    A = F.csr_from_scipy(a, device=dev)
+    front = torch.from_numpy(rng.choice(n, n // 2, replace=False).astype(np.int32)).to(dev)
+    for add in ("MIN", "MAX"):
+        oa = getattr(op.FLOAT, add)
+        x = torch.from_numpy(_signed_zeros(n, add, rng)).to(dev)
+        for xx, ff in ((x, front), (_flip_zeros(x), front.flip(0))):
+            ref = K2.spmv_push_plain(A, ff, xx, op.MULT_FLOAT, oa, oa.identity)
+            _assert_same(K2.spmv_push(A, ff, xx, op.MULT_FLOAT, oa, oa.identity), ref)
+            assert _both_signs(ref)
+    hits = torch.from_numpy(_signed_zeros(n, "MIN", rng)).to(dev)
+    v0 = torch.from_numpy(_signed_zeros(n, "MIN", rng)).to(dev)
+    for h, v_start in ((hits, v0), (v0, hits)):
+        res = []
+        for fn in (K3.sssp_level_update, K3.sssp_level_update_plain):
+            v, ch = v_start.clone(), torch.zeros(n, dtype=torch.bool, device=dev)
+            lst = torch.empty(n, dtype=torch.int32, device=dev)
+            cnt = torch.zeros(1, dtype=torch.int32, device=dev)
+            fn(h, v, ch, lst, cnt)
+            res.append((v, ch, torch.sort(lst[: int(cnt)]).values))
+        for got, ref in zip(*res):
+            _assert_same(got, ref)
+        assert _both_signs(res[1][0])
+    road = _road(48)
+    w = _signed_zeros(road.nnz, "MIN", rng)
+    for data in (w, np.where(w == 0, -w, w).astype(np.float32)):
+        R = F.csr_from_scipy(sp.csr_matrix((data, road.indices, road.indptr), shape=road.shape),
+                             fill=np.float32(np.inf), device=dev)
+        d, _ = K6.sssp_resident(R, 0)
+        _assert_same(d, K6.sssp_resident_plain(R, 0)[0])
+        assert not bool(torch.signbit(d[d == 0]).any())
 
 
 # ---------------------------------------------------------------- the op layer (plain PyTorch, no kernel)

@@ -18,11 +18,12 @@ import torch
 import jax.numpy as jnp
 
 import spla_tpu.formats as JF
+import spla_tpu.op as JOP
 
 from spla_tpu_torch import formats as F, op as OP
 from spla_tpu_torch.interop import csr_from_numpy, from_spla_tpu, to_numpy
 from spla_tpu_torch.kernels import PROBE_PHASES, probe as K8, spmv as K1, staged as K7
-from spla_tpu_torch.tools import ab_spmv, probe_spmv
+from spla_tpu_torch.tools import ab_spmv, probe_spmv, tie_times
 from spla_tpu_torch.tools.graphs import build_graph
 
 SEMIRINGS = [("MULT", "PLUS", 0.0), ("PLUS", "MIN", np.inf), ("MIN", "MAX", -np.inf)]
@@ -46,7 +47,7 @@ def _plus(u, v):
 
 
 _JAX_MUL = {"MULT": _mult, "PLUS": _plus}
-_JAX_ADD = {"PLUS": jnp.add, "MIN": jnp.minimum}
+_JAX_ADD = {"PLUS": jnp.add, "MIN": jnp.minimum, "MAX": jnp.maximum}
 
 
 def _coo(m, n, nnz, seed, hub_rows=0):
@@ -76,21 +77,49 @@ def _both(m, n, rows, cols, vals):
     return fmt, from_spla_tpu(JF.csr_from_scipy(a), "cpu")
 
 
-@pytest.mark.parametrize("mul,add,init", SEMIRINGS[:2])
+# kernel 7's generic family's muls (every f32 mul of spla_tpu's manual kernel beyond the six
+# templated ones), each with one of the three adds
+GENERIC_SEMIRINGS = [("MINUS", "PLUS", 0.0), ("DIV", "MIN", np.inf), ("MINUS_POW2", "MAX", -np.inf),
+                     ("BONE", "PLUS", 0.0), ("LOR", "MAX", -np.inf), ("LAND", "MIN", np.inf)]
+
+
+@pytest.mark.parametrize("mul,add,init", SEMIRINGS[:2] + GENERIC_SEMIRINGS)
 def test_staged_plain_matches_manual_dma_kernel(mul, add, init):
     """spmv_pull_staged_plain against fused_cell_spmv_apply_manual (interpret
-    mode) at the JAX test's size: MULT/PLUS within tolerance, MIN-plus
-    bitwise; rows with no entries hold the identity in both."""
+    mode) at the JAX test's size: PLUS within tolerance, MIN and MAX
+    bitwise; rows with no entries hold the identity in both.  The first two
+    semirings are templated instances of kernel 7, the others its generic
+    family's (spla_tpu's own ops as the JAX mul)."""
     from spla_tpu.pallas.spmv import fused_cell_spmv_apply_manual
 
     m, n = 16384, 40000
     rows, cols, vals, rng = _coo(m, n, 60000, 23)
     x = rng.random(n, dtype=np.float32)
     fmt, A = _both(m, n, rows, cols, vals)
-    want = fused_cell_spmv_apply_manual(fmt, jnp.asarray(x), _JAX_MUL[mul], _JAX_ADD[add], init)
+    jmul = _JAX_MUL[mul] if mul in _JAX_MUL else JOP.lookup(mul, JOP.FLOAT)
+    want = fused_cell_spmv_apply_manual(fmt, jnp.asarray(x), jmul, _JAX_ADD[add], init)
     got, _ = K7.spmv_pull_staged_plain(A, torch.from_numpy(x), OP.lookup(mul, OP.FLOAT),
                                        OP.lookup(add, OP.FLOAT), init)
     _close(got, want, add == "PLUS")
+
+
+def test_staged_codes_take_every_f32_request_of_kernel_1(monkeypatch):
+    """Under MANUAL_DMA kernel 7 takes every f32 request kernel 1's gate
+    admits (the 12 muls of f32 x PLUS, MIN, MAX, both operand orders), and
+    no i32 or u32 one: spla_tpu's manual kernel is f32 only."""
+    monkeypatch.setattr(K7, "MANUAL_DMA", True)
+    muls = ("PLUS", "MULT", "FIRST", "SECOND", "MIN", "MAX", "MINUS", "DIV", "MINUS_POW2", "BONE", "LOR", "LAND")
+    taken = {(mul, add, swap) for mul in muls for add in ("PLUS", "MIN", "MAX") for swap in (False, True)
+             if K7.staged_codes(OP.lookup(mul, OP.FLOAT), OP.lookup(add, OP.FLOAT), torch.float32, swap)
+             == K1.pull_codes(OP.lookup(mul, OP.FLOAT), OP.lookup(add, OP.FLOAT), torch.float32, swap)}
+    assert len(taken) == 72
+    generic = {mul for mul, add, _ in taken if not K1.templated(*K1.pull_codes(
+        OP.lookup(mul, OP.FLOAT), OP.lookup(add, OP.FLOAT), torch.float32))}
+    assert generic == set(muls[6:])
+    for T in (OP.INT, OP.UINT):
+        assert K7.staged_codes(OP.lookup("MULT", T), OP.lookup("PLUS", T), T.dtype) is None
+    monkeypatch.setattr(K7, "MANUAL_DMA", False)
+    assert K7.staged_codes(OP.MULT_FLOAT, OP.PLUS_FLOAT, torch.float32) is None
 
 
 def test_pin_manual_dma_fewer_batches_than_slots(monkeypatch):
@@ -495,3 +524,5 @@ def test_tools_refuse_a_cuda_run_without_a_card():
         ab_spmv.run(n=64, deg=2, iters=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         probe_spmv.run(n=64, deg=2, iters=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tie_times.main([])
