@@ -24,13 +24,18 @@ BFS and SSSP take one of two routes, as the JAX package does
 Host sync: the level loop reads the frontier count (PageRank: the error) on
 the host once per level, as the C++ reference does
 (``src/algorithm.cpp:112``); the resident route reads its round count once
-per run.  The JAX version has no such sync: each loop is one
+per run.  From the counts it reads, the loop counts each level's work in
+``STATS`` (``push_edges``, ``pull_entries``) with no read of its own, and
+it names its phases in a ``torch.profiler`` trace
+(``profiling.span``: ``spla.bfs`` / ``sssp`` / ``pr``, ``spla.level.push`` /
+``pull`` / ``read``).  The JAX version has no such sync: each loop is one
 ``lax.while_loop`` whose convergence scalar stays on the device
 (``spla_tpu/algorithms.py:8-12``).  ``tc`` reads its one result.
 """
 
 from __future__ import annotations
 
+import itertools
 from collections import deque
 from dataclasses import replace
 
@@ -48,6 +53,7 @@ from .kernels.spmv import spmv_pull, spmv_pull_structural
 from .kernels.traversal import bfs_push_level, sssp_push_level
 from .ops.matrix import m_reduce
 from .ops.spgemm import mxmT_masked, mxmT_masked_reduce
+from .profiling import span
 from .types import type_from_dtype
 from .utils.bits import bits
 
@@ -58,9 +64,12 @@ __all__ = ["STATS", "RESIDENT_BYTES", "resident_bytes", "bfs", "sssp", "pr", "tc
 # resident route: its rounds), push and pull levels, host syncs, BFS/SSSP
 # runs on each route, resident runs stopped by the n + 2 round cap, and the
 # resident rounds that ran on kernel 6's whole grid.  The loops read
-# nothing else on the host.
+# nothing else on the host.  The level loop's work: ``push_edges``, the
+# stored entries of the lists its push levels walked (kernel 2), and
+# ``pull_entries``, those of the rows its pulls selected (kernel 1; a
+# PageRank iteration selects every row), as ``_run_levels`` counts them.
 STATS = {"levels": 0, "push": 0, "pull": 0, "host_syncs": 0, "resident": 0, "level_loop": 0,
-         "capped": 0, "wide_rounds": 0}
+         "capped": 0, "wide_rounds": 0, "push_edges": 0, "pull_entries": 0}
 
 # What the resident route may hold: the H100's 50 MB L2, the counterpart of
 # RESIDENT_VMEM (spla_tpu/pallas/spmv.py:2456) on the TPU.
@@ -68,6 +77,9 @@ RESIDENT_BYTES = 50 * 1024 * 1024
 
 _AT_CACHE = WeakIdCache()  # default Aᵀ per matrix; True = A is symmetric
 _TC_PATTERN_CACHE = WeakIdCache()  # is-0/1-pattern verdicts, keyed on values
+_STORED_CACHE = WeakIdCache()  # stored entries per matrix, keyed on indptr
+_QUERIES = itertools.count(1)  # the query number a public call's span carries
+_LEVEL_SPANS = ("spla.level.pull", "spla.level.push")  # by push
 
 
 def _default_At(A: CsrMatrix) -> CsrMatrix:
@@ -110,6 +122,15 @@ def _front_factor_of(descriptor) -> float:
     if descriptor.pull_only:
         return 0.0
     return descriptor.front_factor
+
+
+def _stored(M: CsrMatrix) -> int:
+    """M's stored entries (one host read per matrix, cached)."""
+    hit = _STORED_CACHE.get(M.indptr)
+    if hit is None:
+        hit = int(M.nnz)
+        _STORED_CACHE.put(M.indptr, hit)
+    return hit
 
 
 def _host_count(S: LevelState) -> int:
@@ -158,6 +179,35 @@ def _read_resident(stats) -> None:
     STATS["resident"] += 1
 
 
+def _run_levels(S: LevelState, At: CsrMatrix, descriptor, level, unvisited_rows: bool) -> None:
+    """The level loop: ``level(S, At, push)`` until a level writes an empty
+    list, one host read a level.  From each read it counts the level's
+    work in ``STATS``: a push level walks its list's edges
+    (``push_edges``, the source's degree among them); a pull level walks
+    the stored entries of the rows that kernel 1 selects
+    (``pull_entries``).  BFS (``unvisited_rows``) selects the unvisited
+    rows: every visited vertex went through exactly one list, so with
+    ``At`` the push matrix they hold At's entries less the edges of every
+    list so far; with another ``At`` (a directed graph) all of At's are
+    counted, an upper bound.  SSSP's pulls select every row."""
+    ff = _front_factor_of(descriptor)
+    n = At.shape[0]
+    stored = _stored(At)
+    rows_left = unvisited_rows and At is S.A
+    walked, count = 0, 1
+    while count > 0:
+        push = _pushes(count, n, ff)
+        with span(_LEVEL_SPANS[push]):
+            level(S, At, push)
+        with span("spla.level.read"):
+            count = _host_count(S)
+        walked += S.walked
+        if push:
+            STATS["push_edges"] += S.walked
+        else:
+            STATS["pull_entries"] += stored - walked if rows_left else stored
+
+
 def bfs_level(S: LevelState, At: CsrMatrix, push: bool) -> None:
     """One BFS level: kernel 2's push level, or kernel 1's pull over ``At``
     (the unvisited rows only) and kernel 3's update."""
@@ -188,22 +238,19 @@ def bfs(A: CsrMatrix, source: int, descriptor: Descriptor | None = None,
     Aᵀ, which pull walks; it defaults to a cached transpose of A (A itself
     when A is symmetric).  ``At=A`` declares A symmetric and skips that
     check: push, and the resident route, then walk A's rows."""
-    if At is None:
-        At = _default_At(A)
-    Apush = _push_matrix(A, At)
-    if _takes_resident(At, Apush, sssp=False):
-        v, stats = bfs_resident(Apush, int(source))
-        _read_resident(stats)
-        return DenseVec(v, torch.zeros((), dtype=torch.int32, device=v.device))
-    STATS["level_loop"] += 1
-    ff = _front_factor_of(descriptor)
-    n = At.shape[0]
-    S = bfs_state(Apush, int(source))
-    count = 1
-    while count > 0:
-        bfs_level(S, At, _pushes(count, n, ff))
-        count = _host_count(S)
-    return DenseVec(S.v, torch.zeros((), dtype=torch.int32, device=S.v.device))
+    with span("spla.bfs", next(_QUERIES)):
+        if At is None:
+            At = _default_At(A)
+        Apush = _push_matrix(A, At)
+        if _takes_resident(At, Apush, sssp=False):
+            v, stats = bfs_resident(Apush, int(source))
+            with span("spla.level.read"):
+                _read_resident(stats)
+            return DenseVec(v, torch.zeros((), dtype=torch.int32, device=v.device))
+        STATS["level_loop"] += 1
+        S = bfs_state(Apush, int(source))
+        _run_levels(S, At, descriptor, bfs_level, unvisited_rows=True)
+        return DenseVec(S.v, torch.zeros((), dtype=torch.int32, device=S.v.device))
 
 
 def sssp(A: CsrMatrix, source: int, descriptor: Descriptor | None = None,
@@ -213,45 +260,46 @@ def sssp(A: CsrMatrix, source: int, descriptor: Descriptor | None = None,
     = +inf.  ``At`` as in :func:`bfs`.  The resident route stops after
     n + 2 rounds (``STATS["capped"]`` counts such runs), which ends a
     negative cycle; the level loop has no cap."""
-    if At is None:
-        At = _default_At(A)
-    Apush = _push_matrix(A, At)
-    if _takes_resident(At, Apush, sssp=True):
-        d, stats = sssp_resident(Apush, int(source))
-        _read_resident(stats)
-        return DenseVec(d, torch.tensor(float("inf"), dtype=torch.float32, device=d.device))
-    STATS["level_loop"] += 1
-    if At.values.dtype != torch.float32:
-        At = replace(At, values=At.values.float(), fill=At.fill.float())
-        Apush = replace(Apush, values=Apush.values.float(), fill=Apush.fill.float())
-    ff = _front_factor_of(descriptor)
-    n = At.shape[0]
-    inf = float("inf")
-    S = sssp_state(Apush, int(source))
-    count = 1
-    while count > 0:
-        sssp_level(S, At, _pushes(count, n, ff))
-        count = _host_count(S)
-    return DenseVec(S.v, torch.tensor(inf, dtype=torch.float32, device=S.v.device))
+    with span("spla.sssp", next(_QUERIES)):
+        if At is None:
+            At = _default_At(A)
+        Apush = _push_matrix(A, At)
+        if _takes_resident(At, Apush, sssp=True):
+            d, stats = sssp_resident(Apush, int(source))
+            with span("spla.level.read"):
+                _read_resident(stats)
+            return DenseVec(d, torch.tensor(float("inf"), dtype=torch.float32, device=d.device))
+        STATS["level_loop"] += 1
+        if At.values.dtype != torch.float32:
+            At = replace(At, values=At.values.float(), fill=At.fill.float())
+            Apush = replace(Apush, values=Apush.values.float(), fill=Apush.fill.float())
+        S = sssp_state(Apush, int(source))
+        _run_levels(S, At, descriptor, sssp_level, unvisited_rows=False)
+        return DenseVec(S.v, torch.tensor(float("inf"), dtype=torch.float32, device=S.v.device))
 
 
 def pr(A: CsrMatrix, alpha: float = 0.85, eps: float = 1e-6,
        descriptor: Descriptor | None = None) -> DenseVec:
     """PageRank ``p = A p_prev + (1 - alpha) / n`` until ``||p - p_prev||_2 <=
     eps`` (at most 10 000 iterations).  A comes pre-scaled by the caller."""
-    n = A.shape[0]
-    device = A.values.device
-    addition = (1.0 - alpha) / n
-    p = torch.full((n,), 1.0 / n, dtype=torch.float32, device=device)
-    err, it = eps + 0.1, 0
-    while err > eps and it < 10_000:
-        ap, _ = spmv_pull(A, p, OP.MULT_FLOAT, OP.PLUS_FLOAT, 0.0)
-        p_new = ap + addition
-        STATS["levels"] += 1
-        STATS["host_syncs"] += 1
-        err = float(torch.sqrt(torch.sum((p_new - p) ** 2)))
-        p, it = p_new, it + 1
-    return DenseVec(p, torch.zeros((), dtype=torch.float32, device=device))
+    with span("spla.pr", next(_QUERIES)):
+        n = A.shape[0]
+        device = A.values.device
+        addition = (1.0 - alpha) / n
+        stored = _stored(A)
+        p = torch.full((n,), 1.0 / n, dtype=torch.float32, device=device)
+        err, it = eps + 0.1, 0
+        while err > eps and it < 10_000:
+            with span("spla.level.pull"):
+                ap, _ = spmv_pull(A, p, OP.MULT_FLOAT, OP.PLUS_FLOAT, 0.0)
+                p_new = ap + addition
+                STATS["levels"] += 1
+                STATS["pull_entries"] += stored
+            with span("spla.level.read"):
+                STATS["host_syncs"] += 1
+                err = float(torch.sqrt(torch.sum((p_new - p) ** 2)))
+            p, it = p_new, it + 1
+        return DenseVec(p, torch.zeros((), dtype=torch.float32, device=device))
 
 
 def _is_pattern(A: CsrMatrix) -> bool:

@@ -53,6 +53,7 @@ class LevelState:
     pushes: int = 0  # SSSP: push levels run
     k: int = 1  # the current list's vertices
     edges: int = 0  # and their edges
+    walked: int = 0  # the edges of the list the last level walked (each read sets it)
 
 
 def degree_offsets(indptr: torch.Tensor, lst: torch.Tensor):
@@ -133,8 +134,15 @@ def _pointers(S: LevelState) -> LevelState:
 
 def read_count(S: LevelState) -> int:
     """The loop's host read: the size word of the list the last level
-    wrote; returns its vertex count."""
-    word = int(S.words[S.level % 3])
+    wrote; returns its vertex count.  The first read (after level 0) takes
+    word 0 in the same copy: the source's list, which level 1 is the one
+    to clear, so that ``S.walked`` holds the source's degree."""
+    if S.level == 1:
+        first, word = S.words[:2].tolist()
+        S.walked = first & 0xFFFFFFFF
+    else:
+        word = int(S.words[S.level % 3])
+        S.walked = S.edges
     S.k, S.edges = word >> 32, word & 0xFFFFFFFF
     return S.k
 

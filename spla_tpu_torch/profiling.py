@@ -7,22 +7,59 @@ keeps static labels with parent links, RAII scopes and dump/reset
 a scope is timed by the port's :class:`~spla_tpu_torch.timer.Timer`: with
 CUDA events on a CUDA device, whose end the scope waits for, so a scope
 blocks on the work queued inside it; with the host clock elsewhere.  Each
-scope also opens ``torch.profiler.record_function(name)``, so a
-``torch.profiler`` trace carries the same names.  Off by default, since
-the wait defeats asynchronous launches.
+scope also opens :func:`span`, so a ``torch.profiler`` trace carries the
+same names.  Off by default, since the wait defeats asynchronous launches.
+
+:func:`span` is the port's one way to name a range in a ``torch.profiler``
+trace.  While the profiler records it opens a ``RecordFunction`` range
+in the profiler's session, which shares the clock of the device's events;
+otherwise it returns one shared no-op context, which costs one flag check
+and no dispatcher call.  The range is torch's fast one
+(``torch._C._profiler._RecordFunctionFast``), not
+``torch.profiler.record_function``: that one enters and leaves through
+two dispatcher ops, each profiled in turn, which on the H100's host made
+the traced window's idle time a level a third to three quarters longer
+in the BFS cells (``PERF.md``).  Besides the time profiler's scopes it
+names, in ``algorithms.py``:
+
+* ``spla.bfs``, ``spla.sssp``, ``spla.pr``: a whole public call; its
+  ``args`` are a per-process query number, kept as the range's keyword
+  input ``args`` where the profiler records inputs (``record_shapes``);
+  the spans below nest in it;
+* ``spla.level.push``, ``spla.level.pull``: one level's host work, from
+  the direction chosen to the return of its last launch (PageRank: its
+  pull and the add, an iteration a ``spla.level.pull``);
+* ``spla.level.read``: the loop's host read (the frontier's count word,
+  PageRank's step norm made and read, the resident route's round count).
+
+The benchmark reads them among a trace's host operations
+(``graphbench/core/spans.py``).
 """
 
 from __future__ import annotations
 
 import threading
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass
 
 import torch
 
 from .timer import Timer
 
-__all__ = ["TimeProfiler", "profiler", "time_profile_scope"]
+__all__ = ["TimeProfiler", "profiler", "span", "time_profile_scope"]
+
+_recording = torch._C._autograd._profiler_enabled
+_range = torch._C._profiler._RecordFunctionFast
+_OFF = nullcontext()
+
+
+def span(name: str, args=None):
+    """A range named ``name`` in a ``torch.profiler`` trace, with ``args``
+    as its keyword input ``args``; while no profiler records, a shared
+    no-op context."""
+    if not _recording():
+        return _OFF
+    return _range(name) if args is None else _range(name, (), {"args": args})
 
 
 @dataclass
@@ -60,7 +97,7 @@ class TimeProfiler:
         timer = Timer(device)
         timer.start()
         try:
-            with torch.profiler.record_function(name):
+            with span(name):
                 yield
         finally:
             timer.stop()

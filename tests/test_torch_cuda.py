@@ -1299,6 +1299,37 @@ def test_road_route_launches_kernel6(dev, monkeypatch):
     assert alg.STATS["level_loop"] == 2
 
 
+@pytest.mark.parametrize("mode", ["auto", "push", "pull"])
+@pytest.mark.parametrize("kind", ["bfs", "sssp"])
+def test_level_loop_counts_its_work_as_the_plain_loop_does(dev, kind, mode, monkeypatch):
+    """The level loop on the card counts the plain loop's push_edges and
+    pull_entries (the hub source's degree from word 0 of the first read),
+    reads the count once a level, and launches what it launched before
+    the counters: BFS one launch a push level, SSSP two, and a pull level
+    kernel 1 and kernel 3's update."""
+    monkeypatch.setattr(alg, "RESIDENT_BYTES", 0)
+    a = _graph()
+    a = (a + a.T).tocsr()
+    descriptor = {"auto": None, "push": Descriptor(push_only=True), "pull": Descriptor(pull_only=True)}[mode]
+    run = alg.bfs if kind == "bfs" else alg.sssp
+    seen = {}
+    for device in ("cpu", dev):
+        M = F.csr_from_scipy(a, fill=np.float32(np.inf), device=device)
+        run(M, 17, descriptor, At=M)  # the pull plan and the stored count, read once a matrix
+        kernels.reset_launches()
+        for k in alg.STATS:
+            alg.STATS[k] = 0
+        run(M, 17, descriptor, At=M)
+        seen[str(device)] = dict(alg.STATS), dict(kernels.LAUNCHES)
+    (cpu, _), (card, launches) = seen["cpu"], seen[str(dev)]
+    assert card == cpu and card["host_syncs"] == card["levels"]
+    assert card["push_edges"] >= (a.indptr[18] - a.indptr[17] if card["push"] else 0)
+    per_push = {"bfs": ("bfs_push_level", 1), "sssp": ("sssp_push_level", 2)}[kind]
+    assert launches[per_push[0]] == per_push[1] * card["push"]
+    assert launches["spmv_pull"] == launches["level_update"] == card["pull"]
+    assert sum(launches.values()) == per_push[1] * card["push"] + 2 * card["pull"]
+
+
 @pytest.fixture
 def manual_dma(monkeypatch):
     """kernels.staged.MANUAL_DMA on, as SPLA_MANUAL_DMA=1 sets it."""
