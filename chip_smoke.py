@@ -12,7 +12,8 @@ Phases:
      instance, with and without masks and swapped, and its structural
      variant on the n = 2^21 graph, the hub graph, powerlaw_graph(2^21, 16)
      and n = 2^16 graphs whose degrees pick each team size and the hub
-     path, printing each plan; kernel 6 (the
+     path, printing each plan, and the pack of its x-validity masks into
+     the bitmap it reads (bitwise, n of 1 to 2^21 + 5); kernel 6 (the
      whole BFS / SSSP in one cooperative launch) bitwise on the road grids
      of bench_suite.py, from vertex 0 and from the far corner, on a barbell
      graph (narrow and wide rounds in turn), on random_graph(2^18, 16) and,
@@ -197,7 +198,11 @@ Phases:
      (kernel 9 and the dense route, in turns, with the dense route's parts
      and bound) on random_graph(11585, d) at d = 128, 256, 512, and at n =
      4096 and 8192 on each side of the gate, each with the gate's choice,
-     which must be within 10% of the faster route.
+     which must be within 10% of the faster route; kernel 1's masked
+     (PLUS, MIN) and structural pulls, and the pack of the mask, on
+     tools/mask_times.py's uniform graphs at the urand cells' sizes (n =
+     2^24 and 2^25, 32 columns a row) with 10%, 50% and 100% of x valid,
+     each held once against its plain version at 2^24.
 
 Each kernel's row in the JSON line carries ``bound_ms``: the larger of its
 bytes (each input read once, each output written once, at this run's
@@ -251,7 +256,7 @@ from spla_tpu_torch.ops import (DISPATCH_STATS, count_mxmT_products, m_reduce, m
 from spla_tpu_torch.ops import spgemm as TG
 from spla_tpu_torch.ops.spgemm import mxmT_masked_plain
 from spla_tpu_torch.tools import ab_spmv as AB, level_times as LT, ops_times as OT, probe_spmv as PROBE
-from spla_tpu_torch.tools import dist_times as DT, mxm_times as MT, resident_levels as RL
+from spla_tpu_torch.tools import dist_times as DT, mask_times as MASK, mxm_times as MT, resident_levels as RL
 from spla_tpu_torch.tools.graphs import (HUB_ROWS, barbell_graph, build_graph, hub_graph, hub_spgemm,
                                          path_graph, powerlaw_graph, random_graph, road_graphs, road_grid,
                                          skewed_graph, spgemm_bins)
@@ -316,6 +321,8 @@ KERNELS = {
     # kernel 1's generic family: the mul a kernel argument (every built-in mul, u32, the bitwise and logical adds)
     "spmv_pull_generic": ("cuda", "spla_tpu_torch/kernels/csrc/spmv_pull_generic.cu",
                           "spla_tpu/pallas/spmv.py:2055"),
+    # no TPU counterpart: the pack of kernel 1's x-validity mask into the bitmap that it reads
+    "valid_bits": ("cuda", "spla_tpu_torch/kernels/csrc/spmv_pull.cu", None),
     "spmv_push": ("cuda", "spla_tpu_torch/kernels/csrc/spmv_push.cu", "spla_tpu/pallas/spmv.py:2346"),
     "level_update": ("cuda", "spla_tpu_torch/kernels/csrc/level_update.cu", "spla_tpu/pallas/spmv.py:2789"),
     # the push levels: kernel 2's push fused with kernel 3's update, the counterparts of the
@@ -343,7 +350,7 @@ KERNELS = {
                            ("flat_stream", 498), ("flat_gather", 146), ("ring_fold", 248))},
 }
 # the kernels each slice of phase 4 must launch, each kernel's row from the first slice naming it
-PATHS = {"spmv": ("spmv_pull", "level_update", "bfs_push_level", "sssp_push_level"),
+PATHS = {"spmv": ("spmv_pull", "valid_bits", "level_update", "bfs_push_level", "sssp_push_level"),
          "push": ("spmv_push",), "skewed": ("bfs_push_level", "sssp_push_level", "level_update"),
          "spgemm": ("mxmt_reduce", "mxmt_masked"), "road": ("bfs_resident", "sssp_resident"),
          "staged": ("spmv_pull_staged", "spmv_pull_staged_generic"),
@@ -500,6 +507,12 @@ def check_kernels(G):
     teams = {K1.pull_plan(G[f"S{d}"]).team for d in SMALL_DEGREES}
     if teams != {2, 4, 8, 16, 32} or not K1.pull_plan(G[f"S{SMALL_DEGREES[-1]}"]).nhub:
         raise AssertionError(f"the small graphs must pick every team size and hub rows: {teams}")
+    for n in (1, 33, N_SMALL + 5, N_SPMV + 5):
+        for share in (0.0, 0.3, 1.0):
+            valid = torch.from_numpy(rng.random(n) < share).to(DEVICE)
+            check_close(f"pack_valid_bits n={n} share={share}", K1.pack_valid_bits(valid),
+                        K1.pack_valid_bits_plain(valid), True)
+    print("the pack of x_valid into kernel 1's bitmap matches its plain version", flush=True)
 
     # kernel 2 on the traversal graph
     n = N_GRAPH
@@ -2670,6 +2683,22 @@ def time_pull(G, card):
     return {"spmv_pull_staged": (kept[default], plain, *spmv_bound(M))}, kept["cuSPARSE"], kept
 
 
+def time_masked(card):
+    """Kernel 1's masked pulls and the pack at the urand cells' sizes
+    (tools/mask_times.py, each call held once against its plain version at
+    n = 2^24); the pack's row (n = 2^25, every x valid) with its plain
+    version's time on the card."""
+    torch.cuda.empty_cache()
+    rows = MASK.measure((24, 25), 32, TIMED_RUNS // 2, 2300, torch.device(DEVICE), True,
+                        log=lambda line: print(f"time masked pull {line} [{card}]", flush=True))
+    n = 1 << 25
+    ms = next(r["ms"] for r in rows if r["call"] == "pack" and r["scale"] == 25 and r["valid"] == 1.0)
+    valid = torch.ones(n, dtype=torch.bool, device=DEVICE)
+    plain = cuda_ms(lambda: K1.pack_valid_bits_plain(valid), PLAIN_RUNS_BIG, 1)
+    # the bytes read once, the words written once
+    return {"valid_bits": (ms, plain, *bound(n + 4 * ((n + 31) // 32)))}
+
+
 def time_probes(G, R, card):
     """The probe table of phase 4's probe_spmv run, then each kernel-8 phase
     against its plain version (CUDA events) on the same graph."""
@@ -3206,6 +3235,7 @@ def main():
     times.update(time_levels(G, card))
     staged_times, cusparse_ms, pull_ms = time_pull(G, card)
     times.update(staged_times)
+    times.update(time_masked(card))
     times.update(time_probes(G, results["probes"], card))
     time_variants(G, card)
     mxm_times, mxm_library_ms = time_mxm(G, card)

@@ -1,8 +1,11 @@
 """Hand-written Hopper kernels of the masked SpMV, traversal and SpGEMM paths.
 
 * ``spmv`` — kernel 1, the CSR pull SpMV (CUDA, ``csrc/spmv_pull.cuh``):
-  its templated instances (``csrc/spmv_pull.cu``) and its generic family,
-  whose mul is a kernel argument (``csrc/spmv_pull_generic.cu``);
+  its templated instances (``csrc/spmv_pull.cu``; with an x-validity mask
+  ``csrc/spmv_pull_masked.cu``) and its generic family, whose mul is a
+  kernel argument (``csrc/spmv_pull_generic.cu``,
+  ``csrc/spmv_pull_generic_masked.cu``); a masked call first packs the
+  mask into a bitmap (``pack_valid_bits``, ``csrc/spmv_pull.cu``);
 * ``traversal`` — kernel 2, the frontier push SpMV, and the level loop's
   push levels fused with kernel 3's update (CUDA, ``csrc/spmv_push.cu``);
 * ``level_update`` — kernel 3, the BFS/SSSP level update with frontier
@@ -37,7 +40,8 @@ its kernel or raises for CUDA tensors.  ``LAUNCHES`` counts the kernel
 launches of each wrapper, and nothing else (``sssp_push_level`` counts its
 two; ``spgemm_mxm`` one a call of its three steps); a launch of kernel 1's
 generic family counts as ``spmv_pull_generic``, one of kernel 7's as
-``spmv_pull_staged_generic``.  Importing these modules
+``spmv_pull_staged_generic``; ``valid_bits`` counts the packs of kernel 1's
+x-validity masks into bitmaps, one a masked kernel-1 call.  Importing these modules
 builds and loads nothing.
 """
 
@@ -45,7 +49,7 @@ PROBE_PHASES = ("stream", "gather", "fullfix", "alu", "xgather", "ring_copy", "r
                 "ring_copy_alu", "warp_row", "flat_stream", "flat_gather",
                 "ring_fold")  # kernel 8's phases, in the order of enum ProbePhase
 
-LAUNCHES = {"spmv_pull": 0, "spmv_pull_generic": 0, "spmv_push": 0, "level_update": 0, "bfs_push_level": 0,
+LAUNCHES = {"spmv_pull": 0, "spmv_pull_generic": 0, "valid_bits": 0, "spmv_push": 0, "level_update": 0, "bfs_push_level": 0,
             "sssp_push_level": 0,
             "mxmt_reduce": 0, "mxmt_masked": 0, "mxmt_gather": 0, "spgemm_mxm": 0,
             "bfs_resident": 0, "sssp_resident": 0, "spmv_pull_staged": 0, "spmv_pull_staged_generic": 0,

@@ -29,15 +29,22 @@ _I64 = ctypes.c_longlong
 _INT = ctypes.c_int
 SIGNATURES = {
     # mul, add, dtype, m, log2 team, hub_len, nhub, nchunks, chunk_row, chunk_c0, chunk_c1,
-    # chunk_hub, chunk_first, part, part_any, done, indptr, cols, values, x, x_valid, row_sel,
-    # init (device pointer or null), init's 32 bits (when null), out, has, stream
+    # chunk_hub, chunk_first, part, part_any, done, indptr, cols, values, x, x_bits (null; the
+    # masked entry's bitmap), row_sel, init (device pointer or null), init's 32 bits (when null),
+    # out, has, stream
     "spla_spmv_pull": (_INT, _INT, _INT, _I64, _INT, _INT, _I64, _I64, *(_P,) * 15, ctypes.c_uint32,
                        _P, _P, _P),
+    "spla_spmv_pull_masked": (_INT, _INT, _INT, _I64, _INT, _INT, _I64, _I64, *(_P,) * 15, ctypes.c_uint32,
+                              _P, _P, _P),
     # mul, swap, add, dtype, then spla_spmv_pull's arguments from m on
     "spla_spmv_pull_generic": (_INT, _INT, _INT, _INT, _I64, _INT, _INT, _I64, _I64, *(_P,) * 15,
                                ctypes.c_uint32, _P, _P, _P),
+    "spla_spmv_pull_generic_masked": (_INT, _INT, _INT, _INT, _I64, _INT, _INT, _I64, _I64, *(_P,) * 15,
+                                      ctypes.c_uint32, _P, _P, _P),
+    # n, x_valid (bytes), bits (int32 words), stream
+    "spla_pack_valid_bits": (_I64, _P, _P, _P),
     # m, log2 team, hub_len, nhub, nchunks, chunk_row, chunk_c0, chunk_c1, chunk_hub, chunk_first,
-    # indptr, cols, x_valid, row_sel, hits, stream
+    # indptr, cols, x_bits, row_sel, hits, stream
     "spla_spmv_pull_structural": (_I64, _INT, _INT, _I64, _I64, *(_P,) * 11),
     # mul, add, dtype, k, edges (a bound), list, eoff, total (device), indptr, cols, values, x, out,
     # stream

@@ -7,25 +7,36 @@
 // reads the plain CSR (indptr / cols / values) the port keeps.
 //
 // Bound: bytes.  Per stored entry it reads a 4-byte column, a 4-byte value
-// (none in the structural variant) and a gathered 4-byte x element; per row
-// two indptr words and one output word.  A random x gather moves a whole
-// 32-byte L2 sector, so on a graph with random columns the gathers, not the
-// column and value streams, set the floor (PERF.md).  The design keeps as
-// many bytes in flight as it can and leaves the gathers in L2:
+// (none in the structural variant) and, where x[j] is valid, a gathered
+// 4-byte x element; per row two indptr words and one output word.  A random
+// gather moves a whole 32-byte sector, so on a graph with random columns the
+// gathers, not the column and value streams, set the floor (PERF.md), and
+// they cost L2 rather than HBM traffic only while their target stays in the
+// 50 MB L2.  The x-validity mask reaches the kernel as a bitmap (bit j & 31
+// of word j >> 5; pack_valid_bits_kernel packs the caller's bytes first): n/8
+// bytes, 4.2 MB at n = 2^25, which stays in L2 where the byte mask (n bytes)
+// and x (4n) do not.  A masked entry gathers its bit's word, and x[j] only
+// where the bit is set, so a pull over a sparse mask skips most x gathers.
+// The design keeps as many bytes in flight as it can and leaves the gathers
+// in L2:
 //   * a team of G lanes per row, G a power of two from 2 to 32 picked from
 //     the mean row length (kernels/spmv.py pull_plan; an instance per G), so
 //     a warp walks 32 / G rows at once rather than one half-empty row;
-//   * each lane issues kUnroll column and value loads, then kUnroll x
-//     gathers, before it folds any;
+//   * each lane issues kUnroll column and value loads, then (masked) the
+//     kUnroll bit words, then the x gathers that their bits allow, before it
+//     folds any; an instance without a mask gathers x straight after the
+//     columns; the structural variant tests a round's bits one by one and
+//     stops at the first set (round_hits);
 //   * cols and values are read with the streaming hint (ld.global.cs, evict
-//     first), so x (8 MB at n = 2^21) stays in the 50 MB L2 and its gathers
-//     cost L2 rather than HBM traffic; x goes through the read-only path;
+//     first), so the bits and x stay in L2 as long as they fit; the bits and
+//     x go through the read-only path;
 //   * rows longer than hub_len entries (the hub rows, listed by pull_plan)
 //     are cut into chunks of HUB_CHUNK entries, a CTA each, folded through
 //     shared memory; the last CTA of a row to finish folds the chunks'
 //     partials in chunk order and zeroes the row's counter again (the
-//     partials and counters belong to the plan, so launches on one matrix
-//     follow one another on a stream).  Those CTAs come first in the launch;
+//     partials, counters and bits belong to the plan, so launches on one
+//     matrix follow one another on a stream).  Those CTAs come first in the
+//     launch;
 //   * the row-select mask and the x-validity mask are fused: an unselected
 //     row reads nothing but its mask byte, and the separate mask-select and
 //     stored-ness passes of the TPU path disappear (`has` is written here).
@@ -40,8 +51,11 @@
 // LOR, BOR, BAND, BXOR}: what spla_tpu's Pallas SpMV takes
 // (kernels/spmv.py pull_codes); and a structural variant that reads no
 // values: hits[i] = selected && any valid x[j] in row i, whose team (or
-// chunk CTA) stops at its first hit.  This header holds the kernels; each of
-// the two sources compiles its own instances, in parallel.
+// chunk CTA) stops at its first hit.  This header holds the kernels; each
+// source compiles its own instances, in parallel: spmv_pull.cu the templated
+// ones without a mask, the structural variant and the pack,
+// spmv_pull_masked.cu the templated ones with a mask, and
+// spmv_pull_generic.cu / spmv_pull_generic_masked.cu the family's.
 #pragma once
 
 #include <cstring>
@@ -60,7 +74,7 @@ struct PullArgs {
   const int32_t* cols;
   const T* values;
   const T* x;
-  const uint8_t* x_valid;
+  const uint32_t* x_bits;  // the masked instances': bit j & 31 of word j >> 5 set where x[j] is valid
   const uint8_t* row_sel;
   const T* init;  // on the device, or null: then init_value
   T init_value;
@@ -101,21 +115,29 @@ __device__ __forceinline__ void issue(int32_t (&c)[kUnroll], T (&v)[kUnroll], co
 }
 
 // Fold this lane's entries k, k + stride, ... < end: per round, kUnroll
-// column and value loads, then kUnroll x gathers, then the products.
-template <typename T, int MUL, int ADD>
+// column and value loads, then (MASKED) the kUnroll bit words, then the x
+// gathers of the entries whose bit is set, then the products.
+template <typename T, int MUL, int ADD, bool MASKED>
 __device__ __forceinline__ void fold_range(int32_t k, int32_t end, int stride, const PullArgs<T>& a,
                                            T& acc, bool& any) {
   for (; k < end; k += kUnroll * stride) {
     int32_t c[kUnroll];
     T v[kUnroll];
     issue<T, true>(c, v, a.cols, a.values, k, end, stride);
-    T xv[kUnroll];
     bool ok[kUnroll];
+    if constexpr (MASKED) {
+      uint32_t w[kUnroll];  // the words that hold the columns' bits (0 past the end)
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      ok[u] = c[u] >= 0 && (a.x_valid == nullptr || __ldg(a.x_valid + c[u]));
-      xv[u] = c[u] >= 0 ? __ldg(a.x + c[u]) : T(0);
+      for (int u = 0; u < kUnroll; ++u) w[u] = c[u] >= 0 ? __ldg(a.x_bits + (c[u] >> 5)) : 0u;
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) ok[u] = (w[u] >> (c[u] & 31)) & 1u;
+    } else {
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) ok[u] = c[u] >= 0;
     }
+    T xv[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) xv[u] = ok[u] ? __ldg(a.x + c[u]) : T(0);
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       if (ok[u]) {
@@ -174,7 +196,7 @@ struct Chunk {
   }
 };
 
-template <typename T, int MUL, int ADD>
+template <typename T, int MUL, int ADD, bool MASKED>
 __device__ void pull_chunk(const PullArgs<T>& a, const PullPlan& p) {
   __shared__ T red[kWarpsPerCta];
   __shared__ bool red_any[kWarpsPerCta];
@@ -182,7 +204,7 @@ __device__ void pull_chunk(const PullArgs<T>& a, const PullPlan& p) {
   if (!ch.load(p, a.row_sel)) return;  // the slab pass writes init
   T acc = monoid_identity<ADD, T>();
   bool any = false;
-  fold_range<T, MUL, ADD>(ch.c0 + static_cast<int32_t>(threadIdx.x), ch.c1, kThreads, a, acc, any);
+  fold_range<T, MUL, ADD, MASKED>(ch.c0 + static_cast<int32_t>(threadIdx.x), ch.c1, kThreads, a, acc, any);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc = apply_op<ADD>(acc, __shfl_xor_sync(kFullMask, acc, off));
   any = __any_sync(kFullMask, any);
@@ -208,12 +230,12 @@ __device__ void pull_chunk(const PullArgs<T>& a, const PullPlan& p) {
   if (a.has != nullptr) a.has[ch.row] = hit;
 }
 
-template <typename T, int MUL, int ADD, int LOG2G>
+template <typename T, int MUL, int ADD, int LOG2G, bool MASKED>
 __global__ void __launch_bounds__(kThreads)
 spmv_pull_kernel(PullArgs<T> a, PullPlan p) {
   constexpr int g = 1 << LOG2G;
   if (blockIdx.x < p.nchunks) {
-    pull_chunk<T, MUL, ADD>(a, p);
+    pull_chunk<T, MUL, ADD, MASKED>(a, p);
     return;
   }
   const long long slab = (static_cast<long long>(blockIdx.x) - p.nchunks) * kWarpsPerCta + (threadIdx.x >> 5);
@@ -222,7 +244,7 @@ spmv_pull_kernel(PullArgs<T> a, PullPlan p) {
   const Head h = head<LOG2G>(a.m, a.indptr, a.row_sel, p, slab, team);
   T acc = monoid_identity<ADD, T>();
   bool any = false;
-  if (h.walk) fold_range<T, MUL, ADD>(h.start + sub, h.end, g, a, acc, any);
+  if (h.walk) fold_range<T, MUL, ADD, MASKED>(h.start + sub, h.end, g, a, acc, any);
 #pragma unroll
   for (int off = g >> 1; off > 0; off >>= 1) acc = apply_op<ADD>(acc, __shfl_xor_sync(kFullMask, acc, off));
   any = (__ballot_sync(kFullMask, any) & team_mask<LOG2G>(lane)) != 0;
@@ -237,15 +259,21 @@ struct HitArgs {
   long long m;
   const int32_t* indptr;
   const int32_t* cols;
-  const uint8_t* x_valid;
+  const uint32_t* x_bits;  // bit j & 31 of word j >> 5 set where x[j] is valid
   const uint8_t* row_sel;
   uint8_t* hits;  // zero at launch where the matrix has hub rows
 };
 
-__device__ __forceinline__ bool round_hits(const int32_t (&c)[kUnroll], const uint8_t* x_valid) {
+// Whether a round's columns hold a valid one.  The bit words are loaded
+// one by one, each only while none before it was set: the bitmap stays in
+// L2, so a step costs an L2 hit, and a dense mask stops after the first
+// (measured faster than all kUnroll words loaded before any test, at 10%
+// to 100% valid: PERF.md, kernel 1's findings).
+__device__ __forceinline__ bool round_hits(const int32_t (&c)[kUnroll], const uint32_t* x_bits) {
   bool found = false;
 #pragma unroll
-  for (int u = 0; u < kUnroll; ++u) found = found || (c[u] >= 0 && __ldg(x_valid + c[u]));
+  for (int u = 0; u < kUnroll; ++u)
+    found = found || (c[u] >= 0 && ((__ldg(x_bits + (c[u] >> 5)) >> (c[u] & 31)) & 1u));
   return found;
 }
 
@@ -260,7 +288,7 @@ spmv_pull_structural_kernel(HitArgs a, PullPlan p) {
     for (int32_t base = ch.c0; base < ch.c1; base += kUnroll * kThreads) {
       issue<int32_t, false>(c, unused, a.cols, nullptr, base + static_cast<int32_t>(threadIdx.x), ch.c1,
                             kThreads);
-      if (__syncthreads_or(round_hits(c, a.x_valid))) {
+      if (__syncthreads_or(round_hits(c, a.x_bits))) {
         if (threadIdx.x == 0) a.hits[ch.row] = 1;  // every chunk that hits writes 1
         return;
       }
@@ -278,7 +306,7 @@ spmv_pull_structural_kernel(HitArgs a, PullPlan p) {
   bool active = h.walk, hit = false;
   for (int32_t k = h.start + sub; __any_sync(kFullMask, active); k += kUnroll * g) {
     if (active) issue<int32_t, false>(c, unused, a.cols, nullptr, k, h.end, g);
-    const bool team_hit = (__ballot_sync(kFullMask, active && round_hits(c, a.x_valid)) & tmask) != 0;
+    const bool team_hit = (__ballot_sync(kFullMask, active && round_hits(c, a.x_bits)) & tmask) != 0;
     hit = hit || team_hit;
     active = active && !team_hit && h.end - k > kUnroll * g;
   }
@@ -290,9 +318,10 @@ unsigned grid_of(long long m, const PullPlan& p) {
   return static_cast<unsigned>(p.nchunks + (slabs + kWarpsPerCta - 1) / kWarpsPerCta);
 }
 
+template <bool MASKED>
 struct PullLaunch {
   long long m;
-  const void *indptr, *cols, *values, *x, *x_valid, *row_sel, *init;
+  const void *indptr, *cols, *values, *x, *x_bits, *row_sel, *init;
   uint32_t init_bits;
   void *out, *has;
   PullPlan plan;
@@ -307,15 +336,16 @@ struct PullLaunch {
     memcpy(&init_value, &init_bits, sizeof(T));
     const PullArgs<T> a{m, static_cast<const int32_t*>(indptr), static_cast<const int32_t*>(cols),
                         static_cast<const T*>(values), static_cast<const T*>(x),
-                        static_cast<const uint8_t*>(x_valid), static_cast<const uint8_t*>(row_sel),
+                        static_cast<const uint32_t*>(x_bits), static_cast<const uint8_t*>(row_sel),
                         static_cast<const T*>(init), init_value, static_cast<T*>(out),
                         static_cast<uint8_t*>(has), mul, swap};
+    const unsigned grid = grid_of(m, plan);
     switch (plan.log2g) {
-      case 1: spmv_pull_kernel<T, MUL, ADD, 1><<<grid_of(m, plan), kThreads, 0, stream>>>(a, plan); break;
-      case 2: spmv_pull_kernel<T, MUL, ADD, 2><<<grid_of(m, plan), kThreads, 0, stream>>>(a, plan); break;
-      case 3: spmv_pull_kernel<T, MUL, ADD, 3><<<grid_of(m, plan), kThreads, 0, stream>>>(a, plan); break;
-      case 4: spmv_pull_kernel<T, MUL, ADD, 4><<<grid_of(m, plan), kThreads, 0, stream>>>(a, plan); break;
-      default: spmv_pull_kernel<T, MUL, ADD, 5><<<grid_of(m, plan), kThreads, 0, stream>>>(a, plan);
+      case 1: spmv_pull_kernel<T, MUL, ADD, 1, MASKED><<<grid, kThreads, 0, stream>>>(a, plan); break;
+      case 2: spmv_pull_kernel<T, MUL, ADD, 2, MASKED><<<grid, kThreads, 0, stream>>>(a, plan); break;
+      case 3: spmv_pull_kernel<T, MUL, ADD, 3, MASKED><<<grid, kThreads, 0, stream>>>(a, plan); break;
+      case 4: spmv_pull_kernel<T, MUL, ADD, 4, MASKED><<<grid, kThreads, 0, stream>>>(a, plan); break;
+      default: spmv_pull_kernel<T, MUL, ADD, 5, MASKED><<<grid, kThreads, 0, stream>>>(a, plan);
     }
   }
 };
@@ -331,6 +361,32 @@ PullPlan plan_of(int log2g, int hub_len, long long nhub, long long nchunks, cons
 
 bool plan_ok(const PullPlan& p) {
   return p.log2g >= 1 && p.log2g <= 5 && p.hub_len >= 0 && p.nhub >= 0 && p.nchunks >= p.nhub;
+}
+
+// The C entries of the value kernel (spmv_pull*.cu): the templated instances
+// (GENERIC false) or the family, with a mask (MASKED: x_bits, null only
+// where n is 0) or without (x_bits unread).
+template <bool GENERIC, bool MASKED>
+int pull_entry(int mul, bool swap, int add, int dtype, long long m, int log2g, int hub_len, long long nhub,
+               long long nchunks, const void* chunk_row, const void* chunk_c0, const void* chunk_c1,
+               const void* chunk_hub, const void* chunk_first, void* part, void* part_any, void* done,
+               const void* indptr, const void* cols, const void* values, const void* x, const void* x_bits,
+               const void* row_sel, const void* init, unsigned init_bits, void* out, void* has, void* stream) {
+  if (m == 0) return 0;
+  if (GENERIC && !runtime_mul_ok(mul, dtype)) return static_cast<int>(cudaErrorInvalidValue);
+  const PullPlan plan = plan_of(log2g, hub_len, nhub, nchunks, chunk_row, chunk_c0, chunk_c1, chunk_hub,
+                                chunk_first, part, part_any, done);
+  if (!plan_ok(plan)) return static_cast<int>(cudaErrorInvalidValue);
+  PullLaunch<MASKED> launch{m, indptr, cols, values, x, x_bits, row_sel, init, init_bits, out, has, plan,
+                            static_cast<cudaStream_t>(stream), mul, swap};
+  bool ok;
+  if constexpr (GENERIC) {
+    ok = dispatch_generic<true, true, true, true>(add, dtype, launch);
+  } else {
+    ok = dispatch<true>(mul, add, dtype, launch);
+  }
+  if (!ok) return -1;
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace

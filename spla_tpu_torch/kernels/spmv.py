@@ -33,6 +33,12 @@ entries, cut into chunks of ``HUB_CHUNK`` entries walked by a CTA each,
 and the team size G of the other rows, the power of two from 2 to 32
 nearest above their mean length over ``ENTRIES_PER_LANE``.  Building it
 reads the host once.  No argument or setting chooses any of it.
+
+A CUDA call that passes ``x_valid`` first packs it into the plan's bitmap
+(``pack_valid_bits``: bit ``j & 31`` of int32 word ``j >> 5``), which the
+kernel reads in place of the bytes: n/8 bytes stay in L2 where n do not,
+and x is gathered only where the bit is set.  The plain versions read the
+bytes as before.
 """
 
 from __future__ import annotations
@@ -63,6 +69,8 @@ __all__ = [
     "pull_plan",
     "team_size",
     "pull_codes",
+    "pack_valid_bits",
+    "pack_valid_bits_plain",
     "spmv_pull",
     "spmv_pull_plain",
     "spmv_pull_structural",
@@ -99,8 +107,9 @@ class PullPlan:
     ``chunk_first`` each hub's first chunk; and ``team`` the lanes G of a
     team walking each other row.  Where a hub has several chunks,
     ``part``/``part_any`` hold the chunks' folds during a launch and
-    ``done`` counts each hub's finished chunks; the kernel leaves it zero,
-    so launches on one matrix follow one another on a stream."""
+    ``done`` counts each hub's finished chunks; the kernel leaves it zero.
+    ``valid_bits`` holds a masked call's ``x_valid`` packed (a word a 32
+    columns).  So launches on one matrix follow one another on a stream."""
 
     hub_rows: torch.Tensor  # int32 [nhub]
     chunk_row: torch.Tensor  # int32 [nchunks]
@@ -114,6 +123,7 @@ class PullPlan:
     part: torch.Tensor | None = None  # 32-bit words [nchunks]: a chunk's fold, f32 or i32
     part_any: torch.Tensor | None = None  # uint8 [nchunks]
     done: torch.Tensor | None = None  # int32 [nhub]
+    valid_bits: torch.Tensor | None = None  # int32 [ceil(n / 32)]
 
 
 def team_size(walked: int, rows: int) -> int:
@@ -154,7 +164,8 @@ def pull_plan(A: CsrMatrix) -> PullPlan:
     chunk_c1 = torch.minimum(chunk_c0 + HUB_CHUNK, ip[chunk_row + 1])
     scratch = hub_scratch(nchunks, nhub, ip.device) if nchunks > nhub else {}
     i32 = [t.to(torch.int32) for t in (rows[:nhub], chunk_row, chunk_c0, chunk_c1, chunk_hub, chunk_first)]
-    plan = PullPlan(*i32, nhub, nchunks, team_size(walked, m - nhub), **scratch)
+    bits = torch.empty(_words(A.shape[1]), dtype=torch.int32, device=ip.device)
+    plan = PullPlan(*i32, nhub, nchunks, team_size(walked, m - nhub), **scratch, valid_bits=bits)
     _PLANS.put(A.indptr, plan)
     return plan
 
@@ -167,6 +178,60 @@ def hub_scratch(nchunks: int, nhub: int, device) -> dict:
     return {"part": torch.empty(nchunks, dtype=torch.int32, device=device),
             "part_any": torch.empty(nchunks, dtype=torch.uint8, device=device),
             "done": torch.zeros(nhub, dtype=torch.int32, device=device)}
+
+
+def _words(n: int) -> int:
+    return (n + 31) // 32
+
+
+def pack_valid_bits_plain(x_valid):
+    """Plain version of the pack: bool [n] to int32 [ceil(n / 32)], bit
+    ``j & 31`` of word ``j >> 5`` set where ``x_valid[j]``, 0 past n."""
+    n, device = x_valid.shape[0], x_valid.device
+    padded = torch.zeros(_words(n) * 32, dtype=torch.int64, device=device)
+    padded[:n] = x_valid
+    w = (padded.view(-1, 32) << torch.arange(32, device=device)).sum(1)
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+
+
+def pack_valid_bits(x_valid, out=None):
+    """``x_valid`` packed as ``pack_valid_bits_plain`` does, into ``out`` if
+    given (a contiguous int32 [ceil(n / 32)] tensor): the plain version for
+    a CPU tensor, one launch of the pack kernel (``csrc/spmv_pull.cu``) for
+    a CUDA one."""
+    what = "pack_valid_bits"
+    _mask(x_valid, what, "x_valid")
+    words = _words(x_valid.shape[0])
+    if out is not None and (out.shape != (words,) or out.dtype != torch.int32 or out.device != x_valid.device
+                            or not out.is_contiguous()):
+        raise ValueError(f"{what}: out must be a contiguous int32 [{words}] tensor on {x_valid.device}")
+    if x_valid.device.type == "cpu":
+        return _into(out, pack_valid_bits_plain(x_valid))
+    if x_valid.dim() != 1 or not x_valid.is_contiguous():
+        raise ValueError(f"{what}: x_valid must be a contiguous 1-d tensor")
+    bits = torch.empty(words, dtype=torch.int32, device=x_valid.device) if out is None else out
+    _launch_pack(x_valid, bits)
+    return bits
+
+
+def _launch_pack(x_valid, bits) -> None:
+    check(load_library().spla_pack_valid_bits(x_valid.shape[0], x_valid.data_ptr(), bits.data_ptr(),
+                                              torch.cuda.current_stream(x_valid.device).cuda_stream),
+          "pack_valid_bits")
+    LAUNCHES["valid_bits"] += 1
+
+
+def _plan_bits(plan: PullPlan, x_valid):
+    """The words a masked launch packs x_valid into (``_launch_pack``, just
+    before the kernel), or None without a mask: the plan's, or words of its
+    own for a matrix of other columns than the plan's first (an indptr
+    shared by two shapes)."""
+    if x_valid is None:
+        return None
+    words = _words(x_valid.shape[0])
+    if plan.valid_bits.numel() == words:
+        return plan.valid_bits
+    return torch.empty(words, dtype=torch.int32, device=x_valid.device)
 
 
 def _plan_args(plan: PullPlan):
@@ -300,18 +365,20 @@ def spmv_pull(A: CsrMatrix, x, op_mul, op_add, init, x_valid=None, row_sel=None,
     out = _out_arg(out, m, x, what)
     has = torch.empty(m, dtype=torch.bool, device=x.device) if want_has else None
     plan = pull_plan(A)
+    bits = _plan_bits(plan, x_valid)
     args = (m, *_plan_args(plan), _ptr(plan.part), _ptr(plan.part_any), _ptr(plan.done),
-            A.indptr.data_ptr(), A.cols.data_ptr(), A.values.data_ptr(), x.data_ptr(), _ptr(x_valid),
+            A.indptr.data_ptr(), A.cols.data_ptr(), A.values.data_ptr(), x.data_ptr(), _ptr(bits),
             _ptr(row_sel), _ptr(init_t), init_bits, out.data_ptr(), _ptr(has),
             torch.cuda.current_stream(x.device).cuda_stream)
     mul, add, dt = codes
-    if generic or not templated(*codes):
-        rc, name = load_library().spla_spmv_pull_generic(mul, int(swap and mul in _ORDERED), add, dt,
-                                                         *args), "spmv_pull_generic"
-    else:
-        rc, name = load_library().spla_spmv_pull(*codes, *args), "spmv_pull"
-    check(rc, what)
-    LAUNCHES[name] += 1
+    family = generic or not templated(*codes)
+    entry = getattr(load_library(),
+                    f"spla_spmv_pull{'_generic' if family else ''}{'' if bits is None else '_masked'}")
+    lead = (mul, int(swap and mul in _ORDERED), add, dt) if family else codes
+    if bits is not None:
+        _launch_pack(x_valid, bits)
+    check(entry(*lead, *args), what)
+    LAUNCHES["spmv_pull_generic" if family else "spmv_pull"] += 1
     return out, has
 
 
@@ -387,9 +454,11 @@ def spmv_pull_structural(A: CsrMatrix, x_valid, row_sel=None, out=None):
                   {"x_valid": n, "row_sel": m})
     plan = pull_plan(A)
     hits = _hits_arg(out, m, x_valid, plan.nhub, what)
-    rc = load_library().spla_spmv_pull_structural(
-        m, *_plan_args(plan), A.indptr.data_ptr(), A.cols.data_ptr(), x_valid.data_ptr(), _ptr(row_sel),
-        hits.data_ptr(), torch.cuda.current_stream(x_valid.device).cuda_stream)
+    bits = _plan_bits(plan, x_valid)
+    args = (m, *_plan_args(plan), A.indptr.data_ptr(), A.cols.data_ptr(), bits.data_ptr(), _ptr(row_sel),
+            hits.data_ptr(), torch.cuda.current_stream(x_valid.device).cuda_stream)
+    _launch_pack(x_valid, bits)
+    rc = load_library().spla_spmv_pull_structural(*args)
     check(rc, what)
     LAUNCHES["spmv_pull"] += 1
     return hits

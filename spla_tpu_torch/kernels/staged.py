@@ -14,6 +14,9 @@ generic family whose mul is a kernel argument (``csrc/spmv_staged_generic.cu``;
 ``generic=True`` sends a templated request there too, to hold the two
 against each other), counted in ``LAUNCHES["spmv_pull_staged_generic"]``.
 
+Kernel 7 reads ``x_valid`` as bytes: kernel 1's bitmap (``spmv.pack_valid_bits``)
+has not been brought here.
+
 The switch is the reference's (``spla_tpu/pallas/spmv.py:2136-2137``):
 ``SPLA_MANUAL_DMA=1`` sets ``MANUAL_DMA``, under which kernel 1's wrappers
 send f32 requests here (``kernels/spmv.py``); ``SPLA_MANUAL_SLOTS`` sets the

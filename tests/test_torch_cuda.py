@@ -229,6 +229,90 @@ def test_spmv_pull_generic_matches_plain(dev, graph, dtype):
                 _same_values(again, got, False)
 
 
+def _card_mask(kind, n, dev, seed):
+    return {"empty": lambda: torch.zeros(n, dtype=torch.bool, device=dev),
+            "full": lambda: torch.ones(n, dtype=torch.bool, device=dev),
+            "random": lambda: torch.from_numpy(np.random.default_rng(seed).random(n) < 0.3).to(dev)}[kind]()
+
+
+@pytest.mark.parametrize("kind", ["empty", "full", "random"])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 3001, (1 << 16) + 5, (1 << 20) + 3])
+def test_pack_valid_bits_matches_plain(dev, n, kind):
+    """The pack of an x-validity mask into kernel 1's bitmap, one launch,
+    against its plain version, bitwise (no bit set past n)."""
+    valid = _card_mask(kind, n, dev, n)
+    kernels.reset_launches()
+    got = K1.pack_valid_bits(valid)
+    assert kernels.LAUNCHES["valid_bits"] == 1
+    _assert_same(got, K1.pack_valid_bits_plain(valid.cpu()))
+
+
+# (mul, add, dtype, generic) of the masked pulls: the templated (PLUS, MIN) and (MULT, PLUS) f32, the
+# generic family in f32 (MINUS/MIN has no templated instance; MULT/PLUS sent there), i32 and u32 BAND/BOR;
+# None the structural variant
+MASKED_PULLS = {"PLUS/MIN f32": ("PLUS", "MIN", "f32", False), "MULT/PLUS f32": ("MULT", "PLUS", "f32", False),
+                "MINUS/MIN f32": ("MINUS", "MIN", "f32", False), "MULT/PLUS f32 generic": ("MULT", "PLUS", "f32", True),
+                "BAND/BOR i32": ("BAND", "BOR", "i32", False), "BAND/BOR u32": ("BAND", "BOR", "u32", False),
+                "structural": None}
+
+
+@pytest.mark.parametrize("mask", ["empty", "full", "random"])
+@pytest.mark.parametrize("graph", ["deg16", "hub"])
+@pytest.mark.parametrize("case", list(MASKED_PULLS))
+def test_masked_pull_reads_the_bitmap(dev, case, graph, mask):
+    """Kernel 1 with x_valid (packed into the plan's bitmap first: one pack
+    a call) against its plain version, which reads the bytes: n = 3001 (no
+    multiple of 32), with hub rows or without, every row selected or some;
+    bitwise but for the f32 PLUS fold; a masked call allocates nothing once
+    the plan is built."""
+    A = _typed_pull_matrix(graph, "f32" if MASKED_PULLS[case] is None else MASKED_PULLS[case][2], dev)
+    n = A.shape[0]
+    assert n % 32 and (K1.pull_plan(A).nhub > 0) == (graph == "hub")
+    rng = np.random.default_rng(4)
+    x_valid = _card_mask(mask, n, dev, 5)
+    row_sel = torch.from_numpy(rng.random(n) < 0.6).to(dev)
+    for rs in (None, row_sel):
+        kernels.reset_launches()
+        if MASKED_PULLS[case] is None:
+            got, ref = K1.spmv_pull_structural(A, x_valid, rs), K1.spmv_pull_structural_plain(A, x_valid, rs)
+            assert kernels.LAUNCHES["valid_bits"] == kernels.LAUNCHES["spmv_pull"] == 1
+            _assert_same(got, ref)
+            continue
+        mul, add, dtype, generic = MASKED_PULLS[case]
+        T = TYPES[dtype]
+        om, oa = getattr(T, mul), getattr(T, add)
+        x = _typed_x(n, dtype, dev, rng)
+        out = torch.empty(n, dtype=x.dtype, device=dev)
+        mem = torch.cuda.memory_allocated()
+        K1.spmv_pull(A, x, om, oa, oa.identity, x_valid, rs, out=out, generic=generic)
+        assert torch.cuda.memory_allocated() == mem
+        assert kernels.LAUNCHES["valid_bits"] == 1
+        family = generic or not K1.templated(*K1.pull_codes(om, oa, T.dtype))
+        assert kernels.LAUNCHES["spmv_pull_generic" if family else "spmv_pull"] == 1
+        got, has = K1.spmv_pull(A, x, om, oa, oa.identity, x_valid, rs, want_has=True, generic=generic)
+        ref, ref_has = K1.spmv_pull_plain(A, x, om, oa, oa.identity, x_valid, rs)
+        assert torch.equal(has, ref_has)
+        _same_values(got, ref, dtype == "f32" and add == "PLUS")
+        _same_values(out, got, False)
+
+
+def test_masked_pull_on_an_indptr_of_two_widths(dev):
+    """Two matrices on one indptr tensor (as parallel's local blocks of two
+    widths are) share one plan, whose words fit the first width: a masked
+    pull on either width packs x_valid into words of its length."""
+    A = _pull_matrix("hub", "f32", dev)
+    n = A.shape[0]
+    wide = replace(A, shape=(n, 2 * n))
+    rng = np.random.default_rng(6)
+    for M in (A, wide, A):
+        x = torch.from_numpy(rng.random(M.shape[1], dtype=np.float32)).to(dev)
+        x_valid = torch.from_numpy(rng.random(M.shape[1]) < 0.5).to(dev)
+        got, _ = K1.spmv_pull(M, x, op.PLUS_FLOAT, op.MIN_FLOAT, float("inf"), x_valid)
+        _assert_same(got, K1.spmv_pull_plain(M, x, op.PLUS_FLOAT, op.MIN_FLOAT, float("inf"), x_valid)[0])
+        _assert_same(K1.spmv_pull_structural(M, x_valid), K1.spmv_pull_structural_plain(M, x_valid))
+    assert K1.pull_plan(wide) is K1.pull_plan(A) and K1.pull_plan(A).valid_bits.numel() == (n + 31) // 32
+
+
 def test_spmv_pull_split_parts_have_their_own_plans(dev):
     """formats.split_rows parts share cols but not indptr: each part's plan
     lists its own hub rows (rebased), and the parts' outputs, written into
@@ -1304,8 +1388,8 @@ def test_road_route_launches_kernel6(dev, monkeypatch):
 def test_level_loop_counts_its_work_as_the_plain_loop_does(dev, kind, mode, monkeypatch):
     """The level loop on the card counts the plain loop's push_edges and
     pull_entries (the hub source's degree from word 0 of the first read),
-    reads the count once a level, and launches what it launched before
-    the counters: BFS one launch a push level, SSSP two, and a pull level
+    reads the count once a level, and launches BFS one launch a push level,
+    SSSP two, and a pull level the pack of the mask into kernel 1's bitmap,
     kernel 1 and kernel 3's update."""
     monkeypatch.setattr(alg, "RESIDENT_BYTES", 0)
     a = _graph()
@@ -1326,8 +1410,21 @@ def test_level_loop_counts_its_work_as_the_plain_loop_does(dev, kind, mode, monk
     assert card["push_edges"] >= (a.indptr[18] - a.indptr[17] if card["push"] else 0)
     per_push = {"bfs": ("bfs_push_level", 1), "sssp": ("sssp_push_level", 2)}[kind]
     assert launches[per_push[0]] == per_push[1] * card["push"]
-    assert launches["spmv_pull"] == launches["level_update"] == card["pull"]
-    assert sum(launches.values()) == per_push[1] * card["push"] + 2 * card["pull"]
+    assert launches["spmv_pull"] == launches["level_update"] == launches["valid_bits"] == card["pull"]
+    assert sum(launches.values()) == per_push[1] * card["push"] + 3 * card["pull"]
+
+
+def test_pr_packs_no_mask(dev):
+    """PageRank's pulls pass no x_valid: kernel 1 an iteration and no pack."""
+    a = _graph(n=2000, seed=5, hub=300)
+    a = (a + a.T).tocsr()
+    outdeg = np.asarray(a.sum(axis=0)).ravel()
+    M = F.csr_from_scipy(a.multiply(0.85 / outdeg).tocsr().astype(np.float32), device=dev)
+    levels = alg.STATS["levels"]
+    kernels.reset_launches()
+    alg.pr(M)
+    assert kernels.LAUNCHES["spmv_pull"] == alg.STATS["levels"] - levels > 0
+    assert kernels.LAUNCHES["valid_bits"] == 0
 
 
 @pytest.fixture

@@ -326,3 +326,27 @@ def test_kernel1_plain_matches_the_older_tpu_kernels(case):
                             OP.lookup(add, OP.FLOAT), init, want_has=True)
     _close(got, want, add == "PLUS")
     assert not bool(has[7]) and float(got[7]) == init
+
+
+def _packbits_oracle(valid):
+    """numpy's little-endian packbits over words of 32 bits, as int32."""
+    n = valid.size
+    padded = np.concatenate([valid, np.zeros(-n % 32, dtype=bool)])
+    return np.packbits(padded, bitorder="little").view("<u4").astype(np.uint32).view(np.int32)
+
+
+@pytest.mark.parametrize("kind", ["none", "all", "random"])
+@pytest.mark.parametrize("n", [0, 1, 31, 32, 33, 1000, (1 << 16) + 5])
+def test_pack_valid_bits_plain_matches_packbits(n, kind):
+    """Kernel 1's bitmap of x_valid (bit j & 31 of word j >> 5, 0 past n)
+    against numpy's packbits; pack_valid_bits takes the plain version on CPU
+    tensors and writes its out in place."""
+    valid = {"none": np.zeros(n, dtype=bool), "all": np.ones(n, dtype=bool),
+             "random": np.random.default_rng(n).random(n) < 0.5}[kind]
+    want = _packbits_oracle(valid)
+    got = K1.pack_valid_bits_plain(torch.from_numpy(valid))
+    assert got.dtype == torch.int32 and got.shape == ((n + 31) // 32,)
+    np.testing.assert_array_equal(got.numpy(), want)
+    out = torch.full(((n + 31) // 32,), -7, dtype=torch.int32)
+    assert K1.pack_valid_bits(torch.from_numpy(valid), out=out) is out
+    np.testing.assert_array_equal(out.numpy(), want)
