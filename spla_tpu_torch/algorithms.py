@@ -30,7 +30,10 @@ it names its phases in a ``torch.profiler`` trace
 (``profiling.span``: ``spla.bfs`` / ``sssp`` / ``pr``, ``spla.level.push`` /
 ``pull`` / ``read``).  The JAX version has no such sync: each loop is one
 ``lax.while_loop`` whose convergence scalar stays on the device
-(``spla_tpu/algorithms.py:8-12``).  ``tc`` reads its one result.
+(``spla_tpu/algorithms.py:8-12``).  ``tc`` reads its one result (its spans
+``spla.tc`` and ``spla.tc.read``) and counts the products it walks in
+``STATS["tc_products"]`` from kernel 4's cached plan, with no read of its
+own.
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ from .descriptor import Descriptor
 from .formats import WeakIdCache, csr_transpose_host, is_skewed, stored_finite as _finite, transpose_of
 from .kernels.frontier import LevelState, bfs_state, read_count, sssp_state
 from .kernels.level_update import bfs_pull_update, sssp_pull_update
+from .kernels.mxmt import mxmt_products
 from .kernels.resident import bfs_resident, sssp_resident
 from .kernels.spmv import spmv_pull, spmv_pull_structural
 from .kernels.traversal import bfs_push_level, sssp_push_level
@@ -68,8 +72,10 @@ __all__ = ["STATS", "RESIDENT_BYTES", "resident_bytes", "bfs", "sssp", "pr", "tc
 # stored entries of the lists its push levels walked (kernel 2), and
 # ``pull_entries``, those of the rows its pulls selected (kernel 1; a
 # PageRank iteration selects every row), as ``_run_levels`` counts them.
+# ``tc_products``: the elements of B's rows that ``tc``'s calls walked, the
+# sum of B's row length over the stored mask entries (Σ deg² for A = Aᵀ).
 STATS = {"levels": 0, "push": 0, "pull": 0, "host_syncs": 0, "resident": 0, "level_loop": 0,
-         "capped": 0, "wide_rounds": 0, "push_edges": 0, "pull_entries": 0}
+         "capped": 0, "wide_rounds": 0, "push_edges": 0, "pull_entries": 0, "tc_products": 0}
 
 # What the resident route may hold: the H100's 50 MB L2, the counterpart of
 # RESIDENT_VMEM (spla_tpu/pallas/spmv.py:2456) on the TPU.
@@ -324,14 +330,25 @@ def tc(A: CsrMatrix, products_cap: int | None = None) -> int:
     the value dtype: for int32 it wraps past 2^31 where kernel 4 does not.
     Reads one scalar on the host.  The ops are those of A's value type
     (MULT, PLUS and GTZERO of INT, UINT or FLOAT), so a UINT graph compares
-    and multiplies as unsigned, and launches kernel 4's u32 instance."""
-    is_pattern = _is_pattern(A)
-    T = type_from_dtype(A.values.dtype)
-    if A.values.device.type == "cuda":
-        total = mxmT_masked_reduce(A, A, A, T.MULT, T.GTZERO, struct_only=is_pattern)
-        return int(round(float(total))) if total.is_floating_point() else int(total)
-    B = mxmT_masked(A, A, A, T.MULT, T.PLUS, T.GTZERO, 0, products_cap=products_cap, struct_only=is_pattern)
-    return int(m_reduce(0, B, T.PLUS).value)
+    and multiplies as unsigned, and launches kernel 4's u32 instance.
+
+    The call is one ``spla.tc`` span, the read one ``spla.tc.read`` in it;
+    ``STATS["tc_products"]`` gains the elements of A's rows walked over
+    every stored entry (``kernels.mxmt.mxmt_products``: from kernel 4's
+    cached plan on CUDA, so no host read of its own)."""
+    with span("spla.tc", next(_QUERIES)):
+        is_pattern = _is_pattern(A)
+        T = type_from_dtype(A.values.dtype)
+        STATS["tc_products"] += mxmt_products(A, A)
+        if A.values.device.type == "cuda":
+            total = mxmT_masked_reduce(A, A, A, T.MULT, T.GTZERO, struct_only=is_pattern)
+            with span("spla.tc.read"):
+                return int(round(float(total))) if total.is_floating_point() else int(total)
+        B = mxmT_masked(A, A, A, T.MULT, T.PLUS, T.GTZERO, 0, products_cap=products_cap,
+                        struct_only=is_pattern)
+        total = m_reduce(0, B, T.PLUS).value
+        with span("spla.tc.read"):
+            return int(total)
 
 
 def bfs_naive(adj: list, source: int) -> np.ndarray:

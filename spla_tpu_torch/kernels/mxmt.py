@@ -36,8 +36,9 @@ each entry with a team of ``TEAM`` (two) lanes.  Their launch is shaped by
 ``mxmt_plan``, built on the device from the mask and B at their first CUDA
 call and cached per tensor: the stored count and the entries whose B row
 is longer than ``HUB_LEN``, cut into chunks of ``HUB_CHUNK`` B entries, a
-CTA each.  Building it reads the host once.  No argument or setting
-chooses any of it.  The CUDA source's header
+CTA each.  Building it reads the host once, and that read also gives the
+products the kernels walk (``MxmtPlan.products``, ``mxmt_products``).  No
+argument or setting chooses any of it.  The CUDA source's header
 says what bounds the kernels and how they are laid out.
 """
 
@@ -70,6 +71,7 @@ __all__ = [
     "HUB_CHUNK",
     "MxmtPlan",
     "mxmt_plan",
+    "mxmt_products",
     "masked_codes",
     "reduce_codes",
     "mxmt_masked",
@@ -134,11 +136,17 @@ def _entry_ranges(deg):
     return ranges
 
 
+def _entry_degrees(mask: CsrMatrix, B: CsrMatrix) -> torch.Tensor:
+    """B's row length at each stored mask entry's column, 0 past the stored
+    entries (int64 [mask.capacity]): the product slots of each entry."""
+    mcols = mask.cols.long().clamp(0, max(B.shape[0] - 1, 0))
+    return torch.where(mask.valid_mask(), (B.indptr[1:] - B.indptr[:-1])[mcols].long(), 0)
+
+
 def _ranges_and_steps(mask: CsrMatrix, A: CsrMatrix, B: CsrMatrix, products_cap):
     """The entry ranges to expand, each with its slot count, and the
     bisection steps that cover A's longest row (host reads)."""
-    mcols = mask.cols.long().clamp(0, max(B.shape[0] - 1, 0))
-    deg = torch.where(mask.valid_mask(), (B.indptr[1:] - B.indptr[:-1])[mcols].long(), 0)
+    deg = _entry_degrees(mask, B)
     if products_cap is not None:  # one pass of a given size; slots past it drop
         ranges = [(0, mask.capacity, int(products_cap))]
     else:
@@ -220,9 +228,10 @@ class MxmtPlan:
     in entry order; hub h has chunks ``chunk_first[h]`` ..
     ``chunk_first[h + 1] - 1``, chunk b walking B's entries ``[chunk_c0[b],
     chunk_c1[b])`` for mask entry ``chunk_entry[b]`` of row
-    ``chunk_row[b]``, a CTA each.  Where a hub has several chunks,
-    ``part``/``part_any``/``done`` are kernel 5's scratch
-    (``spmv.hub_scratch``)."""
+    ``chunk_row[b]``, a CTA each.  ``products`` is the sum of B's row
+    length over the stored entries: the elements of B the kernels walk.
+    Where a hub has several chunks, ``part``/``part_any``/``done`` are
+    kernel 5's scratch (``spmv.hub_scratch``)."""
 
     chunk_entry: torch.Tensor  # int32 [nchunks]
     chunk_row: torch.Tensor  # int32 [nchunks]
@@ -233,6 +242,7 @@ class MxmtPlan:
     stored: int
     nhub: int
     nchunks: int
+    products: int
     part: torch.Tensor | None = None
     part_any: torch.Tensor | None = None
     done: torch.Tensor | None = None
@@ -241,7 +251,8 @@ class MxmtPlan:
 def mxmt_plan(mask: CsrMatrix, B: CsrMatrix) -> MxmtPlan:
     """The plan of ``mask`` against ``B``, built on their device and cached
     per (mask.cols, mask.indptr, B.indptr) tensors; the stored, hub and
-    chunk counts are read on the host once, at the first build."""
+    chunk counts and the products are read on the host once, at the first
+    build."""
     key = (id(mask.indptr), id(B.indptr))
     hit = _PLANS.get(mask.cols, key)
     if hit is not None and hit[0]() is mask.indptr and hit[1]() is B.indptr:
@@ -255,7 +266,8 @@ def mxmt_plan(mask: CsrMatrix, B: CsrMatrix) -> MxmtPlan:
     blen = torch.where(stored, (bip[1:] - bip[:-1])[j], 0)
     hub = blen > HUB_LEN
     chunks = torch.where(hub, torch.div(blen + HUB_CHUNK - 1, HUB_CHUNK, rounding_mode="floor"), 0)
-    nstored, nhub, nchunks = (int(v) for v in torch.stack([mip[m], hub.sum(), chunks.sum()]).tolist())
+    nstored, nhub, nchunks, products = (
+        int(v) for v in torch.stack([mip[m], hub.sum(), chunks.sum(), blen.sum()]).tolist())
     # each hub entry's rank among the hub entries; the others go to slot nhub, dropped
     slot = torch.where(hub, torch.cumsum(hub, 0) - 1, nhub)
     ents = torch.empty(nhub + 1, dtype=torch.long, device=device)
@@ -271,9 +283,20 @@ def mxmt_plan(mask: CsrMatrix, B: CsrMatrix) -> MxmtPlan:
     scratch = hub_scratch(nchunks, nhub, device) if nchunks > nhub else {}
     i32 = [t.to(torch.int32) for t in (chunk_entry, mask.row_ids[chunk_entry], chunk_c0, chunk_c1,
                                        chunk_hub, chunk_first)]
-    plan = MxmtPlan(*i32, nstored, nhub, nchunks, **scratch)
+    plan = MxmtPlan(*i32, nstored, nhub, nchunks, products, **scratch)
     _PLANS.put(mask.cols, (weakref.ref(mask.indptr), weakref.ref(B.indptr), plan), key)
     return plan
+
+
+def mxmt_products(mask: CsrMatrix, B: CsrMatrix) -> int:
+    """The elements of B's rows that a call over every stored entry of
+    ``mask`` walks: the sum of B's row length over the stored entries.  On
+    CUDA tensors it is the cached plan's ``products``, so no host read
+    follows the plan's build; on CPU tensors the plain versions' slot
+    count (``_entry_degrees``), summed."""
+    if mask.cols.device.type == "cuda":
+        return mxmt_plan(mask, B).products
+    return int(_entry_degrees(mask, B).sum())
 
 
 # ---------------------------------------------------------------- kernels

@@ -818,6 +818,51 @@ def test_tc_and_mxmT_masked_match_cpu(dev):
     assert TG.DISPATCH_STATS["mxmT_torch"] == before["mxmT_torch"] + 5  # the CPU runs
 
 
+def _urand_on_card(dev, n, deg, seed=41):
+    """A symmetric uniform random graph built on the card (no self-loops, no
+    duplicates, about ``deg`` entries a row), int32 ones, columns sorted."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    r = torch.randint(0, n, (n * deg // 2,), generator=g, device=dev)
+    c = torch.randint(0, n, r.shape, generator=g, device=dev)
+    keep = r != c
+    r, c = r[keep], c[keep]
+    keys = torch.unique(torch.cat([r * n + c, c * n + r]))
+    del r, c, keep
+    rows, cols = (keys // n).to(torch.int32), (keys % n).to(torch.int32)
+    nnz = rows.numel()
+    indptr = torch.searchsorted(rows, torch.arange(n + 1, dtype=torch.int32, device=dev)).to(torch.int32)
+    return F.CsrMatrix(shape=(n, n), indptr=indptr, cols=cols, values=torch.ones(nnz, dtype=torch.int32, device=dev),
+                       row_ids=rows, nnz=torch.tensor(nnz, dtype=torch.int32, device=dev),
+                       fill=torch.tensor(0, dtype=torch.int32, device=dev))
+
+
+def test_tc_kernel4_on_a_large_urand_graph_reads_its_plan_once(dev):
+    """tc on a uniform graph at n = 2^22, degree 32 (~134 M entries): kernel 4's
+    structural count equals its plain version's; the plan's products are
+    Σ deg² and reach ``STATS["tc_products"]``; a second count neither
+    rebuilds nor reads the plan (no host read under the sync check)."""
+    A = _urand_on_card(dev, 1 << 22, 32)
+    deg = (A.indptr[1:] - A.indptr[:-1]).long()
+    alg.STATS["tc_products"] = 0
+    kernels.reset_launches()
+    got = alg.tc(A)
+    assert kernels.LAUNCHES["mxmt_reduce"] == 1
+    plan = K45.mxmt_plan(A, A)
+    assert plan.nhub == 0 and plan.stored == int(A.nnz)
+    assert plan.products == int((deg ** 2).sum()) == alg.STATS["tc_products"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = TG.mxmT_masked_reduce(A, A, A, op.MULT_INT, op.GTZERO_INT, struct_only=True)
+        products = K45.mxmt_products(A, A)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert K45.mxmt_plan(A, A) is plan and products == plan.products
+    assert int(again) == got == int(K45.mxmt_reduce_plain(A, A, A, None, struct_only=True)) > 0
+    assert alg.tc(A) == got and alg.STATS["tc_products"] == 2 * plan.products
+
+
 def _bins_operands(dev, dtype, signed=False):
     """graphs.spgemm_bins (small, medium and large rows of A @ B) on the card:
     f32 values in [0.5, 1.5), i32 the f32 ones x 1000 truncated, or with
