@@ -691,12 +691,12 @@ def check_masked(label, mask, A, om, oa, sel, struct_only=False):
     return check_close(label, got, ref, exact, ref64)
 
 
-def check_reduce(label, mask, A, om, sel, struct_only=False):
-    """Kernel 4 against its plain version: int64 totals bitwise, float64
-    totals (of the same f32 products, added in another order) within
-    check_close's tolerance."""
-    got = K45.mxmt_reduce(mask, A, A, om, sel, struct_only).reshape(1)
-    ref = K45.mxmt_reduce_plain(mask, A, A, om, sel, struct_only).reshape(1)
+def check_reduce(label, mask, A, om, sel, struct_only=False, ordered=False):
+    """Kernel 4 (with ``ordered``, its ordered walk) against its plain
+    version: int64 totals bitwise, float64 totals (of the same f32
+    products, added in another order) within check_close's tolerance."""
+    got = K45.mxmt_reduce(mask, A, A, om, sel, struct_only, ordered).reshape(1)
+    ref = K45.mxmt_reduce_plain(mask, A, A, om, sel, struct_only, ordered).reshape(1)
     exact = ref.dtype == torch.int64
     return check_close(label, got, ref, exact, None if exact else ref)
 
@@ -708,12 +708,13 @@ def mxmt_plan_line(mask, B):
             f"{K45.HUB_CHUNK}")
 
 
-def mxmt_resources(mode, dtype, mul, add):
+def mxmt_resources(mode, dtype, mul, add, ordered=False):
     """ptxas' registers and shared memory of one csrc/mxmt.cu instance
-    (mxmt_kernel<mode, dtype, mul, add>; dtype "i" or "f"; mul RUNTIME_MUL for
-    the instances whose mul is a kernel argument), from the build log."""
+    (mxmt_kernel<mode, dtype, mul, add, ordered>; dtype "i" or "f"; mul
+    RUNTIME_MUL for the instances whose mul is a kernel argument), from the
+    build log."""
     ints = [f"Li{'n' if v < 0 else ''}{abs(v)}E" for v in (mode, mul, add)]
-    name, found = f"mxmt_kernelI{ints[0]}{dtype}{''.join(ints[1:])}E", False
+    name, found = f"mxmt_kernelI{ints[0]}{dtype}{''.join(ints[1:])}Lb{int(ordered)}EE", False
     for line in build_log().splitlines():
         if "Compiling entry function" in line:
             found = name in line
@@ -757,18 +758,23 @@ def check_mxmt(G):
         check_close(f"mxmt_reduce {graph} structural no selection",
                     K45.mxmt_reduce(mask, A, A, None, struct_only=True).reshape(1),
                     K45.mxmt_reduce_plain(mask, A, A, None, struct_only=True).reshape(1), True)
+        check_reduce(f"mxmt_reduce {graph} structural ordered", mask, A, None, None, struct_only=True,
+                     ordered=True)
         for values in (True, False):
-            check_close(f"mxmt_gather {graph} values={values}", K8.mxmt_gather(mask, A, values),
-                        K8.mxmt_gather_plain(mask, A, values), True)
+            for ordered in (False, True):
+                check_close(f"mxmt_gather {graph} values={values} ordered={ordered}",
+                            K8.mxmt_gather(mask, A, values, ordered), K8.mxmt_gather_plain(mask, A, values, ordered),
+                            True)
         what = (f"n={N_TC} degree {DEG_TC}" if graph == "T"
                 else f"hub graph n={N_HUB_TC}, {HUB_ROWS} rows of {HUB_LEN_TC} drawn columns")
         print(f"kernels 4 and 5 on the {what} (plan: {mxmt_plan_line(mask, A)}): the six muls' 36 (mul, add, "
-              f"dtype) + 6 structural of kernel 5 and 12 + 1 of kernel 4 match the plain versions, and the "
-              f"gather floor its plain version", flush=True)
+              f"dtype) + 6 structural of kernel 5 and 12 + 1 of kernel 4 and its ordered walk match the plain "
+              f"versions, and the gather floors theirs", flush=True)
     for label, mask in (("tc n=2^15", G["T"]), ("tc n=2^20", G["Aint"])):
         print(f"kernels 4 and 5 plan on {label}: {mxmt_plan_line(mask, mask)}", flush=True)
-    for what, key in (("kernel 4 structural", (0, "i", -1, 0)), ("kernel 4 i32", (0, "i", RUNTIME_MUL, 0)),
-                      ("kernel 5 PLUS i32", (1, "i", RUNTIME_MUL, 0)), ("gather, values", (2, "i", 0, 0))):
+    for what, key in (("kernel 4 structural", (0, "i", -1, 0)), ("kernel 4 ordered", (0, "i", -1, 0, True)),
+                      ("kernel 4 i32", (0, "i", RUNTIME_MUL, 0)), ("kernel 5 PLUS i32", (1, "i", RUNTIME_MUL, 0)),
+                      ("gather, values", (2, "i", 0, 0))):
         print(f"{what}: {mxmt_resources(*key)}", flush=True)
     return errs
 
@@ -2250,7 +2256,8 @@ def mxmt_bound(mask, A, values, out_bytes):
 
 def time_spgemm(G, card):
     """Kernels 4 and 5 against their plain versions, beside their gather
-    floor (``mxmt_gather``: the same walk, B's rows with no probe of A), on
+    floor (``mxmt_gather``: the same walk, B's rows with no probe of A), and
+    kernel 4's ordered walk beside its own floor, on
     the SpGEMM graph (n = 2^15) and the traversal graph (n = 2^20), mask =
     A = B as tc calls them, and on the hub graph with its own mask; every
     stored mask entry selected.  masked_spgemm_mprod_s (bench_suite.py:559:
@@ -2266,6 +2273,10 @@ def time_spgemm(G, card):
             "mxmt_reduce structural": (lambda: K45.mxmt_reduce(mask, A, A, None, struct_only=True),
                                        lambda: K45.mxmt_reduce_plain(mask, A, A, None, struct_only=True),
                                        mxmt_bound(mask, A, False, out_bytes=8)),
+            "mxmt_reduce structural ordered": (
+                lambda: K45.mxmt_reduce(mask, A, A, None, struct_only=True, ordered=True),
+                lambda: K45.mxmt_reduce_plain(mask, A, A, None, struct_only=True, ordered=True),
+                mxmt_bound(mask, A, False, out_bytes=8)),
             "mxmt_reduce MULT i32": (lambda: K45.mxmt_reduce(mask, A, A, op.MULT_INT),
                                      lambda: K45.mxmt_reduce_plain(mask, A, A, op.MULT_INT),
                                      mxmt_bound(mask, A, True, out_bytes=8)),
@@ -2276,6 +2287,9 @@ def time_spgemm(G, card):
             "mxmt_gather cols": (lambda: K8.mxmt_gather(mask, A, False),
                                  lambda: K8.mxmt_gather_plain(mask, A, False),
                                  mxmt_bound(mask, A, False, out_bytes=4 * mask.capacity)),
+            "mxmt_gather cols ordered": (lambda: K8.mxmt_gather(mask, A, False, ordered=True),
+                                         lambda: K8.mxmt_gather_plain(mask, A, False, ordered=True),
+                                         mxmt_bound(mask, A, False, out_bytes=4 * mask.capacity)),
             "mxmt_gather cols+values": (lambda: K8.mxmt_gather(mask, A, True),
                                         lambda: K8.mxmt_gather_plain(mask, A, True),
                                         mxmt_bound(mask, A, True, out_bytes=4 * mask.capacity)),

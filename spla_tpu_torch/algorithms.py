@@ -31,9 +31,9 @@ it names its phases in a ``torch.profiler`` trace
 ``pull`` / ``read``).  The JAX version has no such sync: each loop is one
 ``lax.while_loop`` whose convergence scalar stays on the device
 (``spla_tpu/algorithms.py:8-12``).  ``tc`` reads its one result (its spans
-``spla.tc`` and ``spla.tc.read``) and counts the products it walks in
-``STATS["tc_products"]`` from kernel 4's cached plan, with no read of its
-own.
+``spla.tc`` and ``spla.tc.read``) and counts its work in
+``STATS["tc_products"]`` and ``STATS["tc_walked"]`` from kernel 4's cached
+plan and check, with no read of its own.
 """
 
 from __future__ import annotations
@@ -51,7 +51,7 @@ from .descriptor import Descriptor
 from .formats import WeakIdCache, csr_transpose_host, is_skewed, stored_finite as _finite, transpose_of
 from .kernels.frontier import LevelState, bfs_state, read_count, sssp_state
 from .kernels.level_update import bfs_pull_update, sssp_pull_update
-from .kernels.mxmt import mxmt_products
+from .kernels.mxmt import mxmt_products, mxmt_reduce, ordered_walk
 from .kernels.resident import bfs_resident, sssp_resident
 from .kernels.spmv import spmv_pull, spmv_pull_structural
 from .kernels.traversal import bfs_push_level, sssp_push_level
@@ -72,10 +72,13 @@ __all__ = ["STATS", "RESIDENT_BYTES", "resident_bytes", "bfs", "sssp", "pr", "tc
 # stored entries of the lists its push levels walked (kernel 2), and
 # ``pull_entries``, those of the rows its pulls selected (kernel 1; a
 # PageRank iteration selects every row), as ``_run_levels`` counts them.
-# ``tc_products``: the elements of B's rows that ``tc``'s calls walked, the
-# sum of B's row length over the stored mask entries (Σ deg² for A = Aᵀ).
+# ``tc_products``: the size of ``tc``'s problems, the sum of A's row length
+# over A's stored entries (Σ deg² for A = Aᵀ), whichever walk ran;
+# ``tc_walked``: the elements of A's rows that the walk ``tc`` chose reads
+# (the full walk: ``tc_products``; the ordered walk: ``ordered_walk(A)``).
 STATS = {"levels": 0, "push": 0, "pull": 0, "host_syncs": 0, "resident": 0, "level_loop": 0,
-         "capped": 0, "wide_rounds": 0, "push_edges": 0, "pull_entries": 0, "tc_products": 0}
+         "capped": 0, "wide_rounds": 0, "push_edges": 0, "pull_entries": 0, "tc_products": 0,
+         "tc_walked": 0}
 
 # What the resident route may hold: the H100's 50 MB L2, the counterpart of
 # RESIDENT_VMEM (spla_tpu/pallas/spmv.py:2456) on the TPU.
@@ -317,6 +320,13 @@ def _is_pattern(A: CsrMatrix) -> bool:
     return hit
 
 
+def _tc_ordered_walk(A: CsrMatrix) -> int | None:
+    """What ``tc``'s ordered walk reads on A (``kernels.mxmt.ordered_walk``)
+    where A is a verified 0/1 pattern besides, else None: then ``tc`` takes
+    the full walk.  Cached, as its two checks are."""
+    return ordered_walk(A) if _is_pattern(A) else None
+
+
 def tc(A: CsrMatrix, products_cap: int | None = None) -> int:
     """Triangle count: the sum of ``(A x Aᵀ) masked by A`` under (MULT,
     PLUS) with the GTZERO select (reference ``src/algorithm.cpp:380-414``).
@@ -332,15 +342,30 @@ def tc(A: CsrMatrix, products_cap: int | None = None) -> int:
     (MULT, PLUS and GTZERO of INT, UINT or FLOAT), so a UINT graph compares
     and multiplies as unsigned, and launches kernel 4's u32 instance.
 
+    On CUDA tensors a 0/1 pattern that ``kernels.mxmt.ordered_walk`` finds
+    square, symmetric, with no diagonal entry and strictly increasing rows
+    takes kernel 4's ordered walk (GAP's ordered count): the entries (i, j)
+    with j < i over the columns k < j, each triangle once, times 6, the same
+    integer.  Every other input takes the full walk.
+
     The call is one ``spla.tc`` span, the read one ``spla.tc.read`` in it;
-    ``STATS["tc_products"]`` gains the elements of A's rows walked over
-    every stored entry (``kernels.mxmt.mxmt_products``: from kernel 4's
-    cached plan on CUDA, so no host read of its own)."""
+    ``STATS["tc_products"]`` gains the elements of A's rows the full walk
+    reads over every stored entry (``kernels.mxmt.mxmt_products``), and
+    ``STATS["tc_walked"]`` those the chosen walk reads: from kernel 4's
+    cached plan and check on CUDA, so no host read of their own."""
     with span("spla.tc", next(_QUERIES)):
         is_pattern = _is_pattern(A)
         T = type_from_dtype(A.values.dtype)
-        STATS["tc_products"] += mxmt_products(A, A)
-        if A.values.device.type == "cuda":
+        products = mxmt_products(A, A)
+        cuda = A.values.device.type == "cuda"
+        walked = _tc_ordered_walk(A) if cuda else None
+        STATS["tc_products"] += products
+        STATS["tc_walked"] += products if walked is None else walked
+        if walked is not None:
+            total = mxmt_reduce(A, A, A, None, struct_only=True, ordered=True)
+            with span("spla.tc.read"):
+                return 6 * int(total)
+        if cuda:
             total = mxmT_masked_reduce(A, A, A, T.MULT, T.GTZERO, struct_only=is_pattern)
             with span("spla.tc.read"):
                 return int(round(float(total))) if total.is_floating_point() else int(total)

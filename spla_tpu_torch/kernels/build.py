@@ -61,11 +61,11 @@ SIGNATURES = {
     "spla_bfs_level_update": (_I64, _P, _P, _P, _INT, _P, _P, _INT, *(_P,) * 5),
     # n, hits, v, changed, list, count, wide, eoff, indptr, clear, stream
     "spla_sssp_level_update": (_I64, *(_P,) * 5, _INT, *(_P,) * 4),
-    # mode (0 kernel 4, 1 kernel 5, 2 gather), mul, add, dtype, structural, cap, mask row_ids/cols,
+    # mode (0 kernel 4, 1 kernel 5, 2 gather), mul, add, dtype, structural, ordered, cap, mask row_ids/cols,
     # sel, A indptr/cols/values, B indptr/cols/values, hub_len, stored, nhub, nchunks, chunk_entry,
     # chunk_row, chunk_c0, chunk_c1, chunk_hub, chunk_first, part, part_any, done, init (device
     # pointer or null), init's 32 bits (when null), out, has, total, stream
-    "spla_mxmt": (*(_INT,) * 5, _I64, *(_P,) * 9, _INT, _I64, _I64, _I64, *(_P,) * 10,
+    "spla_mxmt": (*(_INT,) * 6, _I64, *(_P,) * 9, _INT, _I64, _I64, _I64, *(_P,) * 10,
                   ctypes.c_uint32, *(_P,) * 4),
     # n, source, log2 team, wide_above, indptr, cols, v, queues, counters, stats, stream
     "spla_bfs_resident": (_I64, _INT, _INT, _I64, *(_P,) * 7),

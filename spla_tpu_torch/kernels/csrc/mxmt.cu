@@ -5,6 +5,15 @@
 //   kernel 5, mxmt_masked:  out[e] = init (+) fold_(+) products(e), has[e];
 // and a diagnostic instance, mxmt_gather: the same walk with no probe of A,
 //   out[e] = XOR of B's row j (its columns, and its value bits).
+// Kernel 4's structural instance and the gather also have an ordered walk
+// (the template's ORDERED, the entry point's `ordered`): only the entries
+// (i, j) with j < i, each over the columns k < j of B's row j.  On a
+// symmetric 0/1 pattern with no diagonal and strictly increasing rows
+// (mask = A = B, kernels/mxmt.py ordered_walk), it counts each triangle
+// k < j < i once, a sixth of the full sum: GAP's OrderedCount (gapbs
+// src/tc.cc), which algorithms.tc takes there.  On urand (degree 32) it
+// gathers half the B rows, each over ~1/3 of its length, ~16% of the
+// products.
 //
 // Replaces spla_tpu/pallas/mxmt.py pallas_mxmT_reduce (:335, kernel
 // _make_reduce_kernel :235) and pallas_mxmT_job_partials (:362, kernel
@@ -51,7 +60,18 @@
 //     per CTA: i32 products sum in int64 (two's complement, as uint64), hits
 //     of the structural instance in int64, f32 products in f64 (the f64
 //     atomics add in no fixed order).  Its structural instance takes no
-//     selection: every stored entry (the windows end at indptr[m]).
+//     selection: every stored entry (the windows end at indptr[m]);
+//   * the ordered walk keeps, of a window, the entries (i, j) with j < i
+//     that have B entries, packed to the front by a ballot (about 16 of 32
+//     on a symmetric graph: one round of the 16 teams, not two); a lane
+//     folds only B's columns below j and stops after the first batch of
+//     kUnroll whose last column reaches j (B's rows are sorted).  A hub
+//     chunk of an entry with j >= i returns at once; the others cut their
+//     stretch at B's first column not below j (a bisection of the chunk).
+//     The warp issues its teams' first B batches before it stages A's rows,
+//     so the two dependent loads overlap (kernel 4 46.7 -> 43.4 ms at
+//     urand-tc's size, PERF.md); the probes into A's row i are the full
+//     walk's.  Instances without the walk compile to the full walk's code.
 // Tried and dropped (tools/mxmt_times.py; PERF.md has the numbers): the
 // first design, a warp per entry with each lane bisecting A's row in global
 // memory (half the lanes idle at degree 16, one entry in flight a warp);
@@ -62,7 +82,8 @@
 // degree 48-192), and of 1 lane; 8 CTAs an SM by __launch_bounds__
 // (spills, 1.6-6x slower); no streaming hint on the mask (no change); the
 // next batch of an entry kept in flight while one is folded (within 2%,
-// 9-24 more registers).
+// 9-24 more registers); in the ordered walk, the second batch issued with
+// the first (1% faster at n = 2^24 degree 32, its gather floor 13% slower).
 //
 // Coverage: one family each (semiring.cuh's generic family), whose mul is a
 // kernel argument.  Kernel 5, add in {PLUS, MIN, MAX} x {f32, i32, u32}
@@ -202,12 +223,14 @@ struct Sink {
   __device__ T init_of() const { return init != nullptr ? *init : init_value; }
 };
 
-template <typename T, bool VALUES>
+template <typename T, bool VALUES, bool ORDERED>
 struct MxmtShared {
   int32_t cols[kWarps * kStage];  // a warp's staged rows of A at cols + warp * kStage
   T vals[VALUES ? kWarps * kStage : 1];
   int32_t lo[kWarps][kWindow], hi[kWarps][kWindow];      // each entry's B range
   int32_t a_off[kWarps][kWindow], a_len[kWarps][kWindow];  // and its A row
+  int32_t lim[ORDERED ? kWarps : 1][kWindow];  // the ordered walk: the entry's column j (B's columns below it)
+  int32_t src[ORDERED ? kWarps : 1][kWindow];  // and its lane in the window (the gather's output)
 };
 
 // A lane's next kUnroll entries of B, t, t + stride, ... (column -1 at and
@@ -230,14 +253,14 @@ struct Batch {
 
 // Fold one batch against A's row a[0, na) (staged or in global memory; na
 // >= 1 unless the gather, which reads no A).
-template <int MODE, typename T, int MUL, int ADD, bool GLOBAL>
+template <int MODE, typename T, int MUL, int ADD, bool GLOBAL, bool ORDERED>
 __device__ __forceinline__ void fold_batch(const Batch<T, MUL != kStruct>& b, const int32_t* __restrict__ a,
-                                           const T* __restrict__ av, int32_t na, int mul, AccOf<MODE, T, MUL>& acc,
-                                           bool& any) {
+                                           const T* __restrict__ av, int32_t na, int mul, int32_t lim,
+                                           AccOf<MODE, T, MUL>& acc, bool& any) {
   if constexpr (MODE == kGather) {
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      if (b.k[u] >= 0) {
+      if (b.k[u] >= 0 && (!ORDERED || b.k[u] < lim)) {
         acc ^= static_cast<uint32_t>(b.k[u]);
         if constexpr (MUL != kStruct) acc ^= bits_of(b.v[u]);
       }
@@ -247,7 +270,7 @@ __device__ __forceinline__ void fold_batch(const Batch<T, MUL != kStruct>& b, co
     lower_bounds<GLOBAL>(a, na, b.k, p);
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      if (b.k[u] >= 0 && p[u] < na && load<GLOBAL>(a + p[u]) == b.k[u]) {
+      if (b.k[u] >= 0 && (!ORDERED || b.k[u] < lim) && p[u] < na && load<GLOBAL>(a + p[u]) == b.k[u]) {
         T av_p = T(0);
         if constexpr (MUL != kStruct) av_p = load<GLOBAL>(av + p[u]);
         accumulate<MODE, ADD>(acc, product<MUL>(av_p, b.v[u], mul));
@@ -257,20 +280,50 @@ __device__ __forceinline__ void fold_batch(const Batch<T, MUL != kStruct>& b, co
   }
 }
 
+// Whether the ordered walk goes on past this batch: its last column (the
+// lane's furthest) is still below lim, so a later one may be too.
+template <typename T, bool VALUES>
+__device__ __forceinline__ bool below(const Batch<T, VALUES>& b, int32_t lim) {
+  return b.k[kUnroll - 1] >= 0 && b.k[kUnroll - 1] < lim;
+}
+
 // Fold this lane's share of B's entries [t, end) (t, t + stride, ...),
 // whose first batch is already issued into `first`.  The one routine of
-// all three modes.
-template <int MODE, typename T, int MUL, int ADD, bool GLOBAL>
+// all three modes.  The ordered walk folds only B's columns below lim and
+// stops after the first batch that reaches it (B's rows are sorted).
+template <int MODE, typename T, int MUL, int ADD, bool GLOBAL, bool ORDERED>
 __device__ __forceinline__ void walk(const MxmtArgs& o, const int32_t* __restrict__ a,
                                      const T* __restrict__ av, int32_t na, const Batch<T, MUL != kStruct>& first,
-                                     int32_t t, int32_t end, int stride, AccOf<MODE, T, MUL>& acc, bool& any) {
-  fold_batch<MODE, T, MUL, ADD, GLOBAL>(first, a, av, na, o.mul, acc, any);
+                                     int32_t t, int32_t end, int stride, int32_t lim, AccOf<MODE, T, MUL>& acc,
+                                     bool& any) {
+  fold_batch<MODE, T, MUL, ADD, GLOBAL, ORDERED>(first, a, av, na, o.mul, lim, acc, any);
+  if constexpr (ORDERED) {
+    if (!below(first, lim)) return;
+  }
   const int32_t step = kUnroll * stride;
   for (int32_t off = step; off < end - t; off += step) {  // no overflow of t + off past end
     Batch<T, MUL != kStruct> b;
     b.issue(o, t + off, end, stride);
-    fold_batch<MODE, T, MUL, ADD, GLOBAL>(b, a, av, na, o.mul, acc, any);
+    fold_batch<MODE, T, MUL, ADD, GLOBAL, ORDERED>(b, a, av, na, o.mul, lim, acc, any);
+    if constexpr (ORDERED) {
+      if (!below(b, lim)) return;
+    }
   }
+}
+
+// The first position in a[0, n) whose column is not below key (n if none).
+__device__ __forceinline__ int32_t first_not_below(const int32_t* __restrict__ a, int32_t n, int32_t key) {
+  int32_t lo = 0;
+  while (n > 0) {
+    const int32_t half = n >> 1;
+    if (__ldg(a + lo + half) < key) {
+      lo += half + 1;
+      n -= half + 1;
+    } else {
+      n = half;
+    }
+  }
+  return lo;
 }
 
 // One window of stored entries, walked by one warp, a lane an entry: each
@@ -280,11 +333,13 @@ __device__ __forceinline__ void walk(const MxmtArgs& o, const int32_t* __restric
 // the warp stages in shared memory; then teams of kTeam lanes fold the
 // entries, each team issuing its next entry's first batch before it folds
 // the current one.  Kernel 4 leaves its sums in lane_acc; kernel 5 and the
-// gather write each entry.
-template <int MODE, typename T, int MUL, int ADD>
+// gather write each entry.  The ordered walk keeps only the entries (i, j)
+// with j < i that have B entries to walk and packs them to the front of
+// the window (a ballot), so that no team idles on another.
+template <int MODE, typename T, int MUL, int ADD, bool ORDERED>
 __device__ __forceinline__ void window_walk(const MxmtArgs& o, const MxmtPlan& p, const Sink<T>& s,
-                                            MxmtShared<T, MUL != kStruct>& sh, long long w, int warp, int lane,
-                                            AccOf<MODE, T, MUL>& lane_acc) {
+                                            MxmtShared<T, MUL != kStruct, ORDERED>& sh, long long w, int warp,
+                                            int lane, AccOf<MODE, T, MUL>& lane_acc) {
   using Acc = AccOf<MODE, T, MUL>;
   constexpr bool kValues = MUL != kStruct;
   constexpr int g = kTeam, teams = 32 / kTeam;
@@ -314,18 +369,19 @@ __device__ __forceinline__ void window_walk(const MxmtArgs& o, const MxmtPlan& p
   const bool staged = MODE != kGather && top - base <= kStage;
   int32_t* __restrict__ s_cols = sh.cols + warp * kStage;
   T* __restrict__ s_vals = sh.vals + (kValues ? warp * kStage : 0);
-  if (staged) {
+  const auto stage = [&] {
     for (int32_t k = lane; k < top - base; k += 32) {
       s_cols[k] = __ldg(o.a_cols + base + k);
       if constexpr (kValues) s_vals[k] = __ldg(a_vals + base + k);
     }
-  }
+  };
+  if (staged && !ORDERED) stage();  // the ordered walk stages once its first B loads are in flight
   bool empty = false;  // selected with no product, or not selected: written here
   if (in) {
     if (hi - lo > p.hub_len) {
       lo = hi = 0;  // the entry's chunk CTAs write it
     } else {
-      empty = hi == lo || (MODE != kGather && a1 == a0);
+      empty = hi == lo || (MODE != kGather && a1 == a0) || (ORDERED && j >= row);
     }
   }
   if (empty) {
@@ -337,26 +393,42 @@ __device__ __forceinline__ void window_walk(const MxmtArgs& o, const MxmtPlan& p
       static_cast<uint32_t*>(s.out)[e] = 0;
     }
   }
-  sh.lo[warp][lane] = lo;
-  sh.hi[warp][lane] = hi;
-  sh.a_off[warp][lane] = staged ? a0 - base : a0;
-  sh.a_len[warp][lane] = a1 - a0;
+  int slot = lane, nf = ne;  // the entry's place among those the teams fold, and their count
+  if constexpr (ORDERED) {
+    const unsigned live = __ballot_sync(kFullMask, lo != hi);
+    slot = __popc(live & ((1u << lane) - 1u));
+    nf = __popc(live);
+    if (lo != hi) {
+      sh.lim[warp][slot] = j;
+      sh.src[warp][slot] = lane;
+    }
+  }
+  if (!ORDERED || lo != hi) {
+    sh.lo[warp][slot] = lo;
+    sh.hi[warp][slot] = hi;
+    sh.a_off[warp][slot] = staged ? a0 - base : a0;
+    sh.a_len[warp][slot] = a1 - a0;
+  }
   __syncwarp();
   const int team = lane / g, sub = lane % g;
   const unsigned tmask = ((1u << g) - 1u) << (lane & ~(g - 1));
   const int32_t* a_cols = staged ? s_cols : o.a_cols;
   const T* av = staged ? s_vals : a_vals;
   int32_t blo = 0, bhi = 0;
-  if (team < ne) {
+  if (team < nf) {
     blo = sh.lo[warp][team];
     bhi = sh.hi[warp][team];
   }
   Batch<T, kValues> cur;
   cur.issue(o, blo + sub, bhi, g);
-  for (int q = team; q < ne; q += teams) {
+  if constexpr (ORDERED) {
+    if (staged) stage();
+    __syncwarp();
+  }
+  for (int q = team; q < nf; q += teams) {
     const int qn = q + teams;
     int32_t nlo = 0, nhi = 0;
-    if (qn < ne) {
+    if (qn < nf) {
       nlo = sh.lo[warp][qn];
       nhi = sh.hi[warp][qn];
     }
@@ -364,12 +436,16 @@ __device__ __forceinline__ void window_walk(const MxmtArgs& o, const MxmtPlan& p
     next.issue(o, nlo + sub, nhi, g);
     if (blo != bhi) {  // uniform across the team
       const int32_t off = sh.a_off[warp][q], na = sh.a_len[warp][q];
+      int32_t lim = 0;
+      if constexpr (ORDERED) lim = sh.lim[warp][q];
       Acc acc = acc_identity<MODE, ADD, Acc>();
       bool any = false;
       if (staged) {
-        walk<MODE, T, MUL, ADD, false>(o, a_cols + off, av + off, na, cur, blo + sub, bhi, g, acc, any);
+        walk<MODE, T, MUL, ADD, false, ORDERED>(o, a_cols + off, av + off, na, cur, blo + sub, bhi, g, lim,
+                                                acc, any);
       } else {
-        walk<MODE, T, MUL, ADD, true>(o, a_cols + off, av + off, na, cur, blo + sub, bhi, g, acc, any);
+        walk<MODE, T, MUL, ADD, true, ORDERED>(o, a_cols + off, av + off, na, cur, blo + sub, bhi, g, lim,
+                                               acc, any);
       }
       if constexpr (MODE == kReduce) {
         lane_acc += acc;
@@ -382,6 +458,8 @@ __device__ __forceinline__ void window_walk(const MxmtArgs& o, const MxmtPlan& p
             const T init_v = s.init_of();
             static_cast<T*>(s.out)[e0 + q] = any ? apply_op<ADD>(init_v, acc) : init_v;
             s.has[e0 + q] = any;
+          } else if constexpr (ORDERED) {
+            static_cast<uint32_t*>(s.out)[e0 + sh.src[warp][q]] = acc;
           } else {
             static_cast<uint32_t*>(s.out)[e0 + q] = acc;
           }
@@ -395,10 +473,12 @@ __device__ __forceinline__ void window_walk(const MxmtArgs& o, const MxmtPlan& p
   __syncwarp();  // the window's shared rows are read before the next window stages its own
 }
 
-// This CTA's hub chunk: a stretch of a long B row for one mask entry.
-template <int MODE, typename T, int MUL, int ADD>
+// This CTA's hub chunk: a stretch of a long B row for one mask entry.  The
+// ordered walk skips an entry (i, j) with j >= i and cuts the stretch at
+// B's first column not below j.
+template <int MODE, typename T, int MUL, int ADD, bool ORDERED>
 __device__ __forceinline__ void chunk_walk(const MxmtArgs& o, const MxmtPlan& p, const Sink<T>& s,
-                                           MxmtShared<T, MUL != kStruct>& sh,
+                                           MxmtShared<T, MUL != kStruct, ORDERED>& sh,
                                            AccOf<MODE, T, MUL>& lane_acc) {
   using Acc = AccOf<MODE, T, MUL>;
   constexpr bool kValues = MUL != kStruct;
@@ -407,7 +487,14 @@ __device__ __forceinline__ void chunk_walk(const MxmtArgs& o, const MxmtPlan& p,
   const int32_t b = static_cast<int32_t>(blockIdx.x);
   const int32_t e = p.chunk_entry[b];
   if (o.sel != nullptr && !o.sel[e]) return;  // uniform: the window walk writes init
-  const int32_t row = p.chunk_row[b], c0 = p.chunk_c0[b], c1 = p.chunk_c1[b];
+  const int32_t row = p.chunk_row[b], c0 = p.chunk_c0[b];
+  int32_t c1 = p.chunk_c1[b], lim = 0;
+  if constexpr (ORDERED) {  // uniform across the CTA
+    lim = o.m_cols[e];
+    if (lim >= row) return;
+    c1 = c0 + first_not_below(o.b_cols + c0, c1 - c0, lim);
+    if (c1 == c0) return;
+  }
   const T* __restrict__ a_vals = static_cast<const T*>(o.a_vals);
   const int tid = threadIdx.x;
   Batch<T, kValues> first;
@@ -427,10 +514,11 @@ __device__ __forceinline__ void chunk_walk(const MxmtArgs& o, const MxmtPlan& p,
         if constexpr (kValues) sh.vals[k] = __ldg(a_vals + a_lo + k);
       }
       __syncthreads();
-      walk<MODE, T, MUL, ADD, false>(o, sh.cols, sh.vals, na, first, c0 + tid, c1, kThreads, acc, any);
+      walk<MODE, T, MUL, ADD, false, ORDERED>(o, sh.cols, sh.vals, na, first, c0 + tid, c1, kThreads, lim, acc,
+                                              any);
     } else {
-      walk<MODE, T, MUL, ADD, true>(o, o.a_cols + a_lo, a_vals + a_lo, na, first, c0 + tid, c1, kThreads,
-                                    acc, any);
+      walk<MODE, T, MUL, ADD, true, ORDERED>(o, o.a_cols + a_lo, a_vals + a_lo, na, first, c0 + tid, c1,
+                                             kThreads, lim, acc, any);
     }
   }
   if constexpr (MODE == kReduce) {
@@ -469,22 +557,22 @@ __device__ __forceinline__ void chunk_walk(const MxmtArgs& o, const MxmtPlan& p,
   }
 }
 
-template <int MODE, typename T, int MUL, int ADD>
+template <int MODE, typename T, int MUL, int ADD, bool ORDERED>
 __global__ void __launch_bounds__(kThreads)
 mxmt_kernel(MxmtArgs o, MxmtPlan p, Sink<T> s) {
   using Acc = AccOf<MODE, T, MUL>;
-  __shared__ MxmtShared<T, MUL != kStruct> sh;
+  __shared__ MxmtShared<T, MUL != kStruct, ORDERED> sh;
   Acc lane_acc = 0;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (blockIdx.x < p.nchunks) {
-    chunk_walk<MODE, T, MUL, ADD>(o, p, s, sh, lane_acc);
+    chunk_walk<MODE, T, MUL, ADD, ORDERED>(o, p, s, sh, lane_acc);
     if constexpr (MODE != kReduce) return;
   } else {
     const long long ctas = static_cast<long long>(gridDim.x) - p.nchunks;
     const long long cta = static_cast<long long>(blockIdx.x) - p.nchunks;
     const long long windows = (p.stored + kWindow - 1) / kWindow;
     for (long long w = cta * kWarps + warp; w < windows; w += ctas * kWarps) {
-      window_walk<MODE, T, MUL, ADD>(o, p, s, sh, w, warp, lane, lane_acc);
+      window_walk<MODE, T, MUL, ADD, ORDERED>(o, p, s, sh, w, warp, lane, lane_acc);
     }
     if constexpr (MODE == kMasked) {  // capacity padding past indptr[m]
       const T init_v = s.init_of();
@@ -519,7 +607,7 @@ struct MxmtLaunch {
   void *out, *has, *total;
   cudaStream_t stream;
 
-  template <int MODE, typename T, int MUL, int ADD>
+  template <int MODE, typename T, int MUL, int ADD, bool ORDERED = false>
   void run_mode() {
     static_assert(sizeof(T) == sizeof(init_bits), "init travels as its 32 bits");
     T init_value;
@@ -528,8 +616,8 @@ struct MxmtLaunch {
     const long long windows = (p.stored + kWindow - 1) / kWindow;
     const long long want = (windows + kWarps - 1) / kWarps;
     const unsigned window_ctas = static_cast<unsigned>(want < 1 ? 1 : (want < kMaxWindowCtas ? want : kMaxWindowCtas));
-    mxmt_kernel<MODE, T, MUL, ADD><<<static_cast<unsigned>(p.nchunks) + window_ctas, kThreads, 0, stream>>>(
-        o, p, s);
+    mxmt_kernel<MODE, T, MUL, ADD, ORDERED>
+        <<<static_cast<unsigned>(p.nchunks) + window_ctas, kThreads, 0, stream>>>(o, p, s);
   }
 
   // the functor semiring.cuh's dispatch_generic calls: kernel 5's (add, dtype)
@@ -554,7 +642,7 @@ bool plan_ok(const MxmtPlan& p) {
 
 }  // namespace
 
-extern "C" int spla_mxmt(int mode, int mul, int add, int dtype, int structural, long long cap,
+extern "C" int spla_mxmt(int mode, int mul, int add, int dtype, int structural, int ordered, long long cap,
                          const void* m_rows, const void* m_cols, const void* sel, const void* a_indptr,
                          const void* a_cols, const void* a_vals, const void* b_indptr, const void* b_cols,
                          const void* b_vals, int hub_len, long long stored, long long nhub,
@@ -578,6 +666,7 @@ extern "C" int spla_mxmt(int mode, int mul, int add, int dtype, int structural, 
   if (!structural && mode != kGather && !runtime_mul_ok(mul, dtype)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (ordered && !(mode == kGather || (mode == kReduce && structural))) return -1;
   if (mode == kMasked) {
     StructLaunch st{launch};
     if (!structural) {
@@ -592,7 +681,9 @@ extern "C" int spla_mxmt(int mode, int mul, int add, int dtype, int structural, 
       ok = false;
     }
   } else if (mode == kReduce) {
-    if (structural) {
+    if (structural && ordered) {
+      launch.run_mode<kReduce, int32_t, kStruct, KC_PLUS, true>();
+    } else if (structural) {
       launch.run_mode<kReduce, int32_t, kStruct, KC_PLUS>();  // reads no values: one instance for every dtype
     } else if (dtype == DT_F32) {
       launch.run_mode<kReduce, float, kRuntimeMul, KC_PLUS>();
@@ -604,10 +695,12 @@ extern "C" int spla_mxmt(int mode, int mul, int add, int dtype, int structural, 
       ok = false;
     }
   } else if (mode == kGather) {
-    if (structural) {
-      launch.run_mode<kGather, int32_t, kStruct, KC_PLUS>();  // columns only
-    } else {
-      launch.run_mode<kGather, int32_t, KC_PLUS, KC_PLUS>();  // columns and the values' 32 bits
+    if (structural) {  // columns only
+      ordered ? launch.run_mode<kGather, int32_t, kStruct, KC_PLUS, true>()
+              : launch.run_mode<kGather, int32_t, kStruct, KC_PLUS>();
+    } else {  // columns and the values' 32 bits
+      ordered ? launch.run_mode<kGather, int32_t, KC_PLUS, KC_PLUS, true>()
+              : launch.run_mode<kGather, int32_t, KC_PLUS, KC_PLUS>();
     }
   } else {
     ok = false;

@@ -22,6 +22,15 @@ treats every hit's product as 1 and reads no values.
 Kernel 4 sums i32 and u32 products and hits in int64 and f32 products in
 float64; its result is a 0-d tensor of that dtype.
 
+Kernel 4's structural instance also walks in order (``ordered``): only the
+mask entries (i, j) with j < i, each over the columns k < j of B's row j.
+Where mask = A = B is a symmetric pattern with no diagonal entry and
+strictly increasing rows (``ordered_walk`` checks it on the device, once
+per matrix), that counts each triangle k < j < i once, a sixth of the full
+structural sum: GAP's ordered count, which ``algorithms.tc`` takes there.
+On a uniform graph it reads about a sixth of the full walk's B elements
+(``ordered_walk``'s count against ``mxmt_products``).
+
 They take what spla_tpu's Pallas SpGEMM-T takes (``_pallas_mxmT_try``,
 ``spla_tpu/ops/spgemm.py:630``; ``masked_codes``): an add of PLUS, MIN or
 MAX (``_MXMT_IDENT``), with every built-in mul in f32 and with PLUS, MULT,
@@ -72,6 +81,7 @@ __all__ = [
     "MxmtPlan",
     "mxmt_plan",
     "mxmt_products",
+    "ordered_walk",
     "masked_codes",
     "reduce_codes",
     "mxmt_masked",
@@ -90,7 +100,10 @@ TEAM = 2  # lanes that fold one entry (kTeam)
 HUB_LEN = 256  # a B row of more entries is walked in chunks, a CTA each
 HUB_CHUNK = 2048  # entries of a long B row a CTA walks
 
+VERDICT_CHUNK = 1 << 26  # entries ordered_walk's check takes at once
+
 _PLANS = WeakIdCache()  # (mask.indptr ref, B.indptr ref, MxmtPlan) per mask.cols tensor
+_WALKS = WeakIdCache()  # (A.indptr ref, A.row_ids ref, ordered_walk's result) per A.cols tensor
 
 
 def masked_codes(op_mul, op_add, dtype, struct_only=False):
@@ -136,17 +149,33 @@ def _entry_ranges(deg):
     return ranges
 
 
-def _entry_degrees(mask: CsrMatrix, B: CsrMatrix) -> torch.Tensor:
+def _lower_degrees(B: CsrMatrix) -> torch.Tensor:
+    """The stored entries of each row r of B whose column is below r (int64
+    [B.shape[0]]): the prefix of a sorted row that the ordered walk reads."""
+    mb = B.shape[0]
+    below = B.valid_mask() & (B.cols.long() < B.row_ids.long())
+    out = torch.zeros(mb, dtype=torch.long, device=B.cols.device)
+    return out.index_add_(0, B.row_ids.long().clamp(0, max(mb - 1, 0)), below.long())
+
+
+def _entry_degrees(mask: CsrMatrix, B: CsrMatrix, ordered: bool = False) -> torch.Tensor:
     """B's row length at each stored mask entry's column, 0 past the stored
-    entries (int64 [mask.capacity]): the product slots of each entry."""
+    entries (int64 [mask.capacity]): the product slots of each entry.  With
+    ``ordered``, the entries (i, j) with j < i only, each with the columns
+    of B's row j below j."""
     mcols = mask.cols.long().clamp(0, max(B.shape[0] - 1, 0))
-    return torch.where(mask.valid_mask(), (B.indptr[1:] - B.indptr[:-1])[mcols].long(), 0)
+    if ordered:
+        lens = _lower_degrees(B)
+        keep = mask.valid_mask() & (mask.cols < mask.row_ids)
+    else:
+        lens, keep = B.indptr[1:] - B.indptr[:-1], mask.valid_mask()
+    return torch.where(keep, lens[mcols].long(), 0)
 
 
-def _ranges_and_steps(mask: CsrMatrix, A: CsrMatrix, B: CsrMatrix, products_cap):
+def _ranges_and_steps(mask: CsrMatrix, A: CsrMatrix, B: CsrMatrix, products_cap, ordered=False):
     """The entry ranges to expand, each with its slot count, and the
     bisection steps that cover A's longest row (host reads)."""
-    deg = _entry_degrees(mask, B)
+    deg = _entry_degrees(mask, B, ordered)
     if products_cap is not None:  # one pass of a given size; slots past it drop
         ranges = [(0, mask.capacity, int(products_cap))]
     else:
@@ -199,12 +228,14 @@ def _acc_dtype(dtype, struct_only):
 
 
 def mxmt_reduce_plain(mask: CsrMatrix, A: CsrMatrix, B: CsrMatrix, op_mul, sel=None,
-                      struct_only=False):
+                      struct_only=False, ordered=False):
     """Plain version of kernel 4: the same expansion, every product summed in
-    int64 (integers, and hits when ``struct_only``) or float64 (floats)."""
+    int64 (integers, and hits when ``struct_only``) or float64 (floats).
+    ``ordered`` is kernel 4's ordered walk: only the mask entries (i, j)
+    with j < i, each over the columns k < j of B's row j."""
     acc = _acc_dtype(A.values.dtype, struct_only)
     sel = mask.valid_mask() if sel is None else sel
-    deg, ranges, steps = _ranges_and_steps(mask, A, B, None)
+    deg, ranges, steps = _ranges_and_steps(mask, A, B, None, ordered)
     total = torch.zeros((), dtype=acc, device=A.values.device)
     for e0, e1, cap in ranges:
         _, a_pos, b_pos, valid = _intersect(mask, A, B, sel, deg, e0, e1, cap, steps)
@@ -299,6 +330,58 @@ def mxmt_products(mask: CsrMatrix, B: CsrMatrix) -> int:
     return int(_entry_degrees(mask, B).sum())
 
 
+def ordered_walk(A: CsrMatrix) -> int | None:
+    """The elements of A's rows that kernel 4's ordered walk of ``tc`` reads
+    (``mxmt_reduce(A, A, A, ..., ordered=True)``): Σ over the stored (i, j)
+    with j < i of the entries of row j below j.  None unless A is square,
+    symmetric, with no diagonal entry and strictly increasing rows (no
+    duplicate column), the inputs on which that walk, times 6, is the full
+    structural sum.  Checked on A's device, where it leaves nothing
+    allocated; cached per (A.cols, A.indptr, A.row_ids) tensors, and the
+    first check reads the host once."""
+    key = (id(A.indptr), id(A.row_ids))
+    hit = _WALKS.get(A.cols, key)
+    if hit is not None and hit[0]() is A.indptr and hit[1]() is A.row_ids:
+        return hit[2]
+    walked = _ordered_walk(A) if A.shape[0] == A.shape[1] else None
+    _WALKS.put(A.cols, (weakref.ref(A.indptr), weakref.ref(A.row_ids), walked), key)
+    return walked
+
+
+def _ordered_walk(A: CsrMatrix) -> int | None:
+    """``ordered_walk``'s check.  Each stored entry is the int64 key
+    ``row * n + col``; the keys strictly increase, and ``indptr`` starts each
+    row where they say, exactly when the rows are sorted with no duplicate
+    and agree with ``row_ids``.  Then each entry (i, j) finds the key of
+    (j, i) by a search of the keys, and row j's entries below j end where
+    the key of (j, j) would go."""
+    n, cap, device = A.shape[0], A.capacity, A.cols.device
+    top = torch.iinfo(torch.int64).max  # past the stored entries: the keys stay sorted
+    keys = torch.empty(cap, dtype=torch.long, device=device)
+    bad = torch.zeros(3, dtype=torch.long, device=device)  # out of order, diagonal, mirror missing
+    chunks = [(c0, min(c0 + VERDICT_CHUNK, cap)) for c0 in range(0, cap, VERDICT_CHUNK)]
+    for c0, c1 in chunks:
+        stored = torch.arange(c0, c1, device=device) < A.nnz
+        r, c = A.row_ids[c0:c1].long(), A.cols[c0:c1].long()
+        keys[c0:c1] = torch.where(stored, r * n + c, top)
+        bad[1] += (stored & (r == c)).sum()
+    for c0, c1 in chunks:
+        stored = torch.arange(c0, c1, device=device) < A.nnz
+        mirror = A.cols[c0:c1].long() * n + A.row_ids[c0:c1].long()
+        found = keys[torch.searchsorted(keys, mirror).clamp_(max=cap - 1)] == mirror
+        bad[2] += (stored & ~found).sum()
+        lo = max(c0, 1)
+        bad[0] += ((keys[lo:c1] <= keys[lo - 1:c1 - 1]) & stored[lo - c0:]).sum()
+    rows = torch.arange(n + 1, device=device)
+    starts = torch.searchsorted(keys, rows * n)
+    bad[0] += (starts != A.indptr.long()).sum()
+    low = torch.searchsorted(keys, rows[:n] * (n + 1)) - starts[:n]  # row j's entries below j
+    walked = (low * (starts[1:] - starts[:n] - low)).sum()  # × the entries (i, j), i > j, of column j
+    counts = torch.cat([bad, walked.reshape(1)]).tolist()
+    del keys
+    return None if any(counts[:3]) else counts[3]
+
+
 # ---------------------------------------------------------------- kernels
 
 
@@ -325,15 +408,16 @@ def _check_operands(what, mask, A, B, sel, values):
 
 
 def _launch(what, mode, codes, mask, A, B, sel, init=None, init_bits=0, out=None, has=None,
-            total=None):
+            total=None, ordered=False):
     """One launch of ``csrc/mxmt.cu``'s ``spla_mxmt`` (mode 0: kernel 4, 1:
-    kernel 5, 2: the gather) with ``mask``'s plan against B."""
+    kernel 5, 2: the gather; ``ordered``: the ordered walk of kernel 4's
+    structural instance and of the gather) with ``mask``'s plan against B."""
     mul, add, dtype, structural = codes
     plan = mxmt_plan(mask, B)
     rc = load_library().spla_mxmt(
-        mode, mul, add, dtype, structural, mask.capacity, mask.row_ids.data_ptr(), mask.cols.data_ptr(),
-        _ptr(sel), A.indptr.data_ptr(), A.cols.data_ptr(), A.values.data_ptr(), B.indptr.data_ptr(),
-        B.cols.data_ptr(), B.values.data_ptr(), HUB_LEN, plan.stored, plan.nhub, plan.nchunks,
+        mode, mul, add, dtype, structural, int(ordered), mask.capacity, mask.row_ids.data_ptr(),
+        mask.cols.data_ptr(), _ptr(sel), A.indptr.data_ptr(), A.cols.data_ptr(), A.values.data_ptr(),
+        B.indptr.data_ptr(), B.cols.data_ptr(), B.values.data_ptr(), HUB_LEN, plan.stored, plan.nhub, plan.nchunks,
         *(t.data_ptr() for t in (plan.chunk_entry, plan.chunk_row, plan.chunk_c0, plan.chunk_c1,
                                  plan.chunk_hub, plan.chunk_first)),
         _ptr(plan.part), _ptr(plan.part_any), _ptr(plan.done), _ptr(init), init_bits, _ptr(out),
@@ -365,15 +449,20 @@ def mxmt_masked(mask: CsrMatrix, A: CsrMatrix, B: CsrMatrix, op_mul, op_add, ini
     return out, has
 
 
-def mxmt_reduce(mask: CsrMatrix, A: CsrMatrix, B: CsrMatrix, op_mul, sel=None, struct_only=False):
+def mxmt_reduce(mask: CsrMatrix, A: CsrMatrix, B: CsrMatrix, op_mul, sel=None, struct_only=False,
+                ordered=False):
     """Kernel 4: the 0-d int64 (i32, u32, hits) or float64 (f32) sum of all
-    products; ``sel`` None selects every stored entry.  CPU tensors take the
-    plain version; CUDA tensors launch the kernel, and a request it does not
-    cover raises."""
+    products; ``sel`` None selects every stored entry.  ``ordered`` (the
+    structural instance only) walks the mask entries (i, j) with j < i over
+    the columns k < j of B's row j: on ``ordered_walk``'s inputs, mask = A =
+    B, a sixth of the full sum.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel, and a request it does not cover raises."""
     if _on_cpu(A.values, B.values, mask.cols, sel):
-        return mxmt_reduce_plain(mask, A, B, op_mul, sel, struct_only)
+        return mxmt_reduce_plain(mask, A, B, op_mul, sel, struct_only, ordered)
     what = "mxmt_reduce"
     codes = reduce_codes(op_mul, A.values.dtype, struct_only)
+    if ordered and not struct_only:
+        raise NotImplementedError(f"{what}: the ordered walk has only the structural instance")
     if codes is None:
         raise NotImplementedError(
             f"{what}: no kernel instance for mul={getattr(op_mul, 'key', op_mul)}, "
@@ -381,5 +470,5 @@ def mxmt_reduce(mask: CsrMatrix, A: CsrMatrix, B: CsrMatrix, op_mul, sel=None, s
     _check_operands(what, mask, A, B, sel, values=not struct_only)
     total = torch.zeros(1, dtype=_acc_dtype(A.values.dtype, struct_only), device=A.values.device)
     mul, dtype = codes
-    _launch(what, 0, (mul, 0, dtype, int(struct_only)), mask, A, B, sel, total=total)
+    _launch(what, 0, (mul, 0, dtype, int(struct_only)), mask, A, B, sel, total=total, ordered=ordered)
     return total.reshape(())

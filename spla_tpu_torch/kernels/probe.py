@@ -43,6 +43,9 @@ and 5 (``csrc/mxmt.cu``): their walk of the mask in windows and teams, and
 their chunk CTAs for long B rows, with no probe of A.  For each stored mask
 entry (i, j), ``out[e]`` (int32) is the XOR of B's row j: its columns, and
 with ``values`` the 32 bits of its values; 0 past the stored entries.
+With ``ordered`` it is the floor of kernel 4's ordered walk: the XOR of
+the entries of B's row j whose column is below j, for the entries with
+j < i, and 0 at the others.
 """
 
 from __future__ import annotations
@@ -241,22 +244,26 @@ def spmv_probe(phase: str, A: CsrMatrix, x, slots: int = 2, stage: int = MAX_STA
     return out_f, out_i
 
 
-def mxmt_gather_plain(mask: CsrMatrix, B: CsrMatrix, values: bool = True):
-    """Plain version of ``mxmt_gather``: each B row's XOR, then one per
-    stored mask entry."""
+def mxmt_gather_plain(mask: CsrMatrix, B: CsrMatrix, values: bool = True, ordered: bool = False):
+    """Plain version of ``mxmt_gather``: each B row's XOR (with ``ordered``,
+    of its entries below the diagonal), then one per stored mask entry
+    (with ``ordered``, per entry below the diagonal)."""
     mb = B.shape[0]
     words = B.cols ^ B.values.view(torch.int32) if values else B.cols
-    row_xor = _xor_fold(words, torch.where(B.valid_mask(), B.row_ids.long(), mb), mb)
+    walked = B.valid_mask() & (B.cols < B.row_ids) if ordered else B.valid_mask()
+    row_xor = _xor_fold(words, torch.where(walked, B.row_ids.long(), mb), mb)
     j = mask.cols.long().clamp(0, max(mb - 1, 0))
-    return torch.where(mask.valid_mask(), row_xor[j], 0).to(torch.int32)
+    keep = mask.valid_mask() & (mask.cols < mask.row_ids) if ordered else mask.valid_mask()
+    return torch.where(keep, row_xor[j], 0).to(torch.int32)
 
 
-def mxmt_gather(mask: CsrMatrix, B: CsrMatrix, values: bool = True):
+def mxmt_gather(mask: CsrMatrix, B: CsrMatrix, values: bool = True, ordered: bool = False):
     """The gather floor of kernels 4 and 5 (``mask`` against ``B``'s rows,
-    B f32 or i32): int32 ``out`` of length ``mask.capacity``.  CPU tensors
-    take the plain version; CUDA tensors launch the kernel or raise."""
+    B f32 or i32), or with ``ordered`` of kernel 4's ordered walk: int32
+    ``out`` of length ``mask.capacity``.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise."""
     if _on_cpu(B.values, mask.cols):
-        return mxmt_gather_plain(mask, B, values)
+        return mxmt_gather_plain(mask, B, values, ordered)
     what = "mxmt_gather"
     _require_cuda(what, B, {"mask.indptr": mask.indptr, "mask.cols": mask.cols, "mask.row_ids": mask.row_ids},
                   {"mask.row_ids": mask.capacity})
@@ -267,5 +274,5 @@ def mxmt_gather(mask: CsrMatrix, B: CsrMatrix, values: bool = True):
     if B.values.element_size() != 4:
         raise TypeError(f"{what}: B's values must be 32-bit, got {B.values.dtype}")
     out = torch.zeros(mask.capacity, dtype=torch.int32, device=B.values.device)
-    _launch(what, 2, (0, 0, 0, int(not values)), mask, B, B, None, out=out)
+    _launch(what, 2, (0, 0, 0, int(not values)), mask, B, B, None, out=out, ordered=ordered)
     return out

@@ -16,22 +16,29 @@
   longer than a mask row or a B row that one warp walks, and a mask that
   reaches them;
 * ``spgemm_bins`` — A and B whose product A @ B has rows in each of
-  kernel 9's three bins (``kernels.spgemm.mxm_plan``).
+  kernel 9's three bins (``kernels.spgemm.mxm_plan``);
+* ``uniform_csr``, ``kron_csr`` — symmetric uniform and Graph500 Kronecker
+  graphs made on a device with torch (no host copy), for sizes that scipy
+  takes minutes to build: the triangle-count graphs of kernel 4.
 
 ``build_graph``, ``hub_graph`` and ``powerlaw_graph`` return
 ``(indptr, rows, cols, vals)`` with rows sorted and duplicate (row, col)
-pairs kept as separate entries; the others return scipy CSR matrices
-(``hub_spgemm`` and ``spgemm_bins`` two).
+pairs kept as separate entries; ``uniform_csr`` and ``kron_csr`` a
+``CsrMatrix``; the others return scipy CSR matrices (``hub_spgemm`` and
+``spgemm_bins`` two).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import scipy.sparse as sp
+import torch
+
+from ..containers import CsrMatrix
 
 __all__ = ["build_graph", "random_graph", "hub_graph", "powerlaw_graph", "indptr_of", "morton",
            "road_edges", "road_grid", "road_graphs", "path_graph", "barbell_graph", "skewed_graph",
-           "hub_spgemm", "spgemm_bins"]
+           "hub_spgemm", "spgemm_bins", "uniform_csr", "kron_csr"]
 
 HUB_ROWS, HUB_LEN = 3, 1 << 17
 
@@ -247,3 +254,46 @@ def spgemm_bins(n=2000, seed=40):
         m.data = rng.uniform(0.5, 1.5, m.nnz).astype(np.float32)
         out.append(m)
     return tuple(out)
+
+
+def _symmetric_csr(n, r, c):
+    """The CSR of the int64 edges (r, c) both ways, self-loops and duplicates
+    dropped, int32 ones, columns sorted, on their device."""
+    dev = r.device
+    keep = r != c
+    r, c = r[keep], c[keep]
+    keys = torch.unique(torch.cat([r * n + c, c * n + r]))
+    del r, c, keep
+    rows, cols = (keys // n).to(torch.int32), (keys % n).to(torch.int32)
+    del keys
+    nnz = rows.numel()
+    indptr = torch.searchsorted(rows, torch.arange(n + 1, dtype=torch.int32, device=dev)).to(torch.int32)
+    return CsrMatrix(shape=(n, n), indptr=indptr, cols=cols, values=torch.ones(nnz, dtype=torch.int32, device=dev),
+                     row_ids=rows, nnz=torch.tensor(nnz, dtype=torch.int32, device=dev),
+                     fill=torch.tensor(0, dtype=torch.int32, device=dev))
+
+
+def uniform_csr(n, deg, device, seed=41):
+    """A symmetric uniform random graph of about ``deg`` entries a row (n deg
+    / 2 drawn edges), made on ``device``: GAP's urand at n = 2^24, deg 32."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    r = torch.randint(0, n, (n * deg // 2,), generator=g, device=device)
+    c = torch.randint(0, n, r.shape, generator=g, device=device)
+    return _symmetric_csr(n, r, c)
+
+
+def kron_csr(scale, device, edge_factor=16, seed=43):
+    """Graph500's Kronecker graph (A 0.57, B 0.19, C 0.19, no relabel) at
+    ``scale``, made symmetric on ``device``: hubs of thousands of entries at
+    the lowest vertex ids."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    m = edge_factor << scale
+    r = torch.zeros(m, dtype=torch.long, device=device)
+    c = torch.zeros(m, dtype=torch.long, device=device)
+    for _ in range(scale):
+        u = torch.rand(m, generator=g, device=device)
+        r = 2 * r + (u >= 0.76).long()  # C 0.19 and D 0.05: the lower half
+        c = 2 * c + (((u >= 0.57) & (u < 0.76)) | (u >= 0.95)).long()  # B and D: the right half
+    return _symmetric_csr(1 << scale, r, c)

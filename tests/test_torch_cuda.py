@@ -26,8 +26,8 @@ from spla_tpu_torch.types import FLOAT, INT, UINT
 from spla_tpu_torch import ops as TO
 from spla_tpu_torch.ops import spgemm as TG, spmv as TS
 from spla_tpu_torch.utils.primitives import lex_order
-from spla_tpu_torch.tools.graphs import (barbell_graph, indptr_of, path_graph, random_graph, road_grid,
-                                         skewed_graph, spgemm_bins)
+from spla_tpu_torch.tools.graphs import (barbell_graph, indptr_of, kron_csr, path_graph, random_graph, road_grid,
+                                         skewed_graph, spgemm_bins, uniform_csr)
 
 pytestmark = pytest.mark.cuda
 
@@ -818,49 +818,123 @@ def test_tc_and_mxmT_masked_match_cpu(dev):
     assert TG.DISPATCH_STATS["mxmT_torch"] == before["mxmT_torch"] + 5  # the CPU runs
 
 
-def _urand_on_card(dev, n, deg, seed=41):
-    """A symmetric uniform random graph built on the card (no self-loops, no
-    duplicates, about ``deg`` entries a row), int32 ones, columns sorted."""
-    g = torch.Generator(device=dev)
-    g.manual_seed(seed)
-    r = torch.randint(0, n, (n * deg // 2,), generator=g, device=dev)
-    c = torch.randint(0, n, r.shape, generator=g, device=dev)
-    keep = r != c
-    r, c = r[keep], c[keep]
-    keys = torch.unique(torch.cat([r * n + c, c * n + r]))
-    del r, c, keep
-    rows, cols = (keys // n).to(torch.int32), (keys % n).to(torch.int32)
-    nnz = rows.numel()
-    indptr = torch.searchsorted(rows, torch.arange(n + 1, dtype=torch.int32, device=dev)).to(torch.int32)
-    return F.CsrMatrix(shape=(n, n), indptr=indptr, cols=cols, values=torch.ones(nnz, dtype=torch.int32, device=dev),
-                       row_ids=rows, nnz=torch.tensor(nnz, dtype=torch.int32, device=dev),
-                       fill=torch.tensor(0, dtype=torch.int32, device=dev))
-
-
 def test_tc_kernel4_on_a_large_urand_graph_reads_its_plan_once(dev):
     """tc on a uniform graph at n = 2^22, degree 32 (~134 M entries): kernel 4's
-    structural count equals its plain version's; the plan's products are
-    Σ deg² and reach ``STATS["tc_products"]``; a second count neither
-    rebuilds nor reads the plan (no host read under the sync check)."""
-    A = _urand_on_card(dev, 1 << 22, 32)
+    ordered walk, times 6, equals the full structural count of its plain
+    version; the plan's products are Σ deg² and reach
+    ``STATS["tc_products"]``, the ordered walk's elements
+    ``STATS["tc_walked"]`` (about a sixth); a second count neither rebuilds
+    nor reads the plan nor the check that chose the walk (no host read under
+    the sync check); the check leaves nothing allocated."""
+    A = uniform_csr(1 << 22, 32, dev)
     deg = (A.indptr[1:] - A.indptr[:-1]).long()
-    alg.STATS["tc_products"] = 0
+    alg.STATS["tc_products"] = alg.STATS["tc_walked"] = 0
     kernels.reset_launches()
+    dispatched = TG.DISPATCH_STATS["mxmT_kernel"]
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev)
+    walked = K45.ordered_walk(A)
+    assert torch.cuda.memory_allocated(dev) == held
     got = alg.tc(A)
-    assert kernels.LAUNCHES["mxmt_reduce"] == 1
+    assert kernels.LAUNCHES["mxmt_reduce"] == 1 and TG.DISPATCH_STATS["mxmT_kernel"] == dispatched
     plan = K45.mxmt_plan(A, A)
     assert plan.nhub == 0 and plan.stored == int(A.nnz)
     assert plan.products == int((deg ** 2).sum()) == alg.STATS["tc_products"]
+    assert K45.ordered_walk(A) == walked == alg.STATS["tc_walked"] == int(K45._entry_degrees(A, A, ordered=True).sum())
+    assert 0.14 < walked / plan.products < 0.19
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         again = TG.mxmT_masked_reduce(A, A, A, op.MULT_INT, op.GTZERO_INT, struct_only=True)
+        ordered = K45.mxmt_reduce(A, A, A, None, struct_only=True, ordered=True)
         products = K45.mxmt_products(A, A)
+        verdict = alg._tc_ordered_walk(A)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    assert K45.mxmt_plan(A, A) is plan and products == plan.products
-    assert int(again) == got == int(K45.mxmt_reduce_plain(A, A, A, None, struct_only=True)) > 0
+    assert K45.mxmt_plan(A, A) is plan and products == plan.products and verdict == walked
+    assert int(again) == got == 6 * int(ordered) == int(K45.mxmt_reduce_plain(A, A, A, None, struct_only=True)) > 0
     assert alg.tc(A) == got and alg.STATS["tc_products"] == 2 * plan.products
+    assert alg.STATS["tc_walked"] == 2 * walked
+
+
+@pytest.mark.parametrize("graph", ["urand", "kron"])
+def test_mxmt_ordered_walk_matches_plain(dev, graph):
+    """Kernel 4's ordered walk and its gather floor against their plain
+    versions: a uniform graph at n = 2^22, degree 32, and a Kronecker graph
+    at scale 16 whose hubs take the chunk path (some of their entries below
+    the diagonal, some above); times 6 it is the full structural count."""
+    A = uniform_csr(1 << 22, 32, dev) if graph == "urand" else kron_csr(16, dev)
+    plan = K45.mxmt_plan(A, A)
+    if graph == "kron":
+        assert plan.nchunks > plan.nhub > 0
+    kernels.reset_launches()
+    got = K45.mxmt_reduce(A, A, A, None, struct_only=True, ordered=True)
+    assert kernels.LAUNCHES["mxmt_reduce"] == 1
+    ref = K45.mxmt_reduce_plain(A, A, A, None, struct_only=True, ordered=True)
+    _assert_same(got, ref)
+    assert 6 * int(got) == int(K45.mxmt_reduce(A, A, A, None, struct_only=True)) > 0
+    for values in (False, True):
+        _assert_same(K8.mxmt_gather(A, A, values, ordered=True), K8.mxmt_gather_plain(A, A, values, ordered=True))
+    mask, B = _mxmt_operands(dev, "i32", "hub")  # not symmetric: the walk's rule holds on any operands
+    _assert_same(K45.mxmt_reduce(mask, B, B, None, struct_only=True, ordered=True),
+                 K45.mxmt_reduce_plain(mask, B, B, None, struct_only=True, ordered=True))
+    _assert_same(K8.mxmt_gather(mask, B, True, ordered=True), K8.mxmt_gather_plain(mask, B, True, ordered=True))
+
+
+def _edited_on_card(dev, edit, n=1500, seed=9):
+    """A symmetric 0/1 graph with one fault ``tc``'s ordered walk must not
+    take: ``directed`` (one stored direction of an edge dropped),
+    ``diagonal`` (one entry (v, v)), ``duplicate`` (an edge stored twice
+    each way), ``weighted`` (values 1-3); ``pattern`` has none."""
+    rng = np.random.default_rng(seed)
+    r, c = rng.integers(0, n, 6 * n), rng.integers(0, n, 6 * n)
+    keep = r != c
+    a = sp.coo_matrix((np.ones(2 * int(keep.sum()), np.int32),
+                       (np.concatenate([r[keep], c[keep]]), np.concatenate([c[keep], r[keep]]))),
+                      shape=(n, n)).tocsr()
+    a.sum_duplicates()
+    a.data[:] = 1
+    rows = np.repeat(np.arange(n), np.diff(a.indptr))
+    cols = a.indices.astype(np.int64)
+    e = int(np.flatnonzero(cols < rows)[rows.size // 3])
+    if edit == "directed":
+        rows, cols = np.delete(rows, e), np.delete(cols, e)
+    elif edit in ("diagonal", "duplicate"):
+        v = int(rows[e])
+        extra = [(v, v)] if edit == "diagonal" else [(v, int(cols[e])), (int(cols[e]), v)]
+        rows = np.concatenate([rows, [x for x, _ in extra]])
+        cols = np.concatenate([cols, [y for _, y in extra]])
+    vals = rng.integers(1, 4, rows.size).astype(np.int32) if edit == "weighted" else np.ones(rows.size, np.int32)
+    order = np.lexsort((cols, rows))
+    indptr = np.searchsorted(rows[order], np.arange(n + 1)).astype(np.int32)
+    m = sp.csr_matrix((vals[order], cols[order].astype(np.int32), indptr), shape=(n, n))  # duplicates kept
+    return F.csr_from_scipy(m, device=dev), F.csr_from_scipy(m, device="cpu")
+
+
+@pytest.mark.parametrize("edit", ["pattern", "directed", "diagonal", "duplicate", "weighted"])
+def test_tc_takes_the_ordered_walk_only_on_a_symmetric_pattern_on_the_card(dev, edit):
+    """On the card ``tc`` equals the CPU count on each graph; a symmetric 0/1
+    pattern takes kernel 4's ordered walk (``STATS["tc_walked"]`` gains
+    ``ordered_walk``'s count, no dispatch through ``mxmT_masked_reduce``),
+    and a directed graph, a diagonal entry, a duplicate or values other than
+    ones the full walk (it gains the products)."""
+    Ad, Ac = _edited_on_card(dev, edit)
+    if edit == "duplicate":
+        assert bool(((Ac.cols[1:] == Ac.cols[:-1]) & (Ac.row_ids[1:] == Ac.row_ids[:-1])).any())
+    want = alg.tc(Ac)
+    alg.STATS["tc_products"] = alg.STATS["tc_walked"] = 0
+    dispatched = TG.DISPATCH_STATS["mxmT_kernel"]
+    kernels.reset_launches()
+    assert alg.tc(Ad) == want > 0
+    assert kernels.LAUNCHES["mxmt_reduce"] == 1
+    products = K45.mxmt_products(Ad, Ad)
+    assert alg.STATS["tc_products"] == products
+    if edit == "pattern":
+        assert TG.DISPATCH_STATS["mxmT_kernel"] == dispatched
+        assert alg.STATS["tc_walked"] == K45.ordered_walk(Ad) == K45.ordered_walk(Ac) < products
+    else:
+        assert TG.DISPATCH_STATS["mxmT_kernel"] == dispatched + 1
+        assert alg.STATS["tc_walked"] == products and alg._tc_ordered_walk(Ad) is None
 
 
 def _bins_operands(dev, dtype, signed=False):

@@ -1,6 +1,8 @@
-"""Triangle counting on the benchmark's graphs, its work counter and its spans
-(``algorithms.tc``, ``algorithms.STATS["tc_products"]``, ``spla.tc`` /
-``spla.tc.read``, ``kernels.mxmt.MxmtPlan.products``), on the CPU.
+"""Triangle counting on the benchmark's graphs, its work counters and its spans
+(``algorithms.tc``, ``algorithms.STATS["tc_products"]`` and ``["tc_walked"]``,
+``spla.tc`` / ``spla.tc.read``, ``kernels.mxmt.MxmtPlan.products``), and the
+plain version of kernel 4's ordered walk with the check that lets ``tc`` take
+it (``kernels.mxmt.ordered_walk``), on the CPU.
 
 The graphs are the benchmark's own (``graphbench/core/graph.py`` with the
 urand and kron generators, at scales 6-9), and the count is held to the
@@ -23,10 +25,11 @@ if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
 from graphbench.core import graph as G  # noqa: E402
+from graphbench.core.graph import Graph  # noqa: E402
 from graphbench.core import port  # noqa: E402
 from graphbench.core.spec import load_module  # noqa: E402
 from spla_tpu_torch import algorithms as alg, formats as F  # noqa: E402
-from spla_tpu_torch.kernels import mxmt as K45  # noqa: E402
+from spla_tpu_torch.kernels import mxmt as K45, probe as K8  # noqa: E402
 
 REF = load_module("reference", "tc")
 CONFIGS = {"urand": "gap-urand-s24-tc", "kron": "gap-kron-s25"}
@@ -71,16 +74,100 @@ def test_tc_is_six_ordered_counts_and_the_naive_count(kind, scale):
 def test_tc_products_counts_the_rows_walked(values):
     """``STATS["tc_products"]`` gains Σ over the stored entries of deg(col)
     (Σ deg² on a symmetric graph) each call, whether the values are ones
-    (the structural path) or the benchmark's weights (a weighted sum)."""
+    (the structural path) or the benchmark's weights (a weighted sum); so
+    does ``STATS["tc_walked"]``, as CPU tensors take the full walk."""
     graph = _graph("urand", 8)
     A = _csr(graph, None if values == "pattern" else graph.weights.to(torch.int32))
     want = _sum_deg_of_col(graph)
     assert want == int((graph.degrees() ** 2).sum())
-    alg.STATS["tc_products"] = 0
+    alg.STATS["tc_products"] = alg.STATS["tc_walked"] = 0
     first = alg.tc(A)
-    assert alg.STATS["tc_products"] == want
+    assert alg.STATS["tc_products"] == alg.STATS["tc_walked"] == want
     assert alg.tc(A) == first
-    assert alg.STATS["tc_products"] == 2 * want
+    assert alg.STATS["tc_products"] == alg.STATS["tc_walked"] == 2 * want
+
+
+@pytest.mark.parametrize("scale", [6, 7, 8, 9])
+@pytest.mark.parametrize("kind", ["urand", "kron"])
+def test_the_plain_ordered_walk_is_a_sixth_of_the_full_count(kind, scale):
+    """Kernel 4's ordered walk (the entries (i, j) with j < i over the columns
+    k < j of row j) in its plain version counts each triangle once: times 6
+    it is the full structural count, ``tc`` and the naive count."""
+    graph = _graph(kind, scale, seed=scale + 20)
+    A = _csr(graph)
+    ordered = int(K45.mxmt_reduce(A, A, A, None, struct_only=True, ordered=True))
+    full = int(K45.mxmt_reduce(A, A, A, None, struct_only=True))
+    assert ordered == REF.ordered_count(graph) > 0
+    assert 6 * ordered == full == alg.tc(A) == alg.tc_naive(_adjacency(graph))
+
+
+def _lower_walk(graph) -> int:
+    """Σ over the stored (i, j) with j < i of row j's columns below j, by numpy."""
+    rows, cols = graph.rows.numpy().astype(np.int64), graph.cols.numpy().astype(np.int64)
+    below = np.bincount(rows[cols < rows], minlength=graph.n)
+    return int(below[cols[cols < rows]].sum())
+
+
+def _edited(graph, edit):
+    """The graph with one fault: ``directed`` drops one stored direction of
+    an edge, ``diagonal`` adds the entry (v, v), ``duplicate`` stores an edge
+    twice each way (rows stay sorted)."""
+    rows, cols = graph.rows.numpy().astype(np.int64), graph.cols.numpy().astype(np.int64)
+    e = int(np.flatnonzero(cols < rows)[len(rows) // 4])
+    if edit == "directed":
+        rows, cols = np.delete(rows, e), np.delete(cols, e)
+    else:
+        v = int(rows[e])
+        extra = [(v, v)] if edit == "diagonal" else [(v, int(cols[e])), (int(cols[e]), v)]
+        rows = np.concatenate([rows, [r for r, _ in extra]])
+        cols = np.concatenate([cols, [c for _, c in extra]])
+        order = np.lexsort((cols, rows))
+        rows, cols = rows[order], cols[order]
+    return Graph(n=graph.n, rows=torch.from_numpy(rows.astype(np.int32)),
+                 cols=torch.from_numpy(cols.astype(np.int32)),
+                 weights=torch.ones(len(rows), dtype=torch.float32), checksum=0)
+
+
+VERDICT_CASES = [*(f"{kind}{scale}" for kind in ("urand", "kron") for scale in (6, 7, 8, 9)),
+                 "directed", "diagonal", "duplicate", "weighted"]
+
+
+@pytest.mark.parametrize("case", VERDICT_CASES)
+def test_tc_takes_the_ordered_walk_only_on_a_symmetric_pattern(case):
+    """``tc``'s check (a 0/1 pattern, square, symmetric, no diagonal entry,
+    strictly increasing rows) holds on the benchmark's graphs, where it gives
+    what the ordered walk reads, and fails on a directed graph, one diagonal
+    entry, one duplicate column and the weighted graph."""
+    if case[-1].isdigit():
+        graph = _graph(case[:-1], int(case[-1]), seed=3)
+        A = _csr(graph)
+        assert alg._tc_ordered_walk(A) == K45.ordered_walk(A) == _lower_walk(graph) > 0
+        assert _lower_walk(graph) == int(K45._entry_degrees(A, A, ordered=True).sum())
+        return
+    graph = _graph("urand", 8, seed=3)
+    if case == "weighted":
+        A = _csr(graph, graph.weights.to(torch.int32))
+        assert K45.ordered_walk(A) is not None  # the structure holds; the values do not
+    else:
+        A = _csr(_edited(graph, case))
+        assert K45.ordered_walk(A) is None
+    assert alg._tc_ordered_walk(A) is None
+
+
+def test_the_plain_ordered_gather_reads_the_rows_below_the_diagonal():
+    """The floor of the ordered walk (``mxmt_gather`` with ``ordered``): at
+    each entry (i, j) with j < i the XOR of row j's columns below j, else 0."""
+    graph = _graph("kron", 8)
+    A = _csr(graph)
+    got = K8.mxmt_gather(A, A, values=False, ordered=True).numpy()
+    rows, cols = graph.rows.numpy(), graph.cols.numpy()
+    ptr = np.searchsorted(rows, np.arange(graph.n + 1))
+    want = np.zeros(len(rows), np.int32)
+    for e in np.flatnonzero(cols < rows):
+        j = cols[e]
+        row = cols[ptr[j]:ptr[j + 1]]
+        want[e] = np.bitwise_xor.reduce(row[row < j], initial=0)
+    assert np.array_equal(got, want) and want.any()
 
 
 def _spans(prof):
