@@ -2633,10 +2633,12 @@ def probe_bound(phase, M, nunits):
 
 def with_team(M, g):
     """M with an indptr of its own, whose kernel-1 plan walks rows in teams
-    of g lanes (the rest of the plan as M's): kernel 1 at another team size
-    than the one pull_plan picks, for the timings only."""
+    of g lanes (the rest of the plan as M's), seeded in the store of derived
+    facts as the new indptr's plan: kernel 1 at another team size than the
+    one pull_plan picks, for the timings only."""
     N = replace(M, indptr=M.indptr.clone())
-    K1._PLANS.put(N.indptr, replace(K1.pull_plan(M), team=g))
+    plan = F.derived(K1.pull_plan, (N.indptr,), lambda: replace(K1.pull_plan(M), team=g))
+    assert K1.pull_plan(N) is plan
     return N
 
 

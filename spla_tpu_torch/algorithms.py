@@ -32,8 +32,8 @@ it names its phases in a ``torch.profiler`` trace
 ``lax.while_loop`` whose convergence scalar stays on the device
 (``spla_tpu/algorithms.py:8-12``).  ``tc`` reads its one result (its spans
 ``spla.tc`` and ``spla.tc.read``) and counts its work in
-``STATS["tc_products"]`` and ``STATS["tc_walked"]`` from kernel 4's cached
-plan and check, with no read of its own.
+``STATS["tc_products"]`` and ``STATS["tc_walked"]`` from kernel 4's plan
+and check (facts of ``formats.derived``), with no read of its own.
 """
 
 from __future__ import annotations
@@ -48,7 +48,7 @@ import torch
 from . import op as OP
 from .containers import CsrMatrix, DenseVec
 from .descriptor import Descriptor
-from .formats import WeakIdCache, csr_transpose_host, is_skewed, stored_finite as _finite, transpose_of
+from .formats import csr_transpose_host, derived, is_skewed, stored_finite as _finite, transpose_of
 from .kernels.frontier import LevelState, bfs_state, read_count, sssp_state
 from .kernels.level_update import bfs_pull_update, sssp_pull_update
 from .kernels.mxmt import mxmt_products, mxmt_reduce, ordered_walk
@@ -84,9 +84,6 @@ STATS = {"levels": 0, "push": 0, "pull": 0, "host_syncs": 0, "resident": 0, "lev
 # RESIDENT_VMEM (spla_tpu/pallas/spmv.py:2456) on the TPU.
 RESIDENT_BYTES = 50 * 1024 * 1024
 
-_AT_CACHE = WeakIdCache()  # default Aᵀ per matrix; True = A is symmetric
-_TC_PATTERN_CACHE = WeakIdCache()  # is-0/1-pattern verdicts, keyed on values
-_STORED_CACHE = WeakIdCache()  # stored entries per matrix, keyed on indptr
 _QUERIES = itertools.count(1)  # the query number a public call's span carries
 _LEVEL_SPANS = ("spla.level.pull", "spla.level.push")  # by push
 
@@ -98,28 +95,31 @@ def _default_At(A: CsrMatrix) -> CsrMatrix:
     (x) A[i,j]``, ``src/algorithm.cpp:97``); pull computes ``mxv(At, f)``,
     which matches only when ``At = Aᵀ``.  A directed graph therefore needs
     the transpose; ``At = A`` would walk reversed edges.  A symmetric A is
-    returned itself.  Cached per matrix."""
-    hit = _AT_CACHE.get(A.values)
-    if hit is True:
-        return A
-    if hit is not None:
-        return hit
+    returned itself.  A fact of the tensors and the shape that the
+    transposes read (the store holds None for a symmetric A)."""
+    T = derived(_default_At, (A.row_ids, A.cols, A.values, A.nnz, A.fill), lambda: _asymmetric_At(A),
+                A.shape)
+    return A if T is None else T
+
+
+def _asymmetric_At(A: CsrMatrix) -> CsrMatrix | None:
+    """Aᵀ, or None when it equals A."""
     T = csr_transpose_host(A)
     # T is the canonical Aᵀ and its transpose the canonical A, so the
     # comparison holds however A's columns are ordered
     T2 = csr_transpose_host(T)
     if all(torch.equal(getattr(T2, f), getattr(T, f)) for f in ("indptr", "cols", "values")):
-        _AT_CACHE.put(A.values, True)
-        return A
-    _AT_CACHE.put(A.values, T)
+        return None
     return T
 
 
-def _push_matrix(A: CsrMatrix, At: CsrMatrix) -> CsrMatrix:
-    """CSR(A) for the push kernel: the transpose of ``At``."""
-    if At is A or At is _AT_CACHE.get(A.values):
-        return A
-    return transpose_of(At)
+def _operands(A: CsrMatrix, At: CsrMatrix | None) -> tuple:
+    """``(At, Apush)``: the matrix pull walks (``_default_At(A)`` if none is
+    given) and CSR(A) for the push kernel, the transpose of ``At``: A itself
+    when At is A or was not given, else ``transpose_of(At)``."""
+    if At is None:
+        return _default_At(A), A
+    return At, (A if At is A else transpose_of(At))
 
 
 def _front_factor_of(descriptor) -> float:
@@ -134,12 +134,8 @@ def _front_factor_of(descriptor) -> float:
 
 
 def _stored(M: CsrMatrix) -> int:
-    """M's stored entries (one host read per matrix, cached)."""
-    hit = _STORED_CACHE.get(M.indptr)
-    if hit is None:
-        hit = int(M.nnz)
-        _STORED_CACHE.put(M.indptr, hit)
-    return hit
+    """M's stored entries (one host read, a fact of ``nnz``)."""
+    return derived(_stored, (M.nnz,), lambda: int(M.nnz))
 
 
 def _host_count(S: LevelState) -> int:
@@ -248,9 +244,7 @@ def bfs(A: CsrMatrix, source: int, descriptor: Descriptor | None = None,
     when A is symmetric).  ``At=A`` declares A symmetric and skips that
     check: push, and the resident route, then walk A's rows."""
     with span("spla.bfs", next(_QUERIES)):
-        if At is None:
-            At = _default_At(A)
-        Apush = _push_matrix(A, At)
+        At, Apush = _operands(A, At)
         if _takes_resident(At, Apush, sssp=False):
             v, stats = bfs_resident(Apush, int(source))
             with span("spla.level.read"):
@@ -270,9 +264,7 @@ def sssp(A: CsrMatrix, source: int, descriptor: Descriptor | None = None,
     n + 2 rounds (``STATS["capped"]`` counts such runs), which ends a
     negative cycle; the level loop has no cap."""
     with span("spla.sssp", next(_QUERIES)):
-        if At is None:
-            At = _default_At(A)
-        Apush = _push_matrix(A, At)
+        At, Apush = _operands(A, At)
         if _takes_resident(At, Apush, sssp=True):
             d, stats = sssp_resident(Apush, int(source))
             with span("spla.level.read"):
@@ -312,19 +304,9 @@ def pr(A: CsrMatrix, alpha: float = 0.85, eps: float = 1e-6,
 
 
 def _is_pattern(A: CsrMatrix) -> bool:
-    """Every stored value is 1 (one host read per matrix, cached)."""
-    hit = _TC_PATTERN_CACHE.get(A.values)
-    if hit is None:
-        hit = bool(torch.all(~A.valid_mask() | (bits(A.values) == 1)))
-        _TC_PATTERN_CACHE.put(A.values, hit)
-    return hit
-
-
-def _tc_ordered_walk(A: CsrMatrix) -> int | None:
-    """What ``tc``'s ordered walk reads on A (``kernels.mxmt.ordered_walk``)
-    where A is a verified 0/1 pattern besides, else None: then ``tc`` takes
-    the full walk.  Cached, as its two checks are."""
-    return ordered_walk(A) if _is_pattern(A) else None
+    """Every stored value is 1 (one host read, a fact of ``values`` and ``nnz``)."""
+    return derived(_is_pattern, (A.values, A.nnz),
+                   lambda: bool(torch.all(~A.valid_mask() | (bits(A.values) == 1))))
 
 
 def tc(A: CsrMatrix, products_cap: int | None = None) -> int:
@@ -352,13 +334,14 @@ def tc(A: CsrMatrix, products_cap: int | None = None) -> int:
     ``STATS["tc_products"]`` gains the elements of A's rows the full walk
     reads over every stored entry (``kernels.mxmt.mxmt_products``), and
     ``STATS["tc_walked"]`` those the chosen walk reads: from kernel 4's
-    cached plan and check on CUDA, so no host read of their own."""
+    plan and check on CUDA (facts of ``formats.derived``), so no host read
+    of their own."""
     with span("spla.tc", next(_QUERIES)):
         is_pattern = _is_pattern(A)
         T = type_from_dtype(A.values.dtype)
         products = mxmt_products(A, A)
         cuda = A.values.device.type == "cuda"
-        walked = _tc_ordered_walk(A) if cuda else None
+        walked = ordered_walk(A) if cuda and is_pattern else None
         STATS["tc_products"] += products
         STATS["tc_walked"] += products if walked is None else walked
         if walked is not None:

@@ -2,6 +2,9 @@
 
 Host-side numpy builders (with duplicate-reduce) put a container on an
 explicit ``device``; the vector converters run where their tensors live.
+Every fact the port derives from a matrix (a transpose, a verdict, a
+kernel's launch plan) lives in one store, ``derived``, keyed on the
+tensors the fact reads.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from .utils.bits import gather, where
 
 __all__ = [
     "WeakIdCache",
+    "derived",
     "host_coo",
     "skew_stats",
     "is_skewed",
@@ -47,7 +51,8 @@ def round_up(x: int, m: int) -> int:
 class WeakIdCache:
     """id-keyed cache whose entries die with the key object (a plain
     id-keyed dict would alias recycled ids after GC).  A value must not
-    hold a strong reference to its key, or the entry never dies."""
+    hold a strong reference to its key, or the entry never dies.  spla_tpu's
+    helper; the port keeps what it derives from a matrix in ``derived``."""
 
     def __init__(self):
         self._alive = weakref.WeakValueDictionary()
@@ -76,16 +81,41 @@ class WeakIdCache:
         self._data[key] = value
 
 
-_FINITE = WeakIdCache()  # stored_finite's verdicts, keyed on values
+# (owner, id of each keyed tensor, *extra) -> (weak references to the tensors, fact)
+_FACTS = {}
+
+
+def derived(owner, tensors: tuple, build, extra: tuple = ()):
+    """The fact ``owner`` (the function that derives it) holds of ``tensors``
+    and the plain key ``extra``: ``build()``'s result, built at the first
+    call and kept while every one of ``tensors`` lives.  A hit needs each
+    tensor to be the same live object, so a recycled id never aliases; the
+    entry dies with the first of them to be collected.  Key a fact on every
+    tensor it reads; an entry whose fact holds every one of its tensors
+    never dies."""
+    key = (owner, *map(id, tensors), *extra)
+    hit = _FACTS.get(key)
+    if hit is not None:
+        refs, fact = hit
+        for ref, t in zip(refs, tensors):
+            if ref() is not t:
+                break
+        else:
+            return fact
+    fact = build()
+
+    def drop(_ref):
+        _FACTS.pop(key, None)
+
+    _FACTS[key] = (tuple(weakref.ref(t, drop) for t in tensors), fact)
+    return fact
 
 
 def stored_finite(A: CsrMatrix) -> bool:
-    """Every stored value of A is finite (one host read per values tensor, cached)."""
-    hit = _FINITE.get(A.values)
-    if hit is None:
-        hit = bool(torch.all(torch.where(A.valid_mask(), torch.isfinite(A.values), True)))
-        _FINITE.put(A.values, hit)
-    return hit
+    """Every stored value of A is finite (one host read, a fact of ``values``
+    and ``nnz``)."""
+    return derived(stored_finite, (A.values, A.nnz), lambda: bool(
+        torch.all(torch.where(A.valid_mask(), torch.isfinite(A.values), True))))
 
 
 def host_coo(A: CsrMatrix, nnz=None, pattern=False):
@@ -231,36 +261,27 @@ def csr_transpose_host(a: CsrMatrix, capacity=None) -> CsrMatrix:
                                  a.fill.cpu().numpy(), capacity, a.device)
 
 
-_TRANSPOSES = WeakIdCache()
-
-
 def transpose_of(a: CsrMatrix) -> CsrMatrix:
-    """CSR of ``a``'s transpose, cached per matrix (weakly, on ``a.values``).
-    The push kernel walks CSR(A), the transpose of the ``At`` that pull
-    traverses."""
-    t = _TRANSPOSES.get(a.values)
-    if t is None:
-        t = csr_transpose_host(a)
-        _TRANSPOSES.put(a.values, t)
-    return t
-
-
-_SKEW = WeakIdCache()
+    """CSR of ``a``'s transpose, a fact of the tensors and the shape that
+    ``csr_transpose_host`` reads.  The push kernel walks CSR(A), the
+    transpose of the ``At`` that pull traverses."""
+    return derived(transpose_of, (a.row_ids, a.cols, a.values, a.nnz, a.fill),
+                   lambda: csr_transpose_host(a), a.shape)
 
 
 def skew_stats(a: CsrMatrix):
     """``(max row degree, max column degree, mean row degree)`` of ``a``'s
     stored entries (``spla_tpu/pallas/spmv.py`` ``_skew_stats`` :3088);
-    one host read per matrix, cached weakly on ``a.values``."""
-    got = _SKEW.get(a.values)
-    if got is None:
-        rows, cols, _ = host_coo(a)
-        m, n = a.shape
-        got = (int(np.bincount(rows, minlength=m).max(initial=0)),
-               int(np.bincount(cols, minlength=n).max(initial=0)),
-               rows.shape[0] / max(m, 1))
-        _SKEW.put(a.values, got)
-    return got
+    one host read, a fact of ``row_ids``, ``cols``, ``nnz`` and the shape."""
+    return derived(skew_stats, (a.row_ids, a.cols, a.nnz), lambda: _skew_stats(a), a.shape)
+
+
+def _skew_stats(a: CsrMatrix):
+    rows, cols, _ = host_coo(a)
+    m, n = a.shape
+    return (int(np.bincount(rows, minlength=m).max(initial=0)),
+            int(np.bincount(cols, minlength=n).max(initial=0)),
+            rows.shape[0] / max(m, 1))
 
 
 def is_skewed(a: CsrMatrix) -> bool:

@@ -41,7 +41,9 @@ launches of each wrapper, and nothing else (``sssp_push_level`` counts its
 two; ``spgemm_mxm`` one a call of its three steps); a launch of kernel 1's
 generic family counts as ``spmv_pull_generic``, one of kernel 7's as
 ``spmv_pull_staged_generic``; ``valid_bits`` counts the packs of kernel 1's
-x-validity masks into bitmaps, one a masked kernel-1 call.  Importing these modules
+x-validity masks into bitmaps, one a masked kernel-1 call.  A kernel's launch
+plan is a fact of the tensors it reads, built once and kept in the port's
+one store of derived facts (``formats.derived``).  Importing these modules
 builds and loads nothing.
 """
 

@@ -43,17 +43,17 @@ warp a window, which stages the window's rows of A in shared memory when
 they hold at most ``A_STAGE`` entries (it reads ``mask.row_ids``), and fold
 each entry with a team of ``TEAM`` (two) lanes.  Their launch is shaped by
 ``mxmt_plan``, built on the device from the mask and B at their first CUDA
-call and cached per tensor: the stored count and the entries whose B row
-is longer than ``HUB_LEN``, cut into chunks of ``HUB_CHUNK`` B entries, a
-CTA each.  Building it reads the host once, and that read also gives the
-products the kernels walk (``MxmtPlan.products``, ``mxmt_products``).  No
-argument or setting chooses any of it.  The CUDA source's header
+call, a fact of the tensors it reads (``formats.derived``): the stored
+count and the entries whose B row is longer than ``HUB_LEN``, cut into
+chunks of ``HUB_CHUNK`` B entries, a CTA each (kernel 1's cut,
+``spmv.hub_chunks``).  Building it reads the host once, and that read also
+gives the products the kernels walk (``MxmtPlan.products``,
+``mxmt_products``).  No argument or setting chooses any of it.  The CUDA source's header
 says what bounds the kernels and how they are laid out.
 """
 
 from __future__ import annotations
 
-import weakref
 from dataclasses import dataclass
 
 import numpy as np
@@ -61,7 +61,7 @@ import torch
 
 from .. import op as OP
 from ..containers import CsrMatrix
-from ..formats import WeakIdCache
+from ..formats import derived
 from ..utils.bits import cat, gather
 from ..utils.primitives import expand_schedule
 from ..utils.search import bisect_steps, rowwise_find
@@ -69,7 +69,7 @@ from ..utils.segments import segment_fold
 from . import LAUNCHES
 from .build import check, load_library
 from .spmv import (DTYPE_CODES, PULL_ADDS, TEMPLATED_MULS, _init_arg, _mask, _on_cpu, _ptr, _require_cuda,
-                   hub_scratch, semiring_codes)
+                   hub_chunks, hub_scratch, semiring_codes)
 
 __all__ = [
     "PRODUCT_CHUNK",
@@ -101,9 +101,6 @@ HUB_LEN = 256  # a B row of more entries is walked in chunks, a CTA each
 HUB_CHUNK = 2048  # entries of a long B row a CTA walks
 
 VERDICT_CHUNK = 1 << 26  # entries ordered_walk's check takes at once
-
-_PLANS = WeakIdCache()  # (mask.indptr ref, B.indptr ref, MxmtPlan) per mask.cols tensor
-_WALKS = WeakIdCache()  # (A.indptr ref, A.row_ids ref, ordered_walk's result) per A.cols tensor
 
 
 def masked_codes(op_mul, op_add, dtype, struct_only=False):
@@ -280,43 +277,24 @@ class MxmtPlan:
 
 
 def mxmt_plan(mask: CsrMatrix, B: CsrMatrix) -> MxmtPlan:
-    """The plan of ``mask`` against ``B``, built on their device and cached
-    per (mask.cols, mask.indptr, B.indptr) tensors; the stored, hub and
+    """The plan of ``mask`` against ``B``, built on their device, a fact of
+    mask.indptr, mask.cols, mask.row_ids and B.indptr; the stored, hub and
     chunk counts and the products are read on the host once, at the first
     build."""
-    key = (id(mask.indptr), id(B.indptr))
-    hit = _PLANS.get(mask.cols, key)
-    if hit is not None and hit[0]() is mask.indptr and hit[1]() is B.indptr:
-        return hit[2]
+    return derived(mxmt_plan, (mask.indptr, mask.cols, mask.row_ids, B.indptr), lambda: _mxmt_plan(mask, B))
+
+
+def _mxmt_plan(mask: CsrMatrix, B: CsrMatrix) -> MxmtPlan:
     device = mask.cols.device
-    m, cap = mask.shape[0], mask.capacity
     mip, bip = mask.indptr.long(), B.indptr.long()
-    e = torch.arange(cap, device=device)
-    stored = e < mip[m]
+    stored = torch.arange(mask.capacity, device=device) < mip[-1]
     j = mask.cols.long().clamp(0, max(B.shape[0] - 1, 0))
     blen = torch.where(stored, (bip[1:] - bip[:-1])[j], 0)
-    hub = blen > HUB_LEN
-    chunks = torch.where(hub, torch.div(blen + HUB_CHUNK - 1, HUB_CHUNK, rounding_mode="floor"), 0)
-    nstored, nhub, nchunks, products = (
-        int(v) for v in torch.stack([mip[m], hub.sum(), chunks.sum(), blen.sum()]).tolist())
-    # each hub entry's rank among the hub entries; the others go to slot nhub, dropped
-    slot = torch.where(hub, torch.cumsum(hub, 0) - 1, nhub)
-    ents = torch.empty(nhub + 1, dtype=torch.long, device=device)
-    ents.scatter_(0, slot, e)
-    per_hub = chunks[ents[:nhub]]
-    chunk_first = torch.zeros(nhub + 1, dtype=torch.long, device=device)
-    torch.cumsum(per_hub, 0, out=chunk_first[1:])
-    chunk_hub = torch.repeat_interleave(torch.arange(nhub, device=device), per_hub, output_size=nchunks)
-    chunk_entry = ents[chunk_hub]
-    jc = j[chunk_entry]
-    chunk_c0 = bip[jc] + (torch.arange(nchunks, device=device) - chunk_first[chunk_hub]) * HUB_CHUNK
-    chunk_c1 = torch.minimum(chunk_c0 + HUB_CHUNK, bip[jc + 1])
+    (_, chunk_entry, *cut), (nhub, nchunks, nstored, products) = hub_chunks(
+        bip[j], blen, HUB_LEN, HUB_CHUNK, mip[-1], blen.sum())
     scratch = hub_scratch(nchunks, nhub, device) if nchunks > nhub else {}
-    i32 = [t.to(torch.int32) for t in (chunk_entry, mask.row_ids[chunk_entry], chunk_c0, chunk_c1,
-                                       chunk_hub, chunk_first)]
-    plan = MxmtPlan(*i32, nstored, nhub, nchunks, products, **scratch)
-    _PLANS.put(mask.cols, (weakref.ref(mask.indptr), weakref.ref(B.indptr), plan), key)
-    return plan
+    i32 = [t.to(torch.int32) for t in (chunk_entry, mask.row_ids[chunk_entry], *cut)]
+    return MxmtPlan(*i32, nstored, nhub, nchunks, products, **scratch)
 
 
 def mxmt_products(mask: CsrMatrix, B: CsrMatrix) -> int:
@@ -337,15 +315,10 @@ def ordered_walk(A: CsrMatrix) -> int | None:
     symmetric, with no diagonal entry and strictly increasing rows (no
     duplicate column), the inputs on which that walk, times 6, is the full
     structural sum.  Checked on A's device, where it leaves nothing
-    allocated; cached per (A.cols, A.indptr, A.row_ids) tensors, and the
-    first check reads the host once."""
-    key = (id(A.indptr), id(A.row_ids))
-    hit = _WALKS.get(A.cols, key)
-    if hit is not None and hit[0]() is A.indptr and hit[1]() is A.row_ids:
-        return hit[2]
-    walked = _ordered_walk(A) if A.shape[0] == A.shape[1] else None
-    _WALKS.put(A.cols, (weakref.ref(A.indptr), weakref.ref(A.row_ids), walked), key)
-    return walked
+    allocated; a fact of A.indptr, A.cols, A.row_ids, A.nnz and the shape,
+    and the check reads the host once."""
+    return derived(ordered_walk, (A.indptr, A.cols, A.row_ids, A.nnz),
+                   lambda: _ordered_walk(A) if A.shape[0] == A.shape[1] else None, A.shape)
 
 
 def _ordered_walk(A: CsrMatrix) -> int | None:

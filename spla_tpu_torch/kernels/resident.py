@@ -37,7 +37,7 @@ from dataclasses import dataclass
 import torch
 
 from ..containers import CsrMatrix
-from ..formats import WeakIdCache
+from ..formats import derived
 from ..op import MIN_FLOAT
 from ..utils.segments import segment_fold
 from . import LAUNCHES
@@ -51,8 +51,6 @@ __all__ = ["bfs_resident", "bfs_resident_plain", "sssp_resident", "sssp_resident
 MAX_VERTICES = 2**31 - 4  # round + 1 <= n + 3 must fit an int32 stamp
 CTA_THREADS = 1024  # kept equal to csrc/resident.cu kResidentThreads
 LEAD_CTAS = 8  # kept equal to kLeadCtas: the lead cluster, which walks the narrow rounds
-
-_PLANS = WeakIdCache()  # ResidentPlan per indptr tensor
 
 
 @dataclass(frozen=True)
@@ -68,15 +66,14 @@ class ResidentPlan:
 
 
 def resident_plan(A: CsrMatrix) -> ResidentPlan:
-    """The plan of A's ``indptr``, cached per indptr tensor; its entry count
-    is read on the host once, at the first call."""
-    hit = _PLANS.get(A.indptr)
-    if hit is not None:
-        return hit
+    """The plan of A's ``indptr``, a fact of the indptr tensor; its entry
+    count is read on the host once, at the first call."""
+    return derived(resident_plan, (A.indptr,), lambda: _resident_plan(A))
+
+
+def _resident_plan(A: CsrMatrix) -> ResidentPlan:
     team = team_size(int(A.indptr[-1]), A.shape[0])
-    plan = ResidentPlan(team, LEAD_CTAS * CTA_THREADS // team)
-    _PLANS.put(A.indptr, plan)
-    return plan
+    return ResidentPlan(team, LEAD_CTAS * CTA_THREADS // team)
 
 
 def _stats(rounds: int, capped: bool, wide: int, device) -> torch.Tensor:

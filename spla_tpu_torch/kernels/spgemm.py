@@ -37,14 +37,13 @@ source's header says what bounds the kernel and how it is laid out.
 
 from __future__ import annotations
 
-import weakref
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from ..containers import CooMatrix, CsrMatrix
-from ..formats import WeakIdCache, compact, coo_to_csr
+from ..formats import compact, coo_to_csr, derived
 from ..utils.primitives import expand_schedule
 from ..utils.segments import scalar_on, segmented_scan_fold
 from . import LAUNCHES
@@ -79,8 +78,6 @@ LARGE_WORDS = 48 * 1024  # the symbolic phase's bitmap of a large row, 32-bit wo
 CLUSTER = 16  # CTAs of a large row's cluster (numeric phase); 16, non-portable, beat 8 on the skewed graph
 LARGE_SHARED_BYTES = 227 * 1024  # shared memory a CTA may have (H100: 232,448 bytes)
 LARGE_STATIC_BYTES = 9 * 1024  # a numeric large CTA's own shared memory besides its values and bitmap
-
-_PLANS = WeakIdCache()  # (A.indptr ref, B.indptr ref, MxmPlan) per A.cols tensor
 
 
 def mxm_codes(op_mul, op_add, dtype):
@@ -242,14 +239,14 @@ class MxmPlan:
 
 
 def mxm_plan(A: CsrMatrix, B: CsrMatrix) -> MxmPlan:
-    """The plan of A against B, built on their device and cached per
-    (A.cols, A.indptr, B.indptr) tensors; the groups' row counts and the
-    product total are read on the host once, at the first build."""
+    """The plan of A against B, built on their device, a fact of A.indptr,
+    A.cols, A.nnz and B.indptr; the groups' row counts and the product total
+    are read on the host once, at the first build."""
     _check_shapes(A, B)
-    key = (id(A.indptr), id(B.indptr))
-    hit = _PLANS.get(A.cols, key)
-    if hit is not None and hit[0]() is A.indptr and hit[1]() is B.indptr:
-        return hit[2]
+    return derived(mxm_plan, (A.indptr, A.cols, A.nnz, B.indptr), lambda: _mxm_plan(A, B))
+
+
+def _mxm_plan(A: CsrMatrix, B: CsrMatrix) -> MxmPlan:
     m = A.shape[0]
     device = A.cols.device
     ends = torch.zeros(A.capacity + 1, dtype=torch.long, device=device)
@@ -262,9 +259,7 @@ def mxm_plan(A: CsrMatrix, B: CsrMatrix) -> MxmPlan:
                         torch.where(row_products <= MEDIUM_MAX, 1 + table, 1 + len(MEDIUM_SLOTS)))
     counts = torch.cat([torch.bincount(group, minlength=2 + len(MEDIUM_SLOTS)), ends[-1:]]).tolist()
     rows = torch.argsort(group, stable=True).to(torch.int32)
-    plan = MxmPlan(rows, row_products, counts[0], tuple(counts[1:-2]), counts[-2], counts[-1])
-    _PLANS.put(A.cols, (weakref.ref(A.indptr), weakref.ref(B.indptr), plan), key)
-    return plan
+    return MxmPlan(rows, row_products, counts[0], tuple(counts[1:-2]), counts[-2], counts[-1])
 
 
 def cluster_shape(n: int, sms: int, shared_bytes: int, cluster: int | None = None) -> tuple:

@@ -27,12 +27,13 @@ family, whose mul is a kernel argument, for the rest
 there too, to hold the two against each other).
 
 The kernel's launch is shaped by ``pull_plan``, built on the device from
-``indptr`` at a matrix's first CUDA call and cached per indptr tensor (a
-``formats.split_rows`` part has its own): the rows longer than ``HUB_LEN``
-entries, cut into chunks of ``HUB_CHUNK`` entries walked by a CTA each,
-and the team size G of the other rows, the power of two from 2 to 32
-nearest above their mean length over ``ENTRIES_PER_LANE``.  Building it
-reads the host once.  No argument or setting chooses any of it.
+``indptr`` at a matrix's first CUDA call, a fact of the indptr tensor
+(``formats.derived``; a ``formats.split_rows`` part has its own): the rows
+longer than ``HUB_LEN`` entries, cut into chunks of ``HUB_CHUNK`` entries
+walked by a CTA each (``hub_chunks``, the cut kernels 4 and 5 share), and
+the team size G of the other rows, the power of two from 2 to 32 nearest
+above their mean length over ``ENTRIES_PER_LANE``.  Building it reads the
+host once.  No argument or setting chooses any of it.
 
 A CUDA call that passes ``x_valid`` first packs it into the plan's bitmap
 (``pack_valid_bits``: bit ``j & 31`` of int32 word ``j >> 5``), which the
@@ -49,7 +50,7 @@ import numpy as np
 import torch
 
 from ..containers import CsrMatrix
-from ..formats import WeakIdCache
+from ..formats import derived
 from ..op import KernelCode
 from ..utils.bits import gather, where
 from ..utils.segments import segment_fold
@@ -67,6 +68,7 @@ __all__ = [
     "HUB_CHUNK",
     "PullPlan",
     "pull_plan",
+    "hub_chunks",
     "team_size",
     "pull_codes",
     "pack_valid_bits",
@@ -94,8 +96,6 @@ HUB_LEN = 256  # a row of more entries is a hub row, walked by CTAs
 HUB_CHUNK = 4096  # entries of a hub row a CTA walks
 ENTRIES_PER_LANE = 2  # a lane's share of a row of the mean length
 MAX_TEAM = 32  # a warp
-
-_PLANS = WeakIdCache()  # PullPlan per indptr tensor
 
 
 @dataclass(frozen=True)
@@ -138,36 +138,51 @@ def team_size(walked: int, rows: int) -> int:
 
 
 def pull_plan(A: CsrMatrix) -> PullPlan:
-    """The plan of A's ``indptr``, built on its device and cached per indptr
+    """The plan of A's ``indptr``, built on its device, a fact of the indptr
     tensor; the hub and chunk counts and the other rows' entry count are
     read on the host once, at the first build."""
-    hit = _PLANS.get(A.indptr)
-    if hit is not None:
-        return hit
-    m = A.shape[0]
+    return derived(pull_plan, (A.indptr,), lambda: _pull_plan(A))
+
+
+def _pull_plan(A: CsrMatrix) -> PullPlan:
     ip = A.indptr.long()
     lens = ip[1:] - ip[:-1]
-    hub = lens > HUB_LEN
-    chunks = torch.where(hub, torch.div(lens + HUB_CHUNK - 1, HUB_CHUNK, rounding_mode="floor"), 0)
-    nhub, nchunks, walked = (int(v) for v in torch.stack(
-        [hub.sum(), chunks.sum(), torch.where(hub, 0, lens).sum()]).tolist())
-    # each hub row's rank among the hub rows; the other rows go to slot nhub, dropped
-    slot = torch.where(hub, torch.cumsum(hub, 0) - 1, nhub)
-    rows = torch.empty(nhub + 1, dtype=torch.long, device=ip.device)
-    rows.scatter_(0, slot, torch.arange(m, device=ip.device))
-    per_hub = chunks[rows[:nhub]]
-    chunk_first = torch.zeros(nhub + 1, dtype=torch.long, device=ip.device)
-    torch.cumsum(per_hub, 0, out=chunk_first[1:])
-    chunk_hub = torch.repeat_interleave(torch.arange(nhub, device=ip.device), per_hub, output_size=nchunks)
-    chunk_row = rows[chunk_hub]
-    chunk_c0 = ip[chunk_row] + (torch.arange(nchunks, device=ip.device) - chunk_first[chunk_hub]) * HUB_CHUNK
-    chunk_c1 = torch.minimum(chunk_c0 + HUB_CHUNK, ip[chunk_row + 1])
+    cut, (nhub, nchunks, walked) = hub_chunks(ip[:-1], lens, HUB_LEN, HUB_CHUNK,
+                                              torch.where(lens > HUB_LEN, 0, lens).sum())
     scratch = hub_scratch(nchunks, nhub, ip.device) if nchunks > nhub else {}
-    i32 = [t.to(torch.int32) for t in (rows[:nhub], chunk_row, chunk_c0, chunk_c1, chunk_hub, chunk_first)]
     bits = torch.empty(_words(A.shape[1]), dtype=torch.int32, device=ip.device)
-    plan = PullPlan(*i32, nhub, nchunks, team_size(walked, m - nhub), **scratch, valid_bits=bits)
-    _PLANS.put(A.indptr, plan)
-    return plan
+    return PullPlan(*(t.to(torch.int32) for t in cut), nhub, nchunks, team_size(walked, A.shape[0] - nhub),
+                    **scratch, valid_bits=bits)
+
+
+def hub_chunks(starts, lens, hub_len: int, chunk: int, *also):
+    """The cut of the items longer than ``hub_len`` entries (kernel 1's rows;
+    kernels 4 and 5's mask entries, each over its row of B) into chunks of
+    ``chunk`` entries, a CTA each.  Item i holds entries ``[starts[i],
+    starts[i] + lens[i])`` (int64 tensors).  Returns ``(cut, counts)``: the
+    int64 tensors ``(hubs, chunk_item, chunk_c0, chunk_c1, chunk_hub,
+    chunk_first)``, the hub items in order, chunk b walking entries
+    ``[chunk_c0[b], chunk_c1[b])`` of item ``chunk_item[b]``, hub
+    ``chunk_hub[b]``, and hub h's first chunk ``chunk_first[h]``; and the
+    ints ``(nhub, nchunks, *also)``, the 0-d tensors ``also`` read with the
+    counts in the one host read."""
+    device = lens.device
+    hub = lens > hub_len
+    chunks = torch.where(hub, torch.div(lens + chunk - 1, chunk, rounding_mode="floor"), 0)
+    nhub, nchunks, *rest = (int(v) for v in torch.stack([hub.sum(), chunks.sum(), *also]).tolist())
+    # each hub item's rank among the hub items; the others go to slot nhub, dropped
+    slot = torch.where(hub, torch.cumsum(hub, 0) - 1, nhub)
+    items = torch.empty(nhub + 1, dtype=torch.long, device=device)
+    items.scatter_(0, slot, torch.arange(lens.shape[0], device=device))
+    per_hub = chunks[items[:nhub]]
+    chunk_first = torch.zeros(nhub + 1, dtype=torch.long, device=device)
+    torch.cumsum(per_hub, 0, out=chunk_first[1:])
+    chunk_hub = torch.repeat_interleave(torch.arange(nhub, device=device), per_hub, output_size=nchunks)
+    chunk_item = items[chunk_hub]
+    first = starts[chunk_item]
+    chunk_c0 = first + (torch.arange(nchunks, device=device) - chunk_first[chunk_hub]) * chunk
+    chunk_c1 = torch.minimum(chunk_c0 + chunk, first + lens[chunk_item])
+    return (items[:nhub], chunk_item, chunk_c0, chunk_c1, chunk_hub, chunk_first), (nhub, nchunks, *rest)
 
 
 def hub_scratch(nchunks: int, nhub: int, device) -> dict:

