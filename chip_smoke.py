@@ -8,7 +8,14 @@ Phases:
   2. build: compile the CUDA kernels from kernels/csrc and print ptxas' lines
      and kernel 6's grid, cluster size and registers;
   3. each kernel against its plain PyTorch version, on the card, at the
-     slice's shapes (tolerances stated in ``check_close``); kernel 1 every
+     slice's shapes (tolerances stated in ``check_close``); first kernel 1
+     on kron_csr(25), at kron-pr's scale, whose x passes the L2 budget, so
+     the value plan walks its hub rows in S >= 2 column segments:
+     MULT/PLUS and PLUS/MIN f32 and MULT/PLUS i32, templated and generic,
+     without masks and with x_valid and row_sel, each against the plain
+     version and counting S segments for its launch, a repeated call
+     bitwise, and MULT/PLUS f32 timed against the plain version and
+     cuSPARSE (the graph is freed before the others are made); then kernel 1 every
      instance, with and without masks and swapped, and its structural
      variant on the n = 2^21 graph, the hub graph, powerlaw_graph(2^21, 16)
      and n = 2^16 graphs whose degrees pick each team size and the hub
@@ -204,7 +211,10 @@ Phases:
      2^24 and 2^25, 32 columns a row) with 10%, 50% and 100% of x valid,
      each held once against its plain version at 2^24.
 
-Each kernel's row in the JSON line carries ``bound_ms``: the larger of its
+Kernel 1's row in the JSON line is its MULT/PLUS f32 time on the kron
+graph of phase 3, its main path's shape, with the plain version's and
+cuSPARSE's times there.  Each kernel's row in the JSON
+line carries ``bound_ms``: the larger of its
 bytes (each input read once, each output written once, at this run's
 shapes and data) over 3.35 TB/s and its f32 operations over 67 TFLOP/s
 (``bound``).
@@ -257,7 +267,7 @@ from spla_tpu_torch.ops import spgemm as TG
 from spla_tpu_torch.ops.spgemm import mxmT_masked_plain
 from spla_tpu_torch.tools import ab_spmv as AB, level_times as LT, ops_times as OT, probe_spmv as PROBE
 from spla_tpu_torch.tools import dist_times as DT, mask_times as MASK, mxm_times as MT, resident_levels as RL
-from spla_tpu_torch.tools.graphs import (HUB_ROWS, barbell_graph, build_graph, hub_graph, hub_spgemm,
+from spla_tpu_torch.tools.graphs import (HUB_ROWS, barbell_graph, build_graph, hub_graph, hub_spgemm, kron_csr,
                                          path_graph, powerlaw_graph, random_graph, road_graphs, road_grid,
                                          skewed_graph, spgemm_bins)
 
@@ -265,6 +275,8 @@ N_SPMV, DEG_SPMV = 1 << 21, 16      # bench.py:37 build_graph
 N_GRAPH, DEG_GRAPH = 1 << 20, 16    # bench_suite.py:24 random_graph, bench_suite.py:122
 N_TC, DEG_TC, SEED_TC = 1 << 15, 24, 3  # bench_suite.py:513-514
 N_FEW = 256  # kernel 7's fewer-stages-than-slots graph: 256 entries, one unit
+KRON_SCALE = 25  # kron-pr's scale: x (4n = 134 MB) passes kernel 1's L2 budget
+KRON_CASES = (("MULT", "PLUS", "f32"), ("PLUS", "MIN", "f32"), ("MULT", "PLUS", "i32"))
 N_SMALL, SMALL_DEGREES = 1 << 16, (1, 6, 16, 24, 64, 300)  # kernel 1: teams of 2-32 lanes, hub rows
 N_HUB_TC, HUB_LEN_TC = 1 << 17, 1 << 16
 N_MXM, DEG_MXM, SEED_MXM = 1 << 13, 16, 5  # bench_suite.py:528 mxm_mprod_s
@@ -495,6 +507,70 @@ def check_pull_graph(label, M, Mi, rng):
           f"instances x 3 mask/order settings and the structural variant match the plain version",
           flush=True)
     return err
+
+
+def check_kron(card):
+    """Kernel 1 on kron_csr(KRON_SCALE), where x passes the L2 budget and the
+    value plan is cut into S >= 2 column segments: each of KRON_CASES,
+    templated and generic, without masks and with x_valid and row_sel,
+    against the plain version, the launch counting S segments; a repeated
+    call bitwise; MULT/PLUS f32 timed against the plain version and
+    cuSPARSE (one ``torch.sparse_csr_tensor @ x`` call).  Returns the max
+    error, kernel 1's row ``(ms, plain_ms, bound_ms, bound_by)`` and the
+    library's time (None where its call fails)."""
+    A = kron_csr(KRON_SCALE, DEVICE)
+    m, n = A.shape
+    nnz = int(A.nnz)
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(17)
+    mats = {"f32": replace(A, values=torch.rand(nnz, generator=g, device=DEVICE),
+                           fill=torch.tensor(0.0, device=DEVICE)),
+            "i32": replace(A, values=torch.randint(-1000, 1000, (nnz,), generator=g, dtype=torch.int32,
+                                                   device=DEVICE))}
+    del A
+    xs = {"f32": torch.rand(n, generator=g, device=DEVICE),
+          "i32": torch.randint(-1000, 1000, (n,), generator=g, dtype=torch.int32, device=DEVICE)}
+    x_valid = torch.rand(n, generator=g, device=DEVICE) < 0.9
+    row_sel = torch.rand(m, generator=g, device=DEVICE) < 0.7
+    plan = K1.pull_plan(mats["f32"], K1.l2_budget(torch.device(DEVICE)))
+    if plan.segments < 2:
+        raise AssertionError(f"kron s{KRON_SCALE}: x of {4 * n} bytes must pass the L2 budget "
+                             f"({K1.l2_budget(torch.device(DEVICE))} bytes), got {plan.segments} segment")
+    err = 0.0
+    for mul, add, dtype in sorted(KRON_CASES, key=lambda c: c[2] != "i32"):  # i32 first: then its values go
+        if dtype == "f32":
+            mats.pop("i32", None)
+        T = TYPES[dtype]
+        om, oa = getattr(T, mul), getattr(T, add)
+        for generic in (False, True):
+            for xv, rs in ((None, None), (x_valid, row_sel)):
+                what = f"spmv_pull kron s{KRON_SCALE} {mul}/{add} {dtype} generic={generic} masks={xv is not None}"
+                kernels.reset_launches()
+                err = max(err, check_pull(what, mats[dtype], xs[dtype], om, oa, oa.identity, xv, rs,
+                                          generic=generic))
+                family = "spmv_pull_generic" if generic else "spmv_pull"
+                if (kernels.LAUNCHES[family], kernels.LAUNCHES["pull_segments"]) != (1, plan.segments):
+                    raise AssertionError(f"{what}: one launch of {plan.segments} segments, got "
+                                         f"{json.dumps(kernels.LAUNCHES)}")
+    M, x = mats["f32"], xs["f32"]
+    first = K1.spmv_pull(M, x, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)[0]
+    same_bits(f"spmv_pull kron s{KRON_SCALE} repeated", K1.spmv_pull(M, x, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0)[0],
+              first)
+    del first
+    k, p = paired_ms(lambda: K1.spmv_pull(M, x, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0),
+                     lambda: K1.spmv_pull_plain(M, x, op.MULT_FLOAT, op.PLUS_FLOAT, 0.0), PLAIN_RUNS_BIG)
+    row = (k, p, *spmv_bound(M))
+    lib = torch.sparse_csr_tensor(M.indptr, M.cols, M.values, size=(m, n), check_invariants=False)
+    lib_ms, lib_note = library_call("cuSPARSE", lambda: lib @ x)
+    print(f"kernel 1 on kron s{KRON_SCALE} (n={n}, nnz={nnz}; {plan_line(M)}; value plan {plan.segments} "
+          f"segments, {plan.nitems} items, {plan.nchunks} CTA chunks, {plan.short_rows.numel()} hub rows a warp "
+          f"a piece): {len(KRON_CASES)} (mul, add, dtype) x templated and generic x 2 mask settings match the "
+          f"plain version, a repeated call bitwise; peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB",
+          flush=True)
+    print(f"time spmv_pull MULT/PLUS f32 kron s{KRON_SCALE}: kernel {k:.4f} ms ({k * 1e9 / nnz:.2f} ps an "
+          f"entry), plain {p:.4f} ms, bound {row[2]:.4f} ms by {row[3]} ({100 * row[2] / k:.2f}% of it), "
+          f"{lib_note}; max abs error {err} against the f32 plain version [{card}]", flush=True)
+    return err, row, lib_ms
 
 
 def check_kernels(G):
@@ -3147,12 +3223,14 @@ def main():
         if any(k in line for k in ("registers", "Compiling entry", "spill", "smem")):
             print(line.strip())
 
+    phase("3 kernels against their plain versions")
+    kron_err, kron_row, kron_library_ms = check_kron(card)
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     G = build_graphs()
     print(f"graphs made in {time.perf_counter() - t0:.1f} s", flush=True)
-
-    phase("3 kernels against their plain versions")
     errs = check_kernels(G)
+    errs["spmv_pull"] = max(errs["spmv_pull"], kron_err)
     errs.update(check_push_levels(G))
     errs.update(check_mxmt(G))
     errs.update(check_mxm(G))
@@ -3258,6 +3336,7 @@ def main():
     times.update(mxm_times)
     times.update(time_generic(G, times, pull_ms, card))
     times.update(time_staged_generic(G, times, pull_ms, card))
+    times["spmv_pull"] = kron_row  # kernel 1's row: its main path's shape, the hub rows segment by segment
     dense_rows = time_dense(G, card)
     ops_rows = time_ops(G, results["ops"], card)
     facade_row = time_facade(G, card)
@@ -3266,7 +3345,7 @@ def main():
 
     # one PyTorch call computes the same function only for the pull SpMVs and mxm (kernels 1's and 7's
     # generic families are timed on MULT/PLUS f32, which cuSPARSE computes too)
-    library = {"spmv_pull": cusparse_ms, "spmv_pull_generic": cusparse_ms, "spmv_pull_staged": cusparse_ms,
+    library = {"spmv_pull": kron_library_ms, "spmv_pull_generic": cusparse_ms, "spmv_pull_staged": cusparse_ms,
                "spmv_pull_staged_generic": cusparse_ms, "spgemm_mxm": mxm_library_ms}
     rows_out, seen = [], set()
     for slice_name, kernel_names in PATHS.items():

@@ -37,11 +37,14 @@
 
 Each wrapper runs its plain PyTorch version for CPU tensors, and launches
 its kernel or raises for CUDA tensors.  ``LAUNCHES`` counts the kernel
-launches of each wrapper, and nothing else (``sssp_push_level`` counts its
-two; ``spgemm_mxm`` one a call of its three steps); a launch of kernel 1's
+launches of each wrapper (``sssp_push_level`` counts its two;
+``spgemm_mxm`` one a call of its three steps); a launch of kernel 1's
 generic family counts as ``spmv_pull_generic``, one of kernel 7's as
 ``spmv_pull_staged_generic``; ``valid_bits`` counts the packs of kernel 1's
-x-validity masks into bitmaps, one a masked kernel-1 call.  A kernel's launch
+x-validity masks into bitmaps, one a masked kernel-1 call.  Its one entry
+that counts no launch, ``pull_segments``, counts the segments of x kernel
+1's launches walked in turn (its plan's S a value launch, 1 a structural
+one).  A kernel's launch
 plan is a fact of the tensors it reads, built once and kept in the port's
 one store of derived facts (``formats.derived``).  Importing these modules
 builds and loads nothing.
@@ -51,7 +54,7 @@ PROBE_PHASES = ("stream", "gather", "fullfix", "alu", "xgather", "ring_copy", "r
                 "ring_copy_alu", "warp_row", "flat_stream", "flat_gather",
                 "ring_fold")  # kernel 8's phases, in the order of enum ProbePhase
 
-LAUNCHES = {"spmv_pull": 0, "spmv_pull_generic": 0, "valid_bits": 0, "spmv_push": 0, "level_update": 0, "bfs_push_level": 0,
+LAUNCHES = {"spmv_pull": 0, "spmv_pull_generic": 0, "pull_segments": 0, "valid_bits": 0, "spmv_push": 0, "level_update": 0, "bfs_push_level": 0,
             "sssp_push_level": 0,
             "mxmt_reduce": 0, "mxmt_masked": 0, "mxmt_gather": 0, "spgemm_mxm": 0,
             "bfs_resident": 0, "sssp_resident": 0, "spmv_pull_staged": 0, "spmv_pull_staged_generic": 0,

@@ -27,20 +27,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _INT = ctypes.c_int
+# kernel 1's value entries from m to init: m, the plan, its segments and scratch, the operands
+_PULL = (_I64, _INT, _INT, _I64, _I64, *(_P,) * 5, _INT, _I64, _I64, *(_P,) * 13)
 SIGNATURES = {
-    # mul, add, dtype, m, log2 team, hub_len, nhub, nchunks, chunk_row, chunk_c0, chunk_c1,
-    # chunk_hub, chunk_first, part, part_any, done, indptr, cols, values, x, x_bits (null; the
-    # masked entry's bitmap), row_sel, init (device pointer or null), init's 32 bits (when null),
-    # out, has, stream
-    "spla_spmv_pull": (_INT, _INT, _INT, _I64, _INT, _INT, _I64, _I64, *(_P,) * 15, ctypes.c_uint32,
-                       _P, _P, _P),
-    "spla_spmv_pull_masked": (_INT, _INT, _INT, _I64, _INT, _INT, _I64, _I64, *(_P,) * 15, ctypes.c_uint32,
-                              _P, _P, _P),
+    # mul, add, dtype, m, log2 team, hub_len, nhub (rows cut into chunks), nchunks, chunk_row,
+    # chunk_c0, chunk_c1, chunk_hub, chunk_first, segments, nitems, nshort, items, short_rows, cuts,
+    # part, part_any, done, indptr, cols, values, x, x_bits (null; the masked entry's bitmap),
+    # row_sel, init (device pointer or null), init's 32 bits (when null), out, has, stream
+    "spla_spmv_pull": (_INT, _INT, _INT, *_PULL, ctypes.c_uint32, _P, _P, _P),
+    "spla_spmv_pull_masked": (_INT, _INT, _INT, *_PULL, ctypes.c_uint32, _P, _P, _P),
     # mul, swap, add, dtype, then spla_spmv_pull's arguments from m on
-    "spla_spmv_pull_generic": (_INT, _INT, _INT, _INT, _I64, _INT, _INT, _I64, _I64, *(_P,) * 15,
-                               ctypes.c_uint32, _P, _P, _P),
-    "spla_spmv_pull_generic_masked": (_INT, _INT, _INT, _INT, _I64, _INT, _INT, _I64, _I64, *(_P,) * 15,
-                                      ctypes.c_uint32, _P, _P, _P),
+    "spla_spmv_pull_generic": (_INT, _INT, _INT, _INT, *_PULL, ctypes.c_uint32, _P, _P, _P),
+    "spla_spmv_pull_generic_masked": (_INT, _INT, _INT, _INT, *_PULL, ctypes.c_uint32, _P, _P, _P),
     # n, x_valid (bytes), bits (int32 words), stream
     "spla_pack_valid_bits": (_I64, _P, _P, _P),
     # m, log2 team, hub_len, nhub, nchunks, chunk_row, chunk_c0, chunk_c1, chunk_hub, chunk_first,

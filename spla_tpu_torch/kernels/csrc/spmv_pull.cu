@@ -38,15 +38,16 @@ pack_valid_bits_kernel(long long n, const uint8_t* valid, uint32_t* bits) {
 }  // namespace
 
 extern "C" int spla_spmv_pull(int mul, int add, int dtype, long long m, int log2g, int hub_len, long long nhub,
-                              long long nchunks, const void* chunk_row, const void* chunk_c0,
-                              const void* chunk_c1, const void* chunk_hub, const void* chunk_first,
-                              void* part, void* part_any, void* done,
-                              const void* indptr, const void* cols, const void* values, const void* x,
-                              const void* x_bits, const void* row_sel, const void* init,
-                              unsigned init_bits, void* out, void* has, void* stream) {
+                              long long nchunks, const void* chunk_row, const void* chunk_c0, const void* chunk_c1,
+                              const void* chunk_hub, const void* chunk_first, int segments, long long nitems,
+                              long long nshort, const void* items, const void* short_rows, const void* cuts,
+                              void* part, void* part_any, void* done, const void* indptr, const void* cols,
+                              const void* values, const void* x, const void* x_bits, const void* row_sel,
+                              const void* init, unsigned init_bits, void* out, void* has, void* stream) {
   return pull_entry<false, false>(mul, false, add, dtype, m, log2g, hub_len, nhub, nchunks, chunk_row, chunk_c0,
-                                  chunk_c1, chunk_hub, chunk_first, part, part_any, done, indptr, cols, values, x,
-                                  x_bits, row_sel, init, init_bits, out, has, stream);
+                                  chunk_c1, chunk_hub, chunk_first, segments, nitems, nshort, items, short_rows,
+                                  cuts, part, part_any, done, indptr, cols, values, x, x_bits, row_sel, init,
+                                  init_bits, out, has, stream);
 }
 
 extern "C" int spla_pack_valid_bits(long long n, const void* valid, void* bits, void* stream) {
@@ -66,7 +67,7 @@ extern "C" int spla_spmv_pull_structural(long long m, int log2g, int hub_len, lo
                                          void* stream) {
   if (m == 0) return 0;
   const PullPlan plan = plan_of(log2g, hub_len, nhub, nchunks, chunk_row, chunk_c0, chunk_c1, chunk_hub,
-                                chunk_first, nullptr, nullptr, nullptr);
+                                chunk_first, 1, nchunks, 0, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr);
   if (!plan_ok(plan)) return static_cast<int>(cudaErrorInvalidValue);
   const HitArgs a{m, static_cast<const int32_t*>(indptr), static_cast<const int32_t*>(cols),
                   static_cast<const uint32_t*>(x_bits), static_cast<const uint8_t*>(row_sel),

@@ -37,6 +37,14 @@
 //     partials, counters and bits belong to the plan, so launches on one
 //     matrix follow one another on a stream).  Those CTAs come first in the
 //     launch;
+//   * where x passes the L2 budget the value kernel's plan cuts the columns
+//     into S segments and the hub rows where their columns cross a
+//     segment's edge, and launches the pieces segment by segment (items),
+//     so the hub CTAs in flight gather from one window of x that L2 holds.
+//     A row of more than HUB_CHUNK entries keeps its CTA chunks, cut at the
+//     edges too; the shorter hub rows give a warp a piece, the 8 warps of a
+//     CTA the pieces of 8 rows in one segment, each row's S pieces folded
+//     in column order as the chunks are (fold_chunks);
 //   * the row-select mask and the x-validity mask are fused: an unselected
 //     row reads nothing but its mask byte, and the separate mask-select and
 //     stored-ness passes of the TPU path disappear (`has` is written here).
@@ -87,18 +95,28 @@ struct PullArgs {
 };
 
 // The launch shape (kernels/spmv.py pull_plan) and the hub rows' scratch.
-// Hub h (the h-th row longer than hub_len) has chunks chunk_first[h] ..
+// Hub h (the h-th row cut into chunks) has chunks chunk_first[h] ..
 // chunk_first[h + 1] - 1; chunk b walks entries [chunk_c0[b], chunk_c1[b])
-// of row chunk_row[b].
+// of row chunk_row[b].  With segments > 1 (the value kernel) item k of the
+// launch is chunk items[k] where that is not negative, else, with
+// -1 - items[k] = c * segments + s, the pieces in segment s of short hubs
+// 8 c .. 8 c + 7, a warp each: short hub j's piece s ends at
+// cuts[j * (segments - 1) + s] (its row's end for the last), its fold in
+// part[nchunks + j * segments + s], its counter done[nhub + j].
 struct PullPlan {
   const int32_t *chunk_row, *chunk_c0, *chunk_c1, *chunk_hub;  // [nchunks]
   const int32_t* chunk_first;                                 // [nhub + 1]
   long long nhub, nchunks;
   int log2g;  // a team is 1 << log2g lanes
   int hub_len;
-  void* part;          // [nchunks] T: each chunk's fold (value kernel, hubs of several chunks)
-  uint8_t* part_any;   // [nchunks]: whether it folded anything
-  int32_t* done;       // [nhub]: chunks of each hub finished; zero between launches
+  int segments;
+  long long nitems, nshort;
+  const int32_t* items;       // [nitems], or null with one segment: item b is chunk b
+  const int32_t* short_rows;  // [nshort]
+  const int32_t* cuts;        // [nshort * (segments - 1)]
+  void* part;          // T, a chunk's or piece's fold (value kernel, rows of several)
+  uint8_t* part_any;   // whether it folded anything
+  int32_t* done;       // [nhub + nshort]: chunks or pieces of each row finished; zero between launches
 };
 
 // A lane's next kUnroll entries k, k + stride, ... (column -1 at and past end).
@@ -178,30 +196,59 @@ __device__ __forceinline__ unsigned team_mask(int lane) {
   return g == 32 ? kFullMask : ((1u << g) - 1u) << (lane & ~(g - 1));
 }
 
-// This CTA's hub chunk: its row, entry range and siblings; false if the
-// row is not selected (uniform across the CTA).
+// A hub chunk (b) or a short hub's piece: its row, entry range, fold slot
+// and siblings (the row's slots first .. first + count - 1, its counter
+// done[hub]); false if the row is not selected (uniform across the CTA or
+// warp that walks it).
 struct Chunk {
   long long row;
-  int32_t hub, first, count, c0, c1;
+  int32_t hub, slot, first, count, c0, c1;
 
-  __device__ bool load(const PullPlan& p, const uint8_t* row_sel) {
-    row = p.chunk_row[blockIdx.x];
-    c0 = p.chunk_c0[blockIdx.x];
-    c1 = p.chunk_c1[blockIdx.x];
-    hub = p.chunk_hub[blockIdx.x];
+  __device__ bool load(const PullPlan& p, int32_t b, const uint8_t* row_sel) {
+    row = p.chunk_row[b];
+    c0 = p.chunk_c0[b];
+    c1 = p.chunk_c1[b];
+    hub = p.chunk_hub[b];
+    slot = b;
     if (row_sel != nullptr && !row_sel[row]) return false;
     first = p.chunk_first[hub];
     count = p.chunk_first[hub + 1] - first;
     return true;
   }
+
+  __device__ bool load_piece(const PullPlan& p, const int32_t* indptr, int32_t j, int s, const uint8_t* row_sel) {
+    row = p.short_rows[j];
+    if (row_sel != nullptr && !row_sel[row]) return false;
+    const int32_t* cut = p.cuts + static_cast<long long>(j) * (p.segments - 1);
+    c0 = s == 0 ? indptr[row] : cut[s - 1];
+    c1 = s == p.segments - 1 ? indptr[row + 1] : cut[s];
+    hub = static_cast<int32_t>(p.nhub) + j;
+    first = static_cast<int32_t>(p.nchunks) + j * p.segments;
+    slot = first + s;
+    count = p.segments;
+    return true;
+  }
 };
 
+// The last of a hub row's chunks or pieces to finish (the only one where
+// the row has one) writes it: its fold and init, and whether it folded any.
+template <typename T, int ADD>
+__device__ __forceinline__ void finish_hub(const PullArgs<T>& a, const PullPlan& p, const Chunk& ch, T v, bool hit) {
+  if (ch.count > 1 && !fold_chunks<ADD>(static_cast<T*>(p.part), p.part_any, p.done, ch.hub, ch.slot, ch.first,
+                                         ch.count, v, hit)) {
+    return;  // another chunk of the row folds them all
+  }
+  const T init_v = a.init_of();
+  a.out[ch.row] = hit ? apply_op<ADD>(init_v, v) : init_v;
+  if (a.has != nullptr) a.has[ch.row] = hit;
+}
+
 template <typename T, int MUL, int ADD, bool MASKED>
-__device__ void pull_chunk(const PullArgs<T>& a, const PullPlan& p) {
+__device__ void pull_chunk(const PullArgs<T>& a, const PullPlan& p, int32_t b) {
   __shared__ T red[kWarpsPerCta];
   __shared__ bool red_any[kWarpsPerCta];
   Chunk ch;
-  if (!ch.load(p, a.row_sel)) return;  // the slab pass writes init
+  if (!ch.load(p, b, a.row_sel)) return;  // the slab pass writes init
   T acc = monoid_identity<ADD, T>();
   bool any = false;
   fold_range<T, MUL, ADD, MASKED>(ch.c0 + static_cast<int32_t>(threadIdx.x), ch.c1, kThreads, a, acc, any);
@@ -221,24 +268,39 @@ __device__ void pull_chunk(const PullArgs<T>& a, const PullPlan& p) {
     v = apply_op<ADD>(v, red[w]);
     hit = hit || red_any[w];
   }
-  if (ch.count > 1 && !fold_chunks<ADD>(static_cast<T*>(p.part), p.part_any, p.done, ch.hub,
-                                         static_cast<int32_t>(blockIdx.x), ch.first, ch.count, v, hit)) {
-    return;  // another chunk of the row folds them all
-  }
-  const T init_v = a.init_of();
-  a.out[ch.row] = hit ? apply_op<ADD>(init_v, v) : init_v;
-  if (a.has != nullptr) a.has[ch.row] = hit;
+  finish_hub<T, ADD>(a, p, ch, v, hit);
+}
+
+// A warp's piece of item code k (-1 - items[k]): segment k % segments of
+// short hub (k / segments) * 8 + warp.
+template <typename T, int MUL, int ADD, bool MASKED>
+__device__ void pull_piece(const PullArgs<T>& a, const PullPlan& p, int32_t k) {
+  const int32_t j = k / p.segments * kWarpsPerCta + static_cast<int32_t>(threadIdx.x >> 5);
+  Chunk ch;
+  if (j >= p.nshort || !ch.load_piece(p, a.indptr, j, k % p.segments, a.row_sel)) return;
+  T acc = monoid_identity<ADD, T>();
+  bool any = false;
+  fold_range<T, MUL, ADD, MASKED>(ch.c0 + static_cast<int32_t>(threadIdx.x & 31), ch.c1, 32, a, acc, any);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc = apply_op<ADD>(acc, __shfl_xor_sync(kFullMask, acc, off));
+  any = __any_sync(kFullMask, any);
+  if ((threadIdx.x & 31) == 0) finish_hub<T, ADD>(a, p, ch, acc, any);
 }
 
 template <typename T, int MUL, int ADD, int LOG2G, bool MASKED>
 __global__ void __launch_bounds__(kThreads)
 spmv_pull_kernel(PullArgs<T> a, PullPlan p) {
   constexpr int g = 1 << LOG2G;
-  if (blockIdx.x < p.nchunks) {
-    pull_chunk<T, MUL, ADD, MASKED>(a, p);
+  if (blockIdx.x < p.nitems) {
+    const int32_t item = p.items == nullptr ? static_cast<int32_t>(blockIdx.x) : p.items[blockIdx.x];
+    if (item >= 0) {
+      pull_chunk<T, MUL, ADD, MASKED>(a, p, item);
+    } else {
+      pull_piece<T, MUL, ADD, MASKED>(a, p, -1 - item);
+    }
     return;
   }
-  const long long slab = (static_cast<long long>(blockIdx.x) - p.nchunks) * kWarpsPerCta + (threadIdx.x >> 5);
+  const long long slab = (static_cast<long long>(blockIdx.x) - p.nitems) * kWarpsPerCta + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   const int team = lane >> LOG2G, sub = lane & (g - 1);
   const Head h = head<LOG2G>(a.m, a.indptr, a.row_sel, p, slab, team);
@@ -284,7 +346,7 @@ spmv_pull_structural_kernel(HitArgs a, PullPlan p) {
   int32_t unused[kUnroll];
   if (blockIdx.x < p.nchunks) {  // a hub chunk: the CTA stops at its first round with a hit
     Chunk ch;
-    if (!ch.load(p, a.row_sel)) return;
+    if (!ch.load(p, static_cast<int32_t>(blockIdx.x), a.row_sel)) return;
     for (int32_t base = ch.c0; base < ch.c1; base += kUnroll * kThreads) {
       issue<int32_t, false>(c, unused, a.cols, nullptr, base + static_cast<int32_t>(threadIdx.x), ch.c1,
                             kThreads);
@@ -315,7 +377,7 @@ spmv_pull_structural_kernel(HitArgs a, PullPlan p) {
 
 unsigned grid_of(long long m, const PullPlan& p) {
   const long long slabs = (m + (32 >> p.log2g) - 1) >> (5 - p.log2g);
-  return static_cast<unsigned>(p.nchunks + (slabs + kWarpsPerCta - 1) / kWarpsPerCta);
+  return static_cast<unsigned>(p.nitems + (slabs + kWarpsPerCta - 1) / kWarpsPerCta);
 }
 
 template <bool MASKED>
@@ -350,17 +412,26 @@ struct PullLaunch {
   }
 };
 
+// The plan of the C arguments; segments 1 (and no items) for the
+// structural kernel's.
 PullPlan plan_of(int log2g, int hub_len, long long nhub, long long nchunks, const void* chunk_row,
                  const void* chunk_c0, const void* chunk_c1, const void* chunk_hub, const void* chunk_first,
-                 void* part, void* part_any, void* done) {
+                 int segments, long long nitems, long long nshort, const void* items, const void* short_rows,
+                 const void* cuts, void* part, void* part_any, void* done) {
   return PullPlan{static_cast<const int32_t*>(chunk_row), static_cast<const int32_t*>(chunk_c0),
                   static_cast<const int32_t*>(chunk_c1), static_cast<const int32_t*>(chunk_hub),
-                  static_cast<const int32_t*>(chunk_first), nhub, nchunks, log2g, hub_len,
-                  part, static_cast<uint8_t*>(part_any), static_cast<int32_t*>(done)};
+                  static_cast<const int32_t*>(chunk_first), nhub, nchunks, log2g, hub_len, segments, nitems,
+                  nshort, static_cast<const int32_t*>(items), static_cast<const int32_t*>(short_rows),
+                  static_cast<const int32_t*>(cuts), part, static_cast<uint8_t*>(part_any),
+                  static_cast<int32_t*>(done)};
 }
 
 bool plan_ok(const PullPlan& p) {
-  return p.log2g >= 1 && p.log2g <= 5 && p.hub_len >= 0 && p.nhub >= 0 && p.nchunks >= p.nhub;
+  const bool one = p.segments == 1 && p.items == nullptr && p.nitems == p.nchunks && p.nshort == 0 &&
+                   p.nchunks >= p.nhub;
+  const bool cut = p.segments > 1 && p.items != nullptr && p.nitems >= p.nchunks && p.nshort >= 0 &&
+                   (p.nshort == 0 || (p.short_rows != nullptr && p.cuts != nullptr));
+  return p.log2g >= 1 && p.log2g <= 5 && p.hub_len >= 0 && p.nhub >= 0 && (one || cut);
 }
 
 // The C entries of the value kernel (spmv_pull*.cu): the templated instances
@@ -369,13 +440,15 @@ bool plan_ok(const PullPlan& p) {
 template <bool GENERIC, bool MASKED>
 int pull_entry(int mul, bool swap, int add, int dtype, long long m, int log2g, int hub_len, long long nhub,
                long long nchunks, const void* chunk_row, const void* chunk_c0, const void* chunk_c1,
-               const void* chunk_hub, const void* chunk_first, void* part, void* part_any, void* done,
+               const void* chunk_hub, const void* chunk_first, int segments, long long nitems, long long nshort,
+               const void* items, const void* short_rows, const void* cuts, void* part, void* part_any, void* done,
                const void* indptr, const void* cols, const void* values, const void* x, const void* x_bits,
                const void* row_sel, const void* init, unsigned init_bits, void* out, void* has, void* stream) {
   if (m == 0) return 0;
   if (GENERIC && !runtime_mul_ok(mul, dtype)) return static_cast<int>(cudaErrorInvalidValue);
   const PullPlan plan = plan_of(log2g, hub_len, nhub, nchunks, chunk_row, chunk_c0, chunk_c1, chunk_hub,
-                                chunk_first, part, part_any, done);
+                                chunk_first, segments, nitems, nshort, items, short_rows, cuts, part, part_any,
+                                done);
   if (!plan_ok(plan)) return static_cast<int>(cudaErrorInvalidValue);
   PullLaunch<MASKED> launch{m, indptr, cols, values, x, x_bits, row_sel, init, init_bits, out, has, plan,
                             static_cast<cudaStream_t>(stream), mul, swap};

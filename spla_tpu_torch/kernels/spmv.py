@@ -35,6 +35,18 @@ the team size G of the other rows, the power of two from 2 to 32 nearest
 above their mean length over ``ENTRIES_PER_LANE``.  Building it reads the
 host once.  No argument or setting chooses any of it.
 
+The value kernel's plan also reads ``cols`` (``pull_plan(A, budget)``, the
+budget ``l2_budget``: ``L2_SHARE`` of the card's L2).  Where x's bytes pass
+it and A has hub rows, the columns fall into S = ceil(x bytes / budget)
+segments of equal width, and every hub row is cut where its sorted columns
+cross a segment's edge (a binary search at plan time, none in the kernel).
+The pieces are launched segment by segment, so the hub CTAs in flight
+gather from one window of x that L2 holds: a row of more than
+``HUB_CHUNK`` entries in CTA chunks cut at the edges too, the other hub
+rows a warp a piece, a CTA's warps on the pieces of one segment.  Each row
+still folds its pieces in column order.  With one segment the plan is the
+structural kernel's.
+
 A CUDA call that passes ``x_valid`` first packs it into the plan's bitmap
 (``pack_valid_bits``: bit ``j & 31`` of int32 word ``j >> 5``), which the
 kernel reads in place of the bytes: n/8 bytes stay in L2 where n do not,
@@ -44,6 +56,7 @@ bytes as before.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -69,6 +82,7 @@ __all__ = [
     "PullPlan",
     "pull_plan",
     "hub_chunks",
+    "l2_budget",
     "team_size",
     "pull_codes",
     "pack_valid_bits",
@@ -96,34 +110,54 @@ HUB_LEN = 256  # a row of more entries is a hub row, walked by CTAs
 HUB_CHUNK = 4096  # entries of a hub row a CTA walks
 ENTRIES_PER_LANE = 2  # a lane's share of a row of the mean length
 MAX_TEAM = 32  # a warp
+WARPS_PER_CTA = 8  # kThreads / 32: the pieces of one segment a CTA of the value kernel takes
+X_BYTES = 4  # an element of x: every instance is 32-bit
+L2_SHARE = 0.5  # of the card's L2, the bytes of x a segment holds (PERF.md, kernel 1 at kron s25)
 
 
 @dataclass(frozen=True)
 class PullPlan:
-    """Kernel 1's launch shape for one ``indptr``, on its device: the hub
-    rows (longer than ``HUB_LEN``) in order; their ``HUB_CHUNK``-entry
-    chunks (a CTA each), chunk b walking entries ``[chunk_c0[b],
-    chunk_c1[b])`` of row ``chunk_row[b]``, hub ``chunk_hub[b]``;
-    ``chunk_first`` each hub's first chunk; and ``team`` the lanes G of a
-    team walking each other row.  Where a hub has several chunks,
-    ``part``/``part_any`` hold the chunks' folds during a launch and
-    ``done`` counts each hub's finished chunks; the kernel leaves it zero.
-    ``valid_bits`` holds a masked call's ``x_valid`` packed (a word a 32
-    columns).  So launches on one matrix follow one another on a stream."""
+    """Kernel 1's launch shape for one ``indptr`` (and, cut into segments,
+    ``cols``), on its device: the hub rows (longer than ``HUB_LEN``) in
+    order; the CTA chunks, chunk b walking entries ``[chunk_c0[b],
+    chunk_c1[b])`` of row ``chunk_row[b]``, hub ``chunk_hub[b]`` of the rows
+    cut into them, whose first chunk is ``chunk_first``; and ``team`` the
+    lanes G of a team walking each other row.  With one segment every hub
+    row is cut into ``HUB_CHUNK``-entry chunks, launched in order.  With
+    ``segments`` S > 1 the rows of more than ``HUB_CHUNK`` entries are cut
+    at the segments' edges too, and the others, ``short_rows``, into S
+    pieces, piece s of short hub j ending at ``cuts[j * (S - 1) + s]``
+    (its row's end for the last); ``items`` is the launch order, item k
+    chunk ``items[k]`` where it is not negative, else the pieces of segment
+    s of short hubs 8 c to 8 c + 7, a warp each, with ``-1 - items[k] = c S
+    + s``.  Where a row has several chunks or pieces, ``part``/``part_any``
+    hold their folds during a launch (the chunks', then S a short hub's)
+    and ``done`` counts each row's finished ones (the chunked rows', then
+    the short hubs'); the kernel leaves it zero.  ``valid_bits`` holds a
+    masked call's ``x_valid`` packed (a word a 32 columns).  So launches on
+    one matrix follow one another on a stream."""
 
     hub_rows: torch.Tensor  # int32 [nhub]
     chunk_row: torch.Tensor  # int32 [nchunks]
     chunk_c0: torch.Tensor  # int32 [nchunks]
     chunk_c1: torch.Tensor  # int32 [nchunks]
     chunk_hub: torch.Tensor  # int32 [nchunks]
-    chunk_first: torch.Tensor  # int32 [nhub + 1]
+    chunk_first: torch.Tensor  # int32 [rows cut into chunks + 1]
     nhub: int
     nchunks: int
     team: int
-    part: torch.Tensor | None = None  # 32-bit words [nchunks]: a chunk's fold, f32 or i32
-    part_any: torch.Tensor | None = None  # uint8 [nchunks]
-    done: torch.Tensor | None = None  # int32 [nhub]
+    part: torch.Tensor | None = None  # 32-bit words: a chunk's or piece's fold, f32 or i32
+    part_any: torch.Tensor | None = None  # uint8
+    done: torch.Tensor | None = None  # int32, a row cut into chunks or pieces
     valid_bits: torch.Tensor | None = None  # int32 [ceil(n / 32)]
+    segments: int = 1
+    items: torch.Tensor | None = None  # int32 [nitems]
+    short_rows: torch.Tensor | None = None  # int32 [nshort]
+    cuts: torch.Tensor | None = None  # int32 [nshort * (segments - 1)]
+
+    @property
+    def nitems(self) -> int:
+        return self.nchunks if self.items is None else self.items.numel()
 
 
 def team_size(walked: int, rows: int) -> int:
@@ -137,11 +171,22 @@ def team_size(walked: int, rows: int) -> int:
     return g
 
 
-def pull_plan(A: CsrMatrix) -> PullPlan:
+def pull_plan(A: CsrMatrix, budget: int | None = None) -> PullPlan:
     """The plan of A's ``indptr``, built on its device, a fact of the indptr
     tensor; the hub and chunk counts and the other rows' entry count are
-    read on the host once, at the first build."""
-    return derived(pull_plan, (A.indptr,), lambda: _pull_plan(A))
+    read on the host once, at the first build.  With ``budget``, the bytes
+    of x a segment may hold (``l2_budget`` in a launch), the plan cut into
+    segments, a fact of indptr and cols (its counts read in two host reads):
+    the plain plan itself where x fits one segment or A has no hub row."""
+    if budget is None:
+        return derived(pull_plan, (A.indptr,), lambda: _pull_plan(A))
+    return derived(pull_plan, (A.indptr, A.cols), lambda: _segmented_plan(A, budget), (budget, A.shape[1]))
+
+
+@functools.cache
+def l2_budget(device) -> int:
+    """The value kernel's budget on a card: ``L2_SHARE`` of its L2."""
+    return int(torch.cuda.get_device_properties(device).L2_cache_size * L2_SHARE)
 
 
 def _pull_plan(A: CsrMatrix) -> PullPlan:
@@ -153,6 +198,67 @@ def _pull_plan(A: CsrMatrix) -> PullPlan:
     bits = torch.empty(_words(A.shape[1]), dtype=torch.int32, device=ip.device)
     return PullPlan(*(t.to(torch.int32) for t in cut), nhub, nchunks, team_size(walked, A.shape[0] - nhub),
                     **scratch, valid_bits=bits)
+
+
+def _segmented_plan(A: CsrMatrix, budget: int) -> PullPlan:
+    segments = -(-A.shape[1] * X_BYTES // budget)
+    if segments < 2:
+        return pull_plan(A)
+    ip = A.indptr.long()
+    lens = ip[1:] - ip[:-1]
+    hub_rows = torch.nonzero(lens > HUB_LEN).flatten()
+    if hub_rows.numel() == 0:
+        return pull_plan(A)
+    device = ip.device
+    hub_lens = lens[hub_rows]
+    # each hub row's S + 1 edges: its start, where its columns reach each inner segment's first, its end
+    width = -(-A.shape[1] // segments)
+    first = ip[hub_rows]
+    edges = torch.cat([first[:, None],
+                       _lower_bound(A.cols, first, first + hub_lens,
+                                    torch.arange(1, segments, device=device) * width, A.cols.numel().bit_length()),
+                       (first + hub_lens)[:, None]], 1)
+    long = hub_lens > HUB_CHUNK
+    # the long rows' pieces (S a row, in column order) cut into CTA chunks
+    ledges = edges[long]
+    (_, chunk_piece, chunk_c0, chunk_c1, _, _), (_, nchunks, walked) = hub_chunks(
+        ledges[:, :-1].flatten(), (ledges[:, 1:] - ledges[:, :-1]).flatten(), 0, HUB_CHUNK,
+        lens.sum() - hub_lens.sum())
+    chunk_hub = torch.div(chunk_piece, segments, rounding_mode="floor")
+    nlong = ledges.shape[0]
+    chunk_first = torch.zeros(nlong + 1, dtype=torch.long, device=device)
+    torch.cumsum(torch.bincount(chunk_hub, minlength=nlong), 0, out=chunk_first[1:])
+    short_rows = hub_rows[~long]
+    nshort = short_rows.numel()
+    # the launch order: segment by segment, its CTA chunks, then its short pieces 8 hubs an item
+    blocks = -(-nshort // WARPS_PER_CTA)
+    seg = torch.arange(segments, device=device)
+    pieces = -1 - (torch.arange(blocks, device=device)[:, None] * segments + seg).flatten()
+    order = torch.cat([chunk_piece % segments * 2, seg.repeat(blocks) * 2 + 1]).argsort(stable=True)
+    items = torch.cat([torch.arange(nchunks, device=device), pieces])[order]
+    i32 = [t.to(torch.int32) for t in (hub_rows, hub_rows[long][chunk_hub], chunk_c0, chunk_c1, chunk_hub,
+                                       chunk_first, items, short_rows, edges[~long, 1:-1].flatten())]
+    return PullPlan(*i32[:6], hub_rows.numel(), nchunks, team_size(walked, A.shape[0] - hub_rows.numel()),
+                    **hub_scratch(nchunks + nshort * segments, nlong + nshort, device),
+                    valid_bits=torch.empty(_words(A.shape[1]), dtype=torch.int32, device=device),
+                    segments=segments, items=i32[6], short_rows=i32[7], cuts=i32[8])
+
+
+def _lower_bound(cols, lo, hi, values, steps: int):
+    """For each row r and value v: the first entry k in ``[lo[r], hi[r])``
+    with ``cols[k] >= v`` (``hi[r]`` if none), by ``steps`` halvings, as
+    many as the longest range has bits (int64 [rows, values]).  On sorted
+    columns the edges of the pieces; on any columns they still rise along a
+    row, so the pieces still hold each entry once."""
+    lo = lo[:, None].expand(-1, values.numel()).clone()
+    hi = hi[:, None].expand(-1, values.numel()).clone()
+    for _ in range(steps + 1):
+        mid = torch.div(lo + hi, 2, rounding_mode="floor")
+        live = lo < hi
+        right = live & (cols[torch.where(live, mid, 0)] < values)
+        lo = torch.where(right, mid + 1, lo)
+        hi = torch.where(live & ~right, mid, hi)
+    return lo
 
 
 def hub_chunks(starts, lens, hub_len: int, chunk: int, *also):
@@ -250,11 +356,19 @@ def _plan_bits(plan: PullPlan, x_valid):
 
 
 def _plan_args(plan: PullPlan):
-    """The plan's leading C arguments: log2 G, HUB_LEN, the counts and the
-    chunk arrays (the value kernel's scratch follows)."""
-    return (plan.team.bit_length() - 1, HUB_LEN, plan.nhub, plan.nchunks,
+    """The plan's leading C arguments: log2 G, HUB_LEN, the counts of rows
+    cut into chunks and of chunks, and the chunk arrays (the value kernel's
+    segments and scratch follow)."""
+    return (plan.team.bit_length() - 1, HUB_LEN, plan.chunk_first.numel() - 1, plan.nchunks,
             *(t.data_ptr() for t in (plan.chunk_row, plan.chunk_c0, plan.chunk_c1, plan.chunk_hub,
                                      plan.chunk_first)))
+
+
+def _segment_args(plan: PullPlan):
+    """The value kernel's C arguments after ``_plan_args``: S, the item and
+    short hub counts, the launch order, the short hubs and their cuts."""
+    short = 0 if plan.short_rows is None else plan.short_rows.numel()
+    return (plan.segments, plan.nitems, short, _ptr(plan.items), _ptr(plan.short_rows), _ptr(plan.cuts))
 
 
 def semiring_codes(op_mul, op_add, dtype, int_adds=INT_ADDS):
@@ -379,9 +493,9 @@ def spmv_pull(A: CsrMatrix, x, op_mul, op_add, init, x_valid=None, row_sel=None,
     init_t, init_bits = _init_arg(init, x)
     out = _out_arg(out, m, x, what)
     has = torch.empty(m, dtype=torch.bool, device=x.device) if want_has else None
-    plan = pull_plan(A)
+    plan = pull_plan(A, l2_budget(x.device))
     bits = _plan_bits(plan, x_valid)
-    args = (m, *_plan_args(plan), _ptr(plan.part), _ptr(plan.part_any), _ptr(plan.done),
+    args = (m, *_plan_args(plan), *_segment_args(plan), _ptr(plan.part), _ptr(plan.part_any), _ptr(plan.done),
             A.indptr.data_ptr(), A.cols.data_ptr(), A.values.data_ptr(), x.data_ptr(), _ptr(bits),
             _ptr(row_sel), _ptr(init_t), init_bits, out.data_ptr(), _ptr(has),
             torch.cuda.current_stream(x.device).cuda_stream)
@@ -394,6 +508,7 @@ def spmv_pull(A: CsrMatrix, x, op_mul, op_add, init, x_valid=None, row_sel=None,
         _launch_pack(x_valid, bits)
     check(entry(*lead, *args), what)
     LAUNCHES["spmv_pull_generic" if family else "spmv_pull"] += 1
+    LAUNCHES["pull_segments"] += plan.segments
     return out, has
 
 
@@ -476,4 +591,5 @@ def spmv_pull_structural(A: CsrMatrix, x_valid, row_sel=None, out=None):
     rc = load_library().spla_spmv_pull_structural(*args)
     check(rc, what)
     LAUNCHES["spmv_pull"] += 1
+    LAUNCHES["pull_segments"] += 1
     return hits

@@ -336,6 +336,68 @@ def test_spmv_pull_split_parts_have_their_own_plans(dev):
     torch.testing.assert_close(out, whole, rtol=1e-5, atol=1e-5)
 
 
+def _segment_matrix(dtype, dev, n=3001):
+    """Hub rows of each kind the segmented plan cuts, columns sorted in each
+    row: rows 17 and 2000 of 9000 and 5000 entries (CTA chunks, cut at the
+    segments' edges too), rows 5, 900 and 901 of 300, 4000 and 600 (a warp a
+    piece), row 901's columns all below n / 8 (pieces with no entry), the
+    other rows mean 3."""
+    rng = np.random.default_rng(23)
+    hubs = {17: 9000, 2000: 5000, 5: 300, 900: 4000, 901: 600}
+    rows = np.concatenate([rng.integers(0, n, 3 * n), *(np.full(k, r) for r, k in hubs.items())]).astype(np.int32)
+    cols = rng.integers(0, n, rows.size, dtype=np.int32)
+    cols[rows == 901] %= n // 8
+    order = np.lexsort((cols, rows))
+    rows, cols = rows[order], cols[order]
+    vals = _typed(rng.random(rows.size, dtype=np.float32), dtype, rng)
+    return csr_from_numpy((n, n), indptr_of(rows, n), cols, vals, rows, rows.size, vals.dtype.type(0), dev)
+
+
+# (mul, add, dtype, generic) of the segmented pulls
+SEGMENTED_PULLS = {"MULT/PLUS f32": ("MULT", "PLUS", "f32", False), "PLUS/MIN f32": ("PLUS", "MIN", "f32", False),
+                   "MULT/PLUS i32": ("MULT", "PLUS", "i32", False), "MINUS/MAX i32": ("MINUS", "MAX", "i32", False),
+                   "BAND/BOR u32": ("BAND", "BOR", "u32", False), "MULT/PLUS f32 generic": ("MULT", "PLUS", "f32", True)}
+
+
+@pytest.mark.parametrize("segments", [3, 4, 7])
+@pytest.mark.parametrize("case", list(SEGMENTED_PULLS))
+def test_segmented_pull_matches_plain(dev, monkeypatch, case, segments):
+    """Kernel 1 on a plan cut into S >= 3 segments (an L2 budget of 4n / S
+    bytes), with and without masks: against its plain version (bitwise but
+    for the f32 PLUS fold, within its tolerance) and against the one-segment
+    plan's launch (bitwise but for that fold); ``has`` the same; a repeated
+    call bitwise equal; one launch a call, S segments counted."""
+    mul, add, dtype, generic = SEGMENTED_PULLS[case]
+    A = _segment_matrix(dtype, dev)
+    n = A.shape[1]
+    budget = -(-n * K1.X_BYTES // segments)
+    plan = K1.pull_plan(A, budget)
+    assert (plan.segments, plan.nhub, plan.short_rows.numel()) == (segments, 5, 3)
+    assert plan.chunk_first.numel() - 1 == 2 and plan.nchunks >= 2 * segments
+    rng = np.random.default_rng(8)
+    T = TYPES[dtype]
+    om, oa = getattr(T, mul), getattr(T, add)
+    x = _typed_x(n, dtype, dev, rng)
+    x_valid = torch.from_numpy(rng.random(n) < 0.7).to(dev)
+    row_sel = torch.from_numpy(rng.random(n) < 0.6).to(dev)
+    row_sel[[17, 901]] = True
+    float_plus = dtype == "f32" and add == "PLUS"
+    family = "spmv_pull_generic" if generic or not K1.templated(*K1.pull_codes(om, oa, T.dtype)) else "spmv_pull"
+    for xv, rs in ((None, None), (x_valid, row_sel)):
+        monkeypatch.setattr(K1, "l2_budget", lambda device: 1 << 40)
+        one, one_has = K1.spmv_pull(A, x, om, oa, oa.identity, xv, rs, want_has=True, generic=generic)
+        monkeypatch.setattr(K1, "l2_budget", lambda device: budget)
+        kernels.reset_launches()
+        got, has = K1.spmv_pull(A, x, om, oa, oa.identity, xv, rs, want_has=True, generic=generic)
+        assert kernels.LAUNCHES[family] == 1 and kernels.LAUNCHES["pull_segments"] == segments
+        again, again_has = K1.spmv_pull(A, x, om, oa, oa.identity, xv, rs, want_has=True, generic=generic)
+        _assert_same(again, got)
+        ref, ref_has = K1.spmv_pull_plain(A, x, om, oa, oa.identity, xv, rs)
+        assert torch.equal(has, ref_has) and torch.equal(has, one_has) and torch.equal(again_has, has)
+        _same_values(got, ref, float_plus)
+        _same_values(got, one, float_plus)
+
+
 def test_spmv_push_matches_plain(dev):
     a = _graph(seed=2)
     n = a.shape[0]
@@ -1510,7 +1572,8 @@ def test_level_loop_counts_its_work_as_the_plain_loop_does(dev, kind, mode, monk
     pull_entries (the hub source's degree from word 0 of the first read),
     reads the count once a level, and launches BFS one launch a push level,
     SSSP two, and a pull level the pack of the mask into kernel 1's bitmap,
-    kernel 1 and kernel 3's update."""
+    kernel 1 and kernel 3's update; kernel 1 walks one segment of x a pull
+    (x fits the card's L2)."""
     monkeypatch.setattr(alg, "RESIDENT_BYTES", 0)
     a = _graph()
     a = (a + a.T).tocsr()
@@ -1531,7 +1594,8 @@ def test_level_loop_counts_its_work_as_the_plain_loop_does(dev, kind, mode, monk
     per_push = {"bfs": ("bfs_push_level", 1), "sssp": ("sssp_push_level", 2)}[kind]
     assert launches[per_push[0]] == per_push[1] * card["push"]
     assert launches["spmv_pull"] == launches["level_update"] == launches["valid_bits"] == card["pull"]
-    assert sum(launches.values()) == per_push[1] * card["push"] + 3 * card["pull"]
+    assert launches["pull_segments"] == card["pull"]
+    assert sum(v for k, v in launches.items() if k != "pull_segments") == per_push[1] * card["push"] + 3 * card["pull"]
 
 
 def test_pr_packs_no_mask(dev):

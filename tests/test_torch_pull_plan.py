@@ -1,10 +1,13 @@
 """Kernel 1's launch plan (``kernels/spmv.py`` ``pull_plan``, ``team_size``)
-against numpy definitions, and kernel 1's CPU path on a graph with hub rows
-against spla_tpu's XLA ``mxv_masked``.
+against numpy definitions, one segment and cut into segments of x at a
+budget passed in (the card's L2 share in a launch), and kernel 1's CPU path
+on a graph with hub rows against spla_tpu's XLA ``mxv_masked``.
 
 Tolerances: MIN-plus bitwise; MULT/PLUS within rtol=1e-5, atol=1e-5 (the
 summation order differs).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -101,6 +104,145 @@ def test_pull_plan_matches_numpy(name, extra_capacity):
     assert list(zip(plan.chunk_row.tolist(), plan.chunk_c0.tolist(), plan.chunk_c1.tolist())) == ranges
     assert (plan.nhub, plan.nchunks, plan.team) == (len(hubs), len(chunk_hub), team)
     assert K1.pull_plan(A) is plan
+
+
+def _sorted_csr(lens, extra_capacity=0, seed=0):
+    """``_csr`` with the columns of each row sorted."""
+    A = _csr(lens, extra_capacity, seed)
+    ip = A.indptr.long()
+    for r in range(A.shape[0]):
+        A.cols[ip[r]:ip[r + 1]] = A.cols[ip[r]:ip[r + 1]].sort().values
+    return A
+
+
+def _numpy_segmented(indptr, cols, n, segments):
+    """The segmented plan by definition: ``(edges, long hubs' chunks as
+    (row, c0, c1, hub), chunk_first, short hub rows, cuts, items)``.  A hub
+    row's S + 1 edges: its start, the first of its entries with a column at
+    or past s * ceil(n / S) for s = 1 .. S - 1, its end.  A row of more than
+    HUB_CHUNK entries is cut at its edges and into HUB_CHUNK-entry chunks of
+    each piece; the launch takes, segment by segment, the chunks in it,
+    then the short hubs' pieces in it, 8 hubs an item."""
+    indptr, cols = np.asarray(indptr, np.int64), np.asarray(cols, np.int64)
+    lens = np.diff(indptr)
+    width = -(-n // segments)
+    edges = {}
+    for r in np.flatnonzero(lens > K1.HUB_LEN):
+        row = cols[indptr[r]:indptr[r + 1]]
+        inner = [indptr[r] + np.searchsorted(row, s * width) for s in range(1, segments)]
+        edges[int(r)] = [int(indptr[r]), *map(int, inner), int(indptr[r + 1])]
+    chunks, chunk_first, chunk_seg = [], [0], []
+    for h, r in enumerate(r for r in edges if lens[r] > K1.HUB_CHUNK):
+        for s in range(segments):
+            for c0 in range(edges[r][s], edges[r][s + 1], K1.HUB_CHUNK):
+                chunks.append((r, c0, min(c0 + K1.HUB_CHUNK, edges[r][s + 1]), h))
+                chunk_seg.append(s)
+        chunk_first.append(len(chunks))
+    short = [r for r in edges if lens[r] <= K1.HUB_CHUNK]
+    cuts = [c for r in short for c in edges[r][1:-1]]
+    blocks = -(-len(short) // K1.WARPS_PER_CTA)
+    items = []
+    for s in range(segments):
+        items += [b for b, cs in enumerate(chunk_seg) if cs == s]
+        items += [-1 - (c * segments + s) for c in range(blocks)]
+    return edges, chunks, chunk_first, short, cuts, items
+
+
+@pytest.mark.parametrize("segments", [2, 3, 5])
+@pytest.mark.parametrize("name", list(LENGTHS))
+def test_segmented_pull_plan_matches_numpy(name, segments):
+    """The value kernel's plan at a budget of 4n / S bytes against its
+    definition; every hub entry in exactly one chunk or piece, none across a
+    segment's edge, the launch segment-major; with no hub row it is the
+    plain plan itself; the plain (structural) plan stays as it was."""
+    lens = LENGTHS[name]
+    A = _sorted_csr(lens, extra_capacity=7)
+    n = A.shape[1]
+    budget = -(-n * K1.X_BYTES // segments)
+    plan = K1.pull_plan(A, budget)
+    assert K1.pull_plan(A, budget) is plan
+    hubs, chunk_hub, chunk_first, ranges, team = _numpy_plan(lens)
+    base = K1.pull_plan(A)
+    assert base.hub_rows.tolist() == hubs and base.chunk_first.tolist() == chunk_first and base.segments == 1
+    assert list(zip(base.chunk_row.tolist(), base.chunk_c0.tolist(), base.chunk_c1.tolist())) == ranges
+    if not hubs:
+        assert plan is base
+        return
+    S = -(-n * K1.X_BYTES // budget)
+    edges, chunks, first, short, cuts, items = _numpy_segmented(A.indptr, A.cols, n, S)
+    assert (plan.segments, plan.team, plan.nhub) == (S, team, len(hubs)) and plan.hub_rows.tolist() == hubs
+    got = list(zip(*(t.tolist() for t in (plan.chunk_row, plan.chunk_c0, plan.chunk_c1, plan.chunk_hub))))
+    assert got == chunks and plan.nchunks == len(chunks) and plan.chunk_first.tolist() == first
+    assert plan.short_rows.tolist() == short and plan.cuts.tolist() == cuts and plan.items.tolist() == items
+    assert plan.nitems == len(items)
+    for t in (plan.chunk_row, plan.items, plan.short_rows, plan.cuts, plan.done):
+        assert t.dtype == torch.int32
+    nshort = len(short)
+    assert plan.part.numel() == plan.part_any.numel() == len(chunks) + nshort * S
+    assert plan.done.tolist() == [0] * (len(first) - 1 + nshort)
+    # each hub entry once; each chunk or piece inside one segment; items segment-major
+    width, cols = -(-n // S), A.cols.long()
+    seen = torch.zeros(A.cols.numel(), dtype=torch.int64)
+    segment_of = []
+    for row, c0, c1, _ in chunks:
+        assert 0 < c1 - c0 <= K1.HUB_CHUNK and len(set((cols[c0:c1] // width).tolist())) == 1
+        seen[c0:c1] += 1
+        segment_of.append(int(cols[c0]) // width)
+    for j, r in enumerate(short):
+        e = [int(A.indptr[r]), *cuts[j * (S - 1):(j + 1) * (S - 1)], int(A.indptr[r + 1])]
+        for s in range(S):
+            assert e[s] <= e[s + 1] and bool(((cols[e[s]:e[s + 1]] // width) == s).all())
+            seen[e[s]:e[s + 1]] += 1
+    hub_entry = torch.zeros_like(seen)
+    for r in hubs:
+        hub_entry[int(A.indptr[r]):int(A.indptr[r + 1])] = 1
+    assert torch.equal(seen, hub_entry)
+    order = [segment_of[i] if i >= 0 else (-1 - i) % S for i in items]
+    assert order == sorted(order)
+
+
+@pytest.mark.parametrize("name", ["one hub row", "hubs at both ends", "chunk edges", "only hubs"])
+def test_segmented_pull_plan_holds_each_entry_once_on_unsorted_rows(name):
+    """Where a row's columns are not sorted, its pieces no longer keep to
+    their segments, but they still hold each of its entries once."""
+    A = _csr(LENGTHS[name], seed=5)
+    S = 4
+    plan = K1.pull_plan(A, -(-A.shape[1] * K1.X_BYTES // S))
+    assert plan.segments == S
+    seen = torch.zeros(A.cols.numel(), dtype=torch.int64)
+    for c0, c1 in zip(plan.chunk_c0.tolist(), plan.chunk_c1.tolist()):
+        seen[c0:c1] += 1
+    cuts = plan.cuts.view(-1, S - 1).long()
+    for r, inner in zip(plan.short_rows.tolist(), cuts):
+        e = [int(A.indptr[r]), *inner.tolist(), int(A.indptr[r + 1])]
+        assert e == sorted(e)
+        seen[e[0]:e[-1]] += 1
+    want = torch.zeros_like(seen)
+    for r in plan.hub_rows.tolist():
+        want[int(A.indptr[r]):int(A.indptr[r + 1])] = 1
+    assert torch.equal(seen, want)
+
+
+def test_segmented_pull_plan_of_one_segment_is_the_plain_plan():
+    """x within the budget: the plain plan, the same object, bit for bit."""
+    A = _sorted_csr(LENGTHS["hubs at both ends"])
+    plan = K1.pull_plan(A, A.shape[1] * K1.X_BYTES)
+    assert plan is K1.pull_plan(A) and plan.segments == 1 and plan.items is None and plan.nitems == plan.nchunks
+
+
+def test_segmented_pull_plan_is_a_fact_of_indptr_and_cols():
+    """A matrix that keeps A's indptr but takes a new cols tensor (the same
+    columns) gets a new segmented plan, equal to A's, and the same plain
+    plan; a new width gets a new one."""
+    A = _sorted_csr(LENGTHS["hubs at both ends"])
+    budget = A.shape[1] * K1.X_BYTES // 3
+    plan = K1.pull_plan(A, budget)
+    B = dataclasses.replace(A, cols=A.cols.clone())
+    again = K1.pull_plan(B, budget)
+    assert again is not plan and K1.pull_plan(B) is K1.pull_plan(A)
+    for f in ("chunk_row", "chunk_c0", "chunk_c1", "chunk_hub", "chunk_first", "items", "short_rows", "cuts"):
+        assert torch.equal(getattr(again, f), getattr(plan, f))
+    assert K1.pull_plan(dataclasses.replace(A, shape=(A.shape[0], 2 * A.shape[1])), budget) is not plan
 
 
 def test_pull_plan_of_a_row_split_part():
